@@ -10,10 +10,12 @@ Phases (any failure exits non-zero):
      S=1000, at D=128 and at a query slice with q_offset; then each timed
      with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card;
-  4. slice: llama_350m at full width in a TrainSession on the card — the
-     step-0 loss through the kernels against the plain attention, 5 AdamW
-     steps on one batch (finite, falling loss), then one step with the
-     launch counters reset, which must launch K1 48, K2 24, K3 24 times;
+  4. slice: llama_350m at full width in a TrainSession on the card — one
+     forward and backward through the kernels against the plain attention
+     (the step-0 loss, the hidden state before the final norm, every
+     parameter's gradient), 5 AdamW steps on one batch (finite, falling
+     loss), then one step with the launch counters reset, which must
+     launch K1 48, K2 24, K3 24 times;
   5. one JSON line of the kernels, then the device line last.
 
 Needs CUDA and nvcc; imports nothing of JAX.
@@ -81,43 +83,71 @@ def abs_err(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item()
 
 
+def row_err(got, ref) -> float:
+    """Largest ||got - ref|| / ||ref|| over the rows of the last axis: every
+    row is held to its own size, so an error confined to a few rows or to
+    rows whose values are small (the late rows of a causal product) still
+    shows. A row whose true value is near 0 by cancellation (dq of the
+    first query, which sees one key) is held to 1e-3 of the largest row."""
+    diff = (got.float() - ref.float()).norm(dim=-1)
+    size = ref.float().norm(dim=-1)
+    return (diff / size.clamp_min(1e-3 * size.max().item() + 1e-30)
+            ).max().item()
+
+
+# The bars of the kernel check. bf16 rounding of the output and of P (and
+# dS) before their products keeps a row's relative error near 2^-9 ≈ 2e-3;
+# the bars leave room for that and reject a kernel that drops one 64-row
+# tile from the sum of a 2048-long row.
+LIMITS = {"o_row": 1e-2, "lse": 1e-2, "delta": 3e-2, "dq_row": 1.5e-2,
+          "dk_row": 1.5e-2, "dv_row": 1.5e-2}
+
+
+def kernel_errors(fa, name, shape):
+    """Errors of each kernel against its plain version at one shape, logged
+    with the bars they break: (errors, ["name=err>bar", ...])."""
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(1)
+    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
+                                              q_off)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta_ref, causal, q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
+                                            causal, q_off)
+    torch.cuda.synchronize()
+    errs = {"o_row": row_err(o, o_ref), "o": abs_err(o, o_ref),
+            "lse": abs_err(lse, lse_ref), "delta": abs_err(delta, delta_ref),
+            "dq_row": row_err(dq, dq_ref), "dk_row": row_err(dk, dk_ref),
+            "dv_row": row_err(dv, dv_ref),
+            "dq": rel_err(dq, dq_ref), "dk": rel_err(dk, dk_ref),
+            "dv": rel_err(dv, dv_ref), "dq_abs": abs_err(dq, dq_ref),
+            "dk_abs": abs_err(dk, dk_ref), "dv_abs": abs_err(dv, dv_ref)}
+    bad = [f"{n}={errs[n]:.3g}>{lim}" for n, lim in LIMITS.items()
+           if not errs[n] <= lim]
+    log(f"kernels[{name}] B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
+        f"causal={causal} q_off={q_off} "
+        + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
+        + (" FAIL " + ",".join(bad) if bad else " ok"))
+    del q, k, v, do, o, lse, o_ref, lse_ref, dq, dq_ref, dk, dv
+    torch.cuda.empty_cache()
+    return errs, bad
+
+
 def check_kernels(fa, cases):
-    """Each kernel against its plain version; returns the worst errors at
-    the main shape and fails after reporting every case."""
+    """Each kernel against its plain version at every case; returns the
+    errors at the main shape and fails after reporting every case."""
     failures, main = [], {}
-    for name, (B, H, Sq, Sk, D, causal, q_off) in cases.items():
-        g = torch.Generator("cuda").manual_seed(1)
-        q = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
-        k = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
-        v = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
-        do = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
-        o, lse = fa.flash_fwd(q, k, v, causal, q_off)
-        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
-        dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
-        dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse,
-                                                  causal, q_off)
-        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta_ref, causal, q_off)
-        dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
-                                                causal, q_off)
-        torch.cuda.synchronize()
-        errs = {"o": abs_err(o, o_ref), "lse": abs_err(lse, lse_ref),
-                "delta": abs_err(delta, delta_ref), "dq": rel_err(dq, dq_ref),
-                "dk": rel_err(dk, dk_ref), "dv": rel_err(dv, dv_ref),
-                "dq_abs": abs_err(dq, dq_ref), "dk_abs": abs_err(dk, dk_ref),
-                "dv_abs": abs_err(dv, dv_ref)}
-        limits = {"o": 3e-2, "lse": 1e-2, "delta": 3e-2, "dq": 3e-2,
-                  "dk": 3e-2, "dv": 3e-2}
-        bad = [f"{n}={errs[n]:.3g}>{lim}" for n, lim in limits.items()
-               if not errs[n] <= lim]
-        log(f"kernels[{name}] B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
-            f"causal={causal} q_off={q_off} "
-            + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
-            + (" FAIL " + ",".join(bad) if bad else " ok"))
+    for name, shape in cases.items():
+        errs, bad = kernel_errors(fa, name, shape)
         failures += [f"{name}: {b}" for b in bad]
         if name == "main":
             main = errs
-        del q, k, v, do, o, lse, o_ref, lse_ref, dq, dq_ref, dk, dv
-        torch.cuda.empty_cache()
     if failures:
         raise SystemExit("kernel check failed: " + "; ".join(failures))
     return main
@@ -189,6 +219,62 @@ def time_kernels(fa, shape, errs):
     return rows
 
 
+def forward_backward(bundle, module, batch):
+    """One forward and backward of the loss at the current weights:
+    (loss, hidden state before the final norm, {parameter: gradient})."""
+    hidden = []
+    hook = module.final_norm.register_forward_pre_hook(
+        lambda _m, args: hidden.append(args[0].detach()))
+    module.zero_grad(set_to_none=True)
+    loss = bundle.loss_fn(module, batch)
+    loss.backward()
+    hook.remove()
+    grads = {n: p.grad for n, p in module.named_parameters()}
+    module.zero_grad(set_to_none=True)
+    return loss.item(), hidden[0], grads
+
+
+def slice_gaps(bundle, module, batch):
+    """What attention moves at init, through the kernels against the plain
+    O(S²) attention on the card: the hidden state before the final norm
+    (largest relative error of a token's row) and every parameter's
+    gradient (largest ||g - g_plain|| / ||g_plain||)."""
+    kernel_attn = module.attn_fn
+    loss_k, h_k, g_k = forward_backward(bundle, module, batch)
+    module.attn_fn = None
+    try:
+        loss_p, h_p, g_p = forward_backward(bundle, module, batch)
+    finally:
+        module.attn_fn = kernel_attn
+    grad ={n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30))
+            .item() for n in g_p}
+    worst = max(grad, key=grad.get)
+    return {"loss": abs(loss_k - loss_p) / abs(loss_p),
+            "hidden_row": row_err(h_k, h_p), "grad": grad[worst],
+            "grad_param": worst, "finite": math.isfinite(loss_k)}
+
+
+# The bars of the slice's comparison with the plain attention. bf16
+# rounding inside attention, carried through 24 layers, leaves the sound
+# kernels at hidden_row 0.022 and grad 0.031 (q_proj of the first layer) at
+# llama_350m on an H100; a K1 that drops one K/V tile from the last query
+# tile reads 0.25 and 0.063 (scripts/torch_planted_fault.py).
+SLICE_LIMITS = {"loss": 2e-2, "hidden_row": 5e-2, "grad": 5e-2}
+
+
+def check_slice(gaps) -> list:
+    """The bars of SLICE_LIMITS that `gaps` breaks, logged."""
+    bad = [f"{n}={gaps[n]:.3g}>{lim}" for n, lim in SLICE_LIMITS.items()
+           if not gaps[n] <= lim]
+    if not gaps["finite"]:
+        bad.append("loss not finite")
+    log("slice kernels vs plain attention: "
+        + " ".join(f"{n}={v:.3g}" if isinstance(v, float) else f"{n}={v}"
+                   for n, v in gaps.items())
+        + (" FAIL " + ",".join(bad) if bad else " ok"))
+    return bad
+
+
 def run_slice(fa):
     from vodascheduler_tpu_torch.models import get_model
     from vodascheduler_tpu_torch.runtime import TrainSession
@@ -202,18 +288,8 @@ def run_slice(fa):
         f"device={session.device}")
     batch = session.make_batch()
 
-    kernel_attn = module.attn_fn
-    with torch.no_grad():
-        loss_k = bundle.loss_fn(module, batch).item()
-        module.attn_fn = None  # the plain O(S²) attention on the card
-        loss_p = bundle.loss_fn(module, batch).item()
-        module.attn_fn = kernel_attn
-    torch.cuda.synchronize()
-    rel = abs(loss_k - loss_p) / abs(loss_p)
-    log(f"slice step-0 loss kernel={loss_k:.6f} plain={loss_p:.6f} "
-        f"rel={rel:.3g}")
-    if not (math.isfinite(loss_k) and rel <= 2e-2):
-        raise SystemExit("step-0 loss through the kernels disagrees with the "
+    if check_slice(slice_gaps(bundle, module, batch)):
+        raise SystemExit("the step through the kernels disagrees with the "
                          "plain attention")
 
     losses, step_ms = [], []

@@ -185,27 +185,29 @@ def flash_attention_reference(q, k, v, causal: bool = True, q_offset: int = 0):
     return o.transpose(1, 2).to(q.dtype), lse
 
 
+def _p_ds(q, k, v, do, lse, delta, causal: bool, q_off: int):
+    """The backward's shared fp32 terms [B,H,Sq,Sk]: P = exp(S - lse) and
+    dS = P∘(dO·Vᵀ - δ)·D^-½; also dO as fp32 [B,H,Sq,D]."""
+    p = torch.exp(_scores(q, k, causal, q_off) - lse[..., None])
+    dof = do.transpose(1, 2).float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.transpose(1, 2).float())
+    ds = p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
+    return p, ds, dof
+
+
 def flash_dq_reference(q, k, v, o, do, lse, causal: bool = True,
                        q_offset: int = 0):
     """Plain version of K2: (dq in q's dtype, delta fp32 [B,H,Sq])."""
-    scale = q.shape[-1] ** -0.5
-    p = torch.exp(_scores(q, k, causal, q_offset) - lse[..., None])
-    dof = do.transpose(1, 2).float()
-    delta = (dof * o.transpose(1, 2).float()).sum(-1)
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.transpose(1, 2).float())
-    ds = p * (dp - delta[..., None]) * scale
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
+    _, ds, _ = _p_ds(q, k, v, do, lse, delta, causal, q_offset)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.transpose(1, 2).float())
-    return dq.transpose(1, 2).to(q.dtype), delta
+    return dq.transpose(1, 2).to(q.dtype), delta.contiguous()
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
                         q_offset: int = 0):
     """Plain version of K3: (dk, dv) in k's and v's dtypes."""
-    scale = q.shape[-1] ** -0.5
-    p = torch.exp(_scores(q, k, causal, q_offset) - lse[..., None])
-    dof = do.transpose(1, 2).float()
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.transpose(1, 2).float())
-    ds = p * (dp - delta[..., None]) * scale
+    p, ds, dof = _p_ds(q, k, v, do, lse, delta, causal, q_offset)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.transpose(1, 2).float())
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
