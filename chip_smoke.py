@@ -5,9 +5,12 @@
 Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
+     fails if ptxas spills registers in the forward or dK/dV kernel at
+     D=64 (the main path), and logs the spills at D=128;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at a ragged
-     S=1000, at D=128 and at a query slice with q_offset; then each timed
+     S=1000, at D=128, at a query slice with q_offset and at a ragged query
+     slice with q_offset; then each timed
      with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card;
   4. slice: llama_350m at full width in a TrainSession on the card — one
@@ -26,6 +29,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -40,6 +44,45 @@ TPU_SRC = "vodascheduler_tpu/ops/flash_attention.py"
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+# Kernels that must not spill registers at the main path's head_dim.
+SPILL_FREE = ("flash_fwd", "flash_dkv")
+MAIN_HEAD_DIM = 64
+
+
+def ptxas_spills(text: str) -> dict:
+    """{(kernel, head_dim): bytes of spill stores + loads} from the log of
+    `nvcc -Xptxas -v` (a "Function properties for <mangled name>" line,
+    then its "... bytes spill stores, ... bytes spill loads" line)."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            k = re.search(r"(flash_\w+?)_kernelILi(\d+)E", fn)
+            if k:
+                out[(k.group(1), int(k.group(2)))] = (int(m.group(1))
+                                                      + int(m.group(2)))
+            fn = None
+    return out
+
+
+def spill_faults(spills: dict) -> list:
+    """What the spill check refuses: a spill, or no ptxas line at all, for
+    a kernel of SPILL_FREE at MAIN_HEAD_DIM."""
+    faults = []
+    for name in SPILL_FREE:
+        got = spills.get((name, MAIN_HEAD_DIM))
+        if got is None:
+            faults.append(f"{name} D={MAIN_HEAD_DIM}: no ptxas spill line")
+        elif got:
+            faults.append(f"{name} D={MAIN_HEAD_DIM}: {got} bytes spilled")
+    return faults
 
 
 def cuda_ms(fn, warmup: int = 3, reps: int = 10) -> float:
@@ -343,11 +386,18 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s into {_build.build_dir()}")
+    spills = {}
     for name in libs:
         text = (_build.build_dir() / f"{name}.log").read_text()
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas[{name}] {line.strip()}")
+        spills.update(ptxas_spills(text))
+    log("spills (bytes): " + " ".join(f"{n}@D={d}={b}" for (n, d), b
+                                      in sorted(spills.items())))
+    if spill_faults(spills):
+        raise SystemExit("ptxas spill check failed: "
+                         + "; ".join(spill_faults(spills)))
 
     # (B, H, Sq, Sk, D, causal, q_off)
     main_shape = (8, 16, 2048, 2048, 64, True, 0)
@@ -355,7 +405,8 @@ def main() -> int:
              "ragged": (2, 4, 1000, 1000, 64, True, 0),
              "ragged_noncausal": (2, 4, 1000, 1000, 64, False, 0),
              "d128": (2, 8, 1024, 1024, 128, True, 0),
-             "q_offset": (2, 4, 512, 2048, 64, True, 1536)}
+             "q_offset": (2, 4, 512, 2048, 64, True, 1536),
+             "ragged_q_offset": (2, 4, 320, 1344, 64, True, 1024)}
     errs = check_kernels(fa, cases)
     rows = time_kernels(fa, main_shape, errs)
     torch.cuda.empty_cache()

@@ -1,0 +1,137 @@
+"""Times the forward (K1) and dK/dV (K3) flash-attention kernels of two
+source trees against each other, in turns, on one card.
+
+    python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
+
+`--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
+(the copy on the card is no git repository, so write it first, e.g. for the
+parent commit P:
+
+    mkdir -p build/ab_parent/csrc
+    for f in $(git ls-tree --name-only P vodascheduler_tpu_torch/ops/csrc/); do
+      git show P:$f > build/ab_parent/csrc/$(basename $f); done
+
+). Both trees are built by the package's build module (``ops/_build.py``),
+each into its own directory. At llama_350m's attention shape (B=8, H=16,
+S=2048, D=64, bf16, causal) each kernel is timed base, tree, tree, base,
+`--reps` times over, by CUDA events (chip_smoke.cuda_ms: median of 10
+after 3 warm-ups), through the package's wrappers on the same inputs,
+beside PyTorch's own flash
+attention forward and backward (timed as a yardstick only) and each
+kernel's bound. Prints the card's name and power limit, every reading, and
+a last line of JSON with the medians and base/tree ratios. Exits non-zero
+without a card or without the base sources; it prints no time it did not
+measure.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
+KERNELS = ("flash_fwd", "flash_dkv")
+
+
+def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
+    """Builds the sources in `csrc` into `build_root` and returns each
+    kernel's C entry point, configured as the wrappers call it."""
+    build.CSRC, build.BUILD_ROOT = Path(csrc), Path(build_root)
+    build._libs.clear()
+    out = {}
+    for name, path in build.build().items():
+        fn = getattr(ctypes.CDLL(str(path)), f"voda_{name}")
+        fn.argtypes = fa._ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        out[name] = fn
+    return out
+
+
+def use_entries(fa, entries: dict) -> None:
+    """Routes the wrappers' launches to `entries`."""
+    fa._entry = entries.__getitem__
+
+
+def inputs(shape):
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(2)
+    return [torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+            for S in (Sq, Sk, Sk, Sq)]
+
+
+def timers(fa, shape, q, k, v, do):
+    """kernel name -> a call of its wrapper on these inputs."""
+    causal, q_off = shape[5], shape[6]
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    return {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, q_off),
+            "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
+                                              q_off)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--base", default=os.path.join(ROOT, "build", "ab_parent",
+                                                   "csrc"))
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    base = Path(args.base)
+    if not (base / "flash_fwd.cu").is_file() or not (base / "flash_dkv.cu").is_file():
+        print(f"torch_kernel_ab: no base sources in {base}", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from vodascheduler_tpu_torch.ops import _build as build
+    from vodascheduler_tpu_torch.ops import flash_attention as fa
+
+    log = chip_smoke.log
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip().splitlines()[0])
+    sets = {"tree": load_entries(build, fa, build.CSRC, build.BUILD_ROOT),
+            "base": load_entries(build, fa, base, base.parent / "lib")}
+    q, k, v, do = inputs(MAIN_SHAPE)
+    readings = {n: {"base": [], "tree": []} for n in KERNELS}
+    for rep in range(args.reps):
+        for which in ("base", "tree", "tree", "base"):
+            use_entries(fa, sets[which])
+            for name, call in timers(fa, MAIN_SHAPE, q, k, v, do).items():
+                ms = chip_smoke.cuda_ms(call)
+                readings[name][which].append(ms)
+                log(f"rep {rep} {which} {name} ms={ms:.4f}")
+    lib_fwd, lib_bwd = chip_smoke.library_times(q, k, v, do, MAIN_SHAPE[5])
+    log(f"library fwd_ms={lib_fwd:.4f} bwd_ms={lib_bwd:.4f} (dq, dk, dv)")
+    bounds = {"flash_fwd": chip_smoke.bound(2, 4, 1, *MAIN_SHAPE),
+              "flash_dkv": chip_smoke.bound(4, 6, 2, *MAIN_SHAPE)}
+    library = {"flash_fwd": lib_fwd, "flash_dkv": lib_bwd}
+    summary = {}
+    for name in KERNELS:
+        b = statistics.median(readings[name]["base"])
+        t = statistics.median(readings[name]["tree"])
+        summary[name] = {"base_ms": b, "tree_ms": t, "base_over_tree": b / t,
+                         "bound_ms": bounds[name][0],
+                         "tree_share_of_bound": bounds[name][0] / t,
+                         "base_share_of_bound": bounds[name][0] / b,
+                         "library_ms": library[name]}
+        log(f"{name}: base {b:.4f} ms, tree {t:.4f} ms, base/tree "
+            f"{b / t:.3f}, tree at {bounds[name][0] / t:.3f} of its bound "
+            f"({bounds[name][0]:.4f} ms), library {library[name]:.4f} ms")
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

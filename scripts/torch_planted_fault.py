@@ -9,9 +9,10 @@ are not touched. The faults sit where a bar held against the largest value
 of a whole tensor cannot see them, in the late causal rows whose values are
 small:
 
-- ``fwd_last_tile``: K1 skips the P·V product of the last K/V tile it visits
-  in the last 64-row query tile of every (batch, head). lse stays exact.
-- ``dkv_last_tile``: K3 never accumulates dV for the last 64-row key tile.
+- ``fwd_last_tile``: K1 skips the P·V products of the last K/V tile it
+  visits in the last 128-row query tile of every (batch, head). lse stays
+  exact.
+- ``dkv_last_tile``: K3 never accumulates dV for the last 128-key tile.
 
 At llama_350m's attention shape (B=8, H=16, S=2048, D=64, bf16, causal)
 the script logs each kernel set's errors against the plain versions under
@@ -37,13 +38,15 @@ sys.path.insert(0, ROOT)
 # name -> (source file, the line as it stands, the line with the fault)
 FAULTS = {
     "fwd_last_tile": (
-        "flash_fwd.cu", "    mma_pm<D>(acc, s, vs, lane);\n",
-        "    if (!(i == gridDim.x - 1 && (j + 1 == num_k ||"
-        " !tile_runs(causal, q_off, i, j + 1))))\n"
-        "      mma_pm<D>(acc, s, vs, lane);\n"),
+        "flash_fwd.cu",
+        "        wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n",
+        "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
+        "          wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n"),
     "dkv_last_tile": (
-        "flash_dkv.cu", "    mma_pm<D>(dva, p, dos, lane);\n",
-        "    if (j != gridDim.x - 1) mma_pm<D>(dva, p, dos, lane);\n"),
+        "flash_dkv.cu",
+        "        wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n",
+        "        if (j != gridDim.z - 1)\n"
+        "          wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n"),
 }
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 

@@ -37,6 +37,13 @@ def cuda():
     (False, 200, 64, 0, 200),
     (True, 192, 128, 0, 192),
     (True, 256, 64, 128, 128),
+    # edges of the 128-row tiles of the forward and dK/dV kernels: less
+    # than one tile of queries behind an offset, one full and one partial
+    # tile, and a partial tile at D=128
+    (True, 256, 64, 192, 64),
+    (True, 320, 64, 0, 320),
+    (False, 320, 64, 0, 320),
+    (True, 200, 128, 0, 200),
 ])
 def test_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
     g = torch.Generator(cuda).manual_seed(0)

@@ -141,3 +141,28 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     z = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16).transpose(1, 2)
     with pytest.raises(ValueError):
         fa.flash_fwd(z, z, z, True, 0)  # not contiguous
+
+
+@pytest.mark.parametrize("v_shape", [(1, 16, 2, 64), (1, 8, 1, 64),
+                                     (2, 8, 2, 64), (1, 8, 2, 128)])
+def test_dims_rejects_a_v_unlike_k(v_shape):
+    """The kernels build v's tensor map from k's dims: a v of another shape
+    is refused before any map is built or kernel launched."""
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    v = torch.zeros(v_shape, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="v "):
+        fa._dims(q, k, v)
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, k, v, True, 4)
+    assert fa._dims(q, k, k) == (1, 2, 4, 8, 64)
+
+
+def test_dims_rejects_an_output_gradient_unlike_q():
+    q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa._dims(q, k, k, torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16))
+    lse = torch.zeros(1, 2, 4)
+    with pytest.raises(ValueError):
+        fa.flash_dkv(q, k, k, k, lse, lse, True, 4)

@@ -1,0 +1,76 @@
+"""The host-side checks of chip_smoke.py, on the CPU: the parse of ptxas's
+register report behind its spill gate, and the bounds it reports."""
+
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+
+FWD64 = "_ZN4voda16flash_fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
+DKV64 = "_ZN4voda16flash_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiif"
+DKV128 = DKV64.replace("ILi64E", "ILi128E")
+
+
+def log_of(*kernels):
+    """An `nvcc -Xptxas -v` log with one entry per (name, stores, loads)."""
+    lines = ["ptxas info    : 0 bytes gmem"]
+    for name, st, ld in kernels:
+        lines += [
+            f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+            f"ptxas info    : Function properties for {name}",
+            f"    0 bytes stack frame, {st} bytes spill stores, {ld} bytes spill loads",
+            "ptxas info    : Used 168 registers, used 1 barriers",
+        ]
+    return "\n".join(lines)
+
+
+def test_ptxas_spills_reads_every_kernel_and_head_dim():
+    spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DKV64, 0, 0),
+                                            (DKV128, 200, 144)))
+    assert spills == {("flash_fwd", 64): 0, ("flash_dkv", 64): 0,
+                      ("flash_dkv", 128): 344}
+    assert chip_smoke.spill_faults(spills) == []
+
+
+@pytest.mark.parametrize("kernels,fault", [
+    (((FWD64, 0, 0), (DKV64, 44, 60)), "flash_dkv D=64: 104 bytes spilled"),
+    (((FWD64, 8, 0), (DKV64, 0, 0)), "flash_fwd D=64: 8 bytes spilled"),
+    (((DKV64, 0, 0),), "flash_fwd D=64: no ptxas spill line"),
+])
+def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
+    assert chip_smoke.spill_faults(chip_smoke.ptxas_spills(log_of(*kernels))) \
+        == [fault]
+
+
+def test_spill_at_d128_is_only_logged():
+    spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DKV64, 0, 0),
+                                            (DKV128, 500, 244)))
+    assert chip_smoke.spill_faults(spills) == []
+
+
+@pytest.mark.parametrize("shape,products,tensors,stats,want_by", [
+    ((8, 16, 2048, 2048, 64, True, 0), 2, 4, 1, "operations"),
+    ((8, 16, 2048, 2048, 64, True, 0), 4, 6, 2, "operations"),
+    ((1, 1, 64, 64, 64, False, 0), 2, 4, 1, "bytes"),
+])
+def test_bound_counts_the_causal_half_and_names_its_limit(shape, products,
+                                                          tensors, stats,
+                                                          want_by):
+    ms, by = chip_smoke.bound(products, tensors, stats, *shape)
+    B, H, Sq, Sk, D, causal, q_off = shape
+    pairs = (Sq * (Sq + 1) // 2) if causal else Sq * Sk
+    flops = products * 2 * B * H * pairs * D
+    nbytes = tensors * B * Sq * H * D * 2 + stats * B * H * Sq * 4
+    assert by == want_by
+    assert ms == pytest.approx(1e3 * max(flops / chip_smoke.PEAK_BF16_FLOPS,
+                                         nbytes / chip_smoke.PEAK_BYTES))
+
+
+def test_attn_pairs_with_an_offset_query_slice():
+    # 3 queries at positions 4, 5, 6 against 8 keys see 5 + 6 + 7 keys
+    assert chip_smoke.attn_pairs(3, 8, True, 4) == 18
+    assert chip_smoke.attn_pairs(3, 8, False, 4) == 24

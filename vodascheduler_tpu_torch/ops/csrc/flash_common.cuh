@@ -1,9 +1,10 @@
-// Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu).
+// Pieces of the dQ kernel (flash_dq.cu), and the scalar helpers (types,
+// NEG_INF, bf16 packing, quad reductions) that the Hopper kernels
+// (flash_fwd.cu, flash_dkv.cu, through hopper.cuh) share with it.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
 // model layout, so no transpose runs around the kernels); lse and delta are
-// fp32 [B, H, S]. Each CTA is 4 warps over one 64-row tile; each warp owns
+// fp32 [B, H, S]. A dQ CTA is 4 warps over one 64-row tile; each warp owns
 // 16 rows and multiplies with mma.sync m16n8k16 (bf16 in, fp32 accumulate).
 //
 // Fragment layouts of mma.sync.m16n8k16.row.col (lane = 4*g + t):
@@ -181,8 +182,8 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The causal tile predicate of the reference: q tile i meets k tile j when
-// its last row sees the tile's first key.
+// The causal tile predicate of the reference for dQ's equal 64-row tiles:
+// q tile i meets k tile j when its last row sees the tile's first key.
 __device__ __forceinline__ bool tile_runs(int causal, int q_off, int i, int j) {
   return !causal || q_off + (i + 1) * BLOCK - 1 >= j * BLOCK;
 }

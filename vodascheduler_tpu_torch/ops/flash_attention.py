@@ -20,8 +20,15 @@ Divergences from the TPU kernels, on purpose:
 - any sequence length runs the kernel (the ragged edge is masked), so the
   TPU package's fallback to ``reference_attention`` for unaligned blocks
   does not exist here;
-- the tile is 64 rows in every pass. ``block_q``, ``block_k`` and
-  ``block_bwd`` are accepted for the same signature and do not change it.
+- the tiles are fixed by each kernel's design: the forward takes 128
+  query rows a CTA against 128-key K/V tiles, dK/dV 128 keys a CTA against
+  64-row Q/dO tiles, dQ 64 rows against 64 keys. ``block_q``, ``block_k``
+  and ``block_bwd`` are accepted for the same signature and change none of
+  them.
+
+The forward and dK/dV kernels read their tiles through TMA tensor maps
+built from the ``[B, S, H, D]`` shape, so every tensor's shape is checked
+against q's (``_dims``) before a map is built.
 """
 
 from __future__ import annotations
@@ -95,11 +102,20 @@ def _launch(name: str, device: torch.device, *args) -> None:
     launches[name] += 1
 
 
-def _dims(q, k) -> Tuple[int, int, int, int, int]:
+def _dims(q, k, v, *q_like) -> Tuple[int, int, int, int, int]:
+    """(B, H, Sq, Sk, D), after checking k against q outside the sequence
+    axis, v against k, and each of `q_like` (o, do) against q: the kernels
+    read every tensor with its own tensor map built from these dims, so a
+    mismatch would be read out of bounds."""
     B, Sq, H, D = q.shape
     if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ "
                          "outside the sequence axis")
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} and k {tuple(k.shape)} differ")
+    for t in q_like:
+        if t.shape != q.shape:
+            raise ValueError(f"{tuple(t.shape)} and q {tuple(q.shape)} differ")
     return B, H, Sq, k.shape[1], D
 
 
@@ -111,7 +127,7 @@ def _dims(q, k) -> Tuple[int, int, int, int, int]:
 def flash_fwd(q, k, v, causal: bool, q_off: int):
     """K1 on the card: (o [B,Sq,H,D] bf16, lse [B,H,Sq] fp32)."""
     _check("flash_fwd", q, k, v)
-    B, H, Sq, Sk, D = _dims(q, k)
+    B, H, Sq, Sk, D = _dims(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -123,7 +139,7 @@ def flash_fwd(q, k, v, causal: bool, q_off: int):
 def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int):
     """K2 on the card: (dq [B,Sq,H,D] bf16, delta [B,H,Sq] fp32)."""
     _check("flash_dq", q, k, v, o, do)
-    B, H, Sq, Sk, D = _dims(q, k)
+    B, H, Sq, Sk, D = _dims(q, k, v, o, do)
     _check_stat(lse, B, H, Sq)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
@@ -137,7 +153,7 @@ def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int):
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int):
     """K3 on the card: (dk, dv), each [B,Sk,H,D] bf16."""
     _check("flash_dkv", q, k, v, do)
-    B, H, Sq, Sk, D = _dims(q, k)
+    B, H, Sq, Sk, D = _dims(q, k, v, do)
     _check_stat(lse, B, H, Sq)
     _check_stat(delta, B, H, Sq)
     dk = torch.empty_like(k)
@@ -256,7 +272,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     before calling `attn_fn`). Differentiable through the backward kernels.
     `q_offset` is q's position within the K/V sequence, for causal masking
     of a query slice against the full keys. The block knobs are accepted
-    for the reference's signature; the kernels tile by 64 rows.
+    for the reference's signature; each kernel keeps its own tiles (module
+    docstring).
     """
     for name, blk in (("block_q", block_q), ("block_k", block_k),
                       ("block_bwd", block_bwd)):
