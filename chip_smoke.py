@@ -5,14 +5,15 @@
 Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
-     fails if ptxas spills registers in the forward or dK/dV kernel at
+     fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
      D=64 (the main path), and logs the spills at D=128;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at a ragged
      S=1000, at D=128, at a query slice with q_offset and at a ragged query
      slice with q_offset; then each timed
      with CUDA events beside its plain version, the PyTorch library call that
-     computes the same function, and its bound on the card;
+     computes the same function, and its bound on the card, and dQ then
+     dK/dV timed as one backward beside the library's backward;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -47,7 +48,7 @@ def log(*a) -> None:
 
 
 # Kernels that must not spill registers at the main path's head_dim.
-SPILL_FREE = ("flash_fwd", "flash_dkv")
+SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv")
 MAIN_HEAD_DIM = 64
 
 
@@ -259,7 +260,21 @@ def time_kernels(fa, shape, errs):
         log(f"time[{name}] kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"library_ms={r['library_ms']} bound_ms={r['b'][0]:.4f} "
             f"({r['b'][1]}) roofline_share={r['b'][0] / r['ms']:.3f}")
+    bwd_ms = cuda_ms(backward_call(fa, q, k, v, o, do, lse, causal, q_off))
+    b = bound(7, 8, 1, *shape)
+    log(f"time[backward] kernel_ms={bwd_ms:.4f} (flash_dq then flash_dkv) "
+        f"library_ms={lib_bwd:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
+        f"library_over_kernels={lib_bwd / bwd_ms:.3f}")
     return rows
+
+
+def backward_call(fa, q, k, v, o, do, lse, causal, q_off):
+    """The port's whole attention backward, as the autograd Function runs
+    it: K2 (dq and δ), then K3 (dk, dv) on that δ."""
+    def call():
+        _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+        return fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    return call
 
 
 def forward_backward(bundle, module, batch):
@@ -390,7 +405,7 @@ def main() -> int:
     for name in libs:
         text = (_build.build_dir() / f"{name}.log").read_text()
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"ptxas[{name}] {line.strip()}")
         spills.update(ptxas_spills(text))
     log("spills (bytes): " + " ".join(f"{n}@D={d}={b}" for (n, d), b

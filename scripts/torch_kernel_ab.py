@@ -1,5 +1,5 @@
-"""Times the forward (K1) and dK/dV (K3) flash-attention kernels of two
-source trees against each other, in turns, on one card.
+"""Times the forward (K1), dQ (K2) and dK/dV (K3) flash-attention kernels
+of two source trees against each other, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
 
@@ -18,8 +18,10 @@ S=2048, D=64, bf16, causal) each kernel is timed base, tree, tree, base,
 after 3 warm-ups), through the package's wrappers on the same inputs,
 beside PyTorch's own flash
 attention forward and backward (timed as a yardstick only) and each
-kernel's bound. Prints the card's name and power limit, every reading, and
-a last line of JSON with the medians and base/tree ratios. Exits non-zero
+kernel's bound; K2 then K3, the whole backward, is timed the same way as
+a row of its own ("backward") beside the library's backward. Prints the
+card's name and power limit, every reading, and a last line of JSON with
+the medians and base/tree ratios. Exits non-zero
 without a card or without the base sources; it prints no time it did not
 measure.
 """
@@ -41,7 +43,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
-KERNELS = ("flash_fwd", "flash_dkv")
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+ROWS = KERNELS + ("backward",)
 
 
 def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
@@ -71,13 +74,19 @@ def inputs(shape):
 
 
 def timers(fa, shape, q, k, v, do):
-    """kernel name -> a call of its wrapper on these inputs."""
+    """row name (each kernel, and "backward": K2 then K3) -> a call of the
+    wrappers on these inputs."""
+    import chip_smoke
     causal, q_off = shape[5], shape[6]
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     return {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, q_off),
+            "flash_dq": lambda: fa.flash_dq(q, k, v, o, do, lse, causal,
+                                            q_off),
             "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
-                                              q_off)}
+                                              q_off),
+            "backward": chip_smoke.backward_call(fa, q, k, v, o, do, lse,
+                                                 causal, q_off)}
 
 
 def main() -> int:
@@ -90,7 +99,7 @@ def main() -> int:
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 1
     base = Path(args.base)
-    if not (base / "flash_fwd.cu").is_file() or not (base / "flash_dkv.cu").is_file():
+    if not all((base / f"{n}.cu").is_file() for n in KERNELS):
         print(f"torch_kernel_ab: no base sources in {base}", file=sys.stderr)
         return 1
     import chip_smoke
@@ -104,7 +113,7 @@ def main() -> int:
     sets = {"tree": load_entries(build, fa, build.CSRC, build.BUILD_ROOT),
             "base": load_entries(build, fa, base, base.parent / "lib")}
     q, k, v, do = inputs(MAIN_SHAPE)
-    readings = {n: {"base": [], "tree": []} for n in KERNELS}
+    readings = {n: {"base": [], "tree": []} for n in ROWS}
     for rep in range(args.reps):
         for which in ("base", "tree", "tree", "base"):
             use_entries(fa, sets[which])
@@ -115,10 +124,13 @@ def main() -> int:
     lib_fwd, lib_bwd = chip_smoke.library_times(q, k, v, do, MAIN_SHAPE[5])
     log(f"library fwd_ms={lib_fwd:.4f} bwd_ms={lib_bwd:.4f} (dq, dk, dv)")
     bounds = {"flash_fwd": chip_smoke.bound(2, 4, 1, *MAIN_SHAPE),
-              "flash_dkv": chip_smoke.bound(4, 6, 2, *MAIN_SHAPE)}
-    library = {"flash_fwd": lib_fwd, "flash_dkv": lib_bwd}
+              "flash_dq": chip_smoke.bound(3, 6, 2, *MAIN_SHAPE),
+              "flash_dkv": chip_smoke.bound(4, 6, 2, *MAIN_SHAPE),
+              "backward": chip_smoke.bound(7, 8, 1, *MAIN_SHAPE)}
+    library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkv": lib_bwd,
+               "backward": lib_bwd}
     summary = {}
-    for name in KERNELS:
+    for name in ROWS:
         b = statistics.median(readings[name]["base"])
         t = statistics.median(readings[name]["tree"])
         summary[name] = {"base_ms": b, "tree_ms": t, "base_over_tree": b / t,

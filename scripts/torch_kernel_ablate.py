@@ -1,6 +1,6 @@
-"""Times variants of the forward (K1) and dK/dV (K3) kernels against the
-sources as they stand, in turns, on one card: what each part of a kernel
-costs, and what each design choice of theirs is worth.
+"""Times variants of the forward (K1), dQ (K2) and dK/dV (K3) kernels
+against the sources as they stand, in turns, on one card: what each part
+of a kernel costs, and what each design choice of theirs is worth.
 
     python3 scripts/torch_kernel_ablate.py [--rounds 6] [--only NAME ...]
 
@@ -11,10 +11,11 @@ package are not touched.
 Some variants compute wrong results on purpose (they drop work to weigh
 it) and are only timed. At llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal) every round times the tree and then each
-variant, K1 and K3 each by CUDA events (chip_smoke.cuda_ms, 30 repeats
-after 5 warm-ups); the script prints the card's name and power limit, the
-median of each, its ratio to the tree's, and a last line of JSON. Exits
-non-zero without a card or when a variant's lines are not in the sources.
+variant, K1, K2, K3 and K2 then K3 (the backward) each by CUDA events
+(chip_smoke.cuda_ms, 30 repeats after 5 warm-ups); the script prints the
+card's name and power limit, the median of each, its ratio to the tree's,
+and a last line of JSON. Exits non-zero without a card or when a
+variant's lines are not in the sources.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
-F, K, H = "flash_fwd.cu", "flash_dkv.cu", "hopper.cuh"
+F, Q, K = "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu"
 _KV_LOADS = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
         tma_rows<D>(ks + s * C::BN * D, &tk, &k_full[s], C::BN, h, j * C::BN, b);
         mbar_expect_tx(&v_full[s], C::KV_BYTES);
@@ -68,11 +69,7 @@ VARIANTS = {
         (F, "const dim3 grid((Sq + C::BM - 1) / C::BM, H, B);",
          "const dim3 grid(H, B, (Sq + C::BM - 1) / C::BM);")]),
     "fwd_no_turns": ("K1 without the warpgroups' turns", [
-        (H, '    asm volatile("bar.sync %0, 256;" ::"r"(1 + cw) : "memory");', ""),
-        (H, '      asm volatile("bar.arrive %0, 256;" ::"r"(2 - cw) : "memory");',
-         ";"),
-        (H, '    if (cw == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");',
-         "")]),
+        (F, "const Turns<> turns{cw};", "const Turns<false> turns{cw};")]),
     "dkv_overlap": ("K3 issuing the next tile's scores under dV and dK", [
         (K, _DKV_LOOP, """        issue_grads(i);
         issue_scores(i + 1);
@@ -81,6 +78,16 @@ VARIANTS = {
         fence_regs(dka);
         mbar_arrive(&empty[(i - i0) % C::STAGES]);
         wgmma_wait<0>();""")]),
+    "dq_bn128": ("K2 with 128-key K/V tiles at D=64 (64 as it stands)",
+                 [(Q, "static constexpr int BN = 64;",
+                   "static constexpr int BN = D == 64 ? 128 : 64;")]),
+    "dq_no_turns": ("K2 without the warpgroups' turns", [
+        (Q, "const Turns<C::OVERLAP> turns{cw};", "const Turns<false> turns{cw};")]),
+    "dq_no_overlap": ("K2 tile by tile at D=64, as at D=128", [
+        (Q, "static constexpr bool OVERLAP = D == 64;",
+         "static constexpr bool OVERLAP = false;")]),
+    "dq_no_ds": ("K2 without its dS elementwise pass (wrong results)", [
+        (Q, "      ds_tile<C::BN>(sc, dp,", "      if (j < 0) ds_tile<C::BN>(sc, dp,")]),
 }
 
 
@@ -123,7 +130,7 @@ def main() -> int:
         csrc = make(sound, name)
         sets[name] = ab.load_entries(build, fa, csrc, csrc.parent / "lib")
     q, k, v, do = ab.inputs(ab.MAIN_SHAPE)
-    ms = {n: {kn: [] for kn in ab.KERNELS} for n in sets}
+    ms = {n: {kn: [] for kn in ab.ROWS} for n in sets}
     for _ in range(args.rounds):
         for name, entries in sets.items():
             ab.use_entries(fa, entries)

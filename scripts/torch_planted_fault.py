@@ -12,6 +12,8 @@ small:
 - ``fwd_last_tile``: K1 skips the P·V products of the last K/V tile it
   visits in the last 128-row query tile of every (batch, head). lse stays
   exact.
+- ``dq_last_tile``: K2 skips dQ += dS·K for the last K/V tile it visits
+  in the last 128-row query tile of every (batch, head). δ stays exact.
 - ``dkv_last_tile``: K3 never accumulates dV for the last 128-key tile.
 
 At llama_350m's attention shape (B=8, H=16, S=2048, D=64, bf16, causal)
@@ -42,6 +44,11 @@ FAULTS = {
         "        wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
         "          wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n"),
+    "dq_last_tile": (
+        "flash_dq.cu",
+        "        wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
+        "          wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n"),
     "dkv_last_tile": (
         "flash_dkv.cu",
         "        wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n",

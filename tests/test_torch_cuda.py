@@ -44,6 +44,12 @@ def cuda():
     (True, 320, 64, 0, 320),
     (False, 320, 64, 0, 320),
     (True, 200, 128, 0, 200),
+    # edges of the dQ kernel's 128-row tiles: one row past a tile, a
+    # partial query tile behind an offset against a ragged Sk, and less
+    # than one tile at D=128
+    (True, 129, 64, 0, 129),
+    (True, 328, 64, 128, 200),
+    (True, 64, 128, 0, 64),
 ])
 def test_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
     g = torch.Generator(cuda).manual_seed(0)
@@ -80,3 +86,17 @@ def test_autograd_goes_through_the_kernels(cuda):
     assert fa.launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
     with pytest.raises(TypeError):
         fa.flash_attention(q.float(), k.float(), v.float())
+
+
+def test_dq_is_deterministic(cuda):
+    """No atomics in K2: two launches on the same inputs give bitwise-equal
+    dq and δ."""
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v, do = (torch.randn(2, 320, 3, 64, generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    o, lse = fa.flash_fwd(q, k, v, True, 0)
+    dq1, delta1 = fa.flash_dq(q, k, v, o, do, lse, True, 0)
+    dq2, delta2 = fa.flash_dq(q, k, v, o, do, lse, True, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(dq1, dq2)
+    assert torch.equal(delta1, delta2)

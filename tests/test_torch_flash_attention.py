@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from vodascheduler_tpu.ops import flash_attention as jax_flash
+from vodascheduler_tpu.ops.flash_attention import _bwd as jax_bwd
 from vodascheduler_tpu.ops.flash_attention import _fwd as jax_fwd
 from vodascheduler_tpu_torch.ops import flash_attention as fa
 from vodascheduler_tpu_torch.parallel.ring_attention import reference_attention
@@ -166,3 +167,67 @@ def test_dims_rejects_an_output_gradient_unlike_q():
     lse = torch.zeros(1, 2, 4)
     with pytest.raises(ValueError):
         fa.flash_dkv(q, k, k, k, lse, lse, True, 4)
+
+
+@pytest.mark.parametrize("causal,D,q_off,Sq,Sk", [
+    (True, 16, 0, 192, 192),    # one full and one partial 128-row dQ tile
+    (True, 16, 192, 64, 256),   # less than one tile behind an offset
+    (False, 16, 0, 192, 192),
+    (True, 64, 0, 192, 192),
+])
+def test_plain_dq_matches_pallas_bwd_at_dq_tile_edges(causal, D, q_off, Sq,
+                                                      Sk):
+    """K2's plain version against the Pallas `_bwd` in interpret mode, with
+    64-row Pallas blocks, at the edges of the CUDA kernel's 128-row query
+    tiles; δ against rowsum(dO∘O) taken in fp64."""
+    q, k, v, w = _inputs(Sq + q_off + D, 1, Sq, Sk, 2, D)
+    t = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)
+    off = jnp.asarray(q_off, jnp.int32).reshape(1, 1)
+    o_j, lse_j = jax_fwd(t(q), t(k), t(v), off, causal, 64, 64, True)
+    dq_j, _, _ = jax_bwd(t(q), t(k), t(v), o_j, lse_j, t(w), off, causal, 64,
+                         64, True)
+    qt, kt, vt, wt = (torch.tensor(x) for x in (q, k, v, w))
+    o, lse = fa.flash_attention_reference(qt, kt, vt, causal, q_off)
+    dq, delta = fa.flash_dq_reference(qt, kt, vt, o, wt, lse, causal, q_off)
+    tag = f"flash_dq plain fp32 D={D} causal={causal} q_off={q_off} Sq={Sq}"
+    assert_close(f"{tag} dq", dq, np.asarray(dq_j).transpose(0, 2, 1, 3),
+                 atol=2e-4, rtol=2e-4)
+    delta64 = np.einsum("bshd,bshd->bhs", w.astype(np.float64),
+                        o.numpy().astype(np.float64))
+    assert delta.shape == (1, 2, Sq) and delta.is_contiguous()
+    assert_close(f"{tag} delta", delta, delta64, atol=1e-5, rtol=1e-5)
+
+
+def _dq_bad_args(case):
+    """(o, lse) for q [1,8,2,64] bf16, broken as `case` says."""
+    o = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 8)
+    return {
+        "lse_short": (o, torch.zeros(1, 2, 7)),
+        "lse_heads_last": (o, torch.zeros(1, 8, 2)),
+        "lse_bf16": (o, lse.bfloat16()),
+        "lse_fp64": (o, lse.double()),
+        "lse_not_contiguous": (o, torch.zeros(1, 8, 2).transpose(1, 2)),
+        "o_longer": (torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16), lse),
+        "o_wider": (torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16), lse),
+        "o_fp32": (o.float(), lse),
+    }[case]
+
+
+@pytest.mark.parametrize("case,exc", [
+    ("lse_short", ValueError), ("lse_heads_last", ValueError),
+    ("lse_bf16", ValueError), ("lse_fp64", ValueError),
+    ("lse_not_contiguous", ValueError), ("o_longer", ValueError),
+    ("o_wider", ValueError), ("o_fp32", TypeError),
+])
+def test_flash_dq_refuses_a_bad_lse_or_o_before_any_launch(case, exc):
+    """K2 builds O's tensor map from q's dims and reads lse as fp32
+    [B,H,Sq]: a wrong one is refused before a kernel is built or launched,
+    so the refusal holds on the CPU too."""
+    q = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    k = torch.zeros(1, 16, 2, 64, dtype=torch.bfloat16)
+    o, lse = _dq_bad_args(case)
+    before = dict(fa.launches)
+    with pytest.raises(exc):
+        fa.flash_dq(q, k, k, o, q, lse, True, 8)
+    assert fa.launches == before

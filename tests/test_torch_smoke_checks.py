@@ -13,6 +13,8 @@ import chip_smoke  # noqa: E402
 FWD64 = "_ZN4voda16flash_fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
 DKV64 = "_ZN4voda16flash_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiif"
 DKV128 = DKV64.replace("ILi64E", "ILi128E")
+DQ64 = "_ZN4voda15flash_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfPfP13__nv_bfloat16iiiiif"
+DQ128 = DQ64.replace("ILi64E", "ILi128E")
 
 
 def log_of(*kernels):
@@ -29,17 +31,23 @@ def log_of(*kernels):
 
 
 def test_ptxas_spills_reads_every_kernel_and_head_dim():
-    spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DKV64, 0, 0),
-                                            (DKV128, 200, 144)))
-    assert spills == {("flash_fwd", 64): 0, ("flash_dkv", 64): 0,
-                      ("flash_dkv", 128): 344}
+    spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DQ64, 0, 0),
+                                            (DKV64, 0, 0), (DKV128, 200, 144)))
+    assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
+                      ("flash_dkv", 64): 0, ("flash_dkv", 128): 344}
     assert chip_smoke.spill_faults(spills) == []
 
 
 @pytest.mark.parametrize("kernels,fault", [
-    (((FWD64, 0, 0), (DKV64, 44, 60)), "flash_dkv D=64: 104 bytes spilled"),
-    (((FWD64, 8, 0), (DKV64, 0, 0)), "flash_fwd D=64: 8 bytes spilled"),
-    (((DKV64, 0, 0),), "flash_fwd D=64: no ptxas spill line"),
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 44, 60)),
+     "flash_dkv D=64: 104 bytes spilled"),
+    (((FWD64, 8, 0), (DQ64, 0, 0), (DKV64, 0, 0)),
+     "flash_fwd D=64: 8 bytes spilled"),
+    (((DQ64, 0, 0), (DKV64, 0, 0)), "flash_fwd D=64: no ptxas spill line"),
+    (((FWD64, 0, 0), (DQ64, 16, 16), (DKV64, 0, 0)),
+     "flash_dq D=64: 32 bytes spilled"),
+    (((FWD64, 0, 0), (DQ128, 0, 0), (DKV64, 0, 0)),
+     "flash_dq D=64: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
     assert chip_smoke.spill_faults(chip_smoke.ptxas_spills(log_of(*kernels))) \
@@ -47,14 +55,17 @@ def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
 
 
 def test_spill_at_d128_is_only_logged():
-    spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DKV64, 0, 0),
-                                            (DKV128, 500, 244)))
+    spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DQ64, 0, 0),
+                                            (DKV64, 0, 0), (DKV128, 500, 244),
+                                            (DQ128, 8, 8)))
     assert chip_smoke.spill_faults(spills) == []
 
 
 @pytest.mark.parametrize("shape,products,tensors,stats,want_by", [
     ((8, 16, 2048, 2048, 64, True, 0), 2, 4, 1, "operations"),
+    ((8, 16, 2048, 2048, 64, True, 0), 3, 6, 2, "operations"),
     ((8, 16, 2048, 2048, 64, True, 0), 4, 6, 2, "operations"),
+    ((8, 16, 2048, 2048, 64, True, 0), 7, 8, 1, "operations"),
     ((1, 1, 64, 64, 64, False, 0), 2, 4, 1, "bytes"),
 ])
 def test_bound_counts_the_causal_half_and_names_its_limit(shape, products,

@@ -238,7 +238,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                           row, t);
     };
 
-    const Turns turns{cw};
+    const Turns<> turns{cw};
     mbar_wait(q_full, 0);
     if (n_k > 0) {
       turns.start_kernel();

@@ -1,8 +1,14 @@
-// Hopper building blocks of the forward (flash_fwd.cu) and dK/dV
-// (flash_dkv.cu) kernels: TMA tile loads into 128-byte-swizzled shared
-// memory, mbarriers that guard a ring of stages, wgmma descriptors and the
-// wgmma instructions the two kernels issue, setmaxnreg, the named barriers
-// of the forward's turns, and the host-side tensor maps.
+// Hopper building blocks of the three flash-attention kernels (forward,
+// flash_fwd.cu; dQ, flash_dq.cu; dK/dV, flash_dkv.cu): TMA tile loads into
+// 128-byte-swizzled shared memory, mbarriers that guard a ring of stages,
+// wgmma descriptors and the wgmma instructions the kernels issue,
+// setmaxnreg, the named barriers of the consumer warpgroups' turns, the
+// host-side tensor maps, and the scalar helpers (bf16 packing, quad
+// reductions).
+//
+// Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
+// model layout, so no transpose runs around the kernels); lse and delta are
+// fp32 [B, H, S].
 //
 // Shared layout of a tile. A [rows, D] bf16 slice of a [B, S, H, D] tensor
 // arrives by TMA as D/64 "parts", each [rows, 64] with 128-byte rows and
@@ -26,11 +32,15 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only; no driver symbol is linked
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-
-#include "flash_common.cuh"
+#include <stdint.h>
 
 namespace voda {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr float NEG_INF = -1e30f;  // finite, as in the reference kernels
 
 constexpr int WG_THREADS = 128;
 // One producer warpgroup (its warp 0 issues every load) and two consumer
@@ -50,6 +60,23 @@ __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// Two fp32 values as one bf16x2 register, `lo` in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Reductions over the quad (the four threads t = 0..3 of a fragment row).
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---------------------------------------------------------------- mbarrier
@@ -108,25 +135,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ------------------------------------------------------- named barriers
 
-// The two consumer warpgroups of the forward take turns at issuing their
-// products (named barriers 1 and 2, 256 threads each: one warpgroup waits,
-// the other arrives), so the tensor cores run one warpgroup's products
-// while the other warpgroup runs its softmax (at D=64, 64 exponentials a
-// thread per tile at 16 a clock on an SM, more than the products cost).
-// Without the turns the forward is 6% slower (scripts/torch_kernel_ablate.py
-// on an H100). Warpgroup 0 goes first; every turn ends by handing over,
-// except the last turn of warpgroup 1, so that each barrier sees as many
-// arrivals as waits.
+// The two consumer warpgroups of the forward and of dQ take turns at
+// issuing their products (named barriers 1 and 2, 256 threads each: one
+// warpgroup waits, the other arrives), so the tensor cores run one
+// warpgroup's products while the other warpgroup runs its elementwise work
+// (the forward's softmax: at D=64, 64 exponentials a thread per tile at 16
+// a clock on an SM, more than the products cost). Without the turns the
+// forward is 6-8% slower and dQ at D=64 6-7% (scripts/torch_kernel_ablate.py
+// on an H100).
+// Warpgroup 0 goes first; every turn ends by handing over, except the last
+// turn of warpgroup 1, so that each barrier sees as many arrivals as waits.
+// Turns<false> does nothing, for a kernel that measures better without.
+template <bool ON = true>
 struct Turns {
   int cw;  // consumer warpgroup, 0 or 1
   __device__ __forceinline__ void start_kernel() const {
-    if (cw == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
+    if (ON && cw == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
   }
   __device__ __forceinline__ void begin() const {
-    asm volatile("bar.sync %0, 256;" ::"r"(1 + cw) : "memory");
+    if (ON) asm volatile("bar.sync %0, 256;" ::"r"(1 + cw) : "memory");
   }
   __device__ __forceinline__ void end(bool last) const {
-    if (!(last && cw == 1))
+    if (ON && !(last && cw == 1))
       asm volatile("bar.arrive %0, 256;" ::"r"(2 - cw) : "memory");
   }
 };

@@ -21,14 +21,15 @@ Divergences from the TPU kernels, on purpose:
   TPU package's fallback to ``reference_attention`` for unaligned blocks
   does not exist here;
 - the tiles are fixed by each kernel's design: the forward takes 128
-  query rows a CTA against 128-key K/V tiles, dK/dV 128 keys a CTA against
-  64-row Q/dO tiles, dQ 64 rows against 64 keys. ``block_q``, ``block_k``
-  and ``block_bwd`` are accepted for the same signature and change none of
-  them.
+  query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
+  query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
+  tiles of 64 rows (32 at D=128).
+  ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
+  signature and change none of them.
 
-The forward and dK/dV kernels read their tiles through TMA tensor maps
-built from the ``[B, S, H, D]`` shape, so every tensor's shape is checked
-against q's (``_dims``) before a map is built.
+The kernels read their tiles through TMA tensor maps built from the
+``[B, S, H, D]`` shape, so every tensor's shape is checked against q's
+(``_dims``) before a map is built.
 """
 
 from __future__ import annotations
