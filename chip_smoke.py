@@ -20,17 +20,35 @@ Phases (any failure exits non-zero):
      parameter's gradient), 5 AdamW steps on one batch (finite, falling
      loss), then one step with the launch counters reset, which must
      launch K1 48, K2 24, K3 24 times;
-  5. one JSON line of the kernels, then the device line last.
+  5a. llama_350m_af (Adafactor, the dots_attn remat policy) at full width
+     and depth in a TrainSession: the same comparison with the plain
+     attention, 5 Adafactor steps (finite, falling loss), one counted step
+     that must launch K1 24 (the policy keeps the attention output, so the
+     recompute does not run K1 again), K2 24, K3 24 times; the optimizer
+     step and the time its per-leaf layout takes; one checkpoint's bytes
+     and seconds;
+  5b. the job through the supervisor, in subprocesses on the card: a
+     llama_350m_af spec (B=8, 3 steps per epoch, 3 epochs) is stopped by
+     SIGTERM once its epoch-0 checkpoint has committed (exit 3, a
+     checkpoint at the step it reached), restarted (``resumed at step N
+     on 1 chips``, exit 0 at step 9, every kernel launched), three CSV
+     rows of 1 worker and batch 8, finite epoch losses, and the step-9
+     loss within 1e-3 of an uninterrupted 9-step TrainSession's;
+  6. one JSON line of the kernels, then the device line last.
 
 Needs CUDA and nvcc; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -41,6 +59,7 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 TPU_SRC = "vodascheduler_tpu/ops/flash_attention.py"
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*a) -> None:
@@ -269,8 +288,8 @@ def time_kernels(fa, shape, errs):
 
 
 def backward_call(fa, q, k, v, o, do, lse, causal, q_off):
-    """The port's whole attention backward, as the autograd Function runs
-    it: K2 (dq and δ), then K3 (dk, dv) on that δ."""
+    """The port's whole attention backward, as the attention operator's
+    backward runs it: K2 (dq and δ), then K3 (dk, dv) on that δ."""
     def call():
         _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
         return fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
@@ -297,13 +316,17 @@ def slice_gaps(bundle, module, batch):
     O(S²) attention on the card: the hidden state before the final norm
     (largest relative error of a token's row) and every parameter's
     gradient (largest ||g - g_plain|| / ||g_plain||)."""
-    kernel_attn = module.attn_fn
+    kernel_attn, cfg = module.attn_fn, module.cfg
     loss_k, h_k, g_k = forward_backward(bundle, module, batch)
+    # The plain pass runs under full remat: a policy moves no number, and
+    # under "dots" the plain attention's S×S products of every layer would
+    # be kept for the backward.
     module.attn_fn = None
+    module.cfg = dataclasses.replace(cfg, remat_policy=None)
     try:
         loss_p, h_p, g_p = forward_backward(bundle, module, batch)
     finally:
-        module.attn_fn = kernel_attn
+        module.attn_fn, module.cfg = kernel_attn, cfg
     grad ={n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30))
             .item() for n in g_p}
     worst = max(grad, key=grad.get)
@@ -333,23 +356,10 @@ def check_slice(gaps) -> list:
     return bad
 
 
-def run_slice(fa):
-    from vodascheduler_tpu_torch.models import get_model
-    from vodascheduler_tpu_torch.runtime import TrainSession
-
-    bundle = get_model("llama_350m")
-    session = TrainSession(bundle, 1, global_batch_size=8)
-    module = session.module
-    n_params = sum(p.numel() for p in module.parameters())
-    log(f"slice: llama_350m params={n_params} layers={bundle.cfg.num_layers} "
-        f"dim={bundle.cfg.dim} B=8 S={bundle.seq_len} "
-        f"device={session.device}")
-    batch = session.make_batch()
-
-    if check_slice(slice_gaps(bundle, module, batch)):
-        raise SystemExit("the step through the kernels disagrees with the "
-                         "plain attention")
-
+def train_and_count(fa, name, session, batch, want):
+    """5 steps on `batch` (finite, falling loss), then one counted step
+    that must launch each kernel as often as `want` says; returns the
+    counts."""
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(5):
@@ -357,30 +367,235 @@ def run_slice(fa):
         losses.append(session.train_step(batch).item())
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-    log(f"slice losses={[round(x, 6) for x in losses]} "
+    log(f"{name} losses={[round(x, 6) for x in losses]} "
         f"step_ms={[round(x, 3) for x in step_ms]}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise SystemExit("training loss is not finite and falling")
+        raise SystemExit(f"{name}: training loss is not finite and falling")
 
-    # The main path, counted: one step with every count at 0 before it.
+    # The path, counted: one step with every count at 0 before it.
     fa.reset_launches()
     t0 = time.perf_counter()
     loss = session.train_step(batch).item()
     torch.cuda.synchronize()
     step_ms.append(1e3 * (time.perf_counter() - t0))
     counts = dict(fa.launches)
-    L = bundle.cfg.num_layers
-    want = {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}
-    log(f"slice counted step loss={loss:.6f} launches={counts} want={want}")
+    log(f"{name} counted step loss={loss:.6f} launches={counts} want={want}")
     if counts != want or not math.isfinite(loss):
-        raise SystemExit("the training step did not launch the kernels as "
-                         "expected")
+        raise SystemExit(f"{name}: the training step did not launch the "
+                         "kernels as expected")
     steady = statistics.median(step_ms[1:])
-    tokens = 8 * bundle.seq_len
-    log(f"slice step_ms={steady:.3f} (median of steps 2-6) "
-        f"tokens_per_s={tokens / steady * 1e3:.1f} "
-        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    tokens = session.global_batch_size * session.bundle.seq_len
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{name} step_ms={steady:.3f} (median of steps 2-6) "
+        f"tokens_per_s={tokens / steady * 1e3:.1f} peak_mem_gb={peak:.2f}")
     return counts
+
+
+def build_slice(model: str):
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    bundle = get_model(model)
+    session = TrainSession(bundle, 1, global_batch_size=8)
+    n_params = sum(p.numel() for p in session.module.parameters())
+    log(f"slice: {model} params={n_params} layers={bundle.cfg.num_layers} "
+        f"dim={bundle.cfg.dim} B=8 S={bundle.seq_len} "
+        f"optimizer={bundle.optimizer} remat_policy={bundle.cfg.remat_policy} "
+        f"device={session.device}")
+    batch = session.make_batch()
+    if check_slice(slice_gaps(bundle, session.module, batch)):
+        raise SystemExit(f"{model}: the step through the kernels disagrees "
+                         "with the plain attention")
+    return session, batch
+
+
+def run_slice(fa):
+    session, batch = build_slice("llama_350m")
+    L = session.bundle.cfg.num_layers
+    return train_and_count(fa, "slice", session, batch,
+                           {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L})
+
+
+def adafactor_times(session) -> None:
+    """The optimizer step, and the part of it that gathers the gradients
+    into the reference's leaves (stack, transpose): the cost of the
+    per-leaf layout, by CUDA events."""
+    from vodascheduler_tpu_torch.runtime.optim import to_leaf
+
+    opt = session.optimizer
+    state = {p: {k: v.clone() if torch.is_tensor(v) else v
+                 for k, v in st.items()} for p, st in opt.state.items()}
+    params = [p.detach().clone() for p in session.module.parameters()]
+    step_ms = cuda_ms(opt.step, warmup=1, reps=5)
+    gather_ms = cuda_ms(lambda: [to_leaf(g, [p.grad for p in g["params"]])
+                                 for g in opt.param_groups])
+    # The timed steps changed the weights and the statistics: put both back.
+    with torch.no_grad():
+        for p, saved in zip(session.module.parameters(), params):
+            p.copy_(saved)
+    opt.state.update(state)
+    log(f"adafactor optimizer_step_ms={step_ms:.4f} "
+        f"leaf_gather_ms={gather_ms:.4f} ({len(opt.param_groups)} leaves)")
+
+
+def run_af_slice(fa):
+    session, batch = build_slice("llama_350m_af")
+    L = session.bundle.cfg.num_layers
+    counts = train_and_count(fa, "af", session, batch,
+                             {"flash_fwd": L, "flash_dq": L, "flash_dkv": L})
+    adafactor_times(session)
+    ckpt_dir = os.path.join(REPO, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    session.save(ckpt_dir, wait=True)
+    save_s = time.perf_counter() - t0
+    step, nbytes, copy_s, write_s = session.last_save
+    log(f"af checkpoint step={step} bytes={nbytes} save_s={save_s:.3f} "
+        f"host_copy_s={copy_s:.3f} write_s={write_s:.3f}")
+    shutil.rmtree(ckpt_dir)
+    return counts
+
+
+JOB_STEPS_PER_EPOCH, JOB_EPOCHS = 3, 3
+
+
+def _supervisor(workdir: str, tag: str):
+    out = open(os.path.join(workdir, f"{tag}.out"), "w")
+    err = open(os.path.join(workdir, f"{tag}.err"), "w")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    env.pop("VODA_FORCE_CPU_DEVICES", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vodascheduler_tpu_torch.runtime.supervisor",
+         "--workdir", workdir, "--num-chips", "1"],
+        stdout=out, stderr=err, cwd=REPO, env=env)
+    out.close()
+    err.close()
+    return proc
+
+
+def _text(workdir: str, name: str) -> str:
+    with open(os.path.join(workdir, name)) as f:
+        return f.read()
+
+
+def _wait(proc, workdir: str, tag: str, cond, what: str,
+          timeout: float = 300.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if proc.poll() is not None or time.monotonic() > deadline:
+            proc.kill()
+            proc.wait()
+            raise SystemExit(
+                f"job: {tag} exited ({proc.returncode}) or timed out before "
+                f"{what}\n{_text(workdir, f'{tag}.out')[-2000:]}\n"
+                f"{_text(workdir, f'{tag}.err')[-4000:]}")
+        time.sleep(0.01)
+
+
+def _finish(proc, workdir: str, tag: str, timeout: float = 300.0) -> int:
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"job: {tag} did not exit within {timeout} s")
+    finally:
+        log(f"job[{tag}] stdout: " + " | ".join(
+            _text(workdir, f"{tag}.out").splitlines()))
+
+
+def _epoch_losses(text: str) -> dict:
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"^epoch (\d+) loss (\S+)$", text, re.M)}
+
+
+def run_job_cycle():
+    """Phase 5b: SIGTERM -> exit 3 -> resume -> exit 0, checked against an
+    uninterrupted TrainSession."""
+    from vodascheduler_tpu_torch.common.job import JobConfig, JobSpec
+    from vodascheduler_tpu_torch.metricscollector.csv_logger import (
+        read_epoch_csv,
+    )
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    from vodascheduler_tpu_torch.runtime.checkpoint import latest_step
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_job")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    name = "llama_350m_af_job"
+    spec = JobSpec(name=name, model="llama_350m_af", global_batch_size=8,
+                   steps_per_epoch=JOB_STEPS_PER_EPOCH,
+                   config=JobConfig(epochs=JOB_EPOCHS))
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec.to_dict(), f)
+    ckpt_dir = os.path.join(workdir, "ckpt")
+    total = JOB_STEPS_PER_EPOCH * JOB_EPOCHS
+
+    first = _supervisor(workdir, "first")
+    epoch0 = os.path.join(ckpt_dir, f"step_{JOB_STEPS_PER_EPOCH:010d}")
+    _wait(first, workdir, "first", lambda: os.path.isdir(epoch0),
+          "its epoch-0 checkpoint")
+    t0 = time.monotonic()
+    first.send_signal(signal.SIGTERM)
+    rc = _finish(first, workdir, "first")
+    sigterm_s = time.monotonic() - t0
+    out1 = _text(workdir, "first.out")
+    saved = latest_step(ckpt_dir)
+    m = re.search(r"^checkpoint step (\d+) bytes (\d+) host_copy_s (\S+) "
+                  r"write_s (\S+)$", out1, re.M)
+    if rc != 3 or m is None or int(m.group(1)) != saved:
+        raise SystemExit(f"job: SIGTERM gave exit {rc} and checkpoint "
+                         f"{m and m.group(1)} (latest {saved}); want exit 3 "
+                         "and a checkpoint at the step reached\n"
+                         + _text(workdir, "first.err")[-3000:])
+    log(f"job SIGTERM->exit_s={sigterm_s:.3f} exit={rc} checkpoint_step="
+        f"{saved} checkpoint_bytes={m.group(2)} host_copy_s={m.group(3)} "
+        f"write_s={m.group(4)}")
+
+    t0 = time.monotonic()
+    second = _supervisor(workdir, "second")
+    _wait(second, workdir, "second",
+          lambda: "warmup step" in _text(workdir, "second.out"),
+          "its first step")
+    first_step_s = time.monotonic() - t0
+    rc = _finish(second, workdir, "second")
+    out2 = _text(workdir, "second.out")
+    m = re.search(r"^kernel launches (.*)$", out2, re.M)
+    fa_launches = json.loads(m.group(1)) if m else None
+    resumed = f"resumed at step {saved} on 1 chips" in out2
+    losses = {**_epoch_losses(out1), **_epoch_losses(out2)}
+    rows = read_epoch_csv(os.path.join(workdir, "metrics", f"{name}.csv"))
+    log(f"job restart->first_step_s={first_step_s:.3f} exit={rc} "
+        f"resumed={resumed} launches={fa_launches} epoch_losses={losses} "
+        f"csv_rows={[(r['epoch'], r['workers'], r['global_batch_size']) for r in rows]}")
+    bad = []
+    if rc != 0 or not resumed:
+        bad.append(f"restart gave exit {rc}, resumed line {resumed}")
+    if not fa_launches or min(fa_launches.values()) < 1:
+        bad.append(f"the restarted job launched {fa_launches}")
+    if sorted(losses) != list(range(JOB_EPOCHS)) or not all(
+            math.isfinite(x) for x in losses.values()):
+        bad.append(f"epoch losses {losses}")
+    if ([r["epoch"] for r in rows] != [str(e) for e in range(JOB_EPOCHS)]
+            or any(r["workers"] != "1" or r["global_batch_size"] != "8"
+                   for r in rows)):
+        bad.append(f"csv rows {rows}")
+    if bad:
+        raise SystemExit("job: " + "; ".join(bad) + "\n"
+                         + _text(workdir, "second.err")[-3000:])
+
+    session = TrainSession(get_model("llama_350m_af"), 1, global_batch_size=8)
+    straight = session.run_steps(total)
+    gap = abs(losses[JOB_EPOCHS - 1] - straight) / abs(straight)
+    log(f"job step-{total} loss supervisor={losses[JOB_EPOCHS - 1]:.6f} "
+        f"uninterrupted={straight:.6f} rel_gap={gap:.3g} (bar 1e-3)")
+    del session
+    shutil.rmtree(workdir)
+    if not gap <= 1e-3:
+        raise SystemExit("job: the resumed run's loss is not the "
+                         "uninterrupted run's")
 
 
 def main() -> int:
@@ -427,6 +642,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     counts = run_slice(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_af_slice(fa)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_job_cycle()
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

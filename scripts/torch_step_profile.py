@@ -1,10 +1,9 @@
-"""Where one llama_350m training step of the PyTorch port spends its time
-on the card.
+"""Where one training step of the PyTorch port spends its time on the card.
 
-    python3 scripts/torch_step_profile.py [--steps 3]
+    python3 scripts/torch_step_profile.py [--steps 3] [--model llama_350m]
 
-Builds the port's TrainSession on CUDA at llama_350m's full width (B=8,
-S=2048), runs `--steps` steps three times on one batch (warm-up, timed by
+Builds the port's TrainSession on CUDA for a bundle at its full width (B=8;
+llama_350m and llama_350m_af run S=2048), runs `--steps` steps three times on one batch (warm-up, timed by
 the host clock, traced by torch.profiler) and prints the card's name and
 power limit, the untraced step time, the device's busy time per step and
 its idle share of the untraced step, the device time of each group of
@@ -42,6 +41,7 @@ def group_of(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--model", default="llama_350m")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: CUDA is not available", file=sys.stderr)
@@ -52,7 +52,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
-    session = TrainSession(get_model("llama_350m"), 1, global_batch_size=8)
+    session = TrainSession(get_model(args.model), 1, global_batch_size=8)
+    print(f"model={args.model} optimizer={session.bundle.optimizer} "
+          f"remat_policy={session.bundle.cfg.remat_policy}")
     batch = session.make_batch()
     n = args.steps
 

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, and the session
+that runs them, on the card.
 
 Marked `cuda`: each test skips without a CUDA device (decided inside the
 fixture, never at import). On a machine with an H100 and nvcc:
@@ -100,3 +101,54 @@ def test_dq_is_deterministic(cuda):
     torch.cuda.synchronize()
     assert torch.equal(dq1, dq2)
     assert torch.equal(delta1, delta2)
+
+
+# A Llama small enough for a test whose heads are the kernels' width (64).
+SMALL = dict(vocab_size=256, dim=128, num_layers=2, num_heads=2,
+             num_kv_heads=1, mlp_hidden=256, max_seq_len=128,
+             rope_base=10000.0, scan_layers=True, remat_layers=True)
+
+
+def _small_bundle(policy, optimizer):
+    from vodascheduler_tpu_torch.models import llama
+    from vodascheduler_tpu_torch.models.registry import llama_bundle
+    cfg = llama.LlamaConfig(**SMALL, remat_policy=policy)
+    return llama_bundle(f"small_{policy}", cfg, 128, optimizer)
+
+
+@pytest.mark.parametrize("policy,fwd", [(None, 4), ("dots", 4),
+                                        ("attn_out", 2), ("dots_attn", 2)])
+def test_remat_policy_sets_the_forward_launches(cuda, policy, fwd):
+    """A policy that keeps the attention output spares the recompute its
+    K1 launch: 2 layers, one step."""
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    session = TrainSession(_small_bundle(policy, "adafactor"),
+                           global_batch_size=2, device=cuda)
+    batch = session.make_batch()
+    fa.reset_launches()
+    loss = session.train_step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert fa.launches == {"flash_fwd": fwd, "flash_dq": 2, "flash_dkv": 2}
+
+
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+def test_resume_on_the_card_continues_the_run(cuda, tmp_path, optimizer):
+    """4 steps, a checkpoint, a fresh session resumed from it and 4 more
+    steps give the losses and weights of 8 straight steps."""
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    bundle = _small_bundle("dots_attn", optimizer)
+    straight = TrainSession(bundle, global_batch_size=2, device=cuda)
+    want = [straight.train_step(straight.make_batch()).item()
+            for _ in range(8)]
+    first = TrainSession(bundle, global_batch_size=2, device=cuda)
+    got = [first.train_step(first.make_batch()).item() for _ in range(4)]
+    first.save(str(tmp_path))
+    second = TrainSession.resume(bundle, 1, str(tmp_path),
+                                 global_batch_size=2, device=cuda)
+    assert second.step == 4
+    got += [second.train_step(second.make_batch()).item() for _ in range(4)]
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    for (name, p), q in zip(second.module.named_parameters(),
+                            straight.module.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-6, atol=0, msg=name)

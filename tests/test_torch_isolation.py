@@ -61,7 +61,10 @@ def test_scan_sees_the_whole_package():
     assert {"bridge.py", "device.py", "ops/flash_attention.py",
             "ops/_build.py", "ops/chunked_ce.py", "models/layers.py",
             "models/llama.py", "models/registry.py",
-            "runtime/train.py"} <= names
+            "runtime/train.py", "runtime/optim.py", "runtime/checkpoint.py",
+            "runtime/supervisor.py", "runtime/gpu_monitor.py",
+            "common/job.py", "common/types.py",
+            "metricscollector/csv_logger.py", "obs/tracer.py"} <= names
     assert _forbidden("vodascheduler_tpu.models")
     assert not _forbidden("vodascheduler_tpu_torch.models")
 

@@ -21,6 +21,7 @@ from vodascheduler_tpu.models import llama as jllama
 from vodascheduler_tpu.models.registry import ModelBundle as JaxBundle
 from vodascheduler_tpu.models.registry import _lm_batch as jax_lm_batch
 from vodascheduler_tpu.models.registry import _lm_fused_loss
+from vodascheduler_tpu.models.registry import get_model as jax_get_model
 from vodascheduler_tpu.parallel.sharding import TRANSFORMER_RULES
 from vodascheduler_tpu.runtime.train import make_optimizer as jax_optimizer
 from vodascheduler_tpu.runtime.train import make_train_setup
@@ -28,6 +29,8 @@ from vodascheduler_tpu_torch import bridge
 from vodascheduler_tpu_torch.models import llama as tllama
 from vodascheduler_tpu_torch.models.registry import get_model, llama_bundle
 from vodascheduler_tpu_torch.runtime import TrainSession, make_optimizer
+from vodascheduler_tpu_torch.runtime import optim
+from vodascheduler_tpu_torch.runtime.optim import Adafactor
 
 from tests.torch_parity import assert_close
 
@@ -77,6 +80,18 @@ def test_three_adamw_steps_match_jax():
                      atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("name", ["llama_1b", "llama_350m_af",
+                                  "llama_350m_8k_af"])
+def test_adafactor_presets_match_the_reference(name):
+    """The bundle's config, sequence length and optimizer are the JAX
+    package's, field by field."""
+    ref = jax_get_model(name)
+    bundle = get_model(name)
+    assert dataclasses.asdict(bundle.cfg) == dataclasses.asdict(
+        ref.module.cfg)
+    assert (bundle.seq_len, bundle.optimizer) == (ref.seq_len, ref.optimizer)
+
+
 def test_adamw_matches_optax_hyperparameters():
     opt = make_optimizer("adamw", 1e-3)([torch.nn.Parameter(torch.zeros(1))])
     group = opt.param_groups[0]
@@ -85,8 +100,23 @@ def test_adamw_matches_optax_hyperparameters():
     # optax's adamw default decay, which torch's default (1e-2) is not
     assert inspect.signature(optax.adamw).parameters[
         "weight_decay"].default == group["weight_decay"]
-    with pytest.raises(NotImplementedError):
-        make_optimizer("adafactor", 1e-3)
+    # adafactor is optax.adafactor's rule with its defaults
+    # (tests/test_torch_adafactor.py holds it to optax)
+    adafactor = make_optimizer("adafactor", 1e-3)(
+        [torch.nn.Parameter(torch.zeros(1))])
+    assert isinstance(adafactor, Adafactor)
+    assert adafactor.param_groups[0]["lr"] == 1e-3
+    defaults = inspect.signature(optax.adafactor).parameters
+    assert (defaults["decay_rate"].default, defaults["decay_offset"].default,
+            defaults["min_dim_size_to_factor"].default,
+            defaults["eps"].default, defaults["clipping_threshold"].default,
+            defaults["multiply_by_parameter_scale"].default,
+            defaults["momentum"].default,
+            defaults["weight_decay_rate"].default) == (
+        optim.DECAY_RATE, optim.DECAY_OFFSET, optim.MIN_DIM_SIZE_TO_FACTOR,
+        optim.EPS, optim.CLIPPING_THRESHOLD, True, None, None)
+    with pytest.raises(ValueError):
+        make_optimizer("sgd", 1e-3)
 
 
 def test_session_without_device_raises_when_cuda_is_absent(monkeypatch):
@@ -109,7 +139,11 @@ def test_registry_ports_the_single_card_adamw_llamas():
     for name in ("llama_tiny", "llama_350m", "llama_350m_8k"):
         bundle = get_model(name)
         assert bundle.name == name and bundle.optimizer == "adamw"
-    for name in ("llama3_8b", "llama8b", "llama_1b", "mixtral_tiny"):
+    for name in ("llama_1b", "llama_350m_af", "llama_350m_8k_af"):
+        bundle = get_model(name)
+        assert bundle.name == name and bundle.optimizer == "adafactor"
+    for name in ("llama3_8b", "llama8b", "llama_tiny_text", "llama_350m_text",
+                 "mixtral_tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
     with pytest.raises(ValueError):

@@ -16,16 +16,23 @@ The reference's params are a nested dict of numpy arrays, as
 
 The port keeps Dense weights as [out, in] (F.linear), so kernels are
 transposed; nothing is rounded, so a round trip is exact.
+`reference_param_groups` names the reference leaf of every parameter, for
+an optimizer whose update depends on the leaf's shape (Adafactor).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import re
+from typing import Any, Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 
 _PROJ = ("q_proj", "k_proj", "v_proj")
+_TOP_LEAVES = {"embed.weight": "embed/embedding",
+               "final_norm.scale": "final_norm/scale",
+               "lm_head_kernel": "lm_head_kernel"}
+_LAYER_PARAM = re.compile(r"layers\.(\d+)\.(.+)")
 
 
 def _layer_to_torch(p: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
@@ -94,6 +101,43 @@ def state_dict_to_flax(state_dict: Dict[str, torch.Tensor],
     else:
         out.update({f"layer_{i}": layer for i, layer in enumerate(layers)})
     return out
+
+
+def reference_param_groups(named_parameters: Iterable[Tuple[str, Any]],
+                           cfg=None) -> List[Dict[str, Any]]:
+    """One optimizer param group per leaf of the reference's param tree,
+    in the form `runtime/optim.py` reads: the leaf's path and shape, its
+    parameters in layer order, whether they are stacked on a leading layer
+    axis (a scanned `cfg`) and whether each is its slice transposed. q/k/v
+    slices are ``[D, H, hd]`` (`cfg.head_dim`). A parameter this layout
+    does not name (or any, without `cfg`) is a leaf of its own shape."""
+    groups: Dict[str, Dict[str, Any]] = {}
+    scanned = bool(cfg is not None and cfg.scan_layers)
+    for name, p in named_parameters:
+        m = _LAYER_PARAM.fullmatch(name)
+        if cfg is None or (m is None and name not in _TOP_LEAVES):
+            key, shape, transposed, stacked = name, tuple(p.shape), False, False
+        elif m is None:
+            key, shape, transposed, stacked = (_TOP_LEAVES[name],
+                                               tuple(p.shape), False, False)
+        else:
+            part = m.group(2)
+            key = (("layers_scan/block/" if scanned else
+                    f"layer_{m.group(1)}/") + part.replace(".", "/")
+                   .replace("/weight", "/kernel"))
+            transposed = part.endswith(".weight")
+            shape = tuple(p.shape[::-1]) if transposed else tuple(p.shape)
+            if part.split(".")[1] in _PROJ:  # [D, H*hd] -> [D, H, hd]
+                shape = (shape[0], shape[1] // cfg.head_dim, cfg.head_dim)
+            stacked = scanned
+        g = groups.setdefault(key, {"params": [], "leaf": key, "shape": shape,
+                                    "stacked": stacked,
+                                    "transposed": transposed})
+        g["params"].append(p)
+    for g in groups.values():
+        if g["stacked"]:
+            g["shape"] = (len(g["params"]),) + tuple(g["shape"])
+    return list(groups.values())
 
 
 def _map(fn, *trees):

@@ -10,14 +10,17 @@ normal truncated at two standard deviations, std 1/√fan_in), norms ones.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
+# Imported for its side effect: registers torch.ops.voda.flash_attention.
+from vodascheduler_tpu_torch.ops import flash_attention  # noqa: F401
 from vodascheduler_tpu_torch.parallel.ring_attention import reference_attention
 
 # std of a unit normal truncated to [-2, 2]; flax divides by it so the
@@ -168,14 +171,48 @@ def reset_parameters(module: nn.Module, generator=None) -> None:
             m.reset_parameters(generator)
 
 
-def remat_stack(layers: nn.ModuleList, x: torch.Tensor,
-                remat: bool) -> torch.Tensor:
+# The matrix products a policy saves: what F.linear, @ and einsum reach
+# the dispatcher as (jax's dots_saveable saves every dot_general).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default)
+# The attention kernel's operator; its outputs are the reference's
+# checkpoint_name(out, "attn_out"). A layer whose attn_fn does not go
+# through it (the plain attention) has no attn_out to save.
+_ATTN_OUT = (torch.ops.voda.flash_attention.default,)
+
+# name -> the ops whose outputs the backward keeps instead of recomputing
+# (REMAT_POLICIES of the reference); None is full remat: only the layer
+# boundaries are kept.
+REMAT_POLICIES = {
+    None: None,
+    "dots": _DOTS,
+    "attn_out": _ATTN_OUT,
+    "dots_attn": _DOTS + _ATTN_OUT,
+}
+
+
+def remat_context(policy: Optional[str]):
+    """`context_fn` for `torch.utils.checkpoint` under a named policy."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; one of "
+                         f"{list(REMAT_POLICIES)}")
+    ops = REMAT_POLICIES[policy]
+    if ops is None:
+        return None
+    return functools.partial(create_selective_checkpoint_contexts, list(ops))
+
+
+def remat_stack(layers: nn.ModuleList, x: torch.Tensor, remat: bool,
+                policy: Optional[str] = None) -> torch.Tensor:
     """Counterpart of `scan_stack`: runs the layers in order, each under
-    `torch.utils.checkpoint` when `remat` is on (full remat: only the layer
-    boundaries are saved, the backward recomputes each layer)."""
+    `torch.utils.checkpoint` when `remat` is on. The backward recomputes
+    each layer from its input, except the outputs `policy` keeps
+    (REMAT_POLICIES)."""
+    context_fn = remat_context(policy)
+    kwargs = {} if context_fn is None else {"context_fn": context_fn}
     for layer in layers:
         if remat and torch.is_grad_enabled():
-            x = checkpoint(layer, x, use_reentrant=False)
+            x = checkpoint(layer, x, use_reentrant=False, **kwargs)
         else:
             x = layer(x)
     return x

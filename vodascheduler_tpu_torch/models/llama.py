@@ -20,6 +20,7 @@ from vodascheduler_tpu_torch.models.layers import (
     DecoderBlock,
     RMSNorm,
     lecun_normal_,
+    remat_context,
     remat_stack,
     reset_parameters,
 )
@@ -43,8 +44,8 @@ class LlamaConfig:
     scan_layers: bool = False
     # Per-layer remat: the backward recomputes each layer from its input.
     remat_layers: bool = False
-    # Selective remat policies of the reference (REMAT_POLICIES); only None
-    # (full remat) is ported.
+    # What the recompute may keep (layers.REMAT_POLICIES); None is full
+    # remat.
     remat_policy: Optional[str] = None
 
     @property
@@ -84,10 +85,7 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, attn_fn: Optional[Callable] = None,
                  device=None):
         super().__init__()
-        if cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r}: only full remat (None) "
-                "is ported (ROADMAP queue A, item 2)")
+        remat_context(cfg.remat_policy)  # refuses an unknown policy
         self.cfg = cfg
         attn_cfg = AttnConfig(num_heads=cfg.num_heads,
                               num_kv_heads=cfg.num_kv_heads,
@@ -128,7 +126,8 @@ class Llama(nn.Module):
         full-vocab logits."""
         dtype = getattr(torch, self.cfg.dtype)
         x = F.embedding(tokens, self.embed.weight).to(dtype)
-        x = remat_stack(self.layers, x, self.cfg.remat_layers)
+        x = remat_stack(self.layers, x, self.cfg.remat_layers,
+                        self.cfg.remat_policy)
         x = self.final_norm(x)
         if targets is None:
             return x @ self.lm_head_kernel.to(dtype)

@@ -1,7 +1,7 @@
 """Model registry: name -> everything the runtime needs to train it.
 
 Counterpart of the JAX package's ``models/registry.py``, for the Llama
-bundles that train with AdamW on one card. A torch module allocates its
+bundles that train on one card. A torch module allocates its
 parameters when it is built, so a bundle holds a builder, not a module:
 `build_module(device, generator)` returns the initialised model.
 """
@@ -43,15 +43,16 @@ def _lm_fused_loss(module, batch):
     return module(batch["inputs"], targets=batch["targets"])
 
 
-def llama_bundle(name: str, cfg: llama.LlamaConfig,
-                 seq_len: int) -> ModelBundle:
+def llama_bundle(name: str, cfg: llama.LlamaConfig, seq_len: int,
+                 optimizer: str = "adamw") -> ModelBundle:
     def build(device, generator):
         module = llama.Llama(cfg, device=device)
         module.reset_parameters(generator)
         return module
     return ModelBundle(name=name, cfg=cfg, build_module=build,
                        make_batch=_lm_batch(cfg.vocab_size, seq_len),
-                       loss_fn=_lm_fused_loss, seq_len=seq_len)
+                       loss_fn=_lm_fused_loss, seq_len=seq_len,
+                       optimizer=optimizer)
 
 
 def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
@@ -61,6 +62,12 @@ def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
                                            2048),
         "llama_350m_8k": lambda: llama_bundle("llama_350m_8k",
                                               llama.LLAMA_350M_8K, 8192),
+        "llama_1b": lambda: llama_bundle("llama_1b", llama.LLAMA_1B, 2048,
+                                         "adafactor"),
+        "llama_350m_af": lambda: llama_bundle(
+            "llama_350m_af", llama.LLAMA_350M_AF, 2048, "adafactor"),
+        "llama_350m_8k_af": lambda: llama_bundle(
+            "llama_350m_8k_af", llama.LLAMA_350M_8K_AF, 8192, "adafactor"),
     }
 
 
@@ -69,9 +76,6 @@ def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
 _NOT_PORTED = {
     "llama3_8b": "queue A item 10 (multi-GPU: 8B fp32 masters plus AdamW "
                  "state exceed one card)",
-    "llama_1b": "queue A item 5 (Adafactor)",
-    "llama_350m_af": "queue A items 2 and 5 (remat policies, Adafactor)",
-    "llama_350m_8k_af": "queue A items 2 and 5 (remat policies, Adafactor)",
     "llama_tiny_text": "queue A item 14 (data)",
     "llama_350m_text": "queue A item 14 (data)",
     "mixtral_small": "queue A item 12 (Mixtral/MoE)",

@@ -235,32 +235,41 @@ def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
 # ---------------------------------------------------------------------------
 
 
-class _FlashAttention(torch.autograd.Function):
-    """custom_vjp of the reference: saves (q, k, v, o, lse, q_off)."""
+@torch.library.custom_op("voda::flash_attention", mutates_args=())
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 causal: bool, q_off: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward as one operator of the dispatcher: (o, lse). Being an
+    operator, it is what a selective-checkpoint policy can save
+    (`models/layers.py` REMAT_POLICIES "attn_out"), so that a recompute
+    does not launch K1 again."""
+    if q.is_cuda:
+        return flash_fwd(q, k, v, causal, q_off)
+    return flash_attention_reference(q, k, v, causal, q_off)
 
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, q_off: int):
-        if q.is_cuda:
-            o, lse = flash_fwd(q, k, v, causal, q_off)
-        else:
-            o, lse = flash_attention_reference(q, k, v, causal, q_off)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.q_off = causal, q_off
-        return o
 
-    @staticmethod
-    def backward(ctx, do):
-        q, k, v, o, lse = ctx.saved_tensors
-        causal, q_off = ctx.causal, ctx.q_off
-        if q.is_cuda:
-            do = do.contiguous()
-            dq, delta = flash_dq(q, k, v, o, do, lse, causal, q_off)
-            dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, q_off)
-        else:
-            dq, delta = flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
-            dk, dv = flash_dkv_reference(q, k, v, do, lse, delta, causal,
-                                         q_off)
-        return dq, dk, dv, None, None
+def _setup_context(ctx, inputs, output):
+    """The reference's custom_vjp residuals: (q, k, v, o, lse, q_off)."""
+    q, k, v, causal, q_off = inputs
+    o, lse = output
+    ctx.save_for_backward(q, k, v, o, lse)
+    ctx.mark_non_differentiable(lse)
+    ctx.causal, ctx.q_off = causal, q_off
+
+
+def _backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    causal, q_off = ctx.causal, ctx.q_off
+    if q.is_cuda:
+        do = do.contiguous()
+        dq, delta = flash_dq(q, k, v, o, do, lse, causal, q_off)
+        dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    else:
+        dq, delta = flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+        dk, dv = flash_dkv_reference(q, k, v, do, lse, delta, causal, q_off)
+    return dq, dk, dv, None, None
+
+
+attention_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -280,5 +289,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ("block_bwd", block_bwd)):
         if blk < 1:
             raise ValueError(f"{name} must be positive, got {blk}")
-    return _FlashAttention.apply(q, k, v, bool(causal),
-                                 int(q_offset or 0))
+    return attention_op(q, k, v, bool(causal), int(q_offset or 0))[0]
