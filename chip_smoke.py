@@ -8,9 +8,9 @@ Phases (any failure exits non-zero):
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
      D=64 (the main path), and logs the spills at D=128;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
-     attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at a ragged
-     S=1000, at D=128, at a query slice with q_offset and at a ragged query
-     slice with q_offset; then each timed
+     attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
+     mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
+     with q_offset and at a ragged query slice with q_offset; then each timed
      with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card, and dQ then
      dK/dV timed as one backward beside the library's backward;
@@ -34,6 +34,21 @@ Phases (any failure exits non-zero):
      on 1 chips``, exit 0 at step 9, every kernel launched), three CSV
      rows of 1 worker and batch 8, finite epoch losses, and the step-9
      loss within 1e-3 of an uninterrupted 9-step TrainSession's;
+  5c. mixtral_small (the MoE flagship: 12 layers, H=10, 8 experts, top 2,
+     the gather dispatch, full remat, AdamW) at full width and depth: the
+     comparison with the plain attention with the kernel pass's routing
+     replayed in the plain pass (routing is discrete, and a bf16
+     difference would flip near-tied experts), the share of decisions the
+     plain pass would have made otherwise and of token-expert choices
+     dropped by capacity at step 0, 5 steps, one counted step that must
+     launch K1 24, K2 12, K3 12 times; step ms, tokens/s, peak memory and
+     MFU (active parameters);
+  5d. mixtral_small_af (Adafactor, dots_attn): the same, launches 12/12/12,
+     the Adafactor step and its leaf gather, one checkpoint;
+  5e. the hardware bench (runtime/hwbench.py, two-point differencing):
+     mixtral_small's step under the gather, routed and dense dispatches
+     and the mixtral_small_af knobs, llama_350m's step, with MFU, and the
+     kernels against the plain attention at mixtral_small's shape;
   6. one JSON line of the kernels, then the device line last.
 
 Needs CUDA and nvcc; imports nothing of JAX.
@@ -311,28 +326,89 @@ def forward_backward(bundle, module, batch):
     return loss.item(), hidden[0], grads
 
 
+class RoutingReplay:
+    """Routing pinned across the two passes of an MoE model's comparison.
+
+    While installed (`moe_dispatch.top_k_gating` replaced), the first pass
+    records each layer's top-k experts and gates, and the second routes
+    each layer by the first pass's experts, with gate values from its own
+    probabilities. Layers are told apart by a hook on each MoE block, so a
+    recompute under checkpoint replays its own layer's choice."""
+
+    def __init__(self, module):
+        from vodascheduler_tpu_torch.ops import moe_dispatch
+        self.dispatch = moe_dispatch
+        self.layer, self.replay = None, False
+        self.chosen, self.gates, self.differ = {}, {}, {}
+        self.hooks = [layer.moe.register_forward_pre_hook(
+            lambda _m, _a, i=i: setattr(self, "layer", i))
+            for i, layer in enumerate(module.layers)]
+        self.original = moe_dispatch.top_k_gating
+        moe_dispatch.top_k_gating = self.gating
+
+    def gating(self, probs, top_k, eps=1e-9):
+        own = self.dispatch.top_k_indices(probs, top_k)
+        if self.replay:
+            idx = self.chosen[self.layer]
+            if self.layer not in self.differ:  # the forward, not a recompute
+                self.differ[self.layer] = int(
+                    (own.sort(-1)[0] != idx.sort(-1)[0]).any(-1).sum())
+        else:
+            idx = self.chosen.setdefault(self.layer, own)
+        gate = self.dispatch.gates_at(probs, idx, eps)
+        if not self.replay:
+            self.gates.setdefault(self.layer, gate.detach())
+        return gate
+
+    def remove(self) -> None:
+        self.dispatch.top_k_gating = self.original
+        for h in self.hooks:
+            h.remove()
+
+    def shares(self, cfg) -> dict:
+        """The share of the second pass's decisions that its own
+        probabilities would have made otherwise, and the share of the first
+        pass's token-expert choices dropped by capacity."""
+        tokens = next(iter(self.chosen.values())).shape[:-1].numel()
+        dropped = [self.dispatch.dropped_share(g, cfg.capacity_factor,
+                                               cfg.top_k)
+                   for g in self.gates.values()]
+        return {"routing_differs": sum(self.differ.values())
+                / (tokens * len(self.differ)),
+                "dropped_at_step0": statistics.mean(dropped)}
+
+
 def slice_gaps(bundle, module, batch):
     """What attention moves at init, through the kernels against the plain
     O(S²) attention on the card: the hidden state before the final norm
     (largest relative error of a token's row) and every parameter's
-    gradient (largest ||g - g_plain|| / ||g_plain||)."""
+    gradient (largest ||g - g_plain|| / ||g_plain||). An MoE model's plain
+    pass routes as the kernel pass did (RoutingReplay)."""
     kernel_attn, cfg = module.attn_fn, module.cfg
-    loss_k, h_k, g_k = forward_backward(bundle, module, batch)
-    # The plain pass runs under full remat: a policy moves no number, and
-    # under "dots" the plain attention's S×S products of every layer would
-    # be kept for the backward.
-    module.attn_fn = None
-    module.cfg = dataclasses.replace(cfg, remat_policy=None)
+    replay = RoutingReplay(module) if bundle.num_experts else None
     try:
+        loss_k, h_k, g_k = forward_backward(bundle, module, batch)
+        # The plain pass runs under full remat: a policy moves no number,
+        # and under "dots" the plain attention's S×S products of every
+        # layer would be kept for the backward.
+        module.attn_fn = None
+        module.cfg = dataclasses.replace(cfg, remat_policy=None)
+        if replay is not None:
+            replay.replay = True
         loss_p, h_p, g_p = forward_backward(bundle, module, batch)
     finally:
         module.attn_fn, module.cfg = kernel_attn, cfg
-    grad ={n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30))
+        if replay is not None:
+            replay.remove()
+    grad = {n: ((g_k[n] - g_p[n]).norm() / g_p[n].norm().clamp_min(1e-30))
             .item() for n in g_p}
     worst = max(grad, key=grad.get)
-    return {"loss": abs(loss_k - loss_p) / abs(loss_p),
+    gaps = {"loss": abs(loss_k - loss_p) / abs(loss_p),
             "hidden_row": row_err(h_k, h_p), "grad": grad[worst],
             "grad_param": worst, "finite": math.isfinite(loss_k)}
+    if replay is not None:
+        gaps.update(replay.shares(cfg))
+    return gaps
 
 
 # The bars of the slice's comparison with the plain attention. bf16
@@ -387,8 +463,19 @@ def train_and_count(fa, name, session, batch, want):
     tokens = session.global_batch_size * session.bundle.seq_len
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"{name} step_ms={steady:.3f} (median of steps 2-6) "
-        f"tokens_per_s={tokens / steady * 1e3:.1f} peak_mem_gb={peak:.2f}")
+        f"tokens_per_s={tokens / steady * 1e3:.1f} peak_mem_gb={peak:.2f} "
+        f"mfu={step_mfu(session, steady):.4f}")
     return counts
+
+
+def step_mfu(session, step_ms: float) -> float:
+    """MFU of a step of `step_ms` by hwbench's convention (active
+    parameters for an MoE model) against the card's dense bf16 peak."""
+    from vodascheduler_tpu_torch.runtime import hwbench
+
+    _, _, flops = hwbench.model_step_flops(session.bundle, session.module,
+                                           session.global_batch_size)
+    return flops / (step_ms / 1e3) / hwbench.peak_flops_per_device()
 
 
 def build_slice(model: str):
@@ -397,7 +484,14 @@ def build_slice(model: str):
 
     bundle = get_model(model)
     session = TrainSession(bundle, 1, global_batch_size=8)
-    n_params = sum(p.numel() for p in session.module.parameters())
+    from vodascheduler_tpu_torch.runtime import hwbench
+
+    n_params, active, _ = hwbench.model_step_flops(bundle, session.module, 8)
+    if bundle.num_experts:
+        cfg = bundle.cfg
+        log(f"slice: {model} active_params={active} heads={cfg.num_heads} "
+            f"experts={cfg.num_experts} top_k={cfg.top_k} "
+            f"dispatch={cfg.dispatch} capacity_factor={cfg.capacity_factor}")
     log(f"slice: {model} params={n_params} layers={bundle.cfg.num_layers} "
         f"dim={bundle.cfg.dim} B=8 S={bundle.seq_len} "
         f"optimizer={bundle.optimizer} remat_policy={bundle.cfg.remat_policy} "
@@ -409,11 +503,39 @@ def build_slice(model: str):
     return session, batch
 
 
-def run_slice(fa):
-    session, batch = build_slice("llama_350m")
+def run_slice(fa, model="llama_350m", tag="slice"):
+    session, batch = build_slice(model)
     L = session.bundle.cfg.num_layers
-    return train_and_count(fa, "slice", session, batch,
+    return train_and_count(fa, tag, session, batch,
                            {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L})
+
+
+def run_benches():
+    """Phase 5e: the hardware bench's one-card points. Printed; a point
+    that fails fails the run."""
+    from vodascheduler_tpu_torch.runtime import hwbench
+
+    k = dict(k_small=2, k_big=6, reps=3)
+    moe = hwbench.bench_moe_dispatch(8, **k)
+    gather, af = moe["gather"], moe["gather_af"]
+    log(f"hwbench dispatch mixtral_small B=8 S=2048 step_ms "
+        f"gather={gather['step_time_ms']:.3f} "
+        f"routed={moe['routed_step_ms']:.3f} "
+        f"dense={moe['dense_step_ms']:.3f} "
+        f"gather_af={af['step_time_ms']:.3f} "
+        f"dense_over_gather={moe['gather_speedup_vs_dense']:.3f}")
+    llama = hwbench.bench_model_step("llama_350m", 8, **k).as_dict()
+    for name, r in (("llama_350m", llama), ("mixtral_small", gather),
+                    ("mixtral_small_af", af)):
+        log(f"hwbench step {name} step_ms={r['step_time_ms']:.3f} "
+            f"tokens_per_s={r['tokens_per_sec']:.1f} "
+            f"mfu={r['mfu']:.4f} tflops={r['achieved_tflops']:.2f} "
+            f"params={r['num_params']} active={r['num_params_active']} "
+            f"peak_mem_gb={r['peak_memory_bytes'] / 1e9:.2f}")
+    point = hwbench.bench_attention_point(8, 2048, heads=10, **k)
+    log(f"hwbench attention B=8 S=2048 H=10 D=64 fwd+bwd "
+        f"kernels_ms={point['flash_ms']:.4f} plain_ms={point['plain_ms']:.4f} "
+        f"plain_over_kernels={point['flash_speedup']:.2f}")
 
 
 def adafactor_times(session) -> None:
@@ -438,10 +560,10 @@ def adafactor_times(session) -> None:
         f"leaf_gather_ms={gather_ms:.4f} ({len(opt.param_groups)} leaves)")
 
 
-def run_af_slice(fa):
-    session, batch = build_slice("llama_350m_af")
+def run_af_slice(fa, model="llama_350m_af", tag="af"):
+    session, batch = build_slice(model)
     L = session.bundle.cfg.num_layers
-    counts = train_and_count(fa, "af", session, batch,
+    counts = train_and_count(fa, tag, session, batch,
                              {"flash_fwd": L, "flash_dq": L, "flash_dkv": L})
     adafactor_times(session)
     ckpt_dir = os.path.join(REPO, "build", "chip_smoke_ckpt")
@@ -450,7 +572,7 @@ def run_af_slice(fa):
     session.save(ckpt_dir, wait=True)
     save_s = time.perf_counter() - t0
     step, nbytes, copy_s, write_s = session.last_save
-    log(f"af checkpoint step={step} bytes={nbytes} save_s={save_s:.3f} "
+    log(f"{tag} checkpoint step={step} bytes={nbytes} save_s={save_s:.3f} "
         f"host_copy_s={copy_s:.3f} write_s={write_s:.3f}")
     shutil.rmtree(ckpt_dir)
     return counts
@@ -632,6 +754,7 @@ def main() -> int:
     # (B, H, Sq, Sk, D, causal, q_off)
     main_shape = (8, 16, 2048, 2048, 64, True, 0)
     cases = {"main": main_shape,
+             "mixtral": (8, 10, 2048, 2048, 64, True, 0),
              "ragged": (2, 4, 1000, 1000, 64, True, 0),
              "ragged_noncausal": (2, 4, 1000, 1000, 64, False, 0),
              "d128": (2, 8, 1024, 1024, 128, True, 0),
@@ -648,6 +771,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_job_cycle()
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_slice(fa, "mixtral_small", "moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_af_slice(fa, "mixtral_small_af", "moe_af")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_benches()
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

@@ -3,12 +3,13 @@
     python3 scripts/torch_step_profile.py [--steps 3] [--model llama_350m]
 
 Builds the port's TrainSession on CUDA for a bundle at its full width (B=8;
-llama_350m and llama_350m_af run S=2048), runs `--steps` steps three times on one batch (warm-up, timed by
+llama_350m, llama_350m_af, mixtral_small and mixtral_small_af run S=2048), runs `--steps` steps three times on one batch (warm-up, timed by
 the host clock, traced by torch.profiler) and prints the card's name and
 power limit, the untraced step time, the device's busy time per step and
 its idle share of the untraced step, the device time of each group of
-kernels (the port's flash-attention kernels, matrix products, the rest)
-and the twenty kernels that take the most device time. Fails when there is
+kernels (the port's flash-attention kernels, matrix products, index work —
+the MoE dispatch's sort, scan, scatter and gather and the embedding's —
+and the rest) and the twenty kernels that take the most device time. Fails when there is
 no CUDA device or the trace shows no device time.
 """
 
@@ -28,6 +29,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # Substrings of the kernel names of cuBLAS/CUTLASS matrix products.
 GEMM_MARKS = ("gemm", "cutlass", "xmma", "nvjet", "sm90_")
+# ... and of PyTorch's indexing, sorting and scan kernels.
+INDEX_MARKS = ("index", "gather", "scatter", "sort", "scan")
 
 
 def group_of(name: str) -> str:
@@ -35,7 +38,9 @@ def group_of(name: str) -> str:
         if f"{k}_kernel" in name:
             return k
     low = name.lower()
-    return "matmul" if any(m in low for m in GEMM_MARKS) else "other"
+    if any(m in low for m in GEMM_MARKS):
+        return "matmul"
+    return "index" if any(m in low for m in INDEX_MARKS) else "other"
 
 
 def main() -> int:
@@ -54,7 +59,8 @@ def main() -> int:
                          text=True, check=True).stdout.strip().splitlines()[0])
     session = TrainSession(get_model(args.model), 1, global_batch_size=8)
     print(f"model={args.model} optimizer={session.bundle.optimizer} "
-          f"remat_policy={session.bundle.cfg.remat_policy}")
+          f"remat_policy={session.bundle.cfg.remat_policy} "
+          f"dispatch={getattr(session.bundle.cfg, 'dispatch', None)}")
     batch = session.make_batch()
     n = args.steps
 

@@ -92,6 +92,11 @@ GROUPED = {
     "heads [2,160,4,16] from [64,160] weights": ((2, 160, 4, 16), (64, 160),
                                                  True),
     "norm [2,160] from [160] scales": ((2, 160), (160,), False),
+    # Mixtral's experts: 4-D leaves, factored over their last two axes
+    "experts [2,4,128,256] from [4,128,256] kernels": ((2, 4, 128, 256),
+                                                      (4, 128, 256), False),
+    "experts [2,4,256,128] from [4,256,128] kernels": ((2, 4, 256, 128),
+                                                      (4, 256, 128), False),
 }
 
 

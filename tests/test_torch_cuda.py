@@ -152,3 +152,55 @@ def test_resume_on_the_card_continues_the_run(cuda, tmp_path, optimizer):
     for (name, p), q in zip(second.module.named_parameters(),
                             straight.module.parameters()):
         torch.testing.assert_close(p, q, rtol=1e-6, atol=0, msg=name)
+
+
+# A Mixtral small enough for a test, at the kernels' head width (64).
+SMALL_MOE = dict(vocab_size=256, dim=128, num_layers=2, num_heads=2,
+                 num_kv_heads=1, mlp_hidden=256, num_experts=4, top_k=2,
+                 rope_base=10000.0, dispatch="gather", scan_layers=True,
+                 remat_layers=True)
+
+
+@pytest.mark.parametrize("policy,fwd", [(None, 4), ("dots", 4),
+                                        ("attn_out", 2), ("dots_attn", 2)])
+def test_mixtral_remat_policy_sets_the_forward_launches(cuda, policy, fwd):
+    """The policies apply to Mixtral's layers as to Llama's: 2 layers, one
+    step, K1 once more per layer unless the attention output is kept."""
+    from vodascheduler_tpu_torch.models import mixtral
+    from vodascheduler_tpu_torch.models.registry import mixtral_bundle
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    cfg = mixtral.MixtralConfig(**SMALL_MOE, remat_policy=policy)
+    session = TrainSession(mixtral_bundle(f"moe_{policy}", cfg, 128,
+                                          "adafactor"),
+                           global_batch_size=2, device=cuda)
+    batch = session.make_batch()
+    fa.reset_launches()
+    loss = session.train_step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert fa.launches == {"flash_fwd": fwd, "flash_dq": 2, "flash_dkv": 2}
+
+
+def test_dispatches_agree_on_the_card(cuda):
+    """At capacity factor 100 nothing drops, and the three dispatches
+    compute one function: gather equals routed at 1e-2, dense at 5e-2 (the
+    reference's bars for the pairs, tests/test_models.py)."""
+    import dataclasses
+
+    from vodascheduler_tpu_torch.models import mixtral
+    cfg = dataclasses.replace(mixtral.MixtralConfig(**SMALL_MOE),
+                              capacity_factor=100.0)
+    g = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(2, 256, cfg.dim, generator=g, device=cuda).bfloat16()
+    torch.manual_seed(0)
+    blocks = {d: mixtral.MoEBlock(dataclasses.replace(cfg, dispatch=d),
+                                  device=cuda) for d in mixtral.DISPATCHES}
+    state = blocks["gather"].state_dict()
+    with torch.no_grad():
+        out = {}
+        for d, block in blocks.items():
+            block.load_state_dict(state)
+            out[d] = block(x).float()
+    assert torch.isfinite(out["gather"]).all()
+    assert (out["gather"] - out["routed"]).abs().max().item() < 1e-2
+    assert (out["dense"] - out["routed"]).abs().max().item() < 5e-2

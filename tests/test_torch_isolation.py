@@ -59,8 +59,9 @@ def test_imports_nothing_of_jax_or_the_jax_package(path):
 def test_scan_sees_the_whole_package():
     names = {os.path.relpath(p, PKG) for p in _package_sources()}
     assert {"bridge.py", "device.py", "ops/flash_attention.py",
-            "ops/_build.py", "ops/chunked_ce.py", "models/layers.py",
-            "models/llama.py", "models/registry.py",
+            "ops/_build.py", "ops/chunked_ce.py", "ops/moe_dispatch.py",
+            "models/layers.py", "models/llama.py", "models/mixtral.py",
+            "models/registry.py", "runtime/hwbench.py",
             "runtime/train.py", "runtime/optim.py", "runtime/checkpoint.py",
             "runtime/supervisor.py", "runtime/gpu_monitor.py",
             "common/job.py", "common/types.py",

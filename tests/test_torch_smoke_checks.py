@@ -85,3 +85,79 @@ def test_attn_pairs_with_an_offset_query_slice():
     # 3 queries at positions 4, 5, 6 against 8 keys see 5 + 6 + 7 keys
     assert chip_smoke.attn_pairs(3, 8, True, 4) == 18
     assert chip_smoke.attn_pairs(3, 8, False, 4) == 24
+
+
+def _moe_session(dispatch="gather"):
+    """A remat mixtral_tiny session on the CPU, the attention operator
+    installed as on the card."""
+    import dataclasses
+    import functools
+
+    from vodascheduler_tpu_torch.models import mixtral
+    from vodascheduler_tpu_torch.models.registry import mixtral_bundle
+    from vodascheduler_tpu_torch.ops import flash_attention as fa
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    cfg = dataclasses.replace(mixtral.MIXTRAL_TINY, dispatch=dispatch,
+                              dtype="float32", scan_layers=True,
+                              remat_layers=True, remat_policy="dots_attn")
+    session = TrainSession(mixtral_bundle("moe", cfg, 64),
+                           global_batch_size=2, device="cpu")
+    session.module.attn_fn = functools.partial(fa.flash_attention,
+                                               causal=True)
+    return session
+
+
+def test_slice_gaps_of_an_moe_model_replay_its_routing():
+    """The comparison of chip_smoke's MoE phases on the CPU, where the two
+    attentions differ only by fp32 rounding: the plain pass would have
+    routed every token alike, the drop share is a share, and the gaps are
+    those of bf16 expert compute, far inside the bars."""
+    from vodascheduler_tpu_torch.ops import moe_dispatch
+
+    session = _moe_session()
+    gating = moe_dispatch.top_k_gating
+    gaps = chip_smoke.slice_gaps(session.bundle, session.module,
+                                 session.make_batch())
+    assert moe_dispatch.top_k_gating is gating  # uninstalled
+    assert gaps["routing_differs"] == 0
+    assert 0 <= gaps["dropped_at_step0"] < 1
+    assert gaps["loss"] < 1e-5 and gaps["grad"] < 1e-2
+    assert chip_smoke.check_slice(gaps) == []
+
+
+def test_routing_replay_pins_the_first_pass_experts():
+    """A second pass whose router would choose otherwise routes by the
+    first pass's experts, under checkpoint recompute too, and counts the
+    tokens it overrode."""
+    import torch
+
+    session = _moe_session("routed")
+    module, batch = session.module, session.make_batch()
+    replay = chip_smoke.RoutingReplay(module)
+    try:
+        session.bundle.loss_fn(module, batch).backward()
+        with torch.no_grad():
+            for layer in module.layers:
+                layer.moe.router.weight.mul_(-1.0)
+        replay.replay = True
+        seen = []
+        inner = replay.gating
+
+        def spy(probs, top_k, eps=1e-9):
+            gate = inner(probs, top_k, eps)
+            seen.append((replay.layer, gate.detach()))
+            return gate
+        from vodascheduler_tpu_torch.ops import moe_dispatch
+        moe_dispatch.top_k_gating = spy
+        session.bundle.loss_fn(module, batch).backward()
+    finally:
+        replay.remove()
+    L = len(module.layers)
+    assert len(seen) == 2 * L  # the forward, then each layer's recompute
+    for layer, gate in seen:
+        want = torch.zeros_like(gate, dtype=torch.bool).scatter(
+            -1, replay.chosen[layer], True)
+        assert torch.equal(gate > 0, want), layer
+    assert sorted(replay.differ) == list(range(L))
+    assert replay.shares(module.cfg)["routing_differs"] > 0

@@ -143,7 +143,7 @@ def test_registry_ports_the_single_card_adamw_llamas():
         bundle = get_model(name)
         assert bundle.name == name and bundle.optimizer == "adafactor"
     for name in ("llama3_8b", "llama8b", "llama_tiny_text", "llama_350m_text",
-                 "mixtral_tiny"):
+                 "mixtral_8x7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
     with pytest.raises(ValueError):

@@ -1,4 +1,5 @@
-"""Weights between the JAX package's Llama params and the port's state_dict.
+"""Weights between the JAX package's Llama and Mixtral params and the
+port's state_dict.
 
 The reference's params are a nested dict of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives them. A scanned config
@@ -8,14 +9,22 @@ The reference's params are a nested dict of numpy arrays, as
     embed/embedding                         [V, D]
     <layer>/attn/{q,k,v}_proj/kernel        [D, H, hd]
     <layer>/attn/o_proj/kernel              [H*hd, D]
-    <layer>/{attn,mlp}_norm/scale           [D]
+    <layer>/attn_norm/scale                 [D]
+    Llama:
+    <layer>/mlp_norm/scale                  [D]
     <layer>/mlp/{gate,up}_proj/kernel       [D, F]
     <layer>/mlp/down_proj/kernel            [F, D]
+    Mixtral:
+    <layer>/moe_norm/scale                  [D]
+    <layer>/moe/router/kernel               [D, E]
+    <layer>/moe/experts_{gate,up}_kernel    [E, D, F]
+    <layer>/moe/experts_down_kernel         [E, F, D]
     final_norm/scale                        [D]
     lm_head_kernel                          [D, V]
 
 The port keeps Dense weights as [out, in] (F.linear), so kernels are
-transposed; nothing is rounded, so a round trip is exact.
+transposed; the experts are raw parameters in the reference's layout and
+pass as they are. Nothing is rounded, so a round trip is exact.
 `reference_param_groups` names the reference leaf of every parameter, for
 an optimizer whose update depends on the leaf's shape (Adafactor).
 """
@@ -33,19 +42,30 @@ _TOP_LEAVES = {"embed.weight": "embed/embedding",
                "final_norm.scale": "final_norm/scale",
                "lm_head_kernel": "lm_head_kernel"}
 _LAYER_PARAM = re.compile(r"layers\.(\d+)\.(.+)")
+_MLP = ("gate_proj", "up_proj", "down_proj")
+_EXPERTS = ("experts_gate_kernel", "experts_up_kernel", "experts_down_kernel")
 
 
 def _layer_to_torch(p: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
-    attn, mlp = p["attn"], p["mlp"]
+    attn = p["attn"]
     out = {}
     for name in _PROJ:
         k = np.asarray(attn[name]["kernel"])  # [D, H, hd]
         out[f"{prefix}attn.{name}.weight"] = k.reshape(k.shape[0], -1).T
     out[f"{prefix}attn.o_proj.weight"] = np.asarray(attn["o_proj"]["kernel"]).T
-    for name in ("gate_proj", "up_proj", "down_proj"):
-        out[f"{prefix}mlp.{name}.weight"] = np.asarray(mlp[name]["kernel"]).T
     out[f"{prefix}attn_norm.scale"] = np.asarray(p["attn_norm"]["scale"])
-    out[f"{prefix}mlp_norm.scale"] = np.asarray(p["mlp_norm"]["scale"])
+    if "moe" in p:
+        moe = p["moe"]
+        out[f"{prefix}moe.router.weight"] = np.asarray(
+            moe["router"]["kernel"]).T
+        for name in _EXPERTS:
+            out[f"{prefix}moe.{name}"] = np.asarray(moe[name])
+        out[f"{prefix}moe_norm.scale"] = np.asarray(p["moe_norm"]["scale"])
+    else:
+        for name in _MLP:
+            out[f"{prefix}mlp.{name}.weight"] = np.asarray(
+                p["mlp"][name]["kernel"]).T
+        out[f"{prefix}mlp_norm.scale"] = np.asarray(p["mlp_norm"]["scale"])
     return out
 
 
@@ -59,15 +79,21 @@ def _layer_to_flax(sd: Dict[str, np.ndarray], prefix: str,
         k = kernel(f"attn.{name}")  # [D, H*hd]
         attn[name] = {"kernel": k.reshape(k.shape[0], h, -1)}
     attn["o_proj"] = {"kernel": kernel("attn.o_proj")}
-    mlp = {n: {"kernel": kernel(f"mlp.{n}")}
-           for n in ("gate_proj", "up_proj", "down_proj")}
-    return {"attn": attn, "mlp": mlp,
-            "attn_norm": {"scale": sd[f"{prefix}attn_norm.scale"]},
-            "mlp_norm": {"scale": sd[f"{prefix}mlp_norm.scale"]}}
+    out = {"attn": attn,
+           "attn_norm": {"scale": sd[f"{prefix}attn_norm.scale"]}}
+    if f"{prefix}moe.router.weight" in sd:
+        out["moe"] = {"router": {"kernel": kernel("moe.router")},
+                      **{n: sd[f"{prefix}moe.{n}"] for n in _EXPERTS}}
+        out["moe_norm"] = {"scale": sd[f"{prefix}moe_norm.scale"]}
+    else:
+        out["mlp"] = {n: {"kernel": kernel(f"mlp.{n}")} for n in _MLP}
+        out["mlp_norm"] = {"scale": sd[f"{prefix}mlp_norm.scale"]}
+    return out
 
 
 def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Reference Llama params (scanned or not) -> the port's state_dict."""
+    """Reference Llama or Mixtral params (scanned or not) -> the port's
+    state_dict."""
     out = {"embed.weight": np.asarray(params["embed"]["embedding"]),
            "final_norm.scale": np.asarray(params["final_norm"]["scale"]),
            "lm_head_kernel": np.asarray(params["lm_head_kernel"])}
@@ -88,7 +114,8 @@ def flax_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 def state_dict_to_flax(state_dict: Dict[str, torch.Tensor],
                        cfg) -> Dict[str, Any]:
     """The port's state_dict -> reference params for `cfg` (a LlamaConfig
-    of either package: num_layers, num_heads, num_kv_heads, scan_layers)."""
+    or MixtralConfig of either package: num_layers, num_heads,
+    num_kv_heads, scan_layers)."""
     sd = {k: v.detach().cpu().numpy() for k, v in state_dict.items()}
     layers = [_layer_to_flax(sd, f"layers.{i}.", cfg.num_heads,
                              cfg.num_kv_heads)
@@ -109,7 +136,10 @@ def reference_param_groups(named_parameters: Iterable[Tuple[str, Any]],
     in the form `runtime/optim.py` reads: the leaf's path and shape, its
     parameters in layer order, whether they are stacked on a leading layer
     axis (a scanned `cfg`) and whether each is its slice transposed. q/k/v
-    slices are ``[D, H, hd]`` (`cfg.head_dim`). A parameter this layout
+    slices are ``[D, H, hd]`` (`cfg.head_dim`); a Mixtral router slice is
+    ``[D, E]`` and an expert slice its own ``[E, in, out]``, so their
+    stacked leaves are ``[L, D, E]`` and ``[L, E, in, out]``. A parameter
+    this layout
     does not name (or any, without `cfg`) is a leaf of its own shape."""
     groups: Dict[str, Dict[str, Any]] = {}
     scanned = bool(cfg is not None and cfg.scan_layers)

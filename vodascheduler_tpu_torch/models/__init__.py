@@ -1,4 +1,4 @@
-"""Model zoo of the port: the Llama family so far."""
+"""Model zoo of the port: the Llama and Mixtral families so far."""
 
 from vodascheduler_tpu_torch.models.registry import (
     MODEL_REGISTRY,

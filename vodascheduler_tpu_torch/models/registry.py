@@ -1,7 +1,7 @@
 """Model registry: name -> everything the runtime needs to train it.
 
 Counterpart of the JAX package's ``models/registry.py``, for the Llama
-bundles that train on one card. A torch module allocates its
+and Mixtral bundles that train on one card. A torch module allocates its
 parameters when it is built, so a bundle holds a builder, not a module:
 `build_module(device, generator)` returns the initialised model.
 """
@@ -13,7 +13,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from vodascheduler_tpu_torch.models import llama
+from vodascheduler_tpu_torch.models import llama, mixtral
 
 
 @dataclasses.dataclass
@@ -27,6 +27,7 @@ class ModelBundle:
     loss_fn: Callable[[torch.nn.Module, Any], torch.Tensor]  # (module, batch)
     seq_len: int = 0
     optimizer: str = "adamw"
+    num_experts: int = 0  # MoE bundles: hwbench counts active parameters
 
 
 def _lm_batch(vocab: int, seq: int):
@@ -55,6 +56,18 @@ def llama_bundle(name: str, cfg: llama.LlamaConfig, seq_len: int,
                        optimizer=optimizer)
 
 
+def mixtral_bundle(name: str, cfg: mixtral.MixtralConfig, seq_len: int,
+                   optimizer: str = "adamw") -> ModelBundle:
+    def build(device, generator):
+        module = mixtral.Mixtral(cfg, device=device)
+        module.reset_parameters(generator)
+        return module
+    return ModelBundle(name=name, cfg=cfg, build_module=build,
+                       make_batch=_lm_batch(cfg.vocab_size, seq_len),
+                       loss_fn=_lm_fused_loss, seq_len=seq_len,
+                       optimizer=optimizer, num_experts=cfg.num_experts)
+
+
 def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
     return {
         "llama_tiny": lambda: llama_bundle("llama_tiny", llama.LLAMA_TINY, 64),
@@ -68,6 +81,12 @@ def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
             "llama_350m_af", llama.LLAMA_350M_AF, 2048, "adafactor"),
         "llama_350m_8k_af": lambda: llama_bundle(
             "llama_350m_8k_af", llama.LLAMA_350M_8K_AF, 8192, "adafactor"),
+        "mixtral_tiny": lambda: mixtral_bundle(
+            "mixtral_tiny", mixtral.MIXTRAL_TINY, 64),
+        "mixtral_small": lambda: mixtral_bundle(
+            "mixtral_small", mixtral.MIXTRAL_SMALL, 2048),
+        "mixtral_small_af": lambda: mixtral_bundle(
+            "mixtral_small_af", mixtral.MIXTRAL_SMALL_AF, 2048, "adafactor"),
     }
 
 
@@ -78,10 +97,8 @@ _NOT_PORTED = {
                  "state exceed one card)",
     "llama_tiny_text": "queue A item 14 (data)",
     "llama_350m_text": "queue A item 14 (data)",
-    "mixtral_small": "queue A item 12 (Mixtral/MoE)",
-    "mixtral_small_af": "queue A item 12 (Mixtral/MoE)",
-    "mixtral_8x7b": "queue A item 12 (Mixtral/MoE)",
-    "mixtral_tiny": "queue A item 12 (Mixtral/MoE)",
+    "mixtral_8x7b": "queue A item 10 (multi-GPU: 47B parameters need "
+                    "several cards; the expert all_to_all with A12)",
     "mnist_mlp": "queue A item 14 (other families)",
     "digits_mlp": "queue A item 14 (other families)",
     "resnet50": "queue A item 14 (other families)",
