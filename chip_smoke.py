@@ -10,10 +10,14 @@ Phases (any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
-     with q_offset and at a ragged query slice with q_offset; then each timed
+     with q_offset and at a ragged query slice with q_offset, and at head
+     widths 16 and 96, which the kernels take zero-padded to 64 and 128 (as
+     the attention operator sends them) against the plain versions at the
+     true width; then each timed
      with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card, and dQ then
-     dK/dV timed as one backward beside the library's backward;
+     dK/dV timed as one backward beside the library's backward; the padded
+     widths' forward and backward timed beside the library's;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -49,7 +53,20 @@ Phases (any failure exits non-zero):
      mixtral_small's step under the gather, routed and dense dispatches
      and the mixtral_small_af knobs, llama_350m's step, with MFU, and the
      kernels against the plain attention at mixtral_small's shape;
-  6. one JSON line of the kernels, then the device line last.
+  6. the scheduler on the card: the port's Scheduler, its GPU LocalBackend
+     (the card counted), AdmissionService, the real clock and
+     ElasticTiresias take two llama_350m_af jobs (B=8, 5 steps per epoch;
+     A 4 epochs, B 2). A is submitted; at its first checkpoint the queue-0
+     threshold and the lease are lowered so that A is demoted, and B is
+     submitted and preempts it (SIGTERM, exit 3 with a checkpoint); B runs
+     only after A's process has exited, and completes; A resumes (``resumed
+     at step N on 1 chips``, N >= 5) and completes. One CSV row per epoch
+     each, K1, K2 and K3 launched by every supervisor process, and A's
+     second-epoch loss equal to B's (1e-3 relative: the same batches at the
+     same steps). Printed: each job's submit -> first step and submit ->
+     end, A's SIGTERM -> exit and restart -> first step, B's wait, the
+     makespan, the passes and their median decide time;
+  7. one JSON line of the kernels, then the device line last.
 
 Needs CUDA and nvcc; imports nothing of JAX.
 """
@@ -183,19 +200,29 @@ LIMITS = {"o_row": 1e-2, "lse": 1e-2, "delta": 3e-2, "dq_row": 1.5e-2,
 
 def kernel_errors(fa, name, shape):
     """Errors of each kernel against its plain version at one shape, logged
-    with the bars they break: (errors, ["name=err>bar", ...])."""
+    with the bars they break: (errors, ["name=err>bar", ...]). A head width
+    the kernels are not built for goes in as the attention operator sends
+    it: zero-padded along D to the kernels' width, with D's own scale, and
+    cut back to D; the plain versions run at D itself."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(1)
     q = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
     k = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
     v = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
     do = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
-    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    width, scale = fa.kernel_head_dim(D), D ** -0.5
+    qp, kp, vp, dop = (fa.pad_head(t, width) for t in (q, k, v, do))
+    o, lse = fa.flash_fwd(qp, kp, vp, causal, q_off, scale=scale)
+    o = o[..., :D]
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
-    dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dq, delta = fa.flash_dq(qp, kp, vp, fa.pad_head(o, width), dop, lse,
+                            causal, q_off, scale=scale)
+    dq = dq[..., :D]
     dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
                                               q_off)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta_ref, causal, q_off)
+    dk, dv = fa.flash_dkv(qp, kp, vp, dop, lse, delta_ref, causal, q_off,
+                          scale=scale)
+    dk, dv = dk[..., :D], dv[..., :D]
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
                                             causal, q_off)
     torch.cuda.synchronize()
@@ -212,7 +239,8 @@ def kernel_errors(fa, name, shape):
         f"causal={causal} q_off={q_off} "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
         + (" FAIL " + ",".join(bad) if bad else " ok"))
-    del q, k, v, do, o, lse, o_ref, lse_ref, dq, dq_ref, dk, dv
+    del q, k, v, do, qp, kp, vp, dop, o, lse, o_ref, lse_ref, dq, dq_ref
+    del dk, dv
     torch.cuda.empty_cache()
     return errs, bad
 
@@ -300,6 +328,27 @@ def time_kernels(fa, shape, errs):
         f"library_ms={lib_bwd:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
         f"library_over_kernels={lib_bwd / bwd_ms:.3f}")
     return rows
+
+
+def time_padded(fa, name, shape):
+    """A head width the kernels take zero-padded, timed as the attention
+    operator runs it (pad, kernel, cut): the forward, and the backward (K2
+    then K3), beside the library calls at the same width. Logged."""
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   .bfloat16() for S in (Sq, Sk, Sk, Sq))
+    o, lse = fa.padded_forward(fa.flash_fwd, q, k, v, causal, q_off)
+    fwd_ms = cuda_ms(lambda: fa.padded_forward(fa.flash_fwd, q, k, v, causal,
+                                               q_off))
+    bwd_ms = cuda_ms(lambda: fa.padded_backward(
+        fa.flash_dq, fa.flash_dkv, q, k, v, o, do, lse, causal, q_off))
+    lib_fwd, lib_bwd = library_times(q, k, v, do, causal)
+    log(f"time[{name}] D={D} padded_to={fa.kernel_head_dim(D)} "
+        f"forward_ms={fwd_ms:.4f} library_fwd_ms={lib_fwd:.4f} "
+        f"backward_ms={bwd_ms:.4f} library_bwd_ms={lib_bwd:.4f} "
+        f"bound_fwd_ms={bound(2, 4, 1, *shape)[0]:.4f} "
+        f"bound_bwd_ms={bound(7, 8, 1, *shape)[0]:.4f}")
 
 
 def backward_call(fa, q, k, v, o, do, lse, causal, q_off):
@@ -720,6 +769,212 @@ def run_job_cycle():
                          "uninterrupted run's")
 
 
+SCHED_STEPS_PER_EPOCH, SCHED_EPOCHS = 5, {"a": 4, "b": 2}
+# Launch-count keys of K1, K2 and K3 in a supervisor's exit line.
+KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def run_scheduler():
+    """Phase 6: the port's scheduler drives two llama_350m_af jobs on the
+    card through its GPU LocalBackend: submit -> run -> preempt
+    (checkpoint) -> resume -> complete. Returns the kernel launches the
+    three supervisor processes report at exit, summed."""
+    from vodascheduler_tpu_torch.algorithms import elastic_tiresias, tiresias
+    from vodascheduler_tpu_torch.allocator import ResourceAllocator
+    from vodascheduler_tpu_torch.cluster.local import LocalBackend
+    from vodascheduler_tpu_torch.common.clock import Clock
+    from vodascheduler_tpu_torch.common.events import EventBus
+    from vodascheduler_tpu_torch.common.job import JobConfig, JobSpec
+    from vodascheduler_tpu_torch.common.store import JobStore
+    from vodascheduler_tpu_torch.metricscollector.csv_logger import (
+        read_epoch_csv,
+    )
+    from vodascheduler_tpu_torch.placement import PlacementManager
+    from vodascheduler_tpu_torch.scheduler import Scheduler
+    from vodascheduler_tpu_torch.service import AdmissionService
+
+    class Backend(LocalBackend):
+        """Times every spawn and every stop."""
+
+        def __init__(self, workdir):
+            super().__init__(workdir)
+            self.spawns, self.stops = [], []
+
+        def _spawn(self, spec, num_chips):
+            self.spawns.append((spec.name, time.monotonic()))
+            return super()._spawn(spec, num_chips)
+
+        def _stop_proc(self, name):
+            proc, t0 = self._procs.get(name), time.monotonic()
+            super()._stop_proc(name)
+            if proc is not None:
+                self.stops.append((name, proc.popen.returncode, t0,
+                                   time.monotonic()))
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_sched")
+    shutil.rmtree(workdir, ignore_errors=True)
+    old_path = os.environ.get("PYTHONPATH")
+    os.environ["PYTHONPATH"] = REPO + os.pathsep + (old_path or "")
+    os.environ.pop("VODA_FORCE_CPU_DEVICES", None)
+    backend = Backend(workdir)
+    if backend.chips != 1:
+        raise SystemExit(f"sched: the backend counted {backend.chips} cards; "
+                         "the phase needs exactly one")
+    store, bus, clock = JobStore(), EventBus(), Clock()
+    sched = Scheduler("h100", backend, store, ResourceAllocator(store), clock,
+                      bus=bus, placement_manager=PlacementManager("h100"),
+                      algorithm="ElasticTiresias", rate_limit_seconds=0.5)
+    admission = AdmissionService(store, bus, clock)
+    names, submitted, first_steps, done = {}, {}, {}, {}
+
+    def log_text(job):
+        job_dir = os.path.join(workdir, names[job])
+        return (_text(job_dir, "supervisor.log")
+                if os.path.exists(os.path.join(job_dir, "supervisor.log"))
+                else "")
+
+    def observe():
+        now = time.monotonic()
+        for job in names:
+            n = log_text(job).count("warmup step")
+            if n > len(first_steps.setdefault(job, [])):
+                first_steps[job].append(now)
+            if job not in done and store.get_job(
+                    names[job]).status.value in ("Completed", "Failed"):
+                done[job] = now
+
+    def wait(cond, what, timeout=600.0):
+        # The real clock has no ticker: pump the scheduler and tick its
+        # time metrics here, as a service daemon does.
+        deadline, last_tick = time.monotonic() + timeout, 0.0
+        while not cond():
+            if time.monotonic() > deadline:
+                raise SystemExit(f"sched: timed out waiting for {what}; "
+                                 f"status {sched.status_table()}")
+            sched.pump()
+            if time.monotonic() - last_tick >= 1.0:
+                last_tick = time.monotonic()
+                sched.update_time_metrics()
+            observe()
+            time.sleep(0.05)
+
+    def submit(job):
+        spec = JobSpec(name=job, pool="h100", model="llama_350m_af",
+                       global_batch_size=8,
+                       steps_per_epoch=SCHED_STEPS_PER_EPOCH,
+                       config=JobConfig(min_num_chips=1, max_num_chips=1,
+                                        epochs=SCHED_EPOCHS[job]))
+        submitted[job] = time.monotonic()
+        names[job] = admission.create_training_job(spec)
+
+    def status(job):
+        return store.get_job(names[job]).status.value
+
+    thresholds = (tiresias.TIRESIAS_THRESHOLDS_SEC[0],
+                  elastic_tiresias.LEASE_SECONDS)
+    try:
+        submit("a")
+        epoch0 = os.path.join(workdir, names["a"], "ckpt",
+                              f"step_{SCHED_STEPS_PER_EPOCH:010d}")
+        wait(lambda: os.path.isdir(epoch0), "A's first checkpoint")
+        # A has trained past its first checkpoint: lower the queue-0
+        # threshold and the lease (one quantum) so that it is demoted now,
+        # and B, arriving in queue 0, preempts it.
+        tiresias.TIRESIAS_THRESHOLDS_SEC[0] = 1.0
+        elastic_tiresias.LEASE_SECONDS = 1.0
+        sched.update_time_metrics()
+        if sched.ready_jobs[names["a"]].priority != 1:
+            raise SystemExit("sched: A was not demoted")
+        submit("b")
+        wait(lambda: status("b") == "Running" and status("a") == "Waiting",
+             "B to preempt A")
+        # Back to the defaults, so that B is not demoted in turn and the
+        # card does not go back to A before B completes.
+        tiresias.TIRESIAS_THRESHOLDS_SEC[0], elastic_tiresias.LEASE_SECONDS \
+            = thresholds
+        wait(lambda: len(done) == 2, "both jobs to end")
+    finally:
+        tiresias.TIRESIAS_THRESHOLDS_SEC[0], elastic_tiresias.LEASE_SECONDS \
+            = thresholds
+        sched.stop()
+        backend.close()
+        if old_path is None:
+            os.environ.pop("PYTHONPATH", None)
+        else:
+            os.environ["PYTHONPATH"] = old_path
+
+    a, b = names["a"], names["b"]
+    logs = {job: log_text(job) for job in names}
+    if [status(job) for job in names] != ["Completed", "Completed"] or \
+            len(backend.stops) != 1:
+        raise SystemExit(f"sched: status {sched.status_table()}, stops "
+                         f"{backend.stops}; want both completed after one "
+                         "preemption\n" + "\n".join(
+                             f"--- {job}\n{logs[job][-3000:]}"
+                             for job in names))
+    spawns = [n for n, _ in backend.spawns]
+    launches = [json.loads(m) for job in names for m in re.findall(
+        r"^kernel launches (.*)$", logs[job], re.M)]
+    resumed = [int(n) for n in re.findall(r"resumed at step (\d+) on 1 chips",
+                                          logs["a"])]
+    losses = {job: _epoch_losses(logs[job]) for job in names}
+    rows = {job: [r["epoch"] for r in read_epoch_csv(os.path.join(
+        backend.metrics_dir, f"{names[job]}.csv"))] for job in names}
+    records = sched.profile_records(0)
+    decide = statistics.median(r["decide_ms"] for r in records)
+    t0 = submitted["a"]
+    (_, rc, stop_t0, stop_t1), = backend.stops
+    b_spawn = next(t for n, t in backend.spawns if n == b)
+    a_respawn = [t for n, t in backend.spawns if n == a][-1]
+    for job in names:
+        # The first step of an incarnation also loads the kernels and
+        # warms the allocator; the supervisor times it.
+        warmups = re.findall(r"^warmup step \d+ took (\S+) s$", logs[job],
+                             re.M)
+        log(f"sched[{job}] status={status(job)} submit->first_step_s="
+            f"{first_steps[job][0] - submitted[job]:.3f} submit->end_s="
+            f"{done[job] - submitted[job]:.3f} warmup_step_s={warmups} "
+            f"epoch_losses={losses[job]} csv_epochs={rows[job]}")
+    restart_s = (first_steps["a"][1] - a_respawn
+                 if len(first_steps["a"]) == 2 else math.nan)
+    log(f"sched A SIGTERM->exit_s={stop_t1 - stop_t0:.3f} exit={rc} "
+        f"resumed_at={resumed} restart->first_step_s={restart_s:.3f}")
+    log(f"sched B wait: submit->spawn_s={b_spawn - submitted['b']:.3f} "
+        f"A_exit->B_spawn_s={b_spawn - stop_t1:.3f}")
+    log(f"sched makespan_s={max(done.values()) - t0:.3f} "
+        f"passes={len(records)} median_decide_ms={decide:.3f} "
+        f"spawns={spawns} launches={launches}")
+
+    bad = []
+    if spawns != [a, b, a] or backend.stops[0][0] != a or rc != 3:
+        bad.append(f"spawns {spawns}, stops {backend.stops}: want A, B, A "
+                   "and A's SIGTERM exit 3")
+    if (len(resumed) != 1 or resumed[0] < SCHED_STEPS_PER_EPOCH
+            or not math.isfinite(restart_s)):
+        bad.append(f"A resumed at {resumed}, its restart trained "
+                   f"{len(first_steps['a']) - 1} times")
+    if not b_spawn >= stop_t1:
+        bad.append("B started before A's first process exited")
+    for job in names:
+        if rows[job] != [str(e) for e in range(SCHED_EPOCHS[job])]:
+            bad.append(f"{job}'s CSV epochs {rows[job]}")
+    if len(launches) != 3 or any(min(c[k] for k in KERNELS) < 1
+                                 for c in launches):
+        bad.append(f"kernel launches {launches}")
+    gap = abs(losses["a"].get(1, math.nan) - losses["b"].get(1, math.nan)) \
+        / abs(losses["b"].get(1, math.nan))
+    log(f"sched epoch-1 loss A={losses['a'].get(1)} B={losses['b'].get(1)} "
+        f"rel_gap={gap:.3g} (bar 1e-3)")
+    if not gap <= 1e-3:
+        bad.append("A's and B's losses after the same steps differ")
+    if bad:
+        raise SystemExit("sched: " + "; ".join(bad) + "\n"
+                         + "\n".join(f"--- {job}\n{logs[job][-3000:]}"
+                                      for job in names))
+    shutil.rmtree(workdir)
+    return {k: sum(c[k] for c in launches) for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -758,10 +1013,15 @@ def main() -> int:
              "ragged": (2, 4, 1000, 1000, 64, True, 0),
              "ragged_noncausal": (2, 4, 1000, 1000, 64, False, 0),
              "d128": (2, 8, 1024, 1024, 128, True, 0),
+             # head widths the kernels take zero-padded (to 64 and 128)
+             "d16": (2, 4, 1024, 1024, 16, True, 0),
+             "d96": (2, 4, 1024, 1024, 96, True, 0),
              "q_offset": (2, 4, 512, 2048, 64, True, 1536),
              "ragged_q_offset": (2, 4, 320, 1344, 64, True, 1024)}
     errs = check_kernels(fa, cases)
     rows = time_kernels(fa, main_shape, errs)
+    for name in ("d16", "d96"):
+        time_padded(fa, name, cases[name])
     torch.cuda.empty_cache()
 
     counts = run_slice(fa)
@@ -780,6 +1040,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_benches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"sched launches (three supervisors, summed) {run_scheduler()}")
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

@@ -78,6 +78,68 @@ def test_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
         "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
 
 
+@pytest.mark.parametrize("D", [16, 32, 96])
+def test_padded_kernels_match_plain_versions(cuda, D):
+    """Heads the kernels are not built for: the operator's padded path
+    (zeros along D to 64 or 128, D's own scale, outputs cut back) through
+    the three kernels against the plain versions at D itself."""
+    g = torch.Generator(cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(2, 200, 3, D, generator=g, device=cuda)
+                   .bfloat16() for _ in range(4))
+    before = dict(fa.launches)
+    o, lse = fa.padded_forward(fa.flash_fwd, q, k, v, True, 0)
+    dq, dk, dv = fa.padded_backward(fa.flash_dq, fa.flash_dkv, q, k, v, o,
+                                    do, lse, True, 0)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, 0)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
+                                            True, 0)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and dk.shape == k.shape
+    assert row_err(o, o_ref) <= LIMITS["o_row"]
+    assert (lse - lse_ref).abs().max().item() <= LIMITS["lse"]
+    for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                        ("dv", dv, dv_ref)):
+        assert row_err(got, ref) <= LIMITS[f"{n}_row"], n
+    assert {n: fa.launches[n] - before[n] for n in before} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+@pytest.mark.parametrize("model", ["llama_tiny", "mixtral_tiny"])
+def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
+    """The tiny bundles (head width 16) take a step on the card with the
+    kernels installed by default, and the kernels run: 2 layers."""
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
+    session = TrainSession(get_model(model), global_batch_size=2,
+                           device=cuda)
+    batch = session.make_batch()
+    fa.reset_launches()
+    loss = session.train_step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert fa.launches["flash_fwd"] >= 2
+    assert fa.launches["flash_dq"] == fa.launches["flash_dkv"] == 2
+
+
+def test_local_backend_holds_nothing_on_the_card(cuda, tmp_path):
+    """The GPU backend counts the cards without creating a CUDA context:
+    in a fresh process, building it leaves torch.cuda uninitialised."""
+    import subprocess
+    code = ("import torch\n"
+            "from vodascheduler_tpu_torch.cluster.local import LocalBackend\n"
+            f"b = LocalBackend({str(tmp_path)!r})\n"
+            "print(b.chips, torch.cuda.is_initialized())\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=repo))
+    assert out.returncode == 0, out.stderr
+    chips, initialised = out.stdout.split()
+    assert int(chips) == torch.cuda.device_count() and initialised == "False"
+
+
 def test_autograd_goes_through_the_kernels(cuda):
     g = torch.Generator(cuda).manual_seed(1)
     q, k, v = (torch.randn(1, 128, 2, 64, generator=g, device=cuda)

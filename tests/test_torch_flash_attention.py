@@ -231,3 +231,70 @@ def test_flash_dq_refuses_a_bad_lse_or_o_before_any_launch(case, exc):
     with pytest.raises(exc):
         fa.flash_dq(q, k, k, o, q, lse, True, 8)
     assert fa.launches == before
+
+
+# ---- head widths the kernels are not built for (zero padding along D) ------
+
+
+@pytest.mark.parametrize("D,width", [(1, 64), (16, 64), (32, 64), (64, 64),
+                                     (65, 128), (80, 128), (96, 128),
+                                     (128, 128)])
+def test_kernel_head_dim_is_the_next_kernel_width(D, width):
+    assert fa.kernel_head_dim(D) == width
+
+
+@pytest.mark.parametrize("D", [129, 192, 256])
+def test_heads_wider_than_the_kernels_raise(D):
+    with pytest.raises(NotImplementedError, match="C2"):
+        fa.kernel_head_dim(D)
+
+
+def _recording(fn, scales):
+    def call(*args, scale):
+        scales.append(scale)
+        return fn(*args, scale=scale)
+    return call
+
+
+@pytest.mark.parametrize("causal,q_off,Sq,Sk", [
+    (True, 0, 40, 40), (True, 16, 24, 40), (False, 0, 40, 40)])
+@pytest.mark.parametrize("D", [16, 32, 80, 96])
+def test_padding_to_the_kernel_width_is_exact(D, causal, q_off, Sq, Sk):
+    """The operator's CUDA path pads q, k, v (and o, dO) with zeros along D
+    to the kernels' width and cuts O, dQ, dK and dV back. With the plain
+    versions standing in for the kernels, that path equals the unpadded
+    plain attention (fp32, 1e-6), with D's own scale handed to every
+    call, and equals autograd through a softmax attention at D."""
+    q, k, v, w = (torch.tensor(x) for x in _inputs(5, 2, Sq, Sk, 3, D))
+    scales = []
+    o_pad, lse_pad = fa.padded_forward(
+        _recording(fa.flash_attention_reference, scales), q, k, v, causal,
+        q_off)
+    o, lse = fa.flash_attention_reference(q, k, v, causal, q_off)
+    assert o_pad.shape == o.shape and o_pad.is_contiguous()
+    assert_close(f"padded O D={D}", o_pad, o, 1e-6, 1e-6)
+    assert_close(f"padded lse D={D}", lse_pad, lse, 1e-6, 1e-6)
+
+    grads_pad = fa.padded_backward(
+        _recording(fa.flash_dq_reference, scales),
+        _recording(fa.flash_dkv_reference, scales), q, k, v, o, w, lse,
+        causal, q_off)
+    dq, delta = fa.flash_dq_reference(q, k, v, o, w, lse, causal, q_off)
+    dk, dv = fa.flash_dkv_reference(q, k, v, w, lse, delta, causal, q_off)
+    for name, got, want in zip(("dq", "dk", "dv"), grads_pad, (dq, dk, dv)):
+        assert got.shape == want.shape and got.is_contiguous()
+        assert_close(f"padded {name} D={D}", got, want, 1e-6, 1e-6)
+    assert scales == [D ** -0.5] * 3
+
+    qt, kt, vt = (x.clone().requires_grad_() for x in (q, k, v))
+    s = torch.einsum("bqhd,bkhd->bhqk", qt, kt) * D ** -0.5
+    if causal:
+        rows = q_off + torch.arange(Sq)
+        s = s.masked_fill(rows[:, None] < torch.arange(Sk)[None, :],
+                          float("-inf"))
+    o_auto = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), vt)
+    (o_auto * w).sum().backward()
+    assert_close(f"padded O vs autograd D={D}", o_pad, o_auto, 1e-5, 1e-5)
+    for name, got, t in zip(("dq", "dk", "dv"), grads_pad, (qt, kt, vt)):
+        assert_close(f"padded {name} vs autograd D={D}", got, t.grad,
+                     1e-5, 1e-5)

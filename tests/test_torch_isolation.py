@@ -65,7 +65,19 @@ def test_scan_sees_the_whole_package():
             "runtime/train.py", "runtime/optim.py", "runtime/checkpoint.py",
             "runtime/supervisor.py", "runtime/gpu_monitor.py",
             "common/job.py", "common/types.py",
-            "metricscollector/csv_logger.py", "obs/tracer.py"} <= names
+            "metricscollector/csv_logger.py", "obs/tracer.py",
+            # the control plane
+            "config.py", "common/clock.py", "common/events.py",
+            "common/lifecycle.py", "common/metrics.py", "common/store.py",
+            "obs/audit.py", "obs/profile.py", "native/__init__.py",
+            "placement/manager.py", "placement/comms.py",
+            "placement/hungarian.py", "placement/topology.py",
+            "placement/state.py", "algorithms/base.py",
+            "algorithms/fastpath.py", "algorithms/elastic_tiresias.py",
+            "allocator/allocator.py", "durability/journal.py",
+            "cluster/backend.py", "cluster/fake.py", "cluster/local.py",
+            "metricscollector/collector.py", "metricscollector/learned.py",
+            "service/admission.py", "scheduler/scheduler.py"} <= names
     assert _forbidden("vodascheduler_tpu.models")
     assert not _forbidden("vodascheduler_tpu_torch.models")
 

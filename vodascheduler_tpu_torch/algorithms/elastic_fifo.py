@@ -1,0 +1,41 @@
+"""ElasticFIFO (default): FIFO base + round-robin distribution of leftovers.
+
+Reference: pkg/algorithm/elastic_fifo.go:25-75 — allocate each job its
+minimum in submit order, then hand out remaining chips one at a time, in the
+same order, up to each job's maximum.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+from vodascheduler_tpu_torch.algorithms.base import (
+    SchedulerAlgorithm,
+    allocate_minimums,
+    distribute_leftover,
+    validate_result,
+)
+from vodascheduler_tpu_torch.common.job import TrainingJob
+from vodascheduler_tpu_torch.common.types import ScheduleResult
+
+
+class ElasticFIFO(SchedulerAlgorithm):
+    name = "ElasticFIFO"
+    elastic = True
+
+    def schedule(self, jobs: List[TrainingJob], total_chips: int) -> ScheduleResult:
+        from vodascheduler_tpu_torch.algorithms import fastpath
+
+        fast = fastpath.elastic_fifo(jobs, total_chips)
+        if fast is not None:
+            return fast
+        return self.schedule_reference(jobs, total_chips)
+
+    def schedule_reference(self, jobs: List[TrainingJob],
+                           total_chips: int) -> ScheduleResult:
+        result: ScheduleResult = {}
+        ordered = sorted(jobs, key=lambda j: j.submit_time)
+        free = allocate_minimums(ordered, result, total_chips)
+        distribute_leftover(ordered, result, free)
+        validate_result(total_chips, result, jobs)
+        return result

@@ -1,2 +1,4 @@
-"""The port's own copies of the job contract the supervisor reads: the
-spec file the backend writes and the preempted exit code it expects."""
+"""Shared infrastructure: job model, types, clock, store, event bus.
+
+Reference counterpart: pkg/common (trainingjob, types, mongo, rabbitmq, util).
+"""

@@ -1,10 +1,11 @@
 """Per-epoch metrics CSV: the contract between training jobs and the
 metrics collector.
 
-Copied from the JAX package's ``metricscollector/csv_logger.py``: one row
-per epoch with epoch number, epoch/step time and the current worker count,
-appended to ``<metrics_dir>/<job>.csv``. The collector reads the file, so
-the columns and their formatting must stay byte for byte the reference's.
+Reference counterpart: examples/py/tensorflow2/callbacks.py
+(MetricsCSVLogger) — one row per epoch with epoch number, epoch/step time,
+and current worker count, appended to `<metrics_dir>/<job>.csv`. The CSV
+doubles as the resume-epoch source on restart (callbacks.py:58-66): the
+runtime replays it to find where training left off.
 """
 
 from __future__ import annotations
@@ -16,8 +17,12 @@ from typing import Dict, List
 FIELDS = [
     "epoch", "epoch_time_sec", "step_time_sec", "workers",
     "global_batch_size", "local_batch_size", "start_time", "total_epochs",
-    # Placement context, stamped by the backend at spawn
-    # (VODA_PLACEMENT_SPREAD / VODA_PLACEMENT_COTENANCY).
+    # Placement context (doc/learned-models.md): the normalized spread
+    # of the incarnation's host set and the chip-weighted co-tenancy of
+    # its hosts, stamped by the backend at spawn (VODA_PLACEMENT_SPREAD
+    # / VODA_PLACEMENT_COTENANCY). Without them every real-mode row
+    # reads as contiguous/exclusive and the collector's burden
+    # deflation and fraction estimators stay silent.
     "spread", "cotenancy",
 ]
 
@@ -41,10 +46,11 @@ class EpochCsvLogger:
                 self.next_epoch = int(rows[-1]["epoch"]) + 1
 
     def _migrate_header(self) -> None:
-        """Rewrite a CSV whose header lacks columns FIELDS has since grown
-        (spread/cotenancy): wider rows under the old header would push the
-        new values into DictReader's restkey. Old rows get the missing
-        columns empty."""
+        """Rewrite a pre-upgrade CSV whose header lacks columns FIELDS
+        has since grown (spread/cotenancy): appending wider rows under
+        the old header would push the new values into DictReader's
+        restkey — silently lost — and read as ragged to strict parsers.
+        Old rows get the missing columns empty (read back as 0.0)."""
         with open(self.path, newline="") as f:
             reader = csv.DictReader(f)
             header = reader.fieldnames

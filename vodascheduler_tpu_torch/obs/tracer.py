@@ -1,23 +1,49 @@
-"""Spans with cross-process stitching: the part of the JAX package's
-``obs/tracer.py`` that the supervisor uses.
+"""In-process tracer: spans + events with cross-process stitching.
 
-The scheduler stamps a trace context (``{trace_id, parent_span}``) into the
-job spec and into each resize command; the supervisor's spans parent onto
-it and append to the same JSONL sink under ``VODA_TRACE_DIR``, one record
-per line through an O_APPEND fd, so the control plane's and the
-supervisor's records interleave into one trace. Records keep the
-reference's keys and id format.
+The control plane's priced decisions (two-tier resize economics,
+hysteresis bypass, own-host placement) leave no evidence beyond aggregate
+counters; this tracer records *why* — one resched pass becomes a single
+trace whose spans cross every boundary the system already crosses:
+scheduler → allocator (in-process call or RemoteAllocator HTTP header),
+scheduler → placement, scheduler → cluster backend, and backend →
+training supervisor over the file-based control channel (the resize
+command/ack files and the job spec carry `trace_id`/`parent_span`).
+
+Design constraints, in order:
+- **No wall-clock dependence under replay.** Span ids and timestamps come
+  from the injected `common/clock` Clock — under a VirtualClock a replay
+  of the same trace yields byte-identical ids, so a replay trace and a
+  live trace of the same workload diff cleanly (Placeto/NEST-style
+  decision-trace datasets need exactly this determinism).
+- **Crash-safe, size-bounded sink.** Records append to
+  `<trace_dir>/<file>` one JSON line at a time through an O_APPEND fd
+  (POSIX short appends are atomic, so the supervisor's spans interleave
+  with the scheduler's without tearing); when the file exceeds the byte
+  bound it rotates to `<file>.1` — at most two generations ever exist.
+- **Always-on ring buffer.** The newest records stay queryable in memory
+  (`GET /debug/*`, `voda explain`) even with no trace_dir configured.
+
+Thread-locality: a span entered with `with` installs itself as the
+ambient (tracer, context) pair for its thread; spans started downstream —
+in the allocator, placement manager, or a backend — parent onto it
+automatically, whichever component created them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
 import threading
-import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
+from vodascheduler_tpu_torch.common.clock import Clock, VirtualClock
+
+TRACE_ID_HEADER = "X-Voda-Trace-Id"
+PARENT_SPAN_HEADER = "X-Voda-Parent-Span"
+
+DEFAULT_RING_SIZE = 4096
 DEFAULT_MAX_BYTES = 64 * 1024 * 1024
 DEFAULT_FILENAME = "trace.jsonl"
 
@@ -40,13 +66,64 @@ class TraceContext:
                             span_id=str(d.get("parent_span")
                                         or d.get("span_id") or ""))
 
+    def to_headers(self) -> Dict[str, str]:
+        return {TRACE_ID_HEADER: self.trace_id,
+                PARENT_SPAN_HEADER: self.span_id}
+
+    @staticmethod
+    def from_headers(headers) -> Optional["TraceContext"]:
+        trace_id = headers.get(TRACE_ID_HEADER)
+        if not trace_id:
+            return None
+        return TraceContext(trace_id=str(trace_id),
+                            span_id=str(headers.get(PARENT_SPAN_HEADER) or ""))
+
+
+_tls = threading.local()
+
+
+def _stack() -> List:
+    if not hasattr(_tls, "stack"):
+        _tls.stack = []
+    return _tls.stack
+
+
+def current_context() -> Optional[TraceContext]:
+    """The ambient trace context on this thread, or None."""
+    stack = _stack()
+    return stack[-1][1] if stack else None
+
+
+def current_tracer() -> Optional["Tracer"]:
+    """The tracer that opened the ambient span on this thread, or None —
+    downstream components record into the SAME tracer as the root span
+    (a replay harness's per-instance tracer, not the process global)."""
+    stack = _stack()
+    return stack[-1][0] if stack else None
+
+
+@contextlib.contextmanager
+def use_context(ctx: Optional[TraceContext],
+                tracer: Optional["Tracer"] = None) -> Iterator[None]:
+    """Install a remote-propagated context as ambient (e.g. from HTTP
+    headers) so in-process spans under it stitch to the remote parent."""
+    if ctx is None:
+        yield
+        return
+    _stack().append((tracer, ctx))
+    try:
+        yield
+    finally:
+        _stack().pop()
+
 
 class Span:
-    """One timed operation, recorded by its tracer when it ends."""
+    """One timed operation. Mutate via set_attr/add_event; closed by the
+    tracer (use `with tracer.span(...)` — manual end() also works)."""
 
     __slots__ = ("tracer", "name", "component", "trace_id", "span_id",
-                 "parent_span", "start", "end_time", "attrs", "status",
-                 "_ended")
+                 "parent_span", "start", "end_time", "attrs", "events",
+                 "status", "_ended")
 
     def __init__(self, tracer: "Tracer", name: str, component: str,
                  trace_id: str, span_id: str, parent_span: str,
@@ -60,6 +137,7 @@ class Span:
         self.start = start
         self.end_time = 0.0
         self.attrs: Dict[str, Any] = dict(attrs or {})
+        self.events: List[Dict[str, Any]] = []
         self.status = "ok"
         self._ended = False
 
@@ -70,15 +148,25 @@ class Span:
     def set_attr(self, key: str, value: Any) -> None:
         self.attrs[key] = value
 
+    def add_event(self, name: str, **attrs: Any) -> None:
+        self.events.append({"name": name, "ts": self.tracer.clock.now(),
+                            **attrs})
+
+    def set_error(self, exc: BaseException) -> None:
+        self.status = "error"
+        self.attrs["error"] = f"{type(exc).__name__}: {str(exc)[:300]}"
+
     def end(self) -> None:
         if self._ended:
             return
+        # vodarace: ignore[unguarded-shared-write] idempotence latch on a
+        # per-span object; a span ends exactly once on its owning thread
         self._ended = True
-        self.end_time = time.time()
-        self.tracer._record(self.to_record())
+        self.end_time = self.tracer.clock.now()
+        self.tracer._record_span(self)
 
     def to_record(self) -> Dict[str, Any]:
-        return {
+        rec = {
             "kind": "span",
             "trace_id": self.trace_id,
             "span_id": self.span_id,
@@ -91,55 +179,123 @@ class Span:
             "status": self.status,
             "attrs": self.attrs,
         }
+        if self.events:
+            rec["events"] = self.events
+        return rec
 
 
 class Tracer:
-    """Span factory and record sink: ended spans are appended to
-    ``<trace_dir>/<filename>`` when a directory is given, rotating to
-    ``<filename>.1`` past `max_bytes`."""
+    """Span factory + record sink (ring buffer and optional JSONL file).
 
-    def __init__(self, trace_dir: Optional[str] = None,
+    `trace_dir=None` keeps records in memory only. `kinds` restricts the
+    FILE sink to the given record kinds (the ring always keeps all) —
+    bench.py uses it to persist only `resched_audit` records as its
+    provenance artifact without megabytes of spans alongside.
+    """
+
+    def __init__(self, clock: Optional[Clock] = None,
+                 trace_dir: Optional[str] = None,
+                 ring_size: int = DEFAULT_RING_SIZE,
                  max_bytes: int = DEFAULT_MAX_BYTES,
-                 filename: str = DEFAULT_FILENAME):
+                 filename: str = DEFAULT_FILENAME,
+                 kinds: Optional[set] = None):
+        import collections
+
+        self.clock = clock or Clock()
         self.trace_dir = os.path.abspath(trace_dir) if trace_dir else None
         self.max_bytes = max_bytes
         self.filename = filename
+        self.kinds = set(kinds) if kinds else None
+        self._ring = collections.deque(maxlen=max(1, ring_size))
         self._seq = 0
         self._lock = threading.Lock()
-        # The pid keeps the ids of processes sharing one trace file apart.
-        self._token = f"{os.getpid():x}."
+        # Deterministic ids under replay: a VirtualClock tracer derives
+        # ids purely from (virtual time, per-tracer sequence). Under the
+        # real clock a pid token keeps concurrently-writing processes
+        # (control plane + supervisors sharing one trace file) collision
+        # free.
+        self._token = ("" if isinstance(self.clock, VirtualClock)
+                       else f"{os.getpid():x}.")
         if self.trace_dir:
             os.makedirs(self.trace_dir, exist_ok=True)
+
+    # ---- ids -------------------------------------------------------------
 
     def _next_id(self) -> str:
         with self._lock:
             self._seq += 1
             seq = self._seq
-        return f"{self._token}{int(time.time() * 1000):x}.{seq:x}"
+        return f"{self._token}{int(self.clock.now() * 1000):x}.{seq:x}"
+
+    # ---- spans -----------------------------------------------------------
+
+    @contextlib.contextmanager
+    def span(self, name: str, component: str = "",
+             parent: Optional[TraceContext] = None,
+             new_trace: bool = False,
+             attrs: Optional[Dict[str, Any]] = None) -> Iterator[Span]:
+        """Context-managed span. Parent resolution: explicit `parent`
+        beats the thread's ambient context; `new_trace=True` forces a
+        fresh trace id (the resched root does this). Exceptions mark the
+        span `error` and re-raise."""
+        sp = self.start_span(name, component=component, parent=parent,
+                             new_trace=new_trace, attrs=attrs)
+        _stack().append((self, sp.context))
+        try:
+            yield sp
+        except BaseException as e:
+            sp.set_error(e)
+            raise
+        finally:
+            _stack().pop()
+            sp.end()
 
     def start_span(self, name: str, component: str = "",
                    parent: Optional[TraceContext] = None,
+                   new_trace: bool = False,
                    attrs: Optional[Dict[str, Any]] = None) -> Span:
-        """A span under `parent`'s trace, or the root of a new trace."""
+        if parent is None and not new_trace:
+            parent = current_context()
         span_id = self._next_id()
-        if parent is None:
-            trace_id, parent_span = self._next_id(), ""
+        if new_trace or parent is None:
+            trace_id = self._next_id()
+            parent_span = ""
         else:
-            trace_id, parent_span = parent.trace_id, parent.span_id
+            trace_id = parent.trace_id
+            parent_span = parent.span_id
         return Span(self, name, component, trace_id, span_id, parent_span,
-                    start=time.time(), attrs=attrs)
+                    start=self.clock.now(), attrs=attrs)
 
-    def _record(self, record: Dict[str, Any]) -> None:
-        if not self.trace_dir:
-            return
+    # ---- records ---------------------------------------------------------
+
+    def emit(self, record: Dict[str, Any]) -> None:
+        """Record a non-span event (resched_audit, http_access, ...).
+        Stamps `ts` if absent."""
+        record.setdefault("ts", self.clock.now())
+        self._append(record)
+
+    def _record_span(self, span: Span) -> None:
+        self._append(span.to_record())
+
+    def _append(self, record: Dict[str, Any]) -> None:
+        with self._lock:
+            self._ring.append(record)
+        if self.trace_dir and (self.kinds is None
+                               or record.get("kind") in self.kinds):
+            self._write_line(record)
+
+    def _write_line(self, record: Dict[str, Any]) -> None:
         path = os.path.join(self.trace_dir, self.filename)
-        line = json.dumps(record, default=str) + "\n"
+        try:
+            line = json.dumps(record, default=str) + "\n"
+        except (TypeError, ValueError):
+            return  # unserializable attr must never take down the caller
         with self._lock:
             try:
                 try:
                     if os.path.getsize(path) + len(line) > self.max_bytes:
                         os.replace(path, path + ".1")
-                except FileNotFoundError:
+                except OSError:
                     pass  # no file yet
                 fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND,
                              0o644)
@@ -148,22 +304,65 @@ class Tracer:
                 finally:
                     os.close(fd)
             except OSError:
-                pass  # a read-only sink must not stop the job
+                pass  # read-only volume: the ring still has the record
 
+    # ---- queries (debug endpoints / explain) ----------------------------
+
+    def records(self, kind: Optional[str] = None,
+                trace_id: Optional[str] = None,
+                limit: int = 0) -> List[Dict[str, Any]]:
+        with self._lock:
+            out = list(self._ring)
+        if kind is not None:
+            out = [r for r in out if r.get("kind") == kind]
+        if trace_id is not None:
+            out = [r for r in out if r.get("trace_id") == trace_id]
+        if limit and len(out) > limit:
+            out = out[-limit:]
+        return out
+
+    def spans_for_job(self, job: str, limit: int = 0) -> List[Dict[str, Any]]:
+        """Spans whose `job` attribute names this job."""
+        out = [r for r in self.records(kind="span")
+               if r.get("attrs", {}).get("job") == job]
+        if limit and len(out) > limit:
+            out = out[-limit:]
+        return out
+
+
+# ---- process-global tracer ------------------------------------------------
 
 _global_tracer: Optional[Tracer] = None
 _global_lock = threading.Lock()
 
 
 def get_tracer() -> Tracer:
-    """The process-global tracer, built at first use from VODA_TRACE_DIR
-    (the JSONL sink's directory; unset records nothing) and
-    VODA_TRACE_MAX_MB (the rotation bound)."""
+    """The process-global tracer. First use builds it from the env knobs
+    (retention: VODA_TRACE_DIR = JSONL sink directory or unset for
+    memory-only; VODA_TRACE_RING = ring entries; VODA_TRACE_MAX_MB =
+    rotation bound). The *ambient* tracer wins where one is installed —
+    call `current_tracer() or get_tracer()` in shared components."""
     global _global_tracer
     with _global_lock:
         if _global_tracer is None:
             _global_tracer = Tracer(
                 trace_dir=os.environ.get("VODA_TRACE_DIR") or None,
+                ring_size=int(os.environ.get("VODA_TRACE_RING",
+                                             str(DEFAULT_RING_SIZE))),
                 max_bytes=int(float(os.environ.get("VODA_TRACE_MAX_MB", "64"))
                               * 1024 * 1024))
         return _global_tracer
+
+
+def set_tracer(tracer: Optional[Tracer]) -> None:
+    """Replace the process-global tracer (VodaApp points it at the
+    workdir; tests isolate with a fresh one)."""
+    global _global_tracer
+    with _global_lock:
+        _global_tracer = tracer
+
+
+def active_tracer() -> Tracer:
+    """The tracer downstream components should record into: the one that
+    opened the ambient span when inside a trace, else the global."""
+    return current_tracer() or get_tracer()

@@ -20,6 +20,14 @@ Divergences from the TPU kernels, on purpose:
 - any sequence length runs the kernel (the ragged edge is masked), so the
   TPU package's fallback to ``reference_attention`` for unaligned blocks
   does not exist here;
+- the kernels are built for head widths 64 and 128 only. The operator
+  (`attention_op`) zero-pads q, k, v (and o, dO in the backward) along D
+  to the next of those widths and slices O, dQ, dK and dV back, passing
+  the true scale D^-½: zero columns change no entry of QKᵀ, give O zero
+  columns, add nothing to δ = rowsum(dO∘O), and dQ's and dK's padded
+  columns are products with zero columns. So any D up to 128 runs the
+  kernels, as any D up to 128 runs the TPU kernels; a wider head raises
+  (the TPU package also takes multiples of 128 there);
 - the tiles are fixed by each kernel's design: the forward takes 128
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
@@ -125,19 +133,22 @@ def _dims(q, k, v, *q_like) -> Tuple[int, int, int, int, int]:
 # ---------------------------------------------------------------------------
 
 
-def flash_fwd(q, k, v, causal: bool, q_off: int):
-    """K1 on the card: (o [B,Sq,H,D] bf16, lse [B,H,Sq] fp32)."""
+def flash_fwd(q, k, v, causal: bool, q_off: int,
+              scale: Optional[float] = None):
+    """K1 on the card: (o [B,Sq,H,D] bf16, lse [B,H,Sq] fp32). `scale`
+    multiplies QKᵀ; None means D^-½ of the tensors' own width."""
     _check("flash_fwd", q, k, v)
     B, H, Sq, Sk, D = _dims(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, int(q_off),
-            int(causal), D ** -0.5)
+            int(causal), _scale(scale, D))
     return o, lse
 
 
-def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int):
+def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
+             scale: Optional[float] = None):
     """K2 on the card: (dq [B,Sq,H,D] bf16, delta [B,H,Sq] fp32)."""
     _check("flash_dq", q, k, v, o, do)
     B, H, Sq, Sk, D = _dims(q, k, v, o, do)
@@ -147,11 +158,12 @@ def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int):
     _launch("flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
-            D ** -0.5)
+            _scale(scale, D))
     return dq, delta
 
 
-def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int):
+def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int,
+              scale: Optional[float] = None):
     """K3 on the card: (dk, dv), each [B,Sk,H,D] bf16."""
     _check("flash_dkv", q, k, v, do)
     B, H, Sq, Sk, D = _dims(q, k, v, do)
@@ -162,8 +174,12 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int):
     _launch("flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
-            D ** -0.5)
+            _scale(scale, D))
     return dk, dv
+
+
+def _scale(scale: Optional[float], D: int) -> float:
+    return D ** -0.5 if scale is None else float(scale)
 
 
 def _check_stat(t: torch.Tensor, B: int, H: int, Sq: int) -> None:
@@ -178,11 +194,12 @@ def _check_stat(t: torch.Tensor, B: int, H: int, Sq: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, causal: bool, q_off: int) -> torch.Tensor:
+def _scores(q, k, causal: bool, q_off: int,
+            scale: Optional[float]) -> torch.Tensor:
     """Scaled, masked fp32 scores [B,H,Sq,Sk]."""
     qf = q.transpose(1, 2).float()
     kf = k.transpose(1, 2).float()
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * _scale(scale, q.shape[-1])
     if causal:
         rows = q_off + torch.arange(q.shape[1], device=q.device)
         cols = torch.arange(k.shape[1], device=q.device)
@@ -190,9 +207,10 @@ def _scores(q, k, causal: bool, q_off: int) -> torch.Tensor:
     return s
 
 
-def flash_attention_reference(q, k, v, causal: bool = True, q_offset: int = 0):
+def flash_attention_reference(q, k, v, causal: bool = True, q_offset: int = 0,
+                              scale: Optional[float] = None):
     """Plain version of K1 on [B,S,H,D]: (o in q's dtype, lse fp32 [B,H,Sq])."""
-    s = _scores(q, k, causal, q_offset)
+    s = _scores(q, k, causal, q_offset, scale)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(-1, keepdim=True)
@@ -202,32 +220,84 @@ def flash_attention_reference(q, k, v, causal: bool = True, q_offset: int = 0):
     return o.transpose(1, 2).to(q.dtype), lse
 
 
-def _p_ds(q, k, v, do, lse, delta, causal: bool, q_off: int):
+def _p_ds(q, k, v, do, lse, delta, causal: bool, q_off: int,
+          scale: Optional[float]):
     """The backward's shared fp32 terms [B,H,Sq,Sk]: P = exp(S - lse) and
-    dS = P∘(dO·Vᵀ - δ)·D^-½; also dO as fp32 [B,H,Sq,D]."""
-    p = torch.exp(_scores(q, k, causal, q_off) - lse[..., None])
+    dS = P∘(dO·Vᵀ - δ)·scale; also dO as fp32 [B,H,Sq,D]."""
+    p = torch.exp(_scores(q, k, causal, q_off, scale) - lse[..., None])
     dof = do.transpose(1, 2).float()
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.transpose(1, 2).float())
-    ds = p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
+    ds = p * (dp - delta[..., None]) * _scale(scale, q.shape[-1])
     return p, ds, dof
 
 
 def flash_dq_reference(q, k, v, o, do, lse, causal: bool = True,
-                       q_offset: int = 0):
+                       q_offset: int = 0, scale: Optional[float] = None):
     """Plain version of K2: (dq in q's dtype, delta fp32 [B,H,Sq])."""
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
-    _, ds, _ = _p_ds(q, k, v, do, lse, delta, causal, q_offset)
+    _, ds, _ = _p_ds(q, k, v, do, lse, delta, causal, q_offset, scale)
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.transpose(1, 2).float())
     return dq.transpose(1, 2).to(q.dtype), delta.contiguous()
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
-                        q_offset: int = 0):
+                        q_offset: int = 0, scale: Optional[float] = None):
     """Plain version of K3: (dk, dv) in k's and v's dtypes."""
-    p, ds, dof = _p_ds(q, k, v, do, lse, delta, causal, q_offset)
+    p, ds, dof = _p_ds(q, k, v, do, lse, delta, causal, q_offset, scale)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.transpose(1, 2).float())
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# head widths the kernels are not built for: zero padding along D
+# ---------------------------------------------------------------------------
+
+
+def kernel_head_dim(D: int) -> int:
+    """The kernels' width for a head of width D: the smallest of
+    HEAD_DIMS that holds it."""
+    for width in HEAD_DIMS:
+        if D <= width:
+            return width
+    raise NotImplementedError(
+        f"head_dim {D}: the flash-attention kernels take widths up to "
+        f"{HEAD_DIMS[-1]} (ROADMAP C2)")
+
+
+def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
+    """`t` with zeros appended along its last (head) axis up to `width`."""
+    D = t.shape[-1]
+    return t if D == width else torch.nn.functional.pad(t, (0, width - D))
+
+
+def _cut(t: torch.Tensor, D: int) -> torch.Tensor:
+    return t if t.shape[-1] == D else t[..., :D].contiguous()
+
+
+def padded_forward(fwd, q, k, v, causal: bool, q_off: int):
+    """`fwd` (K1's wrapper, or its plain version) on q, k, v zero-padded
+    along D to the kernels' width, with D's own scale; O cut back to D."""
+    D = q.shape[-1]
+    width = kernel_head_dim(D)
+    o, lse = fwd(pad_head(q, width), pad_head(k, width),
+                 pad_head(v, width), causal, q_off, scale=D ** -0.5)
+    return _cut(o, D), lse
+
+
+def padded_backward(dq_fn, dkv_fn, q, k, v, o, do, lse, causal: bool,
+                    q_off: int):
+    """K2 then K3 (or their plain versions) on zero-padded tensors, with
+    D's own scale; dQ, dK and dV cut back to D."""
+    D = q.shape[-1]
+    width = kernel_head_dim(D)
+    qp, kp, vp = pad_head(q, width), pad_head(k, width), pad_head(v, width)
+    dop = pad_head(do, width)
+    dq, delta = dq_fn(qp, kp, vp, pad_head(o, width), dop, lse, causal,
+                      q_off, scale=D ** -0.5)
+    dk, dv = dkv_fn(qp, kp, vp, dop, lse, delta, causal, q_off,
+                    scale=D ** -0.5)
+    return _cut(dq, D), _cut(dk, D), _cut(dv, D)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +313,7 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (`models/layers.py` REMAT_POLICIES "attn_out"), so that a recompute
     does not launch K1 again."""
     if q.is_cuda:
-        return flash_fwd(q, k, v, causal, q_off)
+        return padded_forward(flash_fwd, q, k, v, causal, q_off)
     return flash_attention_reference(q, k, v, causal, q_off)
 
 
@@ -260,9 +330,8 @@ def _backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
     causal, q_off = ctx.causal, ctx.q_off
     if q.is_cuda:
-        do = do.contiguous()
-        dq, delta = flash_dq(q, k, v, o, do, lse, causal, q_off)
-        dk, dv = flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+        dq, dk, dv = padded_backward(flash_dq, flash_dkv, q, k, v, o,
+                                     do.contiguous(), lse, causal, q_off)
     else:
         dq, delta = flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
         dk, dv = flash_dkv_reference(q, k, v, do, lse, delta, causal, q_off)
