@@ -66,7 +66,30 @@ Phases (any failure exits non-zero):
      same steps). Printed: each job's submit -> first step and submit ->
      end, A's SIGTERM -> exit and restart -> first step, B's wait, the
      makespan, the passes and their median decide time;
-  7. one JSON line of the kernels, then the device line last.
+  7. the service on the card: ``python -m vodascheduler_tpu_torch.service
+     --chips 1 --algorithm ElasticFIFO`` (free ports, the journal on, the
+     GPU monitor on through ``VODA_TPU_MONITOR=1``) takes two
+     llama_350m_af jobs (B=8, 5 steps per epoch, 3 epochs) from ``python
+     -m vodascheduler_tpu_torch.cli create -f``; B waits. At A's first
+     checkpoint (its epoch-0 CSV row) the scheduler's /metrics reads A's
+     memory (``voda_gpu_memory_bytes_in_use`` above its reading before A
+     by 1 GiB, at most the card's total, which is torch's within 1%), and
+     the card lists one compute process more than before the server, A's
+     (where the card's processes carry pids of another namespace, as in
+     a container that shows every process as pid 1, the server's pid
+     proves nothing, so the count is held too). SIGINT stops
+     the server (exit 0; A: SIGTERM, a checkpoint, exit 3), no supervisor
+     is left, and ``cli fsck`` finds the journal clean. ``--resume`` on
+     the same workdir brings the server back: A resumes (``resumed at
+     step N on 1 chips``, N >= 5 and its last checkpoint) and completes,
+     then B. ``cli get jobs`` lists both Completed, 3 CSV rows each,
+     K1, K2 and K3 launched by every supervisor process, and A's
+     last-epoch loss equal to B's (1e-3 relative). Printed: server up,
+     SIGINT -> exit, --resume -> up, A's submit -> first step and restart
+     -> first step, B's wait and submit -> completed, the makespan, the
+     passes of both servers and their median decide time. Every process
+     of the server's and the jobs' sessions is killed at the end;
+  8. one JSON line of the kernels, then the device line last.
 
 Needs CUDA and nvcc; imports nothing of JAX.
 """
@@ -81,10 +104,13 @@ import os
 import re
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
 
 import torch
 
@@ -975,6 +1001,328 @@ def run_scheduler():
     return {k: sum(c[k] for c in launches) for k in KERNELS}
 
 
+SERVER_STEPS_PER_EPOCH, SERVER_EPOCHS = 5, 3
+# The GPU monitor's sampling interval in phase 7 (the collector's).
+SERVER_COLLECT_S = 5.0
+GIB = 1 << 30
+
+
+def _free_ports(n: int) -> list:
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def _http(url: str):
+    """(status, body) of a GET; (None, reason) while nothing answers."""
+    try:
+        with urllib.request.urlopen(url, timeout=10.0) as r:
+            return r.status, r.read().decode()
+    except urllib.error.URLError as e:
+        return None, str(e.reason)
+
+
+def _compute_apps() -> list:
+    """The card's compute processes as nvidia-smi lists them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout
+    return [int(x) for x in out.split()]
+
+
+def _supervisor_pids(workdir: str) -> list:
+    """Processes running a supervisor of a job under `workdir`."""
+    pids = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if (b"vodascheduler_tpu_torch.runtime.supervisor" in argv
+                and any(a.startswith(workdir.encode()) for a in argv)):
+            pids.append(int(d))
+    return pids
+
+
+def _gauge(text: str, series: str):
+    m = re.search(rf'^{series}\{{accelerator="0"\}} (\S+)$', text, re.M)
+    return float(m.group(1)) if m else None
+
+
+def run_server():
+    """Phase 7: voda-server and voda create drive two llama_350m_af jobs on
+    the card; the server is stopped by SIGINT while A trains and restarted
+    with --resume, and A resumes from its checkpoint. Returns the kernel
+    launches the three supervisor processes report at exit, summed."""
+    from vodascheduler_tpu_torch.metricscollector.csv_logger import (
+        read_epoch_csv,
+    )
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_server")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    sp, cp, ap = _free_ports(3)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), VODA_TPU_MONITOR="1",
+               VODA_SERVICE_PORT=str(sp), VODA_SCHEDULER_PORT=str(cp),
+               VODA_ALLOCATOR_PORT=str(ap), VODA_RATE_LIMIT_SECONDS="0.5")
+    env.pop("VODA_FORCE_CPU_DEVICES", None)
+    svc, sch = f"http://127.0.0.1:{sp}", f"http://127.0.0.1:{cp}"
+    jobs_dir = os.path.join(workdir, "jobs")
+    servers, seen_pids, names = [], set(), {}
+    first_steps, spawned, submitted, done = {}, {}, {}, {}
+
+    def start_server(tag, resume=False):
+        with open(os.path.join(workdir, f"{tag}.log"), "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "vodascheduler_tpu_torch.service",
+                 "--workdir", workdir, "--chips", "1", "--algorithm",
+                 "ElasticFIFO", "--collector-interval",
+                 str(SERVER_COLLECT_S)] + (["--resume"] if resume else []),
+                env=env, cwd=REPO, stdout=out, stderr=subprocess.STDOUT,
+                start_new_session=True)
+        servers.append((tag, proc))
+        return proc
+
+    def server_log(tag):
+        return _text(workdir, f"{tag}.log")
+
+    def job_log_path(job):
+        return os.path.join(jobs_dir, names[job], "supervisor.log")
+
+    def job_log(job):
+        if not os.path.exists(job_log_path(job)):
+            return ""
+        with open(job_log_path(job)) as f:
+            return f.read()
+
+    def fail(why):
+        raise SystemExit(
+            f"server: {why}\n" + "\n".join(
+                f"--- {tag}\n{server_log(tag)[-3000:]}" for tag, _ in servers)
+            + "\n" + "\n".join(f"--- job {job}\n{job_log(job)[-3000:]}"
+                               for job in names))
+
+    def observe():
+        now = time.monotonic()
+        seen_pids.update(_supervisor_pids(workdir))
+        for job in names:
+            # LocalBackend opens the log as it spawns the supervisor.
+            if job not in spawned and os.path.exists(job_log_path(job)):
+                spawned[job] = now
+            n = job_log(job).count("warmup step")
+            if n > len(first_steps.setdefault(job, [])):
+                first_steps[job].append(now)
+
+    def wait(cond, what, proc, timeout=300.0):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if proc.poll() is not None:
+                fail(f"the server exited ({proc.returncode}) before {what}")
+            if time.monotonic() > deadline:
+                fail(f"timed out waiting for {what}")
+            observe()
+            time.sleep(0.1)
+
+    def statuses():
+        code, body = _http(f"{svc}/training")
+        return ({j["name"]: j["status"] for j in json.loads(body)}
+                if code == 200 else {})
+
+    def cli(*args):
+        proc = subprocess.run(
+            [sys.executable, "-m", "vodascheduler_tpu_torch.cli", "--server",
+             svc, "--scheduler-server", sch, *args], env=env, cwd=REPO,
+            capture_output=True, text=True, timeout=120)
+        return proc.returncode, proc.stdout + proc.stderr
+
+    def submit(job):
+        path = os.path.join(workdir, f"{job}.yaml")
+        with open(path, "w") as f:
+            json.dump({"name": f"server-{job}", "pool": "default",
+                       "model": "llama_350m_af", "global_batch_size": 8,
+                       "steps_per_epoch": SERVER_STEPS_PER_EPOCH,
+                       "config": {"min_num_chips": 1, "max_num_chips": 1,
+                                  "epochs": SERVER_EPOCHS}}, f)
+        submitted[job] = time.monotonic()
+        rc, out = cli("create", "-f", path)
+        m = re.fullmatch(r"job created: (\S+)\n", out)
+        if rc != 0 or m is None:
+            fail(f"voda create gave {rc}: {out}")
+        names[job] = m.group(1)
+
+    def metrics():
+        return _http(f"{sch}/metrics")[1]
+
+    def profile():
+        code, body = _http(f"{sch}/debug/profile?n=100000")
+        if code != 200:
+            fail(f"GET /debug/profile gave {code}: {body}")
+        return [r["decide_ms"] for r in json.loads(body)]
+
+    def stop(proc, tag):
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            fail(f"the {tag} server did not exit within 300 s of SIGINT")
+        if rc != 0:
+            fail(f"the {tag} server exited {rc} after SIGINT")
+        return time.monotonic() - t0
+
+    apps_before = _compute_apps()
+    try:
+        t0 = time.monotonic()
+        first = start_server("server")
+        wait(lambda: _http(f"{svc}/training")[0] == 200,
+             "the server to answer", first)
+        up_s = time.monotonic() - t0
+        wait(lambda: _gauge(metrics(), "voda_gpu_memory_bytes_in_use")
+             is not None, "the GPU monitor's first reading", first)
+        used_before = _gauge(metrics(), "voda_gpu_memory_bytes_in_use")
+        submit("a")
+        submit("b")
+        a_csv = os.path.join(jobs_dir, "metrics", f"{names['a']}.csv")
+        wait(lambda: os.path.exists(a_csv) and read_epoch_csv(a_csv),
+             "A's first checkpoint (its epoch-0 CSV row)", first)
+        # At A's first checkpoint: the monitor reads A's memory on the
+        # card, and the server holds no CUDA context of its own.
+        wait(lambda: (_gauge(metrics(), "voda_gpu_memory_bytes_in_use")
+                      or 0.0) > used_before + GIB,
+             "the gauge to read A's memory", first,
+             timeout=3 * SERVER_COLLECT_S)
+        text = metrics()
+        used = _gauge(text, "voda_gpu_memory_bytes_in_use")
+        total = _gauge(text, "voda_gpu_memory_bytes_total")
+        apps = _compute_apps()
+        card_total = torch.cuda.mem_get_info(0)[1]
+        running = statuses()
+        devices = re.search(r"^voda_gpu_devices (\S+)$", text, re.M)
+        log(f"server gauges at A's first checkpoint: "
+            f"voda_gpu_devices={devices and devices.group(1)} "
+            f"used={used:.0f} (before A {used_before:.0f}) total={total:.0f} "
+            f"(torch {card_total}) util_pct="
+            f"{_gauge(text, 'voda_gpu_utilization_pct')} power_w="
+            f"{_gauge(text, 'voda_gpu_power_watts')} limit_w="
+            f"{_gauge(text, 'voda_gpu_power_limit_watts')}; compute apps "
+            f"{apps_before} -> {apps}, server pid {first.pid}; {running}")
+        if not (GIB < used <= total and abs(total - card_total)
+                <= 0.01 * card_total):
+            fail(f"the gauges read used {used}, total {total}; the card "
+                 f"has {card_total}")
+        if first.pid in apps or len(apps) != len(apps_before) + 1:
+            fail(f"compute apps {apps_before} -> {apps}: the server "
+                 f"(pid {first.pid}) holds a CUDA context, or A none")
+        if running != {names["a"]: "Running", names["b"]: "Waiting"}:
+            fail(f"at A's first checkpoint: {running}")
+        passes = profile()
+        sigint_s = stop(first, "first")
+        observe()
+        left = _supervisor_pids(workdir)
+        if left:
+            fail(f"supervisors {left} outlived the server")
+        rc, fsck = cli("fsck", os.path.join(workdir, "journal",
+                                            "default.wal"))
+        if rc != 0 or '"problems": []' not in fsck:
+            fail(f"fsck gave {rc}: {fsck}")
+        checkpoints = re.findall(r"^checkpoint step (\d+) bytes",
+                                 job_log("a"), re.M)
+        log(f"server SIGINT->exit_s={sigint_s:.3f} A's checkpoints at "
+            f"{checkpoints}; fsck clean: {' '.join(fsck.split())[:300]}")
+
+        t_resume = time.monotonic()
+        second = start_server("server_resume", resume=True)
+        wait(lambda: _http(f"{svc}/training")[0] == 200,
+             "the resumed server to answer", second)
+        resume_up_s = time.monotonic() - t_resume
+        a_steps = len(first_steps["a"])
+        wait(lambda: len(first_steps["a"]) > a_steps,
+             "A's first step after the restart", second)
+        a_restart_s = first_steps["a"][-1] - t_resume
+        for job in ("a", "b"):
+            wait(lambda: statuses().get(names[job]) in ("Completed",
+                                                        "Failed"),
+                 f"{job} to end", second, timeout=600.0)
+            done[job] = time.monotonic()
+        passes += profile()
+        rc, listing = cli("get", "jobs")
+        stop(second, "resumed")
+        left = _supervisor_pids(workdir)
+        if left:
+            fail(f"supervisors {left} outlived the resumed server")
+    finally:
+        for _, proc in servers:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        for pid in seen_pids | set(_supervisor_pids(workdir)):
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    logs = {job: job_log(job) for job in names}
+    listed = dict(re.findall(r"^(\S+)\s+default\s+(\S+)", listing, re.M))
+    launches = {job: [json.loads(m) for m in re.findall(
+        r"^kernel launches (.*)$", logs[job], re.M)] for job in names}
+    resumed = [int(n) for n in re.findall(r"resumed at step (\d+) on 1 chips",
+                                          logs["a"])]
+    losses = {job: _epoch_losses(logs[job]) for job in names}
+    rows = {job: [r["epoch"] for r in read_epoch_csv(os.path.join(
+        jobs_dir, "metrics", f"{names[job]}.csv"))] for job in names}
+    for job in names:
+        log(f"server[{job}] {listed.get(names[job])} submit->first_step_s="
+            f"{first_steps[job][0] - submitted[job]:.3f} submit->end_s="
+            f"{done[job] - submitted[job]:.3f} epoch_losses={losses[job]} "
+            f"csv_epochs={rows[job]} launches={launches[job]}")
+    log(f"server up_s={up_s:.3f} SIGINT->exit_s={sigint_s:.3f} "
+        f"--resume->up_s={resume_up_s:.3f} A restart->first_step_s="
+        f"{a_restart_s:.3f} resumed_at={resumed}")
+    log(f"server B wait: submit->spawn_s="
+        f"{spawned['b'] - submitted['b']:.3f} B submit->completed_s="
+        f"{done['b'] - submitted['b']:.3f}")
+    log(f"server makespan_s={max(done.values()) - submitted['a']:.3f} "
+        f"passes={len(passes)} median_decide_ms="
+        f"{statistics.median(passes):.3f}")
+
+    bad = []
+    want = [str(e) for e in range(SERVER_EPOCHS)]
+    if rc != 0 or listed != {names[j]: "Completed" for j in names}:
+        bad.append(f"voda get jobs gave {rc}: {listing}")
+    if (len(resumed) != 1 or resumed[0] < SERVER_STEPS_PER_EPOCH
+            or [str(resumed[0])] != checkpoints[-1:]):
+        bad.append(f"A resumed at {resumed}; its checkpoints {checkpoints}")
+    if not spawned["b"] >= done["a"] - 1.0 or len(first_steps["b"]) != 1:
+        bad.append("B ran beside A")
+    for job in names:
+        if rows[job] != want:
+            bad.append(f"{job}'s CSV epochs {rows[job]}")
+    counts = [c for job in names for c in launches[job]]
+    if ([len(launches[j]) for j in names] != [2, 1]
+            or any(min(c[k] for k in KERNELS) < 1 for c in counts)):
+        bad.append(f"kernel launches {launches}")
+    last = SERVER_EPOCHS - 1
+    gap = abs(losses["a"].get(last, math.nan)
+              - losses["b"].get(last, math.nan)) \
+        / abs(losses["b"].get(last, math.nan))
+    log(f"server epoch-{last} loss A={losses['a'].get(last)} "
+        f"B={losses['b'].get(last)} rel_gap={gap:.3g} (bar 1e-3)")
+    if not gap <= 1e-3:
+        bad.append("A's and B's last-epoch losses differ")
+    if bad:
+        fail("; ".join(bad))
+    shutil.rmtree(workdir)
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1043,6 +1391,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"sched launches (three supervisors, summed) {run_scheduler()}")
+    log(f"server launches (three supervisors, summed) {run_server()}")
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

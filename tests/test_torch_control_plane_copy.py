@@ -1,8 +1,9 @@
 """The port's control plane is the JAX package's, text for text.
 
-The scheduler and what it imports are pure Python that imports no JAX, so
-the port takes each module as it is, changing only the package name. This
-file holds each copy to its source:
+The control plane (the service and its CLI, the fleet, the scheduler,
+durability, replay and what they import) is pure Python that imports no
+JAX, so the port takes each module as it is, changing only the package
+name. This file holds each copy to its source:
 
 - drift: every module of COPIED equals the JAX package's file with
   ``vodascheduler_tpu`` replaced by ``vodascheduler_tpu_torch``;
@@ -45,39 +46,42 @@ COPIED = (
     "algorithms/elastic_tiresias.py", "algorithms/ffdl_optimizer.py",
     "algorithms/afsl.py", "algorithms/fastpath.py",
     "allocator/__init__.py", "allocator/allocator.py",
-    "durability/journal.py",
+    "durability/__init__.py", "durability/journal.py",
+    "durability/leader.py", "durability/snapshot.py",
+    "durability/recover.py", "durability/shipping.py",
+    "durability/standby.py",
     "cluster/backend.py", "cluster/fake.py",
     "metricscollector/__init__.py", "metricscollector/learned.py",
     "metricscollector/collector.py", "metricscollector/csv_logger.py",
-    "service/admission.py",
-    "scheduler/scheduler.py",
+    "service/__init__.py", "service/__main__.py", "service/admission.py",
+    "service/daemon.py", "service/rest.py",
+    "scheduler/__init__.py", "scheduler/scheduler.py", "scheduler/fleet.py",
+    "replay/__init__.py", "replay/trace.py", "replay/restart_costs.py",
+    "replay/simulator.py", "replay/whatif.py", "replay/compare.py",
+    "cli.py",
 )
 
 DIVERGED = {
-    "scheduler/__init__.py": "trimmed: no fleet (scheduler/fleet.py is not "
-                             "ported, ROADMAP A18)",
     "cluster/__init__.py": "trimmed: no gke or multihost backend (ROADMAP "
                            "A21); LocalBackend is the port's own",
-    "durability/__init__.py": "trimmed: the journal only (the rest of "
-                              "durability/ is ROADMAP A19)",
-    "service/__init__.py": "trimmed: admission only (the daemon, REST and "
-                           "app are ROADMAP A17)",
     "native/__init__.py": "the loader builds into build/native/<source "
                           "hash>/ with a per-process temporary name, not "
                           "beside its source under one fixed name",
     "cluster/local.py": "written for the card: torch.cuda.device_count, "
                         "CUDA_VISIBLE_DEVICES per grant, no VODA_TOPOLOGY, "
                         "the port's supervisor",
+    "service/app.py": "the monitor lines only (the reference's :381-386 "
+                      "and :394-410): the GPU monitor (runtime/"
+                      "gpu_monitor.py, NVML) under the reference's gate, "
+                      "sampling at min(30 s, the collector's interval), in "
+                      "place of the jax pin and the TPU monitor",
 }
 
 # Modules the copies import inside functions that the port does not hold
 # yet: module -> (what reaches it, the ROADMAP item that brings it).
 NOT_PORTED = {
-    "durability.recover": ("Scheduler(resume=True) with a journal", "A19"),
-    "durability.snapshot": ("Journal.has_state / compaction", "A19"),
-    "replay": ("Scheduler.whatif", "A20"),
-    "replay.restart_costs": ("migration pricing with a pool topology", "A20"),
-    "replay.trace": ("placement.comms.sanity_check_families", "A20"),
+    "cluster.gke": ("VodaApp(backend=\"gke\"), voda-server --backend gke",
+                    "A21"),
 }
 
 # The control plane's directories and files in the port: every file there
@@ -86,7 +90,8 @@ NOT_PORTED = {
 # torch and held by the parity tests.
 CONTROL_PLANE = ("common", "config.py", "obs", "native", "placement",
                  "algorithms", "allocator", "durability", "cluster",
-                 "metricscollector", "service", "scheduler")
+                 "metricscollector", "service", "scheduler", "replay",
+                 "cli.py")
 
 
 def _read(*parts):

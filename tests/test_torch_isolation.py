@@ -77,7 +77,11 @@ def test_scan_sees_the_whole_package():
             "allocator/allocator.py", "durability/journal.py",
             "cluster/backend.py", "cluster/fake.py", "cluster/local.py",
             "metricscollector/collector.py", "metricscollector/learned.py",
-            "service/admission.py", "scheduler/scheduler.py"} <= names
+            "service/admission.py", "scheduler/scheduler.py",
+            "scheduler/fleet.py", "durability/leader.py",
+            "durability/recover.py", "durability/standby.py",
+            "replay/simulator.py", "replay/whatif.py", "service/daemon.py",
+            "service/rest.py", "service/app.py", "cli.py"} <= names
     assert _forbidden("vodascheduler_tpu.models")
     assert not _forbidden("vodascheduler_tpu_torch.models")
 

@@ -2,9 +2,10 @@
 
 Reference counterpart: pkg/scheduler — the heart of the system
 (SURVEY.md §3.2).
-
-The port holds the per-pool `Scheduler`; the fleet layer
-(`scheduler/fleet.py`) is not ported yet.
 """
 
+from vodascheduler_tpu_torch.scheduler.fleet import (  # noqa: F401
+    FleetCoordinator,
+    FleetRouter,
+)
 from vodascheduler_tpu_torch.scheduler.scheduler import Scheduler  # noqa: F401
