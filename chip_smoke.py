@@ -10,14 +10,17 @@ Phases (any failure exits non-zero):
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
-     with q_offset and at a ragged query slice with q_offset, and at head
+     with q_offset and at a ragged query slice with q_offset, at head
      widths 16 and 96, which the kernels take zero-padded to 64 and 128 (as
      the attention operator sends them) against the plain versions at the
-     true width; then each timed
+     true width, and at widths 256 (4 heads) and 512 (2 heads), B=8,
+     S=2048, which the wide kernels take (flash_*_wide.cu); then each timed
      with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card, and dQ then
      dK/dV timed as one backward beside the library's backward; the padded
-     widths' forward and backward timed beside the library's;
+     widths' forward and backward timed beside the library's, and the
+     wide kernels at both widths (the library's backward above 256 is
+     autograd through scaled_dot_product_attention);
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -89,7 +92,28 @@ Phases (any failure exits non-zero):
      -> first step, B's wait and submit -> completed, the makespan, the
      passes of both servers and their median decide time. Every process
      of the server's and the jobs' sessions is killed at the end;
-  8. one JSON line of the kernels, then the device line last.
+  8. the repo's one-card example jobs through the server and the CLI, as
+     they are: examples/jobs/llama-real-text.yaml, digits-real-data.yaml
+     and examples/torch/custom-cnn.yaml, all Completed with a CSV row per
+     epoch, the text job launching K1-K3 with its last-epoch loss below
+     its first; each job's submit -> first step and submit -> completed;
+  9. the families at full width, B=8, through TrainSession on the card:
+     mnist_mlp, digits_mlp (the real digits), resnet50, bert_base,
+     vit_l16 and nmt_base, each's bf16 step against an fp32 twin of the
+     same weights (loss 2e-2 relative, each gradient's largest difference
+     5e-2 of its largest value; resnet50's, averaged over seeds 0-7,
+     0.135: TWIN_SEEDS), 3 steps on one batch (finite; digits_mlp's
+     falling; no kernel launched: these families keep the plain attention,
+     as in the reference), step ms, images or tokens per second and peak
+     memory; llama_350m_text (the real corpus) through phase 4's checks
+     (48/24/24 launches; its 5 steps on one batch finite, not held to
+     fall: the reference's own do not, and phase 8 holds its job's loss
+     to fall) and the twin check; a llama_350m-width bundle with
+     4 heads of 256 through the wide kernels, phase 4's checks, launches
+     48/24/24 of flash_*_wide;
+  10. one JSON line of the kernels, then the device line last.
+
+A line "phase N took T s" follows each phase.
 
 Needs CUDA and nvcc; imports nothing of JAX.
 """
@@ -273,25 +297,35 @@ def kernel_errors(fa, name, shape):
 
 def check_kernels(fa, cases):
     """Each kernel against its plain version at every case; returns the
-    errors at the main shape and fails after reporting every case."""
-    failures, main = [], {}
+    errors at the main shape, with each case's under its name, and fails
+    after reporting every case."""
+    failures, out = [], {}
     for name, shape in cases.items():
         errs, bad = kernel_errors(fa, name, shape)
         failures += [f"{name}: {b}" for b in bad]
-        if name == "main":
-            main = errs
+        out[name] = errs
     if failures:
         raise SystemExit("kernel check failed: " + "; ".join(failures))
-    return main
+    return {**out["main"], **out}
 
 
 def library_times(q, k, v, do, causal):
-    """PyTorch's own flash attention on the same inputs, timed as a
-    yardstick only (the port never calls it): (fwd_ms, bwd_ms)."""
+    """PyTorch's own attention on the same inputs, timed as a yardstick
+    only (the port never calls it): (fwd_ms, bwd_ms). The backward is the
+    flash backend's up to D=256; above that, where PyTorch's flash backend
+    stops, one autograd backward through scaled_dot_product_attention
+    (the backend it picks for that width)."""
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=causal))
+    if q.shape[-1] > 256:
+        qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
+        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
+        dot = do.transpose(1, 2)
+        bwd = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dot,
+                                                  retain_graph=True))
+        return fwd, bwd
     qc, kc, vc, doc = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     out, lse, cq, ck, mq, mk, seed, off = \
         torch.ops.aten._scaled_dot_product_flash_attention(
@@ -303,7 +337,10 @@ def library_times(q, k, v, do, causal):
     return fwd, bwd
 
 
-def time_kernels(fa, shape, errs):
+def time_kernels(fa, shape, errs, suffix=""):
+    """Each kernel (of the variant `suffix` names: "" or "_wide") timed
+    beside its plain version, the library's call and its bound; logged,
+    and returned as rows of the kernels' JSON line."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(2)
     q = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
@@ -313,22 +350,22 @@ def time_kernels(fa, shape, errs):
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     rows = {
-        "flash_fwd": dict(
+        f"flash_fwd{suffix}": dict(
             ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal, q_off), reps=10),
             b=bound(2, 4, 1, *shape), err=max(errs["o"], errs["lse"]),
             replaces=f"{TPU_SRC}:114",
-            source="vodascheduler_tpu_torch/ops/csrc/flash_fwd.cu"),
-        "flash_dq": dict(
+            source=f"vodascheduler_tpu_torch/ops/csrc/flash_fwd{suffix}.cu"),
+        f"flash_dq{suffix}": dict(
             ms=cuda_ms(lambda: fa.flash_dq(q, k, v, o, do, lse, causal,
                                            q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_dq_reference(
                 q, k, v, o, do, lse, causal, q_off), reps=10),
             b=bound(3, 6, 2, *shape), err=errs["dq_abs"],
             replaces=f"{TPU_SRC}:215",
-            source="vodascheduler_tpu_torch/ops/csrc/flash_dq.cu"),
-        "flash_dkv": dict(
+            source=f"vodascheduler_tpu_torch/ops/csrc/flash_dq{suffix}.cu"),
+        f"flash_dkv{suffix}": dict(
             ms=cuda_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
                                             q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_dkv_reference(
@@ -336,21 +373,21 @@ def time_kernels(fa, shape, errs):
             b=bound(4, 6, 2, *shape),
             err=max(errs["dk_abs"], errs["dv_abs"]),
             replaces=f"{TPU_SRC}:260",
-            source="vodascheduler_tpu_torch/ops/csrc/flash_dkv.cu"),
+            source=f"vodascheduler_tpu_torch/ops/csrc/flash_dkv{suffix}.cu"),
     }
     lib_fwd, lib_bwd = library_times(q, k, v, do, causal)
-    rows["flash_fwd"]["library_ms"] = lib_fwd
+    rows[f"flash_fwd{suffix}"]["library_ms"] = lib_fwd
     # The library's backward computes dq, dk and dv in one call; it stands
     # beside both backward kernels.
-    rows["flash_dq"]["library_ms"] = lib_bwd
-    rows["flash_dkv"]["library_ms"] = lib_bwd
+    rows[f"flash_dq{suffix}"]["library_ms"] = lib_bwd
+    rows[f"flash_dkv{suffix}"]["library_ms"] = lib_bwd
     for name, r in rows.items():
-        log(f"time[{name}] kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-            f"library_ms={r['library_ms']} bound_ms={r['b'][0]:.4f} "
+        log(f"time[{name}] D={D} H={H} kernel_ms={r['ms']:.4f} "
+            f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} bound_ms={r['b'][0]:.4f} "
             f"({r['b'][1]}) roofline_share={r['b'][0] / r['ms']:.3f}")
     bwd_ms = cuda_ms(backward_call(fa, q, k, v, o, do, lse, causal, q_off))
     b = bound(7, 8, 1, *shape)
-    log(f"time[backward] kernel_ms={bwd_ms:.4f} (flash_dq then flash_dkv) "
+    log(f"time[backward{suffix}] D={D} kernel_ms={bwd_ms:.4f} (dq then dkv) "
         f"library_ms={lib_bwd:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
         f"library_over_kernels={lib_bwd / bwd_ms:.3f}")
     return rows
@@ -507,10 +544,11 @@ def check_slice(gaps) -> list:
     return bad
 
 
-def train_and_count(fa, name, session, batch, want):
-    """5 steps on `batch` (finite, falling loss), then one counted step
-    that must launch each kernel as often as `want` says; returns the
-    counts."""
+def train_and_count(fa, name, session, batch, want, falling=True):
+    """5 steps on `batch` (finite loss, falling unless `falling` is off),
+    then one counted step that must launch each kernel as often as `want`
+    says (a kernel it does not name, no time); returns the counts."""
+    want = {**dict.fromkeys(fa.launches, 0), **want}
     losses, step_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for _ in range(5):
@@ -520,7 +558,8 @@ def train_and_count(fa, name, session, batch, want):
         step_ms.append(1e3 * (time.perf_counter() - t0))
     log(f"{name} losses={[round(x, 6) for x in losses]} "
         f"step_ms={[round(x, 3) for x in step_ms]}")
-    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+    if not all(math.isfinite(x) for x in losses) or (
+            falling and not losses[-1] < losses[0]):
         raise SystemExit(f"{name}: training loss is not finite and falling")
 
     # The path, counted: one step with every count at 0 before it.
@@ -553,11 +592,15 @@ def step_mfu(session, step_ms: float) -> float:
     return flops / (step_ms / 1e3) / hwbench.peak_flops_per_device()
 
 
-def build_slice(model: str):
+def build_slice(model):
+    """A TrainSession of `model` (a registry name or a bundle) at B=8 on
+    the card, its step through the kernels checked against the plain
+    attention (slice_gaps); returns (session, batch)."""
     from vodascheduler_tpu_torch.models import get_model
     from vodascheduler_tpu_torch.runtime import TrainSession
 
-    bundle = get_model(model)
+    bundle = get_model(model) if isinstance(model, str) else model
+    model = bundle.name
     session = TrainSession(bundle, 1, global_batch_size=8)
     from vodascheduler_tpu_torch.runtime import hwbench
 
@@ -578,11 +621,16 @@ def build_slice(model: str):
     return session, batch
 
 
-def run_slice(fa, model="llama_350m", tag="slice"):
+def run_slice(fa, model="llama_350m", tag="slice", suffix=""):
+    """build_slice, then train_and_count: K1 twice a layer (full remat),
+    K2 and K3 once, of the variant `suffix` names."""
     session, batch = build_slice(model)
     L = session.bundle.cfg.num_layers
-    return train_and_count(fa, tag, session, batch,
-                           {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L})
+    counts = train_and_count(fa, tag, session, batch,
+                             {f"flash_fwd{suffix}": 2 * L,
+                              f"flash_dq{suffix}": L,
+                              f"flash_dkv{suffix}": L})
+    return counts, session, batch
 
 
 def run_benches():
@@ -770,7 +818,7 @@ def run_job_cycle():
     bad = []
     if rc != 0 or not resumed:
         bad.append(f"restart gave exit {rc}, resumed line {resumed}")
-    if not fa_launches or min(fa_launches.values()) < 1:
+    if not fa_launches or min(fa_launches[k] for k in KERNELS) < 1:
         bad.append(f"the restarted job launched {fa_launches}")
     if sorted(losses) != list(range(JOB_EPOCHS)) or not all(
             math.isfinite(x) for x in losses.values()):
@@ -1323,6 +1371,344 @@ def run_server():
     return {k: sum(c[k] for c in counts) for k in KERNELS}
 
 
+# ---------------------------------------------------------------------------
+# the model families at full width (phase 9)
+# ---------------------------------------------------------------------------
+
+# The families driven at their published widths, B=8: each bundle's own
+# synthetic batch, or the real digits; llama_350m_text on the real corpus.
+FAMILIES = ("mnist_mlp", "digits_mlp", "resnet50", "bert_base", "vit_l16",
+            "nmt_base")
+# bf16 against an fp32 twin of the same weights: the step-0 loss, relative,
+# and each gradient's largest difference over its own largest value (the
+# bars of phase 4's comparison).
+TWIN_LIMITS = {"loss": 2e-2, "grad": 5e-2}
+# resnet50's bf16 gradients are further from fp32 than TWIN_LIMITS at
+# every seed, the reference's too (0.076 at its seed, scripts/
+# reference_twin_gap.py), and the gap moves more with the seed than a
+# precision fault moves it at one seed: conv_init's weight gradient, a sum
+# over B·112² positions, at the end of 53 bf16 convolutions whose
+# BatchNorm normalises nothing. scripts/resnet_twin_gap.py on the card,
+# seeds 0-7: sound 0.075-0.161 (exact fp32 sums read the same, so it is
+# not cuDNN's arithmetic); one convolution at 5 mantissa bits adds
+# 0.003-0.05 at a seed. Over 8 seeds (weights and batch) the means
+# separate: sound 0.115, the smallest planted fault 0.153. So resnet50's
+# reading is the mean of its worst gradient gap over TWIN_SEEDS seeds.
+TWIN_SEEDS = {"resnet50": 8}
+TWIN_GRAD_LIMITS = {"resnet50": 0.135}
+
+
+def twin_gaps(bundle, module, batch):
+    """One forward and backward of `module` (the bundle's dtype, its
+    kernels if it has them) against an fp32 twin with the same weights
+    and the plain attention, on `batch`: {"loss": relative gap, "grad":
+    worst max|g - g_twin| / max|g_twin| over the parameters, "grad_param":
+    where, "finite": the loss is}. Convolutions of the twin run in full
+    fp32 (cuDNN's TF32 off)."""
+    cfg = module.cfg
+    twin_cfg = (dataclasses.replace(cfg, dtype="float32")
+                if hasattr(cfg, "dtype") else cfg)
+    device = next(module.parameters()).device
+    twin = type(module)(twin_cfg, device=device)
+    twin.load_state_dict(module.state_dict())
+
+    def loss_and_grads(m):
+        m.zero_grad(set_to_none=True)
+        loss = bundle.loss_fn(m, batch)
+        loss.backward()
+        grads = {n: p.grad.float() for n, p in m.named_parameters()}
+        m.zero_grad(set_to_none=True)
+        return loss.item(), grads
+
+    loss, grads = loss_and_grads(module)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        loss_t, grads_t = loss_and_grads(twin)
+    del twin
+    gap = {n: ((grads[n] - grads_t[n]).abs().max()
+               / grads_t[n].abs().max().clamp_min(1e-30)).item()
+           for n in grads_t}
+    worst = max(gap, key=gap.get)
+    return {"loss": abs(loss - loss_t) / abs(loss_t), "grad": gap[worst],
+            "grad_param": worst, "finite": math.isfinite(loss),
+            "loss_bf16": loss, "loss_fp32": loss_t}
+
+
+def family_twin(name, session, batch) -> dict:
+    """twin_gaps of family `name` on `session` (seed 0) and `batch`, or,
+    for a name of TWIN_SEEDS, over that many seeds: the worst loss gap,
+    the mean of the worst gradient gaps (each seed's in "grad_by_seed"),
+    seed 0's worst parameter, and whether every loss is finite."""
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    readings = [twin_gaps(session.bundle, session.module, batch)]
+    for seed in range(1, TWIN_SEEDS.get(name, 1)):
+        other = TrainSession(get_model(name), 1, global_batch_size=8,
+                             seed=seed)
+        readings.append(twin_gaps(other.bundle, other.module,
+                                  other.make_batch()))
+        del other
+    if len(readings) == 1:
+        return readings[0]
+    return {"loss": max(r["loss"] for r in readings),
+            "grad": statistics.fmean(r["grad"] for r in readings),
+            "grad_by_seed": [round(r["grad"], 6) for r in readings],
+            "grad_param": readings[0]["grad_param"],
+            "finite": all(r["finite"] for r in readings)}
+
+
+def check_twin(name, gaps) -> list:
+    limits = dict(TWIN_LIMITS, grad=TWIN_GRAD_LIMITS.get(
+        name, TWIN_LIMITS["grad"]))
+    bad = [f"{n}={gaps[n]:.3g}>{lim}" for n, lim in limits.items()
+           if not gaps[n] <= lim]
+    if not gaps["finite"]:
+        bad.append("loss not finite")
+    log(f"family[{name}] bf16 vs fp32 twin: "
+        + " ".join(f"{n}={v:.6g}" if isinstance(v, float) else f"{n}={v}"
+                   for n, v in gaps.items())
+        + (" FAIL " + ",".join(bad) if bad else " ok"))
+    return bad
+
+
+def family_step_report(name, session, batch, steps=3):
+    """`steps` steps on one batch, timed: the losses, step ms (median of
+    those after the first), throughput and peak memory; logged."""
+    losses, step_ms = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(session.train_step(batch).item())
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+    steady = statistics.median(step_ms[1:])
+    per_step = (session.global_batch_size * session.bundle.seq_len
+                if session.bundle.seq_len else session.global_batch_size)
+    unit = "tokens" if session.bundle.seq_len else "images"
+    log(f"family[{name}] losses={[round(x, 6) for x in losses]} "
+        f"step_ms={[round(x, 3) for x in step_ms]} "
+        f"step_ms_steady={steady:.3f} {unit}_per_s="
+        f"{per_step / steady * 1e3:.1f} peak_mem_gb="
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} params="
+        f"{sum(p.numel() for p in session.module.parameters())}")
+    return losses
+
+
+def run_families(fa):
+    """Phase 9: every family that fits one card, at full width, through
+    TrainSession on the card. Each: its bf16 step against an fp32 twin
+    (TWIN_LIMITS), 3 steps (finite; digits_mlp's falling) with no kernel
+    launched (no `attn_fn`: the plain attention, as in the reference).
+    llama_350m_text: the twin check, then phase 4's checks (the kernels
+    against the plain attention, 5 finite steps, 48/24/24 launches).
+    Then a llama_350m-width bundle with 4 heads of 256 (a user's model the
+    JAX package trains) through the wide kernels, launches 48/24/24.
+    Returns the counted launches of the two Llama runs."""
+    from vodascheduler_tpu_torch.models import get_model, llama
+    from vodascheduler_tpu_torch.models.registry import llama_bundle
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    failures = []
+    for name in FAMILIES:
+        t0 = time.perf_counter()
+        session = TrainSession(get_model(name), 1, global_batch_size=8)
+        batch = session.make_batch()
+        failures += [f"{name}: {b}" for b in check_twin(
+            name, family_twin(name, session, batch))]
+        fa.reset_launches()
+        losses = family_step_report(name, session, batch)
+        if any(fa.launches.values()):
+            failures.append(f"{name}: launched {fa.launches}")
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"{name}: losses {losses}")
+        if name == "digits_mlp" and not losses[-1] < losses[0]:
+            failures.append(f"{name}: loss not falling {losses}")
+        log(f"family[{name}] phase_s={time.perf_counter() - t0:.1f}")
+        del session, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("families: " + "; ".join(failures))
+
+    session, batch = build_slice("llama_350m_text")
+    if check_twin("llama_350m_text",
+                  twin_gaps(session.bundle, session.module, batch)):
+        raise SystemExit("families: llama_350m_text's bf16 step disagrees "
+                         "with its fp32 twin")
+    L = session.bundle.cfg.num_layers
+    # The byte-level model on one batch of real text does not fall step by
+    # step at the bundles' learning rate (1e-3, no warmup), the frequent
+    # bytes' rows all moving by lr at once: the JAX package's own first
+    # steps read 6.19, 5.49, 11.30, 5.18, 8.47 in fp32 at S=256, and the
+    # port's in fp32 at this S=2048 6.15, 6.05, 11.22, 6.65, 5.31, where
+    # the fifth falls below the first or not by the batch
+    # (scripts/text_lm_first_steps.py). Its falling loss is held over the
+    # job's 80 steps instead (phase 8: the last epoch below the first).
+    counts = train_and_count(
+        fa, "text", session, batch,
+        {"flash_fwd": 2 * L, "flash_dq": L, "flash_dkv": L}, falling=False)
+    del session, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide_cfg = dataclasses.replace(llama.LLAMA_350M, num_heads=4,
+                                   num_kv_heads=2)
+    wide, session, _ = run_slice(
+        fa, llama_bundle("llama_350m_d256", wide_cfg, 2048), "d256",
+        suffix="_wide")
+    del session
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**counts, **{k: v for k, v in wide.items() if "_wide" in k}}
+
+
+# ---------------------------------------------------------------------------
+# the repo's one-card example jobs through the server (phase 8)
+# ---------------------------------------------------------------------------
+
+EXAMPLE_JOBS = ("examples/jobs/llama-real-text.yaml",
+                "examples/jobs/digits-real-data.yaml",
+                "examples/torch/custom-cnn.yaml")
+
+
+def run_example_jobs(jobs=EXAMPLE_JOBS, hermetic=False):
+    """Phase 8: `python -m vodascheduler_tpu_torch.service` on one card
+    (ElasticFIFO) takes the repo's one-card example jobs from `cli create
+    -f`, as they are: llama-real-text, digits-real-data, then the port's
+    custom CNN. Each must reach Completed with one CSV row per epoch; the
+    text job must launch K1, K2 and K3 and end its last epoch below its
+    first epoch's loss. Printed: each job's submit -> first step and
+    submit -> completed. `jobs` and `hermetic` (the server on a CPU
+    "card", jobs under VODA_FORCE_CPU_DEVICES) are for a rehearsal off the
+    card."""
+    import yaml
+
+    from vodascheduler_tpu_torch.metricscollector.csv_logger import (
+        read_epoch_csv,
+    )
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_examples")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    sp, cp, ap = _free_ports(3)
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""),
+               VODA_SERVICE_PORT=str(sp), VODA_SCHEDULER_PORT=str(cp),
+               VODA_ALLOCATOR_PORT=str(ap), VODA_RATE_LIMIT_SECONDS="0.5")
+    if not hermetic:
+        env.pop("VODA_FORCE_CPU_DEVICES", None)
+    svc, sch = f"http://127.0.0.1:{sp}", f"http://127.0.0.1:{cp}"
+    jobs_dir = os.path.join(workdir, "jobs")
+    specs = {}
+    for path in jobs:
+        with open(os.path.join(REPO, path)) as f:
+            specs[path] = yaml.safe_load(f)
+    names, submitted, first_step, done = {}, {}, {}, {}
+    log_path = os.path.join(workdir, "server.log")
+    with open(log_path, "w") as out:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "vodascheduler_tpu_torch.service",
+             "--workdir", workdir, "--chips", "1", "--algorithm",
+             "ElasticFIFO"] + (["--hermetic-devices", "1"] if hermetic
+                               else []), env=env, cwd=REPO, stdout=out,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+    def job_log(path):
+        f = os.path.join(jobs_dir, names[path], "supervisor.log")
+        return _text(os.path.dirname(f), "supervisor.log") \
+            if os.path.exists(f) else ""
+
+    def fail(why):
+        raise SystemExit(f"examples: {why}\n--- server\n"
+                         + _text(workdir, "server.log")[-3000:] + "\n"
+                         + "\n".join(f"--- {p}\n{job_log(p)[-3000:]}"
+                                     for p in names))
+
+    def statuses():
+        code, body = _http(f"{svc}/training")
+        return ({j["name"]: j["status"] for j in json.loads(body)}
+                if code == 200 else {})
+
+    def cli(*args):
+        proc = subprocess.run(
+            [sys.executable, "-m", "vodascheduler_tpu_torch.cli", "--server",
+             svc, "--scheduler-server", sch, *args], env=env, cwd=REPO,
+            capture_output=True, text=True, timeout=120)
+        return proc.returncode, proc.stdout + proc.stderr
+
+    def wait(cond, what, timeout):
+        deadline = time.monotonic() + timeout
+        while not cond():
+            if server.poll() is not None:
+                fail(f"the server exited ({server.returncode}) before {what}")
+            if time.monotonic() > deadline:
+                fail(f"timed out waiting for {what}; {statuses()}")
+            now = time.monotonic()
+            for p in names:
+                if p not in first_step and "warmup step" in job_log(p):
+                    first_step[p] = now
+                if p not in done and statuses().get(names[p]) in (
+                        "Completed", "Failed"):
+                    done[p] = now
+            time.sleep(0.2)
+
+    try:
+        wait(lambda: _http(f"{svc}/training")[0] == 200,
+             "the server to answer", 120)
+        for path in jobs:
+            submitted[path] = time.monotonic()
+            rc, out = cli("create", "-f", os.path.join(REPO, path))
+            m = re.fullmatch(r"job created: (\S+)\n", out)
+            if rc != 0 or m is None:
+                fail(f"voda create -f {path} gave {rc}: {out}")
+            names[path] = m.group(1)
+        wait(lambda: len(done) == len(jobs), "the jobs to end", 900)
+        rc, listing = cli("get", "jobs")
+        server.send_signal(signal.SIGINT)
+        server.wait(timeout=120)
+    finally:
+        if server.poll() is None:
+            os.killpg(server.pid, signal.SIGKILL)
+            server.wait()
+        for pid in _supervisor_pids(workdir):
+            try:
+                os.killpg(pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+
+    bad = []
+    final = statuses() or dict(re.findall(r"^(\S+)\s+default\s+(\S+)",
+                                          listing, re.M))
+    for path in jobs:
+        text = job_log(path)
+        losses = _epoch_losses(text)
+        epochs = specs[path]["config"]["epochs"]
+        rows = [r["epoch"] for r in read_epoch_csv(os.path.join(
+            jobs_dir, "metrics", f"{names[path]}.csv"))]
+        launches = [json.loads(m) for m in re.findall(
+            r"^kernel launches (.*)$", text, re.M)]
+        status = final.get(names[path])
+        log(f"examples[{specs[path]['name']}] model={specs[path]['model']} "
+            f"status={status} submit->first_step_s="
+            f"{first_step.get(path, math.nan) - submitted[path]:.3f} "
+            f"submit->completed_s={done[path] - submitted[path]:.3f} "
+            f"epoch_losses={losses} csv_epochs={rows} launches={launches}")
+        if rows != [str(e) for e in range(epochs)] or sorted(losses) != list(
+                range(epochs)):
+            bad.append(f"{path}: csv epochs {rows}, loss lines {losses}")
+        if path.endswith("llama-real-text.yaml"):
+            if not launches or any(min(c[k] for k in KERNELS) < 1
+                                   for c in launches):
+                bad.append(f"{path}: kernel launches {launches}")
+            if not losses.get(epochs - 1, math.inf) < losses.get(0, -1):
+                bad.append(f"{path}: last-epoch loss not below the first")
+    if rc != 0 or sorted(final.get(n) for n in names.values()) != [
+            "Completed"] * len(jobs):
+        bad.append(f"statuses {final}; voda get jobs gave {rc}: {listing}")
+    if bad:
+        fail("; ".join(bad))
+    shutil.rmtree(workdir)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1337,6 +1723,15 @@ def main() -> int:
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+
+    start = last = time.perf_counter()
+
+    def phase(name):
+        nonlocal last
+        now = time.perf_counter()
+        log(f"phase {name} took {now - last:.1f} s ({now - start:.1f} s "
+            "in all)")
+        last = now
 
     t0 = time.perf_counter()
     libs = _build.build()
@@ -1365,14 +1760,21 @@ def main() -> int:
              "d16": (2, 4, 1024, 1024, 16, True, 0),
              "d96": (2, 4, 1024, 1024, 96, True, 0),
              "q_offset": (2, 4, 512, 2048, 64, True, 1536),
-             "ragged_q_offset": (2, 4, 320, 1344, 64, True, 1024)}
+             "ragged_q_offset": (2, 4, 320, 1344, 64, True, 1024),
+             # head widths above 128: the wide kernels, at llama_350m's
+             # width in 4 heads of 256 and in 2 heads of 512
+             "d256": (8, 4, 2048, 2048, 256, True, 0),
+             "d512": (8, 2, 2048, 2048, 512, True, 0)}
     errs = check_kernels(fa, cases)
     rows = time_kernels(fa, main_shape, errs)
     for name in ("d16", "d96"):
         time_padded(fa, name, cases[name])
+    rows.update(time_kernels(fa, cases["d256"], errs["d256"], "_wide"))
+    time_kernels(fa, cases["d512"], errs["d512"], "_wide")
     torch.cuda.empty_cache()
+    phase("3 kernels")
 
-    counts = run_slice(fa)
+    counts = run_slice(fa)[0]
     gc.collect()
     torch.cuda.empty_cache()
     run_af_slice(fa)
@@ -1387,11 +1789,20 @@ def main() -> int:
     run_af_slice(fa, "mixtral_small_af", "moe_af")
     gc.collect()
     torch.cuda.empty_cache()
+    phase("4-5d slices and the job")
     run_benches()
     gc.collect()
     torch.cuda.empty_cache()
+    phase("5e hwbench")
     log(f"sched launches (three supervisors, summed) {run_scheduler()}")
+    phase("6 scheduler")
     log(f"server launches (three supervisors, summed) {run_server()}")
+    phase("7 server")
+    run_example_jobs()
+    phase("8 example jobs")
+    counts.update({k: v for k, v in run_families(fa).items()
+                   if k.endswith("_wide")})
+    phase("9 families")
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

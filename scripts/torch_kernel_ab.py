@@ -53,7 +53,9 @@ def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
     build.CSRC, build.BUILD_ROOT = Path(csrc), Path(build_root)
     build._libs.clear()
     out = {}
-    for name, path in build.build().items():
+    # an older tree may lack sources the package has since gained
+    present = [n for n in build.SOURCES if (Path(csrc) / f"{n}.cu").exists()]
+    for name, path in build.build(present).items():
         fn = getattr(ctypes.CDLL(str(path)), f"voda_{name}")
         fn.argtypes = fa._ARGTYPES[name]
         fn.restype = ctypes.c_int

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels against their plain versions, and the session
-that runs them, on the card.
+"""The port's CUDA kernels against their plain versions (the wide kernels
+above D=128 too), and the session that runs them, on the card: the
+families without `attn_fn` take their steps with no kernel, llama_tiny_text
+through K1-K3.
 
 Marked `cuda`: each test skips without a CUDA device (decided inside the
 fixture, never at import). On a machine with an H100 and nvcc:
@@ -24,6 +26,11 @@ from chip_smoke import LIMITS, row_err  # noqa: E402
 from vodascheduler_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def _counts(**launched):
+    """Every kernel's count: those named, the others 0."""
+    return {**dict.fromkeys(fa.launches, 0), **launched}
 
 
 @pytest.fixture
@@ -74,8 +81,8 @@ def test_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
     for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= LIMITS[f"{n}_row"], n
-    assert {n: fa.launches[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd=1, flash_dq=1, flash_dkv=1)
 
 
 @pytest.mark.parametrize("D", [16, 32, 96])
@@ -101,8 +108,8 @@ def test_padded_kernels_match_plain_versions(cuda, D):
     for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= LIMITS[f"{n}_row"], n
-    assert {n: fa.launches[n] - before[n] for n in before} == {
-        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd=1, flash_dq=1, flash_dkv=1)
 
 
 @pytest.mark.parametrize("model", ["llama_tiny", "mixtral_tiny"])
@@ -146,7 +153,7 @@ def test_autograd_goes_through_the_kernels(cuda):
                .bfloat16().requires_grad_() for _ in range(3))
     fa.reset_launches()
     fa.flash_attention(q, k, v).float().sum().backward()
-    assert fa.launches == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert fa.launches == _counts(flash_fwd=1, flash_dq=1, flash_dkv=1)
     with pytest.raises(TypeError):
         fa.flash_attention(q.float(), k.float(), v.float())
 
@@ -191,7 +198,7 @@ def test_remat_policy_sets_the_forward_launches(cuda, policy, fwd):
     loss = session.train_step(batch)
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert fa.launches == {"flash_fwd": fwd, "flash_dq": 2, "flash_dkv": 2}
+    assert fa.launches == _counts(flash_fwd=fwd, flash_dq=2, flash_dkv=2)
 
 
 @pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
@@ -240,7 +247,7 @@ def test_mixtral_remat_policy_sets_the_forward_launches(cuda, policy, fwd):
     loss = session.train_step(batch)
     torch.cuda.synchronize()
     assert torch.isfinite(loss)
-    assert fa.launches == {"flash_fwd": fwd, "flash_dq": 2, "flash_dkv": 2}
+    assert fa.launches == _counts(flash_fwd=fwd, flash_dq=2, flash_dkv=2)
 
 
 def test_dispatches_agree_on_the_card(cuda):
@@ -266,3 +273,93 @@ def test_dispatches_agree_on_the_card(cuda):
     assert torch.isfinite(out["gather"]).all()
     assert (out["gather"] - out["routed"]).abs().max().item() < 1e-2
     assert (out["dense"] - out["routed"]).abs().max().item() < 5e-2
+
+
+# ---- head widths above 128: the wide kernels ---------------------------------
+
+
+@pytest.mark.parametrize("causal,S,D,q_off,Sq", [
+    (True, 200, 256, 0, 200),
+    (False, 70, 256, 0, 130),
+    (True, 300, 384, 230, 70),
+    (True, 128, 512, 0, 128),
+    (True, 65, 256, 0, 65),    # one row past a 64-row tile
+])
+def test_wide_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
+    """D > 128 (a multiple of 128) runs the wide kernels, each against its
+    plain version by chip_smoke.py's bars, and counts under its own name."""
+    g = torch.Generator(cuda).manual_seed(5)
+    q, do = (torch.randn(2, Sq, 3, D, generator=g, device=cuda).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(2, S, 3, D, generator=g, device=cuda).bfloat16()
+            for _ in range(2))
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
+                                              q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            q_off)
+    torch.cuda.synchronize()
+    assert row_err(o, o_ref) <= LIMITS["o_row"]
+    assert (lse - lse_ref).abs().max().item() <= LIMITS["lse"]
+    assert (delta - delta_ref).abs().max().item() <= LIMITS["delta"]
+    for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                        ("dv", dv, dv_ref)):
+        assert row_err(got, ref) <= LIMITS[f"{n}_row"], n
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_wide=1, flash_dq_wide=1, flash_dkv_wide=1)
+
+
+def test_autograd_goes_through_the_wide_kernels(cuda):
+    g = torch.Generator(cuda).manual_seed(6)
+    q, k, v = (torch.randn(1, 192, 2, 256, generator=g, device=cuda)
+               .bfloat16().requires_grad_() for _ in range(3))
+    fa.reset_launches()
+    fa.flash_attention(q, k, v).float().sum().backward()
+    assert fa.launches == _counts(flash_fwd_wide=1, flash_dq_wide=1,
+                                  flash_dkv_wide=1)
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
+        fa.flash_attention(q[..., :200], k[..., :200], v[..., :200])
+
+
+# ---- the families on the card ------------------------------------------------
+
+
+@pytest.mark.parametrize("model", ["bert_tiny", "resnet_tiny", "nmt_tiny",
+                                   "vit_tiny", "digits_mlp"])
+def test_families_take_a_step_on_the_card(cuda, model, monkeypatch):
+    """A family without `attn_fn` trains on the card with its plain
+    attention and launches no kernel; a BatchNorm model's statistics stay
+    where they were."""
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
+    session = TrainSession(get_model(model), global_batch_size=2,
+                           device=cuda)
+    buffers = {n: b.clone() for n, b in session.module.named_buffers()}
+    fa.reset_launches()
+    losses = [session.train_step(session.make_batch()) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x) for x in losses)
+    assert fa.launches == _counts()
+    for n, b in session.module.named_buffers():
+        assert torch.equal(b, buffers[n]), n
+
+
+def test_llama_tiny_text_step_launches_the_kernels(cuda, monkeypatch):
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
+    session = TrainSession(get_model("llama_tiny_text"), global_batch_size=2,
+                           device=cuda)
+    batch = session.make_batch()
+    assert batch["inputs"].device.type == "cuda"
+    fa.reset_launches()
+    loss = session.train_step(batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    # LLAMA_TINY: 2 layers, no remat, so K1 once a layer
+    assert fa.launches == _counts(flash_fwd=2, flash_dq=2, flash_dkv=2)

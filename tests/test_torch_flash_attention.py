@@ -243,9 +243,11 @@ def test_kernel_head_dim_is_the_next_kernel_width(D, width):
     assert fa.kernel_head_dim(D) == width
 
 
-@pytest.mark.parametrize("D", [129, 192, 256])
+@pytest.mark.parametrize("D", [129, 192, 320])
 def test_heads_wider_than_the_kernels_raise(D):
-    with pytest.raises(NotImplementedError, match="C2"):
+    """Above 128 only multiples of 128 run (the wide kernels), by the JAX
+    package's rule; tests/test_torch_flash_attention_wide.py holds them."""
+    with pytest.raises(NotImplementedError, match="multiple of 128"):
         fa.kernel_head_dim(D)
 
 

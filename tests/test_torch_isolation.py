@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: an AST scan of its sources.
 
-- no module of the port, and neither chip_smoke.py nor
-  scripts/torch_step_profile.py, imports jax, flax, optax or
-  anything of vodascheduler_tpu;
+- no module of the port, no script of examples/torch/, and neither
+  chip_smoke.py nor scripts/torch_step_profile.py, imports jax, flax,
+  optax or anything of vodascheduler_tpu;
 - the port calls no library attention and compiles nothing with
   torch.compile: its attention is its own kernels;
 - the CUDA path of flash attention has no try/except that could fall back
@@ -27,6 +27,12 @@ def _package_sources():
     return sorted(out)
 
 
+def _example_sources():
+    root = os.path.join(REPO, "examples", "torch")
+    return sorted(os.path.join(root, f) for f in os.listdir(root)
+                  if f.endswith(".py"))
+
+
 def _tree(path):
     with open(path) as f:
         return ast.parse(f.read(), filename=path)
@@ -47,7 +53,7 @@ def _forbidden(module: str) -> bool:
 
 
 @pytest.mark.parametrize(
-    "path", _package_sources() + [
+    "path", _package_sources() + _example_sources() + [
         os.path.join(REPO, "chip_smoke.py"),
         os.path.join(REPO, "scripts", "torch_step_profile.py")],
     ids=lambda p: os.path.relpath(p, REPO))
@@ -61,7 +67,9 @@ def test_scan_sees_the_whole_package():
     assert {"bridge.py", "device.py", "ops/flash_attention.py",
             "ops/_build.py", "ops/chunked_ce.py", "ops/moe_dispatch.py",
             "models/layers.py", "models/llama.py", "models/mixtral.py",
-            "models/registry.py", "runtime/hwbench.py",
+            "models/registry.py", "models/mlp.py", "models/resnet.py",
+            "models/bert.py", "models/vit.py", "models/nmt.py",
+            "data/real.py", "data/__init__.py", "runtime/hwbench.py",
             "runtime/train.py", "runtime/optim.py", "runtime/checkpoint.py",
             "runtime/supervisor.py", "runtime/gpu_monitor.py",
             "common/job.py", "common/types.py",
@@ -82,6 +90,10 @@ def test_scan_sees_the_whole_package():
             "durability/recover.py", "durability/standby.py",
             "replay/simulator.py", "replay/whatif.py", "service/daemon.py",
             "service/rest.py", "service/app.py", "cli.py"} <= names
+    examples = {os.path.basename(p) for p in _example_sources()}
+    assert {"elastic_loop.py", "mnist_mlp_elastic.py",
+            "digits_real_data_elastic.py", "cifar10_resnet_elastic.py",
+            "synthetic_benchmark.py", "custom_cnn_script.py"} <= examples
     assert _forbidden("vodascheduler_tpu.models")
     assert not _forbidden("vodascheduler_tpu_torch.models")
 

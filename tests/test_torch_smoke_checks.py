@@ -161,3 +161,64 @@ def test_routing_replay_pins_the_first_pass_experts():
         assert torch.equal(gate > 0, want), layer
     assert sorted(replay.differ) == list(range(L))
     assert replay.shares(module.cfg)["routing_differs"] > 0
+
+
+@pytest.mark.parametrize("name", ["bert_tiny", "vit_tiny", "mnist_mlp"])
+def test_twin_gaps_of_a_family(name):
+    """The families phase's twin comparison, on the CPU: the bundle's bf16
+    model against an fp32 twin of the same weights stays inside its bars,
+    and an fp32 model against its own twin reads 0."""
+    import dataclasses
+
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    session = TrainSession(get_model(name), global_batch_size=2,
+                           device="cpu")
+    batch = session.make_batch()
+    gaps = chip_smoke.twin_gaps(session.bundle, session.module, batch)
+    assert chip_smoke.check_twin(name, gaps) == []
+    if hasattr(session.bundle.cfg, "dtype"):
+        assert gaps["loss"] > 0  # the bf16 model is not its twin
+        fp32 = type(session.module)(dataclasses.replace(
+            session.bundle.cfg, dtype="float32"))
+        fp32.load_state_dict(session.module.state_dict())
+        exact = chip_smoke.twin_gaps(session.bundle, fp32, batch)
+    else:
+        exact = gaps
+    assert exact["loss"] == 0 and exact["grad"] == 0
+
+
+def test_family_twin_reads_a_name_of_twin_seeds_over_its_seeds(monkeypatch):
+    """resnet50's twin reading is the mean of the worst gradient gap over
+    TWIN_SEEDS seeds, each seed's session built as TrainSession(seed=s);
+    a family outside TWIN_SEEDS is read at its own session alone."""
+    import functools
+    import statistics
+
+    import vodascheduler_tpu_torch.runtime as runtime
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import train
+
+    cpu_session = functools.partial(train.TrainSession, device="cpu")
+    monkeypatch.setattr(runtime, "TrainSession", cpu_session)
+    monkeypatch.setitem(chip_smoke.TWIN_SEEDS, "resnet_tiny", 3)
+    assert chip_smoke.TWIN_SEEDS["resnet50"] == 8
+    per_seed = []
+    for seed in range(3):
+        s = cpu_session(get_model("resnet_tiny"), global_batch_size=8,
+                        seed=seed)
+        per_seed.append(chip_smoke.twin_gaps(s.bundle, s.module,
+                                             s.make_batch()))
+    session = cpu_session(get_model("resnet_tiny"), global_batch_size=8)
+    got = chip_smoke.family_twin("resnet_tiny", session,
+                                 session.make_batch())
+    assert got["grad_by_seed"] == [round(r["grad"], 6) for r in per_seed]
+    assert got["grad"] == pytest.approx(
+        statistics.fmean(r["grad"] for r in per_seed), rel=1e-12)
+    assert got["loss"] == max(r["loss"] for r in per_seed)
+    assert got["finite"] and got["grad_param"] == per_seed[0]["grad_param"]
+    monkeypatch.delitem(chip_smoke.TWIN_SEEDS, "resnet_tiny")
+    alone = chip_smoke.family_twin("resnet_tiny", session,
+                                   session.make_batch())
+    assert alone == per_seed[0]

@@ -142,8 +142,10 @@ def test_registry_ports_the_single_card_adamw_llamas():
     for name in ("llama_1b", "llama_350m_af", "llama_350m_8k_af"):
         bundle = get_model(name)
         assert bundle.name == name and bundle.optimizer == "adafactor"
-    for name in ("llama3_8b", "llama8b", "llama_tiny_text", "llama_350m_text",
-                 "mixtral_8x7b"):
+    for name in ("llama_tiny_text", "llama_350m_text"):
+        bundle = get_model(name)  # the real corpus: ported with the data
+        assert bundle.name == name and bundle.optimizer == "adamw"
+    for name in ("llama3_8b", "llama8b", "mixtral_8x7b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_model(name)
     with pytest.raises(ValueError):

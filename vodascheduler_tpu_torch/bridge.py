@@ -1,5 +1,14 @@
-"""Weights between the JAX package's Llama and Mixtral params and the
-port's state_dict.
+"""Weights between the JAX package's params and the port's state_dict.
+
+Llama and Mixtral (`flax_to_state_dict`, `state_dict_to_flax`) name their
+layers apart, as below. The other families (MLP, ResNet, BERT, ViT, NMT:
+`mlp_to_state_dict`, `resnet_to_state_dict`, ... and their `*_to_flax`)
+name every submodule as flax does, so a leaf's path maps to its key by
+joining with dots, and only the layouts change (`tree_to_state_dict`):
+Dense kernels ``[in, out]`` become ``[out, in]``, DenseGeneral q/k/v
+kernels ``[D, H, hd]`` become ``[H·hd, D]``, Conv kernels HWIO become
+OIHW, an Embed's ``embedding`` becomes ``weight``, and ResNet's
+``batch_stats`` (``mean``, ``var``) become buffers of the same names.
 
 The reference's params are a nested dict of numpy arrays, as
 ``jax.tree.map(np.asarray, params)`` gives them. A scanned config
@@ -175,3 +184,103 @@ def _map(fn, *trees):
     if isinstance(trees[0], dict):
         return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
     return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# the other families: MLP, ResNet, BERT, ViT, NMT
+# ---------------------------------------------------------------------------
+
+_QKV = ("q_proj", "k_proj", "v_proj")
+
+
+def _flat(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def tree_to_state_dict(params: Dict[str, Any],
+                       batch_stats: Dict[str, Any] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """A family's flax params (and batch_stats) -> the port's state_dict,
+    for modules named as flax names them. Also carries gradients, which
+    have the params' layout."""
+    out = {}
+    for path, a in _flat(params).items():
+        parts = path.split("/")
+        leaf = parts[-1]
+        if leaf == "kernel":
+            parts[-1] = "weight"
+            if a.ndim == 4:  # Conv HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            else:  # Dense [in, out], DenseGeneral [D, H, hd] -> [out, in]
+                a = a.reshape(a.shape[0], -1).T
+        elif leaf == "embedding":
+            parts[-1] = "weight"
+        out[".".join(parts)] = a
+    for path, a in _flat(batch_stats or {}).items():
+        out[path.replace("/", ".")] = a
+    return {k: torch.tensor(np.ascontiguousarray(v)) for k, v in out.items()}
+
+
+def state_dict_to_tree(state_dict: Dict[str, torch.Tensor],
+                       head_dim: int = 0,
+                       buffers: Iterable[str] = ()) -> Tuple[Dict, Dict]:
+    """The port's state_dict -> (params, batch_stats) trees of numpy
+    arrays, the inverse of `tree_to_state_dict`. `head_dim` reshapes the
+    attention's q/k/v weights back to [D, H, hd]; the keys ending in one
+    of `buffers` go to batch_stats."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        a = t.detach().cpu().numpy()
+        parts = key.split(".")
+        tree = stats if parts[-1] in buffers else params
+        if parts[-1] == "weight":
+            if a.ndim == 4:
+                parts[-1], a = "kernel", a.transpose(2, 3, 1, 0)
+            elif len(parts) > 1 and parts[-2] in _QKV:
+                parts[-1], a = "kernel", a.T.reshape(a.shape[1], -1,
+                                                     head_dim)
+            elif parts[0] in ("embed", "pos_embed") and len(parts) == 2:
+                parts[-1] = "embedding"
+            else:
+                parts[-1], a = "kernel", a.T
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(a)
+    return params, stats
+
+
+# One function per family each way. The families' modules name their
+# submodules as flax does, so the forward direction is the generic one;
+# the way back needs the attention's head width, and ResNet's splits off
+# the BatchNorm statistics.
+mlp_to_state_dict = bert_to_state_dict = vit_to_state_dict = \
+    nmt_to_state_dict = tree_to_state_dict
+resnet_to_state_dict = tree_to_state_dict  # (params, batch_stats)
+
+
+def mlp_to_flax(state_dict) -> Dict[str, Any]:
+    return state_dict_to_tree(state_dict)[0]
+
+
+def resnet_to_flax(state_dict) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """-> (params, batch_stats)."""
+    return state_dict_to_tree(state_dict, buffers=("mean", "var"))
+
+
+def bert_to_flax(state_dict, cfg) -> Dict[str, Any]:
+    return state_dict_to_tree(state_dict, cfg.dim // cfg.num_heads)[0]
+
+
+vit_to_flax = bert_to_flax  # ViTConfig has BERT's dim and num_heads
+
+
+def nmt_to_flax(state_dict, cfg) -> Dict[str, Any]:
+    return state_dict_to_tree(state_dict, cfg.head_dim)[0]

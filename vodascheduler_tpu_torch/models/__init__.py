@@ -1,4 +1,5 @@
-"""Model zoo of the port: the Llama and Mixtral families so far."""
+"""Model zoo of the port: every family of the JAX package that trains on
+one card (MLP, ResNet, BERT, ViT, NMT, Llama, Mixtral)."""
 
 from vodascheduler_tpu_torch.models.registry import (
     MODEL_REGISTRY,

@@ -3,8 +3,13 @@
 Counterpart of the JAX package's ``models/layers.py``. Parameters are fp32
 masters; compute runs in the activations' dtype, each weight cast at use, as
 flax's ``dtype=`` / ``param_dtype=float32`` does. Initializers follow flax's
-distributions (not its random bits): Dense kernels ``lecun_normal`` (a
-normal truncated at two standard deviations, std 1/√fan_in), norms ones.
+distributions (not its random bits): Dense and Conv kernels
+``lecun_normal`` (a normal truncated at two standard deviations, std
+1/√fan_in), biases zeros, norms ones (LayerNorm's bias zeros).
+
+Where flax and torch differ by default, the flax behaviour is kept:
+LayerNorm's eps is 1e-6 and its variance E[x²] − E[x]²; GELU is the tanh
+form; ``SAME`` padding puts the odd pixel after (`same_pads`).
 """
 
 from __future__ import annotations
@@ -12,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,19 +43,74 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Dense(nn.Module):
-    """Bias-free dense layer, weight [out, in] in fp32, cast at use."""
+    """Dense layer, weight [out, in] in fp32, cast at use; bias-free
+    unless `bias` (flax's Dense has one, its DenseGeneral here none)."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device))
+        self.bias = (nn.Parameter(torch.empty(out_features, device=device))
+                     if bias else None)
         self.reset_parameters()
 
     def reset_parameters(self, generator=None) -> None:
         lecun_normal_(self.weight, self.weight.shape[1], generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """flax's (lax's) ``SAME`` padding of one spatial axis: (before, after).
+    The output has ceil(size / stride) positions; an odd total goes after,
+    where torch's symmetric ``padding=k//2`` would split it evenly."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def pad_same(x: torch.Tensor, kernel: Tuple[int, int],
+             stride: Tuple[int, int], value: float = 0.0) -> torch.Tensor:
+    """NCHW `x` padded as ``SAME`` pads it for `kernel` at `stride`."""
+    top, bottom = same_pads(x.shape[2], kernel[0], stride[0])
+    left, right = same_pads(x.shape[3], kernel[1], stride[1])
+    if not (top or bottom or left or right):
+        return x
+    return F.pad(x, (left, right, top, bottom), value=value)
+
+
+class Conv(nn.Module):
+    """flax's nn.Conv with ``SAME`` padding, on NCHW activations: weight
+    OIHW in fp32 (flax's HWIO, transposed), cast at use; bias optional."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel: Tuple[int, int], stride: Tuple[int, int] = (1, 1),
+                 bias: bool = False, device=None):
+        super().__init__()
+        self.kernel, self.stride = tuple(kernel), tuple(stride)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               *self.kernel, device=device))
+        self.bias = (nn.Parameter(torch.empty(out_channels, device=device))
+                     if bias else None)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None) -> None:
+        fan_in = self.weight.shape[1] * self.kernel[0] * self.kernel[1]
+        lecun_normal_(self.weight, fan_in, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.conv2d(pad_same(x, self.kernel, self.stride),
+                        self.weight.to(x.dtype), bias, self.stride)
 
 
 class RMSNorm(nn.Module):
@@ -69,6 +129,30 @@ class RMSNorm(nn.Module):
         x32 = x.float()
         y = x32 * torch.rsqrt(x32.pow(2).mean(-1, keepdim=True) + self.eps)
         return (y * self.scale).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax's nn.LayerNorm with dtype float32: fp32 statistics, variance
+    E[x²] − E[x]² clipped at 0 (flax's fast variance), eps 1e-6 (torch's
+    default is 1e-5), scale and bias; the output is fp32."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def reset_parameters(self, generator=None) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x32 = x.float()
+        mean = x32.mean(-1, keepdim=True)
+        var = ((x32 * x32).mean(-1, keepdim=True) - mean * mean).clamp_min(0)
+        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -96,8 +180,10 @@ class AttnConfig:
 
 
 class Attention(nn.Module):
-    """Grouped-query self-attention. `attn_fn` ((q, k, v) -> out, all
-    [B, S, H, D]) swaps in a kernel; None is the O(S²) reference."""
+    """Grouped-query attention. `attn_fn` ((q, k, v) -> out, all
+    [B, S, H, D]) swaps in a kernel; None is the O(S²) reference. Pass
+    `context` for cross-attention: keys and values are projected from it,
+    and the keys rotate by the context's own positions."""
 
     def __init__(self, cfg: AttnConfig, dim: int,
                  attn_fn: Optional[Callable] = None, device=None):
@@ -111,17 +197,24 @@ class Attention(nn.Module):
         self.o_proj = Dense(cfg.num_heads * hd, dim, device)
 
     def forward(self, x: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+                positions: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         cfg = self.cfg
         B, S, _ = x.shape
+        kv_src = x if context is None else context
+        Sk = kv_src.shape[1]
         q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(x).view(B, S, cfg.num_kv_heads, cfg.head_dim)
+        k = self.k_proj(kv_src).view(B, Sk, cfg.num_kv_heads, cfg.head_dim)
+        v = self.v_proj(kv_src).view(B, Sk, cfg.num_kv_heads, cfg.head_dim)
         if positions is None:
             positions = torch.arange(S, device=x.device).expand(B, S)
         if cfg.rope_base > 0:
             q = rope(q, positions, cfg.rope_base)
-            k = rope(k, positions, cfg.rope_base)
+            if context is None:
+                k = rope(k, positions, cfg.rope_base)
+            else:  # the encoder sequence's own positions
+                k = rope(k, torch.arange(Sk, device=x.device).expand(B, Sk),
+                         cfg.rope_base)
         groups = cfg.num_heads // cfg.num_kv_heads
         if groups > 1:  # expand kv heads h0,h0,h1,h1,... as jnp.repeat does
             k = k.repeat_interleave(groups, dim=2)
@@ -163,11 +256,31 @@ class DecoderBlock(nn.Module):
         return x + self.mlp(self.mlp_norm(x))
 
 
+class EncoderBlock(nn.Module):
+    """Pre-norm bidirectional block (BERT/ViT-style): fp32 LayerNorm,
+    attention, LayerNorm, then fc1 -> tanh GELU -> fc2 with biases."""
+
+    def __init__(self, attn_cfg: AttnConfig, dim: int, mlp_hidden: int,
+                 device=None):
+        super().__init__()
+        self.ln1 = LayerNorm(dim, device=device)
+        self.attn = Attention(attn_cfg, dim, device=device)
+        self.ln2 = LayerNorm(dim, device=device)
+        self.fc1 = Dense(dim, mlp_hidden, device, bias=True)
+        self.fc2 = Dense(mlp_hidden, dim, device, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x).to(x.dtype))
+        h = self.fc1(self.ln2(x).to(x.dtype))
+        return x + self.fc2(F.gelu(h, approximate="tanh"))
+
+
 def reset_parameters(module: nn.Module, generator=None) -> None:
-    """Re-initialises every Dense and RMSNorm under `module`, in
-    registration order, from `generator`."""
+    """Re-initialises every Dense, Conv and norm under `module` that has
+    its own `reset_parameters` here, in registration order, from
+    `generator`."""
     for m in module.modules():
-        if isinstance(m, (Dense, RMSNorm)):
+        if isinstance(m, (Dense, Conv, RMSNorm, LayerNorm)):
             m.reset_parameters(generator)
 
 

@@ -1,9 +1,13 @@
 """Model registry: name -> everything the runtime needs to train it.
 
-Counterpart of the JAX package's ``models/registry.py``, for the Llama
-and Mixtral bundles that train on one card. A torch module allocates its
-parameters when it is built, so a bundle holds a builder, not a module:
-`build_module(device, generator)` returns the initialised model.
+Counterpart of the JAX package's ``models/registry.py``: every bundle of
+the reference that trains on one card, with the reference's batches and
+losses (synthetic batches keep the framework hermetic; the ``_text`` and
+``digits`` bundles train on real data, ``data/real.py``). A torch module
+allocates its parameters when it is built, so a bundle holds a builder,
+not a module: `build_module(device, generator)` returns the initialised
+model. `loss_fn(module, batch)` calls the module on the batch's input
+(``images`` or ``inputs``, `input_key`).
 """
 
 from __future__ import annotations
@@ -12,8 +16,10 @@ import dataclasses
 from typing import Any, Callable, Dict
 
 import torch
+import torch.nn.functional as F
 
-from vodascheduler_tpu_torch.models import llama, mixtral
+from vodascheduler_tpu_torch.models import bert, llama, mixtral, mlp, nmt
+from vodascheduler_tpu_torch.models import resnet, vit
 
 
 @dataclasses.dataclass
@@ -30,6 +36,12 @@ class ModelBundle:
     num_experts: int = 0  # MoE bundles: hwbench counts active parameters
 
 
+def input_key(batch) -> str:
+    """The key of a batch that the module takes: ``images`` for the image
+    families, else ``inputs``."""
+    return "images" if "images" in batch else "inputs"
+
+
 def _lm_batch(vocab: int, seq: int):
     def make(batch_size: int, generator: torch.Generator):
         tokens = torch.randint(0, vocab, (batch_size, seq + 1),
@@ -42,6 +54,83 @@ def _lm_fused_loss(module, batch):
     """Loss computed inside the model (chunked CE): full-vocab logits never
     materialise."""
     return module(batch["inputs"], targets=batch["targets"])
+
+
+def _token_ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy of fp32 logits [..., V] at integer
+    targets [...] (optax's softmax_cross_entropy_with_integer_labels,
+    averaged)."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
+
+
+def _lm_loss(module, batch):
+    return _token_ce(module(batch["inputs"]), batch["targets"])
+
+
+_mlm_loss = _lm_loss  # the reference's two names for one loss
+
+
+def _cls_loss(module, batch):
+    return _token_ce(module(batch["images"]), batch["labels"])
+
+
+def _nmt_batch(vocab: int, src_seq: int, tgt_seq: int):
+    def make(batch_size: int, generator: torch.Generator):
+        dev = generator.device
+        src = torch.randint(0, vocab, (batch_size, src_seq),
+                            generator=generator, device=dev)
+        tgt = torch.randint(0, vocab, (batch_size, tgt_seq + 1),
+                            generator=generator, device=dev)
+        return {"inputs": {"src": src, "tgt": tgt[:, :-1]},
+                "targets": tgt[:, 1:]}
+    return make
+
+
+def _image_batch(size: int, channels: int, classes: int):
+    """NHWC fp32 images from a unit normal and uniform labels."""
+    def make(batch_size: int, generator: torch.Generator):
+        dev = generator.device
+        return {
+            "images": torch.randn((batch_size, size, size, channels),
+                                  generator=generator, device=dev),
+            "labels": torch.randint(0, classes, (batch_size,),
+                                    generator=generator, device=dev),
+        }
+    return make
+
+
+def family_bundle(name: str, cls, cfg, make_batch, loss_fn,
+                  seq_len: int = 0) -> ModelBundle:
+    """A bundle of a family whose module is `cls(cfg, device=...)`."""
+    def build(device, generator):
+        module = cls(cfg, device=device)
+        module.reset_parameters(generator)
+        return module
+    return ModelBundle(name=name, cfg=cfg, build_module=build,
+                       make_batch=make_batch, loss_fn=loss_fn,
+                       seq_len=seq_len)
+
+
+def _text_lm_bundle(name: str, cfg: llama.LlamaConfig,
+                    seq_len: int) -> ModelBundle:
+    """Byte-level Llama on the bundled real-prose corpus (data/real.py):
+    the batch's windows are drawn by the step's generator, so a resumed job
+    sees the stream an uninterrupted one would have seen."""
+    from vodascheduler_tpu_torch.data import load_text_corpus, make_lm_batch_fn
+    bundle = llama_bundle(name, cfg, seq_len)
+    bundle.make_batch = make_lm_batch_fn(load_text_corpus(), seq_len)
+    return bundle
+
+
+def _digits_bundle() -> ModelBundle:
+    from vodascheduler_tpu_torch.data import (
+        load_digits_dataset,
+        make_sampling_batch_fn,
+    )
+    return family_bundle("digits_mlp", mlp.Mlp, mlp.DIGITS_MLP,
+                         make_sampling_batch_fn(load_digits_dataset()),
+                         _cls_loss)
 
 
 def llama_bundle(name: str, cfg: llama.LlamaConfig, seq_len: int,
@@ -70,6 +159,44 @@ def mixtral_bundle(name: str, cfg: mixtral.MixtralConfig, seq_len: int,
 
 def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
     return {
+        "mnist_mlp": lambda: family_bundle(
+            "mnist_mlp", mlp.Mlp, mlp.MNIST_MLP, _image_batch(28, 1, 10),
+            lambda m, b: _cls_loss(lambda x: m(x.reshape(x.shape[0], -1)),
+                                   b)),
+        # Real data: the batch is a function of the step's generator, so a
+        # resized job resumes its stream exactly.
+        "digits_mlp": _digits_bundle,
+        "resnet50": lambda: family_bundle(
+            "resnet50", resnet.ResNet, resnet.RESNET50,
+            _image_batch(224, 3, 1000), _cls_loss),
+        "resnet_tiny": lambda: family_bundle(
+            "resnet_tiny", resnet.ResNet, resnet.RESNET_TINY,
+            _image_batch(32, 3, 10), _cls_loss),
+        "bert_base": lambda: family_bundle(
+            "bert_base", bert.Bert, bert.BERT_BASE,
+            _lm_batch(bert.BERT_BASE.vocab_size, 512), _mlm_loss,
+            seq_len=512),
+        "bert_tiny": lambda: family_bundle(
+            "bert_tiny", bert.Bert, bert.BERT_TINY,
+            _lm_batch(bert.BERT_TINY.vocab_size, 64), _mlm_loss, seq_len=64),
+        "vit_l16": lambda: family_bundle(
+            "vit_l16", vit.ViT, vit.VIT_L16, _image_batch(224, 3, 1000),
+            _cls_loss),
+        "vit_tiny": lambda: family_bundle(
+            "vit_tiny", vit.ViT, vit.VIT_TINY, _image_batch(32, 3, 10),
+            _cls_loss),
+        "nmt_base": lambda: family_bundle(
+            "nmt_base", nmt.Seq2SeqTransformer, nmt.NMT_BASE,
+            _nmt_batch(nmt.NMT_BASE.vocab_size, 256, 256), _lm_loss,
+            seq_len=256),
+        "nmt_tiny": lambda: family_bundle(
+            "nmt_tiny", nmt.Seq2SeqTransformer, nmt.NMT_TINY,
+            _nmt_batch(nmt.NMT_TINY.vocab_size, 32, 32), _lm_loss,
+            seq_len=32),
+        "llama_tiny_text": lambda: _text_lm_bundle(
+            "llama_tiny_text", llama.LLAMA_TINY, 64),
+        "llama_350m_text": lambda: _text_lm_bundle(
+            "llama_350m_text", llama.LLAMA_350M_BYTES, 2048),
         "llama_tiny": lambda: llama_bundle("llama_tiny", llama.LLAMA_TINY, 64),
         "llama_350m": lambda: llama_bundle("llama_350m", llama.LLAMA_350M,
                                            2048),
@@ -95,20 +222,8 @@ def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
 _NOT_PORTED = {
     "llama3_8b": "queue A item 10 (multi-GPU: 8B fp32 masters plus AdamW "
                  "state exceed one card)",
-    "llama_tiny_text": "queue A item 14 (data)",
-    "llama_350m_text": "queue A item 14 (data)",
     "mixtral_8x7b": "queue A item 10 (multi-GPU: 47B parameters need "
                     "several cards; the expert all_to_all with A12)",
-    "mnist_mlp": "queue A item 14 (other families)",
-    "digits_mlp": "queue A item 14 (other families)",
-    "resnet50": "queue A item 14 (other families)",
-    "resnet_tiny": "queue A item 14 (other families)",
-    "bert_base": "queue A item 14 (other families)",
-    "bert_tiny": "queue A item 14 (other families)",
-    "vit_l16": "queue A item 14 (other families)",
-    "vit_tiny": "queue A item 14 (other families)",
-    "nmt_base": "queue A item 14 (other families)",
-    "nmt_tiny": "queue A item 14 (other families)",
 }
 
 MODEL_REGISTRY = tuple(sorted(_bundles()))

@@ -21,11 +21,12 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
+SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_wide",
+           "flash_dq_wide", "flash_dkv_wide")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,12 +51,13 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Dict[str, Path]:
-    """Compiles every source whose library is missing; returns name -> .so."""
+def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
+    """Compiles each of `sources` (names in CSRC) whose library is
+    missing; returns name -> .so."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    libs = {n: out / f"lib{n}.so" for n in SOURCES}
-    todo = [n for n in SOURCES if not libs[n].exists()]
+    libs = {n: out / f"lib{n}.so" for n in sources}
+    todo = [n for n in sources if not libs[n].exists()]
     if not todo:
         return libs
     nvcc = _nvcc()

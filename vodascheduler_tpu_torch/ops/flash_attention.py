@@ -9,6 +9,12 @@ kernels (``ops/csrc``) replace its three Pallas kernels:
   rowsum(dO∘O) for the next kernel;
 - ``flash_dkv`` (``csrc/flash_dkv.cu``) for ``_dkv_kernel``: dK and dV.
 
+Those are built for head widths 64 and 128. Above 128 the JAX package takes
+any multiple of 128, and so does each wrapper, through a second kernel of
+the same function cut along D (``csrc/flash_{fwd,dq,dkv}_wide.cu`` on
+``csrc/wide.cuh``): ``flash_fwd_wide``, ``flash_dq_wide`` and
+``flash_dkv_wide``, each counted apart.
+
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
 function in fp32 with O(S²) memory. A wrapper takes the plain version only for a
@@ -20,14 +26,15 @@ Divergences from the TPU kernels, on purpose:
 - any sequence length runs the kernel (the ragged edge is masked), so the
   TPU package's fallback to ``reference_attention`` for unaligned blocks
   does not exist here;
-- the kernels are built for head widths 64 and 128 only. The operator
-  (`attention_op`) zero-pads q, k, v (and o, dO in the backward) along D
-  to the next of those widths and slices O, dQ, dK and dV back, passing
-  the true scale D^-½: zero columns change no entry of QKᵀ, give O zero
-  columns, add nothing to δ = rowsum(dO∘O), and dQ's and dK's padded
+- below 128 the kernels are built for head widths 64 and 128 only. The
+  operator (`attention_op`) zero-pads q, k, v (and o, dO in the backward)
+  along D to the next of those widths and slices O, dQ, dK and dV back,
+  passing the true scale D^-½: zero columns change no entry of QKᵀ, give O
+  zero columns, add nothing to δ = rowsum(dO∘O), and dQ's and dK's padded
   columns are products with zero columns. So any D up to 128 runs the
-  kernels, as any D up to 128 runs the TPU kernels; a wider head raises
-  (the TPU package also takes multiples of 128 there);
+  kernels, as any D up to 128 runs the TPU kernels, and so does any
+  multiple of 128 (the wide kernels); any other D raises, on every device,
+  as the JAX package's `flash_attention` raises;
 - the tiles are fixed by each kernel's design: the forward takes 128
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
@@ -52,10 +59,13 @@ from vodascheduler_tpu_torch.ops import _build
 from vodascheduler_tpu_torch.parallel.ring_attention import NEG_INF
 
 HEAD_DIMS = (64, 128)
+# Above HEAD_DIMS[-1], the widths the wide kernels take: multiples of this.
+WIDE_CHUNK = 128
 
 # Launches of each kernel since the last `reset_launches()`: one plain int
 # per kernel, raised by its wrapper where it launches and nowhere else.
-launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
+            "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -68,6 +78,8 @@ _ARGTYPES = {
     # q k v do lse delta dk dv | B H Sq Sk D q_off causal scale stream
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
 }
+for _name in ("flash_fwd", "flash_dq", "flash_dkv"):
+    _ARGTYPES[f"{_name}_wide"] = _ARGTYPES[_name]
 
 
 def reset_launches() -> None:
@@ -83,9 +95,22 @@ def _entry(name: str):
     return fn
 
 
-def _check(name: str, *tensors: torch.Tensor) -> None:
+def _kernel(name: str, D: int) -> str:
+    """The kernel of wrapper `name` for head width D: its own at a width of
+    HEAD_DIMS, its wide variant at a multiple of WIDE_CHUNK above them."""
+    if D in HEAD_DIMS:
+        return name
+    if D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0:
+        return f"{name}_wide"
+    raise NotImplementedError(
+        f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple of "
+        f"{WIDE_CHUNK} above them")
+
+
+def _check(name: str, *tensors: torch.Tensor) -> str:
     """What the kernels take: bf16, contiguous [B,S,H,D] on one CUDA
-    device, D in HEAD_DIMS, 16-byte aligned rows."""
+    device, 16-byte aligned rows, D in HEAD_DIMS or a multiple of
+    WIDE_CHUNK above them. Returns the kernel that takes them."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -97,9 +122,7 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
                              f"shape {tuple(t.shape)} strides {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data pointer not 16-byte aligned")
-    D = tensors[0].shape[-1]
-    if D not in HEAD_DIMS:
-        raise NotImplementedError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    return _kernel(name, tensors[0].shape[-1])
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -137,11 +160,11 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
               scale: Optional[float] = None):
     """K1 on the card: (o [B,Sq,H,D] bf16, lse [B,H,Sq] fp32). `scale`
     multiplies QKᵀ; None means D^-½ of the tensors' own width."""
-    _check("flash_fwd", q, k, v)
+    kernel = _check("flash_fwd", q, k, v)
     B, H, Sq, Sk, D = _dims(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, int(q_off),
             int(causal), _scale(scale, D))
     return o, lse
@@ -150,12 +173,12 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
 def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
              scale: Optional[float] = None):
     """K2 on the card: (dq [B,Sq,H,D] bf16, delta [B,H,Sq] fp32)."""
-    _check("flash_dq", q, k, v, o, do)
+    kernel = _check("flash_dq", q, k, v, o, do)
     B, H, Sq, Sk, D = _dims(q, k, v, o, do)
     _check_stat(lse, B, H, Sq)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
-    _launch("flash_dq", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
             _scale(scale, D))
@@ -165,13 +188,13 @@ def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int,
               scale: Optional[float] = None):
     """K3 on the card: (dk, dv), each [B,Sk,H,D] bf16."""
-    _check("flash_dkv", q, k, v, do)
+    kernel = _check("flash_dkv", q, k, v, do)
     B, H, Sq, Sk, D = _dims(q, k, v, do)
     _check_stat(lse, B, H, Sq)
     _check_stat(delta, B, H, Sq)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _launch("flash_dkv", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
             _scale(scale, D))
@@ -256,13 +279,17 @@ def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
 
 def kernel_head_dim(D: int) -> int:
     """The kernels' width for a head of width D: the smallest of
-    HEAD_DIMS that holds it."""
+    HEAD_DIMS that holds it, or D itself where it is a multiple of
+    WIDE_CHUNK (the wide kernels). Any other D raises, by the JAX package's
+    rule."""
     for width in HEAD_DIMS:
         if D <= width:
             return width
-    raise NotImplementedError(
-        f"head_dim {D}: the flash-attention kernels take widths up to "
-        f"{HEAD_DIMS[-1]} (ROADMAP C2)")
+    if D % WIDE_CHUNK:
+        raise NotImplementedError(
+            f"head_dim {D} > {HEAD_DIMS[-1]} must be a multiple of "
+            f"{WIDE_CHUNK}")
+    return D
 
 
 def pad_head(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -312,6 +339,7 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     operator, it is what a selective-checkpoint policy can save
     (`models/layers.py` REMAT_POLICIES "attn_out"), so that a recompute
     does not launch K1 again."""
+    kernel_head_dim(q.shape[-1])  # refuses what the JAX package refuses
     if q.is_cuda:
         return padded_forward(flash_fwd, q, k, v, causal, q_off)
     return flash_attention_reference(q, k, v, causal, q_off)

@@ -2,11 +2,16 @@
 
 Counterpart of the JAX package's ``runtime/train.py`` for one device: build
 the bundle's model on the device, install the flash-attention kernels as
-`attn_fn` on CUDA, step AdamW or Adafactor, and save, resume and resize
-the session for the supervisor. A batch is a function of (seed, step), so
-the step counter in a checkpoint is the data position: a resumed run sees
-the batches an uninterrupted run would have seen. Multi-card plans (the
-mesh, sharding, a resize to another size) come with ROADMAP A10.
+`attn_fn` on CUDA in a module that exposes `attn_fn` (as the reference
+does: Llama and Mixtral; the other families keep their plain attention),
+step AdamW or Adafactor, and save, resume and resize the session for the
+supervisor. A BatchNorm model's running statistics are module buffers:
+the optimizer never sees them, no step changes them (the reference applies
+such a model with ``train=False``), and they ride in the checkpoint. A
+batch is a function of (seed, step), so the step counter in a checkpoint
+is the data position: a resumed run sees the batches an uninterrupted run
+would have seen. Multi-card plans (the mesh, sharding, a resize to another
+size) come with ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -89,7 +94,8 @@ class TrainSession:
         self.device = resolve_device(device)
         init_gen = torch.Generator(self.device).manual_seed(seed)
         self.module = bundle.build_module(self.device, init_gen)
-        if _flash_attention_enabled(self.device):
+        if (_flash_attention_enabled(self.device)
+                and hasattr(self.module, "attn_fn")):
             # The injected kernel replaces the layers' own masking, so the
             # module has to declare it.
             causal = getattr(type(self.module), "causal_attention", None)
