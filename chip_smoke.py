@@ -6,7 +6,8 @@ Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
-     D=64 (the main path), and logs the spills at D=128;
+     D=64 (the main path) or in the wide forward or dK/dV at D=256 (phase
+     9's wide llama), and logs the spills at D=128, 384 and 512;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -14,12 +15,13 @@ Phases (any failure exits non-zero):
      widths 16 and 96, which the kernels take zero-padded to 64 and 128 (as
      the attention operator sends them) against the plain versions at the
      true width, and at widths 256 (4 heads) and 512 (2 heads), B=8,
-     S=2048, which the wide kernels take (flash_*_wide.cu); then each timed
-     with CUDA events beside its plain version, the PyTorch library call that
+     S=2048, which the wide kernels take (flash_*_wide.cu), a ragged
+     S=1000 at 256 (B=2, H=4) and width 384 (B=4, H=2, S=2048); then each
+     timed with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card, and dQ then
      dK/dV timed as one backward beside the library's backward; the padded
      widths' forward and backward timed beside the library's, and the
-     wide kernels at both widths (the library's backward above 256 is
+     wide kernels at 256, 512 and 384 (the library's backward above 256 is
      autograd through scaled_dot_product_attention);
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
@@ -151,6 +153,13 @@ def log(*a) -> None:
 # Kernels that must not spill registers at the main path's head_dim.
 SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv")
 MAIN_HEAD_DIM = 64
+# The wide kernels redesigned on wgmma, held to no spill at the width of
+# phase 9's 256-wide llama (their spills at 384 and 512 are only logged).
+WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dkv_wide")
+WIDE_HEAD_DIM = 256
+MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
+SPILL_GATES = MAIN_SPILL_GATES + tuple((n, WIDE_HEAD_DIM)
+                                       for n in WIDE_SPILL_FREE)
 
 
 def ptxas_spills(text: str) -> dict:
@@ -174,16 +183,16 @@ def ptxas_spills(text: str) -> dict:
     return out
 
 
-def spill_faults(spills: dict) -> list:
+def spill_faults(spills: dict, gates=MAIN_SPILL_GATES) -> list:
     """What the spill check refuses: a spill, or no ptxas line at all, for
-    a kernel of SPILL_FREE at MAIN_HEAD_DIM."""
+    a (kernel, head_dim) of `gates` (phase 2 holds SPILL_GATES)."""
     faults = []
-    for name in SPILL_FREE:
-        got = spills.get((name, MAIN_HEAD_DIM))
+    for name, dim in gates:
+        got = spills.get((name, dim))
         if got is None:
-            faults.append(f"{name} D={MAIN_HEAD_DIM}: no ptxas spill line")
+            faults.append(f"{name} D={dim}: no ptxas spill line")
         elif got:
-            faults.append(f"{name} D={MAIN_HEAD_DIM}: {got} bytes spilled")
+            faults.append(f"{name} D={dim}: {got} bytes spilled")
     return faults
 
 
@@ -1745,9 +1754,9 @@ def main() -> int:
         spills.update(ptxas_spills(text))
     log("spills (bytes): " + " ".join(f"{n}@D={d}={b}" for (n, d), b
                                       in sorted(spills.items())))
-    if spill_faults(spills):
+    if spill_faults(spills, SPILL_GATES):
         raise SystemExit("ptxas spill check failed: "
-                         + "; ".join(spill_faults(spills)))
+                         + "; ".join(spill_faults(spills, SPILL_GATES)))
 
     # (B, H, Sq, Sk, D, causal, q_off)
     main_shape = (8, 16, 2048, 2048, 64, True, 0)
@@ -1764,13 +1773,17 @@ def main() -> int:
              # head widths above 128: the wide kernels, at llama_350m's
              # width in 4 heads of 256 and in 2 heads of 512
              "d256": (8, 4, 2048, 2048, 256, True, 0),
-             "d512": (8, 2, 2048, 2048, 512, True, 0)}
+             "d512": (8, 2, 2048, 2048, 512, True, 0),
+             # a ragged wide case, and the width whose chunk is 128
+             "d256_ragged": (2, 4, 1000, 1000, 256, True, 0),
+             "d384": (4, 2, 2048, 2048, 384, True, 0)}
     errs = check_kernels(fa, cases)
     rows = time_kernels(fa, main_shape, errs)
     for name in ("d16", "d96"):
         time_padded(fa, name, cases[name])
     rows.update(time_kernels(fa, cases["d256"], errs["d256"], "_wide"))
     time_kernels(fa, cases["d512"], errs["d512"], "_wide")
+    time_kernels(fa, cases["d384"], errs["d384"], "_wide")
     torch.cuda.empty_cache()
     phase("3 kernels")
 

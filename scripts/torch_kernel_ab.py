@@ -2,6 +2,7 @@
 of two source trees against each other, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
+        [--shape main|d128|d256|d512]
 
 `--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
 (the copy on the card is no git repository, so write it first, e.g. for the
@@ -12,14 +13,17 @@ parent commit P:
       git show P:$f > build/ab_parent/csrc/$(basename $f); done
 
 ). Both trees are built by the package's build module (``ops/_build.py``),
-each into its own directory. At llama_350m's attention shape (B=8, H=16,
-S=2048, D=64, bf16, causal) each kernel is timed base, tree, tree, base,
-`--reps` times over, by CUDA events (chip_smoke.cuda_ms: median of 10
-after 3 warm-ups), through the package's wrappers on the same inputs,
-beside PyTorch's own flash
-attention forward and backward (timed as a yardstick only) and each
-kernel's bound; K2 then K3, the whole backward, is timed the same way as
-a row of its own ("backward") beside the library's backward. Prints the
+each into its own directory. At `--shape` each kernel is timed base,
+tree, tree, base, `--reps` times over, by CUDA events (chip_smoke.cuda_ms:
+median of 10 after 3 warm-ups), through the package's wrappers on the
+same inputs, beside PyTorch's own flash attention forward and backward
+(timed as a yardstick only) and each kernel's bound; K2 then K3, the whole
+backward, is timed the same way as a row of its own ("backward") beside
+the library's backward. The shapes (bf16, causal, S=2048, B=8): `main`,
+llama_350m's attention (H=16, D=64, the kernels of flash_{fwd,dq,dkv}.cu,
+as `d128` at H=8, D=128); `d256` (H=4, D=256) and `d512` (H=2, D=512),
+the same width in wider heads, which run the wide kernels
+(flash_{fwd,dq,dkv}_wide.cu; rows named with `_wide`). Prints the
 card's name and power limit, every reading, and a last line of JSON with
 the medians and base/tree ratios. Exits non-zero
 without a card or without the base sources; it prints no time it did not
@@ -43,8 +47,19 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
+SHAPES = {"main": MAIN_SHAPE,
+          "d128": (8, 8, 2048, 2048, 128, True, 0),
+          "d256": (8, 4, 2048, 2048, 256, True, 0),
+          "d512": (8, 2, 2048, 2048, 512, True, 0)}
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 ROWS = KERNELS + ("backward",)
+
+
+def row_names(shape) -> dict:
+    """ROWS -> the name each row has at `shape`: a wide head's kernels and
+    backward carry `_wide`."""
+    suffix = "_wide" if shape[4] > 128 else ""
+    return {r: r + suffix for r in ROWS}
 
 
 def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
@@ -96,7 +111,9 @@ def main() -> int:
     ap.add_argument("--base", default=os.path.join(ROOT, "build", "ab_parent",
                                                    "csrc"))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="main")
     args = ap.parse_args()
+    shape, names = SHAPES[args.shape], row_names(SHAPES[args.shape])
     if not torch.cuda.is_available():
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 1
@@ -114,33 +131,35 @@ def main() -> int:
                        text=True, check=True).stdout.strip().splitlines()[0])
     sets = {"tree": load_entries(build, fa, build.CSRC, build.BUILD_ROOT),
             "base": load_entries(build, fa, base, base.parent / "lib")}
-    q, k, v, do = inputs(MAIN_SHAPE)
+    log(f"shape {args.shape} (B, H, Sq, Sk, D, causal, q_off) = {shape}")
+    q, k, v, do = inputs(shape)
     readings = {n: {"base": [], "tree": []} for n in ROWS}
     for rep in range(args.reps):
         for which in ("base", "tree", "tree", "base"):
             use_entries(fa, sets[which])
-            for name, call in timers(fa, MAIN_SHAPE, q, k, v, do).items():
+            for name, call in timers(fa, shape, q, k, v, do).items():
                 ms = chip_smoke.cuda_ms(call)
                 readings[name][which].append(ms)
-                log(f"rep {rep} {which} {name} ms={ms:.4f}")
-    lib_fwd, lib_bwd = chip_smoke.library_times(q, k, v, do, MAIN_SHAPE[5])
+                log(f"rep {rep} {which} {names[name]} ms={ms:.4f}")
+    lib_fwd, lib_bwd = chip_smoke.library_times(q, k, v, do, shape[5])
     log(f"library fwd_ms={lib_fwd:.4f} bwd_ms={lib_bwd:.4f} (dq, dk, dv)")
-    bounds = {"flash_fwd": chip_smoke.bound(2, 4, 1, *MAIN_SHAPE),
-              "flash_dq": chip_smoke.bound(3, 6, 2, *MAIN_SHAPE),
-              "flash_dkv": chip_smoke.bound(4, 6, 2, *MAIN_SHAPE),
-              "backward": chip_smoke.bound(7, 8, 1, *MAIN_SHAPE)}
+    bounds = {"flash_fwd": chip_smoke.bound(2, 4, 1, *shape),
+              "flash_dq": chip_smoke.bound(3, 6, 2, *shape),
+              "flash_dkv": chip_smoke.bound(4, 6, 2, *shape),
+              "backward": chip_smoke.bound(7, 8, 1, *shape)}
     library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkv": lib_bwd,
                "backward": lib_bwd}
     summary = {}
     for name in ROWS:
         b = statistics.median(readings[name]["base"])
         t = statistics.median(readings[name]["tree"])
-        summary[name] = {"base_ms": b, "tree_ms": t, "base_over_tree": b / t,
-                         "bound_ms": bounds[name][0],
-                         "tree_share_of_bound": bounds[name][0] / t,
-                         "base_share_of_bound": bounds[name][0] / b,
-                         "library_ms": library[name]}
-        log(f"{name}: base {b:.4f} ms, tree {t:.4f} ms, base/tree "
+        summary[names[name]] = {
+            "base_ms": b, "tree_ms": t, "base_over_tree": b / t,
+            "bound_ms": bounds[name][0],
+            "tree_share_of_bound": bounds[name][0] / t,
+            "base_share_of_bound": bounds[name][0] / b,
+            "library_ms": library[name]}
+        log(f"{names[name]}: base {b:.4f} ms, tree {t:.4f} ms, base/tree "
             f"{b / t:.3f}, tree at {bounds[name][0] / t:.3f} of its bound "
             f"({bounds[name][0]:.4f} ms), library {library[name]:.4f} ms")
     print(json.dumps(summary), flush=True)

@@ -3,16 +3,20 @@ against the sources as they stand, in turns, on one card: what each part
 of a kernel costs, and what each design choice of theirs is worth.
 
     python3 scripts/torch_kernel_ablate.py [--rounds 6] [--only NAME ...]
+        [--shape main|d128|d256|d512]
 
 Each variant is a copy of ``vodascheduler_tpu_torch/ops/csrc`` with a few
 lines changed (VARIANTS below), built under ``build/kernel_ablate/<name>``
 by the package's build module (``ops/_build.py``); the sources of the
 package are not touched.
 Some variants compute wrong results on purpose (they drop work to weigh
-it) and are only timed. At llama_350m's attention shape (B=8, H=16,
-S=2048, D=64, bf16, causal) every round times the tree and then each
-variant, K1, K2, K3 and K2 then K3 (the backward) each by CUDA events
-(chip_smoke.cuda_ms, 30 repeats after 5 warm-ups); the script prints the
+it) and are only timed. At `--shape` (scripts/torch_kernel_ab.py's:
+`main` is llama_350m's attention, B=8, H=16, S=2048, D=64, bf16, causal;
+`d128` the same width in heads of 128; `d256` and `d512` in heads of 256
+and 512, which run the wide kernels, whose variants are named `fwdw_` and
+`dkvw_`) every round times the tree and then each variant, K1, K2, K3
+and K2 then K3 (the backward) each by CUDA events (chip_smoke.cuda_ms, 30
+repeats after 5 warm-ups); the script prints the
 card's name and power limit, the median of each, its ratio to the tree's,
 and a last line of JSON. Exits non-zero without a card or when a
 variant's lines are not in the sources.
@@ -35,7 +39,11 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
+import torch_kernel_ab as ab  # noqa: E402
+
 F, Q, K = "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu"
+FW, KW = "flash_fwd_wide.cu", "flash_dkv_wide.cu"
+HOPPER = "hopper.cuh"  # the forwards' softmax_tile
 _KV_LOADS = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
         tma_rows<D>(ks + s * C::BN * D, &tk, &k_full[s], C::BN, h, j * C::BN, b);
         mbar_expect_tx(&v_full[s], C::KV_BYTES);
@@ -43,6 +51,10 @@ _KV_LOADS = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
 _NO_SOFTMAX = (F, "      softmax_tile<C::BN>(sc,", "      if (j < 0) softmax_tile<C::BN>(sc,")
 _KV_ONCE = (F, _KV_LOADS, "if (j < C::STAGES) {\n" + _KV_LOADS
             + "\n} else { mbar_arrive(&k_full[s]); mbar_arrive(&v_full[s]); }")
+_KV_LOADS_WIDE = """        mbar_expect_tx(&k_full[s], C::K_BYTES);
+        tma_rows<D>(ks + s * BN * D, &tk, &k_full[s], BN, h, j * BN, b);"""
+_V_LOADS_WIDE = """        mbar_expect_tx(&v_full[s], C::V_BYTES);
+        tma_rows<CW>(vs + s * BN * CW, &tv, &v_full[s], BN, h, j * BN, b, c0);"""
 _DKV_LOOP = """        issue_grads(i);
         wgmma_wait<0>();
         fence_regs(dva);
@@ -55,7 +67,7 @@ _DKV_LOOP = """        issue_grads(i);
 VARIANTS = {
     "fwd_no_softmax": ("K1 without its softmax (wrong results)", [_NO_SOFTMAX]),
     "fwd_no_exp": ("K1 with exp2 replaced by its argument (wrong results)", [
-        (F, "const float p = fast_exp2(fmaf(sc[4 * c + e], sl2, -mrow[e >> 1]));",
+        (HOPPER, "const float p = fast_exp2(fmaf(sc[4 * c + e], sl2, -mrow[e >> 1]));",
          "const float p = fmaf(sc[4 * c + e], sl2, -mrow[e >> 1]);")]),
     "fwd_kv_once": ("K1 loading K/V for its first stages only (wrong results)",
                     [_KV_ONCE]),
@@ -88,6 +100,38 @@ VARIANTS = {
          "static constexpr bool OVERLAP = false;")]),
     "dq_no_ds": ("K2 without its dS elementwise pass (wrong results)", [
         (Q, "      ds_tile<C::BN>(sc, dp,", "      if (j < 0) ds_tile<C::BN>(sc, dp,")]),
+    "fwdw_no_softmax": ("wide K1 without its softmax (wrong results)", [
+        (FW, "      softmax_tile<BN>(sc,", "      if (j < 0) softmax_tile<BN>(sc,")]),
+    "fwdw_no_turns": ("wide K1 without the warpgroups' turns", [
+        (FW, "const Turns<> turns{cw};", "const Turns<false> turns{cw};")]),
+    "fwdw_kv_once": ("wide K1 loading K/V for its first stages only "
+                     "(wrong results)", [
+        (FW, _KV_LOADS_WIDE, "if (j < ST) {\n" + _KV_LOADS_WIDE
+         + "\n} else { mbar_arrive(&k_full[s]); }"),
+        (FW, _V_LOADS_WIDE, "if (j < ST) {\n" + _V_LOADS_WIDE
+         + "\n} else { mbar_arrive(&v_full[s]); }")]),
+    "fwdw_bn64": ("wide K1 with 64-key K/V tiles at D=256 (80 as it stands)", [
+        (FW, "static constexpr int BN = D == 256 ? 80 : 64;",
+         "static constexpr int BN = 64;")]),
+    "fwdw_bn32_d512": ("wide K1 with 32-key K/V tiles at D=512, so that two "
+                       "stages fit (64 and one stage as it stands)", [
+        (FW, "static constexpr int BN = D == 256 ? 80 : 64;",
+         "static constexpr int BN = D == 256 ? 80 : D == 512 ? 32 : 64;")]),
+    "dkvw_q_once": ("wide K3 loading Q/dO for its first stages only "
+                    "(wrong results)", [
+        (KW, "        if (lane == 0) {\n          mbar_expect_tx(&q_full[s]",
+         "        if (lane == 0 && it < ST) {\n          mbar_expect_tx(&q_full[s]"),
+        (KW, "        if (lane == 0) {\n          mbar_expect_tx(&do_full[s]",
+         "        if (lane == 0 && it < ST) {\n          mbar_expect_tx(&do_full[s]")]),
+    "dkvw_no_handoff": ("wide K3 without waiting for the other warpgroup's "
+                        "Pᵀ and dSᵀ (wrong results)", [
+        (KW, 'asm volatile("bar.sync 3, 256;" ::: "memory");', ""),
+        (KW, 'asm volatile("bar.arrive 3, 256;" ::: "memory");', ""),
+        (KW, 'asm volatile("bar.sync 4, 256;" ::: "memory");', ""),
+        (KW, 'asm volatile("bar.arrive 4, 256;" ::: "memory");', "")]),
+    "dkvw_no_exp": ("wide K3 with exp2 replaced by its argument (wrong "
+                    "results)", [
+        (KW, "sc[4 * c + e] = fast_exp2(sc[4 * c + e]);", "")]),
 }
 
 
@@ -110,12 +154,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--only", nargs="*", choices=sorted(VARIANTS))
+    ap.add_argument("--shape", choices=sorted(ab.SHAPES), default="main")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablate: CUDA is not available", file=sys.stderr)
         return 1
     import chip_smoke
-    import torch_kernel_ab as ab
     from vodascheduler_tpu_torch.ops import _build as build
     from vodascheduler_tpu_torch.ops import flash_attention as fa
 
@@ -129,13 +173,17 @@ def main() -> int:
     for name in names:
         csrc = make(sound, name)
         sets[name] = ab.load_entries(build, fa, csrc, csrc.parent / "lib")
-    q, k, v, do = ab.inputs(ab.MAIN_SHAPE)
-    ms = {n: {kn: [] for kn in ab.ROWS} for n in sets}
+    shape = ab.SHAPES[args.shape]
+    names = ab.row_names(shape)
+    log(f"shape {args.shape} (B, H, Sq, Sk, D, causal, q_off) = {shape}")
+    q, k, v, do = ab.inputs(shape)
+    ms = {n: {names[kn]: [] for kn in ab.ROWS} for n in sets}
     for _ in range(args.rounds):
         for name, entries in sets.items():
             ab.use_entries(fa, entries)
-            for kn, call in ab.timers(fa, ab.MAIN_SHAPE, q, k, v, do).items():
-                ms[name][kn].append(chip_smoke.cuda_ms(call, warmup=5, reps=30))
+            for kn, call in ab.timers(fa, shape, q, k, v, do).items():
+                ms[name][names[kn]].append(
+                    chip_smoke.cuda_ms(call, warmup=5, reps=30))
     summary = {}
     for name in sets:
         med = {kn: statistics.median(t) for kn, t in ms[name].items()}

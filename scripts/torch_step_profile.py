@@ -1,6 +1,7 @@
 """Where one training step of the PyTorch port spends its time on the card.
 
     python3 scripts/torch_step_profile.py [--steps 3] [--model llama_350m]
+        [--heads N]
 
 Builds the port's TrainSession on CUDA for a bundle at its full width (B=8;
 llama_350m, llama_350m_af, mixtral_small and mixtral_small_af run S=2048), runs `--steps` steps three times on one batch (warm-up, timed by
@@ -9,13 +10,17 @@ power limit, the untraced step time, the device's busy time per step and
 its idle share of the untraced step, the device time of each group of
 kernels (the port's flash-attention kernels, matrix products, index work —
 the MoE dispatch's sort, scan, scatter and gather and the embedding's —
-and the rest) and the twenty kernels that take the most device time. Fails when there is
+and the rest) and the twenty kernels that take the most device time.
+`--heads N` gives a Llama bundle N query heads and N/2 key/value heads at
+the same width (`--model llama_350m --heads 4`: phase 9's llama with heads
+of 256, on the wide kernels). Fails when there is
 no CUDA device or the trace shows no device time.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import subprocess
 import sys
@@ -34,7 +39,8 @@ INDEX_MARKS = ("index", "gather", "scatter", "sort", "scan")
 
 
 def group_of(name: str) -> str:
-    for k in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for k in ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_wide",
+              "flash_dq_wide", "flash_dkv_wide"):
         if f"{k}_kernel" in name:
             return k
     low = name.lower()
@@ -47,6 +53,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--model", default="llama_350m")
+    ap.add_argument("--heads", type=int, default=0)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_step_profile: CUDA is not available", file=sys.stderr)
@@ -57,8 +64,16 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0])
-    session = TrainSession(get_model(args.model), 1, global_batch_size=8)
-    print(f"model={args.model} optimizer={session.bundle.optimizer} "
+    bundle = get_model(args.model)
+    if args.heads:
+        from vodascheduler_tpu_torch.models.registry import llama_bundle
+        cfg = dataclasses.replace(bundle.cfg, num_heads=args.heads,
+                                  num_kv_heads=args.heads // 2)
+        bundle = llama_bundle(f"{args.model}_h{args.heads}", cfg,
+                              bundle.seq_len, bundle.optimizer)
+    session = TrainSession(bundle, 1, global_batch_size=8)
+    print(f"model={session.bundle.name} "
+          f"optimizer={session.bundle.optimizer} "
           f"remat_policy={session.bundle.cfg.remat_policy} "
           f"dispatch={getattr(session.bundle.cfg, 'dispatch', None)}")
     batch = session.make_batch()

@@ -325,6 +325,65 @@ def test_autograd_goes_through_the_wide_kernels(cuda):
         fa.flash_attention(q[..., :200], k[..., :200], v[..., :200])
 
 
+def _wide_inputs(B, H, Sq, Sk, D, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    q, do = (torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (2, 2, 65, 65, 256, True, 0),        # one row past a 64-row tile
+    (2, 1, 200, 200, 384, True, 0),
+    (2, 1, 1000, 1000, 256, True, 0),    # neither a multiple of 64 nor 128
+    (1, 1, 1000, 1000, 512, True, 0),    # B·H = 1
+    (1, 2, 130, 500, 256, True, 370),    # a query slice behind an offset
+    (1, 2, 200, 700, 512, True, 500),
+    (1, 1, 65, 1000, 384, True, 935),
+    (2, 1, 200, 333, 384, False, 0),     # non-causal, Sq ≠ Sk
+    (1, 1, 65, 200, 256, False, 0),
+    (1, 2, 1000, 1000, 512, False, 0),
+])
+def test_redesigned_wide_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
+                                                      causal, q_off):
+    """The TMA paths of the wide forward and dK/dV at the edges a ring can
+    get wrong: ragged S, Sq ≠ Sk behind q_offset, non-causal, every wide
+    width, a single (b, h). dK/dV runs on the plain version's δ, so each
+    kernel is held alone, by chip_smoke.py's bars."""
+    q, k, v, do = _wide_inputs(B, H, Sq, Sk, D, 7)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    _, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta_ref, causal, q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
+                                            causal, q_off)
+    torch.cuda.synchronize()
+    assert row_err(o, o_ref) <= LIMITS["o_row"]
+    assert (lse - lse_ref).abs().max().item() <= LIMITS["lse"]
+    assert row_err(dk, dk_ref) <= LIMITS["dk_row"]
+    assert row_err(dv, dv_ref) <= LIMITS["dv_row"]
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_wide=1, flash_dkv_wide=1)
+
+
+@pytest.mark.parametrize("D", [256, 384, 512])
+def test_redesigned_wide_kernels_are_deterministic(cuda, D):
+    """No atomics in the wide forward or dK/dV: two launches on the same
+    inputs give bitwise-equal O, lse, dK and dV."""
+    q, k, v, do = _wide_inputs(1, 2, 320, 320, D, 8)
+    o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
+    o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
+    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    torch.cuda.synchronize()
+    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
+
+
 # ---- the families on the card ------------------------------------------------
 
 

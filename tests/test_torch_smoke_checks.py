@@ -15,6 +15,13 @@ DKV64 = "_ZN4voda16flash_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__
 DKV128 = DKV64.replace("ILi64E", "ILi128E")
 DQ64 = "_ZN4voda15flash_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfPfP13__nv_bfloat16iiiiif"
 DQ128 = DQ64.replace("ILi64E", "ILi128E")
+FWDW256 = "_ZN4voda21flash_fwd_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
+DKVW256 = "_ZN4voda21flash_dkv_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiif"
+FWDW512 = FWDW256.replace("ILi256E", "ILi512E")
+DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
+# the wmma dQ kernel above D=128 is not templated on its width
+DQW = "_ZN4voda4wide20flash_dq_wide_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
+MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0))
 
 
 def log_of(*kernels):
@@ -59,6 +66,41 @@ def test_spill_at_d128_is_only_logged():
                                             (DKV64, 0, 0), (DKV128, 500, 244),
                                             (DQ128, 8, 8)))
     assert chip_smoke.spill_faults(spills) == []
+
+
+def test_ptxas_spills_reads_the_wide_kernels_by_width():
+    spills = chip_smoke.ptxas_spills(log_of(
+        *MAIN_CLEAN, (FWDW256, 0, 0), (DKVW256, 0, 0), (FWDW512, 600, 532),
+        (DKVW384, 0, 0), (DQW, 12, 12)))
+    assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
+                      ("flash_dkv", 64): 0, ("flash_fwd_wide", 256): 0,
+                      ("flash_dkv_wide", 256): 0,
+                      ("flash_fwd_wide", 512): 1132,
+                      ("flash_dkv_wide", 384): 0}
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
+
+
+@pytest.mark.parametrize("wide,fault", [
+    (((FWDW256, 608, 580), (DKVW256, 0, 0)),
+     "flash_fwd_wide D=256: 1188 bytes spilled"),
+    (((FWDW256, 0, 0), (DKVW256, 8, 0)),
+     "flash_dkv_wide D=256: 8 bytes spilled"),
+    (((FWDW256, 0, 0),), "flash_dkv_wide D=256: no ptxas spill line"),
+    (((FWDW512, 0, 0), (DKVW256, 0, 0)),
+     "flash_fwd_wide D=256: no ptxas spill line"),
+])
+def test_spill_faults_refuse_a_spill_in_a_wide_kernel_at_d256(wide, fault):
+    spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *wide))
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
+    # the main path's gate alone does not look at the wide kernels
+    assert chip_smoke.spill_faults(spills) == []
+
+
+def test_wide_spills_at_384_and_512_are_only_logged():
+    spills = chip_smoke.ptxas_spills(log_of(
+        *MAIN_CLEAN, (FWDW256, 0, 0), (DKVW256, 0, 0), (FWDW512, 624, 532),
+        (DKVW384, 100, 100)))
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 
 @pytest.mark.parametrize("shape,products,tensors,stats,want_by", [

@@ -34,9 +34,10 @@
 // - Registers: a consumer holds dK and dV (D/2 fp32 each), Sᵀ and dPᵀ
 //   (BM/2 fp32 each) and the two bf16 A operands (BM/4 each); setmaxnreg
 //   gives the consumers 232 of the registers the producer does not need.
-//   No spill at D=64; at D=128 ptxas spills 344 bytes (it parks the score
-//   accumulator in local memory around each wgmma), against 148 in the
-//   mma.sync kernel this one replaced.
+//   No spill at D=64 or 128. While mbar_wait trapped inside its loop, ptxas
+//   held the consumers to the launch's 168 registers: at D=128 it spilled
+//   688 bytes, serialised the wgmma and took 1.95× as long
+//   (scripts/torch_kernel_ab.py --shape d128 on an H100).
 // - δ = rowsum(dO∘O) is read from `delta`, which the dQ kernel (flash_dq.cu)
 //   wrote earlier on the same stream.
 //
@@ -156,6 +157,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         }
       }
     }
+    trap_if_stalled();
   } else {
     // ---- consumers: 64 keys per warpgroup
     Regs::consumer();
@@ -289,6 +291,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D;
     store_acc_rows<D>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
     store_acc_rows<D>(dv + koff, dva, key[0], Sk, rs, 1.f, 1.f, t);
+    trap_if_stalled();
   }
 }
 

@@ -3,28 +3,378 @@
 //
 // Replaces `_dkv_kernel` in vodascheduler_tpu/ops/flash_attention.py
 // (launched by `_bwd`) where the JAX package takes D > 128; flash_dkv.cu
-// keeps D = 64 and 128. With P = exp(S·scale − lse) and dS = P∘(dO·Vᵀ −
-// δ)·scale recomputed from the forward's lse and the dQ kernel's δ:
-// dK = dSᵀ·Q and dV = Pᵀ·dO.
+// keeps D = 64 and 128. With Pᵀ = exp(K·Qᵀ·scale − lse) and dSᵀ =
+// Pᵀ∘(V·dOᵀ − δ)·scale recomputed from the forward's lse and the dQ
+// kernel's δ: dK = dSᵀ·Q and dV = Pᵀ·dO.
 //
-// Bound on an H100 SXM: four products of 2·B·H·Sq·Sk·D FLOPs (S, dP,
-// Pᵀ·dO, dSᵀ·Q), halved under the causal mask: at B=8, H=4, S=2048,
-// D=256, 137 GFLOP, 139 µs, against six [B,S,H,D] bf16 tensors and two row
-// statistics ≈ 201 MB, 60 µs: compute-bound.
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): four products of
+// 2·B·H·Sq·Sk·D FLOPs (Sᵀ, dPᵀ, Pᵀ·dO, dSᵀ·Q), halved under the causal
+// mask: at B=8, H=4, S=2048, D=256, 137 GFLOP, 139 µs, against six
+// [B,S,H,D] bf16 tensors and two row statistics ≈ 201 MB, 60 µs:
+// compute-bound (the same at B=8, H=2, D=512).
 //
-// Design (wide.cuh): a CTA owns 64 keys of one (b, h) and one 128-wide
-// chunk c of dK and dV. For each tile of 64 queries it computes Sᵀ = K·Qᵀ
-// and dPᵀ = V·dOᵀ summed over every chunk of D (recomputed by each of the
-// D/128 CTAs of a key block: the products do (D/128 + 1)/2 times the
-// operations the bound counts), then Pᵀ and dSᵀ in shared memory (four
-// threads a key), then dV += Pᵀ·dO and dK += dSᵀ·Q with Q's and dO's chunk
-// c, both kept in registers as wmma accumulators. Causal: query tiles
-// wholly before the block's first key are never loaded; a key block no
-// query sees writes zeros.
+// Design (D = 256, 384, 512):
+// - A CTA owns 64 keys of one (b, h) and a chunk of dK and dV CW columns
+//   wide: CW = 256 where D divides by 256, else 128 (the grid's y axis).
+//   One producer warpgroup (warp 0: lane 0 issues the TMA loads, the lanes
+//   stage each tile's lse and δ) and two consumer warpgroups.
+// - K and V arrive once by TMA and stay. Q and dO tiles of BM query rows
+//   over all of D pass through a ring of STAGES stages, with a "full"
+//   mbarrier each and one "empty" that the 256 consumer threads arrive on.
+// - The consumers split the work of a tile by operand, and the chunk by
+//   halves. Warpgroup 0 computes Sᵀ = K·Qᵀ and warpgroup 1 dPᵀ = V·dOᵀ, each
+//   once, over all of D (wgmma m64nBMk16, both operands K-major in shared
+//   memory). Warpgroup 0 turns Sᵀ into Pᵀ = exp(Sᵀ·scale − lse) on its
+//   accumulators and hands Pᵀ to warpgroup 1 as fp32 through shared memory
+//   (named barrier 3); warpgroup 1 computes dSᵀ = Pᵀ∘(dPᵀ − δ)·scale and
+//   hands it back as bf16 A fragments (named barrier 4). Both layouts are
+//   the accumulator's own, thread by thread, so the exchange is a
+//   conflict-free 16-byte store and load a thread. Then each warpgroup runs
+//   dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half]
+//   (wgmma m64n(CW/2)k16, A from registers, B the same Q and dO stage read
+//   MN-major through the transpose bit), dK and dV staying in registers.
+// - At D=256 one CTA covers the whole head, so each Sᵀ and dPᵀ is computed
+//   once. With D/CW > 1 chunks the CTAs of a key block each compute them:
+//   the products do (D/CW + 1)/2 times the operations of the bound (1.5 at
+//   D=512, 2 at D=384).
+// - Causal: the loop starts at the first query tile whose last row reaches
+//   the CTA's first key; only tiles that cross the diagonal or the ragged
+//   end of Sq are masked (Pᵀ = 0 there, so dSᵀ = 0). The key tiles are the
+//   grid's fastest axis, so the CTAs in flight share a few heads' Q and dO
+//   in L2. A key block that no query sees writes zeros.
+// - Keys past Sk arrive from TMA as zeros; their rows are never stored.
+//
+// Shared memory, of the 227 KB (plus 1 KB to align the base to the
+// swizzle's 1024 bytes, and the mbarriers):
+//   D=256, BM=64: K, V 64 KB + 2 × (Q, dO 64 KB + lse, δ) + Pᵀ 16 KB +
+//                 dSᵀ 8 KB = 217 KB
+//   D=384, BM=32: K, V 96 KB + 2 × (Q, dO 48 KB) + 12 KB = 204 KB
+//   D=512, BM=32: K, V 128 KB + 1 × (Q, dO 64 KB) + 12 KB = 204 KB; with one
+//                 stage a tile's loads wait for the last tile's products.
+// Registers: setmaxnreg gives the producer 40 and each consumer thread 232.
+// A consumer holds dK and dV for its half (CW/4 fp32 each: 64 at CW=256),
+// Sᵀ or dPᵀ (BM/2 fp32) and the two bf16 A operands (BM/4 each). ptxas
+// spills nothing at D=256, 384 or 512 (chip_smoke.py phase 2 refuses a
+// spill at D=256), once no trap sits in the waits, as in flash_fwd_wide.cu.
+// Where the time goes (scripts/torch_kernel_ablate.py on an H100, two
+// runs of 3 rounds, about ±4% apart): at D=256 the warpgroups' waits on
+// each other's Pᵀ and dSᵀ take 5-19%, the exponentials no more than the
+// spread; at D=512 the loads of the single stage 22-24%, the waits 5-10%.
+//
+// Above D=512 K and V no longer fit beside a stage; those widths keep the
+// first wide kernel (wmma, wide.cuh), which cuts D into 128-wide chunks.
+//
+// δ = rowsum(dO∘O) is read from `delta`, which the dQ kernel wrote earlier
+// on the same stream. No atomics: each CTA writes its own rows and columns
+// of dK and dV, so both are deterministic.
 
+#include "hopper.cuh"
 #include "wide.cuh"
 
 namespace voda {
+
+template <int D>
+struct DkvWide {
+  static constexpr int CW = D % 256 == 0 ? 256 : 128;  // dK/dV chunk of a CTA
+  static constexpr int HW = CW / 2;  // a consumer warpgroup's half of it
+  static constexpr int BN = 64;      // keys of a CTA
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int ROOM = MAX_SMEM - 1024 - 2 * KV_BYTES - 8 * 8;
+  // a stage of `bm` query rows: Q, dO, lse, δ
+  static constexpr int stage_bytes(int bm) { return 4 * bm * D + 8 * bm; }
+  // the exchange: Pᵀ as fp32 and dSᵀ as bf16 A fragments
+  static constexpr int xchg_bytes(int bm) { return 256 * bm + 128 * bm; }
+  static constexpr int fit(int bm) {
+    return (ROOM - xchg_bytes(bm)) / stage_bytes(bm);
+  }
+  // query rows of a stage: 64 where two stages fit, else 32
+  static constexpr int BM = fit(64) >= 2 ? 64 : 32;
+  static constexpr int STAGES = fit(BM) < 2 ? fit(BM) : 2;
+  static constexpr int T_BYTES = BM * D * 2;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
+  static constexpr int STAT_OFF = DO_OFF + STAGES * T_BYTES;  // lse, δ
+  static constexpr int XP_OFF = STAT_OFF + STAGES * 2 * BM * 4;
+  static constexpr int XDS_OFF = XP_OFF + 256 * BM;
+  static constexpr int BAR_OFF = XDS_OFF + 128 * BM;
+  // kv_full, q_full[STAGES], do_full[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
+  static_assert(STAGES >= 1 && SMEM <= MAX_SMEM, "no stage fits beside K, V");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                          int Sq, int Sk, int q_off, int causal,
+                          float scale) {
+  using C = DkvWide<D>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, HW = C::HW;
+  // The producer warp also stages lse and δ, so it keeps 40 registers.
+  using Regs = RegSplit<40, 232>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* ks = reinterpret_cast<bf16*>(sm);
+  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  bf16* qs = reinterpret_cast<bf16*>(sm + C::Q_OFF);
+  bf16* dos = reinterpret_cast<bf16*>(sm + C::DO_OFF);
+  float* stat_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // [ST][2][BM]
+  float4* xp = reinterpret_cast<float4*>(sm + C::XP_OFF);      // [BM/8][128]
+  uint4* xds = reinterpret_cast<uint4*>(sm + C::XDS_OFF);      // [BM/16][128]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* do_full = q_full + ST;
+  uint64_t* empty = do_full + ST;
+
+  const int k0 = blockIdx.x * BN;
+  const int c0 = blockIdx.y * C::CW;  // the CTA's columns of dK and dV
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int num_q = (Sq + BM - 1) / BM;
+  // first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
+  const int i0 = causal ? max(0, k0 - q_off) / BM : 0;
+  const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&q_full[s], 32);  // the producer warp's lanes
+      mbar_init(&do_full[s], 32);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: warp 0; lane 0 issues the TMA loads, the lanes stage
+    // the tile's lse (in log2 units) and δ
+    Regs::producer();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+        tma_rows<D>(ks, &tk, kv_full, BN, h, k0, b);
+        tma_rows<D>(vs, &tv, kv_full, BN, h, k0, b);
+      }
+      for (int i = i0; i < num_q; ++i) {
+        const int it = i - i0, s = it % ST;
+        const int q0 = i * BM;
+        float* lse_s = stat_s + s * 2 * BM;
+        float* del_s = lse_s + BM;
+        float lv[BM / 32], dl[BM / 32];  // loaded before the wait
+#pragma unroll
+        for (int x = 0; x < BM / 32; ++x) {
+          const int r = q0 + lane + 32 * x;
+          lv[x] = r < Sq ? lse[stat + r] * LOG2E : 0.f;
+          dl[x] = r < Sq ? delta[stat + r] : 0.f;
+        }
+        mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+#pragma unroll
+        for (int x = 0; x < BM / 32; ++x) lse_s[lane + 32 * x] = lv[x];
+        if (lane == 0) {
+          mbar_expect_tx(&q_full[s], C::T_BYTES);
+          tma_rows<D>(qs + s * BM * D, &tq, &q_full[s], BM, h, q0, b);
+        } else {
+          mbar_arrive(&q_full[s]);
+        }
+#pragma unroll
+        for (int x = 0; x < BM / 32; ++x) del_s[lane + 32 * x] = dl[x];
+        if (lane == 0) {
+          mbar_expect_tx(&do_full[s], C::T_BYTES);
+          tma_rows<D>(dos + s * BM * D, &tdo, &do_full[s], BM, h, q0, b);
+        } else {
+          mbar_arrive(&do_full[s]);
+        }
+      }
+      trap_if_stalled();
+    }
+  } else {
+    // ---- consumers: warpgroup 0 Sᵀ and Pᵀ, warpgroup 1 dPᵀ and dSᵀ; each
+    // dK and dV for its half of the chunk
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+    const int col0 = c0 + cw * HW;  // the warpgroup's first column
+    const float sl2 = scale * LOG2E;
+
+    float dka[HW / 2], dva[HW / 2];
+#pragma unroll
+    for (int e = 0; e < HW / 2; ++e) dka[e] = dva[e] = 0.f;
+    float sc[BM / 2];  // Sᵀ, then Pᵀ (warpgroup 0); dPᵀ, then dSᵀ (1)
+    uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+    const bf16* a_tile = cw ? vs : ks;
+
+    // Sᵀ = K·Qᵀ (warpgroup 0) or dPᵀ = V·dOᵀ (warpgroup 1) of tile i over
+    // all of D into sc, committed as one group
+    auto issue_score = [&](int i) {
+      const int it = i - i0, s = it % ST;
+      const uint32_t ph = (it / ST) & 1;
+      mbar_wait(&q_full[s], ph);
+      mbar_wait(&do_full[s], ph);
+      const uint64_t ad = kmajor_desc(a_tile, 0);
+      const uint64_t bd = kmajor_desc((cw ? dos : qs) + s * BM * D, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BM>(sc, ad + kmajor_step(BN, kk), bd + kmajor_step(BM, kk),
+                     kk > 0);
+      wgmma_commit();
+    };
+    // Warpgroup 0: Pᵀ of tile i from Sᵀ, handed over; the mask is a pass of
+    // its own behind a uniform branch
+    auto p_out = [&](int i) {
+      const int q0 = i * BM;
+      const float* lse_s = stat_s + ((i - i0) % ST) * 2 * BM;
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c) {
+        const float2 ls =
+            *reinterpret_cast<const float2*>(lse_s + 8 * c + 2 * t);
+        sc[4 * c] = fmaf(sc[4 * c], sl2, -ls.x);
+        sc[4 * c + 1] = fmaf(sc[4 * c + 1], sl2, -ls.y);
+        sc[4 * c + 2] = fmaf(sc[4 * c + 2], sl2, -ls.x);
+        sc[4 * c + 3] = fmaf(sc[4 * c + 3], sl2, -ls.y);
+      }
+      if (q0 + BM > Sq || (causal && q_off + q0 < k0 + BN - 1)) {
+#pragma unroll
+        for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = q0 + 8 * c + 2 * t + (e & 1);
+            if (qpos >= Sq || (causal && q_off + qpos < key[e >> 1]))
+              sc[4 * c + e] = NEG_INF;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * c + e] = fast_exp2(sc[4 * c + e]);
+        xp[c * WG_THREADS + tid] = make_float4(sc[4 * c], sc[4 * c + 1],
+                                               sc[4 * c + 2], sc[4 * c + 3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) acc_to_a<BM / 2>(pa[kk], sc, kk);
+      asm volatile("bar.arrive 3, 256;" ::: "memory");  // Pᵀ is out
+    };
+    // Warpgroup 0: dSᵀ of the same tile, from warpgroup 1
+    auto ds_in = [&]() {
+      asm volatile("bar.sync 4, 256;" ::: "memory");  // dSᵀ is in
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint4 x = xds[kk * WG_THREADS + tid];
+        dsa[kk][0] = x.x;
+        dsa[kk][1] = x.y;
+        dsa[kk][2] = x.z;
+        dsa[kk][3] = x.w;
+      }
+    };
+    // Warpgroup 1: dSᵀ of tile i from dPᵀ and warpgroup 0's Pᵀ, handed back
+    auto ds_out = [&](int i) {
+      const float* del_s = stat_s + ((i - i0) % ST) * 2 * BM + BM;
+      asm volatile("bar.sync 3, 256;" ::: "memory");  // Pᵀ is in
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c) {
+        const float4 p = xp[c * WG_THREADS + tid];
+        const float2 dl =
+            *reinterpret_cast<const float2*>(del_s + 8 * c + 2 * t);
+        sc[4 * c] = p.x * (sc[4 * c] - dl.x) * scale;
+        sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl.y) * scale;
+        sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl.x) * scale;
+        sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl.y) * scale;
+        pa[c / 2][2 * (c % 2)] = pack_bf16(p.x, p.y);
+        pa[c / 2][2 * (c % 2) + 1] = pack_bf16(p.z, p.w);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        acc_to_a<BM / 2>(dsa[kk], sc, kk);
+        xds[kk * WG_THREADS + tid] =
+            make_uint4(dsa[kk][0], dsa[kk][1], dsa[kk][2], dsa[kk][3]);
+      }
+      asm volatile("bar.arrive 4, 256;" ::: "memory");  // dSᵀ is out
+    };
+    // dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half] of
+    // tile i, committed as one group
+    auto issue_grads = [&](int i) {
+      const int s = (i - i0) % ST;
+      const int part = (col0 / 64) * BM * 64;
+      const uint64_t dd = mnmajor_desc(dos + s * BM * D + part, BM);
+      const uint64_t qd = mnmajor_desc(qs + s * BM * D + part, BM);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        wgmma_rs<HW>(dva, pa[kk], dd + mnmajor_step(kk));
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        wgmma_rs<HW>(dka, dsa[kk], qd + mnmajor_step(kk));
+      wgmma_commit();
+    };
+
+    // Tile by tile: issuing the next tile's score product before this
+    // tile's handoff and dV, dK (two stages fit at D=256) measured within
+    // 2% of this order (scripts/torch_kernel_ablate.py on an H100), so the
+    // simpler order stays.
+    mbar_wait(kv_full, 0);
+    for (int i = i0; i < num_q; ++i) {
+      issue_score(i);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (cw == 0) {
+        p_out(i);
+        ds_in();
+      } else {
+        ds_out(i);
+      }
+      issue_grads(i);
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(&empty[(i - i0) % ST]);
+    }
+
+    const int rs = H * D;
+    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + col0;
+    store_acc_rows<HW>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
+    store_acc_rows<HW>(dv + koff, dva, key[0], Sk, rs, 1.f, 1.f, t);
+    trap_if_stalled();
+  }
+}
+
+template <int D>
+int launch_dkv_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int H, int Sq, int Sk,
+                    int q_off, int causal, float scale, cudaStream_t st) {
+  using C = DkvWide<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dkv_wide_kernel<D>), C::SMEM);
+  if (err) return err;
+  const dim3 grid((Sk + C::BN - 1) / C::BN, D / C::CW, B * H);
+  flash_dkv_wide_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), H, Sq, Sk, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------- widths above 512
+
 namespace wide {
 
 constexpr int DKV_SMEM = 4 * TILE_BYTES + 2 * SCORE_BYTES + 2 * PTILE_BYTES +
@@ -32,8 +382,13 @@ constexpr int DKV_SMEM = 4 * TILE_BYTES + 2 * SCORE_BYTES + 2 * PTILE_BYTES +
 static_assert(2 * OUT_BYTES <= 4 * TILE_BYTES,
               "dK's and dV's chunks are staged in the tiles' space");
 
+// A CTA owns 64 keys and one 128-wide chunk c of dK and dV; for each tile
+// of 64 queries it sums Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over every chunk of D,
+// computes Pᵀ and dSᵀ in shared memory (four threads a key), then
+// dV += Pᵀ·dO and dK += dSᵀ·Q with Q's and dO's chunk c, both kept as wmma
+// accumulators.
 __global__ void __launch_bounds__(THREADS)
-    flash_dkv_wide_kernel(const __nv_bfloat16* __restrict__ q,
+    flash_dkv_wmma_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v,
                           const __nv_bfloat16* __restrict__ dout,
@@ -130,20 +485,32 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace wide
 }  // namespace voda
 
+// Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
+// its launch; 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
 extern "C" int voda_flash_dkv_wide(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
                                    void* dk, void* dv, int B, int H, int Sq,
                                    int Sk, int D, int q_off, int causal,
                                    float scale, void* stream) {
-  using namespace voda::wide;
-  if (!shape_ok(B, H, Sq, Sk, D))
+  using namespace voda;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(flash_dkv_wide_kernel, DKV_SMEM);
+  if (D == 256)
+    return launch_dkv_wide<256>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                Sk, q_off, causal, scale, st);
+  if (D == 384)
+    return launch_dkv_wide<384>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                Sk, q_off, causal, scale, st);
+  if (D == 512)
+    return launch_dkv_wide<512>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                Sk, q_off, causal, scale, st);
+  using namespace voda::wide;
+  cudaError_t err = allow_smem(flash_dkv_wmma_kernel, DKV_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sk + BM - 1) / BM, D / CW, B * H);
-  flash_dkv_wide_kernel<<<grid, THREADS, DKV_SMEM,
-                          static_cast<cudaStream_t>(stream)>>>(
+  flash_dkv_wmma_kernel<<<grid, THREADS, DKV_SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),

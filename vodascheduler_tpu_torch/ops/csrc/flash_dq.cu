@@ -207,6 +207,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         tma_rows<D>(vs + s * C::BN * D, &tv, &v_full[s], C::BN, h, j * C::BN, b);
       }
     }
+    trap_if_stalled();
   } else {
     // ---- consumers: 64 query rows per warpgroup. At D=64, while the
     // tensor cores run dQ += dS·K of tile j−1, the warpgroup computes dS of
@@ -334,6 +335,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
     store_acc_rows<D>(dq + (static_cast<size_t>(b) * Sq * H + h) * D, acc,
                       q0 + r_loc, Sq, H * D, 1.f, 1.f, t);
+    trap_if_stalled();
   }
 }
 

@@ -70,66 +70,6 @@ struct Fwd {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
 };
 
-// Online softmax of one S tile on its accumulator, in place: scores become
-// P = exp2(S·scale·log2e − m), m the running row max in log2 units (the
-// scale rides in the exponent's FMA), l takes the thread's part of the row
-// sums, corr the factor that rescales what O has summed so far.
-template <int BN>
-__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], float (&m)[2],
-                                             float (&l)[2], float (&corr)[2],
-                                             float sl2, bool masked, int col0,
-                                             int Sk, int causal,
-                                             const int (&row)[2], int t) {
-  // The mask is a pass of its own behind a uniform branch: folded into the
-  // loop below, it would be predicated onto every tile.
-  if (masked) {
-#pragma unroll
-    for (int c = 0; c < BN / 8; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = col0 + 8 * c + 2 * t + (e & 1);
-        if (col >= Sk || (causal && row[e >> 1] < col)) sc[4 * c + e] = NEG_INF;
-      }
-    }
-  }
-  // Row max and row sum each run as four independent chains: a consumer
-  // warp shares its SMSP with only one other, so a single chain of 32
-  // dependent operations per row would leave the SMSP waiting on latency.
-  float mx[2][4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) mx[0][q] = mx[1][q] = NEG_INF;
-#pragma unroll
-  for (int c = 0; c < BN / 8; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      mx[e >> 1][c % 4] = fmaxf(mx[e >> 1][c % 4], sc[4 * c + e]);
-  }
-  float mrow[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float row_max =
-        fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-    mrow[r] = fmaxf(m[r], quad_max(row_max) * sl2);
-    corr[r] = fast_exp2(m[r] - mrow[r]);
-    m[r] = mrow[r];
-  }
-  float ls[2][4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) ls[0][q] = ls[1][q] = 0.f;
-#pragma unroll
-  for (int c = 0; c < BN / 8; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = fast_exp2(fmaf(sc[4 * c + e], sl2, -mrow[e >> 1]));
-      sc[4 * c + e] = p;
-      ls[e >> 1][c % 4] += p;
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    l[r] = fmaf(l[r], corr[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
-}
-
 template <int D>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
@@ -184,6 +124,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         tma_rows<D>(vs + s * C::BN * D, &tv, &v_full[s], C::BN, h, j * C::BN, b);
       }
     }
+    trap_if_stalled();
   } else {
     // ---- consumers: 64 query rows per warpgroup. While the tensor cores
     // run P·V of tile j−1, the warpgroup runs the softmax of tile j, whose
@@ -297,6 +238,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       if (q0 + r_loc < Sq) lb[q0 + r_loc] = lse_r[0];
       if (q0 + r_loc + 8 < Sq) lb[q0 + r_loc + 8] = lse_r[1];
     }
+    trap_if_stalled();
   }
 }
 

@@ -1,10 +1,11 @@
-// Hopper building blocks of the three flash-attention kernels (forward,
-// flash_fwd.cu; dQ, flash_dq.cu; dK/dV, flash_dkv.cu): TMA tile loads into
+// Hopper building blocks of the flash-attention kernels (forward,
+// flash_fwd.cu and flash_fwd_wide.cu; dQ, flash_dq.cu; dK/dV, flash_dkv.cu
+// and flash_dkv_wide.cu): TMA tile loads into
 // 128-byte-swizzled shared memory, mbarriers that guard a ring of stages,
 // wgmma descriptors and the wgmma instructions the kernels issue,
 // setmaxnreg, the named barriers of the consumer warpgroups' turns, the
-// host-side tensor maps, and the scalar helpers (bf16 packing, quad
-// reductions).
+// forwards' online softmax on a score accumulator, the host-side tensor
+// maps, and the scalar helpers (bf16 packing, quad reductions).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
 // model layout, so no transpose runs around the kernels); lse and delta are
@@ -49,6 +50,8 @@ constexpr int WG_THREADS = 128;
 // splits that keep 128·producer + 256·consumer ≤ 384·168.
 constexpr int WS_THREADS = 3 * WG_THREADS;
 constexpr int LAUNCH_REGS = 168;
+// Dynamic shared memory a block can take on an H100 (227 KB).
+constexpr int MAX_SMEM = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
@@ -123,14 +126,32 @@ __device__ __forceinline__ uint64_t global_ns() {
 }
 
 // Waits for the phase of parity `parity` to complete. A wait that lasts 4 s
-// can only be a pipeline fault: it traps, so the launch fails with an error
-// instead of hanging the card.
+// can only be a pipeline fault: it gives up and marks the card's copy of
+// `voda_stalled`, and from then on every wait that has to spin gives up at
+// once, so each CTA runs to its end, where trap_if_stalled turns the mark
+// into a launch error instead of a hung card. A trap inside the wait would
+// fail sooner, but with a trap on the consumers' path ptxas allocates their
+// registers at the launch's 168 and not at setmaxnreg's count: the wide
+// forward and dK/dV spilled some 1.2 KB at D=256 and serialised their
+// wgmma, and K3 688 bytes at D=128.
+__device__ unsigned int voda_stalled;
+
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   const uint32_t addr = smem_u32(bar);
   if (mbar_try_wait(addr, parity)) return;
   const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(addr, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
+  while (!mbar_try_wait(addr, parity)) {
+    volatile unsigned int* stalled = &voda_stalled;
+    if (*stalled || global_ns() - t0 > 4000000000ull) {
+      *stalled = 1;
+      return;
+    }
+  }
+}
+
+// Ends each warpgroup's branch of a kernel that waits with mbar_wait.
+__device__ __forceinline__ void trap_if_stalled() {
+  if (*static_cast<volatile unsigned int*>(&voda_stalled)) __trap();
 }
 
 // ------------------------------------------------------- named barriers
@@ -163,21 +184,21 @@ struct Turns {
 
 // -------------------------------------------------------------------- TMA
 
-// Rows [s0, s0 + rows) of head h, batch b into the parts at `dst`, counted
-// on `bar`; rows past S arrive as zeros. `map` is a tensor map of
-// make_rows_map with the same `rows`.
+// Rows [s0, s0 + rows) of head h, batch b, columns [c0, c0 + D), into the
+// parts at `dst`, counted on `bar`; rows past S arrive as zeros. `map` is a
+// tensor map of make_rows_map with the same `rows`.
 template <int D>
 __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int h,
-                                         int s0, int b) {
+                                         int s0, int b, int c0 = 0) {
 #pragma unroll
   for (int p = 0; p < D / 64; ++p)
     asm volatile(
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
         "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
             smem_u32(dst + p * rows * 64)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(p * 64),
-        "r"(h), "r"(s0), "r"(b)
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0 + p * 64), "r"(h), "r"(s0), "r"(b)
         : "memory");
 }
 
@@ -255,12 +276,27 @@ struct RegSplit {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+#define VODA_R40                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39}"
 #define VODA_R64                                                            \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define VODA_R128 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, " \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, " \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, " \
+  "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127}"
 
 // d[64 x N] (+)= A · B, A and B from shared memory (both K-major: the
 // kernels' products with two shared operands are all of this form).
@@ -276,6 +312,17 @@ __device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
       " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " VODA_R16
       ", %16, %17, p, 1, 1, 0, 0;\n}"
       : VODA_F16(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %42, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " VODA_R40
+      ", %40, %41, p, 1, 1, 0, 0;\n}"
+      : VODA_F16(0), VODA_F16(16), VODA_F4(32), VODA_F4(36)
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -331,11 +378,26 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " VODA_R128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}"
+      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48), VODA_F16(64),
+        VODA_F16(80), VODA_F16(96), VODA_F16(112)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef VODA_F4
 #undef VODA_F16
 #undef VODA_R16
 #undef VODA_R32
+#undef VODA_R40
 #undef VODA_R64
+#undef VODA_R128
 
 // The A fragment of k-step kk from a 64 x N fp32 accumulator, cast to bf16.
 template <int N>
@@ -366,6 +428,68 @@ __device__ __forceinline__ void store_acc_rows(bf16* base, const float (&d)[D / 
       *reinterpret_cast<uint32_t*>(p + 8 * c) =
           pack_bf16(d[4 * c + 2 * half] * f, d[4 * c + 2 * half + 1] * f);
   }
+}
+
+// ---------------------------------------------------------------- softmax
+
+// Online softmax of one S tile on its accumulator, in place: scores become
+// P = exp2(S·scale·log2e − m), m the running row max in log2 units (the
+// scale rides in the exponent's FMA), l takes the thread's part of the row
+// sums, corr the factor that rescales what O has summed so far.
+template <int BN>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             float sl2, bool masked, int col0,
+                                             int Sk, int causal,
+                                             const int (&row)[2], int t) {
+  // The mask is a pass of its own behind a uniform branch: folded into the
+  // loop below, it would be predicated onto every tile.
+  if (masked) {
+#pragma unroll
+    for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = col0 + 8 * c + 2 * t + (e & 1);
+        if (col >= Sk || (causal && row[e >> 1] < col)) sc[4 * c + e] = NEG_INF;
+      }
+    }
+  }
+  // Row max and row sum each run as four independent chains: a consumer
+  // warp shares its SMSP with only one other, so a single chain of 32
+  // dependent operations per row would leave the SMSP waiting on latency.
+  float mx[2][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) mx[0][q] = mx[1][q] = NEG_INF;
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      mx[e >> 1][c % 4] = fmaxf(mx[e >> 1][c % 4], sc[4 * c + e]);
+  }
+  float mrow[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float row_max =
+        fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
+    mrow[r] = fmaxf(m[r], quad_max(row_max) * sl2);
+    corr[r] = fast_exp2(m[r] - mrow[r]);
+    m[r] = mrow[r];
+  }
+  float ls[2][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ls[0][q] = ls[1][q] = 0.f;
+#pragma unroll
+  for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = fast_exp2(fmaf(sc[4 * c + e], sl2, -mrow[e >> 1]));
+      sc[4 * c + e] = p;
+      ls[e >> 1][c % 4] += p;
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+    l[r] = fmaf(l[r], corr[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
 }
 
 // ------------------------------------------------------------------- host
