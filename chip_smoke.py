@@ -6,8 +6,8 @@ Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
-     D=64 (the main path) or in the wide forward or dK/dV at D=256 (phase
-     9's wide llama), and logs the spills at D=128, 384 and 512;
+     D=64 (the main path) or in the wide forward, dQ or dK/dV at D=256
+     (phase 9's wide llama), and logs the spills at D=128, 384 and 512;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -16,7 +16,8 @@ Phases (any failure exits non-zero):
      the attention operator sends them) against the plain versions at the
      true width, and at widths 256 (4 heads) and 512 (2 heads), B=8,
      S=2048, which the wide kernels take (flash_*_wide.cu), a ragged
-     S=1000 at 256 (B=2, H=4) and width 384 (B=4, H=2, S=2048); then each
+     S=1000 at 256 (B=2, H=4), a query slice of 512 behind q_offset 1536 at
+     256 (B=2, H=4) and width 384 (B=4, H=2, S=2048); then each
      timed with CUDA events beside its plain version, the PyTorch library call that
      computes the same function, and its bound on the card, and dQ then
      dK/dV timed as one backward beside the library's backward; the padded
@@ -155,7 +156,7 @@ SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv")
 MAIN_HEAD_DIM = 64
 # The wide kernels redesigned on wgmma, held to no spill at the width of
 # phase 9's 256-wide llama (their spills at 384 and 512 are only logged).
-WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dkv_wide")
+WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide")
 WIDE_HEAD_DIM = 256
 MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
 SPILL_GATES = MAIN_SPILL_GATES + tuple((n, WIDE_HEAD_DIM)
@@ -1774,8 +1775,10 @@ def main() -> int:
              # width in 4 heads of 256 and in 2 heads of 512
              "d256": (8, 4, 2048, 2048, 256, True, 0),
              "d512": (8, 2, 2048, 2048, 512, True, 0),
-             # a ragged wide case, and the width whose chunk is 128
+             # a ragged wide case, a query slice behind an offset, and the
+             # width whose chunk is 128
              "d256_ragged": (2, 4, 1000, 1000, 256, True, 0),
+             "d256_q_offset": (2, 4, 512, 2048, 256, True, 1536),
              "d384": (4, 2, 2048, 2048, 384, True, 0)}
     errs = check_kernels(fa, cases)
     rows = time_kernels(fa, main_shape, errs)

@@ -13,8 +13,8 @@ Some variants compute wrong results on purpose (they drop work to weigh
 it) and are only timed. At `--shape` (scripts/torch_kernel_ab.py's:
 `main` is llama_350m's attention, B=8, H=16, S=2048, D=64, bf16, causal;
 `d128` the same width in heads of 128; `d256` and `d512` in heads of 256
-and 512, which run the wide kernels, whose variants are named `fwdw_` and
-`dkvw_`) every round times the tree and then each variant, K1, K2, K3
+and 512, which run the wide kernels, whose variants are named `fwdw_`,
+`dqw_` and `dkvw_`) every round times the tree and then each variant, K1, K2, K3
 and K2 then K3 (the backward) each by CUDA events (chip_smoke.cuda_ms, 30
 repeats after 5 warm-ups); the script prints the
 card's name and power limit, the median of each, its ratio to the tree's,
@@ -42,7 +42,7 @@ sys.path.insert(0, os.path.join(ROOT, "scripts"))
 import torch_kernel_ab as ab  # noqa: E402
 
 F, Q, K = "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu"
-FW, KW = "flash_fwd_wide.cu", "flash_dkv_wide.cu"
+FW, QW, KW = "flash_fwd_wide.cu", "flash_dq_wide.cu", "flash_dkv_wide.cu"
 HOPPER = "hopper.cuh"  # the forwards' softmax_tile
 _KV_LOADS = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
         tma_rows<D>(ks + s * C::BN * D, &tk, &k_full[s], C::BN, h, j * C::BN, b);
@@ -55,6 +55,10 @@ _KV_LOADS_WIDE = """        mbar_expect_tx(&k_full[s], C::K_BYTES);
         tma_rows<D>(ks + s * BN * D, &tk, &k_full[s], BN, h, j * BN, b);"""
 _V_LOADS_WIDE = """        mbar_expect_tx(&v_full[s], C::V_BYTES);
         tma_rows<CW>(vs + s * BN * CW, &tv, &v_full[s], BN, h, j * BN, b, c0);"""
+_KV_LOADS_DQW = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        tma_rows<D>(ks + s * BN * D, &tk, &k_full[s], BN, h, j * BN, b);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
+        tma_rows<D>(vs + s * BN * D, &tv, &v_full[s], BN, h, j * BN, b);"""
 _DKV_LOOP = """        issue_grads(i);
         wgmma_wait<0>();
         fence_regs(dva);
@@ -132,6 +136,20 @@ VARIANTS = {
     "dkvw_no_exp": ("wide K3 with exp2 replaced by its argument (wrong "
                     "results)", [
         (KW, "sc[4 * c + e] = fast_exp2(sc[4 * c + e]);", "")]),
+    "dqw_kv_once": ("wide K2 loading K/V for its first stages only (wrong "
+                    "results)", [
+        (QW, _KV_LOADS_DQW, "if (j < ST) {\n" + _KV_LOADS_DQW
+         + "\n} else { mbar_arrive(&k_full[s]); mbar_arrive(&v_full[s]); }")]),
+    "dqw_no_handoff": ("wide K2 without waiting for the other warpgroup's "
+                       "P and dS (wrong results)", [
+        (QW, 'asm volatile("bar.sync 3, 256;" ::: "memory");', ""),
+        (QW, 'asm volatile("bar.arrive 3, 256;" ::: "memory");', ""),
+        (QW, 'asm volatile("bar.sync 4, 256;" ::: "memory");', ""),
+        (QW, 'asm volatile("bar.arrive 4, 256;" ::: "memory");', "")]),
+    "dqw_no_exp": ("wide K2 with exp2 replaced by its argument (wrong "
+                   "results)", [
+        (QW, "sc[4 * c + e] = fast_exp2(fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]));",
+         "sc[4 * c + e] = fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]);")]),
 }
 
 

@@ -15,10 +15,15 @@ small:
 - ``dq_last_tile``: K2 skips dQ += dS·K for the last K/V tile it visits
   in the last 128-row query tile of every (batch, head). δ stays exact.
 - ``dkv_last_tile``: K3 never accumulates dV for the last 128-key tile.
+- ``dqw_last_tile``: the wide K2 (flash_dq_wide.cu) skips dQ += dS·K for
+  the last K/V tile it visits in the last 64-row query tile of every
+  (batch, head). δ stays exact.
 
-At llama_350m's attention shape (B=8, H=16, S=2048, D=64, bf16, causal)
-the script logs each kernel set's errors against the plain versions under
-chip_smoke.py's bars, then llama_350m's forward and backward through each
+The first three are held at llama_350m's attention shape (B=8, H=16,
+S=2048, D=64, bf16, causal), the wide one at the same width in heads of
+256 (H=4), where the wide kernels run. The script logs each kernel set's
+errors against the plain versions under chip_smoke.py's bars (the sound
+set at both shapes), then llama_350m's forward and backward through each
 set against the plain attention (chip_smoke.py's slice comparison). It
 exits non-zero if the sound kernels break a bar or a faulty set passes the
 kernel bars. Needs CUDA and nvcc.
@@ -37,25 +42,36 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# name -> (source file, the line as it stands, the line with the fault)
+MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
+WIDE_SHAPE = (8, 4, 2048, 2048, 256, True, 0)
+# name -> (source file, the line as it stands, the line with the fault,
+# the shape it is held at)
 FAULTS = {
     "fwd_last_tile": (
         "flash_fwd.cu",
         "        wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
-        "          wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n"),
+        "          wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n",
+        MAIN_SHAPE),
     "dq_last_tile": (
         "flash_dq.cu",
         "        wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
-        "          wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n"),
+        "          wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        MAIN_SHAPE),
     "dkv_last_tile": (
         "flash_dkv.cu",
         "        wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n",
         "        if (j != gridDim.z - 1)\n"
-        "          wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n"),
+        "          wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n",
+        MAIN_SHAPE),
+    "dqw_last_tile": (
+        "flash_dq_wide.cu",
+        "        wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
+        "          wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        WIDE_SHAPE),
 }
-MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 
 
 def use_sources(build, fa, csrc, build_root) -> None:
@@ -69,7 +85,7 @@ def use_sources(build, fa, csrc, build_root) -> None:
 def plant(sound_csrc: Path, name: str):
     """A copy of the sound sources with fault `name`: (csrc dir, build
     root)."""
-    fname, old, new = FAULTS[name]
+    fname, old, new, _ = FAULTS[name]
     base = os.path.join(ROOT, "build", "planted_fault", name)
     csrc = os.path.join(base, "csrc")
     shutil.rmtree(base, ignore_errors=True)
@@ -109,7 +125,10 @@ def main() -> int:
                                  else plant(sound[0], name)))
         build.build()
         log(f"--- {name}")
-        _, bad = chip_smoke.kernel_errors(fa, name, MAIN_SHAPE)
+        shapes = ((MAIN_SHAPE, WIDE_SHAPE) if name == "sound"
+                  else (FAULTS[name][3],))
+        bad = [b for shape in shapes
+               for b in chip_smoke.kernel_errors(fa, name, shape)[1]]
         slice_bad = chip_smoke.check_slice(
             chip_smoke.slice_gaps(bundle, session.module, batch))
         log(f"verdict[{name}] kernel bars broken: {bad or 'none'}; "

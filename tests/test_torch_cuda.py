@@ -284,6 +284,7 @@ def test_dispatches_agree_on_the_card(cuda):
     (True, 300, 384, 230, 70),
     (True, 128, 512, 0, 128),
     (True, 65, 256, 0, 65),    # one row past a 64-row tile
+    (True, 200, 640, 0, 200),  # above 512: the wmma kernels of wide.cuh
 ])
 def test_wide_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
     """D > 128 (a multiple of 128) runs the wide kernels, each against its
@@ -348,39 +349,46 @@ def _wide_inputs(B, H, Sq, Sk, D, seed):
 ])
 def test_redesigned_wide_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
                                                       causal, q_off):
-    """The TMA paths of the wide forward and dK/dV at the edges a ring can
-    get wrong: ragged S, Sq ≠ Sk behind q_offset, non-causal, every wide
-    width, a single (b, h). dK/dV runs on the plain version's δ, so each
-    kernel is held alone, by chip_smoke.py's bars."""
+    """The TMA paths of the wide forward, dQ and dK/dV at the edges a ring
+    can get wrong: ragged S, Sq ≠ Sk behind q_offset, non-causal, every
+    wide width, a single (b, h). dQ and dK/dV run on the kernel forward's
+    O and lse, and dK/dV on the plain version's δ, so each kernel is held
+    alone, by chip_smoke.py's bars."""
     q, k, v, do = _wide_inputs(B, H, Sq, Sk, D, 7)
     before = dict(fa.launches)
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
-    _, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
+                                              q_off)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta_ref, causal, q_off)
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
                                             causal, q_off)
     torch.cuda.synchronize()
     assert row_err(o, o_ref) <= LIMITS["o_row"]
     assert (lse - lse_ref).abs().max().item() <= LIMITS["lse"]
+    assert row_err(dq, dq_ref) <= LIMITS["dq_row"]
+    assert (delta - delta_ref).abs().max().item() <= LIMITS["delta"]
     assert row_err(dk, dk_ref) <= LIMITS["dk_row"]
     assert row_err(dv, dv_ref) <= LIMITS["dv_row"]
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_wide=1, flash_dkv_wide=1)
+        flash_fwd_wide=1, flash_dq_wide=1, flash_dkv_wide=1)
 
 
 @pytest.mark.parametrize("D", [256, 384, 512])
 def test_redesigned_wide_kernels_are_deterministic(cuda, D):
-    """No atomics in the wide forward or dK/dV: two launches on the same
-    inputs give bitwise-equal O, lse, dK and dV."""
+    """No atomics in the wide forward, dQ or dK/dV: two launches on the
+    same inputs give bitwise-equal O, lse, dQ, δ, dK and dV."""
     q, k, v, do = _wide_inputs(1, 2, 320, 320, D, 8)
     o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
     o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
-    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq1, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq2, delta2 = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
     dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     torch.cuda.synchronize()
-    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+    for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (delta, delta2),
+                 (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a, b)
 
 

@@ -17,11 +17,14 @@ DQ64 = "_ZN4voda15flash_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfPfP13__
 DQ128 = DQ64.replace("ILi64E", "ILi128E")
 FWDW256 = "_ZN4voda21flash_fwd_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
 DKVW256 = "_ZN4voda21flash_dkv_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiif"
+DQW256 = "_ZN4voda20flash_dq_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16PKfPfPS2_iiiiif"
 FWDW512 = FWDW256.replace("ILi256E", "ILi512E")
 DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
-# the wmma dQ kernel above D=128 is not templated on its width
-DQW = "_ZN4voda4wide20flash_dq_wide_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
+DQW512 = DQW256.replace("ILi256E", "ILi512E")
+# the wmma dQ kernel above D=512 is not templated on its width
+DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0))
+WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0))
 
 
 def log_of(*kernels):
@@ -70,24 +73,32 @@ def test_spill_at_d128_is_only_logged():
 
 def test_ptxas_spills_reads_the_wide_kernels_by_width():
     spills = chip_smoke.ptxas_spills(log_of(
-        *MAIN_CLEAN, (FWDW256, 0, 0), (DKVW256, 0, 0), (FWDW512, 600, 532),
-        (DKVW384, 0, 0), (DQW, 12, 12)))
+        *MAIN_CLEAN, *WIDE_CLEAN, (FWDW512, 600, 532), (DKVW384, 0, 0),
+        (DQW, 12, 12)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_fwd_wide", 256): 0,
-                      ("flash_dkv_wide", 256): 0,
+                      ("flash_dq_wide", 256): 0, ("flash_dkv_wide", 256): 0,
                       ("flash_fwd_wide", 512): 1132,
                       ("flash_dkv_wide", 384): 0}
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 
 @pytest.mark.parametrize("wide,fault", [
-    (((FWDW256, 608, 580), (DKVW256, 0, 0)),
+    (((FWDW256, 608, 580), (DQW256, 0, 0), (DKVW256, 0, 0)),
      "flash_fwd_wide D=256: 1188 bytes spilled"),
-    (((FWDW256, 0, 0), (DKVW256, 8, 0)),
+    (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 8, 0)),
      "flash_dkv_wide D=256: 8 bytes spilled"),
-    (((FWDW256, 0, 0),), "flash_dkv_wide D=256: no ptxas spill line"),
-    (((FWDW512, 0, 0), (DKVW256, 0, 0)),
+    (((FWDW256, 0, 0), (DQW256, 0, 0)),
+     "flash_dkv_wide D=256: no ptxas spill line"),
+    (((FWDW512, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0)),
      "flash_fwd_wide D=256: no ptxas spill line"),
+    (((FWDW256, 0, 0), (DQW256, 12, 0), (DKVW256, 0, 0)),
+     "flash_dq_wide D=256: 12 bytes spilled"),
+    (((FWDW256, 0, 0), (DKVW256, 0, 0)),
+     "flash_dq_wide D=256: no ptxas spill line"),
+    # neither the wmma dQ kernel nor the new one at 512 stands for D=256
+    (((FWDW256, 0, 0), (DQW, 0, 0), (DQW512, 0, 0), (DKVW256, 0, 0)),
+     "flash_dq_wide D=256: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_in_a_wide_kernel_at_d256(wide, fault):
     spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *wide))
@@ -98,8 +109,17 @@ def test_spill_faults_refuse_a_spill_in_a_wide_kernel_at_d256(wide, fault):
 
 def test_wide_spills_at_384_and_512_are_only_logged():
     spills = chip_smoke.ptxas_spills(log_of(
-        *MAIN_CLEAN, (FWDW256, 0, 0), (DKVW256, 0, 0), (FWDW512, 624, 532),
-        (DKVW384, 100, 100)))
+        *MAIN_CLEAN, *WIDE_CLEAN, (FWDW512, 624, 532), (DKVW384, 100, 100),
+        (DQW512, 40, 40)))
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
+
+
+def test_a_clean_wide_log_passes_every_gate():
+    """The log of a build in which no gated kernel spills: every gate of
+    phase 2 is met, the wide dQ at D=256 among them."""
+    spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *WIDE_CLEAN))
+    assert set(chip_smoke.SPILL_GATES) <= set(spills)
+    assert ("flash_dq_wide", 256) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 

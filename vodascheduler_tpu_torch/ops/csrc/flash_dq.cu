@@ -81,20 +81,6 @@ struct Dq {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
 };
 
-// Σ a∘b over the 8 bf16 of two 16-byte chunks.
-__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
-  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
-    const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[i]));
-    s = fmaf(u.x, w.x, s);
-    s = fmaf(u.y, w.y, s);
-  }
-  return s;
-}
-
 // δ of row r of the swizzled [BM, D] tiles dO and O: thread t of the quad
 // takes the chunks t and t + 4 of every 64-column part, in an order that
 // puts the 8 threads of one 16-byte load phase (two rows) on distinct

@@ -5,32 +5,382 @@
 // (launched by `_bwd`) where the JAX package takes D > 128; flash_dq.cu
 // keeps D = 64 and 128. With P = exp(S·scale − lse) recomputed from the
 // forward's lse and δ = rowsum(dO∘O): dS = P∘(dO·Vᵀ − δ)·scale and
-// dQ = dS·K. It also writes δ for the dK/dV kernel, as flash_dq.cu does.
+// dQ = dS·K. It also writes δ to `delta` [B, H, Sq], once per row, for the
+// dK/dV kernel (flash_dkv_wide.cu) launched after it on the same stream.
 //
-// Bound on an H100 SXM: three products of 2·B·H·Sq·Sk·D FLOPs (S, dP,
-// dS·K), halved under the causal mask: at B=8, H=4, S=2048, D=256, 103
-// GFLOP, 104 µs, against six [B,S,H,D] bf16 tensors and two row statistics
-// ≈ 201 MB, 60 µs: compute-bound.
+// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): three products of
+// 2·B·H·Sq·Sk·D FLOPs (S, dP, dS·K), halved under the causal mask: at B=8,
+// H=4, S=2048, D=256, 103 GFLOP, 104 µs, against six [B,S,H,D] bf16
+// tensors and two row statistics ≈ 201 MB, 60 µs: compute-bound (the same
+// at B=8, H=2, D=512).
 //
-// Design (wide.cuh): a CTA owns 64 query rows of one (b, h) and one
-// 128-wide chunk c of dQ. It computes δ of its rows over the whole of D
-// (the CTA of chunk 0 writes it out), then, for each tile of 64 keys, S and
-// dP summed over every chunk of D (both recomputed by each of the D/128
-// CTAs of a row block: the products do (2·D/128 + 1)/3 times the operations
-// the bound counts), dS in shared memory (four threads a row), and
-// dQ += dS·K with K's chunk c, kept in registers as wmma accumulators.
-// Causal: key tiles past the block's last row are never loaded.
+// Design (D = 256, 384, 512), flash_dkv_wide.cu's with queries for keys:
+// - A CTA owns BM = 64 query rows of one (b, h) across the whole of D, so
+//   each S and dP is computed once. One producer warpgroup (one thread
+//   issues every TMA load) and two consumer warpgroups.
+// - Q and dO arrive once by TMA and stay. K and V tiles of BN keys over all
+//   of D pass through a ring of STAGES stages, with a "full" mbarrier each
+//   for K and V and one "empty" that the 256 consumer threads arrive on
+//   after dQ += dS·K, the stage's last reader.
+// - The consumers split the work of a tile by operand, and dQ by halves.
+//   Warpgroup 0 computes S = Q·Kᵀ and warpgroup 1 dP = dO·Vᵀ, each once,
+//   over all of D (wgmma m64nBNk16, both operands K-major in shared
+//   memory). Warpgroup 0 turns S into P·scale = exp2(S·scale·log2e − lse2)
+//   on its accumulators, lse2 = lse·log2e − log2 scale held in registers
+//   (the scale rides in the exponent, as in flash_dq.cu), and hands it to
+//   warpgroup 1 as fp32 through shared memory (named barrier 3); warpgroup
+//   1 computes dS = P·scale∘(dP − δ) and hands it back as bf16 A fragments
+//   (named barrier 4). Both layouts are the accumulator's own, thread by
+//   thread, so the exchange is a conflict-free 16-byte store and load a
+//   thread. Then each warpgroup runs dQ[:, half] += dS·K[:, half] (wgmma
+//   m64n(D/2)k16, A from registers, B the same K stage read MN-major
+//   through the transpose bit), dQ staying in registers.
+// - δ: warpgroup 1 computes it under its first dP product, from dO in
+//   shared memory (a thread reads a quarter of each of its two rows, in
+//   flash_dq.cu's conflict-free order, and the quad sums) and O read once
+//   from device memory, and writes it out. O is needed for nothing else:
+//   resident it would take another 32 KB at D=256, where two stages leave
+//   10 KB; passed through a stage it would hold up the first K and V.
+// - Causal: key tiles past the block's last row are never loaded; only
+//   tiles that cross the diagonal or the ragged end of Sk are masked. The
+//   query tile is the grid's fastest axis, reversed: the long tiles of
+//   each head start first and the CTAs in flight share a few heads' K and
+//   V in L2.
+// - Rows past Sq arrive from TMA as zeros, take lse 0 and δ 0 (so dS = 0)
+//   and are never stored; keys past Sk arrive as zeros and are masked.
+//
+// Shared memory, of the 227 KB (plus 1 KB to align the base to the
+// swizzle's 1024 bytes, and the mbarriers):
+//   D=256, BN=64: Q, dO 64 KB + 2 × (K, V 64 KB) + P 16 KB + dS 8 KB = 216 KB
+//   D=384, BN=32: Q, dO 96 KB + 2 × (K, V 48 KB) + 12 KB = 204 KB
+//   D=512, BN=32: Q, dO 128 KB + 1 × (K, V 64 KB) + 12 KB = 204 KB; with one
+//                 stage a tile's loads wait for the last tile's products.
+// Registers: setmaxnreg gives the producer 24 and each consumer thread 240.
+// A consumer holds its half of dQ (D/4 fp32: 64 at D=256, 128 at D=512),
+// S or dP (BN/2 fp32) and dS as A fragments (BN/4). ptxas spills nothing at
+// D=256, 384 or 512 (chip_smoke.py phase 2 refuses a spill at D=256).
+// Where the time goes (scripts/torch_kernel_ablate.py on an H100, two runs
+// of 3 rounds): at D=256 the handoff waits 6-9%, the exponentials 0-3%, the
+// K/V loads no more than the spread; at D=512 the single stage's loads 21%.
+//
+// Above D=512 Q and dO no longer fit beside a stage; those widths keep the
+// first wide kernel (wmma, wide.cuh), which cuts dQ into 128-wide chunks and
+// recomputes S and dP in each chunk's CTA.
+//
+// No atomics: each CTA writes its own rows of dQ and δ, so both are
+// deterministic.
 
+#include "hopper.cuh"
 #include "wide.cuh"
 
 namespace voda {
+
+template <int D>
+struct DqWide {
+  static constexpr int BM = 64;     // query rows of a CTA
+  static constexpr int HW = D / 2;  // a consumer warpgroup's half of dQ
+  static constexpr int T_BYTES = BM * D * 2;  // each of Q, dO
+  static constexpr int ROOM = MAX_SMEM - 1024 - 2 * T_BYTES - 8 * 8;
+  // a stage of `bn` keys: K, V
+  static constexpr int stage_bytes(int bn) { return 4 * bn * D; }
+  // the exchange: P as fp32 and dS as bf16 A fragments
+  static constexpr int xchg_bytes(int bn) { return 256 * bn + 128 * bn; }
+  static constexpr int fit(int bn) {
+    return (ROOM - xchg_bytes(bn)) / stage_bytes(bn);
+  }
+  // keys of a stage: 64 where two stages fit, else 32
+  static constexpr int BN = fit(64) >= 2 ? 64 : 32;
+  static constexpr int STAGES = fit(BN) < 2 ? fit(BN) : 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int DO_OFF = T_BYTES;
+  static constexpr int K_OFF = 2 * T_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int XP_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int XDS_OFF = XP_OFF + 256 * BN;
+  static constexpr int BAR_OFF = XDS_OFF + 128 * BN;
+  // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
+  static_assert(STAGES >= 1 && SMEM <= MAX_SMEM, "no stage fits beside Q, dO");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const bf16* __restrict__ o,
+                         const float* __restrict__ lse,
+                         float* __restrict__ delta, bf16* __restrict__ dq,
+                         int H, int Sq, int Sk, int q_off, int causal,
+                         float scale) {
+  using C = DqWide<D>;
+  constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, HW = C::HW;
+  using Regs = RegSplit<24, 240>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* qs = reinterpret_cast<bf16*>(sm);
+  bf16* dos = reinterpret_cast<bf16*>(sm + C::DO_OFF);
+  bf16* ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
+  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  float4* xp = reinterpret_cast<float4*>(sm + C::XP_OFF);  // [BN/8][128]
+  uint4* xds = reinterpret_cast<uint4*>(sm + C::XDS_OFF);  // [BN/16][128]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + ST;
+  uint64_t* empty = v_full + ST;
+
+  const int i = gridDim.x - 1 - blockIdx.x;  // longest query tiles first
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int q0 = i * BM;
+  const int last_row = q_off + min(q0 + BM, Sq) - 1;
+  const int nk_all = (Sk + BN - 1) / BN;
+  const int n_k = causal ? min(nk_all, last_row / BN + 1) : nk_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full
+    Regs::producer();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 2 * C::T_BYTES);
+      tma_rows<D>(qs, &tq, q_full, BM, h, q0, b);
+      tma_rows<D>(dos, &tdo, q_full, BM, h, q0, b);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % ST;
+        mbar_wait(&empty[s], ((j / ST) & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], C::KV_BYTES);
+        tma_rows<D>(ks + s * BN * D, &tk, &k_full[s], BN, h, j * BN, b);
+        mbar_expect_tx(&v_full[s], C::KV_BYTES);
+        tma_rows<D>(vs + s * BN * D, &tv, &v_full[s], BN, h, j * BN, b);
+      }
+    }
+    trap_if_stalled();
+  } else {
+    // ---- consumers: warpgroup 0 S and P, warpgroup 1 dP, δ and dS; each
+    // dQ for its half of the head
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_loc = warp * 16 + g;  // the thread's first row in the tile
+    const int row[2] = {q_off + q0 + r_loc, q_off + q0 + r_loc + 8};
+    const float sl2 = scale * LOG2E;
+    const int rs = H * D;
+    const size_t head = (static_cast<size_t>(b) * Sq * H + h) * D;
+    const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
+
+    // lse of the thread's rows as lse·log2e − log2 scale, read under the
+    // TMA loads, so that exp2(S·sl2 − lse2) = P·scale; 0 past Sq
+    float lse2[2], dl[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int gr = q0 + r_loc + 8 * r;
+      lse2[r] = gr < Sq ? fmaf(lse[stat + gr], LOG2E, -log2f(scale)) : 0.f;
+    }
+
+    float acc[HW / 2];
+#pragma unroll
+    for (int e = 0; e < HW / 2; ++e) acc[e] = 0.f;
+    float sc[BN / 2];  // S, then P·scale (warpgroup 0); dP, then dS (1)
+    uint32_t dsa[BN / 16][4];
+
+    // S = Q·Kᵀ (warpgroup 0) or dP = dO·Vᵀ (warpgroup 1) of tile j over all
+    // of D into sc, committed as one group. Warpgroup 1 also waits for K,
+    // which its dQ product reads: no wait sits between two wgmma.
+    auto issue_score = [&](int j) {
+      const int s = j % ST;
+      const uint32_t ph = (j / ST) & 1;
+      mbar_wait(&k_full[s], ph);
+      if (cw) mbar_wait(&v_full[s], ph);
+      const uint64_t ad = kmajor_desc(cw ? dos : qs, 0);
+      const uint64_t bd = kmajor_desc((cw ? vs : ks) + s * BN * D, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BN>(sc, ad + kmajor_step(BM, kk), bd + kmajor_step(BN, kk),
+                     kk > 0);
+      wgmma_commit();
+    };
+    // Warpgroup 1: δ of the thread's two rows, written out. Thread t of the
+    // quad takes the chunks t and t + 4 of every 64-column part of dO (the
+    // swizzled tile: the 8 threads of one 16-byte load phase fall on
+    // distinct banks) and the same logical chunks of O; the quad sums.
+    auto row_deltas = [&]() {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int lr = r_loc + 8 * r;
+        float s = 0.f;
+        if (q0 + lr < Sq) {
+          const bf16* orow = o + head + static_cast<size_t>(q0 + lr) * rs;
+#pragma unroll
+          for (int p = 0; p < D / 64; ++p) {
+#pragma unroll
+            for (int x = 0; x < 2; ++x) {
+              const int pc = (t + 4 * x) ^ (4 * (g & 1));  // where it sits
+              const int lc = pc ^ (lr & 7);                 // which it is
+              s += dot8(*reinterpret_cast<const uint4*>(
+                            dos + p * BM * 64 + lr * 64 + pc * 8),
+                        __ldg(reinterpret_cast<const uint4*>(
+                            orow + p * 64 + lc * 8)));
+            }
+          }
+        }
+        dl[r] = quad_sum(s);
+        if (t == 0 && q0 + lr < Sq) delta[stat + q0 + lr] = dl[r];
+      }
+    };
+    // Warpgroup 0: P·scale of tile j from S, handed over; the mask is a
+    // pass of its own behind a uniform branch
+    auto p_out = [&](int j) {
+      const int k0 = j * BN;
+      if (k0 + BN > Sk || (causal && k0 + BN - 1 > q_off + q0)) {
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * c + 2 * t + (e & 1);
+            if (col >= Sk || (causal && row[e >> 1] < col))
+              sc[4 * c + e] = NEG_INF;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * c + e] = fast_exp2(fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]));
+        xp[c * WG_THREADS + tid] = make_float4(sc[4 * c], sc[4 * c + 1],
+                                               sc[4 * c + 2], sc[4 * c + 3]);
+      }
+      asm volatile("bar.arrive 3, 256;" ::: "memory");  // P is out
+    };
+    // Warpgroup 0: dS of the same tile, from warpgroup 1
+    auto ds_in = [&]() {
+      asm volatile("bar.sync 4, 256;" ::: "memory");  // dS is in
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const uint4 x = xds[kk * WG_THREADS + tid];
+        dsa[kk][0] = x.x;
+        dsa[kk][1] = x.y;
+        dsa[kk][2] = x.z;
+        dsa[kk][3] = x.w;
+      }
+    };
+    // Warpgroup 1: dS of the tile from dP and warpgroup 0's P, handed back
+    auto ds_out = [&]() {
+      asm volatile("bar.sync 3, 256;" ::: "memory");  // P is in
+#pragma unroll
+      for (int c = 0; c < BN / 8; ++c) {
+        const float4 p = xp[c * WG_THREADS + tid];
+        sc[4 * c] = p.x * (sc[4 * c] - dl[0]);
+        sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl[0]);
+        sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl[1]);
+        sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl[1]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        acc_to_a<BN / 2>(dsa[kk], sc, kk);
+        xds[kk * WG_THREADS + tid] =
+            make_uint4(dsa[kk][0], dsa[kk][1], dsa[kk][2], dsa[kk][3]);
+      }
+      asm volatile("bar.arrive 4, 256;" ::: "memory");  // dS is out
+    };
+    // dQ[:, half] += dS·K[:, half] of tile j, committed as one group
+    auto issue_dq = [&](int j) {
+      const int s = j % ST;
+      const uint64_t kd =
+          mnmajor_desc(ks + s * BN * D + cw * (HW / 64) * BN * 64, BN);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));
+      wgmma_commit();
+    };
+
+    // Tile by tile, as in flash_dkv_wide.cu; δ is computed under the first
+    // dP product. Issuing the next tile's S and dP ahead of this tile's dQ,
+    // with the next handoff under dQ (two stages fit at D=256), measured
+    // 1.13x slower at D=256 (scripts/torch_kernel_ablate.py on an H100),
+    // and 1.43x slower where a branch around a wgmma or its wait made
+    // ptxas serialise every wgmma (its warning C7514), so the simpler order
+    // stays.
+    mbar_wait(q_full, 0);
+    for (int j = 0; j < n_k; ++j) {
+      issue_score(j);
+      if (cw == 1 && j == 0) row_deltas();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (cw == 0) {
+        p_out(j);
+        ds_in();
+      } else {
+        ds_out();
+      }
+      issue_dq(j);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[j % ST]);
+    }
+
+    store_acc_rows<HW>(dq + head + cw * HW, acc, q0 + r_loc, Sq, rs, 1.f,
+                       1.f, t);
+    trap_if_stalled();
+  }
+}
+
+template <int D>
+int launch_dq_wide(const void* q, const void* k, const void* v,
+                   const void* o, const void* dout, const void* lse,
+                   void* delta, void* dq, int B, int H, int Sq, int Sk,
+                   int q_off, int causal, float scale, cudaStream_t st) {
+  using C = DqWide<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dq_wide_kernel<D>), C::SMEM);
+  if (err) return err;
+  const dim3 grid((Sq + C::BM - 1) / C::BM, 1, B * H);
+  flash_dq_wide_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(o),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<bf16*>(dq), H, Sq, Sk, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------- widths above 512
+
 namespace wide {
 
 constexpr int DQ_SMEM = 4 * TILE_BYTES + 2 * SCORE_BYTES + PTILE_BYTES +
                         2 * BM * 4;
 
+// A CTA owns 64 query rows and one 128-wide chunk c of dQ. It computes δ of
+// its rows over the whole of D (the CTA of chunk 0 writes it out), then,
+// for each tile of 64 keys, S and dP summed over every chunk of D (each of
+// the D/128 CTAs of a row block computes them), dS in shared memory (four
+// threads a row), and dQ += dS·K with K's chunk c, kept as wmma
+// accumulators. Causal: key tiles past the block's last row are never
+// loaded.
+
 __global__ void __launch_bounds__(THREADS)
-    flash_dq_wide_kernel(const __nv_bfloat16* __restrict__ q,
+    flash_dq_wmma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
                          const __nv_bfloat16* __restrict__ o,
@@ -137,20 +487,32 @@ __global__ void __launch_bounds__(THREADS)
 }  // namespace wide
 }  // namespace voda
 
+// Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
+// its launch; 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
 extern "C" int voda_flash_dq_wide(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq,
                                   int B, int H, int Sq, int Sk, int D,
                                   int q_off, int causal, float scale,
                                   void* stream) {
-  using namespace voda::wide;
-  if (!shape_ok(B, H, Sq, Sk, D))
+  using namespace voda;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(flash_dq_wide_kernel, DQ_SMEM);
+  if (D == 256)
+    return launch_dq_wide<256>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
+                               q_off, causal, scale, st);
+  if (D == 384)
+    return launch_dq_wide<384>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
+                               q_off, causal, scale, st);
+  if (D == 512)
+    return launch_dq_wide<512>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
+                               q_off, causal, scale, st);
+  using namespace voda::wide;
+  cudaError_t err = allow_smem(flash_dq_wmma_kernel, DQ_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sq + BM - 1) / BM, D / CW, B * H);
-  flash_dq_wide_kernel<<<grid, THREADS, DQ_SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(
+  flash_dq_wmma_kernel<<<grid, THREADS, DQ_SMEM, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),

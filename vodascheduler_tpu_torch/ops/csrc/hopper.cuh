@@ -1,6 +1,6 @@
 // Hopper building blocks of the flash-attention kernels (forward,
-// flash_fwd.cu and flash_fwd_wide.cu; dQ, flash_dq.cu; dK/dV, flash_dkv.cu
-// and flash_dkv_wide.cu): TMA tile loads into
+// flash_fwd.cu and flash_fwd_wide.cu; dQ, flash_dq.cu and flash_dq_wide.cu;
+// dK/dV, flash_dkv.cu and flash_dkv_wide.cu): TMA tile loads into
 // 128-byte-swizzled shared memory, mbarriers that guard a ring of stages,
 // wgmma descriptors and the wgmma instructions the kernels issue,
 // setmaxnreg, the named barriers of the consumer warpgroups' turns, the
@@ -80,6 +80,20 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Σ a∘b over the 8 bf16 of two 16-byte chunks (the dQ kernels' δ).
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    s = fmaf(u.x, w.x, s);
+    s = fmaf(u.y, w.y, s);
+  }
+  return s;
 }
 
 // ---------------------------------------------------------------- mbarrier
@@ -286,6 +300,14 @@ struct RegSplit {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define VODA_R96                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "  \
+  "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "  \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}"
 #define VODA_R128 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
@@ -379,6 +401,19 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
 }
 
 template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " VODA_R96
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}"
+      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48), VODA_F16(64),
+        VODA_F16(80)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
 __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
                                               const uint32_t (&a)[4],
                                               uint64_t b) {
@@ -397,6 +432,7 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
 #undef VODA_R32
 #undef VODA_R40
 #undef VODA_R64
+#undef VODA_R96
 #undef VODA_R128
 
 // The A fragment of k-step kk from a 64 x N fp32 accumulator, cast to bf16.

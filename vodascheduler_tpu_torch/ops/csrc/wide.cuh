@@ -1,12 +1,12 @@
-// Shared parts of the flash-attention kernels for head widths above 128
-// (flash_fwd_wide.cu, flash_dq_wide.cu, flash_dkv_wide.cu).
+// Shared parts of the flash-attention kernels for head widths above 512
+// (the wmma kernels of flash_fwd_wide.cu, flash_dq_wide.cu and
+// flash_dkv_wide.cu). Widths 256, 384 and 512 run those files' TMA +
+// wgmma kernels on hopper.cuh, which hold a CTA's operands resident in
+// shared memory beside a ring of tiles; above 512 they no longer fit.
 //
-// The 64- and 128-wide kernels (flash_*.cu on hopper.cuh) keep a CTA's
-// whole head width in registers as wgmma accumulators; at D=256 and above
-// that no longer fits. These kernels cut D instead: each CTA owns one
-// 128-wide chunk of its output's width (O, dQ, dK or dV) and recomputes the
-// scores S = Q·Kᵀ (and dP = dO·Vᵀ) it needs by summing over every 128-wide
-// chunk of D. So there is one softmax per row, nothing is reduced across
+// These kernels cut D instead: each CTA owns one 128-wide chunk of its
+// output's width (O, dQ, dK or dV) and recomputes the scores S = Q·Kᵀ (and
+// dP = dO·Vᵀ) it needs by summing over every 128-wide chunk of D. So there is one softmax per row, nothing is reduced across
 // CTAs (no atomics, deterministic), and any multiple of 128 runs with the
 // same shared memory.
 //

@@ -11,9 +11,9 @@ kernels (``ops/csrc``) replace its three Pallas kernels:
 
 Those are built for head widths 64 and 128. Above 128 the JAX package takes
 any multiple of 128, and so does each wrapper, through a second kernel of
-the same function cut along D (``csrc/flash_{fwd,dq,dkv}_wide.cu`` on
-``csrc/wide.cuh``): ``flash_fwd_wide``, ``flash_dq_wide`` and
-``flash_dkv_wide``, each counted apart.
+the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``; on ``csrc/hopper.cuh``
+up to D=512, cut along D on ``csrc/wide.cuh`` above): ``flash_fwd_wide``,
+``flash_dq_wide`` and ``flash_dkv_wide``, each counted apart.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
