@@ -114,7 +114,22 @@ Phases (any failure exits non-zero):
      to fall) and the twin check; a llama_350m-width bundle with
      4 heads of 256 through the wide kernels, phase 4's checks, launches
      48/24/24 of flash_*_wide;
-  10. one JSON line of the kernels, then the device line last.
+  10. what a resize costs: the port's benchrunner (a fresh workdir, no
+     cache) over ``meta`` and ``resize:llama_350m:b8``, whose worker runs
+     the resize bench's two children on the card (prepare: 3 AdamW steps,
+     the async save's initiate and drain, a synced save; restart: the cold
+     start through `TrainSession.resume`'s halves to the first step). Both
+     rows measured; every restart segment present and >= 0, summing to
+     the total within 1 ms a segment; checkpoint_bytes within 1% of the
+     state's bytes; the cold row's seconds equal to resize_cost_seconds,
+     the fast row None with its A10 error; the children's telemetry
+     peaking above 1 GiB and at most the card's memory; each child's
+     launches of K1-K3 (48/24/24 a step) and the kernels found built; the
+     restart's first-step loss within 1e-3 relative of the same step in
+     the prepare child; `derive_costs` on the row finite for every family,
+     "measured on llama_350m". Printed: the segments, the saves and the
+     derived family costs, with the card's name and power limit;
+  11. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
 
@@ -1719,6 +1734,124 @@ def run_example_jobs(jobs=EXAMPLE_JOBS, hermetic=False):
     shutil.rmtree(workdir)
 
 
+# ---------------------------------------------------------------------------
+# what a resize costs on the card (phase 10)
+# ---------------------------------------------------------------------------
+
+RESIZE_MODEL, RESIZE_BATCH = "llama_350m", 8
+RESIZE_SEGMENTS = ("proc_start_ms", "torch_imported_ms", "cuda_ready_ms",
+                   "kernels_loaded_ms", "setup_built_ms", "restored_ms",
+                   "first_step_done_ms")
+# The restart child's first-step loss against the prepare child's same step
+# (phase 5b's bar), and checkpoint_bytes against the state's tensor bytes
+# (the rest is the checkpoint's metadata and record headers).
+RESIZE_LOSS_LIMIT = 1e-3
+RESIZE_BYTES_LIMIT = 1e-2
+# One step of llama_350m (full remat: K1 twice a layer).
+RESIZE_LAUNCHES = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
+
+
+def resize_faults(rows: dict, total_bytes: int) -> list:
+    """Phase 10's checks of the benchrunner's meta and resize rows."""
+    from vodascheduler_tpu_torch.replay import restart_costs
+
+    bad = [f"{pid}: {r['provenance']} {r.get('error', '')}"
+           for pid, r in rows.items() if r["provenance"] != "measured"]
+    if bad:
+        return bad
+    (row,) = [r for r in rows.values() if r["kind"] == "resize"]
+    d = row["data"]
+    seg = d["restart_segments_ms"]
+    missing = [k for k in RESIZE_SEGMENTS if not seg.get(k, -1) >= 0]
+    if missing or set(seg) != set(RESIZE_SEGMENTS):
+        bad.append(f"segments {seg}: missing or negative {missing}")
+    elif not (abs(sum(seg.values()) - d["restart_total_ms"])
+              <= 1.0 * len(seg)):
+        bad.append(f"segments sum to {sum(seg.values())} ms, total "
+                   f"{d['restart_total_ms']} ms")
+    if not (abs(d["checkpoint_bytes"] - d["state_bytes"])
+            <= RESIZE_BYTES_LIMIT * d["state_bytes"]):
+        bad.append(f"checkpoint_bytes {d['checkpoint_bytes']} against the "
+                   f"state's {d['state_bytes']}")
+    paths = {p["path"]: p for p in d["resize_paths"]}
+    if paths["cold"]["seconds"] != d["resize_cost_seconds"]:
+        bad.append(f"cold row {paths['cold']} against resize_cost_seconds "
+                   f"{d['resize_cost_seconds']}")
+    if (paths["fast"]["seconds"] is not None
+            or "A10" not in paths["fast"].get("error", "")
+            or d["fast_resize_ms"] is not None):
+        bad.append(f"fast row {paths['fast']}")
+    peaks = [m["allocated_bytes.all.peak"]
+             for child in (row.get("telemetry") or {}).values()
+             for m in child.get("memory", {}).values()]
+    if not peaks or not GIB < max(peaks) <= total_bytes:
+        bad.append(f"telemetry peaks {peaks} (want above 1 GiB, at most "
+                   f"{total_bytes})")
+    for child, launches in d["launches"].items():
+        want = {k: v * (1 if child == "restart" else 5)
+                for k, v in RESIZE_LAUNCHES.items()}
+        if launches != want:
+            bad.append(f"{child} child launched {launches}, want {want}")
+    if d["kernel_cache_hit"] is not True:
+        bad.append("the restart child did not find its kernels built")
+    a, b = d["prepare_next_step_loss"], d["restart_first_step_loss"]
+    if not (math.isfinite(a) and abs(b - a) <= RESIZE_LOSS_LIMIT * abs(a)):
+        bad.append(f"first-step loss {b} after the restart against {a}")
+    if not restart_costs._complete(d):
+        bad.append("the row is not a complete point for restart_costs")
+    else:
+        for fam, cost in restart_costs.derive_costs([d]).items():
+            if not (math.isfinite(cost.restart_s)
+                    and f"measured on {RESIZE_MODEL})" in cost.provenance):
+                bad.append(f"{fam}: {cost}")
+    return bad
+
+
+def run_resize(card: str) -> None:
+    """Phase 10: the port's benchrunner over meta and resize:llama_350m:b8
+    (the resize bench's prepare and restart children on the card), in a
+    fresh workdir with no cache."""
+    from vodascheduler_tpu_torch.benchrunner import (
+        BenchOrchestrator,
+        default_registry,
+    )
+    from vodascheduler_tpu_torch.replay import restart_costs
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_resize")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    points = default_registry(attention_points=(), moe_batch=None,
+                              resize_points=[(RESIZE_MODEL, RESIZE_BATCH)],
+                              ici_points=())
+    summary = BenchOrchestrator(
+        points, repo_dir=REPO,
+        cache_path=os.path.join(workdir, "cache.json"),
+        journal_path=os.path.join(workdir, "journal.jsonl"),
+        env=dict(os.environ, TMPDIR=workdir)).run()
+    rows = {r["point_id"]: r for r in summary["rows"]}
+    for r in rows.values():
+        log(f"resize row {json.dumps(r)}")
+    bad = resize_faults(rows, torch.cuda.get_device_properties(0).total_memory)
+    if bad:
+        raise SystemExit("resize: " + "; ".join(bad))
+    d = rows[f"resize:{RESIZE_MODEL}:b{RESIZE_BATCH}"]["data"]
+    log(f"resize {RESIZE_MODEL} B={RESIZE_BATCH} on {card}: segments_ms "
+        f"{json.dumps(d['restart_segments_ms'])} restart_total_ms "
+        f"{d['restart_total_ms']} checkpoint_bytes {d['checkpoint_bytes']} "
+        f"save_async_initiate_ms {d['save_async_initiate_ms']} "
+        f"save_async_drain_ms {d['save_async_drain_ms']} save_sync_ms "
+        f"{d['save_sync_ms']} (host copy {d['save_sync_host_copy_ms']}, "
+        f"write {d['save_sync_write_ms']}) warm_step_ms {d['warm_step_ms']} "
+        f"resize_cost_seconds {d['resize_cost_seconds']} first-step loss "
+        f"{d['restart_first_step_loss']} against "
+        f"{d['prepare_next_step_loss']}")
+    for fam, cost in restart_costs.derive_costs([d]).items():
+        log(f"resize family {fam} on {card}: restart_s {cost.restart_s} "
+            f"({cost.provenance}) inplace_s {cost.inplace_s} "
+            f"({cost.inplace_provenance})")
+    shutil.rmtree(workdir)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1819,6 +1952,10 @@ def main() -> int:
     counts.update({k: v for k, v in run_families(fa).items()
                    if k.endswith("_wide")})
     phase("9 families")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_resize(smi.stdout.strip().splitlines()[0])
+    phase("10 resize")
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

@@ -1,9 +1,9 @@
 """The port's control plane is the JAX package's, text for text.
 
 The control plane (the service and its CLI, the fleet, the scheduler,
-durability, replay and what they import) is pure Python that imports no
-JAX, so the port takes each module as it is, changing only the package
-name. This file holds each copy to its source:
+durability, replay, the benchrunner and what they import) is pure Python
+that imports no JAX, so the port takes each module as it is, changing only
+the package name. This file holds each copy to its source:
 
 - drift: every module of COPIED equals the JAX package's file with
   ``vodascheduler_tpu`` replaced by ``vodascheduler_tpu_torch``;
@@ -56,9 +56,12 @@ COPIED = (
     "service/__init__.py", "service/__main__.py", "service/admission.py",
     "service/daemon.py", "service/rest.py",
     "scheduler/__init__.py", "scheduler/scheduler.py", "scheduler/fleet.py",
-    "replay/__init__.py", "replay/trace.py", "replay/restart_costs.py",
+    "replay/__init__.py", "replay/trace.py",
     "replay/simulator.py", "replay/whatif.py", "replay/compare.py",
     "cli.py",
+    "benchrunner/__init__.py", "benchrunner/points.py",
+    "benchrunner/cache.py", "benchrunner/journal.py",
+    "benchrunner/orchestrator.py", "benchrunner/dryrun.py",
 )
 
 DIVERGED = {
@@ -70,6 +73,14 @@ DIVERGED = {
     "cluster/local.py": "written for the card: torch.cuda.device_count, "
                         "CUDA_VISIBLE_DEVICES per grant, no VODA_TOPOLOGY, "
                         "the port's supervisor",
+    "replay/restart_costs.py": "MEASURED_PATH only: the card's own "
+                               "artifact (doc/resize_measured_h100.json, "
+                               "scripts/capture_gpu_resize.py), never the "
+                               "JAX package's TPU file",
+    "benchrunner/worker.py": "the port's own: each kind on the card through "
+                             "the port's hwbench and resize bench, no retry "
+                             "on the plain attention, ici raises (two "
+                             "cards), the resize children's telemetry",
     "service/app.py": "the monitor lines only (the reference's :381-386 "
                       "and :394-410): the GPU monitor (runtime/"
                       "gpu_monitor.py, NVML) under the reference's gate, "
@@ -91,7 +102,7 @@ NOT_PORTED = {
 CONTROL_PLANE = ("common", "config.py", "obs", "native", "placement",
                  "algorithms", "allocator", "durability", "cluster",
                  "metricscollector", "service", "scheduler", "replay",
-                 "cli.py")
+                 "cli.py", "benchrunner")
 
 
 def _read(*parts):

@@ -130,6 +130,35 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
     assert fa.launches["flash_dq"] == fa.launches["flash_dkv"] == 2
 
 
+def test_fp32_llama_trains_on_its_plain_attention(cuda, monkeypatch):
+    """A Llama that computes in fp32 keeps its plain attention on the card
+    (the kernels take bf16): its step runs, launches no kernel, and its
+    loss is the CPU's on the same weights and batch at 1e-4 relative.
+    Forcing the kernels with VODA_FLASH_ATTENTION=1 raises."""
+    import dataclasses
+
+    from vodascheduler_tpu_torch.models import llama
+    from vodascheduler_tpu_torch.models.registry import llama_bundle
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    bundle = llama_bundle("llama_tiny_fp32", dataclasses.replace(
+        llama.LLAMA_TINY, dtype="float32"), 64)
+    monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
+    host = TrainSession(bundle, global_batch_size=2, device="cpu")
+    card = TrainSession(bundle, global_batch_size=2, device=cuda)
+    card.module.load_state_dict(host.module.state_dict())
+    batch = host.make_batch()
+    fa.reset_launches()
+    got = card.train_step({k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert fa.launches == _counts()
+    want = host.train_step(batch)
+    assert torch.isfinite(got)
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+    monkeypatch.setenv("VODA_FLASH_ATTENTION", "1")
+    with pytest.raises(RuntimeError, match="float32"):
+        TrainSession(bundle, global_batch_size=2, device=cuda)
+
+
 def test_local_backend_holds_nothing_on_the_card(cuda, tmp_path):
     """The GPU backend counts the cards without creating a CUDA context:
     in a fresh process, building it leaves torch.cuda uninitialised."""

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: an AST scan of its sources.
 
-- no module of the port, no script of examples/torch/, and neither
-  chip_smoke.py nor scripts/torch_step_profile.py, imports jax, flax,
-  optax or anything of vodascheduler_tpu;
+- no module of the port, no script of examples/torch/, and none of
+  chip_smoke.py, scripts/torch_step_profile.py and
+  scripts/capture_gpu_resize.py, imports jax, flax, optax or anything of
+  vodascheduler_tpu;
 - the port calls no library attention and compiles nothing with
   torch.compile: its attention is its own kernels;
 - the CUDA path of flash attention has no try/except that could fall back
@@ -55,7 +56,8 @@ def _forbidden(module: str) -> bool:
 @pytest.mark.parametrize(
     "path", _package_sources() + _example_sources() + [
         os.path.join(REPO, "chip_smoke.py"),
-        os.path.join(REPO, "scripts", "torch_step_profile.py")],
+        os.path.join(REPO, "scripts", "torch_step_profile.py"),
+        os.path.join(REPO, "scripts", "capture_gpu_resize.py")],
     ids=lambda p: os.path.relpath(p, REPO))
 def test_imports_nothing_of_jax_or_the_jax_package(path):
     bad = [m for m in _imported_roots(_tree(path)) if _forbidden(m)]
@@ -89,7 +91,12 @@ def test_scan_sees_the_whole_package():
             "scheduler/fleet.py", "durability/leader.py",
             "durability/recover.py", "durability/standby.py",
             "replay/simulator.py", "replay/whatif.py", "service/daemon.py",
-            "service/rest.py", "service/app.py", "cli.py"} <= names
+            "service/rest.py", "service/app.py", "cli.py",
+            # the measurement plane
+            "runtime/resize_bench.py", "benchrunner/__init__.py",
+            "benchrunner/points.py", "benchrunner/cache.py",
+            "benchrunner/journal.py", "benchrunner/orchestrator.py",
+            "benchrunner/dryrun.py", "benchrunner/worker.py"} <= names
     examples = {os.path.basename(p) for p in _example_sources()}
     assert {"elastic_loop.py", "mnist_mlp_elastic.py",
             "digits_real_data_elastic.py", "cifar10_resnet_elastic.py",

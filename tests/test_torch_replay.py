@@ -7,9 +7,11 @@ arrived, `Scheduler.whatif` plans every running job; then the replay runs to
 its end. Compared for equality: the trace, the what-if reports (less the
 fields that time the host) and the whole `ReplayReport`.
 
-Both packages price a restart from the same artifact
-(`doc/resize_measured.json`, resolved from the repo root by
-`replay/restart_costs.py`), so the costs, and with them the reports, match.
+Both packages price a restart from the same artifact: the port's
+`replay/restart_costs.py` reads the card's own
+(`doc/resize_measured_h100.json`), so each test pins it to the JAX
+package's `doc/resize_measured.json` (`one_restart_artifact`), and the
+costs, and with them the reports, match.
 """
 
 import importlib
@@ -17,6 +19,19 @@ import importlib
 import pytest
 
 from tests.test_torch_scheduler import _strip
+
+
+@pytest.fixture
+def one_restart_artifact(monkeypatch):
+    """Both packages price restarts from one artifact, the JAX package's
+    `doc/resize_measured.json`; unpinned, the port reads the card's own
+    (`doc/resize_measured_h100.json`). `test_torch_rest.py` uses it too."""
+    from vodascheduler_tpu.replay import restart_costs as ref
+    from vodascheduler_tpu_torch.replay import restart_costs as port
+    monkeypatch.setattr(port, "MEASURED_PATH", ref.MEASURED_PATH)
+
+
+pytestmark = pytest.mark.usefixtures("one_restart_artifact")
 
 PKGS = ("vodascheduler_tpu", "vodascheduler_tpu_torch")
 N_JOBS, SEED = 24, 5

@@ -20,7 +20,11 @@ import urllib.request
 import pytest
 import yaml
 
+from tests.test_torch_replay import one_restart_artifact  # noqa: F401
 from tests.test_torch_scheduler import HOST_TIMED, START, _strip
+
+# `/debug/whatif` prices restarts: both packages from one artifact.
+pytestmark = pytest.mark.usefixtures("one_restart_artifact")
 
 PKGS = ("vodascheduler_tpu", "vodascheduler_tpu_torch")
 EPOCH_SECONDS = 200.0

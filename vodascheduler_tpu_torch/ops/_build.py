@@ -82,9 +82,9 @@ def build(sources: Sequence[str] = SOURCES) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of source `name`, building all sources if needed."""
+    """The loaded library of source `name`, building all sources if needed
+    (loading only this one)."""
     with _lock:
         if name not in _libs:
-            for n, path in build().items():
-                _libs.setdefault(n, ctypes.CDLL(str(path)))
+            _libs[name] = ctypes.CDLL(str(build()[name]))
         return _libs[name]

@@ -40,7 +40,13 @@ Divergences from the TPU kernels, on purpose:
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
   tiles of 64 rows (32 at D=128).
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
-  signature and change none of them.
+  signature and change none of them;
+- on CUDA the kernels take bf16 alone and any other dtype raises, where the
+  JAX kernel computes in ``q.dtype``. The dtype is chosen where the kernel
+  is installed (`runtime/train.py`): a model that computes in fp32 or fp16
+  keeps its own plain attention, which computes in that dtype. The
+  operator does not fall back by itself: that would hide the kernel from
+  a bf16 caller that passed a tensor of the wrong dtype.
 
 The kernels read their tiles through TMA tensor maps built from the
 ``[B, S, H, D]`` shape, so every tensor's shape is checked against q's
@@ -93,6 +99,18 @@ def _entry(name: str):
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def load_kernels(head_dim: int) -> Tuple[str, ...]:
+    """Finds the forward, dQ and dK/dV kernels of heads `head_dim` wide in
+    the build cache (building them if absent) and loads them, so that
+    their first launch loads nothing. Returns their names."""
+    D = kernel_head_dim(head_dim)
+    names = tuple(_kernel(n, D) for n in ("flash_fwd", "flash_dq",
+                                          "flash_dkv"))
+    for name in names:
+        _entry(name)
+    return names
 
 
 def _kernel(name: str, D: int) -> str:

@@ -42,7 +42,7 @@ from typing import Any, Dict, List, Optional
 
 MEASURED_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__)))), "doc", "resize_measured.json")
+        os.path.abspath(__file__)))), "doc", "resize_measured_h100.json")
 
 # Family checkpoint footprint: params (billions) and the typical chip
 # allocation the shards spread over (midpoint of trace.MODEL_FAMILIES

@@ -7,6 +7,11 @@ Counterpart of the JAX package's ``runtime/tpu_monitor.py``:
   the supervisor's spans: the bytes the caching allocator holds in live
   tensors (``allocated_bytes.all.current`` of `torch.cuda.memory_stats`),
   summed over this process's CUDA devices;
+- `telemetry_snapshot` is one benchmark point's memory as its process
+  ends (the benchrunner's worker and the resize bench's children): the
+  caching allocator's current and peak bytes for each device this process
+  initialised, and each card's NVML reading of memory used and total and
+  of its power limit;
 - `GpuMonitor` publishes the cards' counters as labelled gauges on the
   control plane's /metrics endpoints, where `TpuMonitor` publishes the
   TPU's. Like it, it has no timer of its own: the service daemon's
@@ -72,6 +77,48 @@ def hbm_in_use_bytes() -> Optional[float]:
             for i in range(torch.cuda.device_count())]
     vals = [v for v in vals if v is not None]
     return float(sum(vals)) if vals else None
+
+
+# torch.cuda.memory_stats keys a snapshot keeps: the bytes in live tensors
+# now and at their peak, and the peak the caching allocator reserved.
+_STAT_KEYS = ("allocated_bytes.all.current", "allocated_bytes.all.peak",
+              "reserved_bytes.all.peak")
+# NVML readings a snapshot keeps.
+_NVML_KEYS = ("memory_bytes_in_use", "memory_bytes_total",
+              "power_limit_watts")
+
+
+def telemetry_snapshot() -> dict:
+    """This process's device memory and the cards' NVML readings, for a
+    benchmark point that is its own process: the allocator's peak is then
+    the point's peak. ``{"memory": {device: {stat: bytes}}, "nvml": {card:
+    {reading: value}}}``, each part left out where there is nothing to
+    read (no CUDA initialised here, no NVML). Never raises."""
+    out: dict = {}
+    try:
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            mem = {}
+            for i in range(torch.cuda.device_count()):
+                stats = torch.cuda.memory_stats(i)
+                row = {k: float(stats[k]) for k in _STAT_KEYS if k in stats}
+                if row:
+                    mem[str(i)] = row
+            if mem:
+                out["memory"] = mem
+    except Exception:  # noqa: BLE001 - telemetry must never fail a point
+        pass
+    try:
+        reader = NvmlReader()
+        cards = {}
+        for i in range(reader.device_count()):
+            row = {k: v for k, v in reader.read(i).items() if k in _NVML_KEYS}
+            if row:
+                cards[str(i)] = row
+        if cards:
+            out["nvml"] = cards
+    except Exception:  # noqa: BLE001 - no NVML, or a card's read failed
+        pass
+    return out
 
 
 class NvmlError(RuntimeError):

@@ -52,6 +52,12 @@ PEAK_FLOPS: Tuple[Tuple[str, float], ...] = (
 )
 
 
+# The benchrunner's attention sweep, (batch, seq) at 16 heads of 64: the
+# reference's, so the point registries of both packages are one.
+DEFAULT_ATTENTION_POINTS: Sequence[Tuple[int, int]] = (
+    (8, 1024), (4, 2048), (2, 4096), (1, 8192))
+
+
 def peak_flops_per_device(device_name: Optional[str] = None) -> float:
     """The dense bf16 peak of the card named `device_name` (default: CUDA
     device 0). A card not in PEAK_FLOPS raises: pass its peak instead."""

@@ -2,8 +2,10 @@
 
 Counterpart of the JAX package's ``runtime/train.py`` for one device: build
 the bundle's model on the device, install the flash-attention kernels as
-`attn_fn` on CUDA in a module that exposes `attn_fn` (as the reference
-does: Llama and Mixtral; the other families keep their plain attention),
+`attn_fn` on CUDA in a module that exposes `attn_fn` and computes in bf16
+(as the reference does: Llama and Mixtral; the other families keep their
+plain attention, and so does a Llama or Mixtral of another compute dtype,
+which the kernels do not take),
 step AdamW or Adafactor, and save, resume and resize the session for the
 supervisor. A BatchNorm model's running statistics are module buffers:
 the optimizer never sees them, no step changes them (the reference applies
@@ -17,6 +19,7 @@ size) come with ROADMAP A10.
 from __future__ import annotations
 
 import functools
+import logging
 import os
 from typing import Any, Optional
 
@@ -30,6 +33,13 @@ from vodascheduler_tpu_torch.models.registry import ModelBundle
 from vodascheduler_tpu_torch.ops.flash_attention import flash_attention
 from vodascheduler_tpu_torch.runtime import checkpoint as ckpt
 from vodascheduler_tpu_torch.runtime.optim import Adafactor
+
+log = logging.getLogger(__name__)
+
+# The dtype the kernels take; a module computing in another keeps its plain
+# attention, which computes in that dtype as the JAX kernel does in q.dtype.
+KERNEL_DTYPE = "bfloat16"
+_plain_dtypes_logged: set = set()
 
 
 def make_optimizer(name: str, learning_rate: float):
@@ -48,10 +58,16 @@ def make_optimizer(name: str, learning_rate: float):
     raise ValueError(f"unknown optimizer {name!r} (adamw | adafactor)")
 
 
-def _flash_attention_enabled(device: torch.device) -> bool:
-    """VODA_FLASH_ATTENTION: 0 forces the plain attention, 1 forces the
-    kernels (and raises off CUDA, where there are none); unset or anything
-    else means the kernels on CUDA."""
+def _flash_attention_enabled(device: torch.device,
+                             compute_dtype: str) -> bool:
+    """Whether a session on `device` whose module has `attn_fn` and
+    computes in `compute_dtype` (its ``cfg.dtype``) takes the kernels.
+
+    VODA_FLASH_ATTENTION: 0 forces the plain attention, 1 forces the
+    kernels (and raises off CUDA, or for a module that does not compute in
+    bf16: there are no kernels for either); unset or anything else means
+    the kernels on CUDA for a bf16 module, and the plain attention
+    otherwise, logged once a dtype."""
     flag = os.environ.get("VODA_FLASH_ATTENTION", "auto")
     if flag == "0":
         return False
@@ -59,7 +75,34 @@ def _flash_attention_enabled(device: torch.device) -> bool:
         raise RuntimeError(
             f"VODA_FLASH_ATTENTION=1 forces the CUDA flash-attention "
             f"kernels, but the session runs on {device}")
-    return device.type == "cuda"
+    if flag == "1" and compute_dtype != KERNEL_DTYPE:
+        raise RuntimeError(
+            f"VODA_FLASH_ATTENTION=1 forces the CUDA flash-attention "
+            f"kernels, which take {KERNEL_DTYPE}, but the model computes "
+            f"in {compute_dtype}")
+    if device.type != "cuda":
+        return False
+    if compute_dtype != KERNEL_DTYPE:
+        if compute_dtype not in _plain_dtypes_logged:
+            _plain_dtypes_logged.add(compute_dtype)
+            log.warning("the model computes in %s and the flash-attention "
+                        "kernels take %s: its own plain attention runs",
+                        compute_dtype, KERNEL_DTYPE)
+        return False
+    return True
+
+
+def _compute_dtype(module: torch.nn.Module) -> str:
+    """The dtype name a module with `attn_fn` computes in: its
+    ``cfg.dtype``, which it has to declare so that kernel injection cannot
+    silently change its precision."""
+    dtype = getattr(getattr(module, "cfg", None), "dtype", None)
+    if dtype is None:
+        raise TypeError(
+            f"{type(module).__name__} has attn_fn but no `cfg.dtype`; "
+            "declare it so kernel injection cannot silently change its "
+            "precision")
+    return dtype
 
 
 def batch_seed(seed: int, step: int) -> int:
@@ -94,8 +137,9 @@ class TrainSession:
         self.device = resolve_device(device)
         init_gen = torch.Generator(self.device).manual_seed(seed)
         self.module = bundle.build_module(self.device, init_gen)
-        if (_flash_attention_enabled(self.device)
-                and hasattr(self.module, "attn_fn")):
+        if (hasattr(self.module, "attn_fn")
+                and _flash_attention_enabled(self.device,
+                                             _compute_dtype(self.module))):
             # The injected kernel replaces the layers' own masking, so the
             # module has to declare it.
             causal = getattr(type(self.module), "causal_attention", None)
@@ -213,19 +257,29 @@ class TrainSession:
                learning_rate: float = 1e-3) -> "TrainSession":
         """A session rebuilt from the checkpoint of `step` (default: the
         latest), with its seed and data position. `learning_rate` may
-        differ from the saved run's."""
+        differ from the saved run's.
+
+        Two halves, which the resize bench times apart: the session built
+        as at step 0 (module, parameters, optimizer), then `restore`."""
         session = cls(bundle, num_chips, global_batch_size=global_batch_size,
                       device=device, learning_rate=learning_rate)
-        state = ckpt.restore_checkpoint(ckpt_dir, session.checkpoint_state(),
+        return session.restore(ckpt_dir, step=step)
+
+    def restore(self, ckpt_dir: str,
+                step: Optional[int] = None) -> "TrainSession":
+        """Load the checkpoint of `step` (default: the latest) into this
+        session: the module's and the optimizer's state (at this session's
+        learning rate), the step and the seed. Returns the session."""
+        state = ckpt.restore_checkpoint(ckpt_dir, self.checkpoint_state(),
                                         step=step)
-        set_state_dict(session.module, session.optimizer,
+        set_state_dict(self.module, self.optimizer,
                        model_state_dict=state["model"],
                        optim_state_dict=state["optim"])
-        for group in session.optimizer.param_groups:
-            group["lr"] = learning_rate
-        session.state["step"] = int(state["step"])
-        session.seed = int(state["seed"])
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.learning_rate
+        self.state["step"] = int(state["step"])
+        self.seed = int(state["seed"])
         # The restored state is the checkpoint on disk: a save before any
         # step runs can dedupe against it.
-        session._last_save = (os.path.abspath(ckpt_dir), session.step)
-        return session
+        self._last_save = (os.path.abspath(ckpt_dir), self.step)
+        return self
