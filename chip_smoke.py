@@ -23,7 +23,13 @@ Phases (any failure exits non-zero):
      dK/dV timed as one backward beside the library's backward; the padded
      widths' forward and backward timed beside the library's, and the
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
-     autograd through scaled_dot_product_attention);
+     autograd through scaled_dot_product_attention); then the fp32 and the
+     fp16 kernels (csrc/flash_simt.cu) against the same plain versions at
+     the main shape, a ragged non-causal S, D=128, D=16 padded, a ragged
+     query slice behind q_offset and D=256 (SIMT_LIMITS), each timed at the
+     main shape beside its plain version, the library call (fp32's backward:
+     autograd through scaled_dot_product_attention) and its bound at that
+     dtype's peak;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -125,11 +131,19 @@ Phases (any failure exits non-zero):
      the fast row None with its A10 error; the children's telemetry
      peaking above 1 GiB and at most the card's memory; each child's
      launches of K1-K3 (48/24/24 a step) and the kernels found built; the
-     restart's first-step loss within 1e-3 relative of the same step in
-     the prepare child; `derive_costs` on the row finite for every family,
+     restart's first and second step losses within 1e-3 relative of the
+     same steps in the prepare child (the second reads the restored
+     optimizer state); `derive_costs` on the row finite for every family,
      "measured on llama_350m". Printed: the segments, the saves and the
      derived family costs, with the card's name and power limit;
-  11. one JSON line of the kernels, then the device line last.
+  11. models that compute in fp32 and in fp16: a llama_350m-width bundle
+     of 4 layers in each, through TrainSession on the card, its step
+     through the fp32 or fp16 kernels against the plain attention (fp32:
+     loss 1e-4, hidden state and gradients 1e-3; fp16: phase 4's bars,
+     the loss scaled by 1024 for the comparison),
+     5 steps (finite, falling), one counted step launching that dtype's
+     K1 8, K2 4 and K3 4 times and no other kernel;
+  12. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
 
@@ -158,6 +172,10 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+# The card's peak for each input dtype of the attention kernels: fp16 as
+# bf16 on the tensor cores, fp32 outside them (NVIDIA data sheet, SXM).
+PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: 989e12,
+              torch.float32: 67e12}
 TPU_SRC = "vodascheduler_tpu/ops/flash_attention.py"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -236,11 +254,13 @@ def attn_pairs(Sq: int, Sk: int, causal: bool, q_off: int) -> int:
 
 
 def bound(n_products: int, n_tensors: int, n_stats: int, B, H, Sq, Sk, D,
-          causal, q_off):
-    """(ms, 'operations' | 'bytes'): the least time on the card."""
+          causal, q_off, dtype=torch.bfloat16):
+    """(ms, 'operations' | 'bytes'): the least time on the card, for
+    tensors of `dtype` (its element size, its peak rate)."""
     flops = n_products * 2 * B * H * attn_pairs(Sq, Sk, causal, q_off) * D
-    nbytes = n_tensors * B * max(Sq, Sk) * H * D * 2 + n_stats * B * H * Sq * 4
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    nbytes = (n_tensors * B * max(Sq, Sk) * H * D * dtype.itemsize
+              + n_stats * B * H * Sq * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -271,20 +291,34 @@ def row_err(got, ref) -> float:
 # tile from the sum of a 2048-long row.
 LIMITS = {"o_row": 1e-2, "lse": 1e-2, "delta": 3e-2, "dq_row": 1.5e-2,
           "dk_row": 1.5e-2, "dv_row": 1.5e-2}
+# The same bars for the fp32 and fp16 kernels (csrc/flash_simt.cu). fp32:
+# the kernels and the plain versions both compute in fp32 and differ by
+# the order of their sums; dQ's first rows are 0 by cancellation (δ against
+# dO·V), held to 1e-3 of the largest row (`row_err`), where the order reads
+# up to 3.7e-4 (H100). fp16: O, dQ, dK, dV are rounded to fp16 and the
+# kernels round P to fp16 before its products, as the TPU kernels do and
+# the plain versions do not: half a bf16 bar. lse and δ are fp32 sums of
+# the same terms in both.
+SIMT_LIMITS = {
+    torch.float32: {"o_row": 1e-4, "lse": 1e-4, "delta": 1e-4,
+                    "dq_row": 1e-3, "dk_row": 1e-4, "dv_row": 1e-4},
+    torch.float16: {"o_row": 5e-3, "lse": 1e-3, "delta": 1e-3,
+                    "dq_row": 5e-3, "dk_row": 5e-3, "dv_row": 5e-3}}
 
 
-def kernel_errors(fa, name, shape):
-    """Errors of each kernel against its plain version at one shape, logged
-    with the bars they break: (errors, ["name=err>bar", ...]). A head width
+def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS):
+    """Errors of each kernel against its plain version at one shape, on
+    tensors of `dtype`, logged with the bars of `limits` they break:
+    (errors, ["name=err>bar", ...]). A head width
     the kernels are not built for goes in as the attention operator sends
     it: zero-padded along D to the kernels' width, with D's own scale, and
     cut back to D; the plain versions run at D itself."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(1)
-    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
-    k = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
-    v = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
-    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
+    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
     width, scale = fa.kernel_head_dim(D), D ** -0.5
     qp, kp, vp, dop = (fa.pad_head(t, width) for t in (q, k, v, do))
     o, lse = fa.flash_fwd(qp, kp, vp, causal, q_off, scale=scale)
@@ -308,9 +342,9 @@ def kernel_errors(fa, name, shape):
             "dq": rel_err(dq, dq_ref), "dk": rel_err(dk, dk_ref),
             "dv": rel_err(dv, dv_ref), "dq_abs": abs_err(dq, dq_ref),
             "dk_abs": abs_err(dk, dk_ref), "dv_abs": abs_err(dv, dv_ref)}
-    bad = [f"{n}={errs[n]:.3g}>{lim}" for n, lim in LIMITS.items()
+    bad = [f"{n}={errs[n]:.3g}>{lim}" for n, lim in limits.items()
            if not errs[n] <= lim]
-    log(f"kernels[{name}] B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
+    log(f"kernels[{name}] {str(dtype)[6:]} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
         f"causal={causal} q_off={q_off} "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
         + (" FAIL " + ",".join(bad) if bad else " ok"))
@@ -320,13 +354,13 @@ def kernel_errors(fa, name, shape):
     return errs, bad
 
 
-def check_kernels(fa, cases):
+def check_kernels(fa, cases, dtype=torch.bfloat16, limits=LIMITS):
     """Each kernel against its plain version at every case; returns the
     errors at the main shape, with each case's under its name, and fails
     after reporting every case."""
     failures, out = [], {}
     for name, shape in cases.items():
-        errs, bad = kernel_errors(fa, name, shape)
+        errs, bad = kernel_errors(fa, name, shape, dtype, limits)
         failures += [f"{name}: {b}" for b in bad]
         out[name] = errs
     if failures:
@@ -339,12 +373,13 @@ def library_times(q, k, v, do, causal):
     only (the port never calls it): (fwd_ms, bwd_ms). The backward is the
     flash backend's up to D=256; above that, where PyTorch's flash backend
     stops, one autograd backward through scaled_dot_product_attention
-    (the backend it picks for that width)."""
+    (the backend it picks for that width), as for fp32, which the flash
+    backend does not take."""
     F = torch.nn.functional
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                          is_causal=causal))
-    if q.shape[-1] > 256:
+    if q.shape[-1] > 256 or q.dtype == torch.float32:
         qg, kg, vg = (t.detach().requires_grad_() for t in (qt, kt, vt))
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=causal)
         dot = do.transpose(1, 2)
@@ -362,16 +397,18 @@ def library_times(q, k, v, do, causal):
     return fwd, bwd
 
 
-def time_kernels(fa, shape, errs, suffix=""):
-    """Each kernel (of the variant `suffix` names: "" or "_wide") timed
-    beside its plain version, the library's call and its bound; logged,
-    and returned as rows of the kernels' JSON line."""
+def time_kernels(fa, shape, errs, suffix="", dtype=torch.bfloat16):
+    """Each kernel (of the variant `suffix` names: "" or "_wide" on bf16,
+    "_f32" or "_f16" on `dtype`) timed beside its plain version, the
+    library's call and its bound; logged, and returned as rows of the
+    kernels' JSON line."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(2)
-    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
-    k = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
-    v = torch.randn(B, Sk, H, D, generator=g, device="cuda").bfloat16()
-    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").bfloat16()
+    q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    k = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+    v = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
+    do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
+    src = "vodascheduler_tpu_torch/ops/csrc/{}.cu"
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     rows = {
@@ -379,26 +416,26 @@ def time_kernels(fa, shape, errs, suffix=""):
             ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal, q_off), reps=10),
-            b=bound(2, 4, 1, *shape), err=max(errs["o"], errs["lse"]),
+            b=bound(2, 4, 1, *shape, dtype), err=max(errs["o"], errs["lse"]),
             replaces=f"{TPU_SRC}:114",
-            source=f"vodascheduler_tpu_torch/ops/csrc/flash_fwd{suffix}.cu"),
+            source=src.format(fa.source(f"flash_fwd{suffix}"))),
         f"flash_dq{suffix}": dict(
             ms=cuda_ms(lambda: fa.flash_dq(q, k, v, o, do, lse, causal,
                                            q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_dq_reference(
                 q, k, v, o, do, lse, causal, q_off), reps=10),
-            b=bound(3, 6, 2, *shape), err=errs["dq_abs"],
+            b=bound(3, 6, 2, *shape, dtype), err=errs["dq_abs"],
             replaces=f"{TPU_SRC}:215",
-            source=f"vodascheduler_tpu_torch/ops/csrc/flash_dq{suffix}.cu"),
+            source=src.format(fa.source(f"flash_dq{suffix}"))),
         f"flash_dkv{suffix}": dict(
             ms=cuda_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
                                             q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_dkv_reference(
                 q, k, v, do, lse, delta, causal, q_off), reps=10),
-            b=bound(4, 6, 2, *shape),
+            b=bound(4, 6, 2, *shape, dtype),
             err=max(errs["dk_abs"], errs["dv_abs"]),
             replaces=f"{TPU_SRC}:260",
-            source=f"vodascheduler_tpu_torch/ops/csrc/flash_dkv{suffix}.cu"),
+            source=src.format(fa.source(f"flash_dkv{suffix}"))),
     }
     lib_fwd, lib_bwd = library_times(q, k, v, do, causal)
     rows[f"flash_fwd{suffix}"]["library_ms"] = lib_fwd
@@ -411,7 +448,7 @@ def time_kernels(fa, shape, errs, suffix=""):
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} bound_ms={r['b'][0]:.4f} "
             f"({r['b'][1]}) roofline_share={r['b'][0] / r['ms']:.3f}")
     bwd_ms = cuda_ms(backward_call(fa, q, k, v, o, do, lse, causal, q_off))
-    b = bound(7, 8, 1, *shape)
+    b = bound(7, 8, 1, *shape, dtype)
     log(f"time[backward{suffix}] D={D} kernel_ms={bwd_ms:.4f} (dq then dkv) "
         f"library_ms={lib_bwd:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
         f"library_over_kernels={lib_bwd / bwd_ms:.3f}")
@@ -448,15 +485,16 @@ def backward_call(fa, q, k, v, o, do, lse, causal, q_off):
     return call
 
 
-def forward_backward(bundle, module, batch):
-    """One forward and backward of the loss at the current weights:
-    (loss, hidden state before the final norm, {parameter: gradient})."""
+def forward_backward(bundle, module, batch, loss_scale=1.0):
+    """One forward and backward of the loss (times `loss_scale`) at the
+    current weights: (loss, hidden state before the final norm,
+    {parameter: gradient})."""
     hidden = []
     hook = module.final_norm.register_forward_pre_hook(
         lambda _m, args: hidden.append(args[0].detach()))
     module.zero_grad(set_to_none=True)
     loss = bundle.loss_fn(module, batch)
-    loss.backward()
+    (loss * loss_scale).backward()
     hook.remove()
     grads = {n: p.grad for n, p in module.named_parameters()}
     module.zero_grad(set_to_none=True)
@@ -515,16 +553,19 @@ class RoutingReplay:
                 "dropped_at_step0": statistics.mean(dropped)}
 
 
-def slice_gaps(bundle, module, batch):
+def slice_gaps(bundle, module, batch, loss_scale=1.0):
     """What attention moves at init, through the kernels against the plain
     O(S²) attention on the card: the hidden state before the final norm
     (largest relative error of a token's row) and every parameter's
     gradient (largest ||g - g_plain|| / ||g_plain||). An MoE model's plain
-    pass routes as the kernel pass did (RoutingReplay)."""
+    pass routes as the kernel pass did (RoutingReplay). Both passes
+    scale the loss by `loss_scale`; the gaps are ratios, which it leaves
+    alone."""
     kernel_attn, cfg = module.attn_fn, module.cfg
     replay = RoutingReplay(module) if bundle.num_experts else None
     try:
-        loss_k, h_k, g_k = forward_backward(bundle, module, batch)
+        loss_k, h_k, g_k = forward_backward(bundle, module, batch,
+                                            loss_scale)
         # The plain pass runs under full remat: a policy moves no number,
         # and under "dots" the plain attention's S×S products of every
         # layer would be kept for the backward.
@@ -532,7 +573,8 @@ def slice_gaps(bundle, module, batch):
         module.cfg = dataclasses.replace(cfg, remat_policy=None)
         if replay is not None:
             replay.replay = True
-        loss_p, h_p, g_p = forward_backward(bundle, module, batch)
+        loss_p, h_p, g_p = forward_backward(bundle, module, batch,
+                                            loss_scale)
     finally:
         module.attn_fn, module.cfg = kernel_attn, cfg
         if replay is not None:
@@ -556,9 +598,9 @@ def slice_gaps(bundle, module, batch):
 SLICE_LIMITS = {"loss": 2e-2, "hidden_row": 5e-2, "grad": 5e-2}
 
 
-def check_slice(gaps) -> list:
-    """The bars of SLICE_LIMITS that `gaps` breaks, logged."""
-    bad = [f"{n}={gaps[n]:.3g}>{lim}" for n, lim in SLICE_LIMITS.items()
+def check_slice(gaps, limits=SLICE_LIMITS) -> list:
+    """The bars of `limits` that `gaps` breaks, logged."""
+    bad = [f"{n}={gaps[n]:.3g}>{lim}" for n, lim in limits.items()
            if not gaps[n] <= lim]
     if not gaps["finite"]:
         bad.append("loss not finite")
@@ -617,7 +659,7 @@ def step_mfu(session, step_ms: float) -> float:
     return flops / (step_ms / 1e3) / hwbench.peak_flops_per_device()
 
 
-def build_slice(model):
+def build_slice(model, limits=SLICE_LIMITS, loss_scale=1.0):
     """A TrainSession of `model` (a registry name or a bundle) at B=8 on
     the card, its step through the kernels checked against the plain
     attention (slice_gaps); returns (session, batch)."""
@@ -640,7 +682,8 @@ def build_slice(model):
         f"optimizer={bundle.optimizer} remat_policy={bundle.cfg.remat_policy} "
         f"device={session.device}")
     batch = session.make_batch()
-    if check_slice(slice_gaps(bundle, session.module, batch)):
+    if check_slice(slice_gaps(bundle, session.module, batch, loss_scale),
+                   limits):
         raise SystemExit(f"{model}: the step through the kernels disagrees "
                          "with the plain attention")
     return session, batch
@@ -778,6 +821,50 @@ def _finish(proc, workdir: str, tag: str, timeout: float = 300.0) -> int:
 def _epoch_losses(text: str) -> dict:
     return {int(m.group(1)): float(m.group(2))
             for m in re.finditer(r"^epoch (\d+) loss (\S+)$", text, re.M)}
+
+
+# Phase 11: llama_350m's width computing in fp32 and in fp16, which take the
+# CUDA-core kernels (csrc/flash_simt.cu), depth cut to DTYPE_LAYERS so that
+# the fp32 step stays short. Against the plain attention (which computes in
+# fp32): fp32 differs by summation order alone, fp16 by the rounding of P
+# to fp16 inside the kernels, held to the bf16 slice's bars. fp16's
+# gradients of a loss averaged over 16,384 tokens lie among its subnormals
+# (below 6e-5), where the plain attention's own fp16 gradients stray from
+# an fp32 twin's as far as the kernels' do; the comparison scales the loss
+# by 1024, as fp16 training does (a loss scaler), which lifts them into
+# fp16's normal range. The training steps are unscaled.
+DTYPE_LAYERS = 4
+DTYPE_SLICES = {  # dtype: (kernel suffix, bars, comparison's loss scale)
+    "float32": ("_f32", {"loss": 1e-4, "hidden_row": 1e-3, "grad": 1e-3},
+                1.0),
+    "float16": ("_f16", SLICE_LIMITS, 1024.0)}
+
+
+def run_dtype_slices(fa):
+    """Phase 11: for fp32 and fp16, a llama_350m-width bundle of
+    DTYPE_LAYERS layers in a TrainSession on the card, its step through the
+    kernels against the plain attention, 5 AdamW steps (finite, falling),
+    one counted step launching that dtype's K1 2L, K2 L and K3 L times and
+    no other kernel. Returns the counted launches."""
+    from vodascheduler_tpu_torch.models import llama
+    from vodascheduler_tpu_torch.models.registry import llama_bundle
+
+    counts = {}
+    for dtype, (suffix, limits, loss_scale) in DTYPE_SLICES.items():
+        cfg = dataclasses.replace(llama.LLAMA_350M, dtype=dtype,
+                                  num_layers=DTYPE_LAYERS)
+        session, batch = build_slice(
+            llama_bundle(f"llama_350m_{dtype}_l{DTYPE_LAYERS}", cfg, 2048),
+            limits, loss_scale)
+        got = train_and_count(fa, dtype, session, batch,
+                              {f"flash_fwd{suffix}": 2 * DTYPE_LAYERS,
+                               f"flash_dq{suffix}": DTYPE_LAYERS,
+                               f"flash_dkv{suffix}": DTYPE_LAYERS})
+        counts.update({k: v for k, v in got.items() if k.endswith(suffix)})
+        del session, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts
 
 
 def run_job_cycle():
@@ -1788,15 +1875,20 @@ def resize_faults(rows: dict, total_bytes: int) -> list:
         bad.append(f"telemetry peaks {peaks} (want above 1 GiB, at most "
                    f"{total_bytes})")
     for child, launches in d["launches"].items():
-        want = {k: v * (1 if child == "restart" else 5)
+        # restart: 2 steps after the restore; prepare: 3 warm steps, one
+        # before the synced save and the 2 after it
+        want = {k: v * (2 if child == "restart" else 6)
                 for k, v in RESIZE_LAUNCHES.items()}
         if launches != want:
             bad.append(f"{child} child launched {launches}, want {want}")
     if d["kernel_cache_hit"] is not True:
         bad.append("the restart child did not find its kernels built")
-    a, b = d["prepare_next_step_loss"], d["restart_first_step_loss"]
-    if not (math.isfinite(a) and abs(b - a) <= RESIZE_LOSS_LIMIT * abs(a)):
-        bad.append(f"first-step loss {b} after the restart against {a}")
+    for step in ("first", "second"):
+        a = d["prepare_next_step_loss" if step == "first"
+              else "prepare_second_step_loss"]
+        b = d[f"restart_{step}_step_loss"]
+        if not (math.isfinite(a) and abs(b - a) <= RESIZE_LOSS_LIMIT * abs(a)):
+            bad.append(f"{step}-step loss {b} after the restart against {a}")
     if not restart_costs._complete(d):
         bad.append("the row is not a complete point for restart_costs")
     else:
@@ -1844,7 +1936,9 @@ def run_resize(card: str) -> None:
         f"write {d['save_sync_write_ms']}) warm_step_ms {d['warm_step_ms']} "
         f"resize_cost_seconds {d['resize_cost_seconds']} first-step loss "
         f"{d['restart_first_step_loss']} against "
-        f"{d['prepare_next_step_loss']}")
+        f"{d['prepare_next_step_loss']}, second-step loss "
+        f"{d['restart_second_step_loss']} against "
+        f"{d['prepare_second_step_loss']}")
     for fam, cost in restart_costs.derive_costs([d]).items():
         log(f"resize family {fam} on {card}: restart_s {cost.restart_s} "
             f"({cost.provenance}) inplace_s {cost.inplace_s} "
@@ -1921,6 +2015,14 @@ def main() -> int:
     time_kernels(fa, cases["d512"], errs["d512"], "_wide")
     time_kernels(fa, cases["d384"], errs["d384"], "_wide")
     torch.cuda.empty_cache()
+    # the fp32 and fp16 kernels, at the main shape and the edges
+    simt_cases = {name: cases[name] for name in (
+        "main", "ragged_noncausal", "d128", "d16", "ragged_q_offset")}
+    simt_cases["d256"] = (2, 4, 1024, 1024, 256, True, 0)
+    for dtype, suffix in ((torch.float32, "_f32"), (torch.float16, "_f16")):
+        simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
+        rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
+        torch.cuda.empty_cache()
     phase("3 kernels")
 
     counts = run_slice(fa)[0]
@@ -1956,6 +2058,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_resize(smi.stdout.strip().splitlines()[0])
     phase("10 resize")
+    counts.update(run_dtype_slices(fa))
+    phase("11 fp32 and fp16")
 
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],

@@ -120,6 +120,7 @@ def main(argv=None) -> int:
             "save_sync_write_ms", "warm_step_ms", "restart_segments_ms",
             "restart_total_ms", "resize_cost_seconds",
             "prepare_next_step_loss", "restart_first_step_loss",
+            "prepare_second_step_loss", "restart_second_step_loss",
             "launches", "device")}), flush=True)
     if problems:
         print("capture failed: " + "; ".join(problems), file=sys.stderr)

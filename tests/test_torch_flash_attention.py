@@ -133,9 +133,11 @@ def test_plain_lse_is_logsumexp_of_visible_scores():
 
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     """The checks run before any launch, so they hold on the CPU too."""
-    x = torch.zeros(1, 8, 1, 64)
+    x = torch.zeros(1, 8, 1, 64, dtype=torch.float64)
     with pytest.raises(TypeError):
-        fa.flash_fwd(x, x, x, True, 0)  # fp32
+        fa.flash_fwd(x, x, x, True, 0)  # fp64: bf16, fp32, fp16 only
+    with pytest.raises(TypeError):
+        fa.flash_fwd(x.float(), x.half(), x.float(), True, 0)  # mixed
     y = torch.zeros(1, 8, 1, 48, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         fa.flash_fwd(y, y, y, True, 0)  # head_dim 48

@@ -1,108 +1,83 @@
 """Where `TrainSession` installs the flash-attention kernels, decided on the
 CPU (a ``torch.device("cuda")`` object needs no card).
 
-The kernels take bf16 alone; the JAX kernel computes in ``q.dtype``. So a
-Llama or Mixtral that computes in bf16 takes the kernels on CUDA, and one
-that computes in fp32 or fp16 keeps its own plain attention, which computes
-in that dtype (logged once a dtype). ``VODA_FLASH_ATTENTION=1`` forces the
-kernels and raises for a model they cannot take, as it raises off CUDA.
-The card test of the same choice is
-`test_torch_cuda.py::test_fp32_llama_trains_on_its_plain_attention`.
+The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
+take the wgmma kernels, fp32 and fp16 tensors the CUDA-core kernels of
+their dtype (``csrc/flash_simt.cu``). So a Llama or Mixtral takes the
+kernels on CUDA whatever dtype it computes in, and no path gives way to the
+plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
+attention (0) or the kernels (1, which raises off CUDA). The card tests of
+the same choice are
+`test_torch_cuda.py::test_fp32_and_fp16_llamas_train_through_their_kernels`.
 """
 
 import dataclasses
-import logging
+import functools
 
 import pytest
 import torch
 
 from vodascheduler_tpu_torch.models import llama
 from vodascheduler_tpu_torch.models.registry import llama_bundle
+from vodascheduler_tpu_torch.ops import flash_attention as fa
 from vodascheduler_tpu_torch.runtime import train
 
 CUDA = torch.device("cuda")
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(autouse=True)
-def fresh_log(monkeypatch):
+def no_flag(monkeypatch):
     monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
-    monkeypatch.setattr(train, "_plain_dtypes_logged", set())
 
 
-@pytest.mark.parametrize("dtype,kernels", [
-    ("bfloat16", True), ("float32", False), ("float16", False)])
-def test_bf16_takes_the_kernels_and_other_dtypes_the_plain_attention(
-        dtype, kernels):
-    assert train._flash_attention_enabled(CUDA, dtype) is kernels
-
-
-@pytest.mark.parametrize("dtype", ["float32", "float16"])
-def test_forcing_the_kernels_on_another_dtype_raises(dtype, monkeypatch):
-    monkeypatch.setenv("VODA_FLASH_ATTENTION", "1")
-    with pytest.raises(RuntimeError, match=dtype):
-        train._flash_attention_enabled(CUDA, dtype)
-    assert train._flash_attention_enabled(CUDA, "bfloat16")
-
-
-@pytest.mark.parametrize("flag,device,dtype,want", [
-    ("0", CUDA, "bfloat16", False),
-    ("0", CUDA, "float32", False),
-    ("auto", torch.device("cpu"), "bfloat16", False),
-    ("auto", torch.device("cpu"), "float32", False),
+@pytest.mark.parametrize("flag,device,want", [
+    ("auto", CUDA, True), ("auto", CPU, False),
+    ("0", CUDA, False), ("0", CPU, False),
+    ("1", CUDA, True),
 ])
-def test_the_flag_and_the_cpu(flag, device, dtype, want, monkeypatch):
+def test_the_flag_and_the_device(flag, device, want, monkeypatch):
     monkeypatch.setenv("VODA_FLASH_ATTENTION", flag)
-    assert train._flash_attention_enabled(device, dtype) is want
+    assert train._flash_attention_enabled(device) is want
 
 
 def test_forcing_the_kernels_off_cuda_raises(monkeypatch):
     monkeypatch.setenv("VODA_FLASH_ATTENTION", "1")
     with pytest.raises(RuntimeError, match="cpu"):
-        train._flash_attention_enabled(torch.device("cpu"), "bfloat16")
+        train._flash_attention_enabled(CPU)
 
 
-def test_the_plain_choice_is_logged_once_a_dtype(caplog):
-    with caplog.at_level(logging.WARNING, logger=train.__name__):
-        for _ in range(3):
-            train._flash_attention_enabled(CUDA, "float32")
-        train._flash_attention_enabled(CUDA, "float16")
-        train._flash_attention_enabled(CUDA, "bfloat16")
-    messages = [r.getMessage() for r in caplog.records]
-    assert len(messages) == 2
-    assert "float32" in messages[0] and "float16" in messages[1]
-    assert all("plain attention" in m for m in messages)
-
-
-def test_the_session_reads_the_module_dtype(monkeypatch):
-    """The decision reads `cfg.dtype` of the built module; a module with
-    `attn_fn` and no `cfg.dtype` raises, as one without
-    `causal_attention` does."""
-    seen = []
-    monkeypatch.setattr(train, "_flash_attention_enabled",
-                        lambda device, dtype: seen.append(dtype) or False)
-    bundle = llama_bundle("llama_tiny_fp32", dataclasses.replace(
-        llama.LLAMA_TINY, dtype="float32"), 64)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float16"])
+def test_every_compute_dtype_takes_the_kernels(dtype, monkeypatch):
+    """With the kernels enabled (as on CUDA), the session installs them in
+    a Llama of any compute dtype: the operator picks that dtype's kernel."""
+    monkeypatch.setattr(train, "_flash_attention_enabled", lambda d: True)
+    bundle = llama_bundle(f"llama_tiny_{dtype}", dataclasses.replace(
+        llama.LLAMA_TINY, dtype=dtype), 64)
     session = train.TrainSession(bundle, global_batch_size=2, device="cpu")
-    assert seen == ["float32"]
-    assert session.module.attn_fn is None
-
-    class NoDtype(torch.nn.Module):
-        attn_fn = None
-    with pytest.raises(TypeError, match="cfg.dtype"):
-        train._compute_dtype(NoDtype())
+    fn = session.module.attn_fn
+    assert isinstance(fn, functools.partial) and fn.func is fa.flash_attention
+    assert fn.keywords == {"causal": True}
 
 
-@pytest.mark.parametrize("head_dim,names", [
-    (16, ("flash_fwd", "flash_dq", "flash_dkv")),
-    (64, ("flash_fwd", "flash_dq", "flash_dkv")),
-    (128, ("flash_fwd", "flash_dq", "flash_dkv")),
-    (256, ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"))])
-def test_load_kernels_loads_the_head_widths_kernels(head_dim, names,
-                                                    monkeypatch):
-    """What the resize bench's restart child loads before the session:
-    the three kernels a head of that width launches, and no other."""
-    from vodascheduler_tpu_torch.ops import flash_attention as fa
+@pytest.mark.parametrize("dtype,suffix", [
+    (torch.bfloat16, ""), (torch.float32, "_f32"), (torch.float16, "_f16")])
+def test_each_dtype_has_its_kernels(dtype, suffix):
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        kernel = fa._kernel(name, fa.kernel_head_dim(16), dtype)
+        assert kernel == name + suffix
+        assert kernel in fa.launches and kernel in fa._ARGTYPES
+
+
+@pytest.mark.parametrize("names", [
+    ("flash_fwd", "flash_dq", "flash_dkv"),
+    ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"),
+    ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32"),
+    ()])
+def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
+    """What the resize bench's restart child loads before the session: the
+    kernels the prepare child's steps launched, and no other."""
     loaded = []
     monkeypatch.setattr(fa, "_entry", loaded.append)
-    assert fa.load_kernels(head_dim) == names
+    fa.load_kernels(names)
     assert tuple(loaded) == names

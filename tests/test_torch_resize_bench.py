@@ -4,8 +4,9 @@ Mirrors `tests/test_resize_bench.py`: the measurement means something only
 on the card, so these hold its machinery under ``VODA_HWBENCH_ON_CPU=1``
 with tiny models: two sequential children, the restart's marks stitched
 across processes into segments that sum to its total, the checkpoint's
-size, the fast row left unmeasured with its reason, the first step after
-the restart against the same step before it (equal at 1e-6 relative), and
+size, the fast row left unmeasured with its reason, the first two steps
+after the restart against the same steps before it (equal at 1e-6
+relative; the second reads the restored optimizer state), and
 `main`'s stream mode. Unlike the reference's, they run in tier-1: a torch
 child starts in seconds. Without the switch and without CUDA a child
 raises: nothing measures the CPU unless asked.
@@ -76,9 +77,13 @@ def test_resize_cost_breakdown_tiny(model, batch, monkeypatch, tmp_path):
     assert "A10" in paths["fast"]["error"]
     assert out["fast_resize_ms"] is None
     assert out["fast_error"] == paths["fast"]["error"]
-    # The restart's first step is the prepare child's same step.
-    a, b = out["prepare_next_step_loss"], out["restart_first_step_loss"]
-    assert abs(a - b) <= 1e-6 * abs(a)
+    # The restart's first two steps are the prepare child's same steps: the
+    # second reads the restored optimizer state.
+    for a, b in ((out["prepare_next_step_loss"],
+                  out["restart_first_step_loss"]),
+                 (out["prepare_second_step_loss"],
+                  out["restart_second_step_loss"])):
+        assert abs(a - b) <= 1e-6 * abs(a)
     # No kernel on the CPU; the row prices restarts.
     assert out["launches"] == {"prepare": {}, "restart": {}}
     assert out["kernel_cache_hit"] is None

@@ -49,8 +49,11 @@ def test_the_card_artifact_is_complete_and_names_its_card():
         fast = {r["path"]: r for r in p["resize_paths"]}["fast"]
         assert fast["seconds"] is None and "A10" in fast["error"]
         assert p["fast_resize_ms"] is None
-        a, b = p["prepare_next_step_loss"], p["restart_first_step_loss"]
-        assert abs(a - b) <= 1e-3 * abs(a)
+        for a, b in ((p["prepare_next_step_loss"],
+                      p["restart_first_step_loss"]),
+                     (p["prepare_second_step_loss"],
+                      p["restart_second_step_loss"])):
+            assert abs(a - b) <= 1e-3 * abs(a)
 
 
 def test_family_costs_derive_from_the_card_artifact():

@@ -13,7 +13,11 @@ Those are built for head widths 64 and 128. Above 128 the JAX package takes
 any multiple of 128, and so does each wrapper, through a second kernel of
 the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``; on ``csrc/hopper.cuh``
 up to D=512, cut along D on ``csrc/wide.cuh`` above): ``flash_fwd_wide``,
-``flash_dq_wide`` and ``flash_dkv_wide``, each counted apart.
+``flash_dq_wide`` and ``flash_dkv_wide``, each counted apart. Those six
+take bf16; fp32 and fp16 tensors, at the same widths, go to a third kernel
+of each function for each dtype (``csrc/flash_simt.cu``, on the CUDA cores):
+``flash_fwd_f32``, ``flash_dq_f32``, ``flash_dkv_f32`` and the same three
+``_f16``.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -38,17 +42,21 @@ Divergences from the TPU kernels, on purpose:
 - the tiles are fixed by each kernel's design: the forward takes 128
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
-  tiles of 64 rows (32 at D=128).
+  tiles of 64 rows (32 at D=128); the fp32 and fp16 kernels take 64×64
+  tiles of (queries, keys) and 64 or 128 columns of the output a CTA.
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
   signature and change none of them;
-- on CUDA the kernels take bf16 alone and any other dtype raises, where the
-  JAX kernel computes in ``q.dtype``. The dtype is chosen where the kernel
-  is installed (`runtime/train.py`): a model that computes in fp32 or fp16
-  keeps its own plain attention, which computes in that dtype. The
-  operator does not fall back by itself: that would hide the kernel from
-  a bf16 caller that passed a tensor of the wrong dtype.
+- the wgmma kernels take bf16. The JAX kernels compute in ``q.dtype``, so
+  fp32 and fp16 tensors go to kernels of their own
+  (``csrc/flash_simt.cu``: ``flash_{fwd,dq,dkv}_f32`` and ``_f16``), which
+  multiply on the CUDA cores with the TPU kernels' arithmetic (products of
+  the input dtype accumulated in fp32, P rounded to the input dtype before
+  its products) except that dS stays fp32: fp16's range would flush the
+  small dS of an unscaled loss (``flash_simt.cu``). Each wrapper picks the
+  kernel by the tensors' dtype, which all must share; any other dtype
+  raises.
 
-The kernels read their tiles through TMA tensor maps built from the
+The bf16 kernels read their tiles through TMA tensor maps built from the
 ``[B, S, H, D]`` shape, so every tensor's shape is checked against q's
 (``_dims``) before a map is built.
 """
@@ -71,7 +79,13 @@ WIDE_CHUNK = 128
 # Launches of each kernel since the last `reset_launches()`: one plain int
 # per kernel, raised by its wrapper where it launches and nowhere else.
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-            "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0}
+            "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
+            "flash_fwd_f32": 0, "flash_dq_f32": 0, "flash_dkv_f32": 0,
+            "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0}
+# The kernels of fp32 and fp16 tensors (suffix of their names), all in one
+# source; a bf16 kernel's source carries its own name.
+SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
+SIMT_SOURCE = "flash_simt"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -85,7 +99,8 @@ _ARGTYPES = {
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
 }
 for _name in ("flash_fwd", "flash_dq", "flash_dkv"):
-    _ARGTYPES[f"{_name}_wide"] = _ARGTYPES[_name]
+    for _variant in ("wide", *SIMT_SUFFIX.values()):
+        _ARGTYPES[f"{_name}_{_variant}"] = _ARGTYPES[_name]
 
 
 def reset_launches() -> None:
@@ -93,54 +108,61 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def source(kernel: str) -> str:
+    """The source (in ``ops/csrc``) that holds `kernel`."""
+    return SIMT_SOURCE if kernel.endswith(
+        tuple(f"_{x}" for x in SIMT_SUFFIX.values())) else kernel
+
+
 @functools.cache
 def _entry(name: str):
-    fn = getattr(_build.load(name), f"voda_{name}")
+    fn = getattr(_build.load(source(name)), f"voda_{name}")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
 
 
-def load_kernels(head_dim: int) -> Tuple[str, ...]:
-    """Finds the forward, dQ and dK/dV kernels of heads `head_dim` wide in
-    the build cache (building them if absent) and loads them, so that
-    their first launch loads nothing. Returns their names."""
-    D = kernel_head_dim(head_dim)
-    names = tuple(_kernel(n, D) for n in ("flash_fwd", "flash_dq",
-                                          "flash_dkv"))
+def load_kernels(names) -> None:
+    """Finds the kernels `names` in the build cache (building them if
+    absent) and loads them, so that their first launch loads nothing."""
     for name in names:
         _entry(name)
-    return names
 
 
-def _kernel(name: str, D: int) -> str:
-    """The kernel of wrapper `name` for head width D: its own at a width of
-    HEAD_DIMS, its wide variant at a multiple of WIDE_CHUNK above them."""
-    if D in HEAD_DIMS:
-        return name
-    if D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0:
-        return f"{name}_wide"
-    raise NotImplementedError(
-        f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple of "
-        f"{WIDE_CHUNK} above them")
+def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The kernel of wrapper `name` for head width D and tensors of
+    `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
+    at a multiple of WIDE_CHUNK above them; for fp32 and fp16 the kernel of
+    that dtype, at the same widths."""
+    if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
+        raise NotImplementedError(
+            f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
+            f"of {WIDE_CHUNK} above them")
+    if dtype in SIMT_SUFFIX:
+        return f"{name}_{SIMT_SUFFIX[dtype]}"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernels take bfloat16, float32 "
+                        f"and float16, got {dtype}")
+    return name if D in HEAD_DIMS else f"{name}_wide"
 
 
 def _check(name: str, *tensors: torch.Tensor) -> str:
-    """What the kernels take: bf16, contiguous [B,S,H,D] on one CUDA
-    device, 16-byte aligned rows, D in HEAD_DIMS or a multiple of
-    WIDE_CHUNK above them. Returns the kernel that takes them."""
-    dev = tensors[0].device
+    """What the kernels take: contiguous [B,S,H,D] of one dtype (bf16,
+    fp32 or fp16) on one CUDA device, 16-byte aligned rows, D in HEAD_DIMS
+    or a multiple of WIDE_CHUNK above them. Returns the kernel that takes
+    them."""
+    dev, dtype = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: CUDA kernel takes bfloat16, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: tensors of {t.dtype} and {dtype}")
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"{name}: needs contiguous [B,S,H,D], got "
                              f"shape {tuple(t.shape)} strides {t.stride()}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: data pointer not 16-byte aligned")
-    return _kernel(name, tensors[0].shape[-1])
+    return _kernel(name, tensors[0].shape[-1], dtype)
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
@@ -176,7 +198,7 @@ def _dims(q, k, v, *q_like) -> Tuple[int, int, int, int, int]:
 
 def flash_fwd(q, k, v, causal: bool, q_off: int,
               scale: Optional[float] = None):
-    """K1 on the card: (o [B,Sq,H,D] bf16, lse [B,H,Sq] fp32). `scale`
+    """K1 on the card: (o [B,Sq,H,D] in q's dtype, lse [B,H,Sq] fp32). `scale`
     multiplies QKᵀ; None means D^-½ of the tensors' own width."""
     kernel = _check("flash_fwd", q, k, v)
     B, H, Sq, Sk, D = _dims(q, k, v)
@@ -190,7 +212,7 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
 
 def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
              scale: Optional[float] = None):
-    """K2 on the card: (dq [B,Sq,H,D] bf16, delta [B,H,Sq] fp32)."""
+    """K2 on the card: (dq [B,Sq,H,D] in q's dtype, delta [B,H,Sq] fp32)."""
     kernel = _check("flash_dq", q, k, v, o, do)
     B, H, Sq, Sk, D = _dims(q, k, v, o, do)
     _check_stat(lse, B, H, Sq)
@@ -205,7 +227,7 @@ def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
 
 def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int,
               scale: Optional[float] = None):
-    """K3 on the card: (dk, dv), each [B,Sk,H,D] bf16."""
+    """K3 on the card: (dk, dv), each [B,Sk,H,D] in q's dtype."""
     kernel = _check("flash_dkv", q, k, v, do)
     B, H, Sq, Sk, D = _dims(q, k, v, do)
     _check_stat(lse, B, H, Sq)

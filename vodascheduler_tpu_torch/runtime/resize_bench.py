@@ -22,12 +22,14 @@ child exits before the next initialises CUDA):
       proc_start       the interpreter is up and this module imported
       torch_imported   ``import torch``
       cuda_ready       ``torch.cuda.init()`` and a synchronised tiny op
-      kernels_loaded   the port's modules imported, and the flash-attention
-                       kernels that the model's head width launches found
-                       in the ``ops/_build.py`` cache
+      kernels_loaded   the flash-attention kernels that the prepare
+                       child's steps launched (the model's head width and
+                       dtype) found in the ``ops/_build.py`` cache
                        (``build/torch_kernels/<source hash>/``) and loaded,
                        so that the first step holds no build and no load
-      setup_built      module, parameters and optimizer (`TrainSession`)
+      setup_built      the port's modules imported, then module, parameters
+                       and optimizer (`TrainSession`), as the reference
+                       imports its package in this segment
       restored         `TrainSession.restore`: the checkpoint read and set
       first_step_done  one step, synchronised
 
@@ -48,13 +50,14 @@ Divergences from the reference, on purpose:
   source hash; the ``kernels_loaded`` segment is that cache's read;
 - each child runs on CUDA, and raises where there is none; on the CPU only
   under ``VODA_HWBENCH_ON_CPU=1`` (the reference's switch, for tests);
-- a check of the port's own: the restart child reports the loss of its
-  first step, the prepare child the loss of the same step (batches are a
-  function of (seed, step)) taken after its synced save has committed;
-  each child reports its kernel launches and its memory
-  (`gpu_monitor.telemetry_snapshot`), and the restart child fails if its
-  first step launched a kernel it had not loaded before, or did not
-  launch one it had.
+- a check of the port's own: the restart child reports the losses of its
+  first two steps, the prepare child the losses of the same two steps
+  (batches are a function of (seed, step)) taken after its synced save has
+  committed; the first reads the restored parameters, the second the
+  restored optimizer state too. Each child reports its kernel launches and
+  its memory (`gpu_monitor.telemetry_snapshot`), and the restart child
+  fails if its steps launched a kernel it had not loaded before, or did
+  not launch one it had.
 
 Run: python -m vodascheduler_tpu_torch.runtime.resize_bench '{"points": [["llama_350m", 8]]}'
 (``"stream": true`` prints one ``{"kind": "resize", "data": ...}`` line a
@@ -78,6 +81,10 @@ RESTART_MARKS = ("proc_start", "torch_imported", "cuda_ready",
                  "kernels_loaded", "setup_built", "restored",
                  "first_step_done")
 
+# Steps the restart child takes (the first one timed) and the prepare child
+# takes after its synced save, their losses compared.
+AFTER_RESTORE_STEPS = 2
+
 FAST_PATH_ERROR = (
     "not measured: an in-place resize needs more than one card "
     "(ROADMAP A10/A11); on one card TrainSession.resize takes only its own "
@@ -90,15 +97,17 @@ def _emit_mark(name: str) -> None:
 
 
 def _run_child(phase: str, model: str, batch: int, ckpt_dir: str,
-               steps: int, timeout: float) -> Tuple[Dict[str, Any],
-                                                    List[Dict[str, Any]],
-                                                    float]:
+               steps: int, timeout: float,
+               kernels: Sequence[str] = ()) -> Tuple[Dict[str, Any],
+                                                     List[Dict[str, Any]],
+                                                     float]:
     """Spawn one measurement child; returns (result, marks, spawn_t).
 
     The child inherits the caller's environment and decides its device
-    itself (`_child_device`)."""
+    itself (`_child_device`); it loads `kernels` before its session."""
     cmd = [sys.executable, "-m", "vodascheduler_tpu_torch.runtime.resize_bench",
-           "--child", phase, model, str(batch), ckpt_dir, str(steps)]
+           "--child", phase, model, str(batch), ckpt_dir, str(steps),
+           ",".join(kernels)]
     spawn_t = time.monotonic()
     proc = subprocess.run(cmd, capture_output=True, text=True,
                           timeout=timeout,
@@ -142,7 +151,7 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
                                 ckpt_dir, warm_steps, child_timeout)
         restart, marks, spawn_t = _run_child(
             "restart", model_name, global_batch_size, ckpt_dir, 1,
-            child_timeout)
+            child_timeout, kernels=sorted(prep["launches"]))
         t = {m["mark"]: m["t"] for m in marks}
         seg = {}
         prev = spawn_t
@@ -188,10 +197,13 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
             "state_bytes": prep.get("state_bytes"),
             "save_sync_host_copy_ms": prep.get("save_sync_host_copy_ms"),
             "save_sync_write_ms": prep.get("save_sync_write_ms"),
-            "prepare_next_step_loss": prep.get("next_step_loss"),
-            "restart_first_step_loss": restart.get("first_step_loss"),
+            # The first step after the restore reads the parameters, the
+            # second the optimizer state too.
+            "prepare_next_step_loss": prep["next_step_losses"][0],
+            "restart_first_step_loss": restart["step_losses"][0],
+            "prepare_second_step_loss": prep["next_step_losses"][1],
+            "restart_second_step_loss": restart["step_losses"][1],
             "kernel_cache_hit": restart.get("kernel_cache_hit"),
-            "kernel_load_ms": restart.get("kernel_load_ms"),
             "launches": {"prepare": prep.get("launches"),
                          "restart": restart.get("launches")},
             "child_telemetry": {"prepare": prep.get("telemetry"),
@@ -218,25 +230,19 @@ def _child_device(torch):
         "smoke-test on the CPU")
 
 
-def _load_kernels(bundle, device) -> Tuple[List[str], Optional[bool]]:
-    """The kernels a session of `bundle` on `device` launches, loaded, and
-    whether every kernel library was already in the build cache (None
-    where the session launches none). A Llama or Mixtral computing in bf16
-    on CUDA is what `TrainSession` installs the kernels in."""
-    from vodascheduler_tpu_torch.models.llama import LlamaConfig
-    from vodascheduler_tpu_torch.models.mixtral import MixtralConfig
-    from vodascheduler_tpu_torch.runtime.train import _flash_attention_enabled
-
-    cfg = bundle.cfg
-    if not (isinstance(cfg, (LlamaConfig, MixtralConfig))
-            and _flash_attention_enabled(device, cfg.dtype)):
-        return [], None
+def _load_kernels(names: Sequence[str]) -> Optional[bool]:
+    """Loads the kernels `names` (what the prepare child's steps launched),
+    and returns whether each one's library was already in the build cache
+    (None where there are none)."""
     from vodascheduler_tpu_torch.ops import _build
-    from vodascheduler_tpu_torch.ops.flash_attention import load_kernels
+    from vodascheduler_tpu_torch.ops import flash_attention as fa
 
-    hit = all((_build.build_dir() / f"lib{n}.so").exists()
-              for n in _build.SOURCES)
-    return list(load_kernels(cfg.head_dim)), hit
+    if not names:
+        return None
+    hit = all((_build.build_dir() / f"lib{fa.source(n)}.so").exists()
+              for n in names)
+    fa.load_kernels(names)
+    return hit
 
 
 def _sync(torch, device) -> None:
@@ -247,12 +253,15 @@ def _sync(torch, device) -> None:
 def _child_main(argv: Sequence[str]) -> None:
     phase, model, batch, ckpt_dir, steps = (
         argv[0], argv[1], int(argv[2]), argv[3], int(argv[4]))
+    kernels = [n for n in (argv[5] if len(argv) > 5 else "").split(",") if n]
     _emit_mark("proc_start")
     import torch
 
     _emit_mark("torch_imported")
     device = _child_device(torch)
     _emit_mark("cuda_ready")
+    cache_hit = _load_kernels(kernels)
+    _emit_mark("kernels_loaded")
     from vodascheduler_tpu_torch.models import get_model
     from vodascheduler_tpu_torch.ops import flash_attention as fa
     from vodascheduler_tpu_torch.runtime import checkpoint as ckpt
@@ -260,15 +269,9 @@ def _child_main(argv: Sequence[str]) -> None:
     from vodascheduler_tpu_torch.runtime.train import TrainSession
 
     bundle = get_model(model)
-    t0 = time.monotonic()
-    kernels, cache_hit = _load_kernels(bundle, device)
-    kernel_load_ms = round((time.monotonic() - t0) * 1000.0, 1)
-    _emit_mark("kernels_loaded")
     out: Dict[str, Any] = {"backend": "gpu" if device.type == "cuda"
                            else device.type,
-                           "kernel_cache_hit": cache_hit,
-                           # the segment's share that is not the imports
-                           "kernel_load_ms": kernel_load_ms}
+                           "kernel_cache_hit": cache_hit}
     if phase == "prepare":
         session = TrainSession(bundle, 1, global_batch_size=batch,
                                device=device)
@@ -305,9 +308,12 @@ def _child_main(argv: Sequence[str]) -> None:
             for f in files:
                 total += os.path.getsize(os.path.join(root, f))
         out["checkpoint_bytes"] = total
-        # The step the restart child takes from that checkpoint; the
-        # checkpoint has committed, so this step changes nothing on disk.
-        out["next_step_loss"] = session.run_steps(1)
+        # The two steps the restart child takes from that checkpoint; it
+        # has committed, so they change nothing on disk. The first one's
+        # loss reads the restored parameters, the second's the restored
+        # optimizer state too.
+        out["next_step_losses"] = [session.run_steps(1)
+                                   for _ in range(AFTER_RESTORE_STEPS)]
     elif phase == "restart":
         # TrainSession.resume's two halves, marked apart.
         session = TrainSession(bundle, 1, global_batch_size=batch,
@@ -317,13 +323,16 @@ def _child_main(argv: Sequence[str]) -> None:
         session.restore(ckpt_dir)
         _sync(torch, device)
         _emit_mark("restored")
-        out["first_step_loss"] = session.run_steps(1)
+        losses = [session.run_steps(1)]
         _sync(torch, device)
         _emit_mark("first_step_done")
+        losses += [session.run_steps(1)
+                   for _ in range(AFTER_RESTORE_STEPS - 1)]
+        out["step_losses"] = losses
     else:
         raise ValueError(f"unknown phase {phase!r}")
     out["launches"] = {k: v for k, v in fa.launches.items() if v}
-    if sorted(out["launches"]) != sorted(kernels):
+    if phase == "restart" and sorted(out["launches"]) != sorted(kernels):
         raise RuntimeError(
             f"kernels loaded before the steps {kernels} are not the kernels "
             f"the steps launched {sorted(out['launches'])}")

@@ -2,10 +2,9 @@
 
 Counterpart of the JAX package's ``runtime/train.py`` for one device: build
 the bundle's model on the device, install the flash-attention kernels as
-`attn_fn` on CUDA in a module that exposes `attn_fn` and computes in bf16
-(as the reference does: Llama and Mixtral; the other families keep their
-plain attention, and so does a Llama or Mixtral of another compute dtype,
-which the kernels do not take),
+`attn_fn` on CUDA in a module that exposes `attn_fn` (as the reference
+does: Llama and Mixtral, in whatever dtype they compute, as the JAX kernels
+compute in q's; the other families keep their plain attention),
 step AdamW or Adafactor, and save, resume and resize the session for the
 supervisor. A BatchNorm model's running statistics are module buffers:
 the optimizer never sees them, no step changes them (the reference applies
@@ -19,7 +18,6 @@ size) come with ROADMAP A10.
 from __future__ import annotations
 
 import functools
-import logging
 import os
 from typing import Any, Optional
 
@@ -33,13 +31,6 @@ from vodascheduler_tpu_torch.models.registry import ModelBundle
 from vodascheduler_tpu_torch.ops.flash_attention import flash_attention
 from vodascheduler_tpu_torch.runtime import checkpoint as ckpt
 from vodascheduler_tpu_torch.runtime.optim import Adafactor
-
-log = logging.getLogger(__name__)
-
-# The dtype the kernels take; a module computing in another keeps its plain
-# attention, which computes in that dtype as the JAX kernel does in q.dtype.
-KERNEL_DTYPE = "bfloat16"
-_plain_dtypes_logged: set = set()
 
 
 def make_optimizer(name: str, learning_rate: float):
@@ -58,16 +49,10 @@ def make_optimizer(name: str, learning_rate: float):
     raise ValueError(f"unknown optimizer {name!r} (adamw | adafactor)")
 
 
-def _flash_attention_enabled(device: torch.device,
-                             compute_dtype: str) -> bool:
-    """Whether a session on `device` whose module has `attn_fn` and
-    computes in `compute_dtype` (its ``cfg.dtype``) takes the kernels.
-
-    VODA_FLASH_ATTENTION: 0 forces the plain attention, 1 forces the
-    kernels (and raises off CUDA, or for a module that does not compute in
-    bf16: there are no kernels for either); unset or anything else means
-    the kernels on CUDA for a bf16 module, and the plain attention
-    otherwise, logged once a dtype."""
+def _flash_attention_enabled(device: torch.device) -> bool:
+    """VODA_FLASH_ATTENTION: 0 forces the plain attention, 1 forces the
+    kernels (and raises off CUDA, where there are none); unset or anything
+    else means the kernels on CUDA."""
     flag = os.environ.get("VODA_FLASH_ATTENTION", "auto")
     if flag == "0":
         return False
@@ -75,34 +60,7 @@ def _flash_attention_enabled(device: torch.device,
         raise RuntimeError(
             f"VODA_FLASH_ATTENTION=1 forces the CUDA flash-attention "
             f"kernels, but the session runs on {device}")
-    if flag == "1" and compute_dtype != KERNEL_DTYPE:
-        raise RuntimeError(
-            f"VODA_FLASH_ATTENTION=1 forces the CUDA flash-attention "
-            f"kernels, which take {KERNEL_DTYPE}, but the model computes "
-            f"in {compute_dtype}")
-    if device.type != "cuda":
-        return False
-    if compute_dtype != KERNEL_DTYPE:
-        if compute_dtype not in _plain_dtypes_logged:
-            _plain_dtypes_logged.add(compute_dtype)
-            log.warning("the model computes in %s and the flash-attention "
-                        "kernels take %s: its own plain attention runs",
-                        compute_dtype, KERNEL_DTYPE)
-        return False
-    return True
-
-
-def _compute_dtype(module: torch.nn.Module) -> str:
-    """The dtype name a module with `attn_fn` computes in: its
-    ``cfg.dtype``, which it has to declare so that kernel injection cannot
-    silently change its precision."""
-    dtype = getattr(getattr(module, "cfg", None), "dtype", None)
-    if dtype is None:
-        raise TypeError(
-            f"{type(module).__name__} has attn_fn but no `cfg.dtype`; "
-            "declare it so kernel injection cannot silently change its "
-            "precision")
-    return dtype
+    return device.type == "cuda"
 
 
 def batch_seed(seed: int, step: int) -> int:
@@ -137,9 +95,8 @@ class TrainSession:
         self.device = resolve_device(device)
         init_gen = torch.Generator(self.device).manual_seed(seed)
         self.module = bundle.build_module(self.device, init_gen)
-        if (hasattr(self.module, "attn_fn")
-                and _flash_attention_enabled(self.device,
-                                             _compute_dtype(self.module))):
+        if (_flash_attention_enabled(self.device)
+                and hasattr(self.module, "attn_fn")):
             # The injected kernel replaces the layers' own masking, so the
             # module has to declare it.
             causal = getattr(type(self.module), "causal_attention", None)
