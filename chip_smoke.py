@@ -6,7 +6,8 @@ Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
-     D=64 (the main path) or in the wide forward, dQ or dK/dV at D=256
+     D=64 (the main path), in fp16's tensor-core forward or dK/dV at D=64
+     (phase 11's fp16 model) or in the wide forward, dQ or dK/dV at D=256
      (phase 9's wide llama), and logs the spills at D=128, 384 and 512;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
@@ -24,12 +25,16 @@ Phases (any failure exits non-zero):
      widths' forward and backward timed beside the library's, and the
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
      autograd through scaled_dot_product_attention); then the fp32 and the
-     fp16 kernels (csrc/flash_simt.cu) against the same plain versions at
-     the main shape, a ragged non-causal S, D=128, D=16 padded, a ragged
-     query slice behind q_offset and D=256 (SIMT_LIMITS), each timed at the
-     main shape beside its plain version, the library call (fp32's backward:
-     autograd through scaled_dot_product_attention) and its bound at that
-     dtype's peak;
+     fp16 kernels (fp32's and fp16's dQ on the CUDA cores,
+     csrc/flash_simt.cu; fp16's forward and dK/dV on the tensor cores up to
+     D=128, flash_{fwd,dkv}_f16, and on the CUDA cores above, `_f16_wide`)
+     against the same plain versions at the main shape, a ragged non-causal
+     S, D=128, D=16 padded, a ragged query slice behind q_offset and D=256
+     (SIMT_LIMITS), each timed at the main shape beside its plain version,
+     the library call (fp32's backward: autograd through
+     scaled_dot_product_attention) and its bound at that dtype's peak; and
+     fp16's CUDA-core forward and dK/dV held to the same bars at the main
+     shape and timed there in turns with the tensor-core kernels;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -142,7 +147,10 @@ Phases (any failure exits non-zero):
      loss 1e-4, hidden state and gradients 1e-3; fp16: phase 4's bars,
      the loss scaled by 1024 for the comparison),
      5 steps (finite, falling), one counted step launching that dtype's
-     K1 8, K2 4 and K3 4 times and no other kernel;
+     K1 8, K2 4 and K3 4 times and no other kernel (fp16: flash_fwd_f16,
+     flash_dq_f16, flash_dkv_f16, and no `_f16_wide`); then the same fp16
+     model in 4 heads of 256, through flash_fwd_f16_wide, flash_dq_f16 and
+     flash_dkv_f16_wide (8/4/4);
   12. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
@@ -152,6 +160,7 @@ Needs CUDA and nvcc; imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -184,8 +193,10 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
-# Kernels that must not spill registers at the main path's head_dim.
-SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv")
+# Kernels that must not spill registers at the main path's head_dim (the
+# bf16 kernels, and fp16's forward and dK/dV on the tensor cores).
+SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f16",
+              "flash_dkv_f16")
 MAIN_HEAD_DIM = 64
 # The wide kernels redesigned on wgmma, held to no spill at the width of
 # phase 9's 256-wide llama (their spills at 384 and 512 are only logged).
@@ -199,7 +210,8 @@ SPILL_GATES = MAIN_SPILL_GATES + tuple((n, WIDE_HEAD_DIM)
 def ptxas_spills(text: str) -> dict:
     """{(kernel, head_dim): bytes of spill stores + loads} from the log of
     `nvcc -Xptxas -v` (a "Function properties for <mangled name>" line,
-    then its "... bytes spill stores, ... bytes spill loads" line)."""
+    then its "... bytes spill stores, ... bytes spill loads" line). A kernel
+    templated on fp16 (``__half`` after its width) is named ``_f16``."""
     out, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -209,10 +221,11 @@ def ptxas_spills(text: str) -> dict:
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m and fn:
-            k = re.search(r"(flash_\w+?)_kernelILi(\d+)E", fn)
+            k = re.search(r"(flash_\w+?)_kernelILi(\d+)E(6__half)?", fn)
             if k:
-                out[(k.group(1), int(k.group(2)))] = (int(m.group(1))
-                                                      + int(m.group(2)))
+                name = k.group(1) + ("_f16" if k.group(3) else "")
+                out[(name, int(k.group(2)))] = (int(m.group(1))
+                                                + int(m.group(2)))
             fn = None
     return out
 
@@ -398,10 +411,11 @@ def library_times(q, k, v, do, causal):
 
 
 def time_kernels(fa, shape, errs, suffix="", dtype=torch.bfloat16):
-    """Each kernel (of the variant `suffix` names: "" or "_wide" on bf16,
-    "_f32" or "_f16" on `dtype`) timed beside its plain version, the
-    library's call and its bound; logged, and returned as rows of the
-    kernels' JSON line."""
+    """Each kernel that the wrappers take for these tensors (`suffix`, which
+    labels the backward's line: "" or "_wide" on bf16, "_f32" or "_f16" on
+    `dtype`) timed beside its plain version, the library's call and its
+    bound; logged, and returned as rows of the kernels' JSON line, under
+    the names of the kernels that ran."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(2)
     q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
@@ -409,25 +423,27 @@ def time_kernels(fa, shape, errs, suffix="", dtype=torch.bfloat16):
     v = torch.randn(B, Sk, H, D, generator=g, device="cuda").to(dtype)
     do = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
     src = "vodascheduler_tpu_torch/ops/csrc/{}.cu"
+    kern = {n: fa._kernel(n, D, dtype)
+            for n in ("flash_fwd", "flash_dq", "flash_dkv")}
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     rows = {
-        f"flash_fwd{suffix}": dict(
+        kern["flash_fwd"]: dict(
             ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, causal, q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_attention_reference(
                 q, k, v, causal, q_off), reps=10),
             b=bound(2, 4, 1, *shape, dtype), err=max(errs["o"], errs["lse"]),
             replaces=f"{TPU_SRC}:114",
-            source=src.format(fa.source(f"flash_fwd{suffix}"))),
-        f"flash_dq{suffix}": dict(
+            source=src.format(fa.source(kern["flash_fwd"]))),
+        kern["flash_dq"]: dict(
             ms=cuda_ms(lambda: fa.flash_dq(q, k, v, o, do, lse, causal,
                                            q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_dq_reference(
                 q, k, v, o, do, lse, causal, q_off), reps=10),
             b=bound(3, 6, 2, *shape, dtype), err=errs["dq_abs"],
             replaces=f"{TPU_SRC}:215",
-            source=src.format(fa.source(f"flash_dq{suffix}"))),
-        f"flash_dkv{suffix}": dict(
+            source=src.format(fa.source(kern["flash_dq"]))),
+        kern["flash_dkv"]: dict(
             ms=cuda_ms(lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal,
                                             q_off)),
             plain_ms=cuda_ms(lambda: fa.flash_dkv_reference(
@@ -435,14 +451,14 @@ def time_kernels(fa, shape, errs, suffix="", dtype=torch.bfloat16):
             b=bound(4, 6, 2, *shape, dtype),
             err=max(errs["dk_abs"], errs["dv_abs"]),
             replaces=f"{TPU_SRC}:260",
-            source=src.format(fa.source(f"flash_dkv{suffix}"))),
+            source=src.format(fa.source(kern["flash_dkv"]))),
     }
     lib_fwd, lib_bwd = library_times(q, k, v, do, causal)
-    rows[f"flash_fwd{suffix}"]["library_ms"] = lib_fwd
+    rows[kern["flash_fwd"]]["library_ms"] = lib_fwd
     # The library's backward computes dq, dk and dv in one call; it stands
     # beside both backward kernels.
-    rows[f"flash_dq{suffix}"]["library_ms"] = lib_bwd
-    rows[f"flash_dkv{suffix}"]["library_ms"] = lib_bwd
+    rows[kern["flash_dq"]]["library_ms"] = lib_bwd
+    rows[kern["flash_dkv"]]["library_ms"] = lib_bwd
     for name, r in rows.items():
         log(f"time[{name}] D={D} H={H} kernel_ms={r['ms']:.4f} "
             f"plain_ms={r['plain_ms']:.4f} library_ms={r['library_ms']} bound_ms={r['b'][0]:.4f} "
@@ -474,6 +490,55 @@ def time_padded(fa, name, shape):
         f"backward_ms={bwd_ms:.4f} library_bwd_ms={lib_bwd:.4f} "
         f"bound_fwd_ms={bound(2, 4, 1, *shape)[0]:.4f} "
         f"bound_bwd_ms={bound(7, 8, 1, *shape)[0]:.4f}")
+
+
+# fp16's forward and dK/dV on the CUDA cores: above D=128 the wrappers take
+# them (`_f16_wide`), and they take any width, so at D=64 they stand beside
+# the tensor-core kernels that replaced them there.
+CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_wide",
+                 "flash_dkv_f16": "flash_dkv_f16_wide"}
+
+
+@contextlib.contextmanager
+def routed(fa, table):
+    """The wrappers of `fa` launching, for each kernel of `table`, the
+    kernel it maps to."""
+    kernel = fa._kernel
+    fa._kernel = lambda *a: table.get(kernel(*a), kernel(*a))
+    try:
+        yield
+    finally:
+        fa._kernel = kernel
+
+
+def time_f16_turns(fa, shape, rounds=2) -> dict:
+    """fp16's K1 and K3 at `shape`, on the tensor cores and on the CUDA
+    cores (CUDA_CORE_F16), timed in turns (tensor, CUDA, CUDA, tensor)
+    `rounds` times on the same inputs by CUDA events; logged, and returned
+    as {kernel: median ms}."""
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   .half() for S in (Sq, Sk, Sk, Sq))
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, q_off),
+             "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                               causal, q_off)}
+    times = {}
+    for _ in range(rounds):
+        for table in ({}, CUDA_CORE_F16, CUDA_CORE_F16, {}):
+            with routed(fa, table):
+                for name, call in calls.items():
+                    times.setdefault(fa._kernel(name, D, torch.float16),
+                                     []).append(cuda_ms(call))
+    med = {n: statistics.median(t) for n, t in times.items()}
+    for new, old in CUDA_CORE_F16.items():
+        log(f"time[f16 turns] D={D} {new} ms={med[new]:.4f} "
+            f"{[round(x, 4) for x in times[new]]} {old} ms={med[old]:.4f} "
+            f"{[round(x, 4) for x in times[old]]} "
+            f"cuda_cores_over_tensor_cores={med[old] / med[new]:.3f}")
+    return med
 
 
 def backward_call(fa, q, k, v, o, do, lse, causal, q_off):
@@ -823,44 +888,56 @@ def _epoch_losses(text: str) -> dict:
             for m in re.finditer(r"^epoch (\d+) loss (\S+)$", text, re.M)}
 
 
-# Phase 11: llama_350m's width computing in fp32 and in fp16, which take the
-# CUDA-core kernels (csrc/flash_simt.cu), depth cut to DTYPE_LAYERS so that
-# the fp32 step stays short. Against the plain attention (which computes in
-# fp32): fp32 differs by summation order alone, fp16 by the rounding of P
-# to fp16 inside the kernels, held to the bf16 slice's bars. fp16's
+# Phase 11: llama_350m's width computing in fp32 and in fp16, depth cut to
+# DTYPE_LAYERS so that the fp32 step stays short. fp32 takes the CUDA-core
+# kernels (csrc/flash_simt.cu); fp16 the tensor-core forward and dK/dV
+# (flash_fwd_f16, flash_dkv_f16) and the CUDA-core dQ, and in heads of 256
+# the CUDA-core forward and dK/dV (`_f16_wide`). Against the plain
+# attention (which computes in fp32): fp32 differs by summation order
+# alone, fp16 by the rounding of P (and of the scaled dSᵀ in dK/dV) to
+# fp16 inside the kernels, held to the bf16 slice's bars. fp16's
 # gradients of a loss averaged over 16,384 tokens lie among its subnormals
 # (below 6e-5), where the plain attention's own fp16 gradients stray from
 # an fp32 twin's as far as the kernels' do; the comparison scales the loss
 # by 1024, as fp16 training does (a loss scaler), which lifts them into
 # fp16's normal range. The training steps are unscaled.
 DTYPE_LAYERS = 4
-DTYPE_SLICES = {  # dtype: (kernel suffix, bars, comparison's loss scale)
-    "float32": ("_f32", {"loss": 1e-4, "hidden_row": 1e-3, "grad": 1e-3},
-                1.0),
-    "float16": ("_f16", SLICE_LIMITS, 1024.0)}
+F32_SLICE_LIMITS = {"loss": 1e-4, "hidden_row": 1e-3, "grad": 1e-3}
+DTYPE_SLICES = {  # tag: (dtype, heads, bars, comparison's loss scale,
+                  #       the kernels' names: K1, K2, K3)
+    "float32": ("float32", 16, F32_SLICE_LIMITS, 1.0,
+                ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32")),
+    "float16": ("float16", 16, SLICE_LIMITS, 1024.0,
+                ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16")),
+    "float16_d256": ("float16", 4, SLICE_LIMITS, 1024.0,
+                     ("flash_fwd_f16_wide", "flash_dq_f16",
+                      "flash_dkv_f16_wide"))}
 
 
 def run_dtype_slices(fa):
-    """Phase 11: for fp32 and fp16, a llama_350m-width bundle of
+    """Phase 11: for each of DTYPE_SLICES, a llama_350m-width bundle of
     DTYPE_LAYERS layers in a TrainSession on the card, its step through the
     kernels against the plain attention, 5 AdamW steps (finite, falling),
-    one counted step launching that dtype's K1 2L, K2 L and K3 L times and
-    no other kernel. Returns the counted launches."""
+    one counted step launching the slice's K1 2L, K2 L and K3 L times and
+    no other kernel. Returns the counted launches of the 64-wide slices and
+    those of the `_f16_wide` kernels."""
     from vodascheduler_tpu_torch.models import llama
     from vodascheduler_tpu_torch.models.registry import llama_bundle
 
     counts = {}
-    for dtype, (suffix, limits, loss_scale) in DTYPE_SLICES.items():
+    for tag, (dtype, heads, limits, loss_scale, names) in \
+            DTYPE_SLICES.items():
         cfg = dataclasses.replace(llama.LLAMA_350M, dtype=dtype,
-                                  num_layers=DTYPE_LAYERS)
+                                  num_layers=DTYPE_LAYERS, num_heads=heads,
+                                  num_kv_heads=heads // 2)
         session, batch = build_slice(
-            llama_bundle(f"llama_350m_{dtype}_l{DTYPE_LAYERS}", cfg, 2048),
+            llama_bundle(f"llama_350m_{tag}_l{DTYPE_LAYERS}", cfg, 2048),
             limits, loss_scale)
-        got = train_and_count(fa, dtype, session, batch,
-                              {f"flash_fwd{suffix}": 2 * DTYPE_LAYERS,
-                               f"flash_dq{suffix}": DTYPE_LAYERS,
-                               f"flash_dkv{suffix}": DTYPE_LAYERS})
-        counts.update({k: v for k, v in got.items() if k.endswith(suffix)})
+        got = train_and_count(fa, tag, session, batch,
+                              dict(zip(names, (2 * DTYPE_LAYERS,
+                                               DTYPE_LAYERS, DTYPE_LAYERS))))
+        counts.update({k: got[k] for k in names
+                       if heads == 16 or k.endswith("_wide")})
         del session, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2023,6 +2100,23 @@ def main() -> int:
         simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
         rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
         torch.cuda.empty_cache()
+    # fp16's K1 and K3 on the CUDA cores (the `_f16_wide` kernels), held to
+    # the same bars at the main shape and timed in turns with the
+    # tensor-core kernels that replaced them there; their rows carry the
+    # plain and library times of the tensor-core rows (the same function on
+    # the same inputs)
+    with routed(fa, CUDA_CORE_F16):
+        old_errs = check_kernels(fa, {"main": main_shape}, torch.float16,
+                                 SIMT_LIMITS[torch.float16])
+    turns = time_f16_turns(fa, main_shape)
+    for new, old in CUDA_CORE_F16.items():
+        rows[new]["ms"] = turns[new]
+        rows[old] = {**rows[new], "ms": turns[old], "source": (
+            f"vodascheduler_tpu_torch/ops/csrc/{fa.source(old)}.cu")}
+    rows["flash_fwd_f16_wide"]["err"] = max(old_errs["o"], old_errs["lse"])
+    rows["flash_dkv_f16_wide"]["err"] = max(old_errs["dk_abs"],
+                                            old_errs["dv_abs"])
+    torch.cuda.empty_cache()
     phase("3 kernels")
 
     counts = run_slice(fa)[0]

@@ -49,9 +49,9 @@ WIDE_SHAPE = (8, 4, 2048, 2048, 256, True, 0)
 FAULTS = {
     "fwd_last_tile": (
         "flash_fwd.cu",
-        "        wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n",
+        "        wgmma_rs<D, T>(acc, pa[kk], vd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
-        "          wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));\n",
+        "          wgmma_rs<D, T>(acc, pa[kk], vd + mnmajor_step(kk));\n",
         MAIN_SHAPE),
     "dq_last_tile": (
         "flash_dq.cu",
@@ -61,9 +61,9 @@ FAULTS = {
         MAIN_SHAPE),
     "dkv_last_tile": (
         "flash_dkv.cu",
-        "        wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n",
+        "        wgmma_rs<D, T>(dva, pa[kk], dd + mnmajor_step(kk));\n",
         "        if (j != gridDim.z - 1)\n"
-        "          wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));\n",
+        "          wgmma_rs<D, T>(dva, pa[kk], dd + mnmajor_step(kk));\n",
         MAIN_SHAPE),
     "dqw_last_tile": (
         "flash_dq_wide.cu",

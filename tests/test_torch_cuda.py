@@ -141,8 +141,11 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
 ])
 def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
                                                     D, q_off, Sq):
-    """The CUDA-core kernels of fp32 and fp16 tensors (csrc/flash_simt.cu)
-    against the plain versions, at chip_smoke.py's SIMT_LIMITS."""
+    """The kernels of fp32 and fp16 tensors against the plain versions, at
+    chip_smoke.py's SIMT_LIMITS: fp32's and fp16's dQ on the CUDA cores
+    (csrc/flash_simt.cu), fp16's forward and dK/dV on the tensor cores up
+    to D=128 (flash_fwd_f16, flash_dkv_f16) and on the CUDA cores above
+    (`_f16_wide`)."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[dtype]
     g = torch.Generator(cuda).manual_seed(7)
@@ -167,10 +170,93 @@ def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
     for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
-    sfx = fa.SIMT_SUFFIX[dtype]
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        **{f"flash_fwd_{sfx}": 1, f"flash_dq_{sfx}": 1,
-           f"flash_dkv_{sfx}": 1})
+        **{fa._kernel(n, D, dtype): 1
+           for n in ("flash_fwd", "flash_dq", "flash_dkv")})
+
+
+def _f16_backward(q, k, v, do, causal, q_off):
+    """K1, K2, K3 on fp16 tensors: (lse, delta, dk, dv)."""
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    torch.cuda.synchronize()
+    return lse, delta, dk, dv
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_fp16_dkv_keeps_the_small_gradients_of_an_unscaled_loss(cuda, D):
+    """The tensor-core fp16 dK/dV rounds dSᵀ to fp16 under a per-key-row
+    power of two (flash_dkv.cu), so an unscaled loss's dS near 1e-8 (dO of
+    1e-6) is not flushed: dK within 5e-3 of the largest value of the plain
+    version in fp32 on the same values (rounding dS to fp16 unscaled reads
+    0.2 on the CPU model, test_torch_f16_dkv_scale.py). Q is scaled by 64
+    and K by 1/64 (S unchanged) so that dK = dSᵀ·Q lies among fp16's normal
+    numbers."""
+    import numpy as np
+    import torch_f16_dkv_model as model
+    q, k, v, do = (t.to(cuda) for t in model.small_gradient_inputs(
+        np.random.default_rng(3), D=D, q_mult=64))
+    before = fa.launches["flash_dkv_f16"]
+    lse, delta, dk, _ = _f16_backward(q, k, v, do, True, 0)
+    assert fa.launches["flash_dkv_f16"] == before + 1
+    dk_ref, _ = fa.flash_dkv_reference(q.float(), k.float(), v.float(),
+                                       do.float(), lse, delta, True, 0)
+    err = (dk.float() - dk_ref).abs().max() / dk_ref.abs().max()
+    assert err.item() <= 5e-3
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off,small", [
+    (1, 2, 256, 256, 64, True, 0, False),
+    (2, 1, 200, 200, 64, False, 0, False),
+    (1, 2, 192, 192, 128, True, 0, False),
+    (1, 2, 96, 328, 128, True, 232, False),
+    (1, 2, 128, 128, 64, True, 0, True),
+    (1, 2, 128, 128, 128, True, 0, True),
+])
+def test_fp16_dkv_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
+                                    small):
+    """flash_dkv_f16 against the plain model of its arithmetic
+    (tests/torch_f16_dkv_model.py: the tiles, the per-key-row exponents,
+    P and the scaled dSᵀ rounded to fp16), on the kernel's own lse and δ,
+    at 1e-3 of the largest value: the kernel rounds dK and dV to fp16
+    (2^-12 of a value) and sums in another order. `small` is the unscaled
+    loss's dO of 1e-6 (Q scaled by 64, K by 1/64), where dK alone is held:
+    dV = Pᵀ·dO lies among fp16's subnormals."""
+    import numpy as np
+    import torch_f16_dkv_model as model
+    rng = np.random.default_rng(Sq + D)
+    if small:
+        q, k, v, do = model.small_gradient_inputs(rng, B, Sq, H, D, 64)
+    else:
+        q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D))
+                                  .astype(np.float16)) for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D))
+                                 .astype(np.float16)) for _ in range(2))
+    lse, delta, dk, dv = _f16_backward(*(t.to(cuda) for t in (q, k, v, do)),
+                                       causal, q_off)
+    dk_m, dv_m = model.dkv(q, k, v, do, lse.cpu(), delta.cpu(), causal, q_off,
+                           D ** -0.5)
+    for name, got, ref in (("dk", dk, dk_m), ("dv", dv, dv_m))[:2 - small]:
+        err = (got.cpu().float() - ref).abs().max() / ref.abs().max()
+        assert err.item() <= 1e-3, (name, err.item())
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_fp16_wgmma_kernels_are_deterministic(cuda, D):
+    """No atomics in flash_fwd_f16 or flash_dkv_f16: two launches on the
+    same inputs give bitwise-equal O, lse, dK and dV."""
+    g = torch.Generator(cuda).manual_seed(9)
+    q, k, v, do = (torch.randn(2, 320, 3, D, generator=g, device=cuda).half()
+                   for _ in range(4))
+    o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
+    o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
+    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    torch.cuda.synchronize()
+    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])

@@ -1,5 +1,10 @@
-"""The fp32 and fp16 attention kernels (``ops/csrc/flash_simt.cu``) against
-the JAX package's Pallas kernels in interpret mode, on the CPU.
+"""The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's
+forward, dQ and dK/dV, fp16's dQ, and fp16's forward and dK/dV that the
+wrappers take above a head width of 128, ``_f16_wide``) against the JAX
+package's Pallas kernels in interpret mode, on the CPU. fp16's forward and
+dK/dV up to 128 are wgmma kernels (``flash_fwd.cu``, ``flash_dkv.cu``),
+which no CPU runs: here the wrappers route fp16 to the CUDA-core kernels at
+every width (the fixture `wrappers`), as those kernels take any width.
 
 There is no ``nvcc`` here, so the CUDA source is compiled by ``g++`` against
 a CPU emulation of the few CUDA pieces it uses (``tests/cuda_emulation``: a
@@ -24,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +41,8 @@ from vodascheduler_tpu.ops.flash_attention import _fwd as jax_fwd
 from vodascheduler_tpu_torch.ops import flash_attention as fa
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+import chip_smoke  # noqa: E402
 SOURCE = os.path.join(os.path.dirname(HERE), "vodascheduler_tpu_torch", "ops",
                       "csrc", "flash_simt.cu")
 BLOCK = 32  # multi-block tiling in the Pallas kernels at these sizes
@@ -71,14 +79,17 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def wrappers(emulated, monkeypatch):
-    """The port's wrappers, launching the emulated kernels."""
+    """The port's wrappers, launching the emulated kernels (fp16's forward
+    and dK/dV: the CUDA-core ones at every width, as chip_smoke.py's phase
+    3 times them)."""
     def launch(name, device, *args):
         assert device.type == "cpu"
         assert emulated[name](*args, None) == 0
         fa.launches[name] += 1
     monkeypatch.setattr(fa, "_launch", launch)
     fa.reset_launches()
-    return fa
+    with chip_smoke.routed(fa, chip_smoke.CUDA_CORE_F16):
+        yield fa
 
 
 def _jax(q, k, v, do, causal, q_off):
@@ -117,11 +128,12 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
     o, lse = wrappers.flash_fwd(qt, kt, vt, causal, q_off)
     dq, delta = wrappers.flash_dq(qt, kt, vt, o, dot, lse, causal, q_off)
     dk, dv = wrappers.flash_dkv(qt, kt, vt, dot, lse, delta, causal, q_off)
-    sfx = fa.SIMT_SUFFIX[o.dtype]
     assert o.dtype == dq.dtype == dk.dtype == qt.dtype
-    assert fa.launches == {**dict.fromkeys(fa.launches, 0),
-                           f"flash_fwd_{sfx}": 1, f"flash_dq_{sfx}": 1,
-                           f"flash_dkv_{sfx}": 1}
+    assert all(fa.source(n) == fa.SIMT_SOURCE for n in fa.launches
+               if fa.launches[n])
+    assert fa.launches == {**dict.fromkeys(fa.launches, 0), **{
+        fa._kernel(n, D, qt.dtype): 1
+        for n in ("flash_fwd", "flash_dq", "flash_dkv")}}
 
     for name, got, ref in (("o", o, want[0]), ("dq", dq, want[2]),
                            ("dk", dk, want[3]), ("dv", dv, want[4])):
@@ -133,11 +145,24 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 
 
 def test_the_wrappers_route_dtypes_to_their_kernels():
+    """fp32 takes its CUDA-core kernels at every width; fp16 its
+    tensor-core forward and dK/dV up to 128 (in the bf16 kernels' sources)
+    and the CUDA-core ones above (`_f16_wide`), and its CUDA-core dQ at
+    every width."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512):
             assert fa._kernel(name, D, torch.float32) == f"{name}_f32"
-            assert fa._kernel(name, D, torch.float16) == f"{name}_f16"
             assert fa.source(f"{name}_f32") == fa.SIMT_SOURCE
+            f16 = fa._kernel(name, D, torch.float16)
+            if name == "flash_dq":
+                assert f16 == "flash_dq_f16"
+                assert fa.source(f16) == fa.SIMT_SOURCE
+            elif D <= 128:
+                assert f16 == f"{name}_f16" and fa.source(f16) == name
+            else:
+                assert f16 == f"{name}_f16_wide"
+                assert fa.source(f16) == fa.SIMT_SOURCE
+            assert f16 in fa.launches and f16 in fa._ARGTYPES
         assert fa._kernel(name, 64) == fa.source(name) == name
         assert fa._kernel(name, 256, torch.bfloat16) == f"{name}_wide"
         with pytest.raises(TypeError, match="float64"):

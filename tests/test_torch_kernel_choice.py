@@ -2,8 +2,10 @@
 CPU (a ``torch.device("cuda")`` object needs no card).
 
 The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
-take the wgmma kernels, fp32 and fp16 tensors the CUDA-core kernels of
-their dtype (``csrc/flash_simt.cu``). So a Llama or Mixtral takes the
+take the wgmma kernels, fp32 tensors the CUDA-core kernels
+(``csrc/flash_simt.cu``), fp16 tensors the wgmma forward and dK/dV up to a
+head width of 128 (``flash_fwd_f16``, ``flash_dkv_f16``), the CUDA-core
+ones above it (``_f16_wide``) and the CUDA-core dQ. So a Llama or Mixtral takes the
 kernels on CUDA whatever dtype it computes in, and no path gives way to the
 plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
 attention (0) or the kernels (1, which raises off CUDA). The card tests of
@@ -67,13 +69,31 @@ def test_each_dtype_has_its_kernels(dtype, suffix):
         kernel = fa._kernel(name, fa.kernel_head_dim(16), dtype)
         assert kernel == name + suffix
         assert kernel in fa.launches and kernel in fa._ARGTYPES
+        # fp32's kernels and fp16's dQ are the CUDA-core ones; fp16's
+        # forward and dK/dV sit in the bf16 kernels' sources
+        assert fa.source(kernel) == (
+            fa.SIMT_SOURCE if dtype == torch.float32
+            or kernel == "flash_dq_f16" else name)
+
+
+@pytest.mark.parametrize("D", [256, 384, 512])
+def test_fp16_heads_above_128_take_the_cuda_core_forward_and_dkv(D):
+    want = {"flash_fwd": "flash_fwd_f16_wide", "flash_dq": "flash_dq_f16",
+            "flash_dkv": "flash_dkv_f16_wide"}
+    for name, kernel in want.items():
+        assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
+            == kernel
+        assert fa.source(kernel) == fa.SIMT_SOURCE
+        assert kernel in fa.launches and kernel in fa._ARGTYPES
 
 
 @pytest.mark.parametrize("names", [
     ("flash_fwd", "flash_dq", "flash_dkv"),
     ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"),
     ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32"),
-    ()])
+    (),
+    ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16"),
+    ("flash_fwd_f16_wide", "flash_dq_f16", "flash_dkv_f16_wide")])
 def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     """What the resize bench's restart child loads before the session: the
     kernels the prepare child's steps launched, and no other."""

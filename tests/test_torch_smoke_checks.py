@@ -10,9 +10,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-FWD64 = "_ZN4voda16flash_fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
-DKV64 = "_ZN4voda16flash_dkv_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiif"
+# the forward and dK/dV kernels are templated on their width and element
+# type (bf16 and fp16, named `_f16`), as ptxas names them
+FWD64 = "_ZN4voda16flash_fwd_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiif"
+DKV64 = "_ZN4voda16flash_dkv_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiif"
 DKV128 = DKV64.replace("ILi64E", "ILi128E")
+FWD64_F16 = FWD64.replace("13__nv_bfloat16", "6__half")
+DKV64_F16 = DKV64.replace("13__nv_bfloat16", "6__half")
+DKV128_F16 = DKV64_F16.replace("ILi64E", "ILi128E")
 DQ64 = "_ZN4voda15flash_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfPfP13__nv_bfloat16iiiiif"
 DQ128 = DQ64.replace("ILi64E", "ILi128E")
 FWDW256 = "_ZN4voda21flash_fwd_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
@@ -23,7 +28,8 @@ DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
 DQW512 = DQW256.replace("ILi256E", "ILi512E")
 # the wmma dQ kernel above D=512 is not templated on its width
 DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
-MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0))
+F16_CLEAN = ((FWD64_F16, 0, 0), (DKV64_F16, 0, 0))
+MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0))
 
 
@@ -42,9 +48,12 @@ def log_of(*kernels):
 
 def test_ptxas_spills_reads_every_kernel_and_head_dim():
     spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DQ64, 0, 0),
-                                            (DKV64, 0, 0), (DKV128, 200, 144)))
+                                            (DKV64, 0, 0), (DKV128, 200, 144),
+                                            *F16_CLEAN, (DKV128_F16, 8, 8)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
-                      ("flash_dkv", 64): 0, ("flash_dkv", 128): 344}
+                      ("flash_dkv", 64): 0, ("flash_dkv", 128): 344,
+                      ("flash_fwd_f16", 64): 0, ("flash_dkv_f16", 64): 0,
+                      ("flash_dkv_f16", 128): 16}
     assert chip_smoke.spill_faults(spills) == []
 
 
@@ -58,16 +67,30 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
      "flash_dq D=64: 32 bytes spilled"),
     (((FWD64, 0, 0), (DQ128, 0, 0), (DKV64, 0, 0)),
      "flash_dq D=64: no ptxas spill line"),
+    # fp16's tensor-core kernels, gated as the bf16 ones
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (FWD64_F16, 4, 4)),
+     "flash_fwd_f16 D=64: 8 bytes spilled"),
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DKV128_F16, 0, 0)),
+     "flash_dkv_f16 D=64: no ptxas spill line"),
+    # a bf16 kernel's spill is not read as fp16's, nor fp16's as bf16's
+    (((FWD64_F16, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0)),
+     "flash_fwd D=64: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
-    assert chip_smoke.spill_faults(chip_smoke.ptxas_spills(log_of(*kernels))) \
-        == [fault]
+    """Each case's log also holds the fp16 kernels' clean lines, except
+    where the case names an fp16 kernel itself."""
+    names = {k[0] for k in kernels}
+    f16 = tuple(k for k in F16_CLEAN
+                if not names & {k[0], k[0].replace("ILi64E", "ILi128E")})
+    assert chip_smoke.spill_faults(chip_smoke.ptxas_spills(
+        log_of(*kernels, *f16))) == [fault]
 
 
 def test_spill_at_d128_is_only_logged():
     spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DQ64, 0, 0),
                                             (DKV64, 0, 0), (DKV128, 500, 244),
-                                            (DQ128, 8, 8)))
+                                            (DQ128, 8, 8), *F16_CLEAN,
+                                            (DKV128_F16, 40, 40)))
     assert chip_smoke.spill_faults(spills) == []
 
 
@@ -76,7 +99,8 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
         *MAIN_CLEAN, *WIDE_CLEAN, (FWDW512, 600, 532), (DKVW384, 0, 0),
         (DQW, 12, 12)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
-                      ("flash_dkv", 64): 0, ("flash_fwd_wide", 256): 0,
+                      ("flash_dkv", 64): 0, ("flash_fwd_f16", 64): 0,
+                      ("flash_dkv_f16", 64): 0, ("flash_fwd_wide", 256): 0,
                       ("flash_dq_wide", 256): 0, ("flash_dkv_wide", 256): 0,
                       ("flash_fwd_wide", 512): 1132,
                       ("flash_dkv_wide", 384): 0}

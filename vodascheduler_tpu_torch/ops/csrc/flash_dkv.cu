@@ -43,10 +43,45 @@
 //
 // No atomics: each CTA writes its own 128 rows of dK and dV, so both are
 // deterministic.
+//
+// fp16 (voda_flash_dkv_f16). The same kernel on fp16 tensors, through
+// wgmma's f16 form (the element type is a template parameter), with one
+// change. `_dkv_kernel` rounds dS to the input dtype before dK = dSᵀ·Q
+// (`ds.astype(q.dtype)`); in fp16 that flushes the dS of an unscaled loss
+// (an output gradient of 1e-6 gives dS near 1e-8, below fp16's smallest
+// normal, 6e-5), and wgmma takes both operands in one type, so dS cannot
+// stay fp32 (as the CUDA-core kernels keep it) nor go to bf16 (Q would lose
+// three bits). So each key row j of dSᵀ is rounded to fp16 under a
+// power-of-two scale 2^e_j, K1's online rescaling applied to dK:
+// - e_j is a running exponent, one for each of the thread's two key rows
+//   (the same rows in dSᵀ and in dK's accumulator), E_MAX at the start;
+// - each query tile takes the row's max |dSᵀ| over the quad that holds it
+//   and the exponent that puts that max in [2^13, 2^14) (DS_TOP), far below
+//   fp16's 65504; where that is below e_j, the row of dK's accumulator is
+//   multiplied by 2^(new − old) (exact in fp32) and e_j lowered; a row with
+//   no nonzero dS in the tile (masked) keeps its exponent;
+// - 2^e_j rides in the factor that already multiplies dSᵀ by the softmax
+//   scale, so the row is rounded to fp16 with 11 significant bits down to
+//   2^-24 of its largest value (dS itself may be any fp32 magnitude), and
+//   the products accumulate in fp32;
+// - the epilogue stores dK's row times 2^-e_j.
+// dV = Pᵀ·dO is unchanged: P ≤ 1 is rounded to fp16, as the TPU kernel
+// rounds it. For bf16 none of this is compiled.
 
 #include "hopper.cuh"
 
 namespace voda {
+
+// fp16's per-key-row scale of dSᵀ (header): the scaled row max lies in
+// [2^DS_TOP, 2^(DS_TOP+1)); exponents stay in [-E_MAX, E_MAX], so that 2^e
+// and 2^-e are normal fp32 numbers.
+constexpr int DS_TOP = 13;
+constexpr int E_MAX = 100;
+
+// 2^e for an integer e in [-126, 127], exactly.
+__device__ __forceinline__ float pow2i(int e) {
+  return __int_as_float((e + 127) << 23);
+}
 
 template <int D>
 struct Dkv {
@@ -68,15 +103,15 @@ struct Dkv {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
                      const __grid_constant__ CUtensorMap tdo,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int Sq, int Sk, int q_off,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Sq, int Sk, int q_off,
                      int causal, float scale) {
   using C = Dkv<D>;
   // The producer warp also stages lse and δ, so it keeps 40 registers.
@@ -85,10 +120,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* ks = reinterpret_cast<bf16*>(sm);
-  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
-  bf16* qs = reinterpret_cast<bf16*>(sm + C::Q_OFF);
-  bf16* dos = reinterpret_cast<bf16*>(sm + C::DO_OFF);
+  T* ks = reinterpret_cast<T*>(sm);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm + C::Q_OFF);
+  T* dos = reinterpret_cast<T*>(sm + C::DO_OFF);
   float* stat_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // [STAGES][2][BM]
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* q_full = kv_full + 1;
@@ -174,6 +209,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int e = 0; e < D / 2; ++e) dka[e] = dva[e] = 0.f;
     float st[BM / 2], dpt[BM / 2];
     uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+    // fp16: the exponent of each of the thread's key rows (header)
+    constexpr bool SCALED = std::is_same<T, f16>::value;
+    int ex[2] = {E_MAX, E_MAX};
 
     // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ of tile i, committed as one group. Both
     // barriers are waited for before the first wgmma: a wait between two
@@ -190,12 +228,12 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BM>(st, kd + kmajor_step(C::BN, kk), qd + kmajor_step(BM, kk),
-                     kk > 0);
+        wgmma_ss<BM, T>(st, kd + kmajor_step(C::BN, kk),
+                        qd + kmajor_step(BM, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BM>(dpt, vd + kmajor_step(C::BN, kk), dd + kmajor_step(BM, kk),
-                     kk > 0);
+        wgmma_ss<BM, T>(dpt, vd + kmajor_step(C::BN, kk),
+                        dd + kmajor_step(BM, kk), kk > 0);
       wgmma_commit();
     };
     // Pᵀ and dSᵀ of tile i on the accumulators, then into A fragments; the
@@ -226,6 +264,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           }
         }
       }
+      float mx[2] = {0.f, 0.f};  // fp16: the rows' largest |dSᵀ| / scale
 #pragma unroll
       for (int c = 0; c < BM / 8; ++c) {
         const float2 dl = *reinterpret_cast<const float2*>(del_s + 8 * c + 2 * t);
@@ -233,13 +272,50 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         for (int e = 0; e < 4; ++e) {
           const float p = fast_exp2(st[4 * c + e]);
           st[4 * c + e] = p;
-          dpt[4 * c + e] = p * (dpt[4 * c + e] - ((e & 1) ? dl.y : dl.x)) * scale;
+          const float u = p * (dpt[4 * c + e] - ((e & 1) ? dl.y : dl.x));
+          if constexpr (SCALED) {
+            dpt[4 * c + e] = u;
+            mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(u));
+          } else {
+            dpt[4 * c + e] = u * scale;
+          }
+        }
+      }
+      if constexpr (SCALED) {
+        // each row's exponent, dK's row rescaled where it fell, then dSᵀ
+        // times scale·2^e
+        float f[2], fs[2];
+        bool fell = false;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m = quad_max(mx[r]) * scale;
+          // DS_TOP minus the binade of m; a subnormal m reads as -127
+          const int et = DS_TOP - (((__float_as_int(m) >> 23) & 0xff) - 127);
+          const int en = m > 0.f ? max(-E_MAX, min(ex[r], et)) : ex[r];
+          f[r] = pow2i(max(en - ex[r], -126));
+          fell |= en < ex[r];
+          ex[r] = en;
+          fs[r] = scale * pow2i(en);
+        }
+        if (__any_sync(0xffffffffu, fell)) {
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c) {
+            dka[4 * c] *= f[0];
+            dka[4 * c + 1] *= f[0];
+            dka[4 * c + 2] *= f[1];
+            dka[4 * c + 3] *= f[1];
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dpt[4 * c + e] *= fs[e >> 1];
         }
       }
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk) {
-        acc_to_a<BM / 2>(pa[kk], st, kk);
-        acc_to_a<BM / 2>(dsa[kk], dpt, kk);
+        acc_to_a<BM / 2, T>(pa[kk], st, kk);
+        acc_to_a<BM / 2, T>(dsa[kk], dpt, kk);
       }
     };
     // dV += Pᵀ·dO and dK += dSᵀ·Q of tile i, committed as one group
@@ -250,11 +326,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk) {
-        wgmma_rs<D>(dva, pa[kk], dd + mnmajor_step(kk));
+        wgmma_rs<D, T>(dva, pa[kk], dd + mnmajor_step(kk));
       }
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<D>(dka, dsa[kk], qd + mnmajor_step(kk));
+        wgmma_rs<D, T>(dka, dsa[kk], qd + mnmajor_step(kk));
       wgmma_commit();
     };
 
@@ -289,52 +365,75 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
     const int rs = H * D;
     const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D;
-    store_acc_rows<D>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
+    if constexpr (SCALED)
+      store_acc_rows<D>(dk + koff, dka, key[0], Sk, rs, pow2i(-ex[0]),
+                        pow2i(-ex[1]), t);
+    else
+      store_acc_rows<D>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
     store_acc_rows<D>(dv + koff, dva, key[0], Sk, rs, 1.f, 1.f, t);
     trap_if_stalled();
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int B,
                int H, int Sq, int Sk, int q_off, int causal, float scale,
                cudaStream_t st) {
   using C = Dkv<D>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM, ty);
   if (!err)
-    err = prepare_ws_kernel(reinterpret_cast<const void*>(&flash_dkv_kernel<D>),
-                            C::SMEM);
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dkv_kernel<D, T>), C::SMEM);
   if (err) return err;
   const dim3 grid(H, B, (Sk + C::BN - 1) / C::BN);
-  flash_dkv_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+  flash_dkv_kernel<D, T><<<grid, WS_THREADS, C::SMEM, st>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, q_off, causal, scale);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
-
-}  // namespace voda
 
 // Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
 // its launch; 1 (cudaErrorInvalidValue) for a head_dim without an
 // instantiation.
+template <typename T>
+int dkv(const void* q, const void* k, const void* v, const void* dout,
+        const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+        int Sq, int Sk, int D, int q_off, int causal, float scale,
+        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_dkv<64, T>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                             q_off, causal, scale, st);
+  if (D == 128)
+    return launch_dkv<128, T>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                              q_off, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace voda
+
+// bf16 and fp16 tensors, the same arguments.
 extern "C" int voda_flash_dkv(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dk, void* dv, int B,
                               int H, int Sq, int Sk, int D, int q_off,
                               int causal, float scale, void* stream) {
-  using namespace voda;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
-                          q_off, causal, scale, st);
-  if (D == 128)
-    return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
-                           q_off, causal, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return voda::dkv<voda::bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                               Sk, D, q_off, causal, scale, stream);
+}
+
+extern "C" int voda_flash_dkv_f16(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dk, void* dv, int B,
+                                  int H, int Sq, int Sk, int D, int q_off,
+                                  int causal, float scale, void* stream) {
+  return voda::dkv<voda::f16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                              D, q_off, causal, scale, stream);
 }

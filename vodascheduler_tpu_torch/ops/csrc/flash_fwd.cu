@@ -47,6 +47,14 @@
 //   Sk arrive as zeros and are masked to the finite NEG_INF.
 //
 // Nothing is carried between CTAs, so the result is deterministic.
+//
+// fp16 (voda_flash_fwd_f16). The same kernel on fp16 tensors: wgmma's f16
+// form (m64nNk16.f32.f16.f16) takes the same fragments and descriptors at
+// the same rate, so the element type is a template parameter and nothing
+// else changes. The arithmetic is `_fwd_kernel`'s in fp16: S, the running
+// max and sum in fp32, P rounded to fp16 before P·V (P ≤ 1), O = acc / l
+// stored as fp16 (|O| ≤ max |V|), lse fp32. None of it needs more range
+// than fp16 has.
 
 #include "hopper.cuh"
 
@@ -70,21 +78,21 @@ struct Fwd {
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
 };
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
-                     bf16* __restrict__ o, float* __restrict__ lse, int H,
+                     T* __restrict__ o, float* __restrict__ lse, int H,
                      int Sq, int Sk, int q_off, int causal, float scale) {
   using C = Fwd<D>;
   using Regs = RegSplit<24, 240>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* qs = reinterpret_cast<bf16*>(sm);
-  bf16* ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
-  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm);
+  T* ks = reinterpret_cast<T*>(sm + C::K_OFF);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + C::STAGES;
@@ -146,7 +154,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     float l[2] = {0.f, 0.f};          // this thread's part of the row sums
     float corr[2];
     float sc[C::BN / 2];
-    uint32_t pa[C::BN / 16][4];
+    uint32_t pa[C::BN / 16][4];  // P as T, the A operand of P·V
 
     // S = Q·Kᵀ of tile j into sc, committed as one group
     auto issue_s = [&](int j) {
@@ -157,7 +165,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<C::BN>(sc, qd + kmajor_step(C::BM, kk),
+        wgmma_ss<C::BN, T>(sc, qd + kmajor_step(C::BM, kk),
                         kd + kmajor_step(C::BN, kk), kk > 0);
       wgmma_commit();
     };
@@ -169,7 +177,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C::BN / 16; ++kk)
-        wgmma_rs<D>(acc, pa[kk], vd + mnmajor_step(kk));
+        wgmma_rs<D, T>(acc, pa[kk], vd + mnmajor_step(kk));
       wgmma_commit();
     };
     auto softmax = [&](int j) {
@@ -190,7 +198,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       fence_regs(sc);
       softmax(0);
 #pragma unroll
-      for (int kk = 0; kk < C::BN / 16; ++kk) acc_to_a<C::BN / 2>(pa[kk], sc, kk);
+      for (int kk = 0; kk < C::BN / 16; ++kk)
+        acc_to_a<C::BN / 2, T>(pa[kk], sc, kk);
       for (int j = 1; j < n_k; ++j) {
         turns.begin();
         issue_s(j);
@@ -211,7 +220,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         }
 #pragma unroll
         for (int kk = 0; kk < C::BN / 16; ++kk)
-          acc_to_a<C::BN / 2>(pa[kk], sc, kk);
+          acc_to_a<C::BN / 2, T>(pa[kk], sc, kk);
       }
       turns.begin();
       issue_pv(n_k - 1);
@@ -242,42 +251,58 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int B, int H, int Sq, int Sk, int q_off, int causal,
                float scale, cudaStream_t st) {
   using C = Fwd<D>;
   CUtensorMap tq, tk, tv;
-  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, tma_type<T>());
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, tma_type<T>());
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, tma_type<T>());
   if (!err)
-    err = prepare_ws_kernel(reinterpret_cast<const void*>(&flash_fwd_kernel<D>),
-                            C::SMEM);
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_fwd_kernel<D, T>), C::SMEM);
   if (err) return err;
   const dim3 grid((Sq + C::BM - 1) / C::BM, H, B);
-  flash_fwd_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
-      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, Sk,
+  flash_fwd_kernel<D, T><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Sk,
       q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace voda
-
 // Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
 // its launch; 1 (cudaErrorInvalidValue) for a head_dim without an
 // instantiation.
+template <typename T>
+int fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
+        int H, int Sq, int Sk, int D, int q_off, int causal, float scale,
+        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_fwd<64, T>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal,
+                             scale, st);
+  if (D == 128)
+    return launch_fwd<128, T>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal,
+                              scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace voda
+
+// bf16 and fp16 tensors, the same arguments.
 extern "C" int voda_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, int B, int H, int Sq, int Sk,
                               int D, int q_off, int causal, float scale,
                               void* stream) {
-  using namespace voda;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_fwd<64>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal, scale,
-                          st);
-  if (D == 128)
-    return launch_fwd<128>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal,
-                           scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return voda::fwd<voda::bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                               scale, stream);
+}
+
+extern "C" int voda_flash_fwd_f16(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, int B, int H, int Sq,
+                                  int Sk, int D, int q_off, int causal,
+                                  float scale, void* stream) {
+  return voda::fwd<voda::f16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                              scale, stream);
 }

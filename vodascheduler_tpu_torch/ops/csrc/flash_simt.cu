@@ -1,10 +1,16 @@
-// K1, K2 and K3 for fp32 and fp16 inputs, on the CUDA cores (sm_90a).
+// K1, K2 and K3 for fp32 inputs, K2 for fp16 at every head width, and K1
+// and K3 for fp16 above a width of 128, on the CUDA cores (sm_90a).
 //
 // Replace `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` in
 // vodascheduler_tpu/ops/flash_attention.py for a model that computes in
-// float32 or float16: the TPU kernels compute in q.dtype, and the wgmma
-// kernels beside this file take bf16 alone. The arithmetic is the TPU
-// kernels': every product takes its inputs in the input dtype and
+// float32 or float16: the TPU kernels compute in q.dtype. The wgmma kernels
+// beside this file take bf16, and fp16 K1 and K3 at widths 64 and 128
+// (flash_fwd.cu, flash_dkv.cu: voda_flash_fwd_f16, voda_flash_dkv_f16); what
+// they do not take runs here: fp32 (voda_flash_*_f32), fp16 dQ
+// (voda_flash_dq_f16), and fp16 K1 and K3 on heads wider than 128
+// (voda_flash_fwd_f16_wide, voda_flash_dkv_f16_wide; the kernels themselves
+// take any multiple of their 64- or 128-column chunk). The arithmetic is
+// the TPU kernels': every product takes its inputs in the input dtype and
 // accumulates in fp32 (an fp16 product is exact in fp32), the softmax
 // statistics are fp32, and P is rounded to the input dtype before the
 // products it feeds (`p.astype(v.dtype)`). dS is not (the TPU kernels'
@@ -514,15 +520,18 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // The C interface, one entry a kernel and dtype, with the bf16 kernels'
 // arguments: q k v o lse | B H Sq Sk D q_off causal scale stream, and so on.
-#define VODA_SIMT_ENTRIES(suffix, T)                                          \
-  extern "C" int voda_flash_fwd_##suffix(                                     \
+// fp16's forward and dK/dV are named `_f16_wide`: at head widths up to 128
+// fp16 takes the wgmma kernels (flash_fwd.cu, flash_dkv.cu) and these only
+// above.
+#define VODA_SIMT_ENTRIES(T, fwd_sfx, dq_sfx, dkv_sfx)                        \
+  extern "C" int voda_flash_fwd_##fwd_sfx(                                    \
       const void* q, const void* k, const void* v, void* o, void* lse, int B, \
       int H, int Sq, int Sk, int D, int q_off, int causal, float scale,       \
       void* stream) {                                                         \
     return voda::simt::fwd<T>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off,       \
                               causal, scale, stream);                         \
   }                                                                           \
-  extern "C" int voda_flash_dq_##suffix(                                      \
+  extern "C" int voda_flash_dq_##dq_sfx(                                      \
       const void* q, const void* k, const void* v, const void* o,            \
       const void* dout, const void* lse, void* delta, void* dq, int B, int H, \
       int Sq, int Sk, int D, int q_off, int causal, float scale,              \
@@ -530,7 +539,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
     return voda::simt::dq<T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, \
                              D, q_off, causal, scale, stream);                \
   }                                                                           \
-  extern "C" int voda_flash_dkv_##suffix(                                     \
+  extern "C" int voda_flash_dkv_##dkv_sfx(                                    \
       const void* q, const void* k, const void* v, const void* dout,         \
       const void* lse, const void* delta, void* dk, void* dv, int B, int H,  \
       int Sq, int Sk, int D, int q_off, int causal, float scale,              \
@@ -539,5 +548,5 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
                               Sk, D, q_off, causal, scale, stream);           \
   }
 
-VODA_SIMT_ENTRIES(f32, float)
-VODA_SIMT_ENTRIES(f16, __half)
+VODA_SIMT_ENTRIES(float, f32, f32, f32)
+VODA_SIMT_ENTRIES(__half, f16_wide, f16, f16_wide)

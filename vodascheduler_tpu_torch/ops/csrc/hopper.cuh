@@ -5,13 +5,17 @@
 // wgmma descriptors and the wgmma instructions the kernels issue,
 // setmaxnreg, the named barriers of the consumer warpgroups' turns, the
 // forwards' online softmax on a score accumulator, the host-side tensor
-// maps, and the scalar helpers (bf16 packing, quad reductions).
+// maps, and the scalar helpers (bf16 and fp16 packing, quad reductions).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
 // model layout, so no transpose runs around the kernels); lse and delta are
-// fp32 [B, H, S].
+// fp32 [B, H, S]. The forward and dK/dV kernels also take fp16: the helpers
+// that touch an element take its type T (bf16 or f16) as a template
+// parameter, bf16 by default. A 16-bit element of either type has the same
+// shared layout, descriptors and wgmma fragments; only the conversions, the
+// wgmma type string and the tensor map's data type differ.
 //
-// Shared layout of a tile. A [rows, D] bf16 slice of a [B, S, H, D] tensor
+// Shared layout of a tile. A [rows, D] 16-bit slice of a [B, S, H, D] tensor
 // arrives by TMA as D/64 "parts", each [rows, 64] with 128-byte rows and
 // the 128-byte swizzle (16-byte chunk c of row r sits at chunk c ^ (r % 8)).
 // Part p starts at p * rows * 128 bytes; every part starts on 1024 bytes, so
@@ -28,18 +32,22 @@
 // accumulator d[4*c + e] is row 16w + g + 8*(e >> 1), column
 // 8c + 2t + (e & 1), the mma.sync C layout stacked along N. The register
 // A fragment of k-step kk is {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]},
-// {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]} packed to bf16x2, so a product's
+// {d[8kk+4], d[8kk+5]}, {d[8kk+6], d[8kk+7]} packed to T x2, so a product's
 // fp32 result feeds the next product from registers.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only; no driver symbol is linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace voda {
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
 
 constexpr float NEG_INF = -1e30f;  // finite, as in the reference kernels
 
@@ -68,6 +76,19 @@ __device__ __forceinline__ float fast_exp2(float x) {
 // Two fp32 values as one bf16x2 register, `lo` in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two fp32 values as one T x2 register (T bf16 or f16), `lo` in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<bf16>(float lo, float hi) {
+  return pack_bf16(lo, hi);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<f16>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
@@ -201,8 +222,8 @@ struct Turns {
 // Rows [s0, s0 + rows) of head h, batch b, columns [c0, c0 + D), into the
 // parts at `dst`, counted on `bar`; rows past S arrive as zeros. `map` is a
 // tensor map of make_rows_map with the same `rows`.
-template <int D>
-__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
+template <int D, typename T>
+__device__ __forceinline__ void tma_rows(T* dst, const CUtensorMap* map,
                                          uint64_t* bar, int rows, int h,
                                          int s0, int b, int c0 = 0) {
 #pragma unroll
@@ -223,7 +244,8 @@ __device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map,
 // The base is passed through an empty asm so that the compiler derives each
 // k-step's descriptor (base + a constant) where it is used, instead of
 // hoisting one 64-bit register pair per k-step out of the loop.
-__device__ __forceinline__ uint64_t sw128_desc(const bf16* p, uint32_t lbo) {
+template <typename T>
+__device__ __forceinline__ uint64_t sw128_desc(const T* p, uint32_t lbo) {
   uint64_t d = static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
                (static_cast<uint64_t>(lbo >> 4) << 16) |
                (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
@@ -233,7 +255,8 @@ __device__ __forceinline__ uint64_t sw128_desc(const bf16* p, uint32_t lbo) {
 
 // K-major operand of a tile of `rows` rows, from row r0: the descriptor of
 // k-step 0, and what k-step kk adds to it (16-byte units).
-__device__ __forceinline__ uint64_t kmajor_desc(const bf16* tile, int r0) {
+template <typename T>
+__device__ __forceinline__ uint64_t kmajor_desc(const T* tile, int r0) {
   return sw128_desc(tile + r0 * 64, 16);
 }
 __host__ __device__ constexpr uint32_t kmajor_step(int rows, int kk) {
@@ -242,7 +265,8 @@ __host__ __device__ constexpr uint32_t kmajor_step(int rows, int kk) {
 
 // MN-major operand of a tile of `rows` rows: the descriptor of k-step 0
 // (rows 0..15), and what k-step kk (rows 16kk..16kk+15) adds to it.
-__device__ __forceinline__ uint64_t mnmajor_desc(const bf16* tile, int rows) {
+template <typename T>
+__device__ __forceinline__ uint64_t mnmajor_desc(const T* tile, int rows) {
   return sw128_desc(tile, rows * 128);
 }
 __host__ __device__ constexpr uint32_t mnmajor_step(int kk) {
@@ -321,110 +345,108 @@ struct RegSplit {
   "%122, %123, %124, %125, %126, %127}"
 
 // d[64 x N] (+)= A · B, A and B from shared memory (both K-major: the
-// kernels' products with two shared operands are all of this form).
-template <int N>
+// kernels' products with two shared operands are all of this form), both of
+// type T.
+template <int N, typename T = bf16>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int accumulate);
 
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " VODA_R16
-      ", %16, %17, p, 1, 1, 0, 0;\n}"
-      : VODA_F16(0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %42, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 " VODA_R40
-      ", %40, %41, p, 1, 1, 0, 0;\n}"
-      : VODA_F16(0), VODA_F16(16), VODA_F4(32), VODA_F4(36)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VODA_R32
-      ", %32, %33, p, 1, 1, 0, 0;\n}"
-      : VODA_F16(0), VODA_F16(16)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VODA_R64
-      ", %64, %65, p, 1, 1, 0, 0;\n}"
-      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
 // d[64 x N] += A · B, A a register fragment, B an MN-major shared operand
-// (transpose bit set).
-template <int N>
+// (transpose bit set), both of type T.
+template <int N, typename T = bf16>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b);
 
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " VODA_R32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"
-      : VODA_F16(0), VODA_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+// The specialisations of both for operands of type T, which the instruction
+// names TY ("bf16" or "f16"): the same fragments and descriptors, the same
+// rate.
+#define VODA_WGMMA(T, TY)                                                    \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss<32, T>(                           \
+      float(&d)[16], uint64_t a, uint64_t b, int accumulate) {               \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"                       \
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " " VODA_R16 \
+        ", %16, %17, p, 1, 1, 0, 0;\n}"                                      \
+        : VODA_F16(0)                                                        \
+        : "l"(a), "l"(b), "r"(accumulate));                                  \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss<80, T>(                           \
+      float(&d)[40], uint64_t a, uint64_t b, int accumulate) {               \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %42, 0;\n"                       \
+        " wgmma.mma_async.sync.aligned.m64n80k16.f32." TY "." TY " " VODA_R40 \
+        ", %40, %41, p, 1, 1, 0, 0;\n}"                                      \
+        : VODA_F16(0), VODA_F16(16), VODA_F4(32), VODA_F4(36)                \
+        : "l"(a), "l"(b), "r"(accumulate));                                  \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss<64, T>(                           \
+      float(&d)[32], uint64_t a, uint64_t b, int accumulate) {               \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                       \
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " VODA_R32 \
+        ", %32, %33, p, 1, 1, 0, 0;\n}"                                      \
+        : VODA_F16(0), VODA_F16(16)                                          \
+        : "l"(a), "l"(b), "r"(accumulate));                                  \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_ss<128, T>(                          \
+      float(&d)[64], uint64_t a, uint64_t b, int accumulate) {               \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                       \
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "        \
+        VODA_R64 ", %64, %65, p, 1, 1, 0, 0;\n}"                             \
+        : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48)              \
+        : "l"(a), "l"(b), "r"(accumulate));                                  \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<64, T>(                           \
+      float(&d)[32], const uint32_t(&a)[4], uint64_t b) {                    \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"                       \
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " " VODA_R32 \
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}"                        \
+        : VODA_F16(0), VODA_F16(16)                                          \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));       \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<128, T>(                          \
+      float(&d)[64], const uint32_t(&a)[4], uint64_t b) {                    \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"                       \
+        " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " "        \
+        VODA_R64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"               \
+        : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48)              \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));       \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<192, T>(                          \
+      float(&d)[96], const uint32_t(&a)[4], uint64_t b) {                    \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"                      \
+        " wgmma.mma_async.sync.aligned.m64n192k16.f32." TY "." TY " "        \
+        VODA_R96 ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}"              \
+        : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48),             \
+          VODA_F16(64), VODA_F16(80)                                         \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));       \
+  }                                                                          \
+  template <>                                                                \
+  __device__ __forceinline__ void wgmma_rs<256, T>(                          \
+      float(&d)[128], const uint32_t(&a)[4], uint64_t b) {                   \
+    asm volatile(                                                            \
+        "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"                      \
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY " "        \
+        VODA_R128 ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}"         \
+        : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48),             \
+          VODA_F16(64), VODA_F16(80), VODA_F16(96), VODA_F16(112)            \
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));       \
+  }
 
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " VODA_R64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}"
-      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " VODA_R96
-      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}"
-      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48), VODA_F16(64),
-        VODA_F16(80)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
-                                              const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " VODA_R128
-      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}"
-      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48), VODA_F16(64),
-        VODA_F16(80), VODA_F16(96), VODA_F16(112)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+VODA_WGMMA(bf16, "bf16")
+VODA_WGMMA(f16, "f16")
+#undef VODA_WGMMA
 
 #undef VODA_F4
 #undef VODA_F16
@@ -435,21 +457,21 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
 #undef VODA_R96
 #undef VODA_R128
 
-// The A fragment of k-step kk from a 64 x N fp32 accumulator, cast to bf16.
-template <int N>
+// The A fragment of k-step kk from a 64 x N fp32 accumulator, cast to T.
+template <int N, typename T = bf16>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N],
                                          int kk) {
-  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = pack2<T>(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack2<T>(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack2<T>(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack2<T>(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
-// Stores a thread's two rows of a 64 x D fp32 accumulator as bf16 rows of
-// a [B, S, H, D] tensor, times a per-row factor; rows at or past `nrows`
-// are dropped. `row` is the thread's first row, `base` points at (b, 0, h, 0).
-template <int D>
-__device__ __forceinline__ void store_acc_rows(bf16* base, const float (&d)[D / 2],
+// Stores a thread's two rows of a 64 x D fp32 accumulator as T rows of a
+// [B, S, H, D] tensor, times a per-row factor; rows at or past `nrows` are
+// dropped. `row` is the thread's first row, `base` points at (b, 0, h, 0).
+template <int D, typename T>
+__device__ __forceinline__ void store_acc_rows(T* base, const float (&d)[D / 2],
                                                int row, int nrows,
                                                int row_stride, float f0,
                                                float f1, int t) {
@@ -458,11 +480,11 @@ __device__ __forceinline__ void store_acc_rows(bf16* base, const float (&d)[D / 
     const int r = row + 8 * half;
     if (r >= nrows) continue;
     const float f = half ? f1 : f0;
-    bf16* p = base + static_cast<size_t>(r) * row_stride + 2 * t;
+    T* p = base + static_cast<size_t>(r) * row_stride + 2 * t;
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(p + 8 * c) =
-          pack_bf16(d[4 * c + 2 * half] * f, d[4 * c + 2 * half + 1] * f);
+          pack2<T>(d[4 * c + 2 * half] * f, d[4 * c + 2 * half + 1] * f);
   }
 }
 
@@ -557,11 +579,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over bf16 [B, S, H, D] contiguous at `base` whose box is
-// [rows, 64] of one (b, h): coordinates (column, h, s, b), 128-byte swizzle,
-// zeros past S. Returns 0 or a nonzero CUresult.
-inline int make_rows_map(CUtensorMap* map, const void* base, int B, int S,
-                         int H, int D, int rows) {
+// A tensor map over 16-bit [B, S, H, D] contiguous at `base` (bf16 unless
+// `dtype` says otherwise) whose box is [rows, 64] of one (b, h): coordinates
+// (column, h, s, b), 128-byte swizzle, zeros past S. Returns 0 or a nonzero
+// CUresult.
+inline int make_rows_map(
+    CUtensorMap* map, const void* base, int B, int S, int H, int D, int rows,
+    CUtensorMapDataType dtype = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn encode = encode_tiled();
   if (!encode) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -574,10 +598,17 @@ inline int make_rows_map(CUtensorMap* map, const void* base, int B, int S,
   const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map, dtype, 4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// The tensor map's data type of T.
+template <typename T>
+constexpr CUtensorMapDataType tma_type() {
+  return std::is_same<T, f16>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 // Raises the kernel's shared-memory limit to `smem` bytes and checks that

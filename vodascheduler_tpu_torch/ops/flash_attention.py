@@ -14,10 +14,24 @@ any multiple of 128, and so does each wrapper, through a second kernel of
 the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``; on ``csrc/hopper.cuh``
 up to D=512, cut along D on ``csrc/wide.cuh`` above): ``flash_fwd_wide``,
 ``flash_dq_wide`` and ``flash_dkv_wide``, each counted apart. Those six
-take bf16; fp32 and fp16 tensors, at the same widths, go to a third kernel
-of each function for each dtype (``csrc/flash_simt.cu``, on the CUDA cores):
-``flash_fwd_f32``, ``flash_dq_f32``, ``flash_dkv_f32`` and the same three
-``_f16``.
+take bf16. The JAX kernels compute in ``q.dtype``, so fp32 and fp16 tensors
+go to kernels of their own, each counted apart; which one, by function,
+dtype and head width D (after the operator's zero padding):
+
+=====  =====  ======================  ================  ======================
+dtype  D      K1                      K2                K3
+=====  =====  ======================  ================  ======================
+bf16   ≤ 128  ``flash_fwd``           ``flash_dq``      ``flash_dkv``
+bf16   > 128  ``flash_fwd_wide``      ``flash_dq_wide`` ``flash_dkv_wide``
+fp16   ≤ 128  ``flash_fwd_f16``       ``flash_dq_f16``  ``flash_dkv_f16``
+fp16   > 128  ``flash_fwd_f16_wide``  ``flash_dq_f16``  ``flash_dkv_f16_wide``
+fp32   any    ``flash_fwd_f32``       ``flash_dq_f32``  ``flash_dkv_f32``
+=====  =====  ======================  ================  ======================
+
+``flash_fwd_f16`` and ``flash_dkv_f16`` are the bf16 kernels' TMA + wgmma
+design in fp16 (``csrc/flash_fwd.cu``, ``csrc/flash_dkv.cu``, templated on
+the element type); the other fp16 and fp32 kernels multiply on the CUDA
+cores (``csrc/flash_simt.cu``).
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -42,21 +56,23 @@ Divergences from the TPU kernels, on purpose:
 - the tiles are fixed by each kernel's design: the forward takes 128
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
-  tiles of 64 rows (32 at D=128); the fp32 and fp16 kernels take 64×64
-  tiles of (queries, keys) and 64 or 128 columns of the output a CTA.
+  tiles of 64 rows (32 at D=128), in fp16 as in bf16; the CUDA-core
+  kernels take 64×64 tiles of (queries, keys) and 64 or 128 columns of
+  the output a CTA.
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
   signature and change none of them;
-- the wgmma kernels take bf16. The JAX kernels compute in ``q.dtype``, so
-  fp32 and fp16 tensors go to kernels of their own
-  (``csrc/flash_simt.cu``: ``flash_{fwd,dq,dkv}_f32`` and ``_f16``), which
-  multiply on the CUDA cores with the TPU kernels' arithmetic (products of
-  the input dtype accumulated in fp32, P rounded to the input dtype before
-  its products) except that dS stays fp32: fp16's range would flush the
-  small dS of an unscaled loss (``flash_simt.cu``). Each wrapper picks the
-  kernel by the tensors' dtype, which all must share; any other dtype
-  raises.
+- fp32 and fp16 run the TPU kernels' arithmetic (products of the input
+  dtype accumulated in fp32, P rounded to the input dtype before its
+  products) except for dS, which the TPU kernels round to the input dtype
+  (``ds.astype``) and fp16's range would flush for an unscaled loss (dS
+  near 1e-8, below fp16's smallest normal, 6e-5): the CUDA-core kernels
+  keep dS in fp32, and ``flash_dkv_f16``, whose wgmma takes dS in fp16,
+  rounds each key row of dSᵀ under a power-of-two scale that puts the
+  row's largest value in [2^13, 2^14) and undoes it on dK
+  (``csrc/flash_dkv.cu``). Each wrapper picks the kernel by the tensors'
+  dtype, which all must share; any other dtype raises.
 
-The bf16 kernels read their tiles through TMA tensor maps built from the
+The wgmma kernels read their tiles through TMA tensor maps built from the
 ``[B, S, H, D]`` shape, so every tensor's shape is checked against q's
 (``_dims``) before a map is built.
 """
@@ -81,11 +97,17 @@ WIDE_CHUNK = 128
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
             "flash_fwd_f32": 0, "flash_dq_f32": 0, "flash_dkv_f32": 0,
-            "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0}
-# The kernels of fp32 and fp16 tensors (suffix of their names), all in one
-# source; a bf16 kernel's source carries its own name.
+            "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0,
+            "flash_fwd_f16_wide": 0, "flash_dkv_f16_wide": 0}
+# The suffix of the kernel names of fp32 and fp16 tensors.
 SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
+# The kernels on the CUDA cores, all in one source; every other kernel's
+# source carries the name of its bf16 kernel (fp16's flash_fwd_f16 is in
+# flash_fwd.cu).
 SIMT_SOURCE = "flash_simt"
+SIMT_KERNELS = frozenset({"flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
+                          "flash_dq_f16", "flash_fwd_f16_wide",
+                          "flash_dkv_f16_wide"})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,9 +120,8 @@ _ARGTYPES = {
     # q k v do lse delta dk dv | B H Sq Sk D q_off causal scale stream
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
 }
-for _name in ("flash_fwd", "flash_dq", "flash_dkv"):
-    for _variant in ("wide", *SIMT_SUFFIX.values()):
-        _ARGTYPES[f"{_name}_{_variant}"] = _ARGTYPES[_name]
+for _name in launches:  # every variant takes its function's arguments
+    _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
 
 
 def reset_launches() -> None:
@@ -110,8 +131,8 @@ def reset_launches() -> None:
 
 def source(kernel: str) -> str:
     """The source (in ``ops/csrc``) that holds `kernel`."""
-    return SIMT_SOURCE if kernel.endswith(
-        tuple(f"_{x}" for x in SIMT_SUFFIX.values())) else kernel
+    return SIMT_SOURCE if kernel in SIMT_KERNELS else kernel.removesuffix(
+        "_f16")
 
 
 @functools.cache
@@ -132,18 +153,21 @@ def load_kernels(names) -> None:
 def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel of wrapper `name` for head width D and tensors of
     `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
-    at a multiple of WIDE_CHUNK above them; for fp32 and fp16 the kernel of
-    that dtype, at the same widths."""
+    at a multiple of WIDE_CHUNK above them; for fp16 the same, named
+    ``_f16`` and ``_f16_wide``, except dQ, which takes ``flash_dq_f16`` at
+    every width; for fp32 the ``_f32`` kernel at every width."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
             f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
             f"of {WIDE_CHUNK} above them")
-    if dtype in SIMT_SUFFIX:
-        return f"{name}_{SIMT_SUFFIX[dtype]}"
-    if dtype != torch.bfloat16:
+    if dtype not in (torch.bfloat16, *SIMT_SUFFIX):
         raise TypeError(f"{name}: the CUDA kernels take bfloat16, float32 "
                         f"and float16, got {dtype}")
-    return name if D in HEAD_DIMS else f"{name}_wide"
+    if dtype == torch.float32 or (dtype == torch.float16
+                                  and name == "flash_dq"):
+        return f"{name}_{SIMT_SUFFIX[dtype]}"
+    kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
+    return kernel if D in HEAD_DIMS else f"{kernel}_wide"
 
 
 def _check(name: str, *tensors: torch.Tensor) -> str:
