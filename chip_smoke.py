@@ -7,8 +7,10 @@ Phases (any failure exits non-zero):
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
      D=64 (the main path), in fp16's tensor-core forward or dK/dV at D=64
-     (phase 11's fp16 model) or in the wide forward, dQ or dK/dV at D=256
-     (phase 9's wide llama), and logs the spills at D=128, 384 and 512;
+     (phase 11's fp16 model), in the wide forward, dQ or dK/dV at D=256
+     (phase 9's wide llama) or in fp16's wide forward or dK/dV at D=256
+     (phase 11's fp16 model in heads of 256), and logs the spills at
+     D=128, 384 and 512;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -27,14 +29,20 @@ Phases (any failure exits non-zero):
      autograd through scaled_dot_product_attention); then the fp32 and the
      fp16 kernels (fp32's and fp16's dQ on the CUDA cores,
      csrc/flash_simt.cu; fp16's forward and dK/dV on the tensor cores up to
-     D=128, flash_{fwd,dkv}_f16, and on the CUDA cores above, `_f16_wide`)
-     against the same plain versions at the main shape, a ragged non-causal
-     S, D=128, D=16 padded, a ragged query slice behind q_offset and D=256
-     (SIMT_LIMITS), each timed at the main shape beside its plain version,
-     the library call (fp32's backward: autograd through
-     scaled_dot_product_attention) and its bound at that dtype's peak; and
-     fp16's CUDA-core forward and dK/dV held to the same bars at the main
-     shape and timed there in turns with the tensor-core kernels;
+     D=128, flash_{fwd,dkv}_f16, and from 256 to 512,
+     flash_{fwd,dkv}_f16_wide, and on the CUDA cores above, `_f16_simt`)
+     against the same plain versions at the main shape, a ragged
+     non-causal S, D=128, D=16 padded, a ragged query slice behind q_offset
+     and D=256 (SIMT_LIMITS),
+     each timed at the main shape beside its plain version, the library
+     call (fp32's backward: autograd through scaled_dot_product_attention)
+     and its bound at that dtype's peak; fp16's wide forward and dK/dV at
+     the wide bf16 kernels' shapes (d256, d512, d384, a ragged S, the query
+     slice behind q_offset, non-causal at 256) and the CUDA-core ones at
+     D=640, which only they take, held to the same bars, the wide ones
+     timed at d256; and fp16's CUDA-core forward and dK/dV held to the same
+     bars at the main shape and timed in turns with the tensor-core kernels
+     there and at d256;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -148,9 +156,9 @@ Phases (any failure exits non-zero):
      the loss scaled by 1024 for the comparison),
      5 steps (finite, falling), one counted step launching that dtype's
      K1 8, K2 4 and K3 4 times and no other kernel (fp16: flash_fwd_f16,
-     flash_dq_f16, flash_dkv_f16, and no `_f16_wide`); then the same fp16
-     model in 4 heads of 256, through flash_fwd_f16_wide, flash_dq_f16 and
-     flash_dkv_f16_wide (8/4/4);
+     flash_dq_f16, flash_dkv_f16); then the same fp16 model in 4 heads of
+     256, through the wgmma flash_fwd_f16_wide and flash_dkv_f16_wide and
+     the CUDA-core flash_dq_f16 (8/4/4), and no `_f16_simt` kernel;
   12. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
@@ -199,8 +207,10 @@ SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f16",
               "flash_dkv_f16")
 MAIN_HEAD_DIM = 64
 # The wide kernels redesigned on wgmma, held to no spill at the width of
-# phase 9's 256-wide llama (their spills at 384 and 512 are only logged).
-WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide")
+# phase 9's 256-wide llama and of phase 11's fp16 model in heads of 256
+# (their spills at 384 and 512 are only logged).
+WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide",
+                   "flash_fwd_f16_wide", "flash_dkv_f16_wide")
 WIDE_HEAD_DIM = 256
 MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
 SPILL_GATES = MAIN_SPILL_GATES + tuple((n, WIDE_HEAD_DIM)
@@ -211,7 +221,8 @@ def ptxas_spills(text: str) -> dict:
     """{(kernel, head_dim): bytes of spill stores + loads} from the log of
     `nvcc -Xptxas -v` (a "Function properties for <mangled name>" line,
     then its "... bytes spill stores, ... bytes spill loads" line). A kernel
-    templated on fp16 (``__half`` after its width) is named ``_f16``."""
+    templated on fp16 (``__half`` after its width) is named as the wrappers
+    name it, ``_f16`` before any ``_wide``."""
     out, fn = {}, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -223,7 +234,10 @@ def ptxas_spills(text: str) -> dict:
         if m and fn:
             k = re.search(r"(flash_\w+?)_kernelILi(\d+)E(6__half)?", fn)
             if k:
-                name = k.group(1) + ("_f16" if k.group(3) else "")
+                name = k.group(1)
+                if k.group(3):
+                    base = name.removesuffix("_wide")
+                    name = base + "_f16" + name[len(base):]
                 out[(name, int(k.group(2)))] = (int(m.group(1))
                                                 + int(m.group(2)))
             fn = None
@@ -369,8 +383,8 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS):
 
 def check_kernels(fa, cases, dtype=torch.bfloat16, limits=LIMITS):
     """Each kernel against its plain version at every case; returns the
-    errors at the main shape, with each case's under its name, and fails
-    after reporting every case."""
+    errors at the first case (the main shape), with each case's under its
+    name, and fails after reporting every case."""
     failures, out = [], {}
     for name, shape in cases.items():
         errs, bad = kernel_errors(fa, name, shape, dtype, limits)
@@ -378,7 +392,7 @@ def check_kernels(fa, cases, dtype=torch.bfloat16, limits=LIMITS):
         out[name] = errs
     if failures:
         raise SystemExit("kernel check failed: " + "; ".join(failures))
-    return {**out["main"], **out}
+    return {**out[next(iter(cases))], **out}
 
 
 def library_times(q, k, v, do, causal):
@@ -492,11 +506,13 @@ def time_padded(fa, name, shape):
         f"bound_bwd_ms={bound(7, 8, 1, *shape)[0]:.4f}")
 
 
-# fp16's forward and dK/dV on the CUDA cores: above D=128 the wrappers take
-# them (`_f16_wide`), and they take any width, so at D=64 they stand beside
-# the tensor-core kernels that replaced them there.
-CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_wide",
-                 "flash_dkv_f16": "flash_dkv_f16_wide"}
+# fp16's forward and dK/dV on the CUDA cores: above D=512 the wrappers take
+# them (`_f16_simt`), and they take any width, so at D=64 and D=256 they
+# stand beside the tensor-core kernels that replaced them there.
+CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_simt",
+                 "flash_dkv_f16": "flash_dkv_f16_simt",
+                 "flash_fwd_f16_wide": "flash_fwd_f16_simt",
+                 "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
 
 
 @contextlib.contextmanager
@@ -534,6 +550,8 @@ def time_f16_turns(fa, shape, rounds=2) -> dict:
                                      []).append(cuda_ms(call))
     med = {n: statistics.median(t) for n, t in times.items()}
     for new, old in CUDA_CORE_F16.items():
+        if new not in med:
+            continue
         log(f"time[f16 turns] D={D} {new} ms={med[new]:.4f} "
             f"{[round(x, 4) for x in times[new]]} {old} ms={med[old]:.4f} "
             f"{[round(x, 4) for x in times[old]]} "
@@ -892,7 +910,7 @@ def _epoch_losses(text: str) -> dict:
 # DTYPE_LAYERS so that the fp32 step stays short. fp32 takes the CUDA-core
 # kernels (csrc/flash_simt.cu); fp16 the tensor-core forward and dK/dV
 # (flash_fwd_f16, flash_dkv_f16) and the CUDA-core dQ, and in heads of 256
-# the CUDA-core forward and dK/dV (`_f16_wide`). Against the plain
+# the wide tensor-core forward and dK/dV (`_f16_wide`). Against the plain
 # attention (which computes in fp32): fp32 differs by summation order
 # alone, fp16 by the rounding of P (and of the scaled dSᵀ in dK/dV) to
 # fp16 inside the kernels, held to the bf16 slice's bars. fp16's
@@ -920,7 +938,8 @@ def run_dtype_slices(fa):
     kernels against the plain attention, 5 AdamW steps (finite, falling),
     one counted step launching the slice's K1 2L, K2 L and K3 L times and
     no other kernel. Returns the counted launches of the 64-wide slices and
-    those of the `_f16_wide` kernels."""
+    those of the `_f16_wide` kernels and of the `_f16_simt` ones (0: no
+    slice runs a width above 512)."""
     from vodascheduler_tpu_torch.models import llama
     from vodascheduler_tpu_torch.models.registry import llama_bundle
 
@@ -938,6 +957,7 @@ def run_dtype_slices(fa):
                                                DTYPE_LAYERS, DTYPE_LAYERS))))
         counts.update({k: got[k] for k in names
                        if heads == 16 or k.endswith("_wide")})
+        counts.update({k: got[k] for k in got if k.endswith("_f16_simt")})
         del session, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2100,22 +2120,45 @@ def main() -> int:
         simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
         rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
         torch.cuda.empty_cache()
-    # fp16's K1 and K3 on the CUDA cores (the `_f16_wide` kernels), held to
-    # the same bars at the main shape and timed in turns with the
-    # tensor-core kernels that replaced them there; their rows carry the
-    # plain and library times of the tensor-core rows (the same function on
-    # the same inputs)
+    # fp16's wide forward and dK/dV (wgmma) at the wide bf16 kernels'
+    # shapes and non-causal, timed at d256; the CUDA-core ones at D=640,
+    # which only they take
+    f16 = torch.float16
+    wide_cases = {name: cases[name] for name in (
+        "d256", "d512", "d384", "d256_ragged", "d256_q_offset")}
+    wide_cases["d256_noncausal"] = (2, 4, 1000, 1000, 256, False, 0)
+    wide_errs = check_kernels(fa, wide_cases, f16, SIMT_LIMITS[f16])
+    d256_rows = time_kernels(fa, cases["d256"], wide_errs, "_f16_wide", f16)
+    for name in ("flash_fwd_f16_wide", "flash_dkv_f16_wide"):
+        rows[name] = d256_rows[name]
+    d640_errs = check_kernels(fa, {"d640": (2, 2, 1024, 1024, 640, True, 0)},
+                              f16, SIMT_LIMITS[f16])
+    torch.cuda.empty_cache()
+    # fp16's K1 and K3 on the CUDA cores (`_f16_simt`), held to the same
+    # bars at the main shape and timed in turns with the tensor-core
+    # kernels that replaced them there and at d256; their rows, from d256
+    # (phase 11's fp16 model in heads of 256), carry the plain and library
+    # times of the wide tensor-core rows (the same function on the same
+    # inputs) and their errors at D=640
     with routed(fa, CUDA_CORE_F16):
-        old_errs = check_kernels(fa, {"main": main_shape}, torch.float16,
-                                 SIMT_LIMITS[torch.float16])
-    turns = time_f16_turns(fa, main_shape)
-    for new, old in CUDA_CORE_F16.items():
-        rows[new]["ms"] = turns[new]
+        check_kernels(fa, {"main": main_shape}, f16, SIMT_LIMITS[f16])
+    for shape in (main_shape, cases["d256"]):
+        turns = time_f16_turns(fa, shape)
+        for new in turns:
+            if new in rows:
+                rows[new]["ms"] = turns[new]
+    for new in ("flash_fwd_f16_wide", "flash_dkv_f16_wide"):
+        old = CUDA_CORE_F16[new]
         rows[old] = {**rows[new], "ms": turns[old], "source": (
             f"vodascheduler_tpu_torch/ops/csrc/{fa.source(old)}.cu")}
-    rows["flash_fwd_f16_wide"]["err"] = max(old_errs["o"], old_errs["lse"])
-    rows["flash_dkv_f16_wide"]["err"] = max(old_errs["dk_abs"],
-                                            old_errs["dv_abs"])
+        log(f"time[f16 wide] D=256 {new} ms={rows[new]['ms']:.4f} "
+            f"roofline_share={rows[new]['b'][0] / rows[new]['ms']:.3f} "
+            f"library_ms={rows[new]['library_ms']:.4f} {old} "
+            f"ms={turns[old]:.4f} cuda_cores_over_tensor_cores="
+            f"{turns[old] / rows[new]['ms']:.3f}")
+    rows["flash_fwd_f16_simt"]["err"] = max(d640_errs["o"], d640_errs["lse"])
+    rows["flash_dkv_f16_simt"]["err"] = max(d640_errs["dk_abs"],
+                                            d640_errs["dv_abs"])
     torch.cuda.empty_cache()
     phase("3 kernels")
 

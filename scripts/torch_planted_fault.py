@@ -18,15 +18,22 @@ small:
 - ``dqw_last_tile``: the wide K2 (flash_dq_wide.cu) skips dQ += dS·K for
   the last K/V tile it visits in the last 64-row query tile of every
   (batch, head). δ stays exact.
+- ``dkvw_f16_no_rescale``: fp16's wide K3 (flash_dkv_wide.cu) lowers a key
+  row's exponent of dSᵀ but never rescales what dK's row has summed so
+  far. bf16 does not compile that code.
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
-256 (H=4), where the wide kernels run. The script logs each kernel set's
-errors against the plain versions under chip_smoke.py's bars (the sound
-set at both shapes), then llama_350m's forward and backward through each
-set against the plain attention (chip_smoke.py's slice comparison). It
-exits non-zero if the sound kernels break a bar or a faulty set passes the
-kernel bars. Needs CUDA and nvcc.
+256 (H=4), where the wide kernels run, and the fp16 one at that shape in
+fp16 under chip_smoke.py's fp16 bars (`SIMT_LIMITS`) and against the plain
+model of the fp16 K3's arithmetic (tests/torch_f16_dkv_model.py, at 1e-3
+of the largest value, as tests/test_torch_cuda.py holds it; on random
+inputs and on an unscaled loss's dO of 1e-6). The script logs each kernel
+set's errors against the plain versions under chip_smoke.py's bars (the
+sound set at every shape and dtype), then llama_350m's forward and
+backward through each set against the plain attention (chip_smoke.py's
+slice comparison). It exits non-zero if the sound kernels break a bar or
+a faulty set passes the bars it is held to. Needs CUDA and nvcc.
 """
 
 from __future__ import annotations
@@ -44,34 +51,74 @@ sys.path.insert(0, ROOT)
 
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 WIDE_SHAPE = (8, 4, 2048, 2048, 256, True, 0)
+# the fp16 K3's model check: (B, H, Sq, Sk, D, causal, q_off, small dO)
+MODEL_CASES = ((1, 2, 192, 192, 256, True, 0, False),
+               (1, 2, 128, 128, 256, True, 0, True))
+MODEL_TOL = 1e-3
 # name -> (source file, the line as it stands, the line with the fault,
-# the shape it is held at)
+# the shape and dtype it is held at)
 FAULTS = {
     "fwd_last_tile": (
         "flash_fwd.cu",
         "        wgmma_rs<D, T>(acc, pa[kk], vd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
         "          wgmma_rs<D, T>(acc, pa[kk], vd + mnmajor_step(kk));\n",
-        MAIN_SHAPE),
+        MAIN_SHAPE, torch.bfloat16),
     "dq_last_tile": (
         "flash_dq.cu",
         "        wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
         "          wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
-        MAIN_SHAPE),
+        MAIN_SHAPE, torch.bfloat16),
     "dkv_last_tile": (
         "flash_dkv.cu",
         "        wgmma_rs<D, T>(dva, pa[kk], dd + mnmajor_step(kk));\n",
         "        if (j != gridDim.z - 1)\n"
         "          wgmma_rs<D, T>(dva, pa[kk], dd + mnmajor_step(kk));\n",
-        MAIN_SHAPE),
+        MAIN_SHAPE, torch.bfloat16),
     "dqw_last_tile": (
         "flash_dq_wide.cu",
         "        wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
         "          wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
-        WIDE_SHAPE),
+        WIDE_SHAPE, torch.bfloat16),
+    "dkvw_f16_no_rescale": (
+        "flash_dkv_wide.cu",
+        "      if (__any_sync(0xffffffffu, fell)) {\n",
+        "      if (false && __any_sync(0xffffffffu, fell)) {\n",
+        WIDE_SHAPE, torch.float16),
 }
+
+
+def model_errors(fa) -> list:
+    """fp16's wide K3 against the plain model of its arithmetic at
+    MODEL_CASES: the largest error over the largest value of the model's
+    dK (and dV, except on the small dO, whose dV lies among fp16's
+    subnormals), one a case."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_f16_dkv_model as model
+
+    errs = []
+    for B, H, Sq, Sk, D, causal, q_off, small in MODEL_CASES:
+        rng = np.random.default_rng(Sq + D)
+        if small:
+            q, k, v, do = model.small_gradient_inputs(rng, B, Sq, H, D, 64)
+        else:
+            q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D))
+                                      .astype(np.float16)) for _ in range(2))
+            k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D))
+                                     .astype(np.float16)) for _ in range(2))
+        qc, kc, vc, doc = (t.cuda() for t in (q, k, v, do))
+        o, lse = fa.flash_fwd(qc, kc, vc, causal, q_off)
+        _, delta = fa.flash_dq(qc, kc, vc, o, doc, lse, causal, q_off)
+        dk, dv = fa.flash_dkv(qc, kc, vc, doc, lse, delta, causal, q_off)
+        dk_m, dv_m = model.dkv(q, k, v, do, lse.cpu(), delta.cpu(), causal,
+                               q_off, D ** -0.5)
+        pairs = ((dk, dk_m), (dv, dv_m))[:1 if small else 2]
+        errs.append(max(((got.cpu().float() - ref).abs().max()
+                         / ref.abs().max()).item() for got, ref in pairs))
+    return errs
 
 
 def use_sources(build, fa, csrc, build_root) -> None:
@@ -85,7 +132,7 @@ def use_sources(build, fa, csrc, build_root) -> None:
 def plant(sound_csrc: Path, name: str):
     """A copy of the sound sources with fault `name`: (csrc dir, build
     root)."""
-    fname, old, new, _ = FAULTS[name]
+    fname, old, new = FAULTS[name][:3]
     base = os.path.join(ROOT, "build", "planted_fault", name)
     csrc = os.path.join(base, "csrc")
     shutil.rmtree(base, ignore_errors=True)
@@ -125,10 +172,19 @@ def main() -> int:
                                  else plant(sound[0], name)))
         build.build()
         log(f"--- {name}")
-        shapes = ((MAIN_SHAPE, WIDE_SHAPE) if name == "sound"
-                  else (FAULTS[name][3],))
-        bad = [b for shape in shapes
-               for b in chip_smoke.kernel_errors(fa, name, shape)[1]]
+        f16 = torch.float16
+        held = ((MAIN_SHAPE, torch.bfloat16), (WIDE_SHAPE, torch.bfloat16),
+                (WIDE_SHAPE, f16)) if name == "sound" else (FAULTS[name][3:],)
+        bad = [b for shape, dtype in held
+               for b in chip_smoke.kernel_errors(
+                   fa, name, shape, dtype, chip_smoke.SIMT_LIMITS[dtype]
+                   if dtype == f16 else chip_smoke.LIMITS)[1]]
+        if any(dtype == f16 for _, dtype in held):
+            errs = model_errors(fa)
+            log(f"model[{name}] fp16 wide K3 against its model: "
+                + " ".join(f"{e:.3g}" for e in errs) + f" (bar {MODEL_TOL})")
+            bad += [f"model={e:.3g}>{MODEL_TOL}" for e in errs
+                    if not e <= MODEL_TOL]
         slice_bad = chip_smoke.check_slice(
             chip_smoke.slice_gaps(bundle, session.module, batch))
         log(f"verdict[{name}] kernel bars broken: {bad or 'none'}; "

@@ -138,14 +138,16 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
     (True, 200, 128, 0, 200),
     (True, 328, 64, 128, 200),
     (True, 192, 256, 0, 192),
+    (True, 130, 384, 0, 130),
+    (False, 128, 512, 0, 128),
 ])
 def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
                                                     D, q_off, Sq):
     """The kernels of fp32 and fp16 tensors against the plain versions, at
     chip_smoke.py's SIMT_LIMITS: fp32's and fp16's dQ on the CUDA cores
     (csrc/flash_simt.cu), fp16's forward and dK/dV on the tensor cores up
-    to D=128 (flash_fwd_f16, flash_dkv_f16) and on the CUDA cores above
-    (`_f16_wide`)."""
+    to D=128 (flash_fwd_f16, flash_dkv_f16) and from 256 to 512
+    (flash_fwd_f16_wide, flash_dkv_f16_wide)."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[dtype]
     g = torch.Generator(cuda).manual_seed(7)
@@ -184,22 +186,26 @@ def _f16_backward(q, k, v, do, causal, q_off):
     return lse, delta, dk, dv
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_fp16_dkv_keeps_the_small_gradients_of_an_unscaled_loss(cuda, D):
     """The tensor-core fp16 dK/dV rounds dSᵀ to fp16 under a per-key-row
-    power of two (flash_dkv.cu), so an unscaled loss's dS near 1e-8 (dO of
-    1e-6) is not flushed: dK within 5e-3 of the largest value of the plain
-    version in fp32 on the same values (rounding dS to fp16 unscaled reads
-    0.2 on the CPU model, test_torch_f16_dkv_scale.py). Q is scaled by 64
+    power of two (flash_dkv.cu; at D=256 flash_dkv_wide.cu, whose two
+    warpgroups share each row's exponent), so an unscaled loss's dS near
+    1e-8 (dO of 1e-6) is not flushed: dK within 5e-3 of the largest value
+    of the plain version in fp32 on the same values (rounding dS to fp16
+    unscaled reads 0.2 on the CPU model, test_torch_f16_dkv_scale.py), at
+    the kernel's small dS as at D=64 and 128. Q is scaled by 64
     and K by 1/64 (S unchanged) so that dK = dSᵀ·Q lies among fp16's normal
     numbers."""
     import numpy as np
     import torch_f16_dkv_model as model
     q, k, v, do = (t.to(cuda) for t in model.small_gradient_inputs(
         np.random.default_rng(3), D=D, q_mult=64))
-    before = fa.launches["flash_dkv_f16"]
+    kernel = fa._kernel("flash_dkv", D, torch.float16)
+    assert kernel == ("flash_dkv_f16" if D <= 128 else "flash_dkv_f16_wide")
+    before = fa.launches[kernel]
     lse, delta, dk, _ = _f16_backward(q, k, v, do, True, 0)
-    assert fa.launches["flash_dkv_f16"] == before + 1
+    assert fa.launches[kernel] == before + 1
     dk_ref, _ = fa.flash_dkv_reference(q.float(), k.float(), v.float(),
                                        do.float(), lse, delta, True, 0)
     err = (dk.float() - dk_ref).abs().max() / dk_ref.abs().max()
@@ -213,12 +219,20 @@ def test_fp16_dkv_keeps_the_small_gradients_of_an_unscaled_loss(cuda, D):
     (1, 2, 96, 328, 128, True, 232, False),
     (1, 2, 128, 128, 64, True, 0, True),
     (1, 2, 128, 128, 128, True, 0, True),
+    # flash_dkv_f16_wide: 64-key blocks, 64 query rows at D=256, 32 above
+    (1, 2, 192, 192, 256, True, 0, False),
+    (2, 1, 200, 200, 256, False, 0, False),
+    (1, 2, 96, 328, 256, True, 232, False),
+    (1, 1, 130, 130, 384, True, 0, False),
+    (1, 1, 200, 200, 512, True, 0, False),
+    (1, 2, 128, 128, 256, True, 0, True),
 ])
 def test_fp16_dkv_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
                                     small):
-    """flash_dkv_f16 against the plain model of its arithmetic
-    (tests/torch_f16_dkv_model.py: the tiles, the per-key-row exponents,
-    P and the scaled dSᵀ rounded to fp16), on the kernel's own lse and δ,
+    """flash_dkv_f16 (and flash_dkv_f16_wide above D=128) against the plain
+    model of its arithmetic (tests/torch_f16_dkv_model.py at the kernel's
+    tiling: the tiles, the per-key-row exponents, P and the scaled dSᵀ
+    rounded to fp16), on the kernel's own lse and δ,
     at 1e-3 of the largest value: the kernel rounds dK and dV to fp16
     (2^-12 of a value) and sums in another order. `small` is the unscaled
     loss's dO of 1e-6 (Q scaled by 64, K by 1/64), where dK alone is held:
@@ -242,10 +256,11 @@ def test_fp16_dkv_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
         assert err.item() <= 1e-3, (name, err.item())
 
 
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
 def test_fp16_wgmma_kernels_are_deterministic(cuda, D):
-    """No atomics in flash_fwd_f16 or flash_dkv_f16: two launches on the
-    same inputs give bitwise-equal O, lse, dK and dV."""
+    """No atomics in flash_fwd_f16 or flash_dkv_f16, nor in their wide
+    twins: two launches on the same inputs give bitwise-equal O, lse, dK
+    and dV."""
     g = torch.Generator(cuda).manual_seed(9)
     q, k, v, do = (torch.randn(2, 320, 3, D, generator=g, device=cuda).half()
                    for _ in range(4))
@@ -257,6 +272,32 @@ def test_fp16_wgmma_kernels_are_deterministic(cuda, D):
     torch.cuda.synchronize()
     for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a, b)
+
+
+def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
+    """Above D=512 fp16's forward and dK/dV are the CUDA-core kernels
+    (`_f16_simt`: the wmma kernels there are bf16 code), by width, and
+    match the plain versions at SIMT_LIMITS."""
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float16]
+    g = torch.Generator(cuda).manual_seed(10)
+    q, k, v, do = (torch.randn(2, 200, 2, 640, generator=g, device=cuda)
+                   .half() for _ in range(4))
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, True, 0)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, True, 0)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, True, 0)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, 0)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, True, 0)
+    torch.cuda.synchronize()
+    assert row_err(o, o_ref) <= limits["o_row"]
+    assert (lse - lse_ref).abs().max().item() <= limits["lse"]
+    for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                        ("dv", dv, dv_ref)):
+        assert row_err(got, ref) <= limits[f"{n}_row"], n
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_f16_simt=1, flash_dq_f16=1, flash_dkv_f16_simt=1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])

@@ -1,23 +1,27 @@
-"""The fp16 dK/dV kernel's arithmetic (``csrc/flash_dkv.cu``,
-``voda_flash_dkv_f16``: dSᵀ rounded to fp16 under a per-key-row power of
-two), modelled in plain PyTorch (``tests/torch_f16_dkv_model.py``), on the
-CPU. The kernel itself runs only on the card, where
-`test_torch_cuda.py::test_fp16_dkv_matches_its_model` holds it against the
-same model.
+"""The fp16 dK/dV kernels' arithmetic (``csrc/flash_dkv.cu``,
+``voda_flash_dkv_f16``, and ``csrc/flash_dkv_wide.cu``,
+``voda_flash_dkv_f16_wide``: dSᵀ rounded to fp16 under a per-key-row power
+of two), modelled in plain PyTorch (``tests/torch_f16_dkv_model.py``, at
+each kernel's tiling), on the CPU. The kernels themselves run only on the
+card, where `test_torch_cuda.py::test_fp16_dkv_matches_its_model` holds
+them against the same model.
 
 The model is held three ways, each as the largest error over the largest
 value of the reference's tensor:
 
 - against the Pallas `_dkv_kernel` in interpret mode and against
   `flash_dkv_reference`, both in fp32 on the same fp16 values, at D 64 and
-  128, causal, non-causal and behind a q_offset: 2e-3, four ulps of fp16
-  at 1 (the model rounds P and the scaled dS to fp16, 2^-11 each; the
+  128 (the narrow kernel's tiling) and 256 (the wide kernel's), causal,
+  non-causal and behind a q_offset; at D=384 (the wide kernel's 32-row
+  query tiles) against `flash_dkv_reference` alone: 2e-3, four ulps of
+  fp16 at 1 (the model rounds P and the scaled dS to fp16, 2^-11 each; the
   references round neither);
 - on the inputs of `test_torch_flash_simt.py::
   test_fp16_keeps_the_small_gradients_of_an_unscaled_loss` (dO of 1e-6, dS
-  near 1e-8): dK within 5e-3 of `flash_dkv_reference` in fp32;
-- the same case with the scale removed (dS rounded to fp16 as it stands,
-  the Pallas kernel's rounding) reads above 0.1: the check sees the flush.
+  near 1e-8), at D=64 and D=256: dK within 5e-3 of `flash_dkv_reference`
+  in fp32;
+- the same cases with the scale removed (dS rounded to fp16 as it stands,
+  the Pallas kernel's rounding) read above 0.1: the check sees the flush.
 """
 
 import jax.numpy as jnp
@@ -56,6 +60,10 @@ def _stats(q, k, v, do, causal, q_off):
     # a query slice behind an offset, against longer keys
     (1, 2, 64, 320, 64, True, 256),
     (1, 1, 96, 256, 128, True, 160),
+    # the wide kernel's tiling: 64 keys a block, 64 query rows a tile
+    (1, 2, 192, 192, 256, True, 0),
+    (1, 1, 130, 130, 256, False, 0),
+    (1, 1, 96, 256, 256, True, 160),
 ])
 def test_the_model_matches_pallas_and_the_plain_version(B, H, Sq, Sk, D,
                                                         causal, q_off):
@@ -86,10 +94,27 @@ def test_the_model_matches_pallas_and_the_plain_version(B, H, Sq, Sk, D,
         assert err <= TOL, (name, err)
 
 
-def _small_case(scaled: bool) -> float:
-    q, k, v, do = model.small_gradient_inputs(np.random.default_rng(3))
+def test_the_wide_model_at_384_matches_the_plain_version():
+    """D=384: the wide kernel's 32-row query tiles (its 128-wide chunks of
+    dK each derive the same exponents, so the model takes the whole row)."""
+    rng = np.random.default_rng(384)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 96, 1, 384))
+                                    .astype(np.float16)) for _ in range(4))
+    assert model.tiling(384) == (64, 32)
     lse, delta = _stats(q, k, v, do, True, 0)
-    dk, _ = model.dkv(q, k, v, do, lse, delta, True, 0, 64 ** -0.5,
+    dk, dv = model.dkv(q, k, v, do, lse, delta, True, 0, 384 ** -0.5)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q.float(), k.float(), v.float(),
+                                            do.float(), lse, delta, True, 0)
+    for name, got, ref in (("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        err = _rel(got, ref)
+        print(f"parity f16_dkv_model D=384 {name}/plain: rel_err={err:.3g}")
+        assert err <= TOL, (name, err)
+
+
+def _small_case(scaled: bool, D: int = 64) -> float:
+    q, k, v, do = model.small_gradient_inputs(np.random.default_rng(3), D=D)
+    lse, delta = _stats(q, k, v, do, True, 0)
+    dk, _ = model.dkv(q, k, v, do, lse, delta, True, 0, D ** -0.5,
                       scaled=scaled)
     dk_ref, _ = fa.flash_dkv_reference(q.float(), k.float(), v.float(),
                                        do.float(), lse, delta, True, 0)
@@ -105,4 +130,17 @@ def test_the_scale_keeps_the_small_gradients_of_an_unscaled_loss():
 def test_without_the_scale_the_small_gradients_flush():
     err = _small_case(scaled=False)
     print(f"parity f16_dkv_model small dO unscaled: rel_err={err:.3g}")
+    assert err > 0.1
+
+
+def test_the_wide_scale_keeps_the_small_gradients_of_an_unscaled_loss():
+    """The same case at D=256, on the wide kernel's tiling."""
+    err = _small_case(scaled=True, D=256)
+    print(f"parity f16_dkv_model D=256 small dO: rel_err={err:.3g}")
+    assert err <= SMALL_TOL
+
+
+def test_without_the_scale_the_wide_small_gradients_flush():
+    err = _small_case(scaled=False, D=256)
+    print(f"parity f16_dkv_model D=256 small dO unscaled: rel_err={err:.3g}")
     assert err > 0.1

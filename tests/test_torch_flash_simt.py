@@ -1,10 +1,11 @@
 """The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's
 forward, dQ and dK/dV, fp16's dQ, and fp16's forward and dK/dV that the
-wrappers take above a head width of 128, ``_f16_wide``) against the JAX
+wrappers take above a head width of 512, ``_f16_simt``) against the JAX
 package's Pallas kernels in interpret mode, on the CPU. fp16's forward and
-dK/dV up to 128 are wgmma kernels (``flash_fwd.cu``, ``flash_dkv.cu``),
-which no CPU runs: here the wrappers route fp16 to the CUDA-core kernels at
-every width (the fixture `wrappers`), as those kernels take any width.
+dK/dV up to 512 are wgmma kernels (``flash_fwd.cu``, ``flash_dkv.cu`` and
+their wide twins), which no CPU runs: here the wrappers route fp16 to the
+CUDA-core kernels at every width (the fixture `wrappers`), as those
+kernels take any width.
 
 There is no ``nvcc`` here, so the CUDA source is compiled by ``g++`` against
 a CPU emulation of the few CUDA pieces it uses (``tests/cuda_emulation``: a
@@ -114,6 +115,8 @@ def _jax(q, k, v, do, causal, q_off):
     (1, 1, 64, 192, 64, True, 128),
     # a head wider than one CTA's 128 output columns
     (1, 1, 64, 64, 256, True, 0),
+    # above 512, where the wrappers take the CUDA-core fp16 kernels unrouted
+    (1, 1, 64, 64, 640, True, 0),
 ])
 def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
                                           causal, q_off):
@@ -146,11 +149,11 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 
 def test_the_wrappers_route_dtypes_to_their_kernels():
     """fp32 takes its CUDA-core kernels at every width; fp16 its
-    tensor-core forward and dK/dV up to 128 (in the bf16 kernels' sources)
-    and the CUDA-core ones above (`_f16_wide`), and its CUDA-core dQ at
-    every width."""
+    tensor-core forward and dK/dV up to 512 (in the bf16 kernels' sources,
+    `_f16` and `_f16_wide`) and the CUDA-core ones above (`_f16_simt`), and
+    its CUDA-core dQ at every width."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-        for D in (64, 128, 256, 512):
+        for D in (64, 128, 256, 512, 640):
             assert fa._kernel(name, D, torch.float32) == f"{name}_f32"
             assert fa.source(f"{name}_f32") == fa.SIMT_SOURCE
             f16 = fa._kernel(name, D, torch.float16)
@@ -159,8 +162,11 @@ def test_the_wrappers_route_dtypes_to_their_kernels():
                 assert fa.source(f16) == fa.SIMT_SOURCE
             elif D <= 128:
                 assert f16 == f"{name}_f16" and fa.source(f16) == name
-            else:
+            elif D <= fa.WGMMA_MAX_D:
                 assert f16 == f"{name}_f16_wide"
+                assert fa.source(f16) == f"{name}_wide"
+            else:
+                assert f16 == f"{name}_f16_simt"
                 assert fa.source(f16) == fa.SIMT_SOURCE
             assert f16 in fa.launches and f16 in fa._ARGTYPES
         assert fa._kernel(name, 64) == fa.source(name) == name

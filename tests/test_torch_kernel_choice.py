@@ -4,8 +4,9 @@ CPU (a ``torch.device("cuda")`` object needs no card).
 The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
 take the wgmma kernels, fp32 tensors the CUDA-core kernels
 (``csrc/flash_simt.cu``), fp16 tensors the wgmma forward and dK/dV up to a
-head width of 128 (``flash_fwd_f16``, ``flash_dkv_f16``), the CUDA-core
-ones above it (``_f16_wide``) and the CUDA-core dQ. So a Llama or Mixtral takes the
+head width of 128 (``flash_fwd_f16``, ``flash_dkv_f16``) and from 256 to
+512 (``flash_fwd_f16_wide``, ``flash_dkv_f16_wide``), the CUDA-core ones
+above 512 (``_f16_simt``) and the CUDA-core dQ. So a Llama or Mixtral takes the
 kernels on CUDA whatever dtype it computes in, and no path gives way to the
 plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
 attention (0) or the kernels (1, which raises off CUDA). The card tests of
@@ -15,12 +16,14 @@ the same choice are
 
 import dataclasses
 import functools
+import re
 
 import pytest
 import torch
 
 from vodascheduler_tpu_torch.models import llama
 from vodascheduler_tpu_torch.models.registry import llama_bundle
+from vodascheduler_tpu_torch.ops import _build
 from vodascheduler_tpu_torch.ops import flash_attention as fa
 from vodascheduler_tpu_torch.runtime import train
 
@@ -77,14 +80,60 @@ def test_each_dtype_has_its_kernels(dtype, suffix):
 
 
 @pytest.mark.parametrize("D", [256, 384, 512])
-def test_fp16_heads_above_128_take_the_cuda_core_forward_and_dkv(D):
-    want = {"flash_fwd": "flash_fwd_f16_wide", "flash_dq": "flash_dq_f16",
-            "flash_dkv": "flash_dkv_f16_wide"}
+def test_fp16_heads_above_128_take_the_wide_wgmma_forward_and_dkv(D):
+    """The wide bf16 kernels' sources, templated on fp16, take fp16's
+    forward and dK/dV from 256 to 512; dQ stays on the CUDA cores."""
+    want = {"flash_fwd": ("flash_fwd_f16_wide", "flash_fwd_wide"),
+            "flash_dq": ("flash_dq_f16", fa.SIMT_SOURCE),
+            "flash_dkv": ("flash_dkv_f16_wide", "flash_dkv_wide")}
+    for name, (kernel, src) in want.items():
+        assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
+            == kernel
+        assert fa.source(kernel) == src
+        assert kernel in fa.launches and kernel in fa._ARGTYPES
+
+
+@pytest.mark.parametrize("D", [640, 1024])
+def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
+    """Above 512, where bf16's wide kernels cut D on wmma (bf16 code), fp16
+    takes the CUDA-core kernels, by width."""
+    want = {"flash_fwd": "flash_fwd_f16_simt", "flash_dq": "flash_dq_f16",
+            "flash_dkv": "flash_dkv_f16_simt"}
     for name, kernel in want.items():
         assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
             == kernel
         assert fa.source(kernel) == fa.SIMT_SOURCE
         assert kernel in fa.launches and kernel in fa._ARGTYPES
+    # bf16 keeps its wide kernels there (on wmma)
+    assert fa._kernel("flash_fwd", D, torch.bfloat16) == "flash_fwd_wide"
+
+
+@pytest.mark.parametrize("source,exports,lacks", [
+    ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide"),
+     ()),
+    ("flash_dkv_wide", ("voda_flash_dkv_wide", "voda_flash_dkv_f16_wide"),
+     ()),
+    ("flash_simt", ("voda_flash_fwd_f32", "voda_flash_dq_f16",
+                    "voda_flash_fwd_f16_simt", "voda_flash_dkv_f16_simt"),
+     ("voda_flash_fwd_f16_wide", "voda_flash_dkv_f16_wide")),
+])
+def test_each_source_exports_the_entries_its_kernels_are_named_by(
+        source, exports, lacks):
+    """The C entry points, read from the sources' text (no nvcc here): the
+    wide sources export fp16's `_f16_wide` entries beside bf16's, and
+    flash_simt.cu exports the renamed `_f16_simt` ones and no
+    `_f16_wide`. Each name the wrappers route to a source is an entry of
+    it."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    entries = set(re.findall(r'extern "C" int (voda_\w+)\(', text))
+    for fwd, dq, dkv in re.findall(
+            r"VODA_SIMT_ENTRIES\(\w+, (\w+), (\w+), (\w+)\)", text):
+        entries |= {f"voda_flash_fwd_{fwd}", f"voda_flash_dq_{dq}",
+                    f"voda_flash_dkv_{dkv}"}
+    assert set(exports) <= entries
+    assert not set(lacks) & entries
+    routed = {f"voda_{k}" for k in fa.launches if fa.source(k) == source}
+    assert routed <= entries
 
 
 @pytest.mark.parametrize("names", [
@@ -93,7 +142,8 @@ def test_fp16_heads_above_128_take_the_cuda_core_forward_and_dkv(D):
     ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32"),
     (),
     ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16"),
-    ("flash_fwd_f16_wide", "flash_dq_f16", "flash_dkv_f16_wide")])
+    ("flash_fwd_f16_wide", "flash_dq_f16", "flash_dkv_f16_wide"),
+    ("flash_fwd_f16_simt", "flash_dq_f16", "flash_dkv_f16_simt")])
 def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     """What the resize bench's restart child loads before the session: the
     kernels the prepare child's steps launched, and no other."""

@@ -20,8 +20,12 @@ DKV64_F16 = DKV64.replace("13__nv_bfloat16", "6__half")
 DKV128_F16 = DKV64_F16.replace("ILi64E", "ILi128E")
 DQ64 = "_ZN4voda15flash_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfPfP13__nv_bfloat16iiiiif"
 DQ128 = DQ64.replace("ILi64E", "ILi128E")
-FWDW256 = "_ZN4voda21flash_fwd_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiif"
-DKVW256 = "_ZN4voda21flash_dkv_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_iiiiif"
+# the wide forward and dK/dV, templated on their element type as well
+FWDW256 = "_ZN4voda21flash_fwd_wide_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiif"
+DKVW256 = "_ZN4voda21flash_dkv_wide_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiif"
+FWDW256_F16 = FWDW256.replace("13__nv_bfloat16", "6__half")
+DKVW256_F16 = DKVW256.replace("13__nv_bfloat16", "6__half")
+DKVW512_F16 = DKVW256_F16.replace("ILi256E", "ILi512E")
 DQW256 = "_ZN4voda20flash_dq_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16PKfPfPS2_iiiiif"
 FWDW512 = FWDW256.replace("ILi256E", "ILi512E")
 DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
@@ -30,7 +34,9 @@ DQW512 = DQW256.replace("ILi256E", "ILi512E")
 DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
 F16_CLEAN = ((FWD64_F16, 0, 0), (DKV64_F16, 0, 0))
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
-WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0))
+WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DKVW256_F16, 0, 0))
+WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
+              *WIDE_F16_CLEAN)
 
 
 def log_of(*kernels):
@@ -97,13 +103,16 @@ def test_spill_at_d128_is_only_logged():
 def test_ptxas_spills_reads_the_wide_kernels_by_width():
     spills = chip_smoke.ptxas_spills(log_of(
         *MAIN_CLEAN, *WIDE_CLEAN, (FWDW512, 600, 532), (DKVW384, 0, 0),
-        (DQW, 12, 12)))
+        (DQW, 12, 12), (DKVW512_F16, 16, 16)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_fwd_f16", 64): 0,
                       ("flash_dkv_f16", 64): 0, ("flash_fwd_wide", 256): 0,
                       ("flash_dq_wide", 256): 0, ("flash_dkv_wide", 256): 0,
+                      ("flash_fwd_f16_wide", 256): 0,
+                      ("flash_dkv_f16_wide", 256): 0,
                       ("flash_fwd_wide", 512): 1132,
-                      ("flash_dkv_wide", 384): 0}
+                      ("flash_dkv_wide", 384): 0,
+                      ("flash_dkv_f16_wide", 512): 32}
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 
@@ -123,9 +132,27 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
     # neither the wmma dQ kernel nor the new one at 512 stands for D=256
     (((FWDW256, 0, 0), (DQW, 0, 0), (DQW512, 0, 0), (DKVW256, 0, 0)),
      "flash_dq_wide D=256: no ptxas spill line"),
+    # fp16's wide forward and dK/dV, gated as the bf16 ones
+    (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
+      (FWDW256_F16, 0, 0), (DKVW256_F16, 24, 24)),
+     "flash_dkv_f16_wide D=256: 48 bytes spilled"),
+    (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
+      (FWDW256_F16, 4, 0), (DKVW256_F16, 0, 0)),
+     "flash_fwd_f16_wide D=256: 4 bytes spilled"),
+    (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
+      (DKVW512_F16, 0, 0), (FWDW256_F16, 0, 0)),
+     "flash_dkv_f16_wide D=256: no ptxas spill line"),
+    # an fp16 wide kernel's line is not read as bf16's
+    (((DKVW256_F16, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
+      (FWDW256_F16, 0, 0)),
+     "flash_fwd_wide D=256: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_in_a_wide_kernel_at_d256(wide, fault):
-    spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *wide))
+    """Each case's log also holds the fp16 wide kernels' clean lines,
+    except where the case names an fp16 wide kernel itself."""
+    names = {k[0] for k in wide}
+    f16 = () if names & {FWDW256_F16, DKVW256_F16} else WIDE_F16_CLEAN
+    spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *wide, *f16))
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
     # the main path's gate alone does not look at the wide kernels
     assert chip_smoke.spill_faults(spills) == []
@@ -144,6 +171,7 @@ def test_a_clean_wide_log_passes_every_gate():
     spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *WIDE_CLEAN))
     assert set(chip_smoke.SPILL_GATES) <= set(spills)
     assert ("flash_dq_wide", 256) in chip_smoke.SPILL_GATES
+    assert ("flash_dkv_f16_wide", 256) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 

@@ -1,12 +1,16 @@
-"""A plain PyTorch model of the fp16 dK/dV kernel's arithmetic
-(``vodascheduler_tpu_torch/ops/csrc/flash_dkv.cu``, ``voda_flash_dkv_f16``),
-written apart from the package so that the tests hold the kernel's design,
-and the kernel itself, against it.
+"""A plain PyTorch model of the fp16 dK/dV kernels' arithmetic
+(``vodascheduler_tpu_torch/ops/csrc/flash_dkv.cu``, ``voda_flash_dkv_f16``,
+and ``flash_dkv_wide.cu``, ``voda_flash_dkv_f16_wide``), written apart
+from the package so that the tests hold the kernels' design, and the
+kernels themselves, against it.
 
-The kernel walks the query tiles of BM rows (64 at D=64, 32 at D=128) past
-each block of 128 keys, from the first tile whose last row reaches the
-block under the causal mask. Per tile it forms Pᵀ = exp(K·Qᵀ·scale − lse)
-and dSᵀ/scale = Pᵀ∘(V·dOᵀ − δ) in fp32, and for each key row j:
+A kernel walks the query tiles of BM rows past each block of keys, from
+the first tile whose last row reaches the block under the causal mask
+(`tiling`: the narrow kernel's blocks of 128 keys against 64 query rows at
+D=64 and 32 at D=128; the wide kernel's blocks of 64 keys against 64 query
+rows at D=256 and 32 at 384 and 512, where its two warpgroups share each
+row's exponent). Per tile it forms Pᵀ = exp(K·Qᵀ·scale − lse) and
+dSᵀ/scale = Pᵀ∘(V·dOᵀ − δ) in fp32, and for each key row j:
 
 - m = max |dSᵀ/scale| over the tile's row, times scale;
 - where m > 0, e_j falls to DS_TOP − ⌊log2 m⌋ if that is lower (from
@@ -28,11 +32,15 @@ import torch
 DS_TOP = 13
 E_MAX = 100
 LOG2E = 1.4426950408889634
-KEY_BLOCK = 128
 
 
-def query_tile(D: int) -> int:
-    return 64 if D == 64 else 32
+def tiling(D: int):
+    """(keys of a block, query rows of a tile) of the fp16 kernel that
+    takes head width D: flash_dkv.cu's up to 128, flash_dkv_wide.cu's
+    (`DkvWide::BN`, `DkvWide::BM`) from 256 to 512."""
+    if D <= 128:
+        return 128, 64 if D == 64 else 32
+    return 64, 64 if D == 256 else 32
 
 
 def _binade(m: torch.Tensor) -> torch.Tensor:
@@ -43,17 +51,18 @@ def _binade(m: torch.Tensor) -> torch.Tensor:
 
 def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
         scaled: bool = True):
-    """dK, dV [B, Sk, H, D] fp32 as the fp16 kernel computes them. q, k, v,
-    do are fp16 [B, S, H, D]; lse and delta fp32 [B, H, Sq]."""
+    """dK, dV [B, Sk, H, D] fp32 as the fp16 kernel of width D computes
+    them, at its `tiling`. q, k, v, do are fp16 [B, S, H, D]; lse and delta
+    fp32 [B, H, Sq]."""
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
-    BM = query_tile(D)
+    key_block, BM = tiling(D)
     qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
     dk = torch.zeros(B, H, Sk, D)
     dv = torch.zeros(B, H, Sk, D)
     sc = torch.tensor(scale, dtype=torch.float32)
-    for k0 in range(0, Sk, KEY_BLOCK):
-        keys = torch.arange(k0, min(k0 + KEY_BLOCK, Sk))
+    for k0 in range(0, Sk, key_block):
+        keys = torch.arange(k0, min(k0 + key_block, Sk))
         kb, vb = kf[:, :, keys], vf[:, :, keys]
         ex = torch.full((B, H, len(keys)), E_MAX, dtype=torch.int32)
         acc_k = torch.zeros(B, H, len(keys), D)

@@ -72,17 +72,6 @@
 
 namespace voda {
 
-// fp16's per-key-row scale of dSᵀ (header): the scaled row max lies in
-// [2^DS_TOP, 2^(DS_TOP+1)); exponents stay in [-E_MAX, E_MAX], so that 2^e
-// and 2^-e are normal fp32 numbers.
-constexpr int DS_TOP = 13;
-constexpr int E_MAX = 100;
-
-// 2^e for an integer e in [-126, 127], exactly.
-__device__ __forceinline__ float pow2i(int e) {
-  return __int_as_float((e + 127) << 23);
-}
-
 template <int D>
 struct Dkv {
   static constexpr int BN = 128;  // keys of a CTA
@@ -288,10 +277,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         bool fell = false;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const float m = quad_max(mx[r]) * scale;
-          // DS_TOP minus the binade of m; a subnormal m reads as -127
-          const int et = DS_TOP - (((__float_as_int(m) >> 23) & 0xff) - 127);
-          const int en = m > 0.f ? max(-E_MAX, min(ex[r], et)) : ex[r];
+          const int en = ds_exponent(quad_max(mx[r]) * scale, ex[r]);
           f[r] = pow2i(max(en - ex[r], -126));
           fell |= en < ex[r];
           ex[r] = en;

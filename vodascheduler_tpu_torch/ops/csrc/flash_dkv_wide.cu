@@ -7,11 +7,12 @@
 // Pᵀ∘(V·dOᵀ − δ)·scale recomputed from the forward's lse and the dQ
 // kernel's δ: dK = dSᵀ·Q and dV = Pᵀ·dO.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): four products of
-// 2·B·H·Sq·Sk·D FLOPs (Sᵀ, dPᵀ, Pᵀ·dO, dSᵀ·Q), halved under the causal
-// mask: at B=8, H=4, S=2048, D=256, 137 GFLOP, 139 µs, against six
-// [B,S,H,D] bf16 tensors and two row statistics ≈ 201 MB, 60 µs:
-// compute-bound (the same at B=8, H=2, D=512).
+// Bound on an H100 SXM (989 TFLOP/s bf16, and the same dense f16 rate,
+// 3.35 TB/s): four products of 2·B·H·Sq·Sk·D FLOPs (Sᵀ, dPᵀ, Pᵀ·dO,
+// dSᵀ·Q), halved under the causal mask: at B=8, H=4, S=2048, D=256, 137
+// GFLOP, 139 µs, against six [B,S,H,D] 16-bit tensors and two row
+// statistics ≈ 201 MB, 60 µs: compute-bound (the same at B=8, H=2, D=512),
+// in bf16 and in fp16 alike.
 //
 // Design (D = 256, 384, 512):
 // - A CTA owns 64 keys of one (b, h) and a chunk of dK and dV CW columns
@@ -27,7 +28,7 @@
 //   memory). Warpgroup 0 turns Sᵀ into Pᵀ = exp(Sᵀ·scale − lse) on its
 //   accumulators and hands Pᵀ to warpgroup 1 as fp32 through shared memory
 //   (named barrier 3); warpgroup 1 computes dSᵀ = Pᵀ∘(dPᵀ − δ)·scale and
-//   hands it back as bf16 A fragments (named barrier 4). Both layouts are
+//   hands it back as A fragments of T (named barrier 4). Both layouts are
 //   the accumulator's own, thread by thread, so the exchange is a
 //   conflict-free 16-byte store and load a thread. Then each warpgroup runs
 //   dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half]
@@ -45,15 +46,21 @@
 // - Keys past Sk arrive from TMA as zeros; their rows are never stored.
 //
 // Shared memory, of the 227 KB (plus 1 KB to align the base to the
-// swizzle's 1024 bytes, and the mbarriers):
+// swizzle's 1024 bytes, and the mbarriers), bf16 (fp16 adds the exponents'
+// 1 KB, below):
 //   D=256, BM=64: K, V 64 KB + 2 × (Q, dO 64 KB + lse, δ) + Pᵀ 16 KB +
-//                 dSᵀ 8 KB = 217 KB
-//   D=384, BM=32: K, V 96 KB + 2 × (Q, dO 48 KB) + 12 KB = 204 KB
-//   D=512, BM=32: K, V 128 KB + 1 × (Q, dO 64 KB) + 12 KB = 204 KB; with one
-//                 stage a tile's loads wait for the last tile's products.
+//                 dSᵀ 8 KB = 217 KB (fp16: 218 KB; 219.05 KiB launched)
+//   D=384, BM=32: K, V 96 KB + 2 × (Q, dO 48 KB) + 12 KB = 204 KB (fp16:
+//                 205 KB)
+//   D=512, BM=32: K, V 128 KB + 1 × (Q, dO 64 KB) + 12 KB = 204 KB (fp16:
+//                 205 KB); with one stage a tile's loads wait for the last
+//                 tile's products. The exponents' slot changes no width's
+//                 BM or stages.
 // Registers: setmaxnreg gives the producer 40 and each consumer thread 232.
 // A consumer holds dK and dV for its half (CW/4 fp32 each: 64 at CW=256),
-// Sᵀ or dPᵀ (BM/2 fp32) and the two bf16 A operands (BM/4 each). ptxas
+// Sᵀ or dPᵀ (BM/2 fp32) and the two A operands of T (BM/4 each); fp16 adds
+// the two exponents of the thread's key rows and, for the tile's scale,
+// a few registers more. ptxas
 // spills nothing at D=256, 384 or 512 (chip_smoke.py phase 2 refuses a
 // spill at D=256), once no trap sits in the waits, as in flash_fwd_wide.cu.
 // Where the time goes (scripts/torch_kernel_ablate.py on an H100, two
@@ -67,14 +74,49 @@
 // δ = rowsum(dO∘O) is read from `delta`, which the dQ kernel wrote earlier
 // on the same stream. No atomics: each CTA writes its own rows and columns
 // of dK and dV, so both are deterministic.
+//
+// fp16 (voda_flash_dkv_f16_wide, D = 256, 384, 512). The same kernel on
+// fp16 tensors, the element type a template parameter (bf16 by default),
+// with flash_dkv.cu's per-key-row scale of dSᵀ carried over to this split
+// of the work. wgmma takes both operands in one type, so dSᵀ is rounded to
+// fp16, where an unscaled loss's dS (near 1e-8 for an output gradient of
+// 1e-6) would flush below fp16's smallest normal, 6e-5. So:
+// - Warpgroup 1, which forms dSᵀ, keeps a running exponent e_j for each of
+//   its thread's two key rows (E_MAX at the start). For each query tile it
+//   takes the row's largest |Pᵀ∘(dPᵀ − δ)| over the quad that holds the
+//   row, times scale, and lowers e_j to the exponent that puts it in
+//   [2^13, 2^14) where that is lower (ds_exponent, hopper.cuh; never below
+//   −E_MAX; a row the tile masks keeps e_j). 2^e_j rides in the factor that
+//   already applies scale, and the row is packed to fp16 A fragments.
+// - Both warpgroups accumulate dK over the same 64 key rows, each in its
+//   half of the columns, and thread tid of warpgroup 0 holds the same two
+//   key rows as thread tid of warpgroup 1 (the m64 accumulator layout). So
+//   warpgroup 1 writes its thread's two new exponents (8 bytes) beside the
+//   dSᵀ fragments in the exchange, behind the same named barrier 4, and
+//   warpgroup 0 reads them with the fragments: both keep the same e_j.
+// - Each warpgroup multiplies its half of dK's row by 2^(new − old) where
+//   the exponent fell (exact in fp32; behind a warp vote, so a tile with no
+//   change costs one vote), after the last tile's dV and dK products have
+//   completed and before this tile's are issued.
+// - The epilogue stores dK's row times 2^−e_j in both warpgroups. dV is
+//   unscaled: Pᵀ lies in [0, 1] and is rounded to fp16 as it stands.
+// At D = 384 and 512 the CTAs of a key block (one a chunk of dK's columns)
+// each compute the same Sᵀ, dPᵀ and dSᵀ tiles over all of D, in the same
+// order, so each derives the same e_j for a row: dK's columns agree across
+// CTAs with nothing exchanged between them. For bf16 none of this is
+// compiled (`if constexpr`), and its shared layout is the parent's.
 
 #include "hopper.cuh"
 #include "wide.cuh"
 
 namespace voda {
 
-template <int D>
+template <int D, typename T = bf16>
 struct DkvWide {
+  // fp16: dSᵀ under a per-key-row scale, whose exponents the exchange
+  // carries too (header)
+  static constexpr bool SCALED = std::is_same<T, f16>::value;
+  static constexpr int XE_BYTES = SCALED ? 8 * WG_THREADS : 0;
   static constexpr int CW = D % 256 == 0 ? 256 : 128;  // dK/dV chunk of a CTA
   static constexpr int HW = CW / 2;  // a consumer warpgroup's half of it
   static constexpr int BN = 64;      // keys of a CTA
@@ -82,8 +124,11 @@ struct DkvWide {
   static constexpr int ROOM = MAX_SMEM - 1024 - 2 * KV_BYTES - 8 * 8;
   // a stage of `bm` query rows: Q, dO, lse, δ
   static constexpr int stage_bytes(int bm) { return 4 * bm * D + 8 * bm; }
-  // the exchange: Pᵀ as fp32 and dSᵀ as bf16 A fragments
-  static constexpr int xchg_bytes(int bm) { return 256 * bm + 128 * bm; }
+  // the exchange: Pᵀ as fp32 and dSᵀ as A fragments of T (and, for fp16,
+  // the exponents of dSᵀ's rows)
+  static constexpr int xchg_bytes(int bm) {
+    return 256 * bm + 128 * bm + XE_BYTES;
+  }
   static constexpr int fit(int bm) {
     return (ROOM - xchg_bytes(bm)) / stage_bytes(bm);
   }
@@ -97,13 +142,14 @@ struct DkvWide {
   static constexpr int STAT_OFF = DO_OFF + STAGES * T_BYTES;  // lse, δ
   static constexpr int XP_OFF = STAT_OFF + STAGES * 2 * BM * 4;
   static constexpr int XDS_OFF = XP_OFF + 256 * BM;
-  static constexpr int BAR_OFF = XDS_OFF + 128 * BM;
+  static constexpr int XE_OFF = XDS_OFF + 128 * BM;
+  static constexpr int BAR_OFF = XE_OFF + XE_BYTES;
   // kv_full, q_full[STAGES], do_full[STAGES], empty[STAGES]
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
   static_assert(STAGES >= 1 && SMEM <= MAX_SMEM, "no stage fits beside K, V");
 };
 
-template <int D>
+template <int D, typename T = bf16>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_dkv_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
@@ -111,23 +157,25 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                          T* __restrict__ dk, T* __restrict__ dv, int H,
                           int Sq, int Sk, int q_off, int causal,
                           float scale) {
-  using C = DkvWide<D>;
+  using C = DkvWide<D, T>;
+  constexpr bool SCALED = C::SCALED;
   constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, HW = C::HW;
   // The producer warp also stages lse and δ, so it keeps 40 registers.
   using Regs = RegSplit<40, 232>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* ks = reinterpret_cast<bf16*>(sm);
-  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
-  bf16* qs = reinterpret_cast<bf16*>(sm + C::Q_OFF);
-  bf16* dos = reinterpret_cast<bf16*>(sm + C::DO_OFF);
+  T* ks = reinterpret_cast<T*>(sm);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm + C::Q_OFF);
+  T* dos = reinterpret_cast<T*>(sm + C::DO_OFF);
   float* stat_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // [ST][2][BM]
   float4* xp = reinterpret_cast<float4*>(sm + C::XP_OFF);      // [BM/8][128]
   uint4* xds = reinterpret_cast<uint4*>(sm + C::XDS_OFF);      // [BM/16][128]
+  int2* xe = reinterpret_cast<int2*>(sm + C::XE_OFF);  // fp16: [128] exponents
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* q_full = kv_full + 1;
   uint64_t* do_full = q_full + ST;
@@ -213,7 +261,30 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int e = 0; e < HW / 2; ++e) dka[e] = dva[e] = 0.f;
     float sc[BM / 2];  // Sᵀ, then Pᵀ (warpgroup 0); dPᵀ, then dSᵀ (1)
     uint32_t pa[BM / 16][4], dsa[BM / 16][4];
-    const bf16* a_tile = cw ? vs : ks;
+    const T* a_tile = cw ? vs : ks;
+    // fp16: the exponents of the thread's two key rows (header), the same
+    // in both warpgroups
+    int ex[2] = {E_MAX, E_MAX};
+    // fp16: dK's rows times 2^(en − ex) where an exponent fell, then ex = en
+    auto rescale = [&](const int (&en)[2]) {
+      float f[2];
+      bool fell = false;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        f[r] = pow2i(max(en[r] - ex[r], -126));
+        fell |= en[r] < ex[r];
+        ex[r] = en[r];
+      }
+      if (__any_sync(0xffffffffu, fell)) {
+#pragma unroll
+        for (int c = 0; c < HW / 8; ++c) {
+          dka[4 * c] *= f[0];
+          dka[4 * c + 1] *= f[0];
+          dka[4 * c + 2] *= f[1];
+          dka[4 * c + 3] *= f[1];
+        }
+      }
+    };
 
     // Sᵀ = K·Qᵀ (warpgroup 0) or dPᵀ = V·dOᵀ (warpgroup 1) of tile i over
     // all of D into sc, committed as one group
@@ -227,8 +298,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BM>(sc, ad + kmajor_step(BN, kk), bd + kmajor_step(BM, kk),
-                     kk > 0);
+        wgmma_ss<BM, T>(sc, ad + kmajor_step(BN, kk),
+                        bd + kmajor_step(BM, kk), kk > 0);
       wgmma_commit();
     };
     // Warpgroup 0: Pᵀ of tile i from Sᵀ, handed over; the mask is a pass of
@@ -264,10 +335,12 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                                                sc[4 * c + 2], sc[4 * c + 3]);
       }
 #pragma unroll
-      for (int kk = 0; kk < BM / 16; ++kk) acc_to_a<BM / 2>(pa[kk], sc, kk);
+      for (int kk = 0; kk < BM / 16; ++kk)
+        acc_to_a<BM / 2, T>(pa[kk], sc, kk);
       asm volatile("bar.arrive 3, 256;" ::: "memory");  // Pᵀ is out
     };
-    // Warpgroup 0: dSᵀ of the same tile, from warpgroup 1
+    // Warpgroup 0: dSᵀ of the same tile, from warpgroup 1 (fp16: with its
+    // rows' exponents, and dK's rows rescaled where they fell)
     auto ds_in = [&]() {
       asm volatile("bar.sync 4, 256;" ::: "memory");  // dSᵀ is in
 #pragma unroll
@@ -278,26 +351,62 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         dsa[kk][2] = x.z;
         dsa[kk][3] = x.w;
       }
+      if constexpr (SCALED) {
+        const int2 e = xe[tid];
+        const int en[2] = {e.x, e.y};
+        rescale(en);
+      }
     };
     // Warpgroup 1: dSᵀ of tile i from dPᵀ and warpgroup 0's Pᵀ, handed back
+    // (fp16: under its rows' new exponents, which go with it, dK's rows
+    // rescaled where they fell)
     auto ds_out = [&](int i) {
       const float* del_s = stat_s + ((i - i0) % ST) * 2 * BM + BM;
       asm volatile("bar.sync 3, 256;" ::: "memory");  // Pᵀ is in
+      float mx[2] = {0.f, 0.f};  // fp16: the rows' largest |dSᵀ| / scale
 #pragma unroll
       for (int c = 0; c < BM / 8; ++c) {
         const float4 p = xp[c * WG_THREADS + tid];
         const float2 dl =
             *reinterpret_cast<const float2*>(del_s + 8 * c + 2 * t);
-        sc[4 * c] = p.x * (sc[4 * c] - dl.x) * scale;
-        sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl.y) * scale;
-        sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl.x) * scale;
-        sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl.y) * scale;
-        pa[c / 2][2 * (c % 2)] = pack_bf16(p.x, p.y);
-        pa[c / 2][2 * (c % 2) + 1] = pack_bf16(p.z, p.w);
+        if constexpr (SCALED) {
+          sc[4 * c] = p.x * (sc[4 * c] - dl.x);
+          sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl.y);
+          sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl.x);
+          sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl.y);
+          mx[0] = fmaxf(mx[0], fmaxf(fabsf(sc[4 * c]), fabsf(sc[4 * c + 1])));
+          mx[1] = fmaxf(mx[1],
+                        fmaxf(fabsf(sc[4 * c + 2]), fabsf(sc[4 * c + 3])));
+        } else {
+          sc[4 * c] = p.x * (sc[4 * c] - dl.x) * scale;
+          sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl.y) * scale;
+          sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl.x) * scale;
+          sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl.y) * scale;
+        }
+        pa[c / 2][2 * (c % 2)] = pack2<T>(p.x, p.y);
+        pa[c / 2][2 * (c % 2) + 1] = pack2<T>(p.z, p.w);
+      }
+      if constexpr (SCALED) {
+        // each row's exponent, handed over beside dSᵀ; dK's rows rescaled
+        // where it fell; then dSᵀ times scale·2^e
+        int en[2];
+        float fs[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          en[r] = ds_exponent(quad_max(mx[r]) * scale, ex[r]);
+          fs[r] = scale * pow2i(en[r]);
+        }
+        xe[tid] = make_int2(en[0], en[1]);
+        rescale(en);
+#pragma unroll
+        for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[4 * c + e] *= fs[e >> 1];
+        }
       }
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk) {
-        acc_to_a<BM / 2>(dsa[kk], sc, kk);
+        acc_to_a<BM / 2, T>(dsa[kk], sc, kk);
         xds[kk * WG_THREADS + tid] =
             make_uint4(dsa[kk][0], dsa[kk][1], dsa[kk][2], dsa[kk][3]);
       }
@@ -313,10 +422,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<HW>(dva, pa[kk], dd + mnmajor_step(kk));
+        wgmma_rs<HW, T>(dva, pa[kk], dd + mnmajor_step(kk));
 #pragma unroll
       for (int kk = 0; kk < BM / 16; ++kk)
-        wgmma_rs<HW>(dka, dsa[kk], qd + mnmajor_step(kk));
+        wgmma_rs<HW, T>(dka, dsa[kk], qd + mnmajor_step(kk));
       wgmma_commit();
     };
 
@@ -344,33 +453,57 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
     const int rs = H * D;
     const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + col0;
-    store_acc_rows<HW>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
+    if constexpr (SCALED)
+      store_acc_rows<HW>(dk + koff, dka, key[0], Sk, rs, pow2i(-ex[0]),
+                         pow2i(-ex[1]), t);
+    else
+      store_acc_rows<HW>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
     store_acc_rows<HW>(dv + koff, dva, key[0], Sk, rs, 1.f, 1.f, t);
     trap_if_stalled();
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dkv_wide(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     void* dk, void* dv, int B, int H, int Sq, int Sk,
                     int q_off, int causal, float scale, cudaStream_t st) {
-  using C = DkvWide<D>;
+  using C = DkvWide<D, T>;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM, ty);
   if (!err)
     err = prepare_ws_kernel(
-        reinterpret_cast<const void*>(&flash_dkv_wide_kernel<D>), C::SMEM);
+        reinterpret_cast<const void*>(&flash_dkv_wide_kernel<D, T>), C::SMEM);
   if (err) return err;
   const dim3 grid((Sk + C::BN - 1) / C::BN, D / C::CW, B * H);
-  flash_dkv_wide_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+  flash_dkv_wide_kernel<D, T><<<grid, WS_THREADS, C::SMEM, st>>>(
       tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, q_off, causal, scale);
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel at D = 256, 384 or 512 on tensors of T; 1
+// (cudaErrorInvalidValue) at any other width.
+template <typename T>
+int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dk, void* dv, int B,
+              int H, int Sq, int Sk, int D, int q_off, int causal,
+              float scale, cudaStream_t st) {
+  if (D == 256)
+    return launch_dkv_wide<256, T>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   Sq, Sk, q_off, causal, scale, st);
+  if (D == 384)
+    return launch_dkv_wide<384, T>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   Sq, Sk, q_off, causal, scale, st);
+  if (D == 512)
+    return launch_dkv_wide<512, T>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                   Sq, Sk, q_off, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ------------------------------------------------------- widths above 512
@@ -497,15 +630,9 @@ extern "C" int voda_flash_dkv_wide(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 256)
-    return launch_dkv_wide<256>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                                Sk, q_off, causal, scale, st);
-  if (D == 384)
-    return launch_dkv_wide<384>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                                Sk, q_off, causal, scale, st);
-  if (D == 512)
-    return launch_dkv_wide<512>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                                Sk, q_off, causal, scale, st);
+  if (D == 256 || D == 384 || D == 512)
+    return dkv_wgmma<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D,
+                           q_off, causal, scale, st);
   using namespace voda::wide;
   cudaError_t err = allow_smem(flash_dkv_wmma_kernel, DKV_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -519,4 +646,22 @@ extern "C" int voda_flash_dkv_wide(const void* q, const void* k,
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Sq,
       Sk, D, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fp16 tensors, the same arguments; D = 256, 384 or 512 only (the wmma
+// kernel above 512 is bf16 code): any other width returns 1
+// (cudaErrorInvalidValue).
+extern "C" int voda_flash_dkv_f16_wide(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int H,
+                                       int Sq, int Sk, int D, int q_off,
+                                       int causal, float scale,
+                                       void* stream) {
+  using namespace voda;
+  if (!wide::shape_ok(B, H, Sq, Sk, D) || D > 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dkv_wgmma<f16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D,
+                        q_off, causal, scale,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -7,10 +7,11 @@
 // O = softmax(QKᵀ·scale)V with the causal mask offset by q_off, and
 // lse = m + log l per row.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s): two products of
-// 2·B·H·Sq·Sk·D FLOPs, halved under the causal mask: at B=8, H=4, S=2048,
-// D=256, 68.7 GFLOP, 69 µs, against 4·8·4·2048·256·2 B + lse ≈ 134 MB,
-// 40 µs: compute-bound (the same at B=8, H=2, D=512).
+// Bound on an H100 SXM (989 TFLOP/s bf16, and the same dense f16 rate,
+// 3.35 TB/s): two products of 2·B·H·Sq·Sk·D FLOPs, halved under the causal
+// mask: at B=8, H=4, S=2048, D=256, 68.7 GFLOP, 69 µs, against
+// 4·8·4·2048·256·2 B + lse ≈ 134 MB, 40 µs: compute-bound (the same at
+// B=8, H=2, D=512), in bf16 and in fp16 alike.
 //
 // Design: flash_fwd.cu's, widened (D = 256, 384, 512).
 // - A CTA owns 128 query rows of one (b, h) and a chunk of O CW columns
@@ -24,7 +25,7 @@
 //   warpgroups' S products are done, before P·V is.
 // - S = Q·Kᵀ is wgmma m64nBNk16 over all of D with both operands K-major in
 //   shared memory; the online softmax (softmax_tile, hopper.cuh) runs on
-//   the accumulator registers; P, cast to bf16, is the register A operand
+//   the accumulator registers; P, cast to T, is the register A operand
 //   of O += P·V (wgmma m64nCWk16), whose B = V is read MN-major through the
 //   transpose bit. O stays in registers as wgmma accumulators. A warpgroup
 //   issues S of tile j with P·V of tile j−1 and runs the softmax of tile j
@@ -48,8 +49,9 @@
 //          next V tile under the next S.
 // Registers: setmaxnreg gives the producer 24 and each consumer thread 240
 // (128·24 + 256·240 ≤ 384·168). A consumer holds O (CW/2 fp32: 128 at
-// CW=256), S (BN/2 fp32: 40 at D=256) and P (BN/4 bf16x2). ptxas spills
-// nothing at D=256, 384 or 512 (nvcc -Xptxas -v, chip_smoke.py phase 2,
+// CW=256), S (BN/2 fp32: 40 at D=256) and P (BN/4 bf16x2, or f16x2: the
+// f16 instantiation holds what the bf16 one does). ptxas spills nothing at
+// D=256, 384 or 512 (nvcc -Xptxas -v, chip_smoke.py phase 2,
 // which refuses a spill at D=256), once no trap sits in the waits
 // (mbar_wait, hopper.cuh): with one, ptxas held the consumers to 168
 // registers and spilled about 1.2 KB at D=256.
@@ -64,6 +66,17 @@
 // O and stages every tile through plain loads.
 //
 // Nothing is carried between CTAs, so the result is deterministic.
+//
+// fp16 (voda_flash_fwd_f16_wide, D = 256, 384, 512). The same kernel on
+// fp16 tensors: the element type is a template parameter (bf16 by
+// default), as in flash_fwd.cu, and wgmma's f16 form takes the same
+// fragments and descriptors at the same rate, so the shared memory (the
+// sums above), the registers and the grid are those of bf16. P, which lies
+// in [0, 1], is rounded to fp16 before P·V (finer than bf16 rounds it), O
+// = acc / l is stored as fp16 (|O| ≤ max |V|), S, m, l and lse stay fp32:
+// no scale is needed. The wmma kernel above D=512 is bf16 code, so the
+// fp16 entry refuses those widths; the wrappers send fp16 there to the
+// CUDA-core kernel (flash_simt.cu).
 
 #include "hopper.cuh"
 #include "wide.cuh"
@@ -94,12 +107,12 @@ struct FwdWide {
   static_assert(STAGES >= 1 && SMEM <= MAX_SMEM, "no stage fits beside Q");
 };
 
-template <int D>
+template <int D, typename T = bf16>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          bf16* __restrict__ o, float* __restrict__ lse,
+                          T* __restrict__ o, float* __restrict__ lse,
                           int H, int Sq, int Sk, int q_off, int causal,
                           float scale) {
   using C = FwdWide<D>;
@@ -108,9 +121,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* qs = reinterpret_cast<bf16*>(sm);
-  bf16* ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
-  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm);
+  T* ks = reinterpret_cast<T*>(sm + C::K_OFF);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + ST;
@@ -175,7 +188,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     float l[2] = {0.f, 0.f};          // this thread's part of the row sums
     float corr[2];
     float sc[BN / 2];
-    uint32_t pa[BN / 16][4];
+    uint32_t pa[BN / 16][4];  // P as T, the A operand of P·V
 
     // S = Q·Kᵀ of tile j over all of D into sc, committed as one group
     auto issue_s = [&](int j) {
@@ -186,8 +199,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BN>(sc, qd + kmajor_step(BM, kk), kd + kmajor_step(BN, kk),
-                     kk > 0);
+        wgmma_ss<BN, T>(sc, qd + kmajor_step(BM, kk),
+                        kd + kmajor_step(BN, kk), kk > 0);
       wgmma_commit();
     };
     // O += P·V of tile j over the CTA's chunk, committed as one group
@@ -198,7 +211,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<CW>(acc, pa[kk], vd + mnmajor_step(kk));
+        wgmma_rs<CW, T>(acc, pa[kk], vd + mnmajor_step(kk));
       wgmma_commit();
     };
     auto softmax = [&](int j) {
@@ -209,7 +222,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     };
     auto to_a = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a<BN / 2>(pa[kk], sc, kk);
+      for (int kk = 0; kk < BN / 16; ++kk)
+        acc_to_a<BN / 2, T>(pa[kk], sc, kk);
     };
 
     const Turns<> turns{cw};
@@ -273,24 +287,43 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
                     void* lse, int B, int H, int Sq, int Sk, int q_off,
                     int causal, float scale, cudaStream_t st) {
   using C = FwdWide<D>;
   CUtensorMap tq, tk, tv;
-  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
   if (!err)
     err = prepare_ws_kernel(
-        reinterpret_cast<const void*>(&flash_fwd_wide_kernel<D>), C::SMEM);
+        reinterpret_cast<const void*>(&flash_fwd_wide_kernel<D, T>), C::SMEM);
   if (err) return err;
   const dim3 grid((Sq + C::BM - 1) / C::BM, D / C::CW, B * H);
-  flash_fwd_wide_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
-      tq, tk, tv, static_cast<bf16*>(o), static_cast<float*>(lse), H, Sq, Sk,
+  flash_fwd_wide_kernel<D, T><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Sk,
       q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel at D = 256, 384 or 512 on tensors of T; 1
+// (cudaErrorInvalidValue) at any other width.
+template <typename T>
+int fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
+              int B, int H, int Sq, int Sk, int D, int q_off, int causal,
+              float scale, cudaStream_t st) {
+  if (D == 256)
+    return launch_fwd_wide<256, T>(q, k, v, o, lse, B, H, Sq, Sk, q_off,
+                                   causal, scale, st);
+  if (D == 384)
+    return launch_fwd_wide<384, T>(q, k, v, o, lse, B, H, Sq, Sk, q_off,
+                                   causal, scale, st);
+  if (D == 512)
+    return launch_fwd_wide<512, T>(q, k, v, o, lse, B, H, Sq, Sk, q_off,
+                                   causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ------------------------------------------------------- widths above 512
@@ -427,15 +460,9 @@ extern "C" int voda_flash_fwd_wide(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 256)
-    return launch_fwd_wide<256>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal,
-                                scale, st);
-  if (D == 384)
-    return launch_fwd_wide<384>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal,
-                                scale, st);
-  if (D == 512)
-    return launch_fwd_wide<512>(q, k, v, o, lse, B, H, Sq, Sk, q_off, causal,
-                                scale, st);
+  if (D == 256 || D == 384 || D == 512)
+    return fwd_wgmma<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                           scale, st);
   using namespace voda::wide;
   cudaError_t err = allow_smem(flash_fwd_wmma_kernel, FWD_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -446,4 +473,19 @@ extern "C" int voda_flash_fwd_wide(const void* q, const void* k,
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), H, Sq, Sk, D, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fp16 tensors, the same arguments; D = 256, 384 or 512 only (the wmma
+// kernel above 512 is bf16 code): any other width returns 1
+// (cudaErrorInvalidValue).
+extern "C" int voda_flash_fwd_f16_wide(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       int B, int H, int Sq, int Sk, int D,
+                                       int q_off, int causal, float scale,
+                                       void* stream) {
+  using namespace voda;
+  if (!wide::shape_ok(B, H, Sq, Sk, D) || D > 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return fwd_wgmma<f16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                        scale, static_cast<cudaStream_t>(stream));
 }

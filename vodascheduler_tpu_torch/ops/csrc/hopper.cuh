@@ -4,8 +4,9 @@
 // 128-byte-swizzled shared memory, mbarriers that guard a ring of stages,
 // wgmma descriptors and the wgmma instructions the kernels issue,
 // setmaxnreg, the named barriers of the consumer warpgroups' turns, the
-// forwards' online softmax on a score accumulator, the host-side tensor
-// maps, and the scalar helpers (bf16 and fp16 packing, quad reductions).
+// forwards' online softmax on a score accumulator, fp16's per-key-row
+// scale of dSᵀ, the host-side tensor maps, and the scalar helpers (bf16
+// and fp16 packing, quad reductions).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
 // model layout, so no transpose runs around the kernels); lse and delta are
@@ -548,6 +549,29 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], float (&m)[2],
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     l[r] = fmaf(l[r], corr[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
+}
+
+// ------------------------------------------------ fp16's scale of dSᵀ
+
+// fp16's dK/dV kernels (flash_dkv.cu, flash_dkv_wide.cu) round each key row
+// j of dSᵀ to fp16 under a power of two 2^e_j: the scaled row max lies in
+// [2^DS_TOP, 2^(DS_TOP+1)); exponents stay in [-E_MAX, E_MAX], so that 2^e
+// and 2^-e are normal fp32 numbers.
+constexpr int DS_TOP = 13;
+constexpr int E_MAX = 100;
+
+// 2^e for an integer e in [-126, 127], exactly.
+__device__ __forceinline__ float pow2i(int e) {
+  return __int_as_float((e + 127) << 23);
+}
+
+// A key row's exponent after a tile whose largest |dSᵀ| in the row is m (0
+// where the tile masks the whole row): the one that puts m in
+// [2^DS_TOP, 2^(DS_TOP+1)) where that is below e, never below -E_MAX.
+__device__ __forceinline__ int ds_exponent(float m, int e) {
+  // DS_TOP minus the binade of m; a subnormal m reads as -127
+  const int et = DS_TOP - (((__float_as_int(m) >> 23) & 0xff) - 127);
+  return m > 0.f ? max(-E_MAX, min(e, et)) : e;
 }
 
 // ------------------------------------------------------------------- host
