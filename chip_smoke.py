@@ -6,10 +6,10 @@ Phases (any failure exits non-zero):
   1. card: name and power limit from nvidia-smi;
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
-     D=64 (the main path), in fp16's tensor-core forward or dK/dV at D=64
-     (phase 11's fp16 model), in the wide forward, dQ or dK/dV at D=256
-     (phase 9's wide llama) or in fp16's wide forward or dK/dV at D=256
-     (phase 11's fp16 model in heads of 256), and logs the spills at
+     D=64 (the main path), in fp16's tensor-core forward, dQ or dK/dV at
+     D=64 (phase 11's fp16 model), in the wide forward, dQ or dK/dV at
+     D=256 (phase 9's wide llama) or in fp16's wide forward, dQ or dK/dV at
+     D=256 (phase 11's fp16 model in heads of 256), and logs the spills at
      D=128, 384 and 512;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
@@ -27,22 +27,21 @@ Phases (any failure exits non-zero):
      widths' forward and backward timed beside the library's, and the
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
      autograd through scaled_dot_product_attention); then the fp32 and the
-     fp16 kernels (fp32's and fp16's dQ on the CUDA cores,
-     csrc/flash_simt.cu; fp16's forward and dK/dV on the tensor cores up to
-     D=128, flash_{fwd,dkv}_f16, and from 256 to 512,
-     flash_{fwd,dkv}_f16_wide, and on the CUDA cores above, `_f16_simt`)
-     against the same plain versions at the main shape, a ragged
-     non-causal S, D=128, D=16 padded, a ragged query slice behind q_offset
-     and D=256 (SIMT_LIMITS),
+     fp16 kernels (fp32's on the CUDA cores, csrc/flash_simt.cu; fp16's on
+     the tensor cores up to D=128, flash_{fwd,dq,dkv}_f16, and from 256 to
+     512, flash_{fwd,dq,dkv}_f16_wide, and on the CUDA cores above,
+     `_f16_simt`) against the same plain versions at the main shape, a
+     ragged non-causal S, D=128, D=16 padded, a ragged query slice behind
+     q_offset and D=256 (SIMT_LIMITS),
      each timed at the main shape beside its plain version, the library
      call (fp32's backward: autograd through scaled_dot_product_attention)
-     and its bound at that dtype's peak; fp16's wide forward and dK/dV at
-     the wide bf16 kernels' shapes (d256, d512, d384, a ragged S, the query
-     slice behind q_offset, non-causal at 256) and the CUDA-core ones at
-     D=640, which only they take, held to the same bars, the wide ones
-     timed at d256; and fp16's CUDA-core forward and dK/dV held to the same
-     bars at the main shape and timed in turns with the tensor-core kernels
-     there and at d256;
+     and its bound at that dtype's peak; fp16's wide forward, dQ and dK/dV
+     at the wide bf16 kernels' shapes (d256, d512, d384, a ragged S, the
+     query slice behind q_offset, non-causal at 256) and the CUDA-core ones
+     at D=640, which only they take, held to the same bars, the wide ones
+     timed at d256; and fp16's CUDA-core forward, dQ and dK/dV held to the
+     same bars at the main shape and timed in turns with the tensor-core
+     kernels there and at d256;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -157,8 +156,8 @@ Phases (any failure exits non-zero):
      5 steps (finite, falling), one counted step launching that dtype's
      K1 8, K2 4 and K3 4 times and no other kernel (fp16: flash_fwd_f16,
      flash_dq_f16, flash_dkv_f16); then the same fp16 model in 4 heads of
-     256, through the wgmma flash_fwd_f16_wide and flash_dkv_f16_wide and
-     the CUDA-core flash_dq_f16 (8/4/4), and no `_f16_simt` kernel;
+     256, through the wgmma flash_fwd_f16_wide, flash_dq_f16_wide and
+     flash_dkv_f16_wide (8/4/4), and no `_f16_simt` kernel;
   12. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
@@ -202,15 +201,16 @@ def log(*a) -> None:
 
 
 # Kernels that must not spill registers at the main path's head_dim (the
-# bf16 kernels, and fp16's forward and dK/dV on the tensor cores).
+# bf16 kernels, and fp16's on the tensor cores).
 SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f16",
-              "flash_dkv_f16")
+              "flash_dq_f16", "flash_dkv_f16")
 MAIN_HEAD_DIM = 64
 # The wide kernels redesigned on wgmma, held to no spill at the width of
 # phase 9's 256-wide llama and of phase 11's fp16 model in heads of 256
 # (their spills at 384 and 512 are only logged).
 WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide",
-                   "flash_fwd_f16_wide", "flash_dkv_f16_wide")
+                   "flash_fwd_f16_wide", "flash_dq_f16_wide",
+                   "flash_dkv_f16_wide")
 WIDE_HEAD_DIM = 256
 MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
 SPILL_GATES = MAIN_SPILL_GATES + tuple((n, WIDE_HEAD_DIM)
@@ -506,12 +506,14 @@ def time_padded(fa, name, shape):
         f"bound_bwd_ms={bound(7, 8, 1, *shape)[0]:.4f}")
 
 
-# fp16's forward and dK/dV on the CUDA cores: above D=512 the wrappers take
-# them (`_f16_simt`), and they take any width, so at D=64 and D=256 they
-# stand beside the tensor-core kernels that replaced them there.
+# fp16's kernels on the CUDA cores: above D=512 the wrappers take them
+# (`_f16_simt`), and they take any width, so at D=64 and D=256 they stand
+# beside the tensor-core kernels that replaced them there.
 CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_simt",
+                 "flash_dq_f16": "flash_dq_f16_simt",
                  "flash_dkv_f16": "flash_dkv_f16_simt",
                  "flash_fwd_f16_wide": "flash_fwd_f16_simt",
+                 "flash_dq_f16_wide": "flash_dq_f16_simt",
                  "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
 
 
@@ -528,7 +530,7 @@ def routed(fa, table):
 
 
 def time_f16_turns(fa, shape, rounds=2) -> dict:
-    """fp16's K1 and K3 at `shape`, on the tensor cores and on the CUDA
+    """fp16's K1, K2 and K3 at `shape`, on the tensor cores and on the CUDA
     cores (CUDA_CORE_F16), timed in turns (tensor, CUDA, CUDA, tensor)
     `rounds` times on the same inputs by CUDA events; logged, and returned
     as {kernel: median ms}."""
@@ -539,6 +541,8 @@ def time_f16_turns(fa, shape, rounds=2) -> dict:
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, q_off),
+             "flash_dq": lambda: fa.flash_dq(q, k, v, o, do, lse, causal,
+                                             q_off),
              "flash_dkv": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
                                                causal, q_off)}
     times = {}
@@ -908,12 +912,12 @@ def _epoch_losses(text: str) -> dict:
 
 # Phase 11: llama_350m's width computing in fp32 and in fp16, depth cut to
 # DTYPE_LAYERS so that the fp32 step stays short. fp32 takes the CUDA-core
-# kernels (csrc/flash_simt.cu); fp16 the tensor-core forward and dK/dV
-# (flash_fwd_f16, flash_dkv_f16) and the CUDA-core dQ, and in heads of 256
-# the wide tensor-core forward and dK/dV (`_f16_wide`). Against the plain
-# attention (which computes in fp32): fp32 differs by summation order
-# alone, fp16 by the rounding of P (and of the scaled dSᵀ in dK/dV) to
-# fp16 inside the kernels, held to the bf16 slice's bars. fp16's
+# kernels (csrc/flash_simt.cu); fp16 the tensor-core forward, dQ and dK/dV
+# (flash_fwd_f16, flash_dq_f16, flash_dkv_f16), and in heads of 256 the
+# wide ones (`_f16_wide`). Against the plain attention (which computes in
+# fp32): fp32 differs by summation order alone, fp16 by the rounding of P
+# and of the scaled dS to fp16 inside the kernels, held to the bf16
+# slice's bars. fp16's
 # gradients of a loss averaged over 16,384 tokens lie among its subnormals
 # (below 6e-5), where the plain attention's own fp16 gradients stray from
 # an fp32 twin's as far as the kernels' do; the comparison scales the loss
@@ -928,7 +932,7 @@ DTYPE_SLICES = {  # tag: (dtype, heads, bars, comparison's loss scale,
     "float16": ("float16", 16, SLICE_LIMITS, 1024.0,
                 ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16")),
     "float16_d256": ("float16", 4, SLICE_LIMITS, 1024.0,
-                     ("flash_fwd_f16_wide", "flash_dq_f16",
+                     ("flash_fwd_f16_wide", "flash_dq_f16_wide",
                       "flash_dkv_f16_wide"))}
 
 
@@ -2120,7 +2124,7 @@ def main() -> int:
         simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
         rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
         torch.cuda.empty_cache()
-    # fp16's wide forward and dK/dV (wgmma) at the wide bf16 kernels'
+    # fp16's wide forward, dQ and dK/dV (wgmma) at the wide bf16 kernels'
     # shapes and non-causal, timed at d256; the CUDA-core ones at D=640,
     # which only they take
     f16 = torch.float16
@@ -2129,12 +2133,13 @@ def main() -> int:
     wide_cases["d256_noncausal"] = (2, 4, 1000, 1000, 256, False, 0)
     wide_errs = check_kernels(fa, wide_cases, f16, SIMT_LIMITS[f16])
     d256_rows = time_kernels(fa, cases["d256"], wide_errs, "_f16_wide", f16)
-    for name in ("flash_fwd_f16_wide", "flash_dkv_f16_wide"):
+    f16_wide = [n for n in CUDA_CORE_F16 if n.endswith("_wide")]
+    for name in f16_wide:
         rows[name] = d256_rows[name]
     d640_errs = check_kernels(fa, {"d640": (2, 2, 1024, 1024, 640, True, 0)},
                               f16, SIMT_LIMITS[f16])
     torch.cuda.empty_cache()
-    # fp16's K1 and K3 on the CUDA cores (`_f16_simt`), held to the same
+    # fp16's K1, K2 and K3 on the CUDA cores (`_f16_simt`), held to the same
     # bars at the main shape and timed in turns with the tensor-core
     # kernels that replaced them there and at d256; their rows, from d256
     # (phase 11's fp16 model in heads of 256), carry the plain and library
@@ -2147,7 +2152,7 @@ def main() -> int:
         for new in turns:
             if new in rows:
                 rows[new]["ms"] = turns[new]
-    for new in ("flash_fwd_f16_wide", "flash_dkv_f16_wide"):
+    for new in f16_wide:
         old = CUDA_CORE_F16[new]
         rows[old] = {**rows[new], "ms": turns[old], "source": (
             f"vodascheduler_tpu_torch/ops/csrc/{fa.source(old)}.cu")}
@@ -2157,6 +2162,7 @@ def main() -> int:
             f"ms={turns[old]:.4f} cuda_cores_over_tensor_cores="
             f"{turns[old] / rows[new]['ms']:.3f}")
     rows["flash_fwd_f16_simt"]["err"] = max(d640_errs["o"], d640_errs["lse"])
+    rows["flash_dq_f16_simt"]["err"] = d640_errs["dq_abs"]
     rows["flash_dkv_f16_simt"]["err"] = max(d640_errs["dk_abs"],
                                             d640_errs["dv_abs"])
     torch.cuda.empty_cache()

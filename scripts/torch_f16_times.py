@@ -7,7 +7,7 @@ bounds at the card's fp16 peak.
 First each kernel is held against its plain version under chip_smoke.py's
 fp16 bars (`SIMT_LIMITS`), then timed by chip_smoke.py's `time_kernels`
 (CUDA events, medians; the backward, K2 then K3, beside the library's).
-`--turns` also times fp16's K1 and K3 in turns against the CUDA-core
+`--turns` also times fp16's K1, K2 and K3 in turns against the CUDA-core
 kernels (`time_f16_turns`: tensor, CUDA, CUDA, tensor cores, twice). The
 card's name and power limit come first. Needs CUDA and nvcc.
 """

@@ -103,7 +103,8 @@ VARIANTS = {
         (Q, "static constexpr bool OVERLAP = D == 64;",
          "static constexpr bool OVERLAP = false;")]),
     "dq_no_ds": ("K2 without its dS elementwise pass (wrong results)", [
-        (Q, "      ds_tile<C::BN>(sc, dp,", "      if (j < 0) ds_tile<C::BN>(sc, dp,")]),
+        (Q, "      ds_tile<C::BN, SCALED>(sc, dp,",
+         "      if (j < 0) ds_tile<C::BN, SCALED>(sc, dp,")]),
     "fwdw_no_softmax": ("wide K1 without its softmax (wrong results)", [
         (FW, "      softmax_tile<BN>(sc,", "      if (j < 0) softmax_tile<BN>(sc,")]),
     "fwdw_no_turns": ("wide K1 without the warpgroups' turns", [

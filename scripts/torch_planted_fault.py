@@ -21,16 +21,22 @@ small:
 - ``dkvw_f16_no_rescale``: fp16's wide K3 (flash_dkv_wide.cu) lowers a key
   row's exponent of dSᵀ but never rescales what dK's row has summed so
   far. bf16 does not compile that code.
+- ``dq_f16_no_rescale``: fp16's K2 (flash_dq.cu) lowers a query row's
+  exponent of dS but never rescales what dQ's row has summed so far.
+- ``dqw_f16_no_rescale``: the same in fp16's wide K2 (flash_dq_wide.cu), in
+  both warpgroups: warpgroup 0 still takes the exponents that warpgroup 1
+  hands over (for its epilogue) but rescales nothing with them.
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
-256 (H=4), where the wide kernels run, and the fp16 one at that shape in
-fp16 under chip_smoke.py's fp16 bars (`SIMT_LIMITS`) and against the plain
-model of the fp16 K3's arithmetic (tests/torch_f16_dkv_model.py, at 1e-3
-of the largest value, as tests/test_torch_cuda.py holds it; on random
-inputs and on an unscaled loss's dO of 1e-6). The script logs each kernel
-set's errors against the plain versions under chip_smoke.py's bars (the
-sound set at every shape and dtype), then llama_350m's forward and
+256 (H=4), where the wide kernels run, and the fp16 ones at the shape of
+their kernel in fp16 under chip_smoke.py's fp16 bars (`SIMT_LIMITS`) and
+against the plain model of their kernel's arithmetic
+(tests/torch_f16_dkv_model.py, at 1e-3 of the largest value, as
+tests/test_torch_cuda.py holds it; on random inputs and on an unscaled
+loss's dO of 1e-6). The script logs each kernel set's errors against the
+plain versions under chip_smoke.py's bars (the sound set at every shape
+and dtype, and against every model), then llama_350m's forward and
 backward through each set against the plain attention (chip_smoke.py's
 slice comparison). It exits non-zero if the sound kernels break a bar or
 a faulty set passes the bars it is held to. Needs CUDA and nvcc.
@@ -51,12 +57,18 @@ sys.path.insert(0, ROOT)
 
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 WIDE_SHAPE = (8, 4, 2048, 2048, 256, True, 0)
-# the fp16 K3's model check: (B, H, Sq, Sk, D, causal, q_off, small dO)
-MODEL_CASES = ((1, 2, 192, 192, 256, True, 0, False),
-               (1, 2, 128, 128, 256, True, 0, True))
+# the fp16 kernels' model checks, by kernel: (B, H, Sq, Sk, D, causal,
+# q_off, small dO)
+MODEL_CASES = {
+    "dkvw": ((1, 2, 192, 192, 256, True, 0, False),
+             (1, 2, 128, 128, 256, True, 0, True)),
+    "dq": ((1, 2, 320, 320, 64, True, 0, False),
+           (1, 2, 320, 320, 64, True, 0, True)),
+    "dqw": ((1, 2, 192, 192, 256, True, 0, False),
+            (1, 2, 128, 128, 256, True, 0, True))}
 MODEL_TOL = 1e-3
 # name -> (source file, the line as it stands, the line with the fault,
-# the shape and dtype it is held at)
+# the shape and dtype it is held at, the model check it is held to)
 FAULTS = {
     "fwd_last_tile": (
         "flash_fwd.cu",
@@ -66,9 +78,9 @@ FAULTS = {
         MAIN_SHAPE, torch.bfloat16),
     "dq_last_tile": (
         "flash_dq.cu",
-        "        wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        "        wgmma_rs<D, T>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
-        "          wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        "          wgmma_rs<D, T>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         MAIN_SHAPE, torch.bfloat16),
     "dkv_last_tile": (
         "flash_dkv.cu",
@@ -78,32 +90,45 @@ FAULTS = {
         MAIN_SHAPE, torch.bfloat16),
     "dqw_last_tile": (
         "flash_dq_wide.cu",
-        "        wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        "        wgmma_rs<HW, T>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         "        if (!(i == gridDim.x - 1 && j == n_k - 1))\n"
-        "          wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
+        "          wgmma_rs<HW, T>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         WIDE_SHAPE, torch.bfloat16),
     "dkvw_f16_no_rescale": (
         "flash_dkv_wide.cu",
         "      if (__any_sync(0xffffffffu, fell)) {\n",
         "      if (false && __any_sync(0xffffffffu, fell)) {\n",
-        WIDE_SHAPE, torch.float16),
+        WIDE_SHAPE, torch.float16, "dkvw"),
+    "dq_f16_no_rescale": (
+        "flash_dq.cu",
+        "        if (__any_sync(0xffffffffu, fell)) {\n",
+        "        if (false && __any_sync(0xffffffffu, fell)) {\n",
+        MAIN_SHAPE, torch.float16, "dq"),
+    "dqw_f16_no_rescale": (
+        "flash_dq_wide.cu",
+        "      if (__any_sync(0xffffffffu, fell)) {\n",
+        "      if (false && __any_sync(0xffffffffu, fell)) {\n",
+        WIDE_SHAPE, torch.float16, "dqw"),
 }
 
 
-def model_errors(fa) -> list:
-    """fp16's wide K3 against the plain model of its arithmetic at
-    MODEL_CASES: the largest error over the largest value of the model's
-    dK (and dV, except on the small dO, whose dV lies among fp16's
-    subnormals), one a case."""
+def model_errors(fa, which: str) -> list:
+    """An fp16 kernel against the plain model of its arithmetic at
+    MODEL_CASES[which]: the largest error over the largest value of the
+    model's dQ ("dq", "dqw"), or dK and dV ("dkvw"; dK alone on the small
+    dO, whose dV lies among fp16's subnormals), one a case."""
     import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_f16_dkv_model as model
 
     errs = []
-    for B, H, Sq, Sk, D, causal, q_off, small in MODEL_CASES:
+    for B, H, Sq, Sk, D, causal, q_off, small in MODEL_CASES[which]:
         rng = np.random.default_rng(Sq + D)
         if small:
-            q, k, v, do = model.small_gradient_inputs(rng, B, Sq, H, D, 64)
+            # K3's dK = dSᵀ·Q wants Q large, K2's dQ = dS·K wants K large
+            q_mult = 64 if which == "dkvw" else 1 / 64
+            q, k, v, do = model.small_gradient_inputs(rng, B, Sq, H, D,
+                                                      q_mult)
         else:
             q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D))
                                       .astype(np.float16)) for _ in range(2))
@@ -111,11 +136,15 @@ def model_errors(fa) -> list:
                                      .astype(np.float16)) for _ in range(2))
         qc, kc, vc, doc = (t.cuda() for t in (q, k, v, do))
         o, lse = fa.flash_fwd(qc, kc, vc, causal, q_off)
-        _, delta = fa.flash_dq(qc, kc, vc, o, doc, lse, causal, q_off)
+        dq, delta = fa.flash_dq(qc, kc, vc, o, doc, lse, causal, q_off)
         dk, dv = fa.flash_dkv(qc, kc, vc, doc, lse, delta, causal, q_off)
-        dk_m, dv_m = model.dkv(q, k, v, do, lse.cpu(), delta.cpu(), causal,
-                               q_off, D ** -0.5)
-        pairs = ((dk, dk_m), (dv, dv_m))[:1 if small else 2]
+        if which == "dkvw":
+            dk_m, dv_m = model.dkv(q, k, v, do, lse.cpu(), delta.cpu(),
+                                   causal, q_off, D ** -0.5)
+            pairs = ((dk, dk_m), (dv, dv_m))[:1 if small else 2]
+        else:
+            pairs = ((dq, model.dq(q, k, v, do, lse.cpu(), delta.cpu(),
+                                   causal, q_off, D ** -0.5)),)
         errs.append(max(((got.cpu().float() - ref).abs().max()
                          / ref.abs().max()).item() for got, ref in pairs))
     return errs
@@ -174,16 +203,18 @@ def main() -> int:
         log(f"--- {name}")
         f16 = torch.float16
         held = ((MAIN_SHAPE, torch.bfloat16), (WIDE_SHAPE, torch.bfloat16),
-                (WIDE_SHAPE, f16)) if name == "sound" else (FAULTS[name][3:],)
+                (MAIN_SHAPE, f16), (WIDE_SHAPE, f16)) if name == "sound" \
+            else (FAULTS[name][3:5],)
         bad = [b for shape, dtype in held
                for b in chip_smoke.kernel_errors(
                    fa, name, shape, dtype, chip_smoke.SIMT_LIMITS[dtype]
                    if dtype == f16 else chip_smoke.LIMITS)[1]]
-        if any(dtype == f16 for _, dtype in held):
-            errs = model_errors(fa)
-            log(f"model[{name}] fp16 wide K3 against its model: "
+        for which in (MODEL_CASES if name == "sound"
+                      else FAULTS[name][5:]):
+            errs = model_errors(fa, which)
+            log(f"model[{name}] fp16 {which} against its model: "
                 + " ".join(f"{e:.3g}" for e in errs) + f" (bar {MODEL_TOL})")
-            bad += [f"model={e:.3g}>{MODEL_TOL}" for e in errs
+            bad += [f"model[{which}]={e:.3g}>{MODEL_TOL}" for e in errs
                     if not e <= MODEL_TOL]
         slice_bad = chip_smoke.check_slice(
             chip_smoke.slice_gaps(bundle, session.module, batch))

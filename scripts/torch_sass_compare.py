@@ -1,8 +1,9 @@
-"""Compares the machine code (SASS) of the bf16 flash-attention kernels of
-two source trees: whether a change to the sources left them as they were.
+"""Compares the machine code (SASS) of the flash-attention kernels of two
+source trees: whether a change to the sources left them as they were.
 
     python3 scripts/torch_sass_compare.py [--base build/ab_parent/csrc]
-        [--sources flash_fwd flash_dkv flash_fwd_wide flash_dkv_wide]
+        [--sources flash_fwd flash_dq flash_dkv flash_fwd_wide
+                   flash_dq_wide flash_dkv_wide]
 
 `--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
 (written as scripts/torch_kernel_ab.py says). Both trees' `--sources` are
@@ -10,10 +11,10 @@ built by the package's build module (``ops/_build.py``), each into its own
 directory, and ``cuobjdump -sass`` lists every function of each library.
 A kernel is named by its function, head width and element type, read from
 its mangled name (a template parameter added to a kernel changes the name
-and nothing else); the base's kernels are bf16. For each bf16 kernel of
-the base the script prints whether the tree's SASS of it is identical,
-instruction for instruction with its encoding, or how many lines differ,
-then a last line of JSON. Exits non-zero without ``cuobjdump`` or the base
+and nothing else; a name without an element type is bf16's). For each
+kernel of the base the script prints whether the tree's SASS of it is
+identical, instruction for instruction with its encoding, or how many
+lines differ, then a last line of JSON. Exits non-zero without ``cuobjdump`` or the base
 sources, or when a base kernel is missing from the tree; a kernel whose
 SASS differs is reported, not refused. For every kernel of the tree it
 also prints the tensor-core instructions it issues (``HGMMA``, with their
@@ -35,7 +36,8 @@ from pathlib import Path
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SOURCES = ("flash_fwd", "flash_dkv", "flash_fwd_wide", "flash_dkv_wide")
+SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_wide",
+           "flash_dq_wide", "flash_dkv_wide")
 
 
 def kernel_key(mangled: str):

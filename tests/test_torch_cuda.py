@@ -144,10 +144,10 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
 def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
                                                     D, q_off, Sq):
     """The kernels of fp32 and fp16 tensors against the plain versions, at
-    chip_smoke.py's SIMT_LIMITS: fp32's and fp16's dQ on the CUDA cores
-    (csrc/flash_simt.cu), fp16's forward and dK/dV on the tensor cores up
-    to D=128 (flash_fwd_f16, flash_dkv_f16) and from 256 to 512
-    (flash_fwd_f16_wide, flash_dkv_f16_wide)."""
+    chip_smoke.py's SIMT_LIMITS: fp32's on the CUDA cores
+    (csrc/flash_simt.cu), fp16's on the tensor cores up to D=128
+    (flash_fwd_f16, flash_dq_f16, flash_dkv_f16) and from 256 to 512
+    (`_f16_wide`)."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[dtype]
     g = torch.Generator(cuda).manual_seed(7)
@@ -178,12 +178,12 @@ def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
 
 
 def _f16_backward(q, k, v, do, causal, q_off):
-    """K1, K2, K3 on fp16 tensors: (lse, delta, dk, dv)."""
+    """K1, K2, K3 on fp16 tensors: (lse, delta, dq, dk, dv)."""
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
-    _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
     torch.cuda.synchronize()
-    return lse, delta, dk, dv
+    return lse, delta, dq, dk, dv
 
 
 @pytest.mark.parametrize("D", [64, 128, 256])
@@ -204,7 +204,7 @@ def test_fp16_dkv_keeps_the_small_gradients_of_an_unscaled_loss(cuda, D):
     kernel = fa._kernel("flash_dkv", D, torch.float16)
     assert kernel == ("flash_dkv_f16" if D <= 128 else "flash_dkv_f16_wide")
     before = fa.launches[kernel]
-    lse, delta, dk, _ = _f16_backward(q, k, v, do, True, 0)
+    lse, delta, _, dk, _ = _f16_backward(q, k, v, do, True, 0)
     assert fa.launches[kernel] == before + 1
     dk_ref, _ = fa.flash_dkv_reference(q.float(), k.float(), v.float(),
                                        do.float(), lse, delta, True, 0)
@@ -247,8 +247,8 @@ def test_fp16_dkv_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
                                   .astype(np.float16)) for _ in range(2))
         k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D))
                                  .astype(np.float16)) for _ in range(2))
-    lse, delta, dk, dv = _f16_backward(*(t.to(cuda) for t in (q, k, v, do)),
-                                       causal, q_off)
+    lse, delta, _, dk, dv = _f16_backward(
+        *(t.to(cuda) for t in (q, k, v, do)), causal, q_off)
     dk_m, dv_m = model.dkv(q, k, v, do, lse.cpu(), delta.cpu(), causal, q_off,
                            D ** -0.5)
     for name, got, ref in (("dk", dk, dk_m), ("dv", dv, dv_m))[:2 - small]:
@@ -258,24 +258,96 @@ def test_fp16_dkv_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
 
 @pytest.mark.parametrize("D", [64, 128, 256, 512])
 def test_fp16_wgmma_kernels_are_deterministic(cuda, D):
-    """No atomics in flash_fwd_f16 or flash_dkv_f16, nor in their wide
-    twins: two launches on the same inputs give bitwise-equal O, lse, dK
-    and dV."""
+    """No atomics in flash_fwd_f16, flash_dq_f16 or flash_dkv_f16, nor in
+    their wide twins: two launches on the same inputs give bitwise-equal
+    O, lse, dQ, δ, dK and dV."""
     g = torch.Generator(cuda).manual_seed(9)
     q, k, v, do = (torch.randn(2, 320, 3, D, generator=g, device=cuda).half()
                    for _ in range(4))
     o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
     o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
-    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq1, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq2, delta2 = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
     dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     torch.cuda.synchronize()
-    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+    for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (delta, delta2),
+                 (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_fp16_dq_keeps_the_small_gradients_of_an_unscaled_loss(cuda, D):
+    """The tensor-core fp16 dQ rounds dS to fp16 under a per-query-row
+    power of two (flash_dq.cu; at D=256 flash_dq_wide.cu, whose two
+    warpgroups share each row's exponent), so an unscaled loss's dS near
+    1e-8 (dO of 1e-6) is not flushed: dQ within 5e-3 of the largest value
+    of the plain version in fp32 on the same values (rounding dS to fp16
+    unscaled reads 0.16-0.18 on the CPU model, test_torch_f16_dq_scale.py).
+    Q is scaled by 1/64 and K by 64 (S unchanged) so that dQ = dS·K lies
+    among fp16's normal numbers."""
+    import numpy as np
+    import torch_f16_dkv_model as model
+    q, k, v, do = (t.to(cuda) for t in model.small_gradient_inputs(
+        np.random.default_rng(3), D=D))
+    kernel = fa._kernel("flash_dq", D, torch.float16)
+    assert kernel == ("flash_dq_f16" if D <= 128 else "flash_dq_f16_wide")
+    before = fa.launches[kernel]
+    o, lse = fa.flash_fwd(q, k, v, True, 0)
+    dq, _ = fa.flash_dq(q, k, v, o, do, lse, True, 0)
+    torch.cuda.synchronize()
+    assert fa.launches[kernel] == before + 1
+    dq_ref, _ = fa.flash_dq_reference(q.float(), k.float(), v.float(), o,
+                                      do.float(), lse, True, 0)
+    err = (dq.float() - dq_ref).abs().max() / dq_ref.abs().max()
+    assert err.item() <= 5e-3
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off,small", [
+    (1, 2, 256, 256, 64, True, 0, False),
+    (2, 1, 200, 200, 64, False, 0, False),
+    (1, 2, 192, 192, 128, True, 0, False),
+    (1, 2, 96, 328, 128, True, 232, False),
+    (1, 2, 320, 320, 64, True, 0, True),
+    (1, 2, 128, 128, 128, True, 0, True),
+    # flash_dq_f16_wide: 64 query rows a CTA, 64-key tiles at D=256, 32
+    # above
+    (1, 2, 192, 192, 256, True, 0, False),
+    (2, 1, 200, 200, 256, False, 0, False),
+    (1, 2, 96, 328, 256, True, 232, False),
+    (1, 1, 130, 130, 384, True, 0, False),
+    (1, 1, 200, 200, 512, True, 0, False),
+    (1, 2, 128, 128, 256, True, 0, True),
+])
+def test_fp16_dq_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
+                                   small):
+    """flash_dq_f16 (and flash_dq_f16_wide above D=128) against the plain
+    model of its arithmetic (tests/torch_f16_dkv_model.py's `dq` at the
+    kernel's tiling: the key tiles, the per-query-row exponents, the scaled
+    dS rounded to fp16), on the kernel's own lse and δ, at 1e-3 of the
+    largest value: the kernel rounds dQ to fp16 (2^-12 of a value) and sums
+    in another order. `small` is the unscaled loss's dO of 1e-6 (Q scaled
+    by 1/64, K by 64)."""
+    import numpy as np
+    import torch_f16_dkv_model as model
+    rng = np.random.default_rng(Sq + D)
+    if small:
+        q, k, v, do = model.small_gradient_inputs(rng, B, Sq, H, D)
+    else:
+        q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D))
+                                  .astype(np.float16)) for _ in range(2))
+        k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D))
+                                 .astype(np.float16)) for _ in range(2))
+    lse, delta, dq, _, _ = _f16_backward(
+        *(t.to(cuda) for t in (q, k, v, do)), causal, q_off)
+    dq_m = model.dq(q, k, v, do, lse.cpu(), delta.cpu(), causal, q_off,
+                    D ** -0.5)
+    err = (dq.cpu().float() - dq_m).abs().max() / dq_m.abs().max()
+    assert err.item() <= 1e-3
+
+
 def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
-    """Above D=512 fp16's forward and dK/dV are the CUDA-core kernels
+    """Above D=512 fp16's forward, dQ and dK/dV are the CUDA-core kernels
     (`_f16_simt`: the wmma kernels there are bf16 code), by width, and
     match the plain versions at SIMT_LIMITS."""
     from chip_smoke import SIMT_LIMITS
@@ -297,7 +369,7 @@ def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_f16_simt=1, flash_dq_f16=1, flash_dkv_f16_simt=1)
+        flash_fwd_f16_simt=1, flash_dq_f16_simt=1, flash_dkv_f16_simt=1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])

@@ -1,11 +1,11 @@
 """The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's
-forward, dQ and dK/dV, fp16's dQ, and fp16's forward and dK/dV that the
-wrappers take above a head width of 512, ``_f16_simt``) against the JAX
-package's Pallas kernels in interpret mode, on the CPU. fp16's forward and
-dK/dV up to 512 are wgmma kernels (``flash_fwd.cu``, ``flash_dkv.cu`` and
-their wide twins), which no CPU runs: here the wrappers route fp16 to the
-CUDA-core kernels at every width (the fixture `wrappers`), as those
-kernels take any width.
+forward, dQ and dK/dV, and fp16's that the wrappers take above a head
+width of 512, ``_f16_simt``) against the JAX package's Pallas kernels in
+interpret mode, on the CPU. fp16's kernels up to 512 are wgmma kernels
+(``flash_fwd.cu``, ``flash_dq.cu``, ``flash_dkv.cu`` and their wide
+twins), which no CPU runs: here the wrappers route fp16 to the CUDA-core
+kernels at every width (the fixture `wrappers`), as those kernels take
+any width.
 
 There is no ``nvcc`` here, so the CUDA source is compiled by ``g++`` against
 a CPU emulation of the few CUDA pieces it uses (``tests/cuda_emulation``: a
@@ -80,9 +80,9 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def wrappers(emulated, monkeypatch):
-    """The port's wrappers, launching the emulated kernels (fp16's forward
-    and dK/dV: the CUDA-core ones at every width, as chip_smoke.py's phase
-    3 times them)."""
+    """The port's wrappers, launching the emulated kernels (fp16's: the
+    CUDA-core ones at every width, as chip_smoke.py's phase 3 times
+    them)."""
     def launch(name, device, *args):
         assert device.type == "cpu"
         assert emulated[name](*args, None) == 0
@@ -149,18 +149,14 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 
 def test_the_wrappers_route_dtypes_to_their_kernels():
     """fp32 takes its CUDA-core kernels at every width; fp16 its
-    tensor-core forward and dK/dV up to 512 (in the bf16 kernels' sources,
-    `_f16` and `_f16_wide`) and the CUDA-core ones above (`_f16_simt`), and
-    its CUDA-core dQ at every width."""
+    tensor-core kernels up to 512 (in the bf16 kernels' sources, `_f16`
+    and `_f16_wide`) and the CUDA-core ones above (`_f16_simt`)."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512, 640):
             assert fa._kernel(name, D, torch.float32) == f"{name}_f32"
             assert fa.source(f"{name}_f32") == fa.SIMT_SOURCE
             f16 = fa._kernel(name, D, torch.float16)
-            if name == "flash_dq":
-                assert f16 == "flash_dq_f16"
-                assert fa.source(f16) == fa.SIMT_SOURCE
-            elif D <= 128:
+            if D <= 128:
                 assert f16 == f"{name}_f16" and fa.source(f16) == name
             elif D <= fa.WGMMA_MAX_D:
                 assert f16 == f"{name}_f16_wide"

@@ -3,10 +3,10 @@ CPU (a ``torch.device("cuda")`` object needs no card).
 
 The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
 take the wgmma kernels, fp32 tensors the CUDA-core kernels
-(``csrc/flash_simt.cu``), fp16 tensors the wgmma forward and dK/dV up to a
-head width of 128 (``flash_fwd_f16``, ``flash_dkv_f16``) and from 256 to
-512 (``flash_fwd_f16_wide``, ``flash_dkv_f16_wide``), the CUDA-core ones
-above 512 (``_f16_simt``) and the CUDA-core dQ. So a Llama or Mixtral takes the
+(``csrc/flash_simt.cu``), fp16 tensors the wgmma forward, dQ and dK/dV up
+to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
+``flash_dkv_f16``) and from 256 to 512 (``_f16_wide``), and the CUDA-core
+ones above 512 (``_f16_simt``). So a Llama or Mixtral takes the
 kernels on CUDA whatever dtype it computes in, and no path gives way to the
 plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
 attention (0) or the kernels (1, which raises off CUDA). The card tests of
@@ -72,19 +72,18 @@ def test_each_dtype_has_its_kernels(dtype, suffix):
         kernel = fa._kernel(name, fa.kernel_head_dim(16), dtype)
         assert kernel == name + suffix
         assert kernel in fa.launches and kernel in fa._ARGTYPES
-        # fp32's kernels and fp16's dQ are the CUDA-core ones; fp16's
-        # forward and dK/dV sit in the bf16 kernels' sources
+        # fp32's kernels are the CUDA-core ones; fp16's sit in the bf16
+        # kernels' sources
         assert fa.source(kernel) == (
-            fa.SIMT_SOURCE if dtype == torch.float32
-            or kernel == "flash_dq_f16" else name)
+            fa.SIMT_SOURCE if dtype == torch.float32 else name)
 
 
 @pytest.mark.parametrize("D", [256, 384, 512])
 def test_fp16_heads_above_128_take_the_wide_wgmma_forward_and_dkv(D):
     """The wide bf16 kernels' sources, templated on fp16, take fp16's
-    forward and dK/dV from 256 to 512; dQ stays on the CUDA cores."""
+    forward, dQ and dK/dV from 256 to 512."""
     want = {"flash_fwd": ("flash_fwd_f16_wide", "flash_fwd_wide"),
-            "flash_dq": ("flash_dq_f16", fa.SIMT_SOURCE),
+            "flash_dq": ("flash_dq_f16_wide", "flash_dq_wide"),
             "flash_dkv": ("flash_dkv_f16_wide", "flash_dkv_wide")}
     for name, (kernel, src) in want.items():
         assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
@@ -96,8 +95,9 @@ def test_fp16_heads_above_128_take_the_wide_wgmma_forward_and_dkv(D):
 @pytest.mark.parametrize("D", [640, 1024])
 def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
     """Above 512, where bf16's wide kernels cut D on wmma (bf16 code), fp16
-    takes the CUDA-core kernels, by width."""
-    want = {"flash_fwd": "flash_fwd_f16_simt", "flash_dq": "flash_dq_f16",
+    takes the CUDA-core kernels, by width: its forward, dQ and dK/dV."""
+    want = {"flash_fwd": "flash_fwd_f16_simt",
+            "flash_dq": "flash_dq_f16_simt",
             "flash_dkv": "flash_dkv_f16_simt"}
     for name, kernel in want.items():
         assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
@@ -113,17 +113,22 @@ def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
      ()),
     ("flash_dkv_wide", ("voda_flash_dkv_wide", "voda_flash_dkv_f16_wide"),
      ()),
-    ("flash_simt", ("voda_flash_fwd_f32", "voda_flash_dq_f16",
+    ("flash_simt", ("voda_flash_fwd_f32", "voda_flash_dq_f16_simt",
                     "voda_flash_fwd_f16_simt", "voda_flash_dkv_f16_simt"),
-     ("voda_flash_fwd_f16_wide", "voda_flash_dkv_f16_wide")),
+     ("voda_flash_fwd_f16_wide", "voda_flash_dkv_f16_wide",
+      "voda_flash_dq_f16", "voda_flash_dq_f16_wide")),
+    ("flash_dq", ("voda_flash_dq", "voda_flash_dq_f16"),
+     ("voda_flash_dq_f16_simt",)),
+    ("flash_dq_wide", ("voda_flash_dq_wide", "voda_flash_dq_f16_wide"),
+     ("voda_flash_dq_f16",)),
 ])
 def test_each_source_exports_the_entries_its_kernels_are_named_by(
         source, exports, lacks):
     """The C entry points, read from the sources' text (no nvcc here): the
-    wide sources export fp16's `_f16_wide` entries beside bf16's, and
-    flash_simt.cu exports the renamed `_f16_simt` ones and no
-    `_f16_wide`. Each name the wrappers route to a source is an entry of
-    it."""
+    dQ sources and the wide ones export fp16's `_f16` and `_f16_wide`
+    entries beside bf16's, and flash_simt.cu exports the renamed
+    `_f16_simt` ones and no other fp16 entry. Each name the wrappers route
+    to a source is an entry of it."""
     text = (_build.CSRC / f"{source}.cu").read_text()
     entries = set(re.findall(r'extern "C" int (voda_\w+)\(', text))
     for fwd, dq, dkv in re.findall(
@@ -142,8 +147,8 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
     ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32"),
     (),
     ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16"),
-    ("flash_fwd_f16_wide", "flash_dq_f16", "flash_dkv_f16_wide"),
-    ("flash_fwd_f16_simt", "flash_dq_f16", "flash_dkv_f16_simt")])
+    ("flash_fwd_f16_wide", "flash_dq_f16_wide", "flash_dkv_f16_wide"),
+    ("flash_fwd_f16_simt", "flash_dq_f16_simt", "flash_dkv_f16_simt")])
 def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     """What the resize bench's restart child loads before the session: the
     kernels the prepare child's steps launched, and no other."""

@@ -2,6 +2,7 @@
 register report behind its spill gate, and the bounds it reports."""
 
 import os
+import re
 import sys
 
 import pytest
@@ -10,33 +11,45 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 
-# the forward and dK/dV kernels are templated on their width and element
-# type (bf16 and fp16, named `_f16`), as ptxas names them
+# the kernels are templated on their width and element type (bf16 and
+# fp16, named `_f16`), as ptxas names them
 FWD64 = "_ZN4voda16flash_fwd_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiif"
 DKV64 = "_ZN4voda16flash_dkv_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiif"
 DKV128 = DKV64.replace("ILi64E", "ILi128E")
 FWD64_F16 = FWD64.replace("13__nv_bfloat16", "6__half")
 DKV64_F16 = DKV64.replace("13__nv_bfloat16", "6__half")
 DKV128_F16 = DKV64_F16.replace("ILi64E", "ILi128E")
-DQ64 = "_ZN4voda15flash_dq_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_S1_PKfPfP13__nv_bfloat16iiiiif"
+DQ64 = "_ZN4voda15flash_dq_kernelILi64E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_S2_PKfPfPT0_iiiiif"
 DQ128 = DQ64.replace("ILi64E", "ILi128E")
-# the wide forward and dK/dV, templated on their element type as well
+DQ64_F16 = DQ64.replace("13__nv_bfloat16", "6__half")
+DQ128_F16 = DQ64_F16.replace("ILi64E", "ILi128E")
+# the wide kernels, templated on their element type as well
 FWDW256 = "_ZN4voda21flash_fwd_wide_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiif"
 DKVW256 = "_ZN4voda21flash_dkv_wide_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiif"
 FWDW256_F16 = FWDW256.replace("13__nv_bfloat16", "6__half")
 DKVW256_F16 = DKVW256.replace("13__nv_bfloat16", "6__half")
 DKVW512_F16 = DKVW256_F16.replace("ILi256E", "ILi512E")
-DQW256 = "_ZN4voda20flash_dq_wide_kernelILi256EEEv14CUtensorMap_stS1_S1_S1_PK13__nv_bfloat16PKfPfPS2_iiiiif"
+DQW256 = "_ZN4voda20flash_dq_wide_kernelILi256E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKT0_PKfPfPS3_iiiiif"
+DQW256_F16 = DQW256.replace("13__nv_bfloat16", "6__half")
+DQW512_F16 = DQW256_F16.replace("ILi256E", "ILi512E")
 FWDW512 = FWDW256.replace("ILi256E", "ILi512E")
 DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
 DQW512 = DQW256.replace("ILi256E", "ILi512E")
 # the wmma dQ kernel above D=512 is not templated on its width
 DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
-F16_CLEAN = ((FWD64_F16, 0, 0), (DKV64_F16, 0, 0))
+F16_CLEAN = ((FWD64_F16, 0, 0), (DQ64_F16, 0, 0), (DKV64_F16, 0, 0))
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
-WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DKVW256_F16, 0, 0))
+WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
+                  (DKVW256_F16, 0, 0))
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
               *WIDE_F16_CLEAN)
+
+
+def untouched(clean, kernels):
+    """The entries of `clean` whose kernel `kernels` name at no width."""
+    base = lambda name: re.sub(r"ILi\d+E", "", name)
+    named = {base(k[0]) for k in kernels}
+    return tuple(k for k in clean if base(k[0]) not in named)
 
 
 def log_of(*kernels):
@@ -58,8 +71,8 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
                                             *F16_CLEAN, (DKV128_F16, 8, 8)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_dkv", 128): 344,
-                      ("flash_fwd_f16", 64): 0, ("flash_dkv_f16", 64): 0,
-                      ("flash_dkv_f16", 128): 16}
+                      ("flash_fwd_f16", 64): 0, ("flash_dq_f16", 64): 0,
+                      ("flash_dkv_f16", 64): 0, ("flash_dkv_f16", 128): 16}
     assert chip_smoke.spill_faults(spills) == []
 
 
@@ -81,15 +94,17 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
     # a bf16 kernel's spill is not read as fp16's, nor fp16's as bf16's
     (((FWD64_F16, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0)),
      "flash_fwd D=64: no ptxas spill line"),
+    # fp16's tensor-core dQ, gated as the bf16 one
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DQ64_F16, 8, 8)),
+     "flash_dq_f16 D=64: 16 bytes spilled"),
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DQ128_F16, 0, 0)),
+     "flash_dq_f16 D=64: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
     """Each case's log also holds the fp16 kernels' clean lines, except
     where the case names an fp16 kernel itself."""
-    names = {k[0] for k in kernels}
-    f16 = tuple(k for k in F16_CLEAN
-                if not names & {k[0], k[0].replace("ILi64E", "ILi128E")})
     assert chip_smoke.spill_faults(chip_smoke.ptxas_spills(
-        log_of(*kernels, *f16))) == [fault]
+        log_of(*kernels, *untouched(F16_CLEAN, kernels)))) == [fault]
 
 
 def test_spill_at_d128_is_only_logged():
@@ -106,9 +121,11 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
         (DQW, 12, 12), (DKVW512_F16, 16, 16)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_fwd_f16", 64): 0,
+                      ("flash_dq_f16", 64): 0,
                       ("flash_dkv_f16", 64): 0, ("flash_fwd_wide", 256): 0,
                       ("flash_dq_wide", 256): 0, ("flash_dkv_wide", 256): 0,
                       ("flash_fwd_f16_wide", 256): 0,
+                      ("flash_dq_f16_wide", 256): 0,
                       ("flash_dkv_f16_wide", 256): 0,
                       ("flash_fwd_wide", 512): 1132,
                       ("flash_dkv_wide", 384): 0,
@@ -146,13 +163,17 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
     (((DKVW256_F16, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
       (FWDW256_F16, 0, 0)),
      "flash_fwd_wide D=256: no ptxas spill line"),
+    # fp16's wide dQ, gated as the bf16 one
+    (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0), (DQW256_F16, 4, 4)),
+     "flash_dq_f16_wide D=256: 8 bytes spilled"),
+    (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0), (DQW512_F16, 0, 0)),
+     "flash_dq_f16_wide D=256: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_in_a_wide_kernel_at_d256(wide, fault):
     """Each case's log also holds the fp16 wide kernels' clean lines,
-    except where the case names an fp16 wide kernel itself."""
-    names = {k[0] for k in wide}
-    f16 = () if names & {FWDW256_F16, DKVW256_F16} else WIDE_F16_CLEAN
-    spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *wide, *f16))
+    except those of a kernel the case names itself, at any width."""
+    spills = chip_smoke.ptxas_spills(log_of(
+        *MAIN_CLEAN, *wide, *untouched(WIDE_F16_CLEAN, wide)))
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
     # the main path's gate alone does not look at the wide kernels
     assert chip_smoke.spill_faults(spills) == []
@@ -172,6 +193,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert set(chip_smoke.SPILL_GATES) <= set(spills)
     assert ("flash_dq_wide", 256) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_f16_wide", 256) in chip_smoke.SPILL_GATES
+    assert ("flash_dq_f16", 64) in chip_smoke.SPILL_GATES
+    assert ("flash_dq_f16_wide", 256) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 

@@ -1,8 +1,8 @@
-"""A plain PyTorch model of the fp16 dK/dV kernels' arithmetic
+"""A plain PyTorch model of the fp16 dK/dV and dQ kernels' arithmetic
 (``vodascheduler_tpu_torch/ops/csrc/flash_dkv.cu``, ``voda_flash_dkv_f16``,
-and ``flash_dkv_wide.cu``, ``voda_flash_dkv_f16_wide``), written apart
-from the package so that the tests hold the kernels' design, and the
-kernels themselves, against it.
+and ``flash_dkv_wide.cu``, ``voda_flash_dkv_f16_wide``; `dq` below),
+written apart from the package so that the tests hold the kernels'
+design, and the kernels themselves, against it.
 
 A kernel walks the query tiles of BM rows past each block of keys, from
 the first tile whose last row reaches the block under the causal mask
@@ -23,6 +23,19 @@ dSᵀ/scale = Pᵀ∘(V·dOᵀ − δ) in fp32, and for each key row j:
 `dkv` returns dK and dV in fp32, before the kernel rounds them to fp16.
 ``scaled=False`` rounds dS to fp16 as it stands (the Pallas kernel's
 ``ds.astype(q.dtype)``), which is what the scale repairs.
+
+`dq` models the fp16 dQ kernels (``flash_dq.cu``, ``voda_flash_dq_f16``,
+and ``flash_dq_wide.cu``, ``voda_flash_dq_f16_wide``) the same way, on
+query rows: a block of query rows walks the key tiles up to the last one
+its last row sees under the causal mask (`dq_tiling`: the narrow kernel's
+128 rows against 64-key tiles; the wide kernel's 64 rows against 64-key
+tiles at D=256 and 32 at 384 and 512, where its two warpgroups share each
+row's exponent). Per tile it forms P·scale = exp2(Q·Kᵀ·scale·log2e −
+(lse·log2e − log2 scale)) and dS = P·scale∘(dO·Vᵀ − δ) in fp32, and for
+each query row i: m = max |dS| over the tile's row; where m > 0, e_i falls
+as above and the row of dQ's accumulator is rescaled; dS·2^e_i is rounded
+to fp16 and multiplied by K (fp16), summed in fp32; dQ is the accumulator
+times 2^−e_i.
 """
 
 import math
@@ -40,6 +53,15 @@ def tiling(D: int):
     (`DkvWide::BN`, `DkvWide::BM`) from 256 to 512."""
     if D <= 128:
         return 128, 64 if D == 64 else 32
+    return 64, 64 if D == 256 else 32
+
+
+def dq_tiling(D: int):
+    """(query rows of a block, keys of a tile) of the fp16 dQ kernel that
+    takes head width D: flash_dq.cu's (`Dq::BM`, `Dq::BN`) up to 128,
+    flash_dq_wide.cu's (`DqWide::BM`, `DqWide::BN`) from 256 to 512."""
+    if D <= 128:
+        return 128, 64
     return 64, 64 if D == 256 else 32
 
 
@@ -80,10 +102,7 @@ def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
             u = pt * (vb @ dot.transpose(-1, -2)
                       - delta[:, :, rows][:, :, None, :])
             if scaled:
-                m = u.abs().amax(-1) * sc
-                et = DS_TOP - _binade(m)
-                en = torch.where(m > 0, torch.clamp(torch.minimum(ex, et),
-                                                    min=-E_MAX), ex)
+                en = _exponents(ex, u.abs().amax(-1) * sc)
                 acc_k *= torch.exp2(torch.clamp(en - ex, min=-126)
                                     .float())[..., None]
                 ex = en
@@ -96,6 +115,60 @@ def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
             acc_k *= torch.exp2(-ex.float())[..., None]
         dk[:, :, keys], dv[:, :, keys] = acc_k, acc_v
     return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
+def _exponents(ex, m):
+    """The rows' exponents after a tile whose largest |dS| in each row is m
+    (`ds_exponent`)."""
+    et = DS_TOP - _binade(m)
+    return torch.where(m > 0, torch.clamp(torch.minimum(ex, et), min=-E_MAX),
+                       ex)
+
+
+def dq(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
+       scaled: bool = True):
+    """dQ [B, Sq, H, D] fp32 as the fp16 dQ kernel of width D computes it,
+    at its `dq_tiling`. q, k, v, do are fp16 [B, S, H, D]; lse and delta
+    fp32 [B, H, Sq]."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    BM, BN = dq_tiling(D)
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    out = torch.zeros(B, H, Sq, D)
+    sc = torch.tensor(scale, dtype=torch.float32)
+    sl2 = sc * LOG2E
+    lse2 = lse * LOG2E - torch.log2(sc)
+    for q0 in range(0, Sq, BM):
+        rows = torch.arange(q0, min(q0 + BM, Sq))
+        qt, dot = qf[:, :, rows], dof[:, :, rows]
+        n_k = -(-Sk // BN)
+        if causal:
+            n_k = min(n_k, (q_off + rows[-1].item()) // BN + 1)
+        ex = torch.full((B, H, len(rows)), E_MAX, dtype=torch.int32)
+        acc = torch.zeros(B, H, len(rows), D)
+        for k0 in range(0, n_k * BN, BN):
+            keys = torch.arange(k0, min(k0 + BN, Sk))
+            kb, vb = kf[:, :, keys], vf[:, :, keys]
+            s = qt @ kb.transpose(-1, -2) * sl2 \
+                - lse2[:, :, rows][..., None]
+            if causal:
+                s = s.masked_fill(
+                    (q_off + rows)[:, None] < keys[None, :], -math.inf)
+            u = torch.exp2(s) * (dot @ vb.transpose(-1, -2)
+                                 - delta[:, :, rows][..., None])
+            if scaled:
+                en = _exponents(ex, u.abs().amax(-1))
+                acc *= torch.exp2(torch.clamp(en - ex, min=-126)
+                                  .float())[..., None]
+                ex = en
+                ds = u * torch.exp2(ex.float())[..., None]
+            else:
+                ds = u
+            acc += ds.half().float() @ kb
+        if scaled:
+            acc *= torch.exp2(-ex.float())[..., None]
+        out[:, :, rows] = acc
+    return out.transpose(1, 2)
 
 
 def small_gradient_inputs(rng, B=1, S=128, H=2, D=64, q_mult=1 / 64):

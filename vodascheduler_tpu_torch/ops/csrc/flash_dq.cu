@@ -51,6 +51,30 @@
 //
 // No atomics: each CTA writes its own rows of dQ and δ, so both are
 // deterministic.
+//
+// fp16 (voda_flash_dq_f16). The same kernel on fp16 tensors, through
+// wgmma's f16 form (the element type is a template parameter), with one
+// change. `_dq_kernel` rounds dS to the input dtype before dQ = dS·K
+// (`ds.astype(k.dtype)`); in fp16 that flushes the dS of an unscaled loss
+// (an output gradient of 1e-6 gives dS near 1e-8, below fp16's smallest
+// normal, 6e-5), and wgmma takes both operands in one type, so dS cannot
+// stay fp32. So each query row i of dS is rounded to fp16 under a
+// power-of-two scale 2^e_i, as flash_dkv.cu does for the key rows of dSᵀ:
+// - e_i is a running exponent, one for each of the thread's two rows (the
+//   same rows in dS and in dQ's accumulator), E_MAX at the start;
+// - each key tile takes the row's max |dS| over the quad that holds it and
+//   the exponent that puts that max in [2^13, 2^14) (DS_TOP, ds_exponent in
+//   hopper.cuh), lowered to it where that is below e_i; a row with no
+//   nonzero dS in the tile (masked) keeps its exponent. dS is multiplied by
+//   2^e_i before it is packed to fp16 A fragments;
+// - where e_i fell, the row of dQ's accumulator is multiplied by
+//   2^(new − old) (exact in fp32), behind a warp vote, once the last tile's
+//   dQ product is in and before this tile's is issued (`pack_ds`). At D=64
+//   the exponents come out of dS of tile j, computed under dQ of tile j−1,
+//   and the rescale waits for that product's wgmma_wait<0>, which no branch
+//   surrounds;
+// - the epilogue stores dQ's row times 2^-e_i.
+// For bf16 none of this is compiled (`if constexpr`).
 
 #include "hopper.cuh"
 
@@ -85,17 +109,17 @@ struct Dq {
 // takes the chunks t and t + 4 of every 64-column part, in an order that
 // puts the 8 threads of one 16-byte load phase (two rows) on distinct
 // banks, and the quad sums.
-template <int BM, int D>
-__device__ __forceinline__ float row_delta(const bf16* dos, const bf16* os,
-                                           int r, int g, int t) {
+template <int BM, int D, typename T>
+__device__ __forceinline__ float row_delta(const T* dos, const T* os, int r,
+                                           int g, int t) {
   float s = 0.f;
 #pragma unroll
   for (int p = 0; p < D / 64; ++p) {
 #pragma unroll
     for (int x = 0; x < 2; ++x) {
       const int off = p * BM * 64 + r * 64 + (((t + 4 * x) ^ (4 * (g & 1))) * 8);
-      s += dot8(*reinterpret_cast<const uint4*>(dos + off),
-                *reinterpret_cast<const uint4*>(os + off));
+      s += dot8<T>(*reinterpret_cast<const uint4*>(dos + off),
+                   *reinterpret_cast<const uint4*>(os + off));
     }
   }
   return quad_sum(s);
@@ -104,12 +128,14 @@ __device__ __forceinline__ float row_delta(const bf16* dos, const bf16* os,
 // P·D^-½ and dS of one tile on its accumulators, in place: sc holds
 // S = Q·Kᵀ (unscaled), dp holds dP = dO·Vᵀ and takes dS = P∘(dP − δ)·D^-½.
 // lse2 is a row's lse·log2e − log2 D^-½, so exp2(S·sl2 − lse2) = P·D^-½.
-template <int BN>
+// SCALED (fp16): mx takes the largest |dS| of each of the thread's rows.
+template <int BN, bool SCALED>
 __device__ __forceinline__ void ds_tile(float (&sc)[BN / 2], float (&dp)[BN / 2],
                                         const float (&lse2)[2],
                                         const float (&dl)[2], float sl2,
                                         bool masked, int col0, int Sk,
-                                        int causal, const int (&row)[2], int t) {
+                                        int causal, const int (&row)[2], int t,
+                                        float (&mx)[2]) {
   // The mask is a pass of its own behind a uniform branch: folded into the
   // loop below, it would be predicated onto every tile.
   if (masked) {
@@ -128,11 +154,12 @@ __device__ __forceinline__ void ds_tile(float (&sc)[BN / 2], float (&dp)[BN / 2]
     for (int e = 0; e < 4; ++e) {
       const float p = fast_exp2(fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]));
       dp[4 * c + e] = p * (dp[4 * c + e] - dl[e >> 1]);
+      if constexpr (SCALED) mx[e >> 1] = fmaxf(mx[e >> 1], fabsf(dp[4 * c + e]));
     }
   }
 }
 
-template <int D>
+template <int D, typename T>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -140,18 +167,20 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                     const __grid_constant__ CUtensorMap to,
                     const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse, float* __restrict__ delta,
-                    bf16* __restrict__ dq, int H, int Sq, int Sk, int q_off,
+                    T* __restrict__ dq, int H, int Sq, int Sk, int q_off,
                     int causal, float scale) {
   using C = Dq<D>;
+  // fp16: dS under a per-query-row scale (header)
+  constexpr bool SCALED = std::is_same<T, f16>::value;
   using Regs = RegSplit<24, 240>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* qs = reinterpret_cast<bf16*>(sm);
-  bf16* dos = reinterpret_cast<bf16*>(sm + C::DO_OFF);
-  bf16* os = reinterpret_cast<bf16*>(sm + C::O_OFF);
-  bf16* ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
-  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm);
+  T* dos = reinterpret_cast<T*>(sm + C::DO_OFF);
+  T* os = reinterpret_cast<T*>(sm + C::O_OFF);
+  T* ks = reinterpret_cast<T*>(sm + C::K_OFF);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + C::STAGES;
@@ -230,6 +259,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
     float sc[C::BN / 2], dp[C::BN / 2];
     uint32_t dsa[C::BN / 16][4];
+    // fp16: the exponents of the thread's two rows, and those of the tile
+    // whose dS was formed last (header)
+    int ex[2] = {E_MAX, E_MAX}, en[2] = {E_MAX, E_MAX};
 
     // S = Q·Kᵀ and dP = dO·Vᵀ of tile j, committed as one group. Both
     // barriers are waited for before the first wgmma: a wait between two
@@ -246,12 +278,12 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<C::BN>(sc, qd + kmajor_step(C::BM, kk),
-                        kd + kmajor_step(C::BN, kk), kk > 0);
+        wgmma_ss<C::BN, T>(sc, qd + kmajor_step(C::BM, kk),
+                           kd + kmajor_step(C::BN, kk), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<C::BN>(dp, dd + kmajor_step(C::BM, kk),
-                        vd + kmajor_step(C::BN, kk), kk > 0);
+        wgmma_ss<C::BN, T>(dp, dd + kmajor_step(C::BM, kk),
+                           vd + kmajor_step(C::BN, kk), kk > 0);
       wgmma_commit();
     };
     // dQ += dS·K of tile j, committed as one group
@@ -261,7 +293,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < C::BN / 16; ++kk)
-        wgmma_rs<D>(acc, dsa[kk], kd + mnmajor_step(kk));
+        wgmma_rs<D, T>(acc, dsa[kk], kd + mnmajor_step(kk));
       wgmma_commit();
     };
     auto p_ds = [&](int j) {
@@ -269,11 +301,39 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       fence_regs(dp);
       const bool masked = (j + 1) * C::BN > Sk ||
                           (causal && j * C::BN + C::BN - 1 > wg_row0);
-      ds_tile<C::BN>(sc, dp, lse2, dl, sl2, masked, j * C::BN, Sk, causal, row, t);
-    };
-    auto pack_ds = [&] {
+      float mx[2] = {0.f, 0.f};
+      ds_tile<C::BN, SCALED>(sc, dp, lse2, dl, sl2, masked, j * C::BN, Sk,
+                             causal, row, t, mx);
+      if constexpr (SCALED) {
+        // each row's exponent for the tile, and dS times 2^e
 #pragma unroll
-      for (int kk = 0; kk < C::BN / 16; ++kk) acc_to_a<C::BN / 2>(dsa[kk], dp, kk);
+        for (int r = 0; r < 2; ++r)
+          en[r] = ds_exponent(quad_max(mx[r]), ex[r]);
+        const float fs[2] = {pow2i(en[0]), pow2i(en[1])};
+#pragma unroll
+        for (int e = 0; e < C::BN / 2; ++e) dp[e] *= fs[(e >> 1) & 1];
+      }
+    };
+    // dS into A fragments; fp16: dQ's rows first rescaled where an exponent
+    // fell, so dQ's last product must be in
+    auto pack_ds = [&] {
+      if constexpr (SCALED) {
+        float f[2];
+        bool fell = false;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          f[r] = pow2i(max(en[r] - ex[r], -126));
+          fell |= en[r] < ex[r];
+          ex[r] = en[r];
+        }
+        if (__any_sync(0xffffffffu, fell)) {
+#pragma unroll
+          for (int e = 0; e < D / 2; ++e) acc[e] *= f[(e >> 1) & 1];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < C::BN / 16; ++kk)
+        acc_to_a<C::BN / 2, T>(dsa[kk], dp, kk);
     };
 
     const Turns<C::OVERLAP> turns{cw};
@@ -319,53 +379,76 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       mbar_arrive(&empty[(n_k - 1) % C::STAGES]);
     }
 
-    store_acc_rows<D>(dq + (static_cast<size_t>(b) * Sq * H + h) * D, acc,
-                      q0 + r_loc, Sq, H * D, 1.f, 1.f, t);
+    T* dq_head = dq + (static_cast<size_t>(b) * Sq * H + h) * D;
+    if constexpr (SCALED)
+      store_acc_rows<D>(dq_head, acc, q0 + r_loc, Sq, H * D, pow2i(-ex[0]),
+                        pow2i(-ex[1]), t);
+    else
+      store_acc_rows<D>(dq_head, acc, q0 + r_loc, Sq, H * D, 1.f, 1.f, t);
     trap_if_stalled();
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const void* lse, void* delta, void* dq, int B,
               int H, int Sq, int Sk, int q_off, int causal, float scale,
               cudaStream_t st) {
   using C = Dq<D>;
   CUtensorMap tq, tk, tv, to, tdo;
-  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&to, o, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&to, o, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM, ty);
   if (!err)
-    err = prepare_ws_kernel(reinterpret_cast<const void*>(&flash_dq_kernel<D>),
-                            C::SMEM);
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dq_kernel<D, T>), C::SMEM);
   if (err) return err;
   const dim3 grid((Sq + C::BM - 1) / C::BM, H, B);
-  flash_dq_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+  flash_dq_kernel<D, T><<<grid, WS_THREADS, C::SMEM, st>>>(
       tq, tk, tv, to, tdo, static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf16*>(dq), H, Sq, Sk, q_off,
+      static_cast<float*>(delta), static_cast<T*>(dq), H, Sq, Sk, q_off,
       causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace voda
-
 // Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
 // its launch; 1 (cudaErrorInvalidValue) for a head_dim without an
 // instantiation.
+template <typename T>
+int run_dq(const void* q, const void* k, const void* v, const void* o,
+       const void* dout, const void* lse, void* delta, void* dq, int B, int H,
+       int Sq, int Sk, int D, int q_off, int causal, float scale,
+       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return launch_dq<64, T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
+                            q_off, causal, scale, st);
+  if (D == 128)
+    return launch_dq<128, T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
+                             q_off, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace voda
+
+// bf16 and fp16 tensors, the same arguments.
 extern "C" int voda_flash_dq(const void* q, const void* k, const void* v,
                              const void* o, const void* dout, const void* lse,
                              void* delta, void* dq, int B, int H, int Sq,
                              int Sk, int D, int q_off, int causal, float scale,
                              void* stream) {
-  using namespace voda;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_dq<64>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
-                         q_off, causal, scale, st);
-  if (D == 128)
-    return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
-                          q_off, causal, scale, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return voda::run_dq<voda::bf16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq,
+                                  Sk, D, q_off, causal, scale, stream);
+}
+
+extern "C" int voda_flash_dq_f16(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq, int B,
+                                 int H, int Sq, int Sk, int D, int q_off,
+                                 int causal, float scale, void* stream) {
+  return voda::run_dq<voda::f16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq,
+                                 Sk, D, q_off, causal, scale, stream);
 }

@@ -50,15 +50,18 @@
 //   and are never stored; keys past Sk arrive as zeros and are masked.
 //
 // Shared memory, of the 227 KB (plus 1 KB to align the base to the
-// swizzle's 1024 bytes, and the mbarriers):
+// swizzle's 1024 bytes, and the mbarriers), bf16 (fp16 adds the exponents'
+// 1 KB, below):
 //   D=256, BN=64: Q, dO 64 KB + 2 × (K, V 64 KB) + P 16 KB + dS 8 KB = 216 KB
 //   D=384, BN=32: Q, dO 96 KB + 2 × (K, V 48 KB) + 12 KB = 204 KB
 //   D=512, BN=32: Q, dO 128 KB + 1 × (K, V 64 KB) + 12 KB = 204 KB; with one
 //                 stage a tile's loads wait for the last tile's products.
 // Registers: setmaxnreg gives the producer 24 and each consumer thread 240.
 // A consumer holds its half of dQ (D/4 fp32: 64 at D=256, 128 at D=512),
-// S or dP (BN/2 fp32) and dS as A fragments (BN/4). ptxas spills nothing at
-// D=256, 384 or 512 (chip_smoke.py phase 2 refuses a spill at D=256).
+// S or dP (BN/2 fp32) and dS as A fragments (BN/4); fp16 adds the two
+// exponents of the thread's rows and, for the tile's scale, a few registers
+// more. ptxas spills nothing at D=256, 384 or 512 (chip_smoke.py phase 2
+// refuses a spill at D=256).
 // Where the time goes (scripts/torch_kernel_ablate.py on an H100, two runs
 // of 3 rounds): at D=256 the handoff waits 6-9%, the exponentials 0-3%, the
 // K/V loads no more than the spread; at D=512 the single stage's loads 21%.
@@ -69,22 +72,57 @@
 //
 // No atomics: each CTA writes its own rows of dQ and δ, so both are
 // deterministic.
+//
+// fp16 (voda_flash_dq_f16_wide, D = 256, 384, 512). The same kernel on fp16
+// tensors, the element type a template parameter (bf16 by default), with
+// flash_dq.cu's per-query-row scale of dS carried over to this split of
+// the work. wgmma takes both operands in one type, so dS is rounded to
+// fp16, where an unscaled loss's dS (near 1e-8 for an output gradient of
+// 1e-6) would flush below fp16's smallest normal, 6e-5. So:
+// - Warpgroup 1, which forms dS, keeps a running exponent e_i for each of
+//   its thread's two query rows (E_MAX at the start). For each key tile it
+//   takes the row's largest |dS| over the quad that holds the row and
+//   lowers e_i to the exponent that puts it in [2^13, 2^14) where that is
+//   lower (ds_exponent, hopper.cuh; never below −E_MAX; a row the tile
+//   masks keeps e_i), and packs dS·2^e_i to fp16 A fragments.
+// - Both warpgroups accumulate dQ over the same 64 query rows, each in its
+//   half of the columns, and thread tid of warpgroup 0 holds the same two
+//   rows as thread tid of warpgroup 1 (the m64 accumulator layout). So
+//   warpgroup 1 writes its thread's two new exponents (8 bytes) beside the
+//   dS fragments in the exchange, behind the same named barrier 4, and
+//   warpgroup 0 reads them with the fragments: both keep the same e_i.
+// - Each warpgroup multiplies its half of dQ's row by 2^(new − old) where
+//   the exponent fell (exact in fp32; behind a warp vote, so a tile with no
+//   change costs one vote), after the last tile's dQ product has completed
+//   and before this tile's is issued.
+// - The epilogue stores dQ's row times 2^−e_i in both warpgroups.
+// One CTA covers the whole head at every width, so no two CTAs need to
+// agree on an exponent. The exponents' slot (1 KB) changes no width's BN
+// or stages. For bf16 none of this is compiled (`if constexpr`), and its
+// shared layout is the parent's.
 
 #include "hopper.cuh"
 #include "wide.cuh"
 
 namespace voda {
 
-template <int D>
+template <int D, typename T = bf16>
 struct DqWide {
+  // fp16: dS under a per-query-row scale, whose exponents the exchange
+  // carries too (header)
+  static constexpr bool SCALED = std::is_same<T, f16>::value;
+  static constexpr int XE_BYTES = SCALED ? 8 * WG_THREADS : 0;
   static constexpr int BM = 64;     // query rows of a CTA
   static constexpr int HW = D / 2;  // a consumer warpgroup's half of dQ
   static constexpr int T_BYTES = BM * D * 2;  // each of Q, dO
   static constexpr int ROOM = MAX_SMEM - 1024 - 2 * T_BYTES - 8 * 8;
   // a stage of `bn` keys: K, V
   static constexpr int stage_bytes(int bn) { return 4 * bn * D; }
-  // the exchange: P as fp32 and dS as bf16 A fragments
-  static constexpr int xchg_bytes(int bn) { return 256 * bn + 128 * bn; }
+  // the exchange: P as fp32 and dS as A fragments of T (and, for fp16, the
+  // exponents of dS's rows)
+  static constexpr int xchg_bytes(int bn) {
+    return 256 * bn + 128 * bn + XE_BYTES;
+  }
   static constexpr int fit(int bn) {
     return (ROOM - xchg_bytes(bn)) / stage_bytes(bn);
   }
@@ -97,35 +135,38 @@ struct DqWide {
   static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
   static constexpr int XP_OFF = V_OFF + STAGES * KV_BYTES;
   static constexpr int XDS_OFF = XP_OFF + 256 * BN;
-  static constexpr int BAR_OFF = XDS_OFF + 128 * BN;
+  static constexpr int XE_OFF = XDS_OFF + 128 * BN;
+  static constexpr int BAR_OFF = XE_OFF + XE_BYTES;
   // q_full, k_full[STAGES], v_full[STAGES], empty[STAGES]
   static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
   static_assert(STAGES >= 1 && SMEM <= MAX_SMEM, "no stage fits beside Q, dO");
 };
 
-template <int D>
+template <int D, typename T = bf16>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_dq_wide_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
-                         const bf16* __restrict__ o,
+                         const T* __restrict__ o,
                          const float* __restrict__ lse,
-                         float* __restrict__ delta, bf16* __restrict__ dq,
+                         float* __restrict__ delta, T* __restrict__ dq,
                          int H, int Sq, int Sk, int q_off, int causal,
                          float scale) {
-  using C = DqWide<D>;
+  using C = DqWide<D, T>;
+  constexpr bool SCALED = C::SCALED;
   constexpr int BM = C::BM, BN = C::BN, ST = C::STAGES, HW = C::HW;
   using Regs = RegSplit<24, 240>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* qs = reinterpret_cast<bf16*>(sm);
-  bf16* dos = reinterpret_cast<bf16*>(sm + C::DO_OFF);
-  bf16* ks = reinterpret_cast<bf16*>(sm + C::K_OFF);
-  bf16* vs = reinterpret_cast<bf16*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm);
+  T* dos = reinterpret_cast<T*>(sm + C::DO_OFF);
+  T* ks = reinterpret_cast<T*>(sm + C::K_OFF);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
   float4* xp = reinterpret_cast<float4*>(sm + C::XP_OFF);  // [BN/8][128]
   uint4* xds = reinterpret_cast<uint4*>(sm + C::XDS_OFF);  // [BN/16][128]
+  int2* xe = reinterpret_cast<int2*>(sm + C::XE_OFF);  // fp16: [128] exponents
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
   uint64_t* k_full = q_full + 1;
   uint64_t* v_full = k_full + ST;
@@ -196,6 +237,29 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int e = 0; e < HW / 2; ++e) acc[e] = 0.f;
     float sc[BN / 2];  // S, then P·scale (warpgroup 0); dP, then dS (1)
     uint32_t dsa[BN / 16][4];
+    // fp16: the exponents of the thread's two query rows (header), the same
+    // in both warpgroups
+    int ex[2] = {E_MAX, E_MAX};
+    // fp16: dQ's rows times 2^(en − ex) where an exponent fell, then ex = en
+    auto rescale = [&](const int (&en)[2]) {
+      float f[2];
+      bool fell = false;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        f[r] = pow2i(max(en[r] - ex[r], -126));
+        fell |= en[r] < ex[r];
+        ex[r] = en[r];
+      }
+      if (__any_sync(0xffffffffu, fell)) {
+#pragma unroll
+        for (int c = 0; c < HW / 8; ++c) {
+          acc[4 * c] *= f[0];
+          acc[4 * c + 1] *= f[0];
+          acc[4 * c + 2] *= f[1];
+          acc[4 * c + 3] *= f[1];
+        }
+      }
+    };
 
     // S = Q·Kᵀ (warpgroup 0) or dP = dO·Vᵀ (warpgroup 1) of tile j over all
     // of D into sc, committed as one group. Warpgroup 1 also waits for K,
@@ -210,8 +274,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss<BN>(sc, ad + kmajor_step(BM, kk), bd + kmajor_step(BN, kk),
-                     kk > 0);
+        wgmma_ss<BN, T>(sc, ad + kmajor_step(BM, kk),
+                        bd + kmajor_step(BN, kk), kk > 0);
       wgmma_commit();
     };
     // Warpgroup 1: δ of the thread's two rows, written out. Thread t of the
@@ -224,17 +288,17 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         const int lr = r_loc + 8 * r;
         float s = 0.f;
         if (q0 + lr < Sq) {
-          const bf16* orow = o + head + static_cast<size_t>(q0 + lr) * rs;
+          const T* orow = o + head + static_cast<size_t>(q0 + lr) * rs;
 #pragma unroll
           for (int p = 0; p < D / 64; ++p) {
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
               const int pc = (t + 4 * x) ^ (4 * (g & 1));  // where it sits
               const int lc = pc ^ (lr & 7);                 // which it is
-              s += dot8(*reinterpret_cast<const uint4*>(
-                            dos + p * BM * 64 + lr * 64 + pc * 8),
-                        __ldg(reinterpret_cast<const uint4*>(
-                            orow + p * 64 + lc * 8)));
+              s += dot8<T>(*reinterpret_cast<const uint4*>(
+                               dos + p * BM * 64 + lr * 64 + pc * 8),
+                           __ldg(reinterpret_cast<const uint4*>(
+                               orow + p * 64 + lc * 8)));
             }
           }
         }
@@ -267,7 +331,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       }
       asm volatile("bar.arrive 3, 256;" ::: "memory");  // P is out
     };
-    // Warpgroup 0: dS of the same tile, from warpgroup 1
+    // Warpgroup 0: dS of the same tile, from warpgroup 1 (fp16: with its
+    // rows' exponents, and dQ's rows rescaled where they fell)
     auto ds_in = [&]() {
       asm volatile("bar.sync 4, 256;" ::: "memory");  // dS is in
 #pragma unroll
@@ -278,10 +343,18 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         dsa[kk][2] = x.z;
         dsa[kk][3] = x.w;
       }
+      if constexpr (SCALED) {
+        const int2 e = xe[tid];
+        const int en[2] = {e.x, e.y};
+        rescale(en);
+      }
     };
     // Warpgroup 1: dS of the tile from dP and warpgroup 0's P, handed back
+    // (fp16: under its rows' new exponents, which go with it, dQ's rows
+    // rescaled where they fell)
     auto ds_out = [&]() {
       asm volatile("bar.sync 3, 256;" ::: "memory");  // P is in
+      float mx[2] = {0.f, 0.f};  // fp16: the rows' largest |dS|
 #pragma unroll
       for (int c = 0; c < BN / 8; ++c) {
         const float4 p = xp[c * WG_THREADS + tid];
@@ -289,10 +362,33 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl[0]);
         sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl[1]);
         sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl[1]);
+        if constexpr (SCALED) {
+          mx[0] = fmaxf(mx[0], fmaxf(fabsf(sc[4 * c]), fabsf(sc[4 * c + 1])));
+          mx[1] = fmaxf(mx[1],
+                        fmaxf(fabsf(sc[4 * c + 2]), fabsf(sc[4 * c + 3])));
+        }
+      }
+      if constexpr (SCALED) {
+        // each row's exponent, handed over beside dS; dQ's rows rescaled
+        // where it fell; then dS times 2^e
+        int en[2];
+        float fs[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          en[r] = ds_exponent(quad_max(mx[r]), ex[r]);
+          fs[r] = pow2i(en[r]);
+        }
+        xe[tid] = make_int2(en[0], en[1]);
+        rescale(en);
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[4 * c + e] *= fs[e >> 1];
+        }
       }
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk) {
-        acc_to_a<BN / 2>(dsa[kk], sc, kk);
+        acc_to_a<BN / 2, T>(dsa[kk], sc, kk);
         xds[kk * WG_THREADS + tid] =
             make_uint4(dsa[kk][0], dsa[kk][1], dsa[kk][2], dsa[kk][3]);
       }
@@ -306,7 +402,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        wgmma_rs<HW>(acc, dsa[kk], kd + mnmajor_step(kk));
+        wgmma_rs<HW, T>(acc, dsa[kk], kd + mnmajor_step(kk));
       wgmma_commit();
     };
 
@@ -335,33 +431,59 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       mbar_arrive(&empty[j % ST]);
     }
 
-    store_acc_rows<HW>(dq + head + cw * HW, acc, q0 + r_loc, Sq, rs, 1.f,
-                       1.f, t);
+    if constexpr (SCALED)
+      store_acc_rows<HW>(dq + head + cw * HW, acc, q0 + r_loc, Sq, rs,
+                         pow2i(-ex[0]), pow2i(-ex[1]), t);
+    else
+      store_acc_rows<HW>(dq + head + cw * HW, acc, q0 + r_loc, Sq, rs, 1.f,
+                         1.f, t);
     trap_if_stalled();
   }
 }
 
-template <int D>
+template <int D, typename T>
 int launch_dq_wide(const void* q, const void* k, const void* v,
                    const void* o, const void* dout, const void* lse,
                    void* delta, void* dq, int B, int H, int Sq, int Sk,
                    int q_off, int causal, float scale, cudaStream_t st) {
-  using C = DqWide<D>;
+  using C = DqWide<D, T>;
+  static_assert(C::BN == DqWide<D>::BN && C::STAGES == DqWide<D>::STAGES,
+                "fp16's exponents cost the tiles or the stages of bf16");
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN);
-  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM, ty);
   if (!err)
     err = prepare_ws_kernel(
-        reinterpret_cast<const void*>(&flash_dq_wide_kernel<D>), C::SMEM);
+        reinterpret_cast<const void*>(&flash_dq_wide_kernel<D, T>), C::SMEM);
   if (err) return err;
   const dim3 grid((Sq + C::BM - 1) / C::BM, 1, B * H);
-  flash_dq_wide_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
-      tq, tk, tv, tdo, static_cast<const bf16*>(o),
+  flash_dq_wide_kernel<D, T><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const T*>(o),
       static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<bf16*>(dq), H, Sq, Sk, q_off, causal, scale);
+      static_cast<T*>(dq), H, Sq, Sk, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma kernel at D = 256, 384 or 512 on tensors of T; 1
+// (cudaErrorInvalidValue) at any other width.
+template <typename T>
+int dq_wgmma(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const void* lse, void* delta, void* dq, int B,
+             int H, int Sq, int Sk, int D, int q_off, int causal, float scale,
+             cudaStream_t st) {
+  if (D == 256)
+    return launch_dq_wide<256, T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq,
+                                  Sk, q_off, causal, scale, st);
+  if (D == 384)
+    return launch_dq_wide<384, T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq,
+                                  Sk, q_off, causal, scale, st);
+  if (D == 512)
+    return launch_dq_wide<512, T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq,
+                                  Sk, q_off, causal, scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // ------------------------------------------------------- widths above 512
@@ -499,15 +621,9 @@ extern "C" int voda_flash_dq_wide(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 256)
-    return launch_dq_wide<256>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
-                               q_off, causal, scale, st);
-  if (D == 384)
-    return launch_dq_wide<384>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
-                               q_off, causal, scale, st);
-  if (D == 512)
-    return launch_dq_wide<512>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk,
-                               q_off, causal, scale, st);
+  if (D == 256 || D == 384 || D == 512)
+    return dq_wgmma<bf16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D,
+                          q_off, causal, scale, st);
   using namespace voda::wide;
   cudaError_t err = allow_smem(flash_dq_wmma_kernel, DQ_SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -521,4 +637,20 @@ extern "C" int voda_flash_dq_wide(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<float*>(delta),
       static_cast<__nv_bfloat16*>(dq), H, Sq, Sk, D, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// fp16 tensors, the same arguments; D = 256, 384 or 512 only (the wmma
+// kernel above 512 is bf16 code): any other width returns 1
+// (cudaErrorInvalidValue).
+extern "C" int voda_flash_dq_f16_wide(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* dout, const void* lse,
+                                      void* delta, void* dq, int B, int H,
+                                      int Sq, int Sk, int D, int q_off,
+                                      int causal, float scale, void* stream) {
+  using namespace voda;
+  if (!wide::shape_ok(B, H, Sq, Sk, D) || D > 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dq_wgmma<f16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D,
+                       q_off, causal, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,17 +1,15 @@
-// K1, K2 and K3 for fp32 inputs, K2 for fp16 at every head width, and K1
-// and K3 for fp16 above a width of 512, on the CUDA cores (sm_90a).
+// K1, K2 and K3 for fp32 inputs, and for fp16 above a width of 512, on the
+// CUDA cores (sm_90a).
 //
 // Replace `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` in
 // vodascheduler_tpu/ops/flash_attention.py for a model that computes in
 // float32 or float16: the TPU kernels compute in q.dtype. The wgmma kernels
-// beside this file take bf16, and fp16 K1 and K3 at widths 64 and 128
-// (flash_fwd.cu, flash_dkv.cu: voda_flash_fwd_f16, voda_flash_dkv_f16) and
-// 256, 384 and 512 (flash_fwd_wide.cu, flash_dkv_wide.cu:
-// voda_flash_fwd_f16_wide, voda_flash_dkv_f16_wide); what they do not take
-// runs here: fp32 (voda_flash_*_f32), fp16 dQ (voda_flash_dq_f16), and
-// fp16 K1 and K3 on heads wider than 512 (voda_flash_fwd_f16_simt,
-// voda_flash_dkv_f16_simt; the kernels themselves take any multiple of
-// their 64- or 128-column chunk). The arithmetic is
+// beside this file take bf16, and fp16 at widths 64 and 128 (flash_fwd.cu,
+// flash_dq.cu, flash_dkv.cu: voda_flash_{fwd,dq,dkv}_f16) and 256, 384 and
+// 512 (their wide twins: voda_flash_{fwd,dq,dkv}_f16_wide); what they do
+// not take runs here: fp32 (voda_flash_*_f32) and fp16 on heads wider than
+// 512 (voda_flash_{fwd,dq,dkv}_f16_simt; the kernels themselves take any
+// multiple of their 64- or 128-column chunk). The arithmetic is
 // the TPU kernels': every product takes its inputs in the input dtype and
 // accumulates in fp32 (an fp16 product is exact in fp32), the softmax
 // statistics are fp32, and P is rounded to the input dtype before the
@@ -522,8 +520,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // The C interface, one entry a kernel and dtype, with the bf16 kernels'
 // arguments: q k v o lse | B H Sq Sk D q_off causal scale stream, and so on.
-// fp16's forward and dK/dV are named `_f16_simt`: at head widths up to 512
-// fp16 takes the wgmma kernels (flash_fwd.cu, flash_dkv.cu, and their wide
+// fp16's are named `_f16_simt`: at head widths up to 512 fp16 takes the
+// wgmma kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, and their wide
 // twins) and these only above.
 #define VODA_SIMT_ENTRIES(T, fwd_sfx, dq_sfx, dkv_sfx)                        \
   extern "C" int voda_flash_fwd_##fwd_sfx(                                    \
@@ -551,4 +549,4 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
   }
 
 VODA_SIMT_ENTRIES(float, f32, f32, f32)
-VODA_SIMT_ENTRIES(__half, f16_simt, f16, f16_simt)
+VODA_SIMT_ENTRIES(__half, f16_simt, f16_simt, f16_simt)

@@ -4,13 +4,13 @@
 // 128-byte-swizzled shared memory, mbarriers that guard a ring of stages,
 // wgmma descriptors and the wgmma instructions the kernels issue,
 // setmaxnreg, the named barriers of the consumer warpgroups' turns, the
-// forwards' online softmax on a score accumulator, fp16's per-key-row
-// scale of dSᵀ, the host-side tensor maps, and the scalar helpers (bf16
-// and fp16 packing, quad reductions).
+// forwards' online softmax on a score accumulator, fp16's per-row scale of
+// dS, the host-side tensor maps, and the scalar helpers (bf16 and fp16
+// packing, quad reductions).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
 // model layout, so no transpose runs around the kernels); lse and delta are
-// fp32 [B, H, S]. The forward and dK/dV kernels also take fp16: the helpers
+// fp32 [B, H, S]. Every kernel of this header also takes fp16: the helpers
 // that touch an element take its type T (bf16 or f16) as a template
 // parameter, bf16 by default. A 16-bit element of either type has the same
 // shared layout, descriptors and wgmma fragments; only the conversions, the
@@ -104,14 +104,27 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Σ a∘b over the 8 bf16 of two 16-byte chunks (the dQ kernels' δ).
+// One T x2 register (T bf16 or f16) as two fp32 values, the low half first.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(const uint32_t& x);
+template <>
+__device__ __forceinline__ float2 unpack2<bf16>(const uint32_t& x) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+}
+template <>
+__device__ __forceinline__ float2 unpack2<f16>(const uint32_t& x) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&x));
+}
+
+// Σ a∘b over the 8 elements of T of two 16-byte chunks (the dQ kernels' δ).
+template <typename T = bf16>
 __device__ __forceinline__ float dot8(uint4 a, uint4 b) {
   const uint32_t x[4] = {a.x, a.y, a.z, a.w}, y[4] = {b.x, b.y, b.z, b.w};
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
-    const float2 w = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    const float2 u = unpack2<T>(x[i]);
+    const float2 w = unpack2<T>(y[i]);
     s = fmaf(u.x, w.x, s);
     s = fmaf(u.y, w.y, s);
   }
@@ -551,12 +564,13 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], float (&m)[2],
     l[r] = fmaf(l[r], corr[r], (ls[r][0] + ls[r][1]) + (ls[r][2] + ls[r][3]));
 }
 
-// ------------------------------------------------ fp16's scale of dSᵀ
+// ------------------------------------------------ fp16's scale of dS
 
 // fp16's dK/dV kernels (flash_dkv.cu, flash_dkv_wide.cu) round each key row
-// j of dSᵀ to fp16 under a power of two 2^e_j: the scaled row max lies in
-// [2^DS_TOP, 2^(DS_TOP+1)); exponents stay in [-E_MAX, E_MAX], so that 2^e
-// and 2^-e are normal fp32 numbers.
+// j of dSᵀ to fp16 under a power of two 2^e_j, and fp16's dQ kernels
+// (flash_dq.cu, flash_dq_wide.cu) each query row i of dS under 2^e_i: the
+// scaled row max lies in [2^DS_TOP, 2^(DS_TOP+1)); exponents stay in
+// [-E_MAX, E_MAX], so that 2^e and 2^-e are normal fp32 numbers.
 constexpr int DS_TOP = 13;
 constexpr int E_MAX = 100;
 
@@ -565,7 +579,7 @@ __device__ __forceinline__ float pow2i(int e) {
   return __int_as_float((e + 127) << 23);
 }
 
-// A key row's exponent after a tile whose largest |dSᵀ| in the row is m (0
+// A row's exponent after a tile whose largest |dS| in the row is m (0
 // where the tile masks the whole row): the one that puts m in
 // [2^DS_TOP, 2^(DS_TOP+1)) where that is below e, never below -E_MAX.
 __device__ __forceinline__ int ds_exponent(float m, int e) {

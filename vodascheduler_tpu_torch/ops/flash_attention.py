@@ -18,22 +18,22 @@ take bf16. The JAX kernels compute in ``q.dtype``, so fp32 and fp16 tensors
 go to kernels of their own, each counted apart; which one, by function,
 dtype and head width D (after the operator's zero padding):
 
-=====  ==========  ======================  ================  ======================
-dtype  D           K1                      K2                K3
-=====  ==========  ======================  ================  ======================
-bf16   ≤ 128       ``flash_fwd``           ``flash_dq``      ``flash_dkv``
-bf16   > 128       ``flash_fwd_wide``      ``flash_dq_wide`` ``flash_dkv_wide``
-fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``  ``flash_dkv_f16``
-fp16   256 to 512  ``flash_fwd_f16_wide``  ``flash_dq_f16``  ``flash_dkv_f16_wide``
-fp16   > 512       ``flash_fwd_f16_simt``  ``flash_dq_f16``  ``flash_dkv_f16_simt``
-fp32   any         ``flash_fwd_f32``       ``flash_dq_f32``  ``flash_dkv_f32``
-=====  ==========  ======================  ================  ======================
+=====  ==========  ======================  =====================  ======================
+dtype  D           K1                      K2                     K3
+=====  ==========  ======================  =====================  ======================
+bf16   ≤ 128       ``flash_fwd``           ``flash_dq``           ``flash_dkv``
+bf16   > 128       ``flash_fwd_wide``      ``flash_dq_wide``      ``flash_dkv_wide``
+fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``       ``flash_dkv_f16``
+fp16   256 to 512  ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
+fp16   > 512       ``flash_fwd_f16_simt``  ``flash_dq_f16_simt``  ``flash_dkv_f16_simt``
+fp32   any         ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
+=====  ==========  ======================  =====================  ======================
 
-fp16's forward and dK/dV up to D=512 are the bf16 kernels' TMA + wgmma
-design in fp16 (``csrc/flash_fwd.cu``, ``csrc/flash_dkv.cu`` and their wide
-twins ``csrc/flash_{fwd,dkv}_wide.cu``, templated on the element type);
-above 512, where bf16's wide kernels cut D on ``wmma`` (bf16 code), and for
-fp16's dQ and every fp32 kernel, the kernels multiply on the CUDA cores
+fp16's kernels up to D=512 are the bf16 kernels' TMA + wgmma design in
+fp16 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide twins
+``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type); above
+512, where bf16's wide kernels cut D on ``wmma`` (bf16 code), and for every
+fp32 kernel, the kernels multiply on the CUDA cores
 (``csrc/flash_simt.cu``). The choice is by width, never a fallback: a
 kernel that fails to build or launch raises.
 
@@ -71,14 +71,15 @@ Divergences from the TPU kernels, on purpose:
   products) except for dS, which the TPU kernels round to the input dtype
   (``ds.astype``) and fp16's range would flush for an unscaled loss (dS
   near 1e-8, below fp16's smallest normal, 6e-5): the CUDA-core kernels
-  keep dS in fp32, and ``flash_dkv_f16`` and ``flash_dkv_f16_wide``, whose
-  wgmma takes dS in fp16, round each key row of dSᵀ under a power-of-two
-  scale that puts the row's largest value in [2^13, 2^14) and undo it on
-  dK (``csrc/flash_dkv.cu``; in ``csrc/flash_dkv_wide.cu`` the warpgroup
-  that forms dSᵀ hands each row's exponent to the other with the
-  fragments, as both accumulate dK over the same key rows). Each wrapper
-  picks the kernel by the tensors' dtype, which all must share; any other
-  dtype raises.
+  keep dS in fp32, and the fp16 wgmma kernels, whose products take dS in
+  fp16, round each row of it under a power-of-two scale that puts the
+  row's largest value in [2^13, 2^14) and undo it on the output: each key
+  row of dSᵀ for dK (``flash_dkv_f16``, ``flash_dkv_f16_wide``), each
+  query row of dS for dQ (``flash_dq_f16``, ``flash_dq_f16_wide``). In the
+  wide kernels (``csrc/flash_{dq,dkv}_wide.cu``) the warpgroup that forms
+  dS hands each row's exponent to the other with the fragments, as both
+  accumulate over the same rows. Each wrapper picks the kernel by the
+  tensors' dtype, which all must share; any other dtype raises.
 
 The wgmma kernels read their tiles through TMA tensor maps built from the
 ``[B, S, H, D]`` shape, so every tensor's shape is checked against q's
@@ -100,7 +101,7 @@ HEAD_DIMS = (64, 128)
 # Above HEAD_DIMS[-1], the widths the wide kernels take: multiples of this.
 WIDE_CHUNK = 128
 # The widest head of the wide wgmma kernels; above it bf16's wide kernels
-# cut D on wmma, and fp16's forward and dK/dV run on the CUDA cores.
+# cut D on wmma, and fp16's run on the CUDA cores.
 WGMMA_MAX_D = 512
 
 # Launches of each kernel since the last `reset_launches()`: one plain int
@@ -109,16 +110,17 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
             "flash_fwd_f32": 0, "flash_dq_f32": 0, "flash_dkv_f32": 0,
             "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0,
-            "flash_fwd_f16_wide": 0, "flash_dkv_f16_wide": 0,
-            "flash_fwd_f16_simt": 0, "flash_dkv_f16_simt": 0}
+            "flash_fwd_f16_wide": 0, "flash_dq_f16_wide": 0,
+            "flash_dkv_f16_wide": 0, "flash_fwd_f16_simt": 0,
+            "flash_dq_f16_simt": 0, "flash_dkv_f16_simt": 0}
 # The suffix of the kernel names of fp32 and fp16 tensors.
 SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
 # The kernels on the CUDA cores, all in one source; every other kernel's
-# source carries the name of its bf16 kernel (fp16's flash_fwd_f16 is in
-# flash_fwd.cu, flash_fwd_f16_wide in flash_fwd_wide.cu).
+# source carries the name of its bf16 kernel (fp16's flash_dq_f16 is in
+# flash_dq.cu, flash_dq_f16_wide in flash_dq_wide.cu).
 SIMT_SOURCE = "flash_simt"
 SIMT_KERNELS = frozenset({"flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
-                          "flash_dq_f16", "flash_fwd_f16_simt",
+                          "flash_fwd_f16_simt", "flash_dq_f16_simt",
                           "flash_dkv_f16_simt"})
 
 _P = ctypes.c_void_p
@@ -167,8 +169,8 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
     at a multiple of WIDE_CHUNK above them; for fp16 the same, named
     ``_f16`` and ``_f16_wide``, up to WGMMA_MAX_D and the CUDA-core
-    ``_f16_simt`` above it, except dQ, which takes ``flash_dq_f16`` at
-    every width; for fp32 the ``_f32`` kernel at every width."""
+    ``_f16_simt`` above it; for fp32 the ``_f32`` kernel at every
+    width."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
             f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
@@ -176,9 +178,8 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     if dtype not in (torch.bfloat16, *SIMT_SUFFIX):
         raise TypeError(f"{name}: the CUDA kernels take bfloat16, float32 "
                         f"and float16, got {dtype}")
-    if dtype == torch.float32 or (dtype == torch.float16
-                                  and name == "flash_dq"):
-        return f"{name}_{SIMT_SUFFIX[dtype]}"
+    if dtype == torch.float32:
+        return f"{name}_f32"
     if dtype == torch.float16 and D > WGMMA_MAX_D:
         return f"{name}_f16_simt"
     kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
