@@ -7,7 +7,8 @@ Phases (any failure exits non-zero):
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
      D=64 (the main path), in fp16's tensor-core forward, dQ or dK/dV at
-     D=64 (phase 11's fp16 model), in the wide forward, dQ or dK/dV at
+     D=64 (phase 11's fp16 model), in fp32's tensor-core forward or dK/dV
+     at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
      D=256 (phase 9's wide llama) or in fp16's wide forward, dQ or dK/dV at
      D=256 (phase 11's fp16 model in heads of 256), and logs the spills at
      D=128, 384 and 512;
@@ -26,10 +27,14 @@ Phases (any failure exits non-zero):
      dK/dV timed as one backward beside the library's backward; the padded
      widths' forward and backward timed beside the library's, and the
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
-     autograd through scaled_dot_product_attention); then the fp32 and the
-     fp16 kernels (fp32's on the CUDA cores, csrc/flash_simt.cu; fp16's on
-     the tensor cores up to D=128, flash_{fwd,dq,dkv}_f16, and from 256 to
-     512, flash_{fwd,dq,dkv}_f16_wide, and on the CUDA cores above,
+     autograd through scaled_dot_product_attention), and bf16's wide
+     kernels at D=640, where they cut D on wmma; then the fp32 and the
+     fp16 kernels (fp32's forward and dK/dV on the tensor cores in three
+     TF32 passes up to D=128, csrc/flash_f32.cu, and on the CUDA cores
+     above, `_f32_simt`, and fp32's dQ on the CUDA cores,
+     csrc/flash_simt.cu; fp16's on the tensor cores up to D=128,
+     flash_{fwd,dq,dkv}_f16, and from 256 to 512,
+     flash_{fwd,dq,dkv}_f16_wide, and on the CUDA cores above,
      `_f16_simt`) against the same plain versions at the main shape, a
      ragged non-causal S, D=128, D=16 padded, a ragged query slice behind
      q_offset and D=256 (SIMT_LIMITS),
@@ -39,9 +44,11 @@ Phases (any failure exits non-zero):
      at the wide bf16 kernels' shapes (d256, d512, d384, a ragged S, the
      query slice behind q_offset, non-causal at 256) and the CUDA-core ones
      at D=640, which only they take, held to the same bars, the wide ones
-     timed at d256; and fp16's CUDA-core forward, dQ and dK/dV held to the
-     same bars at the main shape and timed in turns with the tensor-core
-     kernels there and at d256;
+     timed at d256 and the CUDA-core ones at D=640; fp16's CUDA-core
+     forward, dQ and dK/dV held to the same bars at the main shape and
+     timed in turns with the tensor-core kernels there and at d256; and
+     fp32's CUDA-core forward and dK/dV (`_f32_simt`) held to fp32's bars
+     at the main shape and timed in turns with the TF32 ones there;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -154,10 +161,12 @@ Phases (any failure exits non-zero):
      loss 1e-4, hidden state and gradients 1e-3; fp16: phase 4's bars,
      the loss scaled by 1024 for the comparison),
      5 steps (finite, falling), one counted step launching that dtype's
-     K1 8, K2 4 and K3 4 times and no other kernel (fp16: flash_fwd_f16,
-     flash_dq_f16, flash_dkv_f16); then the same fp16 model in 4 heads of
-     256, through the wgmma flash_fwd_f16_wide, flash_dq_f16_wide and
-     flash_dkv_f16_wide (8/4/4), and no `_f16_simt` kernel;
+     K1 8, K2 4 and K3 4 times and no other kernel (fp32: flash_fwd_f32,
+     flash_dq_f32, flash_dkv_f32; fp16: flash_fwd_f16, flash_dq_f16,
+     flash_dkv_f16); then the same fp16 model in 4 heads of 256, through
+     the wgmma flash_fwd_f16_wide, flash_dq_f16_wide and
+     flash_dkv_f16_wide (8/4/4), and no `_f16_simt` or `_f32_simt`
+     kernel;
   12. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
@@ -189,9 +198,12 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # The card's peak for each input dtype of the attention kernels: fp16 as
-# bf16 on the tensor cores, fp32 outside them (NVIDIA data sheet, SXM).
+# bf16 on the tensor cores; fp32 at TF32's 495 TFLOP/s over three passes,
+# the card's fp32-accurate rate (each fp32 product as a_lo·b_hi + a_hi·b_lo
+# + a_hi·b_hi of TF32 halves), on which the library's own fp32 attention and
+# the port's fp32 K1 and K3 run (NVIDIA data sheet, SXM).
 PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: 989e12,
-              torch.float32: 67e12}
+              torch.float32: 495e12 / 3}
 TPU_SRC = "vodascheduler_tpu/ops/flash_attention.py"
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -201,9 +213,10 @@ def log(*a) -> None:
 
 
 # Kernels that must not spill registers at the main path's head_dim (the
-# bf16 kernels, and fp16's on the tensor cores).
+# bf16 kernels, fp16's on the tensor cores and fp32's in TF32).
 SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f16",
-              "flash_dq_f16", "flash_dkv_f16")
+              "flash_dq_f16", "flash_dkv_f16", "flash_fwd_f32",
+              "flash_dkv_f32")
 MAIN_HEAD_DIM = 64
 # The wide kernels redesigned on wgmma, held to no spill at the width of
 # phase 9's 256-wide llama and of phase 11's fp16 model in heads of 256
@@ -515,6 +528,12 @@ CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_simt",
                  "flash_fwd_f16_wide": "flash_fwd_f16_simt",
                  "flash_dq_f16_wide": "flash_dq_f16_simt",
                  "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
+# fp32's forward and dK/dV on the CUDA cores: above D=128 the wrappers take
+# them (`_f32_simt`), and they take any width, so at D=64 they stand beside
+# the TF32 kernels that replaced them there. fp32's dQ is on the CUDA cores
+# at every width.
+CUDA_CORE_F32 = {"flash_fwd_f32": "flash_fwd_f32_simt",
+                 "flash_dkv_f32": "flash_dkv_f32_simt"}
 
 
 @contextlib.contextmanager
@@ -529,15 +548,16 @@ def routed(fa, table):
         fa._kernel = kernel
 
 
-def time_f16_turns(fa, shape, rounds=2) -> dict:
-    """fp16's K1, K2 and K3 at `shape`, on the tensor cores and on the CUDA
-    cores (CUDA_CORE_F16), timed in turns (tensor, CUDA, CUDA, tensor)
-    `rounds` times on the same inputs by CUDA events; logged, and returned
-    as {kernel: median ms}."""
+def time_turns(fa, shape, dtype=torch.float16, table=CUDA_CORE_F16,
+               rounds=2) -> dict:
+    """K1, K2 and K3 of `dtype` (fp16 or fp32) at `shape`, on the tensor
+    cores and on the CUDA cores (`table`: CUDA_CORE_F16 or CUDA_CORE_F32),
+    timed in turns (tensor, CUDA, CUDA, tensor) `rounds` times on the same
+    inputs by CUDA events; logged, and returned as {kernel: median ms}."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(2)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
-                   .half() for S in (Sq, Sk, Sk, Sq))
+                   .to(dtype) for S in (Sq, Sk, Sk, Sq))
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     calls = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal, q_off),
@@ -547,16 +567,17 @@ def time_f16_turns(fa, shape, rounds=2) -> dict:
                                                causal, q_off)}
     times = {}
     for _ in range(rounds):
-        for table in ({}, CUDA_CORE_F16, CUDA_CORE_F16, {}):
-            with routed(fa, table):
+        for turn in ({}, table, table, {}):
+            with routed(fa, turn):
                 for name, call in calls.items():
-                    times.setdefault(fa._kernel(name, D, torch.float16),
+                    times.setdefault(fa._kernel(name, D, dtype),
                                      []).append(cuda_ms(call))
     med = {n: statistics.median(t) for n, t in times.items()}
-    for new, old in CUDA_CORE_F16.items():
+    for new, old in table.items():
         if new not in med:
             continue
-        log(f"time[f16 turns] D={D} {new} ms={med[new]:.4f} "
+        log(f"time[{fa.SIMT_SUFFIX[dtype]} turns] D={D} {new} "
+            f"ms={med[new]:.4f} "
             f"{[round(x, 4) for x in times[new]]} {old} ms={med[old]:.4f} "
             f"{[round(x, 4) for x in times[old]]} "
             f"cuda_cores_over_tensor_cores={med[old] / med[new]:.3f}")
@@ -911,8 +932,9 @@ def _epoch_losses(text: str) -> dict:
 
 
 # Phase 11: llama_350m's width computing in fp32 and in fp16, depth cut to
-# DTYPE_LAYERS so that the fp32 step stays short. fp32 takes the CUDA-core
-# kernels (csrc/flash_simt.cu); fp16 the tensor-core forward, dQ and dK/dV
+# DTYPE_LAYERS so that the fp32 step stays short. fp32 takes the TF32
+# forward and dK/dV (csrc/flash_f32.cu) and the CUDA-core dQ
+# (csrc/flash_simt.cu); fp16 the tensor-core forward, dQ and dK/dV
 # (flash_fwd_f16, flash_dq_f16, flash_dkv_f16), and in heads of 256 the
 # wide ones (`_f16_wide`). Against the plain attention (which computes in
 # fp32): fp32 differs by summation order alone, fp16 by the rounding of P
@@ -942,8 +964,8 @@ def run_dtype_slices(fa):
     kernels against the plain attention, 5 AdamW steps (finite, falling),
     one counted step launching the slice's K1 2L, K2 L and K3 L times and
     no other kernel. Returns the counted launches of the 64-wide slices and
-    those of the `_f16_wide` kernels and of the `_f16_simt` ones (0: no
-    slice runs a width above 512)."""
+    those of the `_f16_wide` kernels and of the `_f16_simt` and `_f32_simt`
+    ones (0: no slice runs fp16 above 512 or fp32 above 128)."""
     from vodascheduler_tpu_torch.models import llama
     from vodascheduler_tpu_torch.models.registry import llama_bundle
 
@@ -961,7 +983,7 @@ def run_dtype_slices(fa):
                                                DTYPE_LAYERS, DTYPE_LAYERS))))
         counts.update({k: got[k] for k in names
                        if heads == 16 or k.endswith("_wide")})
-        counts.update({k: got[k] for k in got if k.endswith("_f16_simt")})
+        counts.update({k: got[k] for k in got if k.endswith("_simt")})
         del session, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2124,6 +2146,29 @@ def main() -> int:
         simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
         rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
         torch.cuda.empty_cache()
+    # fp32's forward and dK/dV on the CUDA cores (`_f32_simt`, which the
+    # wrappers take above D=128), held to fp32's bars at the main shape and
+    # timed in turns with the TF32 kernels that replaced them there; their
+    # rows carry the plain and library times of the TF32 rows (the same
+    # function on the same inputs)
+    f32 = torch.float32
+    with routed(fa, CUDA_CORE_F32):
+        f32_simt_errs = check_kernels(fa, {"main": main_shape}, f32,
+                                      SIMT_LIMITS[f32])
+    turns = time_turns(fa, main_shape, f32, CUDA_CORE_F32)
+    for new, old in CUDA_CORE_F32.items():
+        rows[new]["ms"] = turns[new]
+        rows[old] = {**rows[new], "ms": turns[old], "source": (
+            f"vodascheduler_tpu_torch/ops/csrc/{fa.source(old)}.cu")}
+    rows["flash_fwd_f32_simt"]["err"] = max(f32_simt_errs["o"],
+                                            f32_simt_errs["lse"])
+    rows["flash_dkv_f32_simt"]["err"] = max(f32_simt_errs["dk_abs"],
+                                            f32_simt_errs["dv_abs"])
+    lib_bwd = rows["flash_dkv_f32"]["library_ms"]
+    log(f"time[backward_f32 turns] D=64 flash_dq_f32 then flash_dkv_f32 "
+        f"ms={turns['flash_dq_f32'] + turns['flash_dkv_f32']:.4f} (sum of "
+        f"the medians in turns) library_ms={lib_bwd:.4f}")
+    torch.cuda.empty_cache()
     # fp16's wide forward, dQ and dK/dV (wgmma) at the wide bf16 kernels'
     # shapes and non-causal, timed at d256; the CUDA-core ones at D=640,
     # which only they take
@@ -2136,8 +2181,11 @@ def main() -> int:
     f16_wide = [n for n in CUDA_CORE_F16 if n.endswith("_wide")]
     for name in f16_wide:
         rows[name] = d256_rows[name]
-    d640_errs = check_kernels(fa, {"d640": (2, 2, 1024, 1024, 640, True, 0)},
-                              f16, SIMT_LIMITS[f16])
+    d640 = (2, 2, 1024, 1024, 640, True, 0)
+    d640_errs = check_kernels(fa, {"d640": d640}, f16, SIMT_LIMITS[f16])
+    time_kernels(fa, d640, d640_errs, "_f16_simt", f16)
+    # bf16's wide kernels at D=640, where they cut D on wmma (wide.cuh)
+    time_kernels(fa, d640, check_kernels(fa, {"d640": d640}), "_wide")
     torch.cuda.empty_cache()
     # fp16's K1, K2 and K3 on the CUDA cores (`_f16_simt`), held to the same
     # bars at the main shape and timed in turns with the tensor-core
@@ -2148,7 +2196,7 @@ def main() -> int:
     with routed(fa, CUDA_CORE_F16):
         check_kernels(fa, {"main": main_shape}, f16, SIMT_LIMITS[f16])
     for shape in (main_shape, cases["d256"]):
-        turns = time_f16_turns(fa, shape)
+        turns = time_turns(fa, shape)
         for new in turns:
             if new in rows:
                 rows[new]["ms"] = turns[new]

@@ -8,7 +8,7 @@ First each kernel is held against its plain version under chip_smoke.py's
 fp16 bars (`SIMT_LIMITS`), then timed by chip_smoke.py's `time_kernels`
 (CUDA events, medians; the backward, K2 then K3, beside the library's).
 `--turns` also times fp16's K1, K2 and K3 in turns against the CUDA-core
-kernels (`time_f16_turns`: tensor, CUDA, CUDA, tensor cores, twice). The
+kernels (`time_turns`: tensor, CUDA, CUDA, tensor cores, twice). The
 card's name and power limit come first. Needs CUDA and nvcc.
 """
 
@@ -49,7 +49,7 @@ def main() -> int:
                                     chip_smoke.SIMT_LIMITS[torch.float16])
     chip_smoke.time_kernels(fa, shape, errs, "_f16", torch.float16)
     if args.turns:
-        chip_smoke.time_f16_turns(fa, shape)
+        chip_smoke.time_turns(fa, shape)
     return 0
 
 

@@ -1,0 +1,145 @@
+"""Times variants of fp32's tensor-core forward and dK/dV
+(``vodascheduler_tpu_torch/ops/csrc/flash_f32.cu``) against the source as
+it stands, in turns, on one card: what the three TF32 passes and the
+splitting of the operands into TF32 halves cost.
+
+    python3 scripts/torch_f32_ablate.py [--rounds 2]
+
+Each variant is a copy of ``ops/csrc`` with a few lines of flash_f32.cu
+changed (VARIANTS below), built under ``build/f32_ablate/<name>`` by the
+package's build module; the package's sources are not touched. Every
+variant computes wrong results on purpose (it drops work to weigh it) and
+is only timed:
+
+- ``one_pass``: every product as hi·hi alone (the K3 mma.sync and the K1
+  wgmma issue one product, not three; the lo halves are never read);
+- ``no_split``: hi and lo are the raw fp32 bits, with no rounding and no
+  subtraction (three products still, of unsplit operands).
+
+At llama_350m's attention shape in fp32 (B=8, H=16, S=2048, D=64, causal)
+each round times the tree and each variant, then the variants and the
+tree in reverse order, K1 and K3 each by CUDA events (chip_smoke.cuda_ms);
+the script prints the card's name and power limit, the median of each and
+its ratio to the tree's. Exits non-zero without a card or when a variant's
+lines are not in the source.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+SHAPE = (8, 16, 2048, 2048, 64, True, 0)
+_MMA3 = """  mma_tf32(c, alo, b0.hi, b1.hi);
+  mma_tf32(c, ahi, b0.lo, b1.lo);
+  mma_tf32(c, ahi, b0.hi, b1.hi);"""
+_S3 = """        wgmma_ss_tf32<BN>(sc, qld + qa, khd + kb, kk > 0);
+        wgmma_ss_tf32<BN>(sc, qhd + qa, kld + kb, 1);
+        wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, 1);"""
+_PV3 = """        wgmma_rs_tf32<D>(acc, pl[kk], vhd + vb);
+        wgmma_rs_tf32<D>(acc, ph[kk], vld + vb);
+        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);"""
+_SPLIT = """  const uint32_t hi = to_tf32(x);
+  const uint32_t lo = to_tf32(x - __uint_as_float(hi));"""
+# name -> [(the lines as they stand in flash_f32.cu, the lines instead)]
+VARIANTS = {
+    "one_pass": [(_MMA3, "  mma_tf32(c, ahi, b0.hi, b1.hi);"),
+                 (_S3, "        wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, "
+                       "kk > 0);"),
+                 (_PV3, "        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);")],
+    "no_split": [(_SPLIT, "  const uint32_t hi = __float_as_uint(x);\n"
+                          "  const uint32_t lo = hi;")],
+}
+
+
+def build_set(build, fa, csrc: Path, root: Path) -> dict:
+    """flash_f32.cu of `csrc` built under `root`: {kernel: C entry}."""
+    build.CSRC, build.BUILD_ROOT = csrc, root
+    lib = ctypes.CDLL(str(build.build((fa.TF32_SOURCE,))[fa.TF32_SOURCE]))
+    out = {}
+    for name in sorted(fa.TF32_KERNELS):
+        fn = getattr(lib, f"voda_{name}")
+        fn.argtypes = fa._ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        out[name] = fn
+    return out
+
+
+def make(sound: Path, name: str) -> Path:
+    base = Path(ROOT) / "build" / "f32_ablate" / name
+    shutil.rmtree(base, ignore_errors=True)
+    shutil.copytree(sound, base / "csrc")
+    path = base / "csrc" / "flash_f32.cu"
+    text = path.read_text()
+    for old, new in VARIANTS[name]:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: the lines to change are not once in "
+                             "flash_f32.cu")
+        text = text.replace(old, new)
+    path.write_text(text)
+    return base / "csrc"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=2)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_f32_ablate: CUDA is not available", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from vodascheduler_tpu_torch.ops import _build as build
+    from vodascheduler_tpu_torch.ops import flash_attention as fa
+
+    log = chip_smoke.log
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip().splitlines()[0])
+    sound, sound_root = build.CSRC, build.BUILD_ROOT
+    sets = {"tree": build_set(build, fa, sound, sound_root)}
+    for name in VARIANTS:
+        csrc = make(sound, name)
+        sets[name] = build_set(build, fa, csrc, csrc.parent / "lib")
+    build.CSRC, build.BUILD_ROOT = sound, sound_root  # K2 from the tree
+    B, H, Sq, Sk, D, causal, q_off = SHAPE
+    g = torch.Generator("cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   for S in (Sq, Sk, Sk, Sq))
+    entry = fa._entry
+    fa._entry = lambda n: sets["tree"][n] if n in fa.TF32_KERNELS else entry(n)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    calls = {"flash_fwd_f32": lambda: fa.flash_fwd(q, k, v, causal, q_off),
+             "flash_dkv_f32": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
+                                                   causal, q_off)}
+    ms = {n: {kn: [] for kn in calls} for n in sets}
+    order = list(sets)
+    for _ in range(args.rounds):
+        for name in order + order[::-1]:
+            fa._entry = (lambda n, s=sets[name]: s[n] if n in fa.TF32_KERNELS
+                         else entry(n))
+            for kn, call in calls.items():
+                ms[name][kn].append(chip_smoke.cuda_ms(call))
+    fa._entry = entry
+    for name in sets:
+        med = {kn: statistics.median(t) for kn, t in ms[name].items()}
+        log(f"f32_ablate[{name}] " + " ".join(
+            f"{kn}={med[kn]:.4f} ms "
+            f"({med[kn] / statistics.median(ms['tree'][kn]):.3f} of the "
+            f"tree's) {[round(x, 4) for x in ms[name][kn]]}" for kn in med))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

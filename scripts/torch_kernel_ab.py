@@ -69,8 +69,9 @@ def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
     build._libs.clear()
     out = {}
     # an older tree may lack sources the package has since gained
-    # (the fp32/fp16 source holds several entries and is not compared here)
-    present = [n for n in build.SOURCES if n != fa.SIMT_SOURCE
+    # (the fp32/fp16 sources hold several entries and are not compared here)
+    present = [n for n in build.SOURCES
+               if n not in (fa.SIMT_SOURCE, fa.TF32_SOURCE)
                and (Path(csrc) / f"{n}.cu").exists()]
     for name, path in build.build(present).items():
         fn = getattr(ctypes.CDLL(str(path)), f"voda_{name}")

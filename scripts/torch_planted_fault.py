@@ -26,6 +26,9 @@ small:
 - ``dqw_f16_no_rescale``: the same in fp16's wide K2 (flash_dq_wide.cu), in
   both warpgroups: warpgroup 0 still takes the exponents that warpgroup 1
   hands over (for its epilogue) but rescales nothing with them.
+- ``f32_one_pass``: fp32's tensor-core K1 and K3 (flash_f32.cu) drop the lo
+  terms of the three TF32 passes (every lo half is 0), so each product is
+  hi·hi alone, 11 bits of each operand.
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
@@ -34,9 +37,10 @@ their kernel in fp16 under chip_smoke.py's fp16 bars (`SIMT_LIMITS`) and
 against the plain model of their kernel's arithmetic
 (tests/torch_f16_dkv_model.py, at 1e-3 of the largest value, as
 tests/test_torch_cuda.py holds it; on random inputs and on an unscaled
-loss's dO of 1e-6). The script logs each kernel set's errors against the
-plain versions under chip_smoke.py's bars (the sound set at every shape
-and dtype, and against every model), then llama_350m's forward and
+loss's dO of 1e-6), and the fp32 one at llama_350m's attention shape in
+fp32 under chip_smoke.py's fp32 bars. The script logs each kernel set's
+errors against the plain versions under chip_smoke.py's bars (the sound
+set at every shape and dtype, and against every model), then llama_350m's forward and
 backward through each set against the plain attention (chip_smoke.py's
 slice comparison). It exits non-zero if the sound kernels break a bar or
 a faulty set passes the bars it is held to. Needs CUDA and nvcc.
@@ -109,6 +113,11 @@ FAULTS = {
         "      if (__any_sync(0xffffffffu, fell)) {\n",
         "      if (false && __any_sync(0xffffffffu, fell)) {\n",
         WIDE_SHAPE, torch.float16, "dqw"),
+    "f32_one_pass": (
+        "flash_f32.cu",
+        "  const uint32_t lo = to_tf32(x - __uint_as_float(hi));\n",
+        "  const uint32_t lo = 0;\n",
+        MAIN_SHAPE, torch.float32),
 }
 
 
@@ -203,12 +212,13 @@ def main() -> int:
         log(f"--- {name}")
         f16 = torch.float16
         held = ((MAIN_SHAPE, torch.bfloat16), (WIDE_SHAPE, torch.bfloat16),
-                (MAIN_SHAPE, f16), (WIDE_SHAPE, f16)) if name == "sound" \
+                (MAIN_SHAPE, f16), (WIDE_SHAPE, f16),
+                (MAIN_SHAPE, torch.float32)) if name == "sound" \
             else (FAULTS[name][3:5],)
         bad = [b for shape, dtype in held
                for b in chip_smoke.kernel_errors(
-                   fa, name, shape, dtype, chip_smoke.SIMT_LIMITS[dtype]
-                   if dtype == f16 else chip_smoke.LIMITS)[1]]
+                   fa, name, shape, dtype, chip_smoke.SIMT_LIMITS.get(
+                       dtype, chip_smoke.LIMITS))[1]]
         for which in (MODEL_CASES if name == "sound"
                       else FAULTS[name][5:]):
             errs = model_errors(fa, which)

@@ -144,10 +144,11 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
 def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
                                                     D, q_off, Sq):
     """The kernels of fp32 and fp16 tensors against the plain versions, at
-    chip_smoke.py's SIMT_LIMITS: fp32's on the CUDA cores
-    (csrc/flash_simt.cu), fp16's on the tensor cores up to D=128
-    (flash_fwd_f16, flash_dq_f16, flash_dkv_f16) and from 256 to 512
-    (`_f16_wide`)."""
+    chip_smoke.py's SIMT_LIMITS: fp32's forward and dK/dV in TF32 up to
+    D=128 (csrc/flash_f32.cu) and on the CUDA cores above (`_f32_simt`),
+    its dQ on the CUDA cores (csrc/flash_simt.cu); fp16's on the tensor
+    cores up to D=128 (flash_fwd_f16, flash_dq_f16, flash_dkv_f16) and from
+    256 to 512 (`_f16_wide`)."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[dtype]
     g = torch.Generator(cuda).manual_seed(7)
@@ -370,6 +371,156 @@ def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
         flash_fwd_f16_simt=1, flash_dq_f16_simt=1, flash_dkv_f16_simt=1)
+
+
+def _f32_inputs(B, H, Sq, Sk, D, seed, device="cuda"):
+    """fp32 q, k, v, dO from numpy, so the CPU model takes the same."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D))
+                              .astype(np.float32)).to(device)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D))
+                             .astype(np.float32)).to(device)
+            for _ in range(2))
+    return q, k, v, do
+
+
+# The fp32 kernels against their model: the largest error over the largest
+# value of the model's O, dK and dV. Both compute each product in three TF32
+# passes; they differ by the order and the rounding of the fp32 sums (the
+# tensor cores' accumulation), which against the plain versions read up to
+# 3.2e-5 of the largest value at the main shape (phase 3, H100). Dropping
+# the lo terms reads near 1e-3 (tests/test_torch_f32x3.py).
+F32_MODEL_TOL = 5e-5
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 256, 256, 64, True, 0),
+    (2, 1, 200, 200, 64, False, 0),      # ragged, non-causal
+    (1, 2, 1000, 1000, 64, True, 0),     # neither a multiple of 64 nor 128
+    (1, 2, 130, 500, 64, True, 370),     # a query slice behind an offset
+    (1, 1, 200, 333, 64, False, 0),      # B·H = 1, Sq ≠ Sk, non-causal
+    (1, 2, 192, 192, 128, True, 0),
+    (2, 1, 200, 333, 128, False, 0),
+    (1, 1, 65, 700, 128, True, 635),
+])
+def test_fp32_tensor_core_kernels_match_their_model(cuda, B, H, Sq, Sk, D,
+                                                    causal, q_off):
+    """flash_fwd_f32 and flash_dkv_f32 (three TF32 passes, flash_f32.cu)
+    at the edges a ring or a tile can get wrong, against the plain versions
+    at SIMT_LIMITS[float32] and against the plain model of their arithmetic
+    (tests/torch_f32x3_model.py, at each kernel's tiling) at
+    F32_MODEL_TOL. dK/dV runs on the kernel forward's lse and the plain
+    version's δ, as does its model."""
+    import torch_f32x3_model as model
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    q, k, v, do = _f32_inputs(B, H, Sq, Sk, D, Sq + Sk)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            q_off)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_f32=1, flash_dkv_f32=1)
+    assert row_err(o, o_ref) <= limits["o_row"]
+    assert (lse - lse_ref).abs().max().item() <= limits["lse"]
+    assert row_err(dk, dk_ref) <= limits["dk_row"]
+    assert row_err(dv, dv_ref) <= limits["dv_row"]
+    cpu = [t.cpu() for t in (q, k, v, do, lse, delta)]
+    o_m, lse_m = model.fwd(*cpu[:3], causal, q_off, D ** -0.5)
+    dk_m, dv_m = model.dkv(*cpu, causal, q_off, D ** -0.5)
+    errs = {n: ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+            for n, got, ref in (("o", o, o_m), ("dk", dk, dk_m),
+                                ("dv", dv, dv_m))}
+    errs["lse"] = (lse.cpu() - lse_m).abs().max().item()
+    print("f32 model", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(e <= F32_MODEL_TOL for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("D", [16, 96])
+def test_fp32_padded_heads_take_the_tf32_kernels(cuda, D):
+    """Heads of 16 and 96 in fp32: the operator's padded path (to 64 and
+    128) through the TF32 forward and dK/dV and the CUDA-core dQ, against
+    the plain versions at D itself, at SIMT_LIMITS[float32]."""
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    q, k, v, do = _f32_inputs(2, 3, 200, 200, D, D)
+    before = dict(fa.launches)
+    o, lse = fa.padded_forward(fa.flash_fwd, q, k, v, True, 0)
+    dq, dk, dv = fa.padded_backward(fa.flash_dq, fa.flash_dkv, q, k, v, o,
+                                    do, lse, True, 0)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, 0)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
+                                            True, 0)
+    torch.cuda.synchronize()
+    assert row_err(o, o_ref) <= limits["o_row"]
+    assert (lse - lse_ref).abs().max().item() <= limits["lse"]
+    for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                        ("dv", dv, dv_ref)):
+        assert row_err(got, ref) <= limits[f"{n}_row"], n
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_f32=1, flash_dq_f32=1, flash_dkv_f32=1)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_fp32_tensor_core_kernels_are_deterministic(cuda, D):
+    """No atomics in flash_fwd_f32 or flash_dkv_f32: two launches on the
+    same inputs give bitwise-equal O, lse, dK and dV."""
+    q, k, v, do = _f32_inputs(2, 3, 320, 320, D, 9)
+    o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
+    o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
+    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    torch.cuda.synchronize()
+    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
+
+
+def test_autograd_goes_through_the_fp32_kernels(cuda):
+    """fp32 through the operator: K1 and K3 in TF32, K2 on the CUDA cores,
+    and the gradients of the plain path on the CPU, at SIMT_LIMITS."""
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    host = [t.requires_grad_() for t in _f32_inputs(1, 2, 200, 200, 64, 11,
+                                                    "cpu")[:3]]
+    card = [t.detach().to(cuda).requires_grad_() for t in host]
+    fa.reset_launches()
+    fa.flash_attention(*card).square().sum().backward()
+    assert fa.launches == _counts(flash_fwd_f32=1, flash_dq_f32=1,
+                                  flash_dkv_f32=1)
+    fa.flash_attention(*host).square().sum().backward()
+    for n, got, ref in zip(("dq", "dk", "dv"), card, host):
+        assert row_err(got.grad.cpu(), ref.grad) <= limits[f"{n}_row"], n
+
+
+def test_fp32_above_128_runs_the_cuda_core_forward_and_dkv(cuda):
+    """Above D=128 fp32's forward and dK/dV are the CUDA-core kernels
+    (`_f32_simt`), by width, beside the CUDA-core dQ, and match the plain
+    versions at SIMT_LIMITS."""
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    q, k, v, do = _f32_inputs(2, 2, 200, 200, 256, 12)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, True, 0)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, True, 0)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, True, 0)
+    o_ref, _ = fa.flash_attention_reference(q, k, v, True, 0)
+    dq_ref, _ = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, True, 0)
+    torch.cuda.synchronize()
+    assert row_err(o, o_ref) <= limits["o_row"]
+    for n, got, ref in (("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                        ("dv", dv, dv_ref)):
+        assert row_err(got, ref) <= limits[f"{n}_row"], n
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_f32_simt=1, flash_dq_f32=1, flash_dkv_f32_simt=1)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])

@@ -1,0 +1,143 @@
+"""The fp32 tensor-core kernels' arithmetic (``ops/csrc/flash_f32.cu``:
+every fp32 product as three TF32 products, a_lo·b_hi + a_hi·b_lo +
+a_hi·b_hi), modelled in plain PyTorch (`tests/torch_f32x3_model.py`, at
+each kernel's tiling and k-order, the forward's keys and dK/dV's queries in
+the order PERM), against the JAX package's Pallas kernels in interpret mode
+in fp32 and against the port's plain versions, on the CPU.
+
+The bars are chip_smoke.py's `SIMT_LIMITS[float32]`, which hold the
+kernels on the card: O, dK, dV row by row at 1e-4 (`row_err`), lse at 1e-4
+absolute. The one-pass model (hi·hi alone, what the kernels compute if the
+lo terms are dropped: scripts/torch_planted_fault.py's ``f32_one_pass``)
+breaks them, so the bars tell the sound arithmetic from that fault. The card
+tests of the kernels against the same model are
+`test_torch_cuda.py::test_fp32_tensor_core_kernels_match_their_model`.
+"""
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vodascheduler_tpu.ops.flash_attention import _bwd as jax_bwd
+from vodascheduler_tpu.ops.flash_attention import _fwd as jax_fwd
+from vodascheduler_tpu_torch.ops import flash_attention as fa
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
+import chip_smoke  # noqa: E402
+import torch_f32x3_model as model  # noqa: E402
+
+LIMITS = chip_smoke.SIMT_LIMITS[torch.float32]
+BLOCK = 64  # the Pallas kernels' blocks at these sizes
+
+
+def _inputs(B, H, Sq, Sk, D, seed):
+    rng = np.random.default_rng(seed)
+    q, do = (rng.standard_normal((B, Sq, H, D)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((B, Sk, H, D)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _pallas(q, k, v, do, causal, q_off):
+    """(o, lse [B,H,Sq], dk, dv) of the Pallas kernels in interpret mode,
+    [B,S,H,D]."""
+    t = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)
+    off = jnp.asarray(q_off, jnp.int32).reshape(1, 1)
+    o, lse = jax_fwd(t(q), t(k), t(v), off, causal, BLOCK, BLOCK, True)
+    _, dk, dv = jax_bwd(t(q), t(k), t(v), o, lse, t(do), off, causal, BLOCK,
+                        BLOCK, True)
+    B, H, Sq = q.shape[0], q.shape[2], q.shape[1]
+    back = lambda x: torch.from_numpy(np.array(x)).transpose(1, 2)
+    return (back(o), torch.from_numpy(np.asarray(
+        lse[:, :, :, 0, :]).reshape(B, H, Sq)), back(dk), back(dv))
+
+
+def _model(q, k, v, do, causal, q_off, passes=3):
+    """(o, lse, dk, dv) of the model, K3 on the plain version's δ."""
+    D = q.shape[-1]
+    o, lse = model.fwd(q, k, v, causal, q_off, D ** -0.5, passes)
+    _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = model.dkv(q, k, v, do, lse, delta, causal, q_off, D ** -0.5,
+                       passes)
+    return o, lse, dk, dv
+
+
+def _errors(got, want) -> dict:
+    o, lse, dk, dv = got
+    o_w, lse_w, dk_w, dv_w = want
+    return {"o_row": chip_smoke.row_err(o, o_w),
+            "lse": (lse - lse_w).abs().max().item(),
+            "dk_row": chip_smoke.row_err(dk, dk_w),
+            "dv_row": chip_smoke.row_err(dv, dv_w)}
+
+
+def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
+    """10 stored mantissa bits: 1 + 2^-10 is kept, 1 + 2^-11 (a tie) goes
+    up in magnitude, anything below the tie goes down; the split leaves
+    less than 2^-21 of x."""
+    x = torch.tensor([1 + 2 ** -10, 1 + 2 ** -11, 1 + 2 ** -11 - 2 ** -23,
+                      -(1 + 2 ** -11), 3.0, 0.0])
+    want = torch.tensor([1 + 2 ** -10, 1 + 2 ** -10, 1.0, -(1 + 2 ** -10),
+                         3.0, 0.0])
+    assert torch.equal(model.tf32(x), want)
+    assert torch.equal(model.tf32(x).view(torch.int32) & 0x1FFF,
+                       torch.zeros(6, dtype=torch.int32))
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(4096)
+                         .astype(np.float32))
+    hi, lo = model.split(y)
+    assert ((y - hi - lo).abs() <= 2 ** -21 * y.abs()).all()
+    assert sorted(model.perm_index(16).tolist()) == list(range(16))
+    assert model.perm_index(8).tolist() == list(model.PERM)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 256, 256, 64, True, 0),
+    (2, 1, 192, 192, 64, False, 0),
+    (1, 2, 64, 192, 64, True, 128),      # a query slice behind an offset
+    (1, 2, 128, 128, 128, True, 0),
+    (1, 1, 128, 128, 128, False, 0),
+    (1, 1, 64, 192, 128, True, 128),
+])
+def test_three_passes_match_pallas_and_plain(B, H, Sq, Sk, D, causal, q_off):
+    """The model of both kernels against the Pallas kernels in fp32 and
+    against the port's plain versions, within SIMT_LIMITS[float32]."""
+    q, k, v, do = _inputs(B, H, Sq, Sk, D, Sq + D)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    got = _model(qt, kt, vt, dot, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(qt, kt, vt, causal, q_off)
+    _, delta = fa.flash_dq_reference(qt, kt, vt, got[0], dot, got[1], causal,
+                                     q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(qt, kt, vt, dot, got[1], delta,
+                                            causal, q_off)
+    for want in ((o_ref, lse_ref, dk_ref, dv_ref),
+                 _pallas(q, k, v, do, causal, q_off)):
+        errs = _errors(got, want)
+        print("parity f32x3", B, H, Sq, Sk, D, causal, q_off, errs)
+        assert all(errs[n] <= LIMITS[n] for n in errs), errs
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_one_pass_breaks_the_bars(D):
+    """hi·hi alone keeps 11 bits of each operand: O, dK and dV each read
+    above their bar against the plain versions, where three passes read
+    below it (a causal head of 1024, as phase 3's cases)."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 2, 1024, 1024, D,
+                                                        5))
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, 0)
+    _, delta = fa.flash_dq_reference(q, k, v, o_ref, do, lse_ref, True, 0)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse_ref, delta,
+                                            True, 0)
+    want = (o_ref, lse_ref, dk_ref, dv_ref)
+    sound = _errors(_model(q, k, v, do, True, 0), want)
+    one = _errors(_model(q, k, v, do, True, 0, passes=1), want)
+    print("parity f32x3 one pass", D, sound, one)
+    assert all(sound[n] <= LIMITS[n] for n in sound), sound
+    for n in ("o_row", "dk_row", "dv_row"):
+        assert one[n] > LIMITS[n], (n, one)

@@ -1,11 +1,12 @@
-"""The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's
-forward, dQ and dK/dV, and fp16's that the wrappers take above a head
-width of 512, ``_f16_simt``) against the JAX package's Pallas kernels in
-interpret mode, on the CPU. fp16's kernels up to 512 are wgmma kernels
-(``flash_fwd.cu``, ``flash_dq.cu``, ``flash_dkv.cu`` and their wide
-twins), which no CPU runs: here the wrappers route fp16 to the CUDA-core
-kernels at every width (the fixture `wrappers`), as those kernels take
-any width.
+"""The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's dQ,
+and its forward and dK/dV that the wrappers take above a head width of
+128, ``_f32_simt``, and fp16's that they take above 512, ``_f16_simt``)
+against the JAX package's Pallas kernels in interpret mode, on the CPU.
+fp16's kernels up to 512 are wgmma kernels (``flash_fwd.cu``,
+``flash_dq.cu``, ``flash_dkv.cu`` and their wide twins), and fp32's
+forward and dK/dV up to 128 tensor-core ones (``flash_f32.cu``), which no
+CPU runs: here the wrappers route fp16 and fp32 to the CUDA-core kernels
+at every width (the fixture `wrappers`), as those kernels take any width.
 
 There is no ``nvcc`` here, so the CUDA source is compiled by ``g++`` against
 a CPU emulation of the few CUDA pieces it uses (``tests/cuda_emulation``: a
@@ -80,16 +81,17 @@ def emulated(tmp_path_factory):
 
 @pytest.fixture
 def wrappers(emulated, monkeypatch):
-    """The port's wrappers, launching the emulated kernels (fp16's: the
-    CUDA-core ones at every width, as chip_smoke.py's phase 3 times
-    them)."""
+    """The port's wrappers, launching the emulated kernels (fp16's and
+    fp32's: the CUDA-core ones at every width, as chip_smoke.py's phase 3
+    times them)."""
     def launch(name, device, *args):
         assert device.type == "cpu"
         assert emulated[name](*args, None) == 0
         fa.launches[name] += 1
     monkeypatch.setattr(fa, "_launch", launch)
     fa.reset_launches()
-    with chip_smoke.routed(fa, chip_smoke.CUDA_CORE_F16):
+    with chip_smoke.routed(fa, {**chip_smoke.CUDA_CORE_F16,
+                                **chip_smoke.CUDA_CORE_F32}):
         yield fa
 
 
@@ -148,13 +150,21 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 
 
 def test_the_wrappers_route_dtypes_to_their_kernels():
-    """fp32 takes its CUDA-core kernels at every width; fp16 its
-    tensor-core kernels up to 512 (in the bf16 kernels' sources, `_f16`
-    and `_f16_wide`) and the CUDA-core ones above (`_f16_simt`)."""
+    """fp32 takes its CUDA-core dQ at every width and its forward and dK/dV
+    on the tensor cores up to 128 (flash_f32.cu) and on the CUDA cores
+    above (`_f32_simt`); fp16 its tensor-core kernels up to 512 (in the
+    bf16 kernels' sources, `_f16` and `_f16_wide`) and the CUDA-core ones
+    above (`_f16_simt`)."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512, 640):
-            assert fa._kernel(name, D, torch.float32) == f"{name}_f32"
-            assert fa.source(f"{name}_f32") == fa.SIMT_SOURCE
+            f32 = fa._kernel(name, D, torch.float32)
+            if name == "flash_dq" or D > 128:
+                assert f32 == ("flash_dq_f32" if name == "flash_dq"
+                               else f"{name}_f32_simt")
+                assert fa.source(f32) == fa.SIMT_SOURCE
+            else:
+                assert f32 == f"{name}_f32"
+                assert fa.source(f32) == fa.TF32_SOURCE
             f16 = fa._kernel(name, D, torch.float16)
             if D <= 128:
                 assert f16 == f"{name}_f16" and fa.source(f16) == name

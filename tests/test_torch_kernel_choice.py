@@ -2,8 +2,11 @@
 CPU (a ``torch.device("cuda")`` object needs no card).
 
 The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
-take the wgmma kernels, fp32 tensors the CUDA-core kernels
-(``csrc/flash_simt.cu``), fp16 tensors the wgmma forward, dQ and dK/dV up
+take the wgmma kernels, fp32 tensors the TF32 forward and dK/dV up to a
+head width of 128 (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
+``flash_dkv_f32``), the CUDA-core ones above (``_f32_simt``) and the
+CUDA-core dQ at every width (``flash_dq_f32``, ``csrc/flash_simt.cu``),
+fp16 tensors the wgmma forward, dQ and dK/dV up
 to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
 ``flash_dkv_f16``) and from 256 to 512 (``_f16_wide``), and the CUDA-core
 ones above 512 (``_f16_simt``). So a Llama or Mixtral takes the
@@ -72,10 +75,13 @@ def test_each_dtype_has_its_kernels(dtype, suffix):
         kernel = fa._kernel(name, fa.kernel_head_dim(16), dtype)
         assert kernel == name + suffix
         assert kernel in fa.launches and kernel in fa._ARGTYPES
-        # fp32's kernels are the CUDA-core ones; fp16's sit in the bf16
-        # kernels' sources
-        assert fa.source(kernel) == (
-            fa.SIMT_SOURCE if dtype == torch.float32 else name)
+        # fp32's forward and dK/dV are the TF32 ones, its dQ the CUDA-core
+        # one; fp16's sit in the bf16 kernels' sources
+        if dtype == torch.float32:
+            assert fa.source(kernel) == (fa.SIMT_SOURCE if name == "flash_dq"
+                                         else fa.TF32_SOURCE)
+        else:
+            assert fa.source(kernel) == name
 
 
 @pytest.mark.parametrize("D", [256, 384, 512])
@@ -108,27 +114,65 @@ def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
     assert fa._kernel("flash_fwd", D, torch.bfloat16) == "flash_fwd_wide"
 
 
+@pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640])
+def test_fp32_takes_the_tf32_forward_and_dkv_up_to_128(D):
+    """fp32's forward and dK/dV run on the tensor cores in three TF32
+    passes up to a head width of 128 (flash_f32.cu) and on the CUDA cores
+    above (`_f32_simt`); fp32's dQ runs on the CUDA cores at every width."""
+    width = fa.kernel_head_dim(D)
+    tc = width in fa.HEAD_DIMS
+    for name in ("flash_fwd", "flash_dkv"):
+        kernel = fa._kernel(name, width, torch.float32)
+        assert kernel == f"{name}_f32" + ("" if tc else "_simt")
+        assert fa.source(kernel) == (fa.TF32_SOURCE if tc
+                                     else fa.SIMT_SOURCE)
+        assert kernel in fa.launches and kernel in fa._ARGTYPES
+    dq = fa._kernel("flash_dq", width, torch.float32)
+    assert dq == "flash_dq_f32" and fa.source(dq) == fa.SIMT_SOURCE
+    # the TF32 forward takes its scratch after lse, one pointer more
+    assert len(fa._ARGTYPES["flash_fwd_f32"]) == \
+        len(fa._ARGTYPES["flash_fwd_f32_simt"]) + 1
+
+
+def test_the_tf32_forward_scratch_holds_the_split_k_and_vt():
+    """K_hi, K_lo ([B, Sk, H, D]) and Vᵀ_hi, Vᵀ_lo ([B, H, D, SkP], SkP =
+    Sk rounded up to 8), as flash_f32.cu's launch_fwd slices it."""
+    for B, H, Sk, D in ((2, 3, 200, 64), (1, 1, 8, 128), (1, 2, 1, 64)):
+        skp = -(-Sk // 8) * 8
+        t = fa.f32_scratch(B, H, Sk, D, CPU)
+        assert t.dtype == torch.float32
+        assert t.numel() == 2 * B * Sk * H * D + 2 * B * H * D * skp
+    text = (_build.CSRC / "flash_f32.cu").read_text()
+    assert "2·B·H·D·(Sk + SkP) floats" in text
+
+
 @pytest.mark.parametrize("source,exports,lacks", [
     ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide"),
      ()),
     ("flash_dkv_wide", ("voda_flash_dkv_wide", "voda_flash_dkv_f16_wide"),
      ()),
-    ("flash_simt", ("voda_flash_fwd_f32", "voda_flash_dq_f16_simt",
+    ("flash_simt", ("voda_flash_fwd_f32_simt", "voda_flash_dq_f32",
+                    "voda_flash_dkv_f32_simt", "voda_flash_dq_f16_simt",
                     "voda_flash_fwd_f16_simt", "voda_flash_dkv_f16_simt"),
      ("voda_flash_fwd_f16_wide", "voda_flash_dkv_f16_wide",
-      "voda_flash_dq_f16", "voda_flash_dq_f16_wide")),
+      "voda_flash_dq_f16", "voda_flash_dq_f16_wide", "voda_flash_fwd_f32",
+      "voda_flash_dkv_f32")),
     ("flash_dq", ("voda_flash_dq", "voda_flash_dq_f16"),
      ("voda_flash_dq_f16_simt",)),
     ("flash_dq_wide", ("voda_flash_dq_wide", "voda_flash_dq_f16_wide"),
      ("voda_flash_dq_f16",)),
+    ("flash_f32", ("voda_flash_fwd_f32", "voda_flash_dkv_f32"),
+     ("voda_flash_dq_f32", "voda_flash_fwd_f32_simt",
+      "voda_flash_dkv_f32_simt")),
 ])
 def test_each_source_exports_the_entries_its_kernels_are_named_by(
         source, exports, lacks):
     """The C entry points, read from the sources' text (no nvcc here): the
     dQ sources and the wide ones export fp16's `_f16` and `_f16_wide`
-    entries beside bf16's, and flash_simt.cu exports the renamed
-    `_f16_simt` ones and no other fp16 entry. Each name the wrappers route
-    to a source is an entry of it."""
+    entries beside bf16's, flash_simt.cu exports the renamed `_f16_simt`
+    and `_f32_simt` ones and no other fp16 entry, and flash_f32.cu fp32's
+    forward and dK/dV alone. Each name the wrappers route to a source is an
+    entry of it."""
     text = (_build.CSRC / f"{source}.cu").read_text()
     entries = set(re.findall(r'extern "C" int (voda_\w+)\(', text))
     for fwd, dq, dkv in re.findall(
@@ -148,7 +192,8 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
     (),
     ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16"),
     ("flash_fwd_f16_wide", "flash_dq_f16_wide", "flash_dkv_f16_wide"),
-    ("flash_fwd_f16_simt", "flash_dq_f16_simt", "flash_dkv_f16_simt")])
+    ("flash_fwd_f16_simt", "flash_dq_f16_simt", "flash_dkv_f16_simt"),
+    ("flash_fwd_f32_simt", "flash_dq_f32", "flash_dkv_f32_simt")])
 def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     """What the resize bench's restart child loads before the session: the
     kernels the prepare child's steps launched, and no other."""
@@ -156,3 +201,18 @@ def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     monkeypatch.setattr(fa, "_entry", loaded.append)
     fa.load_kernels(names)
     assert tuple(loaded) == names
+
+
+def test_each_entry_takes_the_arguments_its_wrapper_passes():
+    """Every kernel defined by an explicit ``extern "C"`` entry takes as
+    many arguments as its `_ARGTYPES` row passes (the stream among them):
+    ctypes would pass a short row's last arguments as garbage."""
+    checked = set()
+    for source in _build.SOURCES:
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        for name, params in re.findall(
+                r'extern "C" int voda_(\w+)\(([^)]*)\)', text):
+            assert len(params.split(",")) == len(fa._ARGTYPES[name]), name
+            checked.add(name)
+    assert {"flash_fwd_f32", "flash_dkv_f32", "flash_fwd",
+            "flash_dkv_f16_wide"} <= checked

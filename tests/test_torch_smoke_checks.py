@@ -37,7 +37,13 @@ DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
 DQW512 = DQW256.replace("ILi256E", "ILi512E")
 # the wmma dQ kernel above D=512 is not templated on its width
 DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
-F16_CLEAN = ((FWD64_F16, 0, 0), (DQ64_F16, 0, 0), (DKV64_F16, 0, 0))
+# fp32's TF32 forward and dK/dV, templated on their width alone
+FWD64_F32 = "_ZN4voda3f3220flash_fwd_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiif"
+DKV64_F32 = "_ZN4voda3f3220flash_dkv_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PfS5_iiiiif"
+FWD128_F32 = FWD64_F32.replace("ILi64E", "ILi128E")
+DKV128_F32 = DKV64_F32.replace("ILi64E", "ILi128E")
+F16_CLEAN = ((FWD64_F16, 0, 0), (DQ64_F16, 0, 0), (DKV64_F16, 0, 0),
+             (FWD64_F32, 0, 0), (DKV64_F32, 0, 0))
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
                   (DKVW256_F16, 0, 0))
@@ -68,11 +74,14 @@ def log_of(*kernels):
 def test_ptxas_spills_reads_every_kernel_and_head_dim():
     spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DQ64, 0, 0),
                                             (DKV64, 0, 0), (DKV128, 200, 144),
-                                            *F16_CLEAN, (DKV128_F16, 8, 8)))
+                                            *F16_CLEAN, (DKV128_F16, 8, 8),
+                                            (DKV128_F32, 64, 88)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_dkv", 128): 344,
                       ("flash_fwd_f16", 64): 0, ("flash_dq_f16", 64): 0,
-                      ("flash_dkv_f16", 64): 0, ("flash_dkv_f16", 128): 16}
+                      ("flash_dkv_f16", 64): 0, ("flash_dkv_f16", 128): 16,
+                      ("flash_fwd_f32", 64): 0, ("flash_dkv_f32", 64): 0,
+                      ("flash_dkv_f32", 128): 152}
     assert chip_smoke.spill_faults(spills) == []
 
 
@@ -99,10 +108,15 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
      "flash_dq_f16 D=64: 16 bytes spilled"),
     (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DQ128_F16, 0, 0)),
      "flash_dq_f16 D=64: no ptxas spill line"),
+    # fp32's TF32 forward and dK/dV, gated as the bf16 ones
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DKV64_F32, 320, 304)),
+     "flash_dkv_f32 D=64: 624 bytes spilled"),
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (FWD128_F32, 0, 0)),
+     "flash_fwd_f32 D=64: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
-    """Each case's log also holds the fp16 kernels' clean lines, except
-    where the case names an fp16 kernel itself."""
+    """Each case's log also holds the fp16 and fp32 tensor-core kernels'
+    clean lines, except where the case names such a kernel itself."""
     assert chip_smoke.spill_faults(chip_smoke.ptxas_spills(
         log_of(*kernels, *untouched(F16_CLEAN, kernels)))) == [fault]
 
@@ -111,7 +125,8 @@ def test_spill_at_d128_is_only_logged():
     spills = chip_smoke.ptxas_spills(log_of((FWD64, 0, 0), (DQ64, 0, 0),
                                             (DKV64, 0, 0), (DKV128, 500, 244),
                                             (DQ128, 8, 8), *F16_CLEAN,
-                                            (DKV128_F16, 40, 40)))
+                                            (DKV128_F16, 40, 40),
+                                            (DKV128_F32, 64, 88)))
     assert chip_smoke.spill_faults(spills) == []
 
 
@@ -122,6 +137,7 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_fwd_f16", 64): 0,
                       ("flash_dq_f16", 64): 0,
+                      ("flash_fwd_f32", 64): 0, ("flash_dkv_f32", 64): 0,
                       ("flash_dkv_f16", 64): 0, ("flash_fwd_wide", 256): 0,
                       ("flash_dq_wide", 256): 0, ("flash_dkv_wide", 256): 0,
                       ("flash_fwd_f16_wide", 256): 0,
@@ -195,6 +211,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_dkv_f16_wide", 256) in chip_smoke.SPILL_GATES
     assert ("flash_dq_f16", 64) in chip_smoke.SPILL_GATES
     assert ("flash_dq_f16_wide", 256) in chip_smoke.SPILL_GATES
+    assert ("flash_fwd_f32", 64) in chip_smoke.SPILL_GATES
+    assert ("flash_dkv_f32", 64) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 
@@ -216,6 +234,20 @@ def test_bound_counts_the_causal_half_and_names_its_limit(shape, products,
     assert by == want_by
     assert ms == pytest.approx(1e3 * max(flops / chip_smoke.PEAK_BF16_FLOPS,
                                          nbytes / chip_smoke.PEAK_BYTES))
+
+
+def test_fp32_bounds_are_at_three_tf32_passes():
+    """fp32's peak is TF32's 495 TFLOP/s over three passes: K1, K2 and K3
+    at the main shape take 0.4167, 0.6250 and 0.8334 ms at least."""
+    import torch
+    assert chip_smoke.PEAK_FLOPS[torch.float32] == pytest.approx(165e12)
+    main = (8, 16, 2048, 2048, 64, True, 0)
+    for products, tensors, stats, want in ((2, 4, 1, 0.4167),
+                                           (3, 6, 2, 0.6250),
+                                           (4, 6, 2, 0.8334)):
+        ms, by = chip_smoke.bound(products, tensors, stats, *main,
+                                  torch.float32)
+        assert by == "operations" and ms == pytest.approx(want, abs=5e-5)
 
 
 def test_attn_pairs_with_an_offset_query_slice():

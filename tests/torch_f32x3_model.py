@@ -1,0 +1,160 @@
+"""A plain PyTorch model of the fp32 tensor-core kernels' arithmetic
+(``vodascheduler_tpu_torch/ops/csrc/flash_f32.cu``: the forward,
+``voda_flash_fwd_f32``, and dK/dV, ``voda_flash_dkv_f32``), written apart
+from the package so that the tests hold the kernels' design, and the
+kernels themselves, against it.
+
+Every product a·b of fp32 inputs is three TF32 products summed in fp32:
+hi = tf32(x), lo = tf32(x − hi), a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi,
+each k-step of 8 terms in that order. `tf32` rounds to nearest with ties
+away from zero (the kernels' ``cvt.rna.tf32.f32``) by the fp32 bits:
+``(bits + 0x1000) & ~0x1FFF``. ``passes=1`` keeps hi·hi alone, what the
+kernels compute without the lo terms.
+
+`fwd` walks the key tiles of a kernel's tiling (`fwd_tiling`: 64 keys at
+D=64, 32 at D=128) with the online softmax: S = Q·Kᵀ, the running max and
+sum, P = exp(S·scale − m) split and multiplied by V with the keys of each
+k-step in the kernel's order PERM (Vᵀ's order in the kernel's scratch), O
+rescaled by each tile's correction. `dkv` walks the query tiles of
+`dkv_tiling` (64 rows at D=64, 32 at D=128): Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ,
+Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale, then dV += Pᵀ·dO and
+dK += dSᵀ·Q with the queries of each k-step in the order PERM. Inputs and
+outputs are [B, S, H, D] fp32 (lse and δ [B, H, Sq]), as the kernels take
+them.
+"""
+
+import torch
+
+# Logical column j of a k-step holds physical column PERM[j] (flash_f32.cu's
+# perm8): the A fragment of a TF32 k-step holds columns t and t+4 of a row,
+# the accumulator 2t and 2t+1.
+PERM = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 `x` rounded to TF32 (10 stored mantissa bits), to nearest with
+    ties away from zero; the low 13 bits of the result are 0."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split(x: torch.Tensor):
+    """(hi, lo): x's TF32 value and the TF32 value of what it leaves."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mm3(a: torch.Tensor, b: torch.Tensor, passes: int = 3,
+        acc: torch.Tensor = None) -> torch.Tensor:
+    """acc + a·b over the last axis of `a` and the second last of `b`, in
+    k-steps of 8, each as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi (passes=3) or
+    a_hi·b_hi (passes=1), accumulated in fp32 in that order."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    out = acc if acc is not None else torch.zeros(
+        *a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k0 in range(0, a.shape[-1], 8):
+        for x, y in terms:
+            out = out + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return out
+
+
+def perm_index(n: int) -> torch.Tensor:
+    """The order PERM within each group of 8 of an axis of n (a multiple of
+    8) entries."""
+    base = torch.arange(0, n, 8)[:, None]
+    return (base + torch.tensor(PERM)[None, :]).reshape(-1)
+
+
+def fwd_tiling(D: int) -> int:
+    """Keys of a K/V tile of the fp32 forward at head width D (`Fwd::BN`)."""
+    return 64 if D == 64 else 32
+
+
+def dkv_tiling(D: int) -> int:
+    """Query rows of a Q/dO tile of the fp32 dK/dV (`Dkv::BM`)."""
+    return 64 if D == 64 else 32
+
+
+def _mask(rows: torch.Tensor, cols: torch.Tensor, Sq: int, Sk: int,
+          causal: bool, q_off: int) -> torch.Tensor:
+    """True where the (query, key) pair is masked out."""
+    off = (cols[None, :] >= Sk) | (rows[:, None] >= Sq)
+    if causal:
+        off = off | (q_off + rows[:, None] < cols[None, :])
+    return off
+
+
+def _pad(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """`x` with zeros along `axis` up to length n (as TMA fills a tile
+    past the end of a tensor)."""
+    extra = n - x.shape[axis]
+    if extra <= 0:
+        return x
+    shape = list(x.shape)
+    shape[axis] = extra
+    return torch.cat([x, x.new_zeros(shape)], axis)
+
+
+def fwd(q, k, v, causal: bool, q_off: int, scale: float, passes: int = 3):
+    """(o [B,Sq,H,D], lse [B,H,Sq]) as the fp32 forward computes them."""
+    q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    BN = fwd_tiling(D)
+    nk = -(-Sk // BN)
+    k, v = _pad(k, 2, nk * BN), _pad(v, 2, nk * BN)
+    m = torch.full((B, H, Sq, 1), -float("inf"))
+    l = torch.zeros(B, H, Sq, 1)
+    acc = torch.zeros(B, H, Sq, D)
+    rows = torch.arange(Sq)
+    order = perm_index(BN)
+    for j in range(nk):
+        cols = j * BN + torch.arange(BN)
+        s = mm3(q, k[:, :, j * BN:(j + 1) * BN].transpose(-1, -2),
+                passes) * scale
+        s = s.masked_fill(_mask(rows, cols, Sq, Sk, causal, q_off),
+                          -float("inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        live = m_new > -float("inf")
+        corr = torch.where(live, torch.exp(m - m_new), torch.ones_like(m))
+        p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
+        l = l * corr + p.sum(-1, keepdim=True)
+        vt = v[:, :, j * BN:(j + 1) * BN]
+        acc = mm3(p[..., order], vt[:, :, order], passes, acc * corr)
+        m = m_new
+    safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = acc / safe
+    lse = torch.where(m > -float("inf"), m + torch.log(safe),
+                      torch.full_like(m, -1e30))
+    return o.transpose(1, 2).contiguous(), lse.squeeze(-1)
+
+
+def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
+        passes: int = 3):
+    """(dk, dv), each [B,Sk,H,D] fp32, as the fp32 dK/dV computes them on
+    the given lse and δ."""
+    q, k, v, do = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    BM = dkv_tiling(D)
+    nq = -(-Sq // BM)
+    q, do = _pad(q, 2, nq * BM), _pad(do, 2, nq * BM)
+    lse, delta = (_pad(t.float(), 2, nq * BM) for t in (lse, delta))
+    keys = torch.arange(Sk)
+    order = perm_index(BM)
+    dk = torch.zeros(B, H, Sk, D)
+    dv = torch.zeros(B, H, Sk, D)
+    for i in range(nq):
+        rows = i * BM + torch.arange(BM)
+        qt, dot = q[:, :, i * BM:(i + 1) * BM], do[:, :, i * BM:(i + 1) * BM]
+        st = mm3(k, qt.transpose(-1, -2), passes)        # [B,H,Sk,BM]
+        dpt = mm3(v, dot.transpose(-1, -2), passes)
+        off = _mask(rows, keys, Sq, Sk, causal, q_off).transpose(0, 1)
+        p = torch.exp(st * scale - lse[:, :, None, i * BM:(i + 1) * BM])
+        p = p.masked_fill(off, 0.0)
+        ds = p * (dpt - delta[:, :, None, i * BM:(i + 1) * BM]) * scale
+        dv = mm3(p[..., order], dot[:, :, order], passes, dv)
+        dk = mm3(ds[..., order], qt[:, :, order], passes, dk)
+    return (dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous())

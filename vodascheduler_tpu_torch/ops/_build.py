@@ -26,7 +26,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_wide",
-           "flash_dq_wide", "flash_dkv_wide", "flash_simt")
+           "flash_dq_wide", "flash_dkv_wide", "flash_simt", "flash_f32")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,937 @@
+// K1 and K3 for fp32 inputs at head widths 64 and 128, on Hopper's tensor
+// cores (sm_90a): the forward (voda_flash_fwd_f32) and dK/dV
+// (voda_flash_dkv_f32).
+//
+// Replace `_fwd_kernel` and `_dkv_kernel` in
+// vodascheduler_tpu/ops/flash_attention.py for a model that computes in
+// float32 (the TPU kernels compute in q.dtype). fp32's dQ, and fp32 above a
+// width of 128, stay on the CUDA cores (flash_simt.cu: voda_flash_dq_f32,
+// voda_flash_{fwd,dkv}_f32_simt).
+//
+// The arithmetic: three TF32 passes. Every product a·b of fp32 inputs
+// becomes three tensor-core products of TF32 halves summed in one fp32
+// accumulator: hi = cvt.rna.tf32(x), lo = cvt.rna.tf32(x − hi) (x − hi is
+// exact in fp32), and a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, the small
+// terms first, as CUTLASS's OpMultiplyAddFastF32 orders them (and as the
+// library's own fp32 attention on this card computes). Only a_lo·b_lo, near
+// 2^-22 of the product, is dropped, so the result is as accurate as an fp32
+// product on the CUDA cores; one pass (hi·hi alone) keeps 11 bits and reads
+// about 1000× further from the plain version (tests/torch_f32x3_model.py).
+// P and dSᵀ stay fp32 and are split like any operand (`p.astype(v.dtype)` is
+// a no-op for fp32); the softmax statistics, lse and δ are fp32 as on the
+// CUDA cores.
+//
+// A fifth divergence from the TPU kernels, beside lse's layout, any sequence
+// length, the zero-padded head widths and the fixed tiles (the module
+// docstring of ops/flash_attention.py): the TPU emulates an f32 dot in
+// several bf16 passes on its matrix unit ("the multi-pass f32 MXU path",
+// `_fwd_kernel`); here it is three TF32 passes, at least as accurate.
+//
+// Bound on an H100 SXM: the card's fp32-accurate rate is TF32's 495 TFLOP/s
+// over three passes, 165 TFLOP/s. K1 does two products of 2·B·H·Sq·Sk·D
+// FLOPs, halved under the causal mask: 68.7 GFLOP at B=8, H=16, S=2048,
+// D=64, 0.417 ms, against 4·33.6 MB + lse ≈ 135 MB, 0.040 ms; K3 four,
+// 0.833 ms against 0.061 ms. Both are bound by operations.
+//
+// K1 (flash_fwd_f32_kernel): the TMA + warp-specialised wgmma design of
+// flash_fwd.cu (one producer warp of TMA loads into a ring, two consumer
+// warpgroups of 64 query rows, the online softmax on the accumulator
+// registers, the warpgroups' turns) in TF32. What TF32 changes:
+// - wgmma's .tf32 form reads both operands K-major (there is no transpose
+//   bit) and a k-step of 8 values, 32 bytes, as bf16's k16. S = Q·Kᵀ is
+//   K-major in both operands. O += P·V is not: V arrives as Vᵀ, keys
+//   contiguous. A prologue kernel (flash_f32_split_kernel), launched by the
+//   same C entry, writes K_hi, K_lo, Vᵀ_hi and Vᵀ_lo into scratch that the
+//   wrapper allocates, so the main loop stays a pure TMA + wgmma pipeline.
+//   It reads K and V and writes twice their bytes, 0.4 GB at the main
+//   shape, some 0.12 ms at 3.35 TB/s.
+// - P is the register A operand of P·V. TF32's A fragment of a k-step holds
+//   columns t and t+4 of the thread's rows, the accumulator columns 2t and
+//   2t+1. The prologue stores Vᵀ's keys in the order PERM = [0,2,4,6,1,3,5,7]
+//   within each group of 8, so the thread's accumulator pair is its A
+//   fragment as it stands: P never leaves registers.
+// - Q arrives once by TMA, raw; each consumer warpgroup splits its 64 rows
+//   in shared memory (hi in place, lo beside it) and reads both as wgmma A
+//   operands from shared memory.
+// - fp32 tiles are twice bf16's and the split doubles every tile: at D=64,
+//   K/V tiles of 64 keys (a stage of K_hi, K_lo, Vᵀ_hi, Vᵀ_lo is 64 KB), two
+//   stages and Q's 64 KB, 193 KB of the 227; at D=128, tiles of 32 keys and
+//   one stage (Q alone is 128 KB). K and V have stages and barriers of
+//   their own: K of tile j is released once S of tile j is in, V once P·V
+//   is, so even one stage overlaps S of tile j with P·V of tile j−1.
+// - Rows past Sq arrive from TMA as zeros and are never stored; keys past
+//   Sk arrive as zeros and are masked to the finite NEG_INF.
+//
+// K3 (flash_dkv_f32_kernel): mma.sync m16n8k8 TF32 from shared memory, the
+// instruction of the library's fp32 kernel, in flash_dkv.cu's schedule.
+// K3 reads Q and dO in both majors (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ take them
+// K-major, dK += dSᵀ·Q and dV += Pᵀ·dO MN-major); under wgmma's K-major
+// rule each query tile would need Q, dO and their transposes, each split:
+// eight tiles, 128 KB at 64 rows beside K and V. So:
+// - a producer warpgroup, whose warp 0 issues every load: K and V of the
+//   CTA's 128 keys arrive once by TMA and stay, raw fp32; Q and dO tiles of
+//   BM query rows, with their lse and δ, pass raw through a ring of STAGES
+//   stages guarded by mbarriers;
+// - two consumer warpgroups, eight warps of 16 keys each, load their
+//   fragments from shared memory by lane index, which reads a tile in
+//   either major and takes the accumulator-to-A-fragment order (PERM
+//   again, on the query axis) for free, split them into hi/lo in
+//   registers and issue three mma.sync per fragment pair. Shared memory
+//   holds each input once, in TMA's 128-byte swizzle, under which both
+//   majors' fragment loads are free of bank conflicts. Every warp splits
+//   every Q and dO value it loads, which is a third of K3's time on an
+//   H100 (scripts/torch_f32_ablate.py);
+// - a warp skips a query tile wholly above its keys under the causal mask;
+// - registers: a consumer holds dK and dV (D/2 fp32 each), Sᵀ and dPᵀ (BM/2
+//   each) and the fragments in flight. With one producer warp (288 threads)
+//   ptxas held every thread to 168 registers, as an SM's four register
+//   files each hold a third warp, and spilled 1.6 KB at D=64; a producer
+//   warpgroup that setmaxnreg shrinks gives the consumers 232, as in
+//   flash_dkv.cu;
+// - no atomics: each CTA owns its keys' dK and dV, as flash_dkv.cu.
+//
+// Nothing is carried between CTAs, so both kernels are deterministic.
+
+#include "hopper.cuh"
+
+namespace voda {
+namespace f32 {
+
+// ------------------------------------------------------------ the split
+
+// x rounded to TF32 (10 stored mantissa bits; to nearest, ties away from
+// zero), in an fp32 register whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+// x = hi + lo + (what TF32 cannot hold of x − hi, below 2^-21 of x).
+__device__ __forceinline__ Split split(float x) {
+  const uint32_t hi = to_tf32(x);
+  const uint32_t lo = to_tf32(x - __uint_as_float(hi));
+  return {hi, lo};
+}
+
+// Key order of Vᵀ within each group of 8 (K1), and of the query axis of
+// the A fragments of Pᵀ and dSᵀ (K3): logical column j of a k-step holds
+// physical column PERM(j).
+__host__ __device__ constexpr int perm8(int j) {
+  return j < 4 ? 2 * j : 2 * (j - 4) + 1;
+}
+
+// ---------------------------------------------------------------- tiles
+
+// An fp32 tile of a tensor map below lands as parts of 32 columns, each
+// [rows, 32] with 128-byte rows in the 128-byte swizzle (16-byte chunk c of
+// row r at chunk c ^ (r % 8)); part p starts at p * rows * 128 bytes. As in
+// hopper.cuh for 16-bit tiles, one k-step of wgmma is 32 bytes of a row, so
+// kmajor_step(rows, kk) addresses k-step kk (8 values) of such a tile.
+// The index of element (r, c) of a tile of `rows` rows:
+__device__ __forceinline__ int at(int rows, int r, int c) {
+  return (c >> 5) * rows * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// A tensor map over a contiguous fp32 tensor of dims (innermost first)
+// `dims`, boxes of `box`, 128-byte swizzle, zeros out of bounds. Returns 0 or
+// a nonzero CUresult.
+inline int make_map(CUtensorMap* map, const void* base, const int (&dims)[4],
+                    const int (&box)[4]) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (!encode) return static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  cuuint64_t gdim[4], strides[3];
+  cuuint32_t bdim[4];
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  cuuint64_t stride = 4;
+  for (int i = 0; i < 4; ++i) {
+    if (i > 0) strides[i - 1] = stride;
+    gdim[i] = static_cast<cuuint64_t>(dims[i]);
+    bdim[i] = static_cast<cuuint32_t>(box[i]);
+    stride *= static_cast<cuuint64_t>(dims[i]);
+  }
+  return static_cast<int>(encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), gdim,
+      strides, bdim, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// fp32 [B, S, H, D] in boxes of [rows, 32]: coordinates (column, h, s, b).
+inline int rows_map(CUtensorMap* map, const void* base, int B, int S, int H,
+                    int D, int rows) {
+  return make_map(map, base, {D, H, S, B}, {32, 1, rows, 1});
+}
+
+__device__ __forceinline__ void tma_load(float* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Rows [s0, s0 + rows) of head h, batch b, all D columns, of a rows_map.
+template <int D>
+__device__ __forceinline__ void tma_rows(float* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int rows, int h,
+                                         int s0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / 32; ++p)
+    tma_load(dst + p * rows * 32, map, bar, 32 * p, h, s0, b);
+}
+
+// --------------------------------------------------------- wgmma, TF32
+
+#define VODA_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define VODA_F16(i) VODA_F4(i), VODA_F4(i + 4), VODA_F4(i + 8), VODA_F4(i + 12)
+#define VODA_R16 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define VODA_R32                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+#define VODA_R64                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d[64 x N] (+)= A · B in TF32, A and B K-major in shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 2], uint64_t a,
+                                              uint64_t b, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 " VODA_R16
+      ", %16, %17, p, 1, 1;\n}"
+      : VODA_F16(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<64>(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VODA_R32
+      ", %32, %33, p, 1, 1;\n}"
+      : VODA_F16(0), VODA_F16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d[64 x N] += A · B in TF32, A a register fragment, B K-major in shared
+// memory.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " VODA_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}"
+      : VODA_F16(0), VODA_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " VODA_R64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}"
+      : VODA_F16(0), VODA_F16(16), VODA_F16(32), VODA_F16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef VODA_F4
+#undef VODA_F16
+#undef VODA_R16
+#undef VODA_R32
+#undef VODA_R64
+
+// c[16 x 8] += A · B, one mma.sync m16n8k8 in TF32: a the A fragment (rows
+// g, g+8; columns t, t+4), b0 and b1 the B fragment (rows t, t+4; column g).
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b in three passes: a_lo·b_hi, a_hi·b_lo, a_hi·b_hi.
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], Split b0,
+                                     Split b1) {
+  mma_tf32(c, alo, b0.hi, b1.hi);
+  mma_tf32(c, ahi, b0.lo, b1.lo);
+  mma_tf32(c, ahi, b0.hi, b1.hi);
+}
+
+// The A fragment {x0, x1, x2, x3} split into its hi and lo fragments.
+__device__ __forceinline__ void split_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           float x0, float x1, float x2,
+                                           float x3) {
+  const float x[4] = {x0, x1, x2, x3};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const Split s = split(x[e]);
+    hi[e] = s.hi;
+    lo[e] = s.lo;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1's prologue: K_hi, K_lo as [B, Sk, H, D] (K's layout) and Vᵀ_hi, Vᵀ_lo as
+// [B, H, D, SkP] (SkP = Sk rounded up to 8: keys contiguous in the order
+// PERM within each group of 8, zeros past Sk)
+// ---------------------------------------------------------------------------
+
+constexpr int PT = 32;  // keys and columns of a prologue tile
+
+template <int D>
+__global__ void __launch_bounds__(256)
+    flash_f32_split_kernel(const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ kh,
+                           float* __restrict__ kl, float* __restrict__ vth,
+                           float* __restrict__ vtl, int H, int Sk, int SkP) {
+  __shared__ float tile[PT][PT + 1];  // V[key0 + r][d0 + c]
+  const int key0 = blockIdx.x * PT, d0 = blockIdx.y * PT;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < PT; r += 8) {
+    const int key = key0 + r;
+    float x = 0.f;
+    if (key < Sk) {
+      const size_t i =
+          ((static_cast<size_t>(b) * Sk + key) * H + h) * D + d0 + tx;
+      const Split s = split(k[i]);
+      kh[i] = __uint_as_float(s.hi);
+      kl[i] = __uint_as_float(s.lo);
+      x = v[i];
+    }
+    tile[r][tx] = x;
+  }
+  __syncthreads();
+  const int pos = key0 + tx;
+  if (pos >= SkP) return;
+  const int src = (tx & ~7) + perm8(tx & 7);
+#pragma unroll
+  for (int r = ty; r < PT; r += 8) {
+    const Split s = split(tile[src][r]);
+    const size_t i =
+        ((static_cast<size_t>(b) * H + h) * D + d0 + r) * SkP + pos;
+    vth[i] = __uint_as_float(s.hi);
+    vtl[i] = __uint_as_float(s.lo);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1: O and lse
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Fwd {
+  static constexpr int BM = 128;  // query rows of a CTA
+  // keys of a K/V tile and stages: a stage holds K_hi, K_lo, Vᵀ_hi and
+  // Vᵀ_lo, and Q_hi and Q_lo stay for the CTA's life
+  static constexpr int BN = D == 64 ? 64 : 32;
+  static constexpr int STAGES = D == 64 ? 2 : 1;
+  static constexpr int Q_BYTES = BM * D * 4;   // each of Q_hi, Q_lo
+  static constexpr int KV_BYTES = BN * D * 4;  // each of the stage's four
+  static constexpr int QL_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;    // [STAGES][K_hi, K_lo]
+  static constexpr int V_OFF = K_OFF + STAGES * 2 * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * 2 * KV_BYTES;
+  // q_full, k_full[STAGES], v_full[STAGES], k_empty[STAGES],
+  // v_empty[STAGES]; 1 KB of slack to align the base to the swizzle's 1024
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 4 * STAGES);
+  static_assert(SMEM <= MAX_SMEM, "K1's tiles exceed shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tkh,
+                         const __grid_constant__ CUtensorMap tkl,
+                         const __grid_constant__ CUtensorMap tvh,
+                         const __grid_constant__ CUtensorMap tvl,
+                         float* __restrict__ o, float* __restrict__ lse, int H,
+                         int Sq, int Sk, int q_off, int causal, float scale) {
+  using C = Fwd<D>;
+  using Regs = RegSplit<24, 240>;
+  constexpr int BM = C::BM, BN = C::BN, S = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  float* qh = reinterpret_cast<float*>(sm);
+  float* ql = reinterpret_cast<float*>(sm + C::QL_OFF);
+  float* ks = reinterpret_cast<float*>(sm + C::K_OFF);  // stage s: K_hi, K_lo
+  float* vs = reinterpret_cast<float*>(sm + C::V_OFF);  // stage s: Vᵀ_hi, Vᵀ_lo
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + S;
+  uint64_t* k_empty = v_full + S;
+  uint64_t* v_empty = k_empty + S;
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int i = gridDim.x - 1 - blockIdx.x;  // longest query tiles first
+  const int q0 = i * BM;
+  const int last_row = q_off + min(q0 + BM, Sq) - 1;
+  const int nk_all = (Sk + BN - 1) / BN;
+  const int n_k = causal ? min(nk_all, last_row / BN + 1) : nk_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], 2 * WG_THREADS);
+      mbar_init(&v_empty[s], 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the rings full, K of tile j before
+    // V of tile j
+    Regs::producer();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+      tma_rows<D>(qh, &tq, q_full, BM, h, q0, b);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j % S;
+        const uint32_t ph = ((j / S) & 1) ^ 1;
+        float* kst = ks + s * 2 * BN * D;
+        mbar_wait(&k_empty[s], ph);
+        mbar_expect_tx(&k_full[s], 2 * C::KV_BYTES);
+        tma_rows<D>(kst, &tkh, &k_full[s], BN, h, j * BN, b);
+        tma_rows<D>(kst + BN * D, &tkl, &k_full[s], BN, h, j * BN, b);
+        float* vst = vs + s * 2 * D * BN;
+        mbar_wait(&v_empty[s], ph);
+        mbar_expect_tx(&v_full[s], 2 * C::KV_BYTES);
+#pragma unroll
+        for (int p = 0; p < BN / 32; ++p) {
+          tma_load(vst + p * D * 32, &tvh, &v_full[s], j * BN + 32 * p, 0, h,
+                   b);
+          tma_load(vst + D * BN + p * D * 32, &tvl, &v_full[s],
+                   j * BN + 32 * p, 0, h, b);
+        }
+      }
+    }
+    trap_if_stalled();
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_loc = cw * 64 + warp * 16 + g;   // the thread's first row
+    const int row[2] = {q_off + q0 + r_loc, q_off + q0 + r_loc + 8};
+    const int wg_row0 = q_off + q0 + cw * 64;    // the warpgroup's first row
+    const float sl2 = scale * LOG2E;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};  // running max of the scores, log2 units
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+    float corr[2];
+    float sc[BN / 2];
+    uint32_t ph[BN / 8][4], pl[BN / 8][4];  // P split, the A operands of P·V
+
+    // Q: the warpgroup's 64 rows split in place (hi) and beside (lo), then
+    // handed to the async proxy that wgmma reads through
+    mbar_wait(q_full, 0);
+#pragma unroll
+    for (int p = 0; p < D / 32; ++p) {
+      float4* hi4 = reinterpret_cast<float4*>(qh + p * BM * 32 + cw * 64 * 32);
+      float4* lo4 = reinterpret_cast<float4*>(ql + p * BM * 32 + cw * 64 * 32);
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const int e = tid + WG_THREADS * x;
+        const float4 v = hi4[e];
+        const Split a = split(v.x), bb = split(v.y), c = split(v.z),
+                    d = split(v.w);
+        hi4[e] = make_float4(__uint_as_float(a.hi), __uint_as_float(bb.hi),
+                             __uint_as_float(c.hi), __uint_as_float(d.hi));
+        lo4[e] = make_float4(__uint_as_float(a.lo), __uint_as_float(bb.lo),
+                             __uint_as_float(c.lo), __uint_as_float(d.lo));
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    asm volatile("bar.sync %0, 128;" ::"r"(3 + cw) : "memory");
+
+    const uint64_t qhd = sw128_desc(qh + cw * 64 * 32, 16);
+    const uint64_t qld = sw128_desc(ql + cw * 64 * 32, 16);
+    // S = Q·Kᵀ of tile j into sc
+    auto issue_s = [&](int j) {
+      const float* kh = ks + (j % S) * 2 * BN * D;
+      const uint64_t khd = sw128_desc(kh, 16);
+      const uint64_t kld = sw128_desc(kh + BN * D, 16);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t qa = kmajor_step(BM, kk), kb = kmajor_step(BN, kk);
+        wgmma_ss_tf32<BN>(sc, qld + qa, khd + kb, kk > 0);
+        wgmma_ss_tf32<BN>(sc, qhd + qa, kld + kb, 1);
+        wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, 1);
+      }
+    };
+    // O += P·V of tile j
+    auto issue_pv = [&](int j) {
+      const float* vh = vs + (j % S) * 2 * D * BN;
+      const uint64_t vhd = sw128_desc(vh, 16);
+      const uint64_t vld = sw128_desc(vh + D * BN, 16);
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t vb = kmajor_step(D, kk);
+        wgmma_rs_tf32<D>(acc, pl[kk], vhd + vb);
+        wgmma_rs_tf32<D>(acc, ph[kk], vld + vb);
+        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);
+      }
+    };
+    auto softmax = [&](int j) {
+      const bool masked = (j + 1) * BN > Sk ||
+                          (causal && j * BN + BN - 1 > wg_row0);
+      softmax_tile<BN>(sc, m, l, corr, sl2, masked, j * BN, Sk, causal, row,
+                       t);
+    };
+    // P of the accumulator as the A fragments of P·V: the thread's columns
+    // 2t, 2t+1 of k-step kk are logical columns t, t+4 (Vᵀ in PERM order)
+    auto to_a = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+        split_frag(ph[kk], pl[kk], sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                   sc[4 * kk + 3]);
+    };
+
+    const Turns<> turns{cw};
+    if (n_k > 0) {
+      turns.start_kernel();
+      turns.begin();
+      mbar_wait(&k_full[0], 0);
+      wgmma_fence();
+      issue_s(0);
+      wgmma_commit();
+      turns.end(false);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&k_empty[0]);
+      softmax(0);
+      to_a();
+      for (int j = 1; j < n_k; ++j) {
+        // both waits before the first wgmma: a wait between two wgmma
+        // makes ptxas serialise them
+        turns.begin();
+        mbar_wait(&k_full[j % S], (j / S) & 1);
+        mbar_wait(&v_full[(j - 1) % S], ((j - 1) / S) & 1);
+        wgmma_fence();
+        issue_s(j);
+        wgmma_commit();
+        issue_pv(j - 1);
+        wgmma_commit();
+        turns.end(false);
+        wgmma_wait<1>();   // S of tile j is in
+        fence_regs(sc);
+        mbar_arrive(&k_empty[j % S]);
+        softmax(j);
+        wgmma_wait<0>();   // P·V of tile j−1 is in
+        fence_regs(acc);
+        mbar_arrive(&v_empty[(j - 1) % S]);
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          acc[4 * c] *= corr[0];
+          acc[4 * c + 1] *= corr[0];
+          acc[4 * c + 2] *= corr[1];
+          acc[4 * c + 3] *= corr[1];
+        }
+        to_a();
+      }
+      turns.begin();
+      mbar_wait(&v_full[(n_k - 1) % S], ((n_k - 1) / S) & 1);
+      wgmma_fence();
+      issue_pv(n_k - 1);
+      wgmma_commit();
+      turns.end(true);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&v_empty[(n_k - 1) % S]);
+    }
+
+    // Flush: a row that saw no key (l == 0) gets output 0, as the reference.
+    float lse_r[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      inv[r] = lr == 0.f ? 1.f : 1.f / lr;
+      lse_r[r] = m[r] == NEG_INF ? NEG_INF
+                                 : m[r] * LN2 + logf(lr == 0.f ? 1.f : lr);
+    }
+    float* ob = o + (static_cast<size_t>(b) * Sq * H + h) * D;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + r_loc + 8 * half;
+      if (r >= Sq) continue;
+      float* p = ob + static_cast<size_t>(r) * H * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < D / 8; ++c)
+        *reinterpret_cast<float2*>(p + 8 * c) =
+            make_float2(acc[4 * c + 2 * half] * inv[half],
+                        acc[4 * c + 2 * half + 1] * inv[half]);
+    }
+    if (t == 0) {
+      float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq;
+      if (q0 + r_loc < Sq) lb[q0 + r_loc] = lse_r[0];
+      if (q0 + r_loc + 8 < Sq) lb[q0 + r_loc + 8] = lse_r[1];
+    }
+    trap_if_stalled();
+  }
+}
+
+// K1's scratch: K_hi, K_lo ([B, Sk, H, D] each), Vᵀ_hi, Vᵀ_lo ([B, H, D,
+// SkP] each), in that order: 2·B·H·D·(Sk + SkP) floats.
+template <int D>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+               void* scratch, int B, int H, int Sq, int Sk, int q_off,
+               int causal, float scale, cudaStream_t st) {
+  using C = Fwd<D>;
+  const int SkP = (Sk + 7) / 8 * 8;
+  float* kh = static_cast<float*>(scratch);
+  float* kl = kh + static_cast<size_t>(B) * Sk * H * D;
+  float* vth = kl + static_cast<size_t>(B) * Sk * H * D;
+  float* vtl = vth + static_cast<size_t>(B) * H * D * SkP;
+  CUtensorMap tq, tkh, tkl, tvh, tvl;
+  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = rows_map(&tkh, kh, B, Sk, H, D, C::BN);
+  if (!err) err = rows_map(&tkl, kl, B, Sk, H, D, C::BN);
+  // Vᵀ: coordinates (key, column, h, b), boxes of 32 keys by D columns
+  if (!err) err = make_map(&tvh, vth, {SkP, D, H, B}, {32, D, 1, 1});
+  if (!err) err = make_map(&tvl, vtl, {SkP, D, H, B}, {32, D, 1, 1});
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_fwd_f32_kernel<D>), C::SMEM);
+  if (err) return err;
+  flash_f32_split_kernel<D><<<dim3((SkP + PT - 1) / PT, D / PT, B * H), 256,
+                              0, st>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), kh, kl, vth,
+      vtl, H, Sk, SkP);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const dim3 grid((Sq + C::BM - 1) / C::BM, H, B);
+  flash_fwd_f32_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tkh, tkl, tvh, tvl, static_cast<float*>(o), static_cast<float*>(lse),
+      H, Sq, Sk, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// K3: dK and dV
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Dkv {
+  static constexpr int BN = 128;  // keys of a CTA, 16 a consumer warp
+  // query rows of a stage: at D=128 a thread holds dK and dV in 128 fp32
+  // registers, so the stage takes 32 rows, which halves Sᵀ and dPᵀ
+  static constexpr int BM = D == 64 ? 64 : 32;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int KV_BYTES = BN * D * 4;
+  static constexpr int T_BYTES = BM * D * 4;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
+  static constexpr int STAT_OFF = DO_OFF + STAGES * T_BYTES;  // lse, δ
+  static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BM * 4;
+  // kv_full, q_full[STAGES], do_full[STAGES], empty[STAGES]; 1 KB of slack
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
+  static_assert(SMEM <= MAX_SMEM, "K3's tiles exceed shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv, int H,
+                         int Sq, int Sk, int q_off, int causal, float scale) {
+  using C = Dkv<D>;
+  // The producer warp also stages lse and δ, so it keeps 40 registers.
+  using Regs = RegSplit<40, 232>;
+  constexpr int BM = C::BM, BN = C::BN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const float* ks = reinterpret_cast<const float*>(sm);
+  const float* vs = reinterpret_cast<const float*>(sm + C::V_OFF);
+  float* qs = reinterpret_cast<float*>(sm + C::Q_OFF);
+  float* dos = reinterpret_cast<float*>(sm + C::DO_OFF);
+  float* stat_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // [S][2][BM]
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* do_full = q_full + C::STAGES;
+  uint64_t* empty = do_full + C::STAGES;
+
+  const int h = blockIdx.x, b = blockIdx.y, j = blockIdx.z;
+  const int k0 = j * BN;
+  const int num_q = (Sq + BM - 1) / BM;
+  // first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
+  const int i0 = causal ? max(0, k0 - q_off) / BM : 0;
+  const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&q_full[s], 32);  // the producer warp's lanes
+      mbar_init(&do_full[s], 32);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < 4) {
+    // ---- producer: warp 0; lane 0 issues the TMA loads, the lanes stage
+    // the tile's lse (in log2 units) and δ, zero past Sq
+    Regs::producer();
+    if (warp == 0 && lane == 0) {
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+      tma_rows<D>(const_cast<float*>(ks), &tk, kv_full, BN, h, k0, b);
+      tma_rows<D>(const_cast<float*>(vs), &tv, kv_full, BN, h, k0, b);
+    }
+    for (int i = i0; i < num_q && warp == 0; ++i) {
+      const int it = i - i0, s = it % C::STAGES;
+      const int q0 = i * BM;
+      float* lse_s = stat_s + s * 2 * BM;
+      float* del_s = lse_s + BM;
+      float lv[(BM + 31) / 32], dl[(BM + 31) / 32];
+#pragma unroll
+      for (int x = 0; x < (BM + 31) / 32; ++x) {
+        const int r = q0 + lane + 32 * x;
+        lv[x] = r < Sq ? lse[stat + r] * LOG2E : 0.f;
+        dl[x] = r < Sq ? delta[stat + r] : 0.f;
+      }
+      mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
+#pragma unroll
+      for (int x = 0; x < (BM + 31) / 32; ++x) {
+        lse_s[lane + 32 * x] = lv[x];
+        del_s[lane + 32 * x] = dl[x];
+      }
+      if (lane == 0) {
+        mbar_expect_tx(&q_full[s], C::T_BYTES);
+        tma_rows<D>(qs + s * BM * D, &tq, &q_full[s], BM, h, q0, b);
+        mbar_expect_tx(&do_full[s], C::T_BYTES);
+        tma_rows<D>(dos + s * BM * D, &tdo, &do_full[s], BM, h, q0, b);
+      } else {
+        mbar_arrive(&q_full[s]);
+        mbar_arrive(&do_full[s]);
+      }
+    }
+    trap_if_stalled();
+  } else {
+    // ---- consumers: 16 keys a warp
+    Regs::consumer();
+    const int g = lane >> 2, t = lane & 3;
+    const int kr = (warp - 4) * 16;   // the warp's first row of K and V
+    const int kw = k0 + kr;           // and its first key
+    const int key[2] = {kw + g, kw + g + 8};
+    const float sl2 = scale * LOG2E;
+
+    float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int i = i0; i < num_q; ++i) {
+      const int it = i - i0, s = it % C::STAGES;
+      const uint32_t ph = (it / C::STAGES) & 1;
+      const int q0 = i * BM;
+      mbar_wait(&q_full[s], ph);
+      mbar_wait(&do_full[s], ph);
+      // a tile wholly above the warp's keys under the causal mask adds 0
+      if (!(causal && q_off + q0 + BM - 1 < kw)) {
+        const float* qt = qs + s * BM * D;
+        const float* dot = dos + s * BM * D;
+        const float* lse_s = stat_s + s * 2 * BM;
+        const float* del_s = lse_s + BM;
+
+        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over D: the warp's 16 keys × BM queries
+        float st[BM / 8][4], dpt[BM / 8][4];
+#pragma unroll
+        for (int n = 0; n < BM / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+        // not unrolled: unrolled, ptxas hoisted the fragments of later
+        // k-steps and spilled 624 bytes at D=64
+#pragma unroll 1
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const int c = 8 * kk + t;
+          uint32_t khi[4], klo[4], vhi[4], vlo[4];
+          split_frag(khi, klo, ks[at(BN, kr + g, c)], ks[at(BN, kr + g + 8, c)],
+                     ks[at(BN, kr + g, c + 4)], ks[at(BN, kr + g + 8, c + 4)]);
+          split_frag(vhi, vlo, vs[at(BN, kr + g, c)], vs[at(BN, kr + g + 8, c)],
+                     vs[at(BN, kr + g, c + 4)], vs[at(BN, kr + g + 8, c + 4)]);
+#pragma unroll
+          for (int n = 0; n < BM / 8; ++n) {
+            const int r = 8 * n + g;
+            mma3(st[n], khi, klo, split(qt[at(BM, r, c)]),
+                 split(qt[at(BM, r, c + 4)]));
+            mma3(dpt[n], vhi, vlo, split(dot[at(BM, r, c)]),
+                 split(dot[at(BM, r, c + 4)]));
+          }
+        }
+
+        // Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale; accumulator
+        // element e of n-tile n is key g + 8(e>>1), query 8n + 2t + (e&1)
+        const bool masked = q0 + BM > Sq || (causal && q_off + q0 < kw + 15);
+#pragma unroll
+        for (int n = 0; n < BM / 8; ++n) {
+          const float2 ls =
+              *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
+          const float2 dl =
+              *reinterpret_cast<const float2*>(del_s + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(st[n][e], sl2, (e & 1) ? -ls.y : -ls.x);
+            if (masked) {
+              const int qpos = q0 + 8 * n + 2 * t + (e & 1);
+              if (qpos >= Sq || (causal && q_off + qpos < key[e >> 1]))
+                x = NEG_INF;
+            }
+            const float p = fast_exp2(x);
+            st[n][e] = p;
+            dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+          }
+        }
+
+        // dV += Pᵀ·dO and dK += dSᵀ·Q over the BM queries: the thread's
+        // queries 2t, 2t+1 of k-step kk are logical columns t, t+4, so the
+        // B fragments read dO and Q at rows 8kk + 2t and 8kk + 2t + 1
+#pragma unroll
+        for (int kk = 0; kk < BM / 8; ++kk) {
+          uint32_t phi[4], plo[4], shi[4], slo[4];
+          split_frag(phi, plo, st[kk][0], st[kk][2], st[kk][1], st[kk][3]);
+          split_frag(shi, slo, dpt[kk][0], dpt[kk][2], dpt[kk][1], dpt[kk][3]);
+          const int r = 8 * kk + 2 * t;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            const int c = 8 * n + g;
+            mma3(dva[n], phi, plo, split(dot[at(BM, r, c)]),
+                 split(dot[at(BM, r + 1, c)]));
+            mma3(dka[n], shi, slo, split(qt[at(BM, r, c)]),
+                 split(qt[at(BM, r + 1, c)]));
+          }
+        }
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // dK and dV of the thread's keys g and g + 8, columns 8n + 2t, 2t + 1
+    const size_t rs = static_cast<size_t>(H) * D;
+    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (key[half] >= Sk) continue;
+      float* pk = dk + koff + key[half] * rs;
+      float* pv = dv + koff + key[half] * rs;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(pk + 8 * n) =
+            make_float2(dka[n][2 * half], dka[n][2 * half + 1]);
+        *reinterpret_cast<float2*>(pv + 8 * n) =
+            make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
+      }
+    }
+    trap_if_stalled();
+  }
+}
+
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int B,
+               int H, int Sq, int Sk, int q_off, int causal, float scale,
+               cudaStream_t st) {
+  using C = Dkv<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = rows_map(&tk, k, B, Sk, H, D, C::BN);
+  if (!err) err = rows_map(&tv, v, B, Sk, H, D, C::BN);
+  if (!err) err = rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dkv_f32_kernel<D>), C::SMEM);
+  if (err) return err;
+  const dim3 grid(H, B, (Sk + C::BN - 1) / C::BN);
+  flash_dkv_f32_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Sq, Sk, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool takes(int B, int H, int Sq, int Sk, int D) {
+  return B > 0 && H > 0 && Sq > 0 && Sk > 0 && (D == 64 || D == 128);
+}
+
+}  // namespace f32
+}  // namespace voda
+
+// The C entries. Each returns 0, or the error of the tensor-map encoding, a
+// kernel's set-up or its launch; 1 (cudaErrorInvalidValue) for a head_dim
+// other than 64 or 128. K1 takes one more pointer than the bf16 forward,
+// after lse: its scratch, 2·B·H·D·(Sk + SkP) floats (fwd_scratch; the
+// wrapper's `f32_scratch`), 16-byte aligned.
+
+extern "C" int voda_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                  void* o, void* lse, void* scratch, int B,
+                                  int H, int Sq, int Sk, int D, int q_off,
+                                  int causal, float scale, void* stream) {
+  using namespace voda::f32;
+  if (!takes(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_fwd<64>(q, k, v, o, lse, scratch, B, H, Sq, Sk,
+                                  q_off, causal, scale, st)
+                 : launch_fwd<128>(q, k, v, o, lse, scratch, B, H, Sq, Sk,
+                                   q_off, causal, scale, st);
+}
+
+extern "C" int voda_flash_dkv_f32(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dk, void* dv, int B,
+                                  int H, int Sq, int Sk, int D, int q_off,
+                                  int causal, float scale, void* stream) {
+  using namespace voda::f32;
+  if (!takes(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                  Sk, q_off, causal, scale, st)
+                 : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                   Sk, q_off, causal, scale, st);
+}

@@ -6,10 +6,13 @@
 // float32 or float16: the TPU kernels compute in q.dtype. The wgmma kernels
 // beside this file take bf16, and fp16 at widths 64 and 128 (flash_fwd.cu,
 // flash_dq.cu, flash_dkv.cu: voda_flash_{fwd,dq,dkv}_f16) and 256, 384 and
-// 512 (their wide twins: voda_flash_{fwd,dq,dkv}_f16_wide); what they do
-// not take runs here: fp32 (voda_flash_*_f32) and fp16 on heads wider than
-// 512 (voda_flash_{fwd,dq,dkv}_f16_simt; the kernels themselves take any
-// multiple of their 64- or 128-column chunk). The arithmetic is
+// 512 (their wide twins: voda_flash_{fwd,dq,dkv}_f16_wide); fp32's forward
+// and dK/dV at widths 64 and 128 run on the tensor cores in three TF32
+// passes (flash_f32.cu: voda_flash_{fwd,dkv}_f32). What they do not take
+// runs here: fp32's dQ at every width (voda_flash_dq_f32), fp32's forward
+// and dK/dV above 128 (voda_flash_{fwd,dkv}_f32_simt) and fp16 on heads
+// wider than 512 (voda_flash_{fwd,dq,dkv}_f16_simt; the kernels themselves
+// take any multiple of their 64- or 128-column chunk). The arithmetic is
 // the TPU kernels': every product takes its inputs in the input dtype and
 // accumulates in fp32 (an fp16 product is exact in fp32), the softmax
 // statistics are fp32, and P is rounded to the input dtype before the
@@ -522,7 +525,9 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // arguments: q k v o lse | B H Sq Sk D q_off causal scale stream, and so on.
 // fp16's are named `_f16_simt`: at head widths up to 512 fp16 takes the
 // wgmma kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, and their wide
-// twins) and these only above.
+// twins) and these only above. fp32's forward and dK/dV are named
+// `_f32_simt`: up to 128 fp32 takes flash_f32.cu's, and these only above;
+// fp32's dQ keeps its name.
 #define VODA_SIMT_ENTRIES(T, fwd_sfx, dq_sfx, dkv_sfx)                        \
   extern "C" int voda_flash_fwd_##fwd_sfx(                                    \
       const void* q, const void* k, const void* v, void* o, void* lse, int B, \
@@ -548,5 +553,5 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
                               Sk, D, q_off, causal, scale, stream);           \
   }
 
-VODA_SIMT_ENTRIES(float, f32, f32, f32)
+VODA_SIMT_ENTRIES(float, f32_simt, f32, f32_simt)
 VODA_SIMT_ENTRIES(__half, f16_simt, f16_simt, f16_simt)

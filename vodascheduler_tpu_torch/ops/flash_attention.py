@@ -26,16 +26,19 @@ bf16   > 128       ``flash_fwd_wide``      ``flash_dq_wide``      ``flash_dkv_wi
 fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``       ``flash_dkv_f16``
 fp16   256 to 512  ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
 fp16   > 512       ``flash_fwd_f16_simt``  ``flash_dq_f16_simt``  ``flash_dkv_f16_simt``
-fp32   any         ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
+fp32   ≤ 128       ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
+fp32   > 128       ``flash_fwd_f32_simt``  ``flash_dq_f32``       ``flash_dkv_f32_simt``
 =====  ==========  ======================  =====================  ======================
 
 fp16's kernels up to D=512 are the bf16 kernels' TMA + wgmma design in
 fp16 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide twins
-``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type); above
-512, where bf16's wide kernels cut D on ``wmma`` (bf16 code), and for every
-fp32 kernel, the kernels multiply on the CUDA cores
-(``csrc/flash_simt.cu``). The choice is by width, never a fallback: a
-kernel that fails to build or launch raises.
+``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type). fp32's
+K1 and K3 up to D=128 run on the tensor cores in three TF32 passes
+(``csrc/flash_f32.cu``: K1 on wgmma after a prologue that splits K and Vᵀ
+into scratch, K3 on mma.sync). fp16 above 512, where bf16's wide kernels cut
+D on ``wmma`` (bf16 code), fp32's K1 and K3 above 128 and fp32's K2 at every
+width multiply on the CUDA cores (``csrc/flash_simt.cu``). The choice is by
+width, never a fallback: a kernel that fails to build or launch raises.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -61,11 +64,19 @@ Divergences from the TPU kernels, on purpose:
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
   tiles of 64 rows (32 at D=128), in fp16 as in bf16 (and the wide
-  kernels theirs, ``csrc/flash_*_wide.cu``); the CUDA-core
-  kernels take 64×64 tiles of (queries, keys) and 64 or 128 columns of
-  the output a CTA.
+  kernels theirs, ``csrc/flash_*_wide.cu``); fp32's tensor-core forward
+  takes 128 query rows against K/V tiles of 64 keys (32 at D=128), its
+  dK/dV 128 keys against Q/dO tiles of 64 rows (32 at D=128); the
+  CUDA-core kernels take 64×64 tiles of (queries, keys) and 64 or 128
+  columns of the output a CTA.
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
   signature and change none of them;
+- fp32's tensor-core kernels (``flash_fwd_f32``, ``flash_dkv_f32``) take
+  every fp32 product as three TF32 products (a_lo·b_hi + a_hi·b_lo +
+  a_hi·b_hi, hi and lo the TF32 halves of each operand) in one fp32
+  accumulator, where the TPU splits an f32 dot over bf16 passes of its
+  matrix unit: at least as accurate, and as accurate as fp32 on the CUDA
+  cores;
 - fp32 and fp16 run the TPU kernels' arithmetic (products of the input
   dtype accumulated in fp32, P rounded to the input dtype before its
   products) except for dS, which the TPU kernels round to the input dtype
@@ -109,19 +120,23 @@ WGMMA_MAX_D = 512
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
             "flash_fwd_f32": 0, "flash_dq_f32": 0, "flash_dkv_f32": 0,
+            "flash_fwd_f32_simt": 0, "flash_dkv_f32_simt": 0,
             "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0,
             "flash_fwd_f16_wide": 0, "flash_dq_f16_wide": 0,
             "flash_dkv_f16_wide": 0, "flash_fwd_f16_simt": 0,
             "flash_dq_f16_simt": 0, "flash_dkv_f16_simt": 0}
 # The suffix of the kernel names of fp32 and fp16 tensors.
 SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
-# The kernels on the CUDA cores, all in one source; every other kernel's
-# source carries the name of its bf16 kernel (fp16's flash_dq_f16 is in
-# flash_dq.cu, flash_dq_f16_wide in flash_dq_wide.cu).
+# The kernels on the CUDA cores, all in one source, and fp32's on the
+# tensor cores, in another; every other kernel's source carries the name of
+# its bf16 kernel (fp16's flash_dq_f16 is in flash_dq.cu, flash_dq_f16_wide
+# in flash_dq_wide.cu).
 SIMT_SOURCE = "flash_simt"
-SIMT_KERNELS = frozenset({"flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
-                          "flash_fwd_f16_simt", "flash_dq_f16_simt",
-                          "flash_dkv_f16_simt"})
+SIMT_KERNELS = frozenset({"flash_fwd_f32_simt", "flash_dq_f32",
+                          "flash_dkv_f32_simt", "flash_fwd_f16_simt",
+                          "flash_dq_f16_simt", "flash_dkv_f16_simt"})
+TF32_SOURCE = "flash_f32"
+TF32_KERNELS = frozenset({"flash_fwd_f32", "flash_dkv_f32"})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -133,6 +148,8 @@ _ARGTYPES = {
     "flash_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
     # q k v do lse delta dk dv | B H Sq Sk D q_off causal scale stream
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
+    # fp32's tensor-core K1 also takes its scratch (`f32_scratch`) after lse
+    "flash_fwd_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
 for _name in launches:  # every variant takes its function's arguments
     _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
@@ -145,8 +162,11 @@ def reset_launches() -> None:
 
 def source(kernel: str) -> str:
     """The source (in ``ops/csrc``) that holds `kernel`."""
-    return SIMT_SOURCE if kernel in SIMT_KERNELS else kernel.replace(
-        "_f16", "")
+    if kernel in SIMT_KERNELS:
+        return SIMT_SOURCE
+    if kernel in TF32_KERNELS:
+        return TF32_SOURCE
+    return kernel.replace("_f16", "")
 
 
 @functools.cache
@@ -169,8 +189,9 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
     at a multiple of WIDE_CHUNK above them; for fp16 the same, named
     ``_f16`` and ``_f16_wide``, up to WGMMA_MAX_D and the CUDA-core
-    ``_f16_simt`` above it; for fp32 the ``_f32`` kernel at every
-    width."""
+    ``_f16_simt`` above it; for fp32 the tensor-core ``_f32`` forward and
+    dK/dV at a width of HEAD_DIMS and the CUDA-core ``_f32_simt`` ones
+    above, and the CUDA-core ``flash_dq_f32`` at every width."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
             f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
@@ -179,7 +200,9 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
         raise TypeError(f"{name}: the CUDA kernels take bfloat16, float32 "
                         f"and float16, got {dtype}")
     if dtype == torch.float32:
-        return f"{name}_f32"
+        if name == "flash_dq" or D in HEAD_DIMS:
+            return f"{name}_f32"
+        return f"{name}_f32_simt"
     if dtype == torch.float16 and D > WGMMA_MAX_D:
         return f"{name}_f16_simt"
     kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
@@ -244,10 +267,24 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
     B, H, Sq, Sk, D = _dims(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # fp32's tensor-core K1 also takes its scratch, held here until launched
+    scratch = ([f32_scratch(B, H, Sk, D, q.device)]
+               if kernel == "flash_fwd_f32" else [])
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, int(q_off),
-            int(causal), _scale(scale, D))
+            o.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
+            B, H, Sq, Sk, D, int(q_off), int(causal), _scale(scale, D))
     return o, lse
+
+
+def f32_scratch(B: int, H: int, Sk: int, D: int,
+                device: torch.device) -> torch.Tensor:
+    """The scratch of fp32's tensor-core K1 (``csrc/flash_f32.cu``), which
+    its prologue fills: K's TF32 halves K_hi and K_lo ([B, Sk, H, D] each),
+    then Vᵀ's, Vᵀ_hi and Vᵀ_lo ([B, H, D, SkP] each, SkP = Sk rounded up to
+    8)."""
+    skp = -(-Sk // 8) * 8
+    return torch.empty(2 * B * H * D * (Sk + skp), dtype=torch.float32,
+                       device=device)
 
 
 def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
