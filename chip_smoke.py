@@ -9,9 +9,11 @@ Phases (any failure exits non-zero):
      D=64 (the main path), in fp16's tensor-core forward, dQ or dK/dV at
      D=64 (phase 11's fp16 model), in fp32's tensor-core forward or dK/dV
      at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
-     D=256 (phase 9's wide llama) or in fp16's wide forward, dQ or dK/dV at
-     D=256 (phase 11's fp16 model in heads of 256), and logs the spills at
-     D=128, 384 and 512;
+     D=256 (phase 9's wide llama), in fp16's wide forward, dQ or dK/dV at
+     D=256 (phase 11's fp16 model in heads of 256) or in the forward above
+     D=512 (flash_fwd_chunked_kernel, bf16 and fp16) at D=640, and logs the
+     spills at D=128, 384 and 512 and the chunked forward's at 768 and
+     1024;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -28,7 +30,7 @@ Phases (any failure exits non-zero):
      widths' forward and backward timed beside the library's, and the
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
      autograd through scaled_dot_product_attention), and bf16's wide
-     kernels at D=640, where they cut D on wmma; then the fp32 and the
+     kernels at D=640, where dQ and dK/dV cut D on wmma; then the fp32 and the
      fp16 kernels (fp32's forward and dK/dV on the tensor cores in three
      TF32 passes up to D=128, csrc/flash_f32.cu, and on the CUDA cores
      above, `_f32_simt`, and fp32's dQ on the CUDA cores,
@@ -48,7 +50,20 @@ Phases (any failure exits non-zero):
      forward, dQ and dK/dV held to the same bars at the main shape and
      timed in turns with the tensor-core kernels there and at d256; and
      fp32's CUDA-core forward and dK/dV (`_f32_simt`) held to fp32's bars
-     at the main shape and timed in turns with the TF32 ones there;
+     at the main shape and timed in turns with the TF32 ones there, and
+     held and timed at d256, a width they take, beside SDPA's fp32 forward
+     and the library's fp32 backward; then K1 above D=512
+     (flash_fwd_chunked_kernel, through flash_fwd_wide and
+     flash_fwd_f16_wide) in bf16 (LIMITS) and fp16 (SIMT_LIMITS) at
+     CHUNKED_CASES (D=640 at B=8, H=2, S=2048; 768, 896 and 1024; a ragged
+     S; non-causal with Sq ≠ Sk; a query slice behind q_offset; Sq=65;
+     B·H=1), each launched twice and held to give bitwise the same O and
+     lse, timed in turns at D=640 against the kernels it took the route
+     from (bf16's wmma flash_fwd_wmma, fp16's flash_fwd_f16_simt, held to
+     the same bars there) beside the plain version, SDPA's forward and the
+     bound, and once at D=1024 (B=8, H=1); the chunked kernel's launches
+     count under flash_fwd_chunked and flash_fwd_f16_chunked, apart from
+     the wide forward's D ≤ 512 ones;
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -226,8 +241,14 @@ WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide",
                    "flash_dkv_f16_wide")
 WIDE_HEAD_DIM = 256
 MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
-SPILL_GATES = MAIN_SPILL_GATES + tuple((n, WIDE_HEAD_DIM)
-                                       for n in WIDE_SPILL_FREE)
+# The forward above D=512 (flash_fwd_chunked_kernel) is templated on the
+# width of its chunk of O, CW, not on D: D=640 runs CW=128, held to no
+# spill in both dtypes (CW=256, which D=768 and 1024 run, is only logged).
+CHUNKED_SPILL_GATES = (("flash_fwd_chunked", 128),
+                       ("flash_fwd_chunked_f16", 128))
+SPILL_GATES = (MAIN_SPILL_GATES
+               + tuple((n, WIDE_HEAD_DIM) for n in WIDE_SPILL_FREE)
+               + CHUNKED_SPILL_GATES)
 
 
 def ptxas_spills(text: str) -> dict:
@@ -263,10 +284,11 @@ def spill_faults(spills: dict, gates=MAIN_SPILL_GATES) -> list:
     faults = []
     for name, dim in gates:
         got = spills.get((name, dim))
+        what = f"{name} {'CW' if '_chunked' in name else 'D'}={dim}"
         if got is None:
-            faults.append(f"{name} D={dim}: no ptxas spill line")
+            faults.append(f"{what}: no ptxas spill line")
         elif got:
-            faults.append(f"{name} D={dim}: {got} bytes spilled")
+            faults.append(f"{what}: {got} bytes spilled")
     return faults
 
 
@@ -582,6 +604,151 @@ def time_turns(fa, shape, dtype=torch.float16, table=CUDA_CORE_F16,
             f"{[round(x, 4) for x in times[old]]} "
             f"cuda_cores_over_tensor_cores={med[old] / med[new]:.3f}")
     return med
+
+
+# K1 above D=512: flash_fwd_chunked_kernel (csrc/flash_fwd_wide.cu), which
+# the wide forward's entries launch there in bf16 and fp16, and the kernels
+# it took that route from, reached only to be timed against it in turns.
+OLD_FWD_ABOVE_512 = {"flash_fwd_wide": "flash_fwd_wmma",
+                     "flash_fwd_f16_wide": "flash_fwd_f16_simt"}
+# (B, H, Sq, Sk, D, causal, q_off): the timed shape first (B·H·D near
+# d256's and d512's), every chunk width to 1024, a ragged S, non-causal
+# with Sq ≠ Sk, a query slice behind q_offset, Sq = 65, B·H = 1
+CHUNKED_CASES = {
+    "d640": (8, 2, 2048, 2048, 640, True, 0),
+    "d768": (2, 2, 1024, 1024, 768, True, 0),
+    "d896": (2, 1, 1024, 1024, 896, True, 0),
+    "d1024": (2, 1, 1024, 1024, 1024, True, 0),
+    "d640_ragged": (2, 2, 1000, 1000, 640, True, 0),
+    "d768_noncausal": (2, 2, 700, 1000, 768, False, 0),
+    "d640_q_offset": (2, 2, 512, 2048, 640, True, 1536),
+    "d896_sq65": (2, 2, 65, 65, 896, True, 0),
+    "d1024_bh1": (1, 1, 1000, 1000, 1024, True, 0)}
+D1024_SHAPE = (8, 1, 2048, 2048, 1024, True, 0)
+
+
+def forward_errors(fa, name, shape, dtype, limits):
+    """K1 alone against its plain version at one shape, launched twice on
+    the same inputs: (errors, bars of `limits` broken), a second launch
+    that differs from the first by a bit among them. Logged, with the
+    kernel the wrapper launched."""
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(3)
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+               for S in (Sq, Sk, Sk))
+    kernel = fa.counted(fa._kernel("flash_fwd", D, dtype), D)
+    before = fa.launches[kernel]
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    o2, lse2 = fa.flash_fwd(q, k, v, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    torch.cuda.synchronize()
+    errs = {"o_row": row_err(o, o_ref), "o": abs_err(o, o_ref),
+            "lse": abs_err(lse, lse_ref)}
+    bad = [f"{n}={errs[n]:.3g}>{limits[n]}" for n in ("o_row", "lse")
+           if not errs[n] <= limits[n]]
+    if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+        bad.append("two launches differ")
+    if fa.launches[kernel] - before != 2:
+        bad.append(f"{kernel} not launched")
+    log(f"forward[{name}] {kernel} {str(dtype)[6:]} B={B} H={H} Sq={Sq} "
+        f"Sk={Sk} D={D} causal={causal} q_off={q_off} "
+        + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
+        + (" FAIL " + ",".join(bad) if bad else " ok, bitwise equal twice"))
+    del q, k, v, o, o2, lse, lse2, o_ref, lse_ref
+    torch.cuda.empty_cache()
+    return errs, bad
+
+
+def check_chunked(fa, dtype, limits) -> dict:
+    """K1 above D=512 at every CHUNKED_CASES in `dtype`, by
+    forward_errors; then the kernel it took the route from at the first
+    case. Fails after reporting every case; returns the errors by case,
+    the old kernel's under its name."""
+    failures, out = [], {}
+    for name, shape in CHUNKED_CASES.items():
+        route = fa._kernel("flash_fwd", shape[4], dtype)
+        if route not in OLD_FWD_ABOVE_512 or \
+                fa.counted(route, shape[4]) != fa.CHUNKED_FWD[route]:
+            failures.append(f"{name}: not the chunked kernel's route")
+        out[name], bad = forward_errors(fa, name, shape, dtype, limits)
+        failures += [f"{name}: {b}" for b in bad]
+    with routed(fa, OLD_FWD_ABOVE_512):
+        old = fa._kernel("flash_fwd", 640, dtype)
+        out[old], bad = forward_errors(fa, "d640", CHUNKED_CASES["d640"],
+                                       dtype, limits)
+        failures += [f"{old} d640: {b}" for b in bad]
+    if failures:
+        raise SystemExit("K1 above D=512 failed: " + "; ".join(failures))
+    return out
+
+
+def time_forward(fa, shape, dtype, old=None, rounds=2) -> dict:
+    """K1 at `shape` in `dtype`, the kernel the wrapper takes, and `old`
+    where given, timed in turns (new, old, old, new) `rounds` times on the
+    same inputs by CUDA events, beside the plain version, SDPA's forward
+    and the bound; logged, and returned as rows of the kernels' JSON line
+    by kernel (medians of the turns)."""
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(2)
+    q, k, v = (torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
+               for S in (Sq, Sk, Sk))
+    new = fa._kernel("flash_fwd", D, dtype)
+    call = lambda: fa.flash_fwd(q, k, v, causal, q_off)
+    times = {new: []}
+    turns = ({}, {new: old}, {new: old}, {}) if old else ({},)
+    for _ in range(rounds if old else 1):
+        for turn in turns:
+            with routed(fa, turn):
+                times.setdefault(fa._kernel("flash_fwd", D, dtype),
+                                 []).append(cuda_ms(call))
+    plain_ms = cuda_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal, q_off), warmup=1, reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    b = bound(2, 4, 1, *shape, dtype)
+    rows = {}
+    for name, t in times.items():
+        ms = statistics.median(t)
+        rows[name] = dict(
+            ms=ms, plain_ms=plain_ms, b=b, library_ms=lib_ms,
+            replaces=f"{TPU_SRC}:114",
+            source=f"vodascheduler_tpu_torch/ops/csrc/{fa.source(name)}.cu")
+        log(f"time[forward {str(dtype)[6:]}] D={D} B={B} H={H} S={Sq} "
+            f"{fa.counted(name, D)} "
+            f"ms={ms:.4f} {[round(x, 4) for x in t]} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} bound_ms={b[0]:.4f} ({b[1]}) "
+            f"roofline_share={b[0] / ms:.3f} library_over_kernel="
+            f"{lib_ms / ms:.3f}")
+    if old:
+        log(f"time[forward turns] D={D} {str(dtype)[6:]} {old} over {new}: "
+            f"{rows[old]['ms'] / rows[new]['ms']:.3f}")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_chunked(fa) -> dict:
+    """Phase 3's K1 above D=512 in bf16 (LIMITS) and fp16
+    (SIMT_LIMITS[float16]): checked at every CHUNKED_CASES, timed in turns
+    against the kernel it took the route from at CHUNKED_CASES["d640"], and
+    once at D1024_SHAPE. Returns the rows of the kernels' JSON line, at
+    d640: the new kernel's under the name it counts under
+    (fa.CHUNKED_FWD: the wide forward's d256 rows keep the route's name),
+    the old kernels' under theirs."""
+    rows = {}
+    for dtype, limits in ((torch.bfloat16, LIMITS),
+                          (torch.float16, SIMT_LIMITS[torch.float16])):
+        errs = check_chunked(fa, dtype, limits)
+        new = fa._kernel("flash_fwd", 640, dtype)
+        old = OLD_FWD_ABOVE_512[new]
+        timed = time_forward(fa, CHUNKED_CASES["d640"], dtype, old)
+        timed[new]["err"] = max(errs["d640"]["o"], errs["d640"]["lse"])
+        timed[old]["err"] = max(errs[old]["o"], errs[old]["lse"])
+        rows[fa.CHUNKED_FWD[new]] = timed[new]
+        rows[old] = timed[old]
+        time_forward(fa, D1024_SHAPE, dtype)
+    return rows
 
 
 def backward_call(fa, q, k, v, o, do, lse, causal, q_off):
@@ -964,8 +1131,9 @@ def run_dtype_slices(fa):
     kernels against the plain attention, 5 AdamW steps (finite, falling),
     one counted step launching the slice's K1 2L, K2 L and K3 L times and
     no other kernel. Returns the counted launches of the 64-wide slices and
-    those of the `_f16_wide` kernels and of the `_f16_simt` and `_f32_simt`
-    ones (0: no slice runs fp16 above 512 or fp32 above 128)."""
+    those of the `_f16_wide` kernels and of the `_f16_simt`, `_f32_simt`
+    and flash_fwd_f16_chunked ones (0: no slice runs fp16 above 512 or fp32
+    above 128)."""
     from vodascheduler_tpu_torch.models import llama
     from vodascheduler_tpu_torch.models.registry import llama_bundle
 
@@ -983,7 +1151,8 @@ def run_dtype_slices(fa):
                                                DTYPE_LAYERS, DTYPE_LAYERS))))
         counts.update({k: got[k] for k in names
                        if heads == 16 or k.endswith("_wide")})
-        counts.update({k: got[k] for k in got if k.endswith("_simt")})
+        counts.update({k: got[k] for k in got
+                       if k.endswith(("_simt", "_f16_chunked"))})
         del session, batch
         gc.collect()
         torch.cuda.empty_cache()
@@ -2153,17 +2322,16 @@ def main() -> int:
     # function on the same inputs)
     f32 = torch.float32
     with routed(fa, CUDA_CORE_F32):
-        f32_simt_errs = check_kernels(fa, {"main": main_shape}, f32,
-                                      SIMT_LIMITS[f32])
+        check_kernels(fa, {"main": main_shape}, f32, SIMT_LIMITS[f32])
     turns = time_turns(fa, main_shape, f32, CUDA_CORE_F32)
-    for new, old in CUDA_CORE_F32.items():
+    for new in CUDA_CORE_F32:
         rows[new]["ms"] = turns[new]
-        rows[old] = {**rows[new], "ms": turns[old], "source": (
-            f"vodascheduler_tpu_torch/ops/csrc/{fa.source(old)}.cu")}
-    rows["flash_fwd_f32_simt"]["err"] = max(f32_simt_errs["o"],
-                                            f32_simt_errs["lse"])
-    rows["flash_dkv_f32_simt"]["err"] = max(f32_simt_errs["dk_abs"],
-                                            f32_simt_errs["dv_abs"])
+    # their rows at a width they take, the wide rows' d256, beside SDPA's
+    # fp32 forward and the library's fp32 backward
+    f32_d256 = time_kernels(fa, cases["d256"], check_kernels(
+        fa, {"d256": cases["d256"]}, f32, SIMT_LIMITS[f32]), "_f32_simt", f32)
+    for old in CUDA_CORE_F32.values():
+        rows[old] = f32_d256[old]
     lib_bwd = rows["flash_dkv_f32"]["library_ms"]
     log(f"time[backward_f32 turns] D=64 flash_dq_f32 then flash_dkv_f32 "
         f"ms={turns['flash_dq_f32'] + turns['flash_dkv_f32']:.4f} (sum of "
@@ -2184,7 +2352,8 @@ def main() -> int:
     d640 = (2, 2, 1024, 1024, 640, True, 0)
     d640_errs = check_kernels(fa, {"d640": d640}, f16, SIMT_LIMITS[f16])
     time_kernels(fa, d640, d640_errs, "_f16_simt", f16)
-    # bf16's wide kernels at D=640, where they cut D on wmma (wide.cuh)
+    # bf16's wide kernels at D=640, where dQ and dK/dV cut D on wmma
+    # (wide.cuh) and the forward streams D (flash_fwd_chunked_kernel)
     time_kernels(fa, d640, check_kernels(fa, {"d640": d640}), "_wide")
     torch.cuda.empty_cache()
     # fp16's K1, K2 and K3 on the CUDA cores (`_f16_simt`), held to the same
@@ -2209,11 +2378,14 @@ def main() -> int:
             f"library_ms={rows[new]['library_ms']:.4f} {old} "
             f"ms={turns[old]:.4f} cuda_cores_over_tensor_cores="
             f"{turns[old] / rows[new]['ms']:.3f}")
-    rows["flash_fwd_f16_simt"]["err"] = max(d640_errs["o"], d640_errs["lse"])
     rows["flash_dq_f16_simt"]["err"] = d640_errs["dq_abs"]
     rows["flash_dkv_f16_simt"]["err"] = max(d640_errs["dk_abs"],
                                             d640_errs["dv_abs"])
     torch.cuda.empty_cache()
+    # K1 above D=512 in bf16 and fp16 (flash_fwd_chunked_kernel), and the
+    # kernels it took the route from there (flash_fwd_f16_simt's row, at
+    # D=640, takes the place of its d256 one)
+    rows.update(run_chunked(fa))
     phase("3 kernels")
 
     counts = run_slice(fa)[0]
@@ -2252,6 +2424,8 @@ def main() -> int:
     counts.update(run_dtype_slices(fa))
     phase("11 fp32 and fp16")
 
+    # every row's launches from a counted step: K1 above D=512 and the
+    # kernels it replaced there (no model runs that width) read 0 there
     kernels = [{"name": name, "route": "cuda", "source": r["source"],
                 "replaces": r["replaces"], "launches": counts[name],
                 "max_abs_err": r["err"], "ms": r["ms"],

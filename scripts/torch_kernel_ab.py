@@ -2,7 +2,7 @@
 of two source trees against each other, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
-        [--shape main|d128|d256|d512]
+        [--shape main|d128|d256|d512|d640]
 
 `--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
 (the copy on the card is no git repository, so write it first, e.g. for the
@@ -23,7 +23,9 @@ the library's backward. The shapes (bf16, causal, S=2048, B=8): `main`,
 llama_350m's attention (H=16, D=64, the kernels of flash_{fwd,dq,dkv}.cu,
 as `d128` at H=8, D=128); `d256` (H=4, D=256) and `d512` (H=2, D=512),
 the same width in wider heads, which run the wide kernels
-(flash_{fwd,dq,dkv}_wide.cu; rows named with `_wide`). Prints the
+(flash_{fwd,dq,dkv}_wide.cu; rows named with `_wide`); `d640` (H=2,
+D=640), where the forward streams D (flash_fwd_chunked_kernel) and dQ and
+dK/dV cut it on wmma. Prints the
 card's name and power limit, every reading, and a last line of JSON with
 the medians and base/tree ratios. Exits non-zero
 without a card or without the base sources; it prints no time it did not
@@ -50,7 +52,8 @@ MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 SHAPES = {"main": MAIN_SHAPE,
           "d128": (8, 8, 2048, 2048, 128, True, 0),
           "d256": (8, 4, 2048, 2048, 256, True, 0),
-          "d512": (8, 2, 2048, 2048, 512, True, 0)}
+          "d512": (8, 2, 2048, 2048, 512, True, 0),
+          "d640": (8, 2, 2048, 2048, 640, True, 0)}
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 ROWS = KERNELS + ("backward",)
 

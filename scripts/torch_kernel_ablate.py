@@ -3,7 +3,7 @@ against the sources as they stand, in turns, on one card: what each part
 of a kernel costs, and what each design choice of theirs is worth.
 
     python3 scripts/torch_kernel_ablate.py [--rounds 6] [--only NAME ...]
-        [--shape main|d128|d256|d512]
+        [--shape main|d128|d256|d512|d640]
 
 Each variant is a copy of ``vodascheduler_tpu_torch/ops/csrc`` with a few
 lines changed (VARIANTS below), built under ``build/kernel_ablate/<name>``
@@ -14,7 +14,8 @@ it) and are only timed. At `--shape` (scripts/torch_kernel_ab.py's:
 `main` is llama_350m's attention, B=8, H=16, S=2048, D=64, bf16, causal;
 `d128` the same width in heads of 128; `d256` and `d512` in heads of 256
 and 512, which run the wide kernels, whose variants are named `fwdw_`,
-`dqw_` and `dkvw_`) every round times the tree and then each variant, K1, K2, K3
+`dqw_` and `dkvw_`; `d640` in heads of 640, where the forward is
+flash_fwd_chunked_kernel, whose variants are named `fwdc_`) every round times the tree and then each variant, K1, K2, K3
 and K2 then K3 (the backward) each by CUDA events (chip_smoke.cuda_ms, 30
 repeats after 5 warm-ups); the script prints the
 card's name and power limit, the median of each, its ratio to the tree's,
@@ -59,6 +60,13 @@ _KV_LOADS_DQW = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
         tma_rows<D>(ks + s * BN * D, &tk, &k_full[s], BN, h, j * BN, b);
         mbar_expect_tx(&v_full[s], C::KV_BYTES);
         tma_rows<D>(vs + s * BN * D, &tv, &v_full[s], BN, h, j * BN, b);"""
+_QK_LOADS_CHUNKED = """          mbar_expect_tx(&full[s], C::Q_BYTES + C::K_BYTES);
+          tma_rows<KC>(qs + s * BM * KC, &tq, &full[s], BM, h, q0, b, c * KC);
+          tma_rows<KC>(ks + s * BN * KC, &tk, &full[s], BN, h, j * BN, b,
+                       c * KC);"""
+_V_LOADS_CHUNKED = """        mbar_expect_tx(&v_full[sv], C::V_BYTES);
+        tma_rows<CW>(vs + sv * BN * CW, &tv, &v_full[sv], BN, h, j * BN, b,
+                     c0);"""
 _DKV_LOOP = """        issue_grads(i);
         wgmma_wait<0>();
         fence_regs(dva);
@@ -122,6 +130,24 @@ VARIANTS = {
                        "stages fit (64 and one stage as it stands)", [
         (FW, "static constexpr int BN = D == 256 ? 80 : 64;",
          "static constexpr int BN = D == 256 ? 80 : D == 512 ? 32 : 64;")]),
+    "fwdc_s_first_chunk": ("K1 above D=512 summing S over D's first chunk "
+                           "only, every chunk still loaded (wrong results)",
+                           [(FW, "      for (int kk = 0; kk < KC / 16; ++kk)",
+                             "      for (int kk = 0; kk < (it % nc ? 0 : "
+                             "KC / 16); ++kk)")]),
+    "fwdc_loads_once": ("K1 above D=512 loading Q/K chunks and V tiles for "
+                        "the first stages only (wrong results)", [
+        (FW, _QK_LOADS_CHUNKED, "if (it < ST) {\n" + _QK_LOADS_CHUNKED
+         + "\n} else { mbar_arrive(&full[s]); }"),
+        (FW, _V_LOADS_CHUNKED, "if (j < VST) {\n" + _V_LOADS_CHUNKED
+         + "\n} else { mbar_arrive(&v_full[sv]); }")]),
+    "fwdc_no_softmax": ("K1 above D=512 without its softmax (wrong results)",
+                        [(FW, "      softmax_tile<BN>(sacc,",
+                          "      if (j < 0) softmax_tile<BN>(sacc,")]),
+    "fwdc_bn64": ("K1 above D=512 with 64-key tiles at CW=128 (128 as it "
+                  "stands)", [
+        (FW, "static constexpr int BN = CW == 256 ? 64 : 128;",
+         "static constexpr int BN = 64;")]),
     "dkvw_q_once": ("wide K3 loading Q/dO for its first stages only "
                     "(wrong results)", [
         (KW, "        if (lane == 0) {\n          mbar_expect_tx(&q_full[s]",

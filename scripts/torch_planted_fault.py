@@ -29,6 +29,11 @@ small:
 - ``f32_one_pass``: fp32's tensor-core K1 and K3 (flash_f32.cu) drop the lo
   terms of the three TF32 passes (every lo half is 0), so each product is
   hi·hi alone, 11 bits of each operand.
+- ``fwdc_drop_chunk``: the forward above D=512 (flash_fwd_wide.cu's
+  flash_fwd_chunked_kernel) leaves the second 128-column chunk of D out of
+  every S (its stage still loaded, waited on and released).
+- ``fwdc_no_correction``: the same kernel never rescales O's rows when a
+  tile raises their running max.
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
@@ -37,8 +42,10 @@ their kernel in fp16 under chip_smoke.py's fp16 bars (`SIMT_LIMITS`) and
 against the plain model of their kernel's arithmetic
 (tests/torch_f16_dkv_model.py, at 1e-3 of the largest value, as
 tests/test_torch_cuda.py holds it; on random inputs and on an unscaled
-loss's dO of 1e-6), and the fp32 one at llama_350m's attention shape in
-fp32 under chip_smoke.py's fp32 bars. The script logs each kernel set's
+loss's dO of 1e-6), the fp32 one at llama_350m's attention shape in
+fp32 under chip_smoke.py's fp32 bars, and the chunked forward's at D=640
+(B=2, H=2, S=1024), the first in bf16, the second in fp16 under the fp16
+bars. The script logs each kernel set's
 errors against the plain versions under chip_smoke.py's bars (the sound
 set at every shape and dtype, and against every model), then llama_350m's forward and
 backward through each set against the plain attention (chip_smoke.py's
@@ -61,6 +68,7 @@ sys.path.insert(0, ROOT)
 
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 WIDE_SHAPE = (8, 4, 2048, 2048, 256, True, 0)
+CHUNKED_SHAPE = (2, 2, 1024, 1024, 640, True, 0)
 # the fp16 kernels' model checks, by kernel: (B, H, Sq, Sk, D, causal,
 # q_off, small dO)
 MODEL_CASES = {
@@ -118,6 +126,17 @@ FAULTS = {
         "  const uint32_t lo = to_tf32(x - __uint_as_float(hi));\n",
         "  const uint32_t lo = 0;\n",
         MAIN_SHAPE, torch.float32),
+    "fwdc_drop_chunk": (
+        "flash_fwd_wide.cu",
+        "      for (int kk = 0; kk < KC / 16; ++kk)\n",
+        "      for (int kk = 0; kk < (it % nc == 1 ? 0 : KC / 16); ++kk)\n",
+        CHUNKED_SHAPE, torch.bfloat16),
+    "fwdc_no_correction": (
+        "flash_fwd_wide.cu",
+        "        for (int e = 0; e < CW / 2; ++e) "
+        "acc[e] *= corr[(e >> 1) & 1];\n",
+        "        for (int e = 0; e < CW / 2; ++e) acc[e] *= 1.f;\n",
+        CHUNKED_SHAPE, torch.float16),
 }
 
 
@@ -213,7 +232,8 @@ def main() -> int:
         f16 = torch.float16
         held = ((MAIN_SHAPE, torch.bfloat16), (WIDE_SHAPE, torch.bfloat16),
                 (MAIN_SHAPE, f16), (WIDE_SHAPE, f16),
-                (MAIN_SHAPE, torch.float32)) if name == "sound" \
+                (MAIN_SHAPE, torch.float32), (CHUNKED_SHAPE, torch.bfloat16),
+                (CHUNKED_SHAPE, f16)) if name == "sound" \
             else (FAULTS[name][3:5],)
         bad = [b for shape, dtype in held
                for b in chip_smoke.kernel_errors(

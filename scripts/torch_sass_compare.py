@@ -13,8 +13,10 @@ A kernel is named by its function, head width and element type, read from
 its mangled name (a template parameter added to a kernel changes the name
 and nothing else; a name without an element type is bf16's). For each
 kernel of the base the script prints whether the tree's SASS of it is
-identical, instruction for instruction with its encoding, or how many
-lines differ, then a last line of JSON. Exits non-zero without ``cuobjdump`` or the base
+identical, instruction for instruction with its encoding (each line with
+its runs of blanks collapsed: cuobjdump pads its columns to the widest
+instruction of the whole library, so a kernel added to a source moves the
+columns of the others), or how many lines differ, then a last line of JSON. Exits non-zero without ``cuobjdump`` or the base
 sources, or when a base kernel is missing from the tree; a kernel whose
 SASS differs is reported, not refused. For every kernel of the tree it
 also prints the tensor-core instructions it issues (``HGMMA``, with their
@@ -52,7 +54,8 @@ def kernel_key(mangled: str):
 
 
 def sass_by_kernel(lib: Path) -> dict:
-    """(function, width, type) -> the SASS lines of that kernel in `lib`."""
+    """(function, width, type) -> the SASS lines of that kernel in `lib`,
+    each with its runs of blanks collapsed to one space."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
@@ -65,7 +68,7 @@ def sass_by_kernel(lib: Path) -> dict:
                 out[key] = []
             continue
         if key and line.strip():
-            out[key].append(line.strip())
+            out[key].append(" ".join(line.split()))
     return out
 
 

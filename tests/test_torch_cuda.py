@@ -348,9 +348,11 @@ def test_fp16_dq_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
 
 
 def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
-    """Above D=512 fp16's forward, dQ and dK/dV are the CUDA-core kernels
-    (`_f16_simt`: the wmma kernels there are bf16 code), by width, and
-    match the plain versions at SIMT_LIMITS."""
+    """Above D=512 fp16's dQ and dK/dV are the CUDA-core kernels
+    (`_f16_simt`: the wmma kernels there are bf16 code), by width, and its
+    forward the wide one (`_f16_wide`, whose chunked kernel streams D and
+    counts as flash_fwd_f16_chunked); all match the plain versions at
+    SIMT_LIMITS."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[torch.float16]
     g = torch.Generator(cuda).manual_seed(10)
@@ -370,7 +372,7 @@ def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_f16_simt=1, flash_dq_f16_simt=1, flash_dkv_f16_simt=1)
+        flash_fwd_f16_chunked=1, flash_dq_f16_simt=1, flash_dkv_f16_simt=1)
 
 
 def _f32_inputs(B, H, Sq, Sk, D, seed, device="cuda"):
@@ -712,11 +714,18 @@ def test_dispatches_agree_on_the_card(cuda):
     (True, 300, 384, 230, 70),
     (True, 128, 512, 0, 128),
     (True, 65, 256, 0, 65),    # one row past a 64-row tile
-    (True, 200, 640, 0, 200),  # above 512: the wmma kernels of wide.cuh
+    # above 512: the forward that streams D (flash_fwd_chunked_kernel), the
+    # wmma dQ and dK/dV of wide.cuh; every chunk width of O (128 at 640 and
+    # 896, 256 at 768 and 1024)
+    (True, 200, 640, 0, 200),
+    (True, 200, 768, 0, 200),
+    (False, 150, 896, 0, 100),
+    (True, 300, 1024, 170, 130),
 ])
 def test_wide_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
     """D > 128 (a multiple of 128) runs the wide kernels, each against its
-    plain version by chip_smoke.py's bars, and counts under its own name."""
+    plain version by chip_smoke.py's bars, and counts under its own name
+    (the forward above 512 as flash_fwd_chunked)."""
     g = torch.Generator(cuda).manual_seed(5)
     q, do = (torch.randn(2, Sq, 3, D, generator=g, device=cuda).bfloat16()
              for _ in range(2))
@@ -739,7 +748,8 @@ def test_wide_kernels_match_plain_versions(cuda, causal, S, D, q_off, Sq):
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= LIMITS[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_wide=1, flash_dq_wide=1, flash_dkv_wide=1)
+        **{fa.counted("flash_fwd_wide", D): 1}, flash_dq_wide=1,
+        flash_dkv_wide=1)
 
 
 def test_autograd_goes_through_the_wide_kernels(cuda):
@@ -803,7 +813,7 @@ def test_redesigned_wide_kernels_match_plain_versions(cuda, B, H, Sq, Sk, D,
         flash_fwd_wide=1, flash_dq_wide=1, flash_dkv_wide=1)
 
 
-@pytest.mark.parametrize("D", [256, 384, 512])
+@pytest.mark.parametrize("D", [256, 384, 512, 640])
 def test_redesigned_wide_kernels_are_deterministic(cuda, D):
     """No atomics in the wide forward, dQ or dK/dV: two launches on the
     same inputs give bitwise-equal O, lse, dQ, δ, dK and dV."""
@@ -818,6 +828,79 @@ def test_redesigned_wide_kernels_are_deterministic(cuda, D):
     for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (delta, delta2),
                  (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a, b)
+
+
+# ---- the forward above D=512 (flash_fwd_chunked_kernel) -----------------------
+
+
+# The chunked forward against its model (tests/torch_fwd_chunked_model.py):
+# the largest error over the largest value of the model's O, two ulps of
+# the dtype at 1, and lse to 2e-5. Both round P and O to the dtype; they
+# differ by the order of the fp32 sums and exp2's approximation, which can
+# move a rounding by one ulp (lse against the plain version read 1.4e-6 to
+# 3.8e-6 on an H100).
+CHUNKED_MODEL_TOL = {torch.bfloat16: 2 ** -6, torch.float16: 2 ** -9}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 200, 200, 640, True, 0),      # two query tiles, ragged keys
+    (2, 1, 130, 300, 768, False, 0),     # non-causal, Sq ≠ Sk
+    (1, 2, 65, 400, 896, True, 335),     # a query slice behind an offset
+    (1, 1, 256, 256, 1024, True, 0),     # B·H = 1
+])
+def test_chunked_forward_matches_its_model(cuda, dtype, B, H, Sq, Sk, D,
+                                           causal, q_off):
+    """flash_fwd_chunked_kernel, through the wide forward's entry, against
+    the plain model of its arithmetic at its tiling."""
+    import numpy as np
+    import torch_fwd_chunked_model as model
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, S, H, D))
+                                .astype(np.float32)).to(dtype)
+               for S in (Sq, Sk, Sk))
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q.to(cuda), k.to(cuda), v.to(cuda), causal, q_off)
+    torch.cuda.synchronize()
+    kernel = "flash_fwd_chunked" if dtype == torch.bfloat16 \
+        else "flash_fwd_f16_chunked"
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        **{kernel: 1})
+    o_m, lse_m = model.fwd(q, k, v, causal, q_off, D ** -0.5)
+    err = ((o.cpu().float() - o_m.float()).abs().max()
+           / o_m.float().abs().max()).item()
+    assert err <= CHUNKED_MODEL_TOL[dtype]
+    assert (lse.cpu() - lse_m).abs().max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "fp16"])
+def test_autograd_goes_through_the_chunked_forward(cuda, dtype):
+    """attention_op at D=640: the forward that streams D, then the
+    backward's kernels as they stand there (bf16's wmma dQ and dK/dV,
+    fp16's CUDA-core ones), against the same operator on CPU copies (the
+    plain versions, O and the gradients rounded to the dtype as the
+    kernels round them), row by row at the dtype's bars."""
+    from chip_smoke import SIMT_LIMITS
+    limits = LIMITS if dtype == torch.bfloat16 else SIMT_LIMITS[dtype]
+    g = torch.Generator(cuda).manual_seed(11)
+    q, k, v = (torch.randn(1, 192, 2, 640, generator=g, device=cuda)
+               .to(dtype).requires_grad_() for _ in range(3))
+    w = torch.randn(1, 192, 2, 640, generator=g, device=cuda)
+    fa.reset_launches()
+    o = fa.flash_attention(q, k, v)
+    (o.float() * w).sum().backward()
+    suffix = {torch.bfloat16: ("_chunked", "_wide", "_wide"),
+              torch.float16: ("_f16_chunked", "_f16_simt", "_f16_simt")}[dtype]
+    assert fa.launches == _counts(**{
+        f"flash_{n}{x}": 1 for n, x in zip(("fwd", "dq", "dkv"), suffix)})
+    ref = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
+    o_ref = fa.flash_attention(*ref)
+    (o_ref.float() * w.cpu()).sum().backward()
+    assert row_err(o.detach().cpu(), o_ref.detach()) <= limits["o_row"]
+    for n, got, want in zip(("dq", "dk", "dv"), (q, k, v), ref):
+        assert row_err(got.grad.cpu(), want.grad) <= limits[f"{n}_row"], n
 
 
 # ---- the families on the card ------------------------------------------------

@@ -1,6 +1,7 @@
 """The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's dQ,
 and its forward and dK/dV that the wrappers take above a head width of
-128, ``_f32_simt``, and fp16's that they take above 512, ``_f16_simt``)
+128, ``_f32_simt``, fp16's dQ and dK/dV that they take above 512, and
+fp16's forward, which they no longer take, ``_f16_simt``)
 against the JAX package's Pallas kernels in interpret mode, on the CPU.
 fp16's kernels up to 512 are wgmma kernels (``flash_fwd.cu``,
 ``flash_dq.cu``, ``flash_dkv.cu`` and their wide twins), and fp32's
@@ -84,10 +85,10 @@ def wrappers(emulated, monkeypatch):
     """The port's wrappers, launching the emulated kernels (fp16's and
     fp32's: the CUDA-core ones at every width, as chip_smoke.py's phase 3
     times them)."""
-    def launch(name, device, *args):
+    def launch(name, device, *args, count=None):
         assert device.type == "cpu"
         assert emulated[name](*args, None) == 0
-        fa.launches[name] += 1
+        fa.launches[count or name] += 1
     monkeypatch.setattr(fa, "_launch", launch)
     fa.reset_launches()
     with chip_smoke.routed(fa, {**chip_smoke.CUDA_CORE_F16,
@@ -117,7 +118,8 @@ def _jax(q, k, v, do, causal, q_off):
     (1, 1, 64, 192, 64, True, 128),
     # a head wider than one CTA's 128 output columns
     (1, 1, 64, 64, 256, True, 0),
-    # above 512, where the wrappers take the CUDA-core fp16 kernels unrouted
+    # above 512, where the wrappers take the CUDA-core fp16 dQ and dK/dV
+    # unrouted (and the forward through the fixture's table)
     (1, 1, 64, 64, 640, True, 0),
 ])
 def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
@@ -153,8 +155,9 @@ def test_the_wrappers_route_dtypes_to_their_kernels():
     """fp32 takes its CUDA-core dQ at every width and its forward and dK/dV
     on the tensor cores up to 128 (flash_f32.cu) and on the CUDA cores
     above (`_f32_simt`); fp16 its tensor-core kernels up to 512 (in the
-    bf16 kernels' sources, `_f16` and `_f16_wide`) and the CUDA-core ones
-    above (`_f16_simt`)."""
+    bf16 kernels' sources, `_f16` and `_f16_wide`), above it the wide
+    tensor-core forward (`_f16_wide`, which streams D there) and the
+    CUDA-core dQ and dK/dV (`_f16_simt`)."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512, 640):
             f32 = fa._kernel(name, D, torch.float32)
@@ -168,7 +171,7 @@ def test_the_wrappers_route_dtypes_to_their_kernels():
             f16 = fa._kernel(name, D, torch.float16)
             if D <= 128:
                 assert f16 == f"{name}_f16" and fa.source(f16) == name
-            elif D <= fa.WGMMA_MAX_D:
+            elif D <= fa.WGMMA_MAX_D or name == "flash_fwd":
                 assert f16 == f"{name}_f16_wide"
                 assert fa.source(f16) == f"{name}_wide"
             else:

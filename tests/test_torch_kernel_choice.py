@@ -8,8 +8,9 @@ head width of 128 (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
 CUDA-core dQ at every width (``flash_dq_f32``, ``csrc/flash_simt.cu``),
 fp16 tensors the wgmma forward, dQ and dK/dV up
 to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
-``flash_dkv_f16``) and from 256 to 512 (``_f16_wide``), and the CUDA-core
-ones above 512 (``_f16_simt``). So a Llama or Mixtral takes the
+``flash_dkv_f16``) and from 256 to 512 (``_f16_wide``), above 512 the
+wgmma forward that streams D (``flash_fwd_f16_wide``) and the CUDA-core dQ
+and dK/dV (``_f16_simt``). So a Llama or Mixtral takes the
 kernels on CUDA whatever dtype it computes in, and no path gives way to the
 plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
 attention (0) or the kernels (1, which raises off CUDA). The card tests of
@@ -20,6 +21,7 @@ the same choice are
 import dataclasses
 import functools
 import re
+import types
 
 import pytest
 import torch
@@ -100,18 +102,29 @@ def test_fp16_heads_above_128_take_the_wide_wgmma_forward_and_dkv(D):
 
 @pytest.mark.parametrize("D", [640, 1024])
 def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
-    """Above 512, where bf16's wide kernels cut D on wmma (bf16 code), fp16
-    takes the CUDA-core kernels, by width: its forward, dQ and dK/dV."""
-    want = {"flash_fwd": "flash_fwd_f16_simt",
-            "flash_dq": "flash_dq_f16_simt",
+    """Above 512, where bf16's wide dQ and dK/dV cut D on wmma (bf16 code),
+    fp16 takes the CUDA-core dQ and dK/dV, by width; its forward is the
+    wide one, whose chunked kernel streams D there in either dtype."""
+    want = {"flash_dq": "flash_dq_f16_simt",
             "flash_dkv": "flash_dkv_f16_simt"}
     for name, kernel in want.items():
         assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
             == kernel
         assert fa.source(kernel) == fa.SIMT_SOURCE
         assert kernel in fa.launches and kernel in fa._ARGTYPES
-    # bf16 keeps its wide kernels there (on wmma)
+    fwd = fa._kernel("flash_fwd", fa.kernel_head_dim(D), torch.float16)
+    assert fwd == "flash_fwd_f16_wide"
+    assert fa.source(fwd) == "flash_fwd_wide"
+    # bf16 keeps its wide kernels there (the forward the same chunked one)
     assert fa._kernel("flash_fwd", D, torch.bfloat16) == "flash_fwd_wide"
+    # the forward's wmma kernel, which no route takes, keeps an entry of
+    # its own in the same source, to be timed against its replacement
+    assert "flash_fwd_wmma" in fa.launches
+    assert fa.source("flash_fwd_wmma") == "flash_fwd_wide"
+    assert fa._ARGTYPES["flash_fwd_wmma"] == fa._ARGTYPES["flash_fwd_wide"]
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        assert fa._kernel("flash_fwd", D, dtype) not in (
+            "flash_fwd_wmma", "flash_fwd_f16_simt")
 
 
 @pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640])
@@ -147,8 +160,8 @@ def test_the_tf32_forward_scratch_holds_the_split_k_and_vt():
 
 
 @pytest.mark.parametrize("source,exports,lacks", [
-    ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide"),
-     ()),
+    ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide",
+                        "voda_flash_fwd_wmma"), ()),
     ("flash_dkv_wide", ("voda_flash_dkv_wide", "voda_flash_dkv_f16_wide"),
      ()),
     ("flash_simt", ("voda_flash_fwd_f32_simt", "voda_flash_dq_f32",
@@ -181,7 +194,8 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
                     f"voda_flash_dkv_{dkv}"}
     assert set(exports) <= entries
     assert not set(lacks) & entries
-    routed = {f"voda_{k}" for k in fa.launches if fa.source(k) == source}
+    routed = {f"voda_{fa.entry(k)}" for k in fa.launches
+              if fa.source(k) == source}
     assert routed <= entries
 
 
@@ -201,6 +215,36 @@ def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     monkeypatch.setattr(fa, "_entry", loaded.append)
     fa.load_kernels(names)
     assert tuple(loaded) == names
+
+
+@pytest.mark.parametrize("dtype,route", [
+    (torch.bfloat16, "flash_fwd_wide"), (torch.float16, "flash_fwd_f16_wide")])
+@pytest.mark.parametrize("D", [256, 512, 640, 1024])
+def test_the_chunked_forward_counts_apart_from_its_route(dtype, route, D,
+                                                         monkeypatch):
+    """Above WGMMA_MAX_D the wide forward's entry launches the kernel that
+    streams D: the wrapper launches the route's entry and raises the
+    chunked kernel's own count (`CHUNKED_FWD`), so that the wide forward's
+    D ≤ 512 kernel and the chunked one are counted apart; a count's name
+    loads its route's entry from the route's source."""
+    launched = []
+    monkeypatch.setattr(fa, "_launch", lambda name, device, *args, count:
+                        launched.append((name, count)))
+    q = torch.zeros(1, 3, 1, D, dtype=dtype)
+    fa.flash_fwd(q, q, q, True, 0)
+    chunked = fa.CHUNKED_FWD[route]
+    assert launched == [(route, chunked if D > fa.WGMMA_MAX_D else route)]
+    assert chunked in fa.launches and chunked not in fa._ARGTYPES
+    assert fa.entry(chunked) == route and fa.entry(route) == route
+    assert fa.source(chunked) == fa.source(route) == "flash_fwd_wide"
+    loaded, lib = [], types.SimpleNamespace(**{
+        f"voda_{route}": types.SimpleNamespace()})
+    monkeypatch.setattr(fa._build, "load",
+                        lambda src: loaded.append(src) or lib)
+    monkeypatch.setattr(fa, "_entry", fa._entry.__wrapped__)
+    fa.load_kernels([chunked])
+    assert loaded == ["flash_fwd_wide"]
+    assert getattr(lib, f"voda_{route}").argtypes == fa._ARGTYPES[route]
 
 
 def test_each_entry_takes_the_arguments_its_wrapper_passes():

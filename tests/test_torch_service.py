@@ -5,7 +5,9 @@
   `cli.main(["create", "-f", ...])`: A (slowed, 4 epochs of 4 steps), B
   (2 epochs) and C, which waits for a chip and is deleted with `cli
   delete`; `cli get jobs` lists them. B completes; once A has its first
-  checkpoint, `app.stop()` stops it (SIGTERM, a checkpoint, exit 3). A
+  checkpoint, `app.stop()` stops it (SIGTERM, a checkpoint, exit 3): A's
+  steps after its first epoch wait for a gate file that the test creates
+  just before the stop, so A cannot complete first when B starts late. A
   second `VodaApp(resume=True)` on the same workdir takes the lease at the
   next epoch, recovers the journal, and A resumes from its checkpoint
   (`resumed at step N on 1 chips`, N >= 4) and completes, one CSV row per
@@ -52,8 +54,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WAIT = 90.0
 STEPS_PER_EPOCH, A_EPOCHS, STEP_DELAY = 4, 4, 0.25
 
-# Slows every step, so that A is still training when the server stops.
+# Slows every step and, once a process has taken its first epoch's steps,
+# holds each further step until the gate file exists (for at most `wait`
+# seconds), so that A is still training when the server stops however
+# late B starts: the test opens the gate just before it stops the server.
 SLOW_SCRIPT = '''
+import os
 import time
 from vodascheduler_tpu_torch.models import get_model as _get
 
@@ -61,9 +67,15 @@ from vodascheduler_tpu_torch.models import get_model as _get
 def get_model(spec):
     bundle = _get(spec.model)
     loss_fn = bundle.loss_fn
+    steps = [0]
 
     def slow_loss(module, batch):
         time.sleep({delay})
+        steps[0] += 1
+        deadline = time.monotonic() + {wait}
+        while (steps[0] > {gated_after} and not os.path.exists({gate!r})
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
         return loss_fn(module, batch)
 
     bundle.loss_fn = slow_loss
@@ -134,7 +146,10 @@ def _log(app, name):
 def test_cli_jobs_survive_a_server_restart(tmp_path, supervisor_env):
     workdir = str(tmp_path / "voda")
     script = tmp_path / "slow.py"
-    script.write_text(SLOW_SCRIPT.format(delay=STEP_DELAY))
+    gate = tmp_path / "gate"
+    script.write_text(SLOW_SCRIPT.format(delay=STEP_DELAY, wait=WAIT,
+                                         gated_after=STEPS_PER_EPOCH,
+                                         gate=str(gate)))
     job = dict(model="llama_tiny", global_batch_size=2,
                steps_per_epoch=STEPS_PER_EPOCH)
     app = _app(workdir)
@@ -154,6 +169,7 @@ def test_cli_jobs_survive_a_server_restart(tmp_path, supervisor_env):
         _wait(lambda: os.path.isdir(epoch0), "A's first checkpoint")
         assert _jobs(app)[a] == "Running"
     finally:
+        gate.touch()
         app.stop()
     log_a = _log(app, a)
     saved = re.findall(r"^checkpoint step (\d+) bytes", log_a, re.M)

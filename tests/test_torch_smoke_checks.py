@@ -42,11 +42,17 @@ FWD64_F32 = "_ZN4voda3f3220flash_fwd_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2
 DKV64_F32 = "_ZN4voda3f3220flash_dkv_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PfS5_iiiiif"
 FWD128_F32 = FWD64_F32.replace("ILi64E", "ILi128E")
 DKV128_F32 = DKV64_F32.replace("ILi64E", "ILi128E")
+# the forward above D=512, templated on its chunk of O (CW) and element
+# type: D=640 runs CW=128
+FWDC128 = "_ZN4voda24flash_fwd_chunked_kernelILi128E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiiif"
+FWDC128_F16 = FWDC128.replace("13__nv_bfloat16", "6__half")
+FWDC256 = FWDC128.replace("ILi128E", "ILi256E")
 F16_CLEAN = ((FWD64_F16, 0, 0), (DQ64_F16, 0, 0), (DKV64_F16, 0, 0),
              (FWD64_F32, 0, 0), (DKV64_F32, 0, 0))
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
+# (with the chunked forward's, gated beside the wide kernels)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
-                  (DKVW256_F16, 0, 0))
+                  (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0))
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
               *WIDE_F16_CLEAN)
 
@@ -143,6 +149,8 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
                       ("flash_fwd_f16_wide", 256): 0,
                       ("flash_dq_f16_wide", 256): 0,
                       ("flash_dkv_f16_wide", 256): 0,
+                      ("flash_fwd_chunked", 128): 0,
+                      ("flash_fwd_chunked_f16", 128): 0,
                       ("flash_fwd_wide", 512): 1132,
                       ("flash_dkv_wide", 384): 0,
                       ("flash_dkv_f16_wide", 512): 32}
@@ -202,6 +210,27 @@ def test_wide_spills_at_384_and_512_are_only_logged():
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 
+@pytest.mark.parametrize("chunked,fault", [
+    (((FWDC128, 16, 8), (FWDC128_F16, 0, 0)),
+     "flash_fwd_chunked CW=128: 24 bytes spilled"),
+    (((FWDC128, 0, 0), (FWDC128_F16, 4, 4)),
+     "flash_fwd_chunked_f16 CW=128: 8 bytes spilled"),
+    # CW=256 (D=768, 1024) does not stand for D=640's CW=128
+    (((FWDC256, 0, 0), (FWDC128_F16, 0, 0)),
+     "flash_fwd_chunked CW=128: no ptxas spill line"),
+])
+def test_spill_faults_refuse_a_spill_in_the_chunked_forward_at_d640(
+        chunked, fault):
+    """The forward above D=512 is gated at D=640 (CW=128) in both dtypes;
+    its spills at CW=256 are only logged."""
+    spills = chip_smoke.ptxas_spills(log_of(
+        *MAIN_CLEAN, *untouched(WIDE_CLEAN, chunked), *chunked,
+        (FWDC256, 64, 64)))
+    assert spills[("flash_fwd_chunked", 256)] == 128
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
+    assert chip_smoke.spill_faults(spills) == []
+
+
 def test_a_clean_wide_log_passes_every_gate():
     """The log of a build in which no gated kernel spills: every gate of
     phase 2 is met, the wide dQ at D=256 among them."""
@@ -213,6 +242,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_dq_f16_wide", 256) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_f32", 64) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_f32", 64) in chip_smoke.SPILL_GATES
+    assert ("flash_fwd_chunked", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_fwd_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 

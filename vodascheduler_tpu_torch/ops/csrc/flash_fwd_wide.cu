@@ -61,22 +61,24 @@
 // At D=512 the loads of the single stage take 23-24%; 32-key tiles, which
 // make room for two stages, measured no faster.
 //
-// Above D=512 Q no longer fits beside one stage; those widths keep the
-// first wide kernel (wmma, wide.cuh), which cuts D into 128-wide chunks of
-// O and stages every tile through plain loads.
+// Above D=512 Q no longer fits beside one stage (Q alone is 160 KB at
+// D=640, 256 KB at D=1024): those widths run flash_fwd_chunked_kernel
+// below, which streams D.
 //
 // Nothing is carried between CTAs, so the result is deterministic.
 //
-// fp16 (voda_flash_fwd_f16_wide, D = 256, 384, 512). The same kernel on
-// fp16 tensors: the element type is a template parameter (bf16 by
-// default), as in flash_fwd.cu, and wgmma's f16 form takes the same
+// fp16 (voda_flash_fwd_f16_wide, every multiple of 128 from 256). The same
+// kernels on fp16 tensors: the element type is a template parameter (bf16
+// by default), as in flash_fwd.cu, and wgmma's f16 form takes the same
 // fragments and descriptors at the same rate, so the shared memory (the
 // sums above), the registers and the grid are those of bf16. P, which lies
 // in [0, 1], is rounded to fp16 before P·V (finer than bf16 rounds it), O
 // = acc / l is stored as fp16 (|O| ≤ max |V|), S, m, l and lse stay fp32:
-// no scale is needed. The wmma kernel above D=512 is bf16 code, so the
-// fp16 entry refuses those widths; the wrappers send fp16 there to the
-// CUDA-core kernel (flash_simt.cu).
+// no scale is needed.
+//
+// The first wide kernel (wmma, wide.cuh; bf16 only) stays as
+// voda_flash_fwd_wmma, which no wrapper routes to: chip_smoke.py times it
+// in turns against the kernel that replaced it above D=512.
 
 #include "hopper.cuh"
 #include "wide.cuh"
@@ -327,6 +329,311 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // ------------------------------------------------------- widths above 512
+//
+// flash_fwd_chunked_kernel: K1 at any D that is a multiple of 128 (the
+// entries send it D > 512). Bound at B=8, H=2, S=2048, D=640, causal: two
+// products of 42.9 GFLOP, 86.9 µs at 989 TFLOP/s, against 168 MB, 50.1 µs
+// at 3.35 TB/s: compute-bound, in bf16 and in fp16 alike.
+//
+// Design: flash_fwd_wide_kernel's, with the contraction of S = Q·Kᵀ over D
+// cut into 128-column chunks, so that the shared memory no longer depends
+// on D.
+// - A CTA owns 128 query rows of one (b, h) and a chunk of O CW columns
+//   wide: CW = 256 where D divides by 256, else 128 (the grid's y axis).
+//   One producer warpgroup (one thread issues every TMA load) and two
+//   consumer warpgroups of 64 rows.
+// - For each tile of BN keys the producer streams, chunk by chunk of D,
+//   a stage of (Q's 128 rows, K's BN rows) over the chunk's 128 columns
+//   through a ring of STAGES stages, then the V tile of the same keys over
+//   the CTA's chunk of O through a ring of two. Q is read again for every
+//   key tile: from L2, where the D/CW CTAs of a row block find it.
+// - S sums in registers over the D/128 chunk products (wgmma m64nBNk16, both
+//   operands K-major, the accumulator kept from the second chunk on), one
+//   commit group a chunk; once a chunk's products are done (wgmma_wait<1>
+//   after the next chunk's issue) both warpgroups release its stage, the
+//   last chunk's after the tile's S is in.
+// - Then as in flash_fwd_wide_kernel: the online softmax on the
+//   accumulators (softmax_tile), P cast to T as the register A operand of
+//   O += P·V (m64nCWk16, V MN-major through the transpose bit), O in
+//   registers; a warpgroup issues S of tile j, then P·V of tile j−1, and
+//   runs the softmax of tile j under P·V.
+// - No turns: both warpgroups read every chunk's stage, so a warpgroup that
+//   held the turn through the D/128 chunks of its S would wait for a stage
+//   that only the other warpgroup, waiting for the turn, can release, as
+//   soon as D/128 exceeds STAGES.
+// - Each CTA of a row block computes the same S: the products do
+//   (D/CW + 1)/2 times the operations of the bound (3 at D=640, 4 at 896;
+//   2 at 768, 2.5 at 1024), the price of one softmax per row without
+//   atomics.
+// - Causal: key tiles past the last row's diagonal are never loaded, only
+//   tiles that cross the diagonal or the ragged end of Sk are masked, and
+//   the query tiles are the grid's fastest axis, longest first. Rows past
+//   Sq and keys past Sk arrive from TMA as zeros; the first are never
+//   stored, the second masked to the finite NEG_INF.
+//
+// Shared memory (plus 1 KB to align the base, and the mbarriers):
+//   CW=256, BN=64:  3 × (Q 32 KB + K 16 KB) + 2 × V 32 KB = 208 KB
+//   CW=128, BN=128: 2 × (Q 32 KB + K 32 KB) + 2 × V 32 KB = 192 KB
+// Registers (setmaxnreg: 24 for the producer, 240 a consumer thread): O
+// CW/2 fp32, S BN/2 fp32, P BN/4 T x2: 176 at CW=256 (BN=64: BN=128 would
+// take 224 and spill), 160 at CW=128, where 128 keys a tile halve the
+// reads of Q for each key against 64 (64-key tiles measured 12% slower).
+// Where the time goes at D=640 (scripts/torch_kernel_ablate.py --shape
+// d640 on an H100): the loads 37%, the products past D's first chunk 12%,
+// the softmax 3%; the kernel is bound by its reads from L2. Q held
+// resident at D=640 (the only width above 512 where it fits beside a ring
+// of K chunks, with 64-key tiles) measured 1.024× faster: not kept.
+
+template <int CW>
+struct FwdChunked {
+  static constexpr int BM = 128;  // query rows of a CTA
+  static constexpr int KC = 128;  // columns of D in a stage
+  static constexpr int BN = CW == 256 ? 64 : 128;  // keys of a tile
+  static constexpr int Q_BYTES = BM * KC * 2;
+  static constexpr int K_BYTES = BN * KC * 2;
+  static constexpr int V_BYTES = BN * CW * 2;
+  static constexpr int V_STAGES = 2;
+  // the stages of (Q, K) chunks that fit beside V's, at most four
+  static constexpr int FIT = (MAX_SMEM - 1024 - V_STAGES * V_BYTES -
+                              8 * 2 * (4 + V_STAGES)) /
+                             (Q_BYTES + K_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int K_OFF = STAGES * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + V_STAGES * V_BYTES;
+  // full[STAGES], empty[STAGES], v_full[V_STAGES], v_empty[V_STAGES]
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * (STAGES + V_STAGES);
+  static_assert(STAGES >= 2 && SMEM <= MAX_SMEM, "the ring does not fit");
+};
+
+template <int CW, typename T = bf16>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_chunked_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             T* __restrict__ o, float* __restrict__ lse,
+                             int H, int Sq, int Sk, int D, int q_off,
+                             int causal, float scale) {
+  using C = FwdChunked<CW>;
+  constexpr int BM = C::BM, BN = C::BN, KC = C::KC;
+  constexpr int ST = C::STAGES, VST = C::V_STAGES;
+  using Regs = RegSplit<24, 240>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* qs = reinterpret_cast<T*>(sm);
+  T* ks = reinterpret_cast<T*>(sm + C::K_OFF);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + ST;
+  uint64_t* v_full = empty + ST;
+  uint64_t* v_empty = v_full + VST;
+
+  const int i = gridDim.x - 1 - blockIdx.x;  // longest query tiles first
+  const int c0 = blockIdx.y * CW;            // the CTA's columns of O
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int q0 = i * BM;
+  const int last_row = q_off + min(q0 + BM, Sq) - 1;
+  const int nk_all = (Sk + BN - 1) / BN;
+  const int n_k = causal ? min(nk_all, last_row / BN + 1) : nk_all;
+  const int nc = D / KC;  // chunks of D a tile's S sums over
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    for (int s = 0; s < VST; ++s) {
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: one thread keeps both rings full, in the order the
+    // consumers take them: tile j's chunks, then its V tile
+    Regs::producer();
+    if (threadIdx.x == 0) {
+      int it = 0;  // chunks issued
+      for (int j = 0; j < n_k; ++j) {
+        for (int c = 0; c < nc; ++c, ++it) {
+          const int s = it % ST;
+          mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], C::Q_BYTES + C::K_BYTES);
+          tma_rows<KC>(qs + s * BM * KC, &tq, &full[s], BM, h, q0, b, c * KC);
+          tma_rows<KC>(ks + s * BN * KC, &tk, &full[s], BN, h, j * BN, b,
+                       c * KC);
+        }
+        const int sv = j % VST;
+        mbar_wait(&v_empty[sv], ((j / VST) & 1) ^ 1);
+        mbar_expect_tx(&v_full[sv], C::V_BYTES);
+        tma_rows<CW>(vs + sv * BN * CW, &tv, &v_full[sv], BN, h, j * BN, b,
+                     c0);
+      }
+      trap_if_stalled();
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_loc = cw * 64 + warp * 16 + g;  // the thread's first row
+    const int row[2] = {q_off + q0 + r_loc, q_off + q0 + r_loc + 8};
+    const int wg_row0 = q_off + q0 + cw * 64;   // the warpgroup's first row
+    const float sl2 = scale * LOG2E;
+
+    float acc[CW / 2];
+#pragma unroll
+    for (int e = 0; e < CW / 2; ++e) acc[e] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};  // running max of the scores, log2 units
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+    float corr[2];
+    float sacc[BN / 2];
+    uint32_t pa[BN / 16][4];  // P as T, the A operand of P·V
+
+    // The products of chunk `it` (of all the tiles' chunks) into sacc,
+    // committed as one group; the first chunk of a tile (`first`, a
+    // constant at each call) overwrites sacc.
+    auto issue_chunk = [&](int it, bool first) {
+      const int s = it % ST;
+      mbar_wait(&full[s], (it / ST) & 1);
+      const uint64_t qd = kmajor_desc(qs + s * BM * KC, cw * 64);
+      const uint64_t kd = kmajor_desc(ks + s * BN * KC, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_ss<BN, T>(sacc, qd + kmajor_step(BM, kk),
+                        kd + kmajor_step(BN, kk), !first || kk > 0);
+      wgmma_commit();
+    };
+    // S = Q·Kᵀ of tile j into sacc, summed over the nc chunks of D as they
+    // arrive; each chunk's stage is released once the next chunk is issued
+    // and its own products are done, the last chunk's by release_s. The
+    // first chunk is issued apart, so that no branch stands around the
+    // wait in the loop (one made ptxas serialise every wgmma).
+    auto issue_s = [&](int j) {
+      issue_chunk(j * nc, true);
+      for (int c = 1; c < nc; ++c) {
+        issue_chunk(j * nc + c, false);
+        wgmma_wait<1>();
+        mbar_arrive(&empty[(j * nc + c - 1) % ST]);
+      }
+    };
+    auto release_s = [&](int j) {
+      mbar_arrive(&empty[(j * nc + nc - 1) % ST]);
+    };
+    // O += P·V of tile j over the CTA's chunk, committed as one group
+    auto issue_pv = [&](int j) {
+      const int s = j % VST;
+      mbar_wait(&v_full[s], (j / VST) & 1);
+      const uint64_t vd = mnmajor_desc(vs + s * BN * CW, BN);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        wgmma_rs<CW, T>(acc, pa[kk], vd + mnmajor_step(kk));
+      wgmma_commit();
+    };
+    auto softmax = [&](int j) {
+      const bool masked =
+          (j + 1) * BN > Sk || (causal && j * BN + BN - 1 > wg_row0);
+      softmax_tile<BN>(sacc, m, l, corr, sl2, masked, j * BN, Sk, causal,
+                       row, t);
+    };
+    auto to_a = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        acc_to_a<BN / 2, T>(pa[kk], sacc, kk);
+    };
+
+    if (n_k > 0) {
+      issue_s(0);
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      release_s(0);
+      softmax(0);
+      to_a();
+      for (int j = 1; j < n_k; ++j) {
+        issue_s(j);
+        issue_pv(j - 1);
+        wgmma_wait<1>();  // S of tile j is in
+        fence_regs(sacc);
+        release_s(j);
+        softmax(j);
+        wgmma_wait<0>();  // P·V of tile j−1 is in
+        fence_regs(acc);
+        mbar_arrive(&v_empty[(j - 1) % VST]);
+        // O's rows to the new max: element e is row half (e >> 1) & 1
+#pragma unroll
+        for (int e = 0; e < CW / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+        to_a();
+      }
+      issue_pv(n_k - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&v_empty[(n_k - 1) % VST]);
+    }
+
+    // Flush: a row that saw no key (l == 0) gets output 0, as the reference.
+    float lse_r[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      inv[r] = lr == 0.f ? 1.f : 1.f / lr;
+      lse_r[r] = m[r] == NEG_INF ? NEG_INF
+                                 : m[r] * LN2 + logf(lr == 0.f ? 1.f : lr);
+    }
+    store_acc_rows<CW>(o + (static_cast<size_t>(b) * Sq * H + h) * D + c0, acc,
+                       q0 + r_loc, Sq, H * D, inv[0], inv[1], t);
+    if (t == 0 && blockIdx.y == 0) {
+      float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq;
+      if (q0 + r_loc < Sq) lb[q0 + r_loc] = lse_r[0];
+      if (q0 + r_loc + 8 < Sq) lb[q0 + r_loc + 8] = lse_r[1];
+    }
+    trap_if_stalled();
+  }
+}
+
+template <int CW, typename T>
+int launch_fwd_chunked(const void* q, const void* k, const void* v, void* o,
+                       void* lse, int B, int H, int Sq, int Sk, int D,
+                       int q_off, int causal, float scale, cudaStream_t st) {
+  using C = FwdChunked<CW>;
+  CUtensorMap tq, tk, tv;
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_fwd_chunked_kernel<CW, T>),
+        C::SMEM);
+  if (err) return err;
+  const dim3 grid((Sq + C::BM - 1) / C::BM, D / CW, B * H);
+  flash_fwd_chunked_kernel<CW, T><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, static_cast<T*>(o), static_cast<float*>(lse), H, Sq, Sk, D,
+      q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunked kernel on tensors of T at any D that is a multiple of 128,
+// O's chunk 256 columns wide where D divides by 256.
+template <typename T>
+int fwd_chunked(const void* q, const void* k, const void* v, void* o,
+                void* lse, int B, int H, int Sq, int Sk, int D, int q_off,
+                int causal, float scale, cudaStream_t st) {
+  if (D % 256 == 0)
+    return launch_fwd_chunked<256, T>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off,
+                                      causal, scale, st);
+  return launch_fwd_chunked<128, T>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off,
+                                    causal, scale, st);
+}
+
+// --------------------------------- the first wide kernel (wmma), timed only
 
 namespace wide {
 
@@ -452,6 +759,8 @@ __global__ void __launch_bounds__(THREADS)
 
 // Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
 // its launch; 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
+// D = 256, 384, 512: flash_fwd_wide_kernel; any multiple of 128 above 512:
+// flash_fwd_chunked_kernel.
 extern "C" int voda_flash_fwd_wide(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int B,
                                    int H, int Sq, int Sk, int D, int q_off,
@@ -460,32 +769,47 @@ extern "C" int voda_flash_fwd_wide(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 256 || D == 384 || D == 512)
-    return fwd_wgmma<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
-                           scale, st);
-  using namespace voda::wide;
-  cudaError_t err = allow_smem(flash_fwd_wmma_kernel, FWD_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + BM - 1) / BM, D / CW, B * H);
-  flash_fwd_wmma_kernel<<<grid, THREADS, FWD_SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), H, Sq, Sk, D, q_off, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (D > 512)
+    return fwd_chunked<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                             scale, st);
+  return fwd_wgmma<bf16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                         scale, st);
 }
 
-// fp16 tensors, the same arguments; D = 256, 384 or 512 only (the wmma
-// kernel above 512 is bf16 code): any other width returns 1
-// (cudaErrorInvalidValue).
+// fp16 tensors, the same arguments and the same kernels.
 extern "C" int voda_flash_fwd_f16_wide(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
                                        int B, int H, int Sq, int Sk, int D,
                                        int q_off, int causal, float scale,
                                        void* stream) {
   using namespace voda;
-  if (!wide::shape_ok(B, H, Sq, Sk, D) || D > 512)
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 512)
+    return fwd_chunked<f16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
+                            scale, st);
   return fwd_wgmma<f16>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off, causal,
-                        scale, static_cast<cudaStream_t>(stream));
+                        scale, st);
+}
+
+// The wmma kernel (bf16, any multiple of 128), which the wrappers no longer
+// route to: kept to be timed against the chunked kernel that replaced it.
+extern "C" int voda_flash_fwd_wmma(const void* q, const void* k,
+                                   const void* v, void* o, void* lse, int B,
+                                   int H, int Sq, int Sk, int D, int q_off,
+                                   int causal, float scale, void* stream) {
+  using namespace voda::wide;
+  if (!shape_ok(B, H, Sq, Sk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(flash_fwd_wmma_kernel, FWD_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sq + BM - 1) / BM, D / CW, B * H);
+  flash_fwd_wmma_kernel<<<grid, THREADS, FWD_SMEM,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), H, Sq, Sk, D, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -12,9 +12,10 @@ kernels (``ops/csrc``) replace its three Pallas kernels:
 Those are built for head widths 64 and 128. Above 128 the JAX package takes
 any multiple of 128, and so does each wrapper, through a second kernel of
 the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``; on ``csrc/hopper.cuh``
-up to D=512, cut along D on ``csrc/wide.cuh`` above): ``flash_fwd_wide``,
-``flash_dq_wide`` and ``flash_dkv_wide``, each counted apart. Those six
-take bf16. The JAX kernels compute in ``q.dtype``, so fp32 and fp16 tensors
+up to D=512, and the forward above it too, streaming D in 128-column
+chunks; dQ and dK/dV cut along D on ``csrc/wide.cuh`` above 512):
+``flash_fwd_wide``, ``flash_dq_wide`` and ``flash_dkv_wide``, each counted
+apart. Those six take bf16. The JAX kernels compute in ``q.dtype``, so fp32 and fp16 tensors
 go to kernels of their own, each counted apart; which one, by function,
 dtype and head width D (after the operator's zero padding):
 
@@ -25,20 +26,26 @@ bf16   ≤ 128       ``flash_fwd``           ``flash_dq``           ``flash_dkv`
 bf16   > 128       ``flash_fwd_wide``      ``flash_dq_wide``      ``flash_dkv_wide``
 fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``       ``flash_dkv_f16``
 fp16   256 to 512  ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
-fp16   > 512       ``flash_fwd_f16_simt``  ``flash_dq_f16_simt``  ``flash_dkv_f16_simt``
+fp16   > 512       ``flash_fwd_f16_wide``  ``flash_dq_f16_simt``  ``flash_dkv_f16_simt``
 fp32   ≤ 128       ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
 fp32   > 128       ``flash_fwd_f32_simt``  ``flash_dq_f32``       ``flash_dkv_f32_simt``
 =====  ==========  ======================  =====================  ======================
 
-fp16's kernels up to D=512 are the bf16 kernels' TMA + wgmma design in
-fp16 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide twins
-``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type). fp32's
-K1 and K3 up to D=128 run on the tensor cores in three TF32 passes
+fp16's kernels up to D=512, and its forward above, are the bf16 kernels'
+TMA + wgmma design in fp16 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide
+twins ``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type).
+fp32's K1 and K3 up to D=128 run on the tensor cores in three TF32 passes
 (``csrc/flash_f32.cu``: K1 on wgmma after a prologue that splits K and Vᵀ
-into scratch, K3 on mma.sync). fp16 above 512, where bf16's wide kernels cut
-D on ``wmma`` (bf16 code), fp32's K1 and K3 above 128 and fp32's K2 at every
-width multiply on the CUDA cores (``csrc/flash_simt.cu``). The choice is by
-width, never a fallback: a kernel that fails to build or launch raises.
+into scratch, K3 on mma.sync). fp16's dQ and dK/dV above 512, where bf16's
+cut D on ``wmma`` (bf16 code), fp32's K1 and K3 above 128 and fp32's K2 at
+every width multiply on the CUDA cores (``csrc/flash_simt.cu``). The choice
+is by width, never a fallback: a kernel that fails to build or launch
+raises. Above 512 the wide forward's entries launch the kernel that
+streams D, whose launches count apart from the route's, under
+``flash_fwd_chunked`` (bf16) and ``flash_fwd_f16_chunked`` (fp16). The
+forward's first wide kernel above 512 (``wmma``), which no wrapper routes
+to any more, keeps an entry of its own, ``flash_fwd_wmma``, to be timed
+against its replacement.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -111,8 +118,9 @@ from vodascheduler_tpu_torch.parallel.ring_attention import NEG_INF
 HEAD_DIMS = (64, 128)
 # Above HEAD_DIMS[-1], the widths the wide kernels take: multiples of this.
 WIDE_CHUNK = 128
-# The widest head of the wide wgmma kernels; above it bf16's wide kernels
-# cut D on wmma, and fp16's run on the CUDA cores.
+# The widest head of the wide wgmma dQ and dK/dV; above it bf16's cut D on
+# wmma, and fp16's run on the CUDA cores. The wide forward takes every width
+# (above it, flash_fwd_wide.cu's chunked kernel).
 WGMMA_MAX_D = 512
 
 # Launches of each kernel since the last `reset_launches()`: one plain int
@@ -124,13 +132,20 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0,
             "flash_fwd_f16_wide": 0, "flash_dq_f16_wide": 0,
             "flash_dkv_f16_wide": 0, "flash_fwd_f16_simt": 0,
-            "flash_dq_f16_simt": 0, "flash_dkv_f16_simt": 0}
+            "flash_dq_f16_simt": 0, "flash_dkv_f16_simt": 0,
+            "flash_fwd_wmma": 0, "flash_fwd_chunked": 0,
+            "flash_fwd_f16_chunked": 0}
+# Above WGMMA_MAX_D the wide forward's entries launch a second kernel,
+# flash_fwd_wide.cu's flash_fwd_chunked_kernel, which streams D: its
+# launches count under a name of its own, by the route that reaches it.
+CHUNKED_FWD = {"flash_fwd_wide": "flash_fwd_chunked",
+               "flash_fwd_f16_wide": "flash_fwd_f16_chunked"}
 # The suffix of the kernel names of fp32 and fp16 tensors.
 SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
 # The kernels on the CUDA cores, all in one source, and fp32's on the
 # tensor cores, in another; every other kernel's source carries the name of
 # its bf16 kernel (fp16's flash_dq_f16 is in flash_dq.cu, flash_dq_f16_wide
-# in flash_dq_wide.cu).
+# in flash_dq_wide.cu), the forward's wmma kernel that of the wide one.
 SIMT_SOURCE = "flash_simt"
 SIMT_KERNELS = frozenset({"flash_fwd_f32_simt", "flash_dq_f32",
                           "flash_dkv_f32_simt", "flash_fwd_f16_simt",
@@ -151,7 +166,8 @@ _ARGTYPES = {
     # fp32's tensor-core K1 also takes its scratch (`f32_scratch`) after lse
     "flash_fwd_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
-for _name in launches:  # every variant takes its function's arguments
+for _name in launches.keys() - CHUNKED_FWD.values():  # every variant
+    # takes its function's arguments
     _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
 
 
@@ -160,17 +176,25 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def entry(kernel: str) -> str:
+    """The C entry (``voda_<entry>``) that launches `kernel`, or the
+    kernel that a count names: the chunked forward's, the route's."""
+    return {c: r for r, c in CHUNKED_FWD.items()}.get(kernel, kernel)
+
+
 def source(kernel: str) -> str:
     """The source (in ``ops/csrc``) that holds `kernel`."""
+    kernel = entry(kernel)
     if kernel in SIMT_KERNELS:
         return SIMT_SOURCE
     if kernel in TF32_KERNELS:
         return TF32_SOURCE
-    return kernel.replace("_f16", "")
+    return kernel.replace("_f16", "").replace("_wmma", "_wide")
 
 
 @functools.cache
 def _entry(name: str):
+    name = entry(name)
     fn = getattr(_build.load(source(name)), f"voda_{name}")
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
@@ -178,8 +202,9 @@ def _entry(name: str):
 
 
 def load_kernels(names) -> None:
-    """Finds the kernels `names` in the build cache (building them if
-    absent) and loads them, so that their first launch loads nothing."""
+    """Finds the kernels `names` (routes or counts, as `launches` names
+    them) in the build cache (building them if absent) and loads them, so
+    that their first launch loads nothing."""
     for name in names:
         _entry(name)
 
@@ -188,10 +213,11 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel of wrapper `name` for head width D and tensors of
     `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
     at a multiple of WIDE_CHUNK above them; for fp16 the same, named
-    ``_f16`` and ``_f16_wide``, up to WGMMA_MAX_D and the CUDA-core
-    ``_f16_simt`` above it; for fp32 the tensor-core ``_f32`` forward and
-    dK/dV at a width of HEAD_DIMS and the CUDA-core ``_f32_simt`` ones
-    above, and the CUDA-core ``flash_dq_f32`` at every width."""
+    ``_f16`` and ``_f16_wide``, the forward at every width, dQ and dK/dV
+    up to WGMMA_MAX_D and the CUDA-core ``_f16_simt`` above it; for fp32
+    the tensor-core ``_f32`` forward and dK/dV at a width of HEAD_DIMS and
+    the CUDA-core ``_f32_simt`` ones above, and the CUDA-core
+    ``flash_dq_f32`` at every width."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
             f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
@@ -203,10 +229,18 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
         if name == "flash_dq" or D in HEAD_DIMS:
             return f"{name}_f32"
         return f"{name}_f32_simt"
-    if dtype == torch.float16 and D > WGMMA_MAX_D:
+    if dtype == torch.float16 and D > WGMMA_MAX_D and name != "flash_fwd":
         return f"{name}_f16_simt"
     kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
     return kernel if D in HEAD_DIMS else f"{kernel}_wide"
+
+
+def counted(kernel: str, D: int) -> str:
+    """The count that a launch of `kernel` at head width D raises: the
+    chunked forward's above WGMMA_MAX_D, else the kernel's own."""
+    if kernel in CHUNKED_FWD and D > WGMMA_MAX_D:
+        return CHUNKED_FWD[kernel]
+    return kernel
 
 
 def _check(name: str, *tensors: torch.Tensor) -> str:
@@ -228,13 +262,15 @@ def _check(name: str, *tensors: torch.Tensor) -> str:
     return _kernel(name, tensors[0].shape[-1], dtype)
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, *args,
+            count: Optional[str] = None) -> None:
+    """Launches entry `name` and raises `count` (default: `name`)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = _entry(name)(*args, stream)
     if err:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    launches[name] += 1
+    launches[count or name] += 1
 
 
 def _dims(q, k, v, *q_like) -> Tuple[int, int, int, int, int]:
@@ -272,7 +308,8 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
                if kernel == "flash_fwd_f32" else [])
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
-            B, H, Sq, Sk, D, int(q_off), int(causal), _scale(scale, D))
+            B, H, Sq, Sk, D, int(q_off), int(causal), _scale(scale, D),
+            count=counted(kernel, D))
     return o, lse
 
 
