@@ -10,10 +10,11 @@ Phases (any failure exits non-zero):
      D=64 (phase 11's fp16 model), in fp32's tensor-core forward or dK/dV
      at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
      D=256 (phase 9's wide llama), in fp16's wide forward, dQ or dK/dV at
-     D=256 (phase 11's fp16 model in heads of 256) or in the forward above
-     D=512 (flash_fwd_chunked_kernel, bf16 and fp16) at D=640, and logs the
-     spills at D=128, 384 and 512 and the chunked forward's at 768 and
-     1024;
+     D=256 (phase 11's fp16 model in heads of 256), in the forward above
+     D=512 (flash_fwd_chunked_kernel, bf16 and fp16) at D=640, or in fp32's
+     TF32 forward and dK/dV above D=128 (`_f32_wide`, one instantiation
+     for every width: CW=128, which D=256 runs), and logs the spills at
+     D=128, 384 and 512 and the chunked forward's at 768 and 1024;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -32,8 +33,8 @@ Phases (any failure exits non-zero):
      autograd through scaled_dot_product_attention), and bf16's wide
      kernels at D=640, where dQ and dK/dV cut D on wmma; then the fp32 and the
      fp16 kernels (fp32's forward and dK/dV on the tensor cores in three
-     TF32 passes up to D=128, csrc/flash_f32.cu, and on the CUDA cores
-     above, `_f32_simt`, and fp32's dQ on the CUDA cores,
+     TF32 passes, csrc/flash_f32.cu, up to D=128 and above it streaming D,
+     `_f32_wide`, and fp32's dQ on the CUDA cores,
      csrc/flash_simt.cu; fp16's on the tensor cores up to D=128,
      flash_{fwd,dq,dkv}_f16, and from 256 to 512,
      flash_{fwd,dq,dkv}_f16_wide, and on the CUDA cores above,
@@ -50,16 +51,21 @@ Phases (any failure exits non-zero):
      forward, dQ and dK/dV held to the same bars at the main shape and
      timed in turns with the tensor-core kernels there and at d256; and
      fp32's CUDA-core forward and dK/dV (`_f32_simt`) held to fp32's bars
-     at the main shape and timed in turns with the TF32 ones there, and
-     held and timed at d256, a width they take, beside SDPA's fp32 forward
-     and the library's fp32 backward; then K1 above D=512
+     at the main shape and timed in turns with the TF32 ones there; fp32's
+     TF32 forward and dK/dV above D=128 (`_f32_wide`, which stream D) at
+     F32_WIDE_CASES (d256 at B=8, H=4, S=2048; d384, d512, d640; a ragged
+     S; non-causal with Sq ≠ Sk; a query slice behind q_offset; Sq=65;
+     B·H=1), each launched twice and held bitwise, timed at d256 beside
+     their plain versions, SDPA's fp32 forward, the library's fp32 backward
+     and their bounds, and in turns there against the `_f32_simt` kernels
+     they took the route from (held at d256 too); then K1 above D=512
      (flash_fwd_chunked_kernel, through flash_fwd_wide and
      flash_fwd_f16_wide) in bf16 (LIMITS) and fp16 (SIMT_LIMITS) at
      CHUNKED_CASES (D=640 at B=8, H=2, S=2048; 768, 896 and 1024; a ragged
      S; non-causal with Sq ≠ Sk; a query slice behind q_offset; Sq=65;
      B·H=1), each launched twice and held to give bitwise the same O and
-     lse, timed in turns at D=640 against the kernels it took the route
-     from (bf16's wmma flash_fwd_wmma, fp16's flash_fwd_f16_simt, held to
+     lse, timed in turns (one round) at D=640 against the kernels it took
+     the route from (bf16's wmma flash_fwd_wmma, fp16's flash_fwd_f16_simt, held to
      the same bars there) beside the plain version, SDPA's forward and the
      bound, and once at D=1024 (B=8, H=1); the chunked kernel's launches
      count under flash_fwd_chunked and flash_fwd_f16_chunked, apart from
@@ -180,8 +186,9 @@ Phases (any failure exits non-zero):
      flash_dq_f32, flash_dkv_f32; fp16: flash_fwd_f16, flash_dq_f16,
      flash_dkv_f16); then the same fp16 model in 4 heads of 256, through
      the wgmma flash_fwd_f16_wide, flash_dq_f16_wide and
-     flash_dkv_f16_wide (8/4/4), and no `_f16_simt` or `_f32_simt`
-     kernel;
+     flash_dkv_f16_wide (8/4/4), and the fp32 model in 4 heads of 256,
+     through flash_fwd_f32_wide, flash_dq_f32 and flash_dkv_f32_wide
+     (8/4/4), and no `_f16_simt` or `_f32_simt` kernel;
   12. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
@@ -246,9 +253,17 @@ MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
 # spill in both dtypes (CW=256, which D=768 and 1024 run, is only logged).
 CHUNKED_SPILL_GATES = (("flash_fwd_chunked", 128),
                        ("flash_fwd_chunked_f16", 128))
+# fp32's TF32 forward and dK/dV above D=128 take D at run time and are
+# templated on their chunk of the output alone, CW=128: the one
+# instantiation runs every width, D=256 (phase 11's fp32 model in heads of
+# 256) among them, and is held to no spill.
+F32_WIDE_SPILL_GATES = (("flash_fwd_f32_wide", 128),
+                        ("flash_dkv_f32_wide", 128))
 SPILL_GATES = (MAIN_SPILL_GATES
                + tuple((n, WIDE_HEAD_DIM) for n in WIDE_SPILL_FREE)
-               + CHUNKED_SPILL_GATES)
+               + CHUNKED_SPILL_GATES + F32_WIDE_SPILL_GATES)
+# The gated kernels templated on a chunk of the output, not on D.
+CW_TEMPLATED = {n for n, _ in CHUNKED_SPILL_GATES + F32_WIDE_SPILL_GATES}
 
 
 def ptxas_spills(text: str) -> dict:
@@ -284,7 +299,7 @@ def spill_faults(spills: dict, gates=MAIN_SPILL_GATES) -> list:
     faults = []
     for name, dim in gates:
         got = spills.get((name, dim))
-        what = f"{name} {'CW' if '_chunked' in name else 'D'}={dim}"
+        what = f"{name} {'CW' if name in CW_TEMPLATED else 'D'}={dim}"
         if got is None:
             faults.append(f"{what}: no ptxas spill line")
         elif got:
@@ -368,13 +383,16 @@ SIMT_LIMITS = {
                     "dq_row": 5e-3, "dk_row": 5e-3, "dv_row": 5e-3}}
 
 
-def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS):
+def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS,
+                  twice=False):
     """Errors of each kernel against its plain version at one shape, on
     tensors of `dtype`, logged with the bars of `limits` they break:
     (errors, ["name=err>bar", ...]). A head width
     the kernels are not built for goes in as the attention operator sends
     it: zero-padded along D to the kernels' width, with D's own scale, and
-    cut back to D; the plain versions run at D itself."""
+    cut back to D; the plain versions run at D itself. With `twice`, K1
+    and K3 are launched a second time on the same inputs, and a result
+    that differs from the first by a bit is a broken bar."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(1)
     q = torch.randn(B, Sq, H, D, generator=g, device="cuda").to(dtype)
@@ -396,6 +414,16 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS):
     dk, dv = dk[..., :D], dv[..., :D]
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
                                             causal, q_off)
+    differ = []
+    if twice:
+        o2, lse2 = fa.flash_fwd(qp, kp, vp, causal, q_off, scale=scale)
+        dk2, dv2 = fa.flash_dkv(qp, kp, vp, dop, lse, delta_ref, causal,
+                                q_off, scale=scale)
+        differ = [n for n, first, second in (
+                      ("o", o, o2[..., :D]), ("lse", lse, lse2),
+                      ("dk", dk, dk2[..., :D]), ("dv", dv, dv2[..., :D]))
+                  if not torch.equal(first, second)]
+        del o2, lse2, dk2, dv2
     torch.cuda.synchronize()
     errs = {"o_row": row_err(o, o_ref), "o": abs_err(o, o_ref),
             "lse": abs_err(lse, lse_ref), "delta": abs_err(delta, delta_ref),
@@ -406,23 +434,27 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS):
             "dk_abs": abs_err(dk, dk_ref), "dv_abs": abs_err(dv, dv_ref)}
     bad = [f"{n}={errs[n]:.3g}>{lim}" for n, lim in limits.items()
            if not errs[n] <= lim]
+    bad += [f"two launches differ in {n}" for n in differ]
     log(f"kernels[{name}] {str(dtype)[6:]} B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
         f"causal={causal} q_off={q_off} "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
-        + (" FAIL " + ",".join(bad) if bad else " ok"))
+        + (" FAIL " + ",".join(bad) if bad else " ok")
+        + (", K1 and K3 bitwise equal twice" if twice and not bad else ""))
     del q, k, v, do, qp, kp, vp, dop, o, lse, o_ref, lse_ref, dq, dq_ref
     del dk, dv
     torch.cuda.empty_cache()
     return errs, bad
 
 
-def check_kernels(fa, cases, dtype=torch.bfloat16, limits=LIMITS):
-    """Each kernel against its plain version at every case; returns the
-    errors at the first case (the main shape), with each case's under its
-    name, and fails after reporting every case."""
+def check_kernels(fa, cases, dtype=torch.bfloat16, limits=LIMITS,
+                  twice=False):
+    """Each kernel against its plain version at every case (K1 and K3
+    launched twice and held bitwise, with `twice`); returns the errors at
+    the first case (the main shape), with each case's under its name, and
+    fails after reporting every case."""
     failures, out = [], {}
     for name, shape in cases.items():
-        errs, bad = kernel_errors(fa, name, shape, dtype, limits)
+        errs, bad = kernel_errors(fa, name, shape, dtype, limits, twice)
         failures += [f"{name}: {b}" for b in bad]
         out[name] = errs
     if failures:
@@ -550,12 +582,30 @@ CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_simt",
                  "flash_fwd_f16_wide": "flash_fwd_f16_simt",
                  "flash_dq_f16_wide": "flash_dq_f16_simt",
                  "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
-# fp32's forward and dK/dV on the CUDA cores: above D=128 the wrappers take
-# them (`_f32_simt`), and they take any width, so at D=64 they stand beside
-# the TF32 kernels that replaced them there. fp32's dQ is on the CUDA cores
-# at every width.
+# fp32's forward and dK/dV on the CUDA cores (`_f32_simt`): no route takes
+# them since the TF32 kernels replaced them at every width, and they take
+# any width, so at D=64 they stand beside the TF32 kernels that replaced
+# them there. fp32's dQ is on the CUDA cores at every width.
 CUDA_CORE_F32 = {"flash_fwd_f32": "flash_fwd_f32_simt",
                  "flash_dkv_f32": "flash_dkv_f32_simt"}
+# Above D=128 the same CUDA-core kernels stand beside the TF32 wide ones
+# that took their route (flash_f32.cu: `_f32_wide`), to be timed in turns.
+CUDA_CORE_F32_WIDE = {"flash_fwd_f32_wide": "flash_fwd_f32_simt",
+                      "flash_dkv_f32_wide": "flash_dkv_f32_simt"}
+# (B, H, Sq, Sk, D, causal, q_off) of fp32 above D=128: the timed shape
+# first (the wide bf16 rows' d256), the widths of three, four and five
+# 128-column chunks, a ragged S, non-causal with Sq ≠ Sk, a query slice
+# behind q_offset, Sq = 65, B·H = 1
+F32_WIDE_CASES = {
+    "d256": (8, 4, 2048, 2048, 256, True, 0),
+    "d384": (2, 2, 1024, 1024, 384, True, 0),
+    "d512": (2, 2, 1024, 1024, 512, True, 0),
+    "d640": (2, 1, 1024, 1024, 640, True, 0),
+    "d256_ragged": (2, 4, 1000, 1000, 256, True, 0),
+    "d384_noncausal": (2, 2, 700, 1000, 384, False, 0),
+    "d256_q_offset": (2, 4, 512, 2048, 256, True, 1536),
+    "d512_sq65": (2, 2, 65, 65, 512, True, 0),
+    "d256_bh1": (1, 1, 1000, 1000, 256, True, 0)}
 
 
 @contextlib.contextmanager
@@ -742,7 +792,7 @@ def run_chunked(fa) -> dict:
         errs = check_chunked(fa, dtype, limits)
         new = fa._kernel("flash_fwd", 640, dtype)
         old = OLD_FWD_ABOVE_512[new]
-        timed = time_forward(fa, CHUNKED_CASES["d640"], dtype, old)
+        timed = time_forward(fa, CHUNKED_CASES["d640"], dtype, old, rounds=1)
         timed[new]["err"] = max(errs["d640"]["o"], errs["d640"]["lse"])
         timed[old]["err"] = max(errs[old]["o"], errs[old]["lse"])
         rows[fa.CHUNKED_FWD[new]] = timed[new]
@@ -1103,7 +1153,8 @@ def _epoch_losses(text: str) -> dict:
 # forward and dK/dV (csrc/flash_f32.cu) and the CUDA-core dQ
 # (csrc/flash_simt.cu); fp16 the tensor-core forward, dQ and dK/dV
 # (flash_fwd_f16, flash_dq_f16, flash_dkv_f16), and in heads of 256 the
-# wide ones (`_f16_wide`). Against the plain attention (which computes in
+# wide ones (`_f16_wide`; fp32's: flash_fwd_f32_wide, flash_dkv_f32_wide
+# and the CUDA-core dQ). Against the plain attention (which computes in
 # fp32): fp32 differs by summation order alone, fp16 by the rounding of P
 # and of the scaled dS to fp16 inside the kernels, held to the bf16
 # slice's bars. fp16's
@@ -1122,7 +1173,10 @@ DTYPE_SLICES = {  # tag: (dtype, heads, bars, comparison's loss scale,
                 ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16")),
     "float16_d256": ("float16", 4, SLICE_LIMITS, 1024.0,
                      ("flash_fwd_f16_wide", "flash_dq_f16_wide",
-                      "flash_dkv_f16_wide"))}
+                      "flash_dkv_f16_wide")),
+    "float32_d256": ("float32", 4, F32_SLICE_LIMITS, 1.0,
+                     ("flash_fwd_f32_wide", "flash_dq_f32",
+                      "flash_dkv_f32_wide"))}
 
 
 def run_dtype_slices(fa):
@@ -1131,9 +1185,9 @@ def run_dtype_slices(fa):
     kernels against the plain attention, 5 AdamW steps (finite, falling),
     one counted step launching the slice's K1 2L, K2 L and K3 L times and
     no other kernel. Returns the counted launches of the 64-wide slices and
-    those of the `_f16_wide` kernels and of the `_f16_simt`, `_f32_simt`
-    and flash_fwd_f16_chunked ones (0: no slice runs fp16 above 512 or fp32
-    above 128)."""
+    those of the `_f16_wide` and `_f32_wide` kernels and of the `_f16_simt`,
+    `_f32_simt` and flash_fwd_f16_chunked ones (0: no slice runs fp16 above
+    512, and no route reaches `_f32_simt`)."""
     from vodascheduler_tpu_torch.models import llama
     from vodascheduler_tpu_torch.models.registry import llama_bundle
 
@@ -2249,7 +2303,8 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
@@ -2315,27 +2370,58 @@ def main() -> int:
         simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
         rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
         torch.cuda.empty_cache()
-    # fp32's forward and dK/dV on the CUDA cores (`_f32_simt`, which the
-    # wrappers take above D=128), held to fp32's bars at the main shape and
+    # fp32's forward and dK/dV on the CUDA cores (`_f32_simt`, which no
+    # route takes), held to fp32's bars at the main shape and
     # timed in turns with the TF32 kernels that replaced them there; their
     # rows carry the plain and library times of the TF32 rows (the same
     # function on the same inputs)
     f32 = torch.float32
     with routed(fa, CUDA_CORE_F32):
         check_kernels(fa, {"main": main_shape}, f32, SIMT_LIMITS[f32])
-    turns = time_turns(fa, main_shape, f32, CUDA_CORE_F32)
+    turns64 = time_turns(fa, main_shape, f32, CUDA_CORE_F32)
     for new in CUDA_CORE_F32:
-        rows[new]["ms"] = turns[new]
-    # their rows at a width they take, the wide rows' d256, beside SDPA's
-    # fp32 forward and the library's fp32 backward
-    f32_d256 = time_kernels(fa, cases["d256"], check_kernels(
-        fa, {"d256": cases["d256"]}, f32, SIMT_LIMITS[f32]), "_f32_simt", f32)
-    for old in CUDA_CORE_F32.values():
-        rows[old] = f32_d256[old]
+        rows[new]["ms"] = turns64[new]
+    # fp32 above D=128: the TF32 kernels that stream D (`_f32_wide`) at
+    # F32_WIDE_CASES, K1 and K3 launched twice and held bitwise; timed at
+    # d256 beside the plain versions, SDPA's fp32 forward and the library's
+    # fp32 backward, and in turns there against the CUDA-core kernels they
+    # took the route from, held at d256 too; those rows carry the wide
+    # rows' plain and library times (the same function on the same inputs)
+    # and their errors at d256
+    f32_wide_errs = check_kernels(fa, F32_WIDE_CASES, f32, SIMT_LIMITS[f32],
+                                  twice=True)
+    f32_d256 = time_kernels(fa, cases["d256"], f32_wide_errs, "_f32_wide",
+                            f32)
+    with routed(fa, CUDA_CORE_F32_WIDE):
+        simt_d256 = check_kernels(fa, {"d256": simt_cases["d256"]}, f32,
+                                  SIMT_LIMITS[f32])
+    turns = time_turns(fa, cases["d256"], f32, CUDA_CORE_F32_WIDE)
+    for new, old in CUDA_CORE_F32_WIDE.items():
+        rows[new] = {**f32_d256[new], "ms": turns[new]}
+        rows[old] = {**f32_d256[new], "ms": turns[old],
+                     "err": (max(simt_d256["o"], simt_d256["lse"])
+                             if "fwd" in new else
+                             max(simt_d256["dk_abs"], simt_d256["dv_abs"])),
+                     "source": ("vodascheduler_tpu_torch/ops/csrc/"
+                                f"{fa.source(old)}.cu")}
+        b = rows[new]["b"][0]
+        log(f"time[f32 wide] D=256 B=8 H=4 S=2048 {new} "
+            f"ms={turns[new]:.4f} roofline_share={b / turns[new]:.3f} "
+            f"bound_ms={b:.4f} plain_ms={rows[new]['plain_ms']:.4f} "
+            f"library_ms={rows[new]['library_ms']:.4f} "
+            f"library_over_kernel={rows[new]['library_ms'] / turns[new]:.3f} "
+            f"{old} ms={turns[old]:.4f} "
+            f"cuda_cores_over_tensor_cores={turns[old] / turns[new]:.3f} "
+            f"card={card}")
+    log(f"time[backward_f32_wide turns] D=256 flash_dq_f32 then "
+        f"flash_dkv_f32_wide ms={turns['flash_dq_f32'] + turns['flash_dkv_f32_wide']:.4f} "
+        f"(flash_dq_f32 {turns['flash_dq_f32']:.4f}; sum of the medians in "
+        f"turns) library_ms={rows['flash_dkv_f32_wide']['library_ms']:.4f} "
+        f"card={card}")
     lib_bwd = rows["flash_dkv_f32"]["library_ms"]
     log(f"time[backward_f32 turns] D=64 flash_dq_f32 then flash_dkv_f32 "
-        f"ms={turns['flash_dq_f32'] + turns['flash_dkv_f32']:.4f} (sum of "
-        f"the medians in turns) library_ms={lib_bwd:.4f}")
+        f"ms={turns64['flash_dq_f32'] + turns64['flash_dkv_f32']:.4f} (sum "
+        f"of the medians in turns) library_ms={lib_bwd:.4f}")
     torch.cuda.empty_cache()
     # fp16's wide forward, dQ and dK/dV (wgmma) at the wide bf16 kernels'
     # shapes and non-causal, timed at d256; the CUDA-core ones at D=640,

@@ -3,7 +3,7 @@
 it stands, in turns, on one card: what the three TF32 passes and the
 splitting of the operands into TF32 halves cost.
 
-    python3 scripts/torch_f32_ablate.py [--rounds 2]
+    python3 scripts/torch_f32_ablate.py [--rounds 2] [--shape d64|d256]
 
 Each variant is a copy of ``ops/csrc`` with a few lines of flash_f32.cu
 changed (VARIANTS below), built under ``build/f32_ablate/<name>`` by the
@@ -16,7 +16,9 @@ is only timed:
 - ``no_split``: hi and lo are the raw fp32 bits, with no rounding and no
   subtraction (three products still, of unsplit operands).
 
-At llama_350m's attention shape in fp32 (B=8, H=16, S=2048, D=64, causal)
+At llama_350m's attention shape in fp32 (B=8, H=16, S=2048, D=64, causal;
+``--shape d256``: B=8, H=4, D=256, where the wrappers take the kernels
+that stream D, ``_f32_wide``, whose products the same variants reach)
 each round times the tree and each variant, then the variants and the
 tree in reverse order, K1 and K3 each by CUDA events (chip_smoke.cuda_ms);
 the script prints the card's name and power limit, the median of each and
@@ -40,7 +42,8 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-SHAPE = (8, 16, 2048, 2048, 64, True, 0)
+SHAPES = {"d64": (8, 16, 2048, 2048, 64, True, 0),
+          "d256": (8, 4, 2048, 2048, 256, True, 0)}
 _MMA3 = """  mma_tf32(c, alo, b0.hi, b1.hi);
   mma_tf32(c, ahi, b0.lo, b1.lo);
   mma_tf32(c, ahi, b0.hi, b1.hi);"""
@@ -52,12 +55,22 @@ _PV3 = """        wgmma_rs_tf32<D>(acc, pl[kk], vhd + vb);
         wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);"""
 _SPLIT = """  const uint32_t hi = to_tf32(x);
   const uint32_t lo = to_tf32(x - __uint_as_float(hi));"""
+# the wide forward's products (flash_fwd_f32_wide_kernel)
+_S3W = """        wgmma_ss_tf32<BN>(sc, qlod + qs, khid + ks, !first || kk > 0);
+        wgmma_ss_tf32<BN>(sc, qhid + qs, klod + ks, 1);
+        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, 1);"""
+_PV3W = """        wgmma_rs_tf32<CW>(acc, pl[kk], vhid + vk);
+        wgmma_rs_tf32<CW>(acc, ph[kk], vlod + vk);
+        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);"""
 # name -> [(the lines as they stand in flash_f32.cu, the lines instead)]
 VARIANTS = {
     "one_pass": [(_MMA3, "  mma_tf32(c, ahi, b0.hi, b1.hi);"),
                  (_S3, "        wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, "
                        "kk > 0);"),
-                 (_PV3, "        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);")],
+                 (_PV3, "        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);"),
+                 (_S3W, "        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, "
+                        "!first || kk > 0);"),
+                 (_PV3W, "        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);")],
     "no_split": [(_SPLIT, "  const uint32_t hi = __float_as_uint(x);\n"
                           "  const uint32_t lo = hi;")],
 }
@@ -94,6 +107,7 @@ def make(sound: Path, name: str) -> Path:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--shape", choices=sorted(SHAPES), default="d64")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_f32_ablate: CUDA is not available", file=sys.stderr)
@@ -112,7 +126,7 @@ def main() -> int:
         csrc = make(sound, name)
         sets[name] = build_set(build, fa, csrc, csrc.parent / "lib")
     build.CSRC, build.BUILD_ROOT = sound, sound_root  # K2 from the tree
-    B, H, Sq, Sk, D, causal, q_off = SHAPE
+    B, H, Sq, Sk, D, causal, q_off = SHAPES[args.shape]
     g = torch.Generator("cuda").manual_seed(2)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
                    for S in (Sq, Sk, Sk, Sq))
@@ -120,9 +134,10 @@ def main() -> int:
     fa._entry = lambda n: sets["tree"][n] if n in fa.TF32_KERNELS else entry(n)
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
-    calls = {"flash_fwd_f32": lambda: fa.flash_fwd(q, k, v, causal, q_off),
-             "flash_dkv_f32": lambda: fa.flash_dkv(q, k, v, do, lse, delta,
-                                                   causal, q_off)}
+    calls = {fa._kernel("flash_fwd", D, torch.float32):
+             lambda: fa.flash_fwd(q, k, v, causal, q_off),
+             fa._kernel("flash_dkv", D, torch.float32):
+             lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)}
     ms = {n: {kn: [] for kn in calls} for n in sets}
     order = list(sets)
     for _ in range(args.rounds):

@@ -1,7 +1,7 @@
 """Shows that the bars of chip_smoke.py reject flash-attention kernels with
 a planted fault, beside what the sound kernels read against them.
 
-    python3 scripts/torch_planted_fault.py
+    python3 scripts/torch_planted_fault.py [FAULT ...]
 
 Each fault is planted in a copy of ``vodascheduler_tpu_torch/ops/csrc``
 under ``build/planted_fault/`` and built there; the sources of the package
@@ -34,6 +34,13 @@ small:
   every S (its stage still loaded, waited on and released).
 - ``fwdc_no_correction``: the same kernel never rescales O's rows when a
   tile raises their running max.
+- ``f32w_fwd_one_pass``, ``f32w_dkv_one_pass``: fp32's TF32 forward and
+  dK/dV above D=128 (flash_f32.cu: flash_fwd_f32_wide_kernel,
+  flash_dkv_f32_wide_kernel) take every product as hi·hi alone, one pass
+  (the forward's S and P·V, dK/dV's Sᵀ, dPᵀ, dV and dK).
+- ``f32w_fwd_drop_chunk``, ``f32w_dkv_drop_chunk``: the same kernels leave
+  D's second 32-column chunk out of every S (the forward) or every Sᵀ and
+  dPᵀ (dK/dV), its stage still loaded, waited on and released.
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
@@ -45,12 +52,16 @@ tests/test_torch_cuda.py holds it; on random inputs and on an unscaled
 loss's dO of 1e-6), the fp32 one at llama_350m's attention shape in
 fp32 under chip_smoke.py's fp32 bars, and the chunked forward's at D=640
 (B=2, H=2, S=1024), the first in bf16, the second in fp16 under the fp16
-bars. The script logs each kernel set's
+bars, and the fp32 wide ones at the wide shape in fp32 under the fp32
+bars, each required to break the bars of its own kernel (O for the
+forward, dK and dV for dK/dV, which runs on the sound forward's lse when
+the fault is its own). The script logs each kernel set's
 errors against the plain versions under chip_smoke.py's bars (the sound
 set at every shape and dtype, and against every model), then llama_350m's forward and
 backward through each set against the plain attention (chip_smoke.py's
 slice comparison). It exits non-zero if the sound kernels break a bar or
-a faulty set passes the bars it is held to. Needs CUDA and nvcc.
+a faulty set passes the bars it is held to. Named faults run alone
+(after the sound set); none named, every one. Needs CUDA and nvcc.
 """
 
 from __future__ import annotations
@@ -80,7 +91,31 @@ MODEL_CASES = {
             (1, 2, 128, 128, 256, True, 0, True))}
 MODEL_TOL = 1e-3
 # name -> (source file, the line as it stands, the line with the fault,
-# the shape and dtype it is held at, the model check it is held to)
+# the shape and dtype it is held at, the model check it is held to); a
+# fault of several edits names a tuple of lines as they stand and a tuple
+# of the lines with the fault
+_F32W_S = ("""        wgmma_ss_tf32<BN>(sc, qlod + qs, khid + ks, !first || kk > 0);
+        wgmma_ss_tf32<BN>(sc, qhid + qs, klod + ks, 1);
+        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, 1);
+""", """        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, !first || kk > 0);
+""")
+_F32W_PV = ("""        wgmma_rs_tf32<CW>(acc, pl[kk], vhid + vk);
+        wgmma_rs_tf32<CW>(acc, ph[kk], vlod + vk);
+        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);
+""", """        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);
+""")
+# dK/dV's products, each as mma3(c, a_hi, a_lo, b0, b1): one pass is
+# mma_tf32(c, a_hi, b0.hi, b1.hi)
+_F32W_MMA = tuple(
+    (f"mma3({c}[n], {a}h, {a}l, split({t}[at(BM, {r}, {col})]),\n"
+     f"{pad}split({t}[at(BM, {r2}, {col2})]));",
+     f"mma_tf32({c}[n], {a}h, split({t}[at(BM, {r}, {col})]).hi,\n"
+     f"{pad}split({t}[at(BM, {r2}, {col2})]).hi);")
+    for c, a, t, r, col, r2, col2, pad in (
+        ("sta", "kf", "qc", "r", "col", "r", "col + 4", " " * 19),
+        ("dpa", "vf", "doc", "r", "col", "r", "col + 4", " " * 19),
+        ("dva", "pf", "dow", "r", "cc", "r + 1", "cc", " " * 17),
+        ("dka", "sf", "qw", "r", "cc", "r + 1", "cc", " " * 17)))
 FAULTS = {
     "fwd_last_tile": (
         "flash_fwd.cu",
@@ -137,7 +172,31 @@ FAULTS = {
         "acc[e] *= corr[(e >> 1) & 1];\n",
         "        for (int e = 0; e < CW / 2; ++e) acc[e] *= 1.f;\n",
         CHUNKED_SHAPE, torch.float16),
+    "f32w_fwd_one_pass": (
+        "flash_f32.cu", (_F32W_S[0], _F32W_PV[0]), (_F32W_S[1], _F32W_PV[1]),
+        WIDE_SHAPE, torch.float32),
+    "f32w_dkv_one_pass": (
+        "flash_f32.cu", tuple(o for o, _ in _F32W_MMA),
+        tuple(n for _, n in _F32W_MMA), WIDE_SHAPE, torch.float32),
+    "f32w_fwd_drop_chunk": (
+        "flash_f32.cu",
+        "      for (int kk = 0; kk < KC / 8; ++kk) {\n"
+        "        const uint32_t qs = kmajor_step(BM, kk)",
+        "      for (int kk = 0; kk < (it % nc == 1 ? 0 : KC / 8); ++kk) {\n"
+        "        const uint32_t qs = kmajor_step(BM, kk)",
+        WIDE_SHAPE, torch.float32),
+    "f32w_dkv_drop_chunk": (
+        "flash_f32.cu",
+        "        if (live) {\n          const float* kc = stage(s);",
+        "        if (live && c != 1) {\n          const float* kc = stage(s);",
+        WIDE_SHAPE, torch.float32),
 }
+# The bars a fault must break, where it is held against them: those of the
+# kernel it sits in.
+MUST_BREAK = {"f32w_fwd_one_pass": ("o_row",),
+              "f32w_fwd_drop_chunk": ("o_row",),
+              "f32w_dkv_one_pass": ("dk_row", "dv_row"),
+              "f32w_dkv_drop_chunk": ("dk_row", "dv_row")}
 
 
 def model_errors(fa, which: str) -> list:
@@ -189,7 +248,9 @@ def use_sources(build, fa, csrc, build_root) -> None:
 def plant(sound_csrc: Path, name: str):
     """A copy of the sound sources with fault `name`: (csrc dir, build
     root)."""
-    fname, old, new = FAULTS[name][:3]
+    fname, olds, news = FAULTS[name][:3]
+    if isinstance(olds, str):
+        olds, news = (olds,), (news,)
     base = os.path.join(ROOT, "build", "planted_fault", name)
     csrc = os.path.join(base, "csrc")
     shutil.rmtree(base, ignore_errors=True)
@@ -197,10 +258,13 @@ def plant(sound_csrc: Path, name: str):
     path = os.path.join(csrc, fname)
     with open(path) as f:
         text = f.read()
-    if text.count(old) != 1:
-        raise SystemExit(f"{name}: the line to change is not once in {fname}")
+    for old, new in zip(olds, news):
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: a line to change is not once in "
+                             f"{fname}")
+        text = text.replace(old, new)
     with open(path, "w") as f:
-        f.write(text.replace(old, new))
+        f.write(text)
     return Path(csrc), Path(base) / "lib"
 
 
@@ -222,9 +286,13 @@ def main() -> int:
     session = TrainSession(bundle, 1, global_batch_size=8)
     batch = session.make_batch()
 
+    faults = sys.argv[1:] or list(FAULTS)
+    unknown = set(faults) - set(FAULTS)
+    if unknown:
+        raise SystemExit(f"no such planted faults: {sorted(unknown)}")
     sound = (build.CSRC, build.BUILD_ROOT)
     wrong = []
-    for name in ("sound", *FAULTS):
+    for name in ("sound", *faults):
         use_sources(build, fa, *(sound if name == "sound"
                                  else plant(sound[0], name)))
         build.build()
@@ -232,7 +300,8 @@ def main() -> int:
         f16 = torch.float16
         held = ((MAIN_SHAPE, torch.bfloat16), (WIDE_SHAPE, torch.bfloat16),
                 (MAIN_SHAPE, f16), (WIDE_SHAPE, f16),
-                (MAIN_SHAPE, torch.float32), (CHUNKED_SHAPE, torch.bfloat16),
+                (MAIN_SHAPE, torch.float32), (WIDE_SHAPE, torch.float32),
+                (CHUNKED_SHAPE, torch.bfloat16),
                 (CHUNKED_SHAPE, f16)) if name == "sound" \
             else (FAULTS[name][3:5],)
         bad = [b for shape, dtype in held
@@ -250,8 +319,12 @@ def main() -> int:
             chip_smoke.slice_gaps(bundle, session.module, batch))
         log(f"verdict[{name}] kernel bars broken: {bad or 'none'}; "
             f"slice bars broken: {slice_bad or 'none'}")
+        missed = [n for n in MUST_BREAK.get(name, ())
+                  if not any(b.startswith(f"{n}=") for b in bad)]
+        if missed:
+            log(f"verdict[{name}] its kernel's bars not broken: {missed}")
         judged_right = (not (bad or slice_bad) if name == "sound"
-                        else bool(bad))
+                        else bool(bad) and not missed)
         if not judged_right:
             wrong.append(name)
     if wrong:

@@ -144,9 +144,9 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
 def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
                                                     D, q_off, Sq):
     """The kernels of fp32 and fp16 tensors against the plain versions, at
-    chip_smoke.py's SIMT_LIMITS: fp32's forward and dK/dV in TF32 up to
-    D=128 (csrc/flash_f32.cu) and on the CUDA cores above (`_f32_simt`),
-    its dQ on the CUDA cores (csrc/flash_simt.cu); fp16's on the tensor
+    chip_smoke.py's SIMT_LIMITS: fp32's forward and dK/dV in TF32 at every
+    width (csrc/flash_f32.cu: `_f32` up to D=128, `_f32_wide` above), its
+    dQ on the CUDA cores (csrc/flash_simt.cu); fp16's on the tensor
     cores up to D=128 (flash_fwd_f16, flash_dq_f16, flash_dkv_f16) and from
     256 to 512 (`_f16_wide`)."""
     from chip_smoke import SIMT_LIMITS
@@ -503,16 +503,20 @@ def test_autograd_goes_through_the_fp32_kernels(cuda):
 
 
 def test_fp32_above_128_runs_the_cuda_core_forward_and_dkv(cuda):
-    """Above D=128 fp32's forward and dK/dV are the CUDA-core kernels
-    (`_f32_simt`), by width, beside the CUDA-core dQ, and match the plain
-    versions at SIMT_LIMITS."""
-    from chip_smoke import SIMT_LIMITS
+    """fp32's CUDA-core forward and dK/dV (`_f32_simt`), which the wrappers
+    no longer route to (above D=128 the TF32 `_f32_wide` kernels replaced
+    them) but chip_smoke.py times in turns against their replacements,
+    still run above 128 when routed to (`chip_smoke.CUDA_CORE_F32_WIDE`),
+    beside the CUDA-core dQ, and match the plain versions at
+    SIMT_LIMITS."""
+    from chip_smoke import CUDA_CORE_F32_WIDE, SIMT_LIMITS, routed
     limits = SIMT_LIMITS[torch.float32]
     q, k, v, do = _f32_inputs(2, 2, 200, 200, 256, 12)
     before = dict(fa.launches)
-    o, lse = fa.flash_fwd(q, k, v, True, 0)
-    dq, delta = fa.flash_dq(q, k, v, o, do, lse, True, 0)
-    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, True, 0)
+    with routed(fa, CUDA_CORE_F32_WIDE):
+        o, lse = fa.flash_fwd(q, k, v, True, 0)
+        dq, delta = fa.flash_dq(q, k, v, o, do, lse, True, 0)
+        dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, True, 0)
     o_ref, _ = fa.flash_attention_reference(q, k, v, True, 0)
     dq_ref, _ = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, True, 0)
@@ -523,6 +527,124 @@ def test_fp32_above_128_runs_the_cuda_core_forward_and_dkv(cuda):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
         flash_fwd_f32_simt=1, flash_dq_f32=1, flash_dkv_f32_simt=1)
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 256, 256, 256, True, 0),
+    (2, 1, 200, 200, 256, False, 0),     # ragged, non-causal
+    (1, 2, 1000, 1000, 256, True, 0),    # neither a multiple of 64 nor 128
+    (1, 2, 130, 500, 256, True, 370),    # a query slice behind an offset
+    (1, 1, 200, 333, 384, False, 0),     # B·H = 1, Sq ≠ Sk, non-causal
+    (2, 1, 65, 65, 384, True, 0),        # Sq = 65
+    (1, 2, 192, 192, 512, True, 0),
+    (1, 1, 130, 200, 640, True, 70),
+])
+def test_fp32_wide_kernels_match_their_model(cuda, B, H, Sq, Sk, D, causal,
+                                             q_off):
+    """flash_fwd_f32_wide and flash_dkv_f32_wide (three TF32 passes above
+    D=128, streaming D, flash_f32.cu) at the edges a ring, a tile or a
+    chunk of D can get wrong, against the plain versions at
+    SIMT_LIMITS[float32] and against the plain model of their arithmetic
+    (tests/torch_f32x3_model.py at their tiling: S, Sᵀ and dPᵀ over
+    32-column chunks of D, the output in 128-column chunks) at
+    F32_MODEL_TOL. dK/dV runs on the kernel forward's lse and the plain
+    version's δ, as does its model."""
+    import torch_f32x3_model as model
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    q, k, v, do = _f32_inputs(B, H, Sq, Sk, D, Sq + Sk + D)
+    before = dict(fa.launches)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            q_off)
+    torch.cuda.synchronize()
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        flash_fwd_f32_wide=1, flash_dkv_f32_wide=1)
+    errs = {"o_row": row_err(o, o_ref),
+            "lse": (lse - lse_ref).abs().max().item(),
+            "dk_row": row_err(dk, dk_ref), "dv_row": row_err(dv, dv_ref)}
+    print("f32 wide plain", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(errs[n] <= limits[n] for n in errs), errs
+    cpu = [t.cpu() for t in (q, k, v, do, lse, delta)]
+    o_m, lse_m = model.fwd(*cpu[:3], causal, q_off, D ** -0.5)
+    dk_m, dv_m = model.dkv(*cpu, causal, q_off, D ** -0.5)
+    errs = {n: ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+            for n, got, ref in (("o", o, o_m), ("dk", dk, dk_m),
+                                ("dv", dv, dv_m))}
+    errs["lse"] = (lse.cpu() - lse_m).abs().max().item()
+    print("f32 wide model", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(e <= F32_MODEL_TOL for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("D", [256, 640])
+def test_fp32_wide_kernels_are_deterministic(cuda, D):
+    """No atomics in flash_fwd_f32_wide or flash_dkv_f32_wide: two launches
+    on the same inputs give bitwise-equal O, lse, dK and dV."""
+    q, k, v, do = _f32_inputs(2, 2, 320, 320, D, 10)
+    o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
+    o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
+    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
+    torch.cuda.synchronize()
+    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+        assert torch.equal(a, b)
+
+
+def test_autograd_goes_through_the_fp32_wide_kernels(cuda):
+    """fp32 in heads of 256 through the operator: K1 and K3 on the wide
+    TF32 kernels, K2 on the CUDA cores, and the gradients of the plain path
+    on the CPU, at SIMT_LIMITS. The loss weighs O by a fixed random tensor:
+    under O.square().sum() dO is 2·O, and the first query's dQ (one key,
+    P = 1) is 0 by exact cancellation in every implementation, so its row
+    would read only the two paths' rounding."""
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    *host, w = _f32_inputs(1, 2, 200, 200, 256, 13, "cpu")
+    host = [t.requires_grad_() for t in host[:3]]
+    card = [t.detach().to(cuda).requires_grad_() for t in host]
+    fa.reset_launches()
+    (fa.flash_attention(*card) * w.to(cuda)).sum().backward()
+    assert fa.launches == _counts(flash_fwd_f32_wide=1, flash_dq_f32=1,
+                                  flash_dkv_f32_wide=1)
+    (fa.flash_attention(*host) * w).sum().backward()
+    for n, got, ref in zip(("dq", "dk", "dv"), card, host):
+        assert row_err(got.grad.cpu(), ref.grad) <= limits[f"{n}_row"], n
+
+
+def test_fp32_llama_in_heads_of_256_trains_through_the_wide_kernels(
+        cuda, monkeypatch):
+    """A Llama that computes in fp32 in heads of 256 (dim 512, 2 heads)
+    takes the wide TF32 forward and dK/dV and the CUDA-core dQ on the card,
+    no other kernel, and its loss is the CPU's on the same weights and
+    batch within 1e-4 relative."""
+    import dataclasses
+
+    from vodascheduler_tpu_torch.models import llama
+    from vodascheduler_tpu_torch.models.registry import llama_bundle
+    from vodascheduler_tpu_torch.runtime import TrainSession
+    bundle = llama_bundle("llama_tiny_float32_d256", dataclasses.replace(
+        llama.LLAMA_TINY, dtype="float32", dim=512, num_heads=2,
+        num_kv_heads=1, mlp_hidden=256), 64)
+    monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
+    host = TrainSession(bundle, global_batch_size=2, device="cpu")
+    card = TrainSession(bundle, global_batch_size=2, device=cuda)
+    card.module.load_state_dict(host.module.state_dict())
+    batch = host.make_batch()
+    fa.reset_launches()
+    got = card.train_step({k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    L = bundle.cfg.num_layers
+    assert fa.launches["flash_fwd_f32_wide"] >= L
+    assert fa.launches == _counts(
+        flash_fwd_f32_wide=fa.launches["flash_fwd_f32_wide"],
+        flash_dq_f32=L, flash_dkv_f32_wide=L)
+    want = host.train_step(batch)
+    assert torch.isfinite(got)
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float16"])

@@ -12,6 +12,16 @@ lo terms are dropped: scripts/torch_planted_fault.py's ``f32_one_pass``)
 breaks them, so the bars tell the sound arithmetic from that fault. The card
 tests of the kernels against the same model are
 `test_torch_cuda.py::test_fp32_tensor_core_kernels_match_their_model`.
+
+Above D=128 the model takes the wide kernels' tiling (``flash_f32.cu``:
+``voda_flash_fwd_f32_wide``, ``voda_flash_dkv_f32_wide``): S, Sᵀ and dPᵀ
+summed over D's 32-column chunks, the output in 128-column chunks, 64-key
+tiles in the forward and 32-row query tiles in dK/dV. It is held against
+the Pallas kernels at D=256 and against the plain versions at D=384 and
+640, at the same bars, and the one-pass model and a model that leaves D's
+second chunk out of every sum (the planted faults ``f32w_*`` of
+scripts/torch_planted_fault.py) must break them. The card tests are
+`test_torch_cuda.py::test_fp32_wide_kernels_match_their_model`.
 """
 
 import os
@@ -59,13 +69,13 @@ def _pallas(q, k, v, do, causal, q_off):
         lse[:, :, :, 0, :]).reshape(B, H, Sq)), back(dk), back(dv))
 
 
-def _model(q, k, v, do, causal, q_off, passes=3):
+def _model(q, k, v, do, causal, q_off, passes=3, drop_chunk=None):
     """(o, lse, dk, dv) of the model, K3 on the plain version's δ."""
     D = q.shape[-1]
-    o, lse = model.fwd(q, k, v, causal, q_off, D ** -0.5, passes)
+    o, lse = model.fwd(q, k, v, causal, q_off, D ** -0.5, passes, drop_chunk)
     _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
     dk, dv = model.dkv(q, k, v, do, lse, delta, causal, q_off, D ** -0.5,
-                       passes)
+                       passes, drop_chunk)
     return o, lse, dk, dv
 
 
@@ -104,6 +114,10 @@ def test_tf32_rounds_to_nearest_with_ties_away_from_zero():
     (1, 2, 128, 128, 128, True, 0),
     (1, 1, 128, 128, 128, False, 0),
     (1, 1, 64, 192, 128, True, 128),
+    # the wide kernels' tiling
+    (1, 2, 192, 192, 256, True, 0),
+    (2, 1, 128, 192, 256, False, 0),
+    (1, 2, 64, 256, 256, True, 192),
 ])
 def test_three_passes_match_pallas_and_plain(B, H, Sq, Sk, D, causal, q_off):
     """The model of both kernels against the Pallas kernels in fp32 and
@@ -111,16 +125,40 @@ def test_three_passes_match_pallas_and_plain(B, H, Sq, Sk, D, causal, q_off):
     q, k, v, do = _inputs(B, H, Sq, Sk, D, Sq + D)
     qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
     got = _model(qt, kt, vt, dot, causal, q_off)
-    o_ref, lse_ref = fa.flash_attention_reference(qt, kt, vt, causal, q_off)
-    _, delta = fa.flash_dq_reference(qt, kt, vt, got[0], dot, got[1], causal,
-                                     q_off)
-    dk_ref, dv_ref = fa.flash_dkv_reference(qt, kt, vt, dot, got[1], delta,
-                                            causal, q_off)
-    for want in ((o_ref, lse_ref, dk_ref, dv_ref),
+    for want in (_plain(qt, kt, vt, dot, got, causal, q_off),
                  _pallas(q, k, v, do, causal, q_off)):
         errs = _errors(got, want)
         print("parity f32x3", B, H, Sq, Sk, D, causal, q_off, errs)
         assert all(errs[n] <= LIMITS[n] for n in errs), errs
+
+
+def _plain(q, k, v, do, got, causal, q_off):
+    """(o, lse, dk, dv) of the port's plain versions, K3 on the model's lse
+    and the plain δ."""
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq_reference(q, k, v, got[0], do, got[1], causal,
+                                     q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, got[1], delta,
+                                            causal, q_off)
+    return o_ref, lse_ref, dk_ref, dv_ref
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 160, 160, 384, True, 0),
+    (1, 1, 96, 200, 384, False, 0),
+    (1, 1, 130, 130, 640, True, 0),
+    (1, 1, 64, 192, 640, True, 128),
+])
+def test_wide_tiling_matches_plain(B, H, Sq, Sk, D, causal, q_off):
+    """The wide kernels' tiling at widths of three and five 128-column
+    chunks of the output (D=384, 640) against the port's plain versions,
+    within SIMT_LIMITS[float32]."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(B, H, Sq, Sk, D, Sq + D))
+    got = _model(q, k, v, do, causal, q_off)
+    errs = _errors(got, _plain(q, k, v, do, got, causal, q_off))
+    print("parity f32x3 wide", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(errs[n] <= LIMITS[n] for n in errs), errs
 
 
 @pytest.mark.parametrize("D", [64, 128])
@@ -141,3 +179,28 @@ def test_one_pass_breaks_the_bars(D):
     assert all(sound[n] <= LIMITS[n] for n in sound), sound
     for n in ("o_row", "dk_row", "dv_row"):
         assert one[n] > LIMITS[n], (n, one)
+
+
+@pytest.mark.parametrize("fault", ["one_pass", "drop_chunk"])
+def test_wide_faults_break_the_bars(fault):
+    """At D=256 (a causal head of 1024, as phase 3's cases): the one-pass
+    model (hi·hi alone) and a model whose S, Sᵀ and dPᵀ leave D's second
+    32-column chunk out read above the bars on O, dK and dV, where the sound
+    model reads below them. dK/dV's fault alone (on the sound forward's
+    lse) breaks dK and dV, the forward's alone O."""
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(1, 2, 1024, 1024,
+                                                        256, 6))
+    kw = {"passes": 1} if fault == "one_pass" else {"drop_chunk": 1}
+    want = _plain(q, k, v, do, _model(q, k, v, do, True, 0), True, 0)
+    sound = _errors(_model(q, k, v, do, True, 0), want)
+    assert all(sound[n] <= LIMITS[n] for n in sound), sound
+    D, scale = 256, 256 ** -0.5
+    o, lse = model.fwd(q, k, v, True, 0, scale, **kw)
+    fwd_alone = _errors((o, lse, want[2], want[3]), want)
+    _, delta = fa.flash_dq_reference(q, k, v, want[0], do, want[1], True, 0)
+    dk, dv = model.dkv(q, k, v, do, want[1], delta, True, 0, scale, **kw)
+    dkv_alone = _errors((want[0], want[1], dk, dv), want)
+    print("parity f32x3 wide fault", fault, sound, fwd_alone, dkv_alone)
+    assert fwd_alone["o_row"] > LIMITS["o_row"], fwd_alone
+    for n in ("dk_row", "dv_row"):
+        assert dkv_alone[n] > LIMITS[n], (n, dkv_alone)

@@ -1,12 +1,12 @@
 """The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's dQ,
-and its forward and dK/dV that the wrappers take above a head width of
-128, ``_f32_simt``, fp16's dQ and dK/dV that they take above 512, and
-fp16's forward, which they no longer take, ``_f16_simt``)
+and its forward and dK/dV, which the wrappers no longer take, ``_f32_simt``,
+fp16's dQ and dK/dV that they take above 512, and fp16's forward, which
+they no longer take, ``_f16_simt``)
 against the JAX package's Pallas kernels in interpret mode, on the CPU.
 fp16's kernels up to 512 are wgmma kernels (``flash_fwd.cu``,
 ``flash_dq.cu``, ``flash_dkv.cu`` and their wide twins), and fp32's
-forward and dK/dV up to 128 tensor-core ones (``flash_f32.cu``), which no
-CPU runs: here the wrappers route fp16 and fp32 to the CUDA-core kernels
+forward and dK/dV tensor-core ones at every width (``flash_f32.cu``), which
+no CPU runs: here the wrappers route fp16 and fp32 to the CUDA-core kernels
 at every width (the fixture `wrappers`), as those kernels take any width.
 
 There is no ``nvcc`` here, so the CUDA source is compiled by ``g++`` against
@@ -92,7 +92,8 @@ def wrappers(emulated, monkeypatch):
     monkeypatch.setattr(fa, "_launch", launch)
     fa.reset_launches()
     with chip_smoke.routed(fa, {**chip_smoke.CUDA_CORE_F16,
-                                **chip_smoke.CUDA_CORE_F32}):
+                                **chip_smoke.CUDA_CORE_F32,
+                                **chip_smoke.CUDA_CORE_F32_WIDE}):
         yield fa
 
 
@@ -153,20 +154,19 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 
 def test_the_wrappers_route_dtypes_to_their_kernels():
     """fp32 takes its CUDA-core dQ at every width and its forward and dK/dV
-    on the tensor cores up to 128 (flash_f32.cu) and on the CUDA cores
-    above (`_f32_simt`); fp16 its tensor-core kernels up to 512 (in the
+    on the tensor cores at every width (flash_f32.cu: `_f32` up to 128,
+    `_f32_wide` above); fp16 its tensor-core kernels up to 512 (in the
     bf16 kernels' sources, `_f16` and `_f16_wide`), above it the wide
     tensor-core forward (`_f16_wide`, which streams D there) and the
     CUDA-core dQ and dK/dV (`_f16_simt`)."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512, 640):
             f32 = fa._kernel(name, D, torch.float32)
-            if name == "flash_dq" or D > 128:
-                assert f32 == ("flash_dq_f32" if name == "flash_dq"
-                               else f"{name}_f32_simt")
+            if name == "flash_dq":
+                assert f32 == "flash_dq_f32"
                 assert fa.source(f32) == fa.SIMT_SOURCE
             else:
-                assert f32 == f"{name}_f32"
+                assert f32 == f"{name}_f32" + ("_wide" if D > 128 else "")
                 assert fa.source(f32) == fa.TF32_SOURCE
             f16 = fa._kernel(name, D, torch.float16)
             if D <= 128:

@@ -4,8 +4,9 @@ CPU (a ``torch.device("cuda")`` object needs no card).
 The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
 take the wgmma kernels, fp32 tensors the TF32 forward and dK/dV up to a
 head width of 128 (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
-``flash_dkv_f32``), the CUDA-core ones above (``_f32_simt``) and the
-CUDA-core dQ at every width (``flash_dq_f32``, ``csrc/flash_simt.cu``),
+``flash_dkv_f32``), the TF32 ones that stream D above it (``_f32_wide``,
+the same source) and the CUDA-core dQ at every width (``flash_dq_f32``,
+``csrc/flash_simt.cu``),
 fp16 tensors the wgmma forward, dQ and dK/dV up
 to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
 ``flash_dkv_f16``) and from 256 to 512 (``_f16_wide``), above 512 the
@@ -127,30 +128,44 @@ def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
             "flash_fwd_wmma", "flash_fwd_f16_simt")
 
 
-@pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640])
-def test_fp32_takes_the_tf32_forward_and_dkv_up_to_128(D):
+@pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640, 1024])
+def test_fp32_takes_the_tf32_forward_and_dkv_at_every_width(D, monkeypatch):
     """fp32's forward and dK/dV run on the tensor cores in three TF32
-    passes up to a head width of 128 (flash_f32.cu) and on the CUDA cores
-    above (`_f32_simt`); fp32's dQ runs on the CUDA cores at every width."""
+    passes at every width (flash_f32.cu): `_f32` up to a head width of 128,
+    `_f32_wide` above it, each counted apart; fp32's dQ runs on the CUDA
+    cores at every width. Both forwards take their scratch after lse, one
+    pointer more than the CUDA-core forward, and the wrapper passes it."""
     width = fa.kernel_head_dim(D)
-    tc = width in fa.HEAD_DIMS
+    suffix = "_f32" if width in fa.HEAD_DIMS else "_f32_wide"
     for name in ("flash_fwd", "flash_dkv"):
         kernel = fa._kernel(name, width, torch.float32)
-        assert kernel == f"{name}_f32" + ("" if tc else "_simt")
-        assert fa.source(kernel) == (fa.TF32_SOURCE if tc
-                                     else fa.SIMT_SOURCE)
+        assert kernel == name + suffix
+        assert fa.source(kernel) == fa.TF32_SOURCE
+        assert kernel in fa.TF32_KERNELS and kernel not in fa.SIMT_KERNELS
         assert kernel in fa.launches and kernel in fa._ARGTYPES
+        assert fa.counted(kernel, width) == kernel
+    assert fa._ARGTYPES["flash_dkv" + suffix] == fa._ARGTYPES["flash_dkv"]
     dq = fa._kernel("flash_dq", width, torch.float32)
     assert dq == "flash_dq_f32" and fa.source(dq) == fa.SIMT_SOURCE
-    # the TF32 forward takes its scratch after lse, one pointer more
-    assert len(fa._ARGTYPES["flash_fwd_f32"]) == \
+    fwd = "flash_fwd" + suffix
+    assert fa._ARGTYPES[fwd] == fa._ARGTYPES["flash_fwd_f32"]
+    assert len(fa._ARGTYPES[fwd]) == \
         len(fa._ARGTYPES["flash_fwd_f32_simt"]) + 1
+    launched = []
+    monkeypatch.setattr(fa, "_launch", lambda name, device, *args, count:
+                        launched.append((name, count, len(args))))
+    q = torch.zeros(1, 3, 1, width, dtype=torch.float32)
+    fa.flash_fwd(q, q, q, True, 0)
+    # the stream is the one argument _launch adds
+    assert launched == [(fwd, fwd, len(fa._ARGTYPES[fwd]) - 1)]
 
 
 def test_the_tf32_forward_scratch_holds_the_split_k_and_vt():
     """K_hi, K_lo ([B, Sk, H, D]) and Vᵀ_hi, Vᵀ_lo ([B, H, D, SkP], SkP =
-    Sk rounded up to 8), as flash_f32.cu's launch_fwd slices it."""
-    for B, H, Sk, D in ((2, 3, 200, 64), (1, 1, 8, 128), (1, 2, 1, 64)):
+    Sk rounded up to 8), as flash_f32.cu's SplitKV slices it for the
+    forward at every width."""
+    for B, H, Sk, D in ((2, 3, 200, 64), (1, 1, 8, 128), (1, 2, 1, 64),
+                        (2, 1, 333, 256), (1, 2, 65, 640)):
         skp = -(-Sk // 8) * 8
         t = fa.f32_scratch(B, H, Sk, D, CPU)
         assert t.dtype == torch.float32
@@ -169,12 +184,14 @@ def test_the_tf32_forward_scratch_holds_the_split_k_and_vt():
                     "voda_flash_fwd_f16_simt", "voda_flash_dkv_f16_simt"),
      ("voda_flash_fwd_f16_wide", "voda_flash_dkv_f16_wide",
       "voda_flash_dq_f16", "voda_flash_dq_f16_wide", "voda_flash_fwd_f32",
-      "voda_flash_dkv_f32")),
+      "voda_flash_dkv_f32", "voda_flash_fwd_f32_wide",
+      "voda_flash_dkv_f32_wide")),
     ("flash_dq", ("voda_flash_dq", "voda_flash_dq_f16"),
      ("voda_flash_dq_f16_simt",)),
     ("flash_dq_wide", ("voda_flash_dq_wide", "voda_flash_dq_f16_wide"),
      ("voda_flash_dq_f16",)),
-    ("flash_f32", ("voda_flash_fwd_f32", "voda_flash_dkv_f32"),
+    ("flash_f32", ("voda_flash_fwd_f32", "voda_flash_dkv_f32",
+                   "voda_flash_fwd_f32_wide", "voda_flash_dkv_f32_wide"),
      ("voda_flash_dq_f32", "voda_flash_fwd_f32_simt",
       "voda_flash_dkv_f32_simt")),
 ])
@@ -184,7 +201,7 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
     dQ sources and the wide ones export fp16's `_f16` and `_f16_wide`
     entries beside bf16's, flash_simt.cu exports the renamed `_f16_simt`
     and `_f32_simt` ones and no other fp16 entry, and flash_f32.cu fp32's
-    forward and dK/dV alone. Each name the wrappers route to a source is an
+    forward and dK/dV alone, at both widths (`_f32`, `_f32_wide`). Each name the wrappers route to a source is an
     entry of it."""
     text = (_build.CSRC / f"{source}.cu").read_text()
     entries = set(re.findall(r'extern "C" int (voda_\w+)\(', text))
@@ -203,6 +220,7 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
     ("flash_fwd", "flash_dq", "flash_dkv"),
     ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"),
     ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32"),
+    ("flash_fwd_f32_wide", "flash_dq_f32", "flash_dkv_f32_wide"),
     (),
     ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16"),
     ("flash_fwd_f16_wide", "flash_dq_f16_wide", "flash_dkv_f16_wide"),
@@ -258,5 +276,5 @@ def test_each_entry_takes_the_arguments_its_wrapper_passes():
                 r'extern "C" int voda_(\w+)\(([^)]*)\)', text):
             assert len(params.split(",")) == len(fa._ARGTYPES[name]), name
             checked.add(name)
-    assert {"flash_fwd_f32", "flash_dkv_f32", "flash_fwd",
-            "flash_dkv_f16_wide"} <= checked
+    assert {"flash_fwd_f32", "flash_dkv_f32", "flash_fwd_f32_wide",
+            "flash_dkv_f32_wide", "flash_fwd", "flash_dkv_f16_wide"} <= checked

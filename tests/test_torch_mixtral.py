@@ -55,11 +55,19 @@ def _configs(scan, dispatch, policy=None):
 @functools.cache
 def _weights(scan):
     """A state_dict of MIXTRAL_TINY drawn with numpy: each matrix at its
-    init std, norm scales around 1."""
+    init std (read from a module initialised from its own seeded
+    generator, so that no test's draws from torch's global generator move
+    it), norm scales around 1."""
+    return _draw_weights(scan)
+
+
+def _draw_weights(scan):
     _, tcfg = _configs(scan, "routed")
     rng = np.random.default_rng(7)
+    module = tmixtral.Mixtral(tcfg)
+    module.reset_parameters(torch.Generator().manual_seed(7))
     out = {}
-    for name, p in tmixtral.Mixtral(tcfg).state_dict().items():
+    for name, p in module.state_dict().items():
         std = 0.1 if name.endswith("scale") else p.std().item()
         base = 1.0 if name.endswith("scale") else 0.0
         out[name] = torch.tensor(
@@ -142,6 +150,23 @@ def test_scanned_mixtral_matches_jax(dispatch, policy, monkeypatch):
 def _flat(tree):
     return {"/".join(str(k.key) for k in path): leaf for path, leaf in
             jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("scan", [True, False])
+def test_weights_do_not_depend_on_torch_global_generator(scan):
+    """The parity weights are drawn from numpy at scales read from a module
+    initialised from its own seeded generator: whatever an earlier test in
+    the same process drew from torch's global generator, they are the same
+    tensors."""
+    runs = []
+    for seed in (0, 1, 12345):
+        torch.manual_seed(seed)
+        torch.rand(seed % 7 + 1)  # an earlier test's draws
+        runs.append(_draw_weights(scan))
+    for other in runs[1:]:
+        assert other.keys() == runs[0].keys()
+        for name in runs[0]:
+            assert torch.equal(other[name], runs[0][name]), name
 
 
 @pytest.mark.parametrize("name", ["MIXTRAL_TINY", "MIXTRAL_SMALL"])

@@ -70,6 +70,9 @@ def test_five_adafactor_steps_match_jax(monkeypatch):
                            global_batch_size=BATCH, device="cpu")
     assert isinstance(session.optimizer, Adafactor)
     rng = np.random.default_rng(5)
+    # the scales read from a module initialised from its own seeded
+    # generator, not from torch's global one
+    session.module.reset_parameters(torch.Generator().manual_seed(5))
     init = {}
     for name, p in session.module.state_dict().items():
         std = 0.1 if name.endswith("scale") else p.std().item()

@@ -47,12 +47,17 @@ DKV128_F32 = DKV64_F32.replace("ILi64E", "ILi128E")
 FWDC128 = "_ZN4voda24flash_fwd_chunked_kernelILi128E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiiif"
 FWDC128_F16 = FWDC128.replace("13__nv_bfloat16", "6__half")
 FWDC256 = FWDC128.replace("ILi128E", "ILi256E")
+# fp32's TF32 forward and dK/dV above D=128, templated on their chunk of
+# the output alone (CW=128 runs every width)
+FWDW128_F32 = "_ZN4voda3f3225flash_fwd_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiiif"
+DKVW128_F32 = "_ZN4voda3f3225flash_dkv_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PfS5_iiiiiif"
 F16_CLEAN = ((FWD64_F16, 0, 0), (DQ64_F16, 0, 0), (DKV64_F16, 0, 0),
              (FWD64_F32, 0, 0), (DKV64_F32, 0, 0))
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 # (with the chunked forward's, gated beside the wide kernels)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
-                  (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0))
+                  (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0),
+                  (FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0))
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
               *WIDE_F16_CLEAN)
 
@@ -151,6 +156,8 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
                       ("flash_dkv_f16_wide", 256): 0,
                       ("flash_fwd_chunked", 128): 0,
                       ("flash_fwd_chunked_f16", 128): 0,
+                      ("flash_fwd_f32_wide", 128): 0,
+                      ("flash_dkv_f32_wide", 128): 0,
                       ("flash_fwd_wide", 512): 1132,
                       ("flash_dkv_wide", 384): 0,
                       ("flash_dkv_f16_wide", 512): 32}
@@ -231,6 +238,26 @@ def test_spill_faults_refuse_a_spill_in_the_chunked_forward_at_d640(
     assert chip_smoke.spill_faults(spills) == []
 
 
+@pytest.mark.parametrize("f32w,fault", [
+    (((FWDW128_F32, 0, 0), (DKVW128_F32, 6, 6)),
+     "flash_dkv_f32_wide CW=128: 12 bytes spilled"),
+    (((FWDW128_F32, 8, 0), (DKVW128_F32, 0, 0)),
+     "flash_fwd_f32_wide CW=128: 8 bytes spilled"),
+    # the D ≤ 128 kernels' lines do not stand for the wide ones
+    (((FWDW128_F32, 0, 0), (DKV128_F32, 0, 0)),
+     "flash_dkv_f32_wide CW=128: no ptxas spill line"),
+])
+def test_spill_faults_refuse_a_spill_in_the_fp32_wide_kernels(f32w, fault):
+    """fp32's TF32 forward and dK/dV above D=128 are gated at their one
+    instantiation (CW=128, which D=256 runs); the main path's gate alone
+    does not look at them."""
+    others = untouched(WIDE_CLEAN, ((FWDW128_F32, 0, 0),
+                                    (DKVW128_F32, 0, 0)))
+    spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *others, *f32w))
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
+    assert chip_smoke.spill_faults(spills) == []
+
+
 def test_a_clean_wide_log_passes_every_gate():
     """The log of a build in which no gated kernel spills: every gate of
     phase 2 is met, the wide dQ at D=256 among them."""
@@ -244,6 +271,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_dkv_f32", 64) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_chunked", 128) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_chunked_f16", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_fwd_f32_wide", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dkv_f32_wide", 128) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 

@@ -12,15 +12,23 @@ away from zero (the kernels' ``cvt.rna.tf32.f32``) by the fp32 bits:
 kernels compute without the lo terms.
 
 `fwd` walks the key tiles of a kernel's tiling (`fwd_tiling`: 64 keys at
-D=64, 32 at D=128) with the online softmax: S = Q·Kᵀ, the running max and
-sum, P = exp(S·scale − m) split and multiplied by V with the keys of each
-k-step in the kernel's order PERM (Vᵀ's order in the kernel's scratch), O
-rescaled by each tile's correction. `dkv` walks the query tiles of
-`dkv_tiling` (64 rows at D=64, 32 at D=128): Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ,
-Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale, then dV += Pᵀ·dO and
-dK += dSᵀ·Q with the queries of each k-step in the order PERM. Inputs and
-outputs are [B, S, H, D] fp32 (lse and δ [B, H, Sq]), as the kernels take
-them.
+D=64, 32 at D=128, 64 above) with the online softmax: S = Q·Kᵀ, the running
+max and sum, P = exp(S·scale − m) split and multiplied by V with the keys
+of each k-step in the kernel's order PERM (Vᵀ's order in the kernel's
+scratch), O rescaled by each tile's correction. `dkv` walks the query tiles
+of `dkv_tiling` (64 rows at D=64, 32 from D=128): Sᵀ = K·Qᵀ and dPᵀ =
+V·dOᵀ, Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale, then dV +=
+Pᵀ·dO and dK += dSᵀ·Q with the queries of each k-step in the order PERM.
+Inputs and outputs are [B, S, H, D] fp32 (lse and δ [B, H, Sq]), as the
+kernels take them.
+
+Above D=128 the kernels (``voda_flash_fwd_f32_wide``,
+``voda_flash_dkv_f32_wide``) sum the products over D (S in the forward, Sᵀ
+and dPᵀ in dK/dV) chunk by chunk of WIDE_KC columns, in the same k-steps
+in the same order, and own WIDE_CW columns of the output a CTA, each CTA
+computing the same S: both functions do the same at those widths (`cut`),
+and `drop_chunk` leaves one chunk of D out of every such sum, as a kernel
+that skipped a stage's products would.
 """
 
 import torch
@@ -67,14 +75,41 @@ def perm_index(n: int) -> torch.Tensor:
     return (base + torch.tensor(PERM)[None, :]).reshape(-1)
 
 
+# Above D=128: columns of the output a CTA owns (`FwdF32Wide`,
+# `DkvF32Wide`: CW) and columns of D a stage holds (KC).
+WIDE_CW = 128
+WIDE_KC = 32
+
+
 def fwd_tiling(D: int) -> int:
-    """Keys of a K/V tile of the fp32 forward at head width D (`Fwd::BN`)."""
-    return 64 if D == 64 else 32
+    """Keys of a K/V tile of the fp32 forward at head width D (`Fwd::BN`,
+    `FwdF32Wide::BN` above 128)."""
+    return 32 if D == 128 else 64
 
 
 def dkv_tiling(D: int) -> int:
-    """Query rows of a Q/dO tile of the fp32 dK/dV (`Dkv::BM`)."""
+    """Query rows of a Q/dO tile of the fp32 dK/dV (`Dkv::BM`,
+    `DkvF32Wide::BM` above 128)."""
     return 64 if D == 64 else 32
+
+
+def cut(D: int):
+    """(columns of the output a CTA owns, columns of D a stage holds) at
+    head width D: the whole of D up to 128, (WIDE_CW, WIDE_KC) above."""
+    return (D, D) if D <= 128 else (WIDE_CW, WIDE_KC)
+
+
+def mm3_chunks(a: torch.Tensor, b: torch.Tensor, passes: int, kc: int,
+               drop_chunk=None) -> torch.Tensor:
+    """a·b over the last axis of `a` (D) as the kernels sum it: chunk by
+    chunk of kc columns, each in mm3's k-steps, into one accumulator;
+    chunk `drop_chunk` (an index, or None) left out."""
+    out = None
+    for c0 in range(0, a.shape[-1], kc):
+        if c0 // kc == drop_chunk:
+            continue
+        out = mm3(a[..., c0:c0 + kc], b[..., c0:c0 + kc, :], passes, out)
+    return out
 
 
 def _mask(rows: torch.Tensor, cols: torch.Tensor, Sq: int, Sk: int,
@@ -97,64 +132,82 @@ def _pad(x: torch.Tensor, axis: int, n: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros(shape)], axis)
 
 
-def fwd(q, k, v, causal: bool, q_off: int, scale: float, passes: int = 3):
-    """(o [B,Sq,H,D], lse [B,H,Sq]) as the fp32 forward computes them."""
+def fwd(q, k, v, causal: bool, q_off: int, scale: float, passes: int = 3,
+        drop_chunk=None):
+    """(o [B,Sq,H,D], lse [B,H,Sq]) as the fp32 forward computes them: for
+    each chunk of O's columns (`cut`), the key tiles with the online
+    softmax, S summed over D's chunks."""
     q, k, v = (t.float().transpose(1, 2) for t in (q, k, v))  # [B,H,S,D]
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     BN = fwd_tiling(D)
+    cw, kc = cut(D)
     nk = -(-Sk // BN)
     k, v = _pad(k, 2, nk * BN), _pad(v, 2, nk * BN)
-    m = torch.full((B, H, Sq, 1), -float("inf"))
-    l = torch.zeros(B, H, Sq, 1)
-    acc = torch.zeros(B, H, Sq, D)
     rows = torch.arange(Sq)
     order = perm_index(BN)
-    for j in range(nk):
-        cols = j * BN + torch.arange(BN)
-        s = mm3(q, k[:, :, j * BN:(j + 1) * BN].transpose(-1, -2),
-                passes) * scale
-        s = s.masked_fill(_mask(rows, cols, Sq, Sk, causal, q_off),
-                          -float("inf"))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        live = m_new > -float("inf")
-        corr = torch.where(live, torch.exp(m - m_new), torch.ones_like(m))
-        p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
-        l = l * corr + p.sum(-1, keepdim=True)
-        vt = v[:, :, j * BN:(j + 1) * BN]
-        acc = mm3(p[..., order], vt[:, :, order], passes, acc * corr)
-        m = m_new
-    safe = torch.where(l == 0, torch.ones_like(l), l)
-    o = acc / safe
+    outs = []
+    for c0 in range(0, D, cw):  # the CTAs of a row block
+        m = torch.full((B, H, Sq, 1), -float("inf"))
+        l = torch.zeros(B, H, Sq, 1)
+        acc = torch.zeros(B, H, Sq, cw)
+        for j in range(nk):
+            cols = j * BN + torch.arange(BN)
+            s = mm3_chunks(q, k[:, :, j * BN:(j + 1) * BN].transpose(-1, -2),
+                           passes, kc, drop_chunk) * scale
+            s = s.masked_fill(_mask(rows, cols, Sq, Sk, causal, q_off),
+                              -float("inf"))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            live = m_new > -float("inf")
+            corr = torch.where(live, torch.exp(m - m_new),
+                               torch.ones_like(m))
+            p = torch.where(live, torch.exp(s - m_new), torch.zeros_like(s))
+            l = l * corr + p.sum(-1, keepdim=True)
+            vt = v[:, :, j * BN:(j + 1) * BN, c0:c0 + cw]
+            acc = mm3(p[..., order], vt[:, :, order], passes, acc * corr)
+            m = m_new
+        safe = torch.where(l == 0, torch.ones_like(l), l)
+        outs.append(acc / safe)
+    o = torch.cat(outs, -1)
     lse = torch.where(m > -float("inf"), m + torch.log(safe),
                       torch.full_like(m, -1e30))
     return o.transpose(1, 2).contiguous(), lse.squeeze(-1)
 
 
 def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
-        passes: int = 3):
+        passes: int = 3, drop_chunk=None):
     """(dk, dv), each [B,Sk,H,D] fp32, as the fp32 dK/dV computes them on
-    the given lse and δ."""
+    the given lse and δ: for each chunk of the output's columns (`cut`), the
+    query tiles, Sᵀ and dPᵀ summed over D's chunks."""
     q, k, v, do = (t.float().transpose(1, 2) for t in (q, k, v, do))
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     BM = dkv_tiling(D)
+    cw, kc = cut(D)
     nq = -(-Sq // BM)
     q, do = _pad(q, 2, nq * BM), _pad(do, 2, nq * BM)
     lse, delta = (_pad(t.float(), 2, nq * BM) for t in (lse, delta))
     keys = torch.arange(Sk)
     order = perm_index(BM)
-    dk = torch.zeros(B, H, Sk, D)
-    dv = torch.zeros(B, H, Sk, D)
-    for i in range(nq):
-        rows = i * BM + torch.arange(BM)
-        qt, dot = q[:, :, i * BM:(i + 1) * BM], do[:, :, i * BM:(i + 1) * BM]
-        st = mm3(k, qt.transpose(-1, -2), passes)        # [B,H,Sk,BM]
-        dpt = mm3(v, dot.transpose(-1, -2), passes)
-        off = _mask(rows, keys, Sq, Sk, causal, q_off).transpose(0, 1)
-        p = torch.exp(st * scale - lse[:, :, None, i * BM:(i + 1) * BM])
-        p = p.masked_fill(off, 0.0)
-        ds = p * (dpt - delta[:, :, None, i * BM:(i + 1) * BM]) * scale
-        dv = mm3(p[..., order], dot[:, :, order], passes, dv)
-        dk = mm3(ds[..., order], qt[:, :, order], passes, dk)
+    dks, dvs = [], []
+    for c0 in range(0, D, cw):  # the CTAs of a key block
+        dk = torch.zeros(B, H, Sk, cw)
+        dv = torch.zeros(B, H, Sk, cw)
+        for i in range(nq):
+            rows = i * BM + torch.arange(BM)
+            qt = q[:, :, i * BM:(i + 1) * BM]
+            dot = do[:, :, i * BM:(i + 1) * BM]
+            st = mm3_chunks(k, qt.transpose(-1, -2), passes, kc,
+                            drop_chunk)                      # [B,H,Sk,BM]
+            dpt = mm3_chunks(v, dot.transpose(-1, -2), passes, kc,
+                             drop_chunk)
+            off = _mask(rows, keys, Sq, Sk, causal, q_off).transpose(0, 1)
+            p = torch.exp(st * scale - lse[:, :, None, i * BM:(i + 1) * BM])
+            p = p.masked_fill(off, 0.0)
+            ds = p * (dpt - delta[:, :, None, i * BM:(i + 1) * BM]) * scale
+            dv = mm3(p[..., order], dot[:, :, order, c0:c0 + cw], passes, dv)
+            dk = mm3(ds[..., order], qt[:, :, order, c0:c0 + cw], passes, dk)
+        dks.append(dk)
+        dvs.append(dv)
+    dk, dv = torch.cat(dks, -1), torch.cat(dvs, -1)
     return (dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous())

@@ -1,12 +1,15 @@
-// K1 and K3 for fp32 inputs at head widths 64 and 128, on Hopper's tensor
-// cores (sm_90a): the forward (voda_flash_fwd_f32) and dK/dV
-// (voda_flash_dkv_f32).
+// K1 and K3 for fp32 inputs on Hopper's tensor cores (sm_90a): the forward
+// and dK/dV at head widths 64 and 128 (voda_flash_fwd_f32,
+// voda_flash_dkv_f32) and at every multiple of 128 above (the same
+// functions streaming D: voda_flash_fwd_f32_wide, voda_flash_dkv_f32_wide,
+// below the D ≤ 128 kernels).
 //
 // Replace `_fwd_kernel` and `_dkv_kernel` in
 // vodascheduler_tpu/ops/flash_attention.py for a model that computes in
-// float32 (the TPU kernels compute in q.dtype). fp32's dQ, and fp32 above a
-// width of 128, stay on the CUDA cores (flash_simt.cu: voda_flash_dq_f32,
-// voda_flash_{fwd,dkv}_f32_simt).
+// float32 (the TPU kernels compute in q.dtype), at every width the JAX
+// package takes. fp32's dQ stays on the CUDA cores (flash_simt.cu:
+// voda_flash_dq_f32), as do the CUDA-core forward and dK/dV that the wide
+// kernels replaced (voda_flash_{fwd,dkv}_f32_simt, timed only).
 //
 // The arithmetic: three TF32 passes. Every product a·b of fp32 inputs
 // becomes three tensor-core products of TF32 halves summed in one fp32
@@ -31,7 +34,10 @@
 // over three passes, 165 TFLOP/s. K1 does two products of 2·B·H·Sq·Sk·D
 // FLOPs, halved under the causal mask: 68.7 GFLOP at B=8, H=16, S=2048,
 // D=64, 0.417 ms, against 4·33.6 MB + lse ≈ 135 MB, 0.040 ms; K3 four,
-// 0.833 ms against 0.061 ms. Both are bound by operations.
+// 0.833 ms against 0.061 ms. Both are bound by operations, and so are the
+// wide kernels at the same B·H·D (B=8, H=4, D=256: the same 0.417 and 0.833
+// ms), where each of the D/128 CTAs of a row or key block computes the same
+// S, so that they do (D/128 + 1)/2 times the bound's operations.
 //
 // K1 (flash_fwd_f32_kernel): the TMA + warp-specialised wgmma design of
 // flash_fwd.cu (one producer warp of TMA loads into a ring, two consumer
@@ -307,12 +313,12 @@ __device__ __forceinline__ void split_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
 
 constexpr int PT = 32;  // keys and columns of a prologue tile
 
-template <int D>
 __global__ void __launch_bounds__(256)
     flash_f32_split_kernel(const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ kh,
                            float* __restrict__ kl, float* __restrict__ vth,
-                           float* __restrict__ vtl, int H, int Sk, int SkP) {
+                           float* __restrict__ vtl, int H, int Sk, int SkP,
+                           int D) {
   __shared__ float tile[PT][PT + 1];  // V[key0 + r][d0 + c]
   const int key0 = blockIdx.x * PT, d0 = blockIdx.y * PT;
   const int b = blockIdx.z / H, h = blockIdx.z % H;
@@ -611,38 +617,57 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 }
 
 // K1's scratch: K_hi, K_lo ([B, Sk, H, D] each), Vᵀ_hi, Vᵀ_lo ([B, H, D,
-// SkP] each), in that order: 2·B·H·D·(Sk + SkP) floats.
+// SkP] each), in that order: 2·B·H·D·(Sk + SkP) floats. make() also builds
+// the tensor maps of K1's tiles over it: K_hi and K_lo in boxes of `bn`
+// rows, Vᵀ_hi and Vᵀ_lo in boxes of 32 keys by `vrows` columns of D.
+struct SplitKV {
+  int SkP;
+  float *kh, *kl, *vth, *vtl;
+  CUtensorMap tkh, tkl, tvh, tvl;
+
+  int make(void* scratch, int B, int H, int Sk, int D, int bn, int vrows) {
+    SkP = (Sk + 7) / 8 * 8;
+    kh = static_cast<float*>(scratch);
+    kl = kh + static_cast<size_t>(B) * Sk * H * D;
+    vth = kl + static_cast<size_t>(B) * Sk * H * D;
+    vtl = vth + static_cast<size_t>(B) * H * D * SkP;
+    int err = rows_map(&tkh, kh, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tkl, kl, B, Sk, H, D, bn);
+    // Vᵀ: coordinates (key, column, h, b)
+    if (!err) err = make_map(&tvh, vth, {SkP, D, H, B}, {32, vrows, 1, 1});
+    if (!err) err = make_map(&tvl, vtl, {SkP, D, H, B}, {32, vrows, 1, 1});
+    return err;
+  }
+
+  // The prologue: K and V split into the scratch.
+  int launch(const void* k, const void* v, int B, int H, int Sk, int D,
+             cudaStream_t st) const {
+    flash_f32_split_kernel<<<dim3((SkP + PT - 1) / PT, D / PT, B * H), 256,
+                             0, st>>>(static_cast<const float*>(k),
+                                      static_cast<const float*>(v), kh, kl,
+                                      vth, vtl, H, Sk, SkP, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                void* scratch, int B, int H, int Sq, int Sk, int q_off,
                int causal, float scale, cudaStream_t st) {
   using C = Fwd<D>;
-  const int SkP = (Sk + 7) / 8 * 8;
-  float* kh = static_cast<float*>(scratch);
-  float* kl = kh + static_cast<size_t>(B) * Sk * H * D;
-  float* vth = kl + static_cast<size_t>(B) * Sk * H * D;
-  float* vtl = vth + static_cast<size_t>(B) * H * D * SkP;
-  CUtensorMap tq, tkh, tkl, tvh, tvl;
+  SplitKV kv;
+  CUtensorMap tq;
   int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = rows_map(&tkh, kh, B, Sk, H, D, C::BN);
-  if (!err) err = rows_map(&tkl, kl, B, Sk, H, D, C::BN);
-  // Vᵀ: coordinates (key, column, h, b), boxes of 32 keys by D columns
-  if (!err) err = make_map(&tvh, vth, {SkP, D, H, B}, {32, D, 1, 1});
-  if (!err) err = make_map(&tvl, vtl, {SkP, D, H, B}, {32, D, 1, 1});
+  if (!err) err = kv.make(scratch, B, H, Sk, D, C::BN, D);
   if (!err)
     err = prepare_ws_kernel(
         reinterpret_cast<const void*>(&flash_fwd_f32_kernel<D>), C::SMEM);
-  if (err) return err;
-  flash_f32_split_kernel<D><<<dim3((SkP + PT - 1) / PT, D / PT, B * H), 256,
-                              0, st>>>(
-      static_cast<const float*>(k), static_cast<const float*>(v), kh, kl, vth,
-      vtl, H, Sk, SkP);
-  err = static_cast<int>(cudaGetLastError());
+  if (!err) err = kv.launch(k, v, B, H, Sk, D, st);
   if (err) return err;
   const dim3 grid((Sq + C::BM - 1) / C::BM, H, B);
   flash_fwd_f32_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
-      tq, tkh, tkl, tvh, tvl, static_cast<float*>(o), static_cast<float*>(lse),
-      H, Sq, Sk, q_off, causal, scale);
+      tq, kv.tkh, kv.tkl, kv.tvh, kv.tvl, static_cast<float*>(o),
+      static_cast<float*>(lse), H, Sq, Sk, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -896,8 +921,621 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Above D=128: K1 and K3 streaming D
+// ---------------------------------------------------------------------------
+//
+// Both kernels take every D that is a multiple of 128 (the JAX package's
+// wide widths) at one instantiation, CW = 128: a CTA owns CW columns of the
+// output (the grid's x axis), and the products that sum over all of D (S
+// in K1; Sᵀ and dPᵀ in K3) stream D through a TMA ring in chunks of KC = 32
+// columns, one 128-byte swizzle part. Each of the D/CW CTAs of a row (K1) or
+// key (K3) block computes the same S, so the products do (D/CW + 1)/2 times
+// the operations of the bound: 1.5 at D=256, 2 at 384, 2.5 at 512.
+
+// K1 above 128 (flash_fwd_f32_wide_kernel): flash_fwd_f32_kernel's three
+// TF32 passes and warp specialisation on flash_fwd_wide.cu's chunked
+// schedule (flash_fwd_chunked_kernel).
+// - A stage holds the chunk of Q's 128 rows, raw as TMA brings it, and of
+//   K_hi and K_lo's BN rows (the prologue's scratch, as at D ≤ 128). Each
+//   consumer warpgroup splits its 64 rows of the chunk's Q, hi in place and
+//   lo beside it, then issues S += Q·Kᵀ over the chunk's four k-steps in
+//   three passes (wgmma m64nBNk8 from shared memory). Q is read again from
+//   L2 and split again for every key tile: resident, Q_hi and Q_lo would
+//   take 128 KB a 64 rows at D=256 and more than the SM holds from 384.
+// - Then the online softmax, P split in registers as the A operand of
+//   O += P·Vᵀ (wgmma m64nCWk8, Vᵀ_hi and Vᵀ_lo over the CTA's CW columns),
+//   as at D ≤ 128. One V stage: V of tile j loads while S of tile j+1 sums
+//   over its D/32 chunks, so the producer issues the chunks of tile j+1
+//   before V of tile j, in the order the consumers take them.
+// - No turns, as in the chunked kernel: both warpgroups read every stage.
+// Shared memory (plus 1 KB to align the base, and the mbarriers):
+//   3 × (Q 16 KB + Q_lo 16 KB + K_hi 8 KB + K_lo 8 KB) + Vᵀ_hi, Vᵀ_lo 2 ×
+//   32 KB = 208 KB.
+// Registers (setmaxnreg: 24 a producer, 240 a consumer thread): O CW/2 =
+// 64 fp32, S BN/2 = 32, P's hi and lo BN/2 = 64 TF32 values.
+template <int CW>
+struct FwdF32Wide {
+  static constexpr int BM = 128;  // query rows of a CTA
+  static constexpr int BN = 64;   // keys of a tile
+  static constexpr int KC = 32;   // columns of D in a stage
+  static constexpr int STAGES = 3;
+  static constexpr int Q_BYTES = BM * KC * 4;  // each of Q (then Q_hi), Q_lo
+  static constexpr int K_BYTES = BN * KC * 4;  // each of K_hi, K_lo
+  static constexpr int STAGE_BYTES = 2 * Q_BYTES + 2 * K_BYTES;
+  static constexpr int V_BYTES = CW * BN * 4;  // each of Vᵀ_hi, Vᵀ_lo
+  static constexpr int V_OFF = STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = V_OFF + 2 * V_BYTES;
+  // full[STAGES], empty[STAGES], v_full, v_empty
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 2);
+  static_assert(SMEM <= MAX_SMEM, "K1's ring exceeds shared memory");
+};
+
+template <int CW>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_fwd_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tkh,
+                              const __grid_constant__ CUtensorMap tkl,
+                              const __grid_constant__ CUtensorMap tvh,
+                              const __grid_constant__ CUtensorMap tvl,
+                              float* __restrict__ o, float* __restrict__ lse,
+                              int H, int Sq, int Sk, int D, int q_off,
+                              int causal, float scale) {
+  using C = FwdF32Wide<CW>;
+  using Regs = RegSplit<24, 240>;
+  constexpr int BM = C::BM, BN = C::BN, KC = C::KC, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stage s: Q (raw, then Q_hi), Q_lo, K_hi, K_lo
+  auto stage = [&](int s) {
+    return reinterpret_cast<float*>(sm + s * C::STAGE_BYTES);
+  };
+  float* vs = reinterpret_cast<float*>(sm + C::V_OFF);  // Vᵀ_hi, Vᵀ_lo
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + ST;
+  uint64_t* v_full = empty + ST;
+  uint64_t* v_empty = v_full + 1;
+
+  const int c0 = blockIdx.x * CW;            // the CTA's columns of O
+  const int i = gridDim.y - 1 - blockIdx.y;  // longest query tiles first
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int q0 = i * BM;
+  const int last_row = q_off + min(q0 + BM, Sq) - 1;
+  const int nk_all = (Sk + BN - 1) / BN;
+  const int n_k = causal ? min(nk_all, last_row / BN + 1) : nk_all;
+  const int nc = D / KC;  // chunks of D a tile's S sums over
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, 2 * WG_THREADS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring and the V stage full, in the
+    // order the consumers take them: tile j+1's chunks, then V of tile j
+    Regs::producer();
+    if (threadIdx.x == 0 && n_k > 0) {
+      int it = 0;  // chunks issued
+      auto load_chunks = [&](int j) {
+        for (int c = 0; c < nc; ++c, ++it) {
+          const int s = it % ST;
+          float* st = stage(s);
+          mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], C::Q_BYTES + 2 * C::K_BYTES);
+          tma_load(st, &tq, &full[s], c * KC, h, q0, b);
+          tma_load(st + 2 * BM * KC, &tkh, &full[s], c * KC, h, j * BN, b);
+          tma_load(st + 2 * BM * KC + BN * KC, &tkl, &full[s], c * KC, h,
+                   j * BN, b);
+        }
+      };
+      auto load_v = [&](int j) {
+        mbar_wait(v_empty, (j & 1) ^ 1);
+        mbar_expect_tx(v_full, 2 * C::V_BYTES);
+#pragma unroll
+        for (int p = 0; p < BN / 32; ++p) {
+          tma_load(vs + p * CW * 32, &tvh, v_full, j * BN + 32 * p, c0, h, b);
+          tma_load(vs + CW * BN + p * CW * 32, &tvl, v_full,
+                   j * BN + 32 * p, c0, h, b);
+        }
+      };
+      load_chunks(0);
+      for (int j = 1; j < n_k; ++j) {
+        load_chunks(j);
+        load_v(j - 1);
+      }
+      load_v(n_k - 1);
+    }
+    trap_if_stalled();
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_loc = cw * 64 + warp * 16 + g;  // the thread's first row
+    const int row[2] = {q_off + q0 + r_loc, q_off + q0 + r_loc + 8};
+    const int wg_row0 = q_off + q0 + cw * 64;   // the warpgroup's first row
+    const float sl2 = scale * LOG2E;
+
+    float acc[CW / 2];
+#pragma unroll
+    for (int e = 0; e < CW / 2; ++e) acc[e] = 0.f;
+    float m[2] = {NEG_INF, NEG_INF};  // running max of the scores, log2 units
+    float l[2] = {0.f, 0.f};          // this thread's part of the row sums
+    float corr[2];
+    float sc[BN / 2];
+    uint32_t ph[BN / 8][4], pl[BN / 8][4];  // P split, the A operands of P·V
+
+    // The products of chunk `it` (of all the tiles' chunks) into sc, as one
+    // commit group; the first chunk of a tile (`first`, a constant at each
+    // call) overwrites sc. The warpgroup first splits its 64 rows of the
+    // chunk's Q (hi in place, lo beside) and hands them to the async proxy.
+    auto issue_chunk = [&](int it, bool first) {
+      const int s = it % ST;
+      float* qhi = stage(s) + cw * 64 * KC;
+      float* qlo = qhi + BM * KC;
+      const float* khi = stage(s) + 2 * BM * KC;
+      mbar_wait(&full[s], (it / ST) & 1);
+#pragma unroll
+      for (int x = 0; x < 64 * KC / 4 / WG_THREADS; ++x) {
+        const int e = tid + WG_THREADS * x;
+        const float4 v = reinterpret_cast<const float4*>(qhi)[e];
+        const Split a = split(v.x), bb = split(v.y), c = split(v.z),
+                    d = split(v.w);
+        reinterpret_cast<float4*>(qhi)[e] =
+            make_float4(__uint_as_float(a.hi), __uint_as_float(bb.hi),
+                        __uint_as_float(c.hi), __uint_as_float(d.hi));
+        reinterpret_cast<float4*>(qlo)[e] =
+            make_float4(__uint_as_float(a.lo), __uint_as_float(bb.lo),
+                        __uint_as_float(c.lo), __uint_as_float(d.lo));
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+      const uint64_t qhid = sw128_desc(qhi, 16), qlod = sw128_desc(qlo, 16);
+      const uint64_t khid = sw128_desc(khi, 16);
+      const uint64_t klod = sw128_desc(khi + BN * KC, 16);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const uint32_t qs = kmajor_step(BM, kk), ks = kmajor_step(BN, kk);
+        wgmma_ss_tf32<BN>(sc, qlod + qs, khid + ks, !first || kk > 0);
+        wgmma_ss_tf32<BN>(sc, qhid + qs, klod + ks, 1);
+        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, 1);
+      }
+      wgmma_commit();
+    };
+    // S = Q·Kᵀ of tile j into sc, summed over the nc chunks of D as they
+    // arrive; each chunk's stage is released once the next chunk is issued
+    // and its own products are done, the last chunk's by release_s. The
+    // first chunk is issued apart, so that no branch stands around the wait
+    // in the loop (one made ptxas serialise every wgmma, flash_fwd_wide.cu).
+    auto issue_s = [&](int j) {
+      issue_chunk(j * nc, true);
+      for (int c = 1; c < nc; ++c) {
+        issue_chunk(j * nc + c, false);
+        wgmma_wait<1>();
+        mbar_arrive(&empty[(j * nc + c - 1) % ST]);
+      }
+    };
+    auto release_s = [&](int j) {
+      mbar_arrive(&empty[(j * nc + nc - 1) % ST]);
+    };
+    // O += P·Vᵀ of tile j over the CTA's columns, as one commit group
+    auto issue_pv = [&](int j) {
+      mbar_wait(v_full, j & 1);
+      const uint64_t vhid = sw128_desc(vs, 16);
+      const uint64_t vlod = sw128_desc(vs + CW * BN, 16);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t vk = kmajor_step(CW, kk);
+        wgmma_rs_tf32<CW>(acc, pl[kk], vhid + vk);
+        wgmma_rs_tf32<CW>(acc, ph[kk], vlod + vk);
+        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);
+      }
+      wgmma_commit();
+    };
+    auto softmax = [&](int j) {
+      const bool masked =
+          (j + 1) * BN > Sk || (causal && j * BN + BN - 1 > wg_row0);
+      softmax_tile<BN>(sc, m, l, corr, sl2, masked, j * BN, Sk, causal, row,
+                       t);
+    };
+    // P of the accumulator as the A fragments of P·V (Vᵀ in PERM order)
+    auto to_a = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+        split_frag(ph[kk], pl[kk], sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                   sc[4 * kk + 3]);
+    };
+
+    if (n_k > 0) {
+      issue_s(0);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      release_s(0);
+      softmax(0);
+      to_a();
+      for (int j = 1; j < n_k; ++j) {
+        issue_s(j);
+        issue_pv(j - 1);
+        wgmma_wait<1>();  // S of tile j is in
+        fence_regs(sc);
+        release_s(j);
+        softmax(j);
+        wgmma_wait<0>();  // P·V of tile j−1 is in
+        fence_regs(acc);
+        mbar_arrive(v_empty);
+        // O's rows to the new max: element e is row half (e >> 1) & 1
+#pragma unroll
+        for (int e = 0; e < CW / 2; ++e) acc[e] *= corr[(e >> 1) & 1];
+        to_a();
+      }
+      issue_pv(n_k - 1);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(v_empty);
+    }
+
+    // Flush: a row that saw no key (l == 0) gets output 0, as the reference.
+    float lse_r[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      inv[r] = lr == 0.f ? 1.f : 1.f / lr;
+      lse_r[r] = m[r] == NEG_INF ? NEG_INF
+                                 : m[r] * LN2 + logf(lr == 0.f ? 1.f : lr);
+    }
+    float* ob = o + (static_cast<size_t>(b) * Sq * H + h) * D + c0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + r_loc + 8 * half;
+      if (r >= Sq) continue;
+      float* p = ob + static_cast<size_t>(r) * H * D + 2 * t;
+#pragma unroll
+      for (int c = 0; c < CW / 8; ++c)
+        *reinterpret_cast<float2*>(p + 8 * c) =
+            make_float2(acc[4 * c + 2 * half] * inv[half],
+                        acc[4 * c + 2 * half + 1] * inv[half]);
+    }
+    if (t == 0 && blockIdx.x == 0) {
+      float* lb = lse + (static_cast<size_t>(b) * H + h) * Sq;
+      if (q0 + r_loc < Sq) lb[q0 + r_loc] = lse_r[0];
+      if (q0 + r_loc + 8 < Sq) lb[q0 + r_loc + 8] = lse_r[1];
+    }
+    trap_if_stalled();
+  }
+}
+
+template <int CW>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
+                    void* lse, void* scratch, int B, int H, int Sq, int Sk,
+                    int D, int q_off, int causal, float scale,
+                    cudaStream_t st) {
+  using C = FwdF32Wide<CW>;
+  SplitKV kv;
+  CUtensorMap tq;
+  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = kv.make(scratch, B, H, Sk, D, C::BN, CW);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_fwd_f32_wide_kernel<CW>),
+        C::SMEM);
+  if (!err) err = kv.launch(k, v, B, H, Sk, D, st);
+  if (err) return err;
+  const dim3 grid(D / CW, (Sq + C::BM - 1) / C::BM, B * H);
+  flash_fwd_f32_wide_kernel<CW><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, kv.tkh, kv.tkl, kv.tvh, kv.tvl, static_cast<float*>(o),
+      static_cast<float*>(lse), H, Sq, Sk, D, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3 above 128 (flash_dkv_f32_wide_kernel): flash_dkv_f32_kernel's
+// mma.sync m16n8k8 in three TF32 passes, 128 keys a CTA and 16 a warp, dK
+// and dV in registers over the CTA's CW columns (so a thread holds what it
+// holds at D=128), no atomics. K and V over all of D no longer fit (256 KB
+// for 128 keys at D=256), so for each query tile of BM rows a stage of (K,
+// V, Q, dO) over 32 columns of D streams through the ring, chunk by chunk,
+// raw: K and V are read again from L2 for every query tile, as K1 reads Q
+// again. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ sum over the chunks in registers; then
+// Pᵀ and dSᵀ, and dV += Pᵀ·dO, dK += dSᵀ·Q over the CTA's columns, from a
+// second buffer that holds the tile's Q and dO over those columns with its
+// lse and δ (one buffer: it loads while the next tile's chunks stream).
+// Every warp splits every value it loads into TF32 halves in registers, as
+// flash_dkv_f32_kernel does.
+// - No producer warpgroup: 8 warps, every thread up to 255 registers
+//   (__launch_bounds__(256, 1)). Thread 0 issues the ring's loads ST − 1
+//   chunks ahead of the one the CTA takes, once the chunk that held the
+//   stage is released; warp 0 stages each tile's lse and δ and issues its
+//   buffer once the last tile's is released. Under the warp-specialised
+//   split of flash_dkv_f32_kernel (232 registers a consumer, 240 with a
+//   24-register producer) ptxas spilled 72 (44) bytes at CW=128; here it
+//   spills none.
+// Shared memory (plus 1 KB to align the base, lse, δ and the mbarriers):
+//   4 × (K 16 KB + V 16 KB + Q 4 KB + dO 4 KB) + Q, dO 2 × 16 KB = 192 KB.
+// Registers: dK and dV CW/2 = 64 fp32 each, Sᵀ and dPᵀ BM/2 = 16 each.
+template <int CW>
+struct DkvF32Wide {
+  static constexpr int BN = 128;  // keys of a CTA, 16 a consumer warp
+  static constexpr int BM = 32;   // query rows of a tile
+  static constexpr int KC = 32;   // columns of D in a stage
+  static constexpr int STAGES = 4;
+  static constexpr int THREADS = 8 * 32;      // 16 keys a warp
+  static constexpr int KV_BYTES = BN * KC * 4;  // each of K, V
+  static constexpr int T_BYTES = BM * KC * 4;   // each of Q, dO
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES + 2 * T_BYTES;
+  static constexpr int W_BYTES = BM * CW * 4;   // each of Q, dO over CW
+  static constexpr int W_OFF = STAGES * STAGE_BYTES;
+  static constexpr int STAT_OFF = W_OFF + 2 * W_BYTES;  // lse, δ
+  static constexpr int BAR_OFF = STAT_OFF + 2 * BM * 4;
+  // full[STAGES], empty[STAGES], w_full, w_empty
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 2);
+  static_assert(SMEM <= MAX_SMEM, "K3's ring exceeds shared memory");
+};
+
+template <int CW>
+__global__ void __launch_bounds__(8 * 32, 1)
+    flash_dkv_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                              const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const __grid_constant__ CUtensorMap tdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dk, float* __restrict__ dv,
+                              int H, int Sq, int Sk, int D, int q_off,
+                              int causal, float scale) {
+  using C = DkvF32Wide<CW>;
+  constexpr int BM = C::BM, BN = C::BN, KC = C::KC, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stage s: K, V, Q, dO over one chunk of D
+  auto stage = [&](int s) {
+    return reinterpret_cast<float*>(sm + s * C::STAGE_BYTES);
+  };
+  float* qw = reinterpret_cast<float*>(sm + C::W_OFF);  // Q over CW, dO
+  float* dow = qw + BM * CW;
+  float* lse_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // log2 units
+  float* del_s = lse_s + BM;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + ST;
+  uint64_t* w_full = empty + ST;
+  uint64_t* w_empty = w_full + 1;
+
+  const int c0 = blockIdx.x * CW;  // the CTA's columns of dK and dV
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int k0 = blockIdx.z * BN;
+  const int num_q = (Sq + BM - 1) / BM;
+  // first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
+  const int i0 = causal ? max(0, k0 - q_off) / BM : 0;
+  const int nc = D / KC;
+  const int n_chunks = (num_q - i0) * nc;  // the CTA's chunks, in order
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], C::THREADS);
+    }
+    mbar_init(w_full, 32);  // warp 0's lanes
+    mbar_init(w_empty, C::THREADS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // Chunk `idx` of the CTA's into its stage, once the chunk that held the
+  // stage before it is released; issued by thread 0.
+  auto load_chunk = [&](int idx) {
+    if (idx >= n_chunks) return;
+    const int s = idx % ST, c = idx % nc;
+    const int q0 = (i0 + idx / nc) * BM;
+    float* st = stage(s);
+    mbar_wait(&empty[s], ((idx / ST) & 1) ^ 1);
+    mbar_expect_tx(&full[s], C::STAGE_BYTES);
+    tma_load(st, &tk, &full[s], c * KC, h, k0, b);
+    tma_load(st + BN * KC, &tv, &full[s], c * KC, h, k0, b);
+    tma_load(st + 2 * BN * KC, &tq, &full[s], c * KC, h, q0, b);
+    tma_load(st + 2 * BN * KC + BM * KC, &tdo, &full[s], c * KC, h, q0, b);
+  };
+  if (threadIdx.x == 0)
+    for (int idx = 0; idx < ST - 1; ++idx) load_chunk(idx);
+
+  {
+    // 16 keys a warp
+    const int g = lane >> 2, t = lane & 3;
+    const int kr = warp * 16;         // the warp's first row of K and V
+    const int kw = k0 + kr;           // and its first key
+    const int key[2] = {kw + g, kw + g + 8};
+    const float sl2 = scale * LOG2E;
+
+    float dka[CW / 8][4], dva[CW / 8][4];
+#pragma unroll
+    for (int n = 0; n < CW / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+    int it = 0;  // chunks taken
+    for (int i = i0; i < num_q; ++i) {
+      const int q0 = i * BM;
+      if (warp == 0) {
+        // the tile's Q and dO over the CTA's columns, and its lse (log2
+        // units) and δ, zero past Sq, once every warp is done with the
+        // last tile's; they arrive while the tile's chunks stream
+        const int r = q0 + lane;  // BM = 32: a row a lane
+        // a 32-bit offset on the parameters: a 64-bit row pointer, live
+        // across the loop for this block alone, was spilled (12 bytes)
+        const int at_r = static_cast<int>(blockIdx.y) * Sq + r;
+        const float lv = r < Sq ? lse[at_r] * LOG2E : 0.f;
+        const float dl = r < Sq ? delta[at_r] : 0.f;
+        mbar_wait(w_empty, ((i - i0) & 1) ^ 1);
+        lse_s[lane] = lv;
+        del_s[lane] = dl;
+        if (lane == 0) {
+          mbar_expect_tx(w_full, 2 * C::W_BYTES);
+#pragma unroll
+          for (int p = 0; p < CW / 32; ++p) {
+            tma_load(qw + p * BM * 32, &tq, w_full, c0 + 32 * p, h, q0, b);
+            tma_load(dow + p * BM * 32, &tdo, w_full, c0 + 32 * p, h, q0, b);
+          }
+        } else {
+          mbar_arrive(w_full);
+        }
+      }
+      // a tile wholly above the warp's keys under the causal mask adds 0
+      const bool live = !(causal && q_off + q0 + BM - 1 < kw);
+
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over D, chunk by chunk: the warp's 16
+      // keys × BM queries
+      float sta[BM / 8][4], dpa[BM / 8][4];
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sta[n][e] = dpa[n][e] = 0.f;
+      for (int c = 0; c < nc; ++c, ++it) {
+        // the ring ST − 1 chunks ahead of this one
+        if (threadIdx.x == 0) load_chunk(it + ST - 1);
+        const int s = it % ST;
+        mbar_wait(&full[s], (it / ST) & 1);
+        if (live) {
+          const float* kc = stage(s);
+          const float* vc = kc + BN * KC;
+          const float* qc = kc + 2 * BN * KC;
+          const float* doc = qc + BM * KC;
+          // not unrolled, as in flash_dkv_f32_kernel
+#pragma unroll 1
+          for (int kk = 0; kk < KC / 8; ++kk) {
+            const int col = 8 * kk + t;
+            uint32_t kfh[4], kfl[4], vfh[4], vfl[4];
+            split_frag(kfh, kfl, kc[at(BN, kr + g, col)],
+                       kc[at(BN, kr + g + 8, col)],
+                       kc[at(BN, kr + g, col + 4)],
+                       kc[at(BN, kr + g + 8, col + 4)]);
+            split_frag(vfh, vfl, vc[at(BN, kr + g, col)],
+                       vc[at(BN, kr + g + 8, col)],
+                       vc[at(BN, kr + g, col + 4)],
+                       vc[at(BN, kr + g + 8, col + 4)]);
+#pragma unroll
+            for (int n = 0; n < BM / 8; ++n) {
+              const int r = 8 * n + g;
+              mma3(sta[n], kfh, kfl, split(qc[at(BM, r, col)]),
+                   split(qc[at(BM, r, col + 4)]));
+              mma3(dpa[n], vfh, vfl, split(doc[at(BM, r, col)]),
+                   split(doc[at(BM, r, col + 4)]));
+            }
+          }
+        }
+        mbar_arrive(&empty[s]);
+      }
+
+      mbar_wait(w_full, (i - i0) & 1);
+      if (live) {
+        // Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale; accumulator
+        // element e of n-tile n is key g + 8(e>>1), query 8n + 2t + (e&1)
+        const bool masked =
+            q0 + BM > Sq || (causal && q_off + q0 < kw + 15);
+#pragma unroll
+        for (int n = 0; n < BM / 8; ++n) {
+          const float2 ls =
+              *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
+          const float2 dl =
+              *reinterpret_cast<const float2*>(del_s + 8 * n + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = fmaf(sta[n][e], sl2, (e & 1) ? -ls.y : -ls.x);
+            if (masked) {
+              const int qpos = q0 + 8 * n + 2 * t + (e & 1);
+              if (qpos >= Sq || (causal && q_off + qpos < key[e >> 1]))
+                x = NEG_INF;
+            }
+            const float p = fast_exp2(x);
+            sta[n][e] = p;
+            dpa[n][e] = p * (dpa[n][e] - ((e & 1) ? dl.y : dl.x)) * scale;
+          }
+        }
+
+        // dV += Pᵀ·dO and dK += dSᵀ·Q over the BM queries and the CTA's
+        // columns (PERM on the query axis, as in flash_dkv_f32_kernel)
+#pragma unroll
+        for (int kk = 0; kk < BM / 8; ++kk) {
+          uint32_t pfh[4], pfl[4], sfh[4], sfl[4];
+          split_frag(pfh, pfl, sta[kk][0], sta[kk][2], sta[kk][1],
+                     sta[kk][3]);
+          split_frag(sfh, sfl, dpa[kk][0], dpa[kk][2], dpa[kk][1],
+                     dpa[kk][3]);
+          const int r = 8 * kk + 2 * t;
+#pragma unroll
+          for (int n = 0; n < CW / 8; ++n) {
+            const int cc = 8 * n + g;
+            mma3(dva[n], pfh, pfl, split(dow[at(BM, r, cc)]),
+                 split(dow[at(BM, r + 1, cc)]));
+            mma3(dka[n], sfh, sfl, split(qw[at(BM, r, cc)]),
+                 split(qw[at(BM, r + 1, cc)]));
+          }
+        }
+      }
+      mbar_arrive(w_empty);
+    }
+
+    // dK and dV of the thread's keys g and g + 8, columns c0 + 8n + 2t, 2t+1
+    const size_t rs = static_cast<size_t>(H) * D;
+    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + c0 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (key[half] >= Sk) continue;
+      float* pk = dk + koff + key[half] * rs;
+      float* pv = dv + koff + key[half] * rs;
+#pragma unroll
+      for (int n = 0; n < CW / 8; ++n) {
+        *reinterpret_cast<float2*>(pk + 8 * n) =
+            make_float2(dka[n][2 * half], dka[n][2 * half + 1]);
+        *reinterpret_cast<float2*>(pv + 8 * n) =
+            make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
+      }
+    }
+    trap_if_stalled();
+  }
+}
+
+template <int CW>
+int launch_dkv_wide(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
+                    int q_off, int causal, float scale, cudaStream_t st) {
+  using C = DkvF32Wide<CW>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = rows_map(&tk, k, B, Sk, H, D, C::BN);
+  if (!err) err = rows_map(&tv, v, B, Sk, H, D, C::BN);
+  if (!err) err = rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (!err)
+    err = static_cast<int>(cudaFuncSetAttribute(
+        flash_dkv_f32_wide_kernel<CW>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM));
+  if (err) return err;
+  const dim3 grid(D / CW, B * H, (Sk + C::BN - 1) / C::BN);
+  flash_dkv_f32_wide_kernel<CW><<<grid, C::THREADS, C::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Sq, Sk, D, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline bool takes(int B, int H, int Sq, int Sk, int D) {
   return B > 0 && H > 0 && Sq > 0 && Sk > 0 && (D == 64 || D == 128);
+}
+
+// The wide kernels' widths: every multiple of 128 above 128.
+inline bool takes_wide(int B, int H, int Sq, int Sk, int D) {
+  return B > 0 && H > 0 && Sq > 0 && Sk > 0 && D > 128 && D % 128 == 0;
 }
 
 }  // namespace f32
@@ -934,4 +1572,35 @@ extern "C" int voda_flash_dkv_f32(const void* q, const void* k, const void* v,
                                   Sk, q_off, causal, scale, st)
                  : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
                                    Sk, q_off, causal, scale, st);
+}
+
+// Above 128 (every multiple of 128): the wide kernels, with the same
+// arguments as the entries above, K1's scratch included; 1
+// (cudaErrorInvalidValue) for any other width.
+extern "C" int voda_flash_fwd_f32_wide(const void* q, const void* k,
+                                       const void* v, void* o, void* lse,
+                                       void* scratch, int B, int H, int Sq,
+                                       int Sk, int D, int q_off, int causal,
+                                       float scale, void* stream) {
+  using namespace voda::f32;
+  if (!takes_wide(B, H, Sq, Sk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fwd_wide<128>(q, k, v, o, lse, scratch, B, H, Sq, Sk, D,
+                              q_off, causal, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int voda_flash_dkv_f32_wide(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int H,
+                                       int Sq, int Sk, int D, int q_off,
+                                       int causal, float scale,
+                                       void* stream) {
+  using namespace voda::f32;
+  if (!takes_wide(B, H, Sq, Sk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dkv_wide<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                              Sk, D, q_off, causal, scale,
+                              static_cast<cudaStream_t>(stream));
 }

@@ -7,12 +7,15 @@
 // beside this file take bf16, and fp16 at widths 64 and 128 (flash_fwd.cu,
 // flash_dq.cu, flash_dkv.cu: voda_flash_{fwd,dq,dkv}_f16) and 256, 384 and
 // 512 (their wide twins: voda_flash_{fwd,dq,dkv}_f16_wide); fp32's forward
-// and dK/dV at widths 64 and 128 run on the tensor cores in three TF32
-// passes (flash_f32.cu: voda_flash_{fwd,dkv}_f32). What they do not take
-// runs here: fp32's dQ at every width (voda_flash_dq_f32), fp32's forward
-// and dK/dV above 128 (voda_flash_{fwd,dkv}_f32_simt) and fp16 on heads
-// wider than 512 (voda_flash_{fwd,dq,dkv}_f16_simt; the kernels themselves
-// take any multiple of their 64- or 128-column chunk). The arithmetic is
+// and dK/dV run on the tensor cores in three TF32 passes at every width
+// (flash_f32.cu: voda_flash_{fwd,dkv}_f32, and _f32_wide above 128). What
+// they do not take runs here: fp32's dQ at every width (voda_flash_dq_f32)
+// and fp16's dQ and dK/dV on heads wider than 512
+// (voda_flash_{dq,dkv}_f16_simt). fp32's forward and dK/dV here
+// (voda_flash_{fwd,dkv}_f32_simt) and fp16's forward
+// (voda_flash_fwd_f16_simt) lost their routes to the tensor-core kernels
+// and keep their entries only to be timed against them. The kernels
+// themselves take any multiple of their 64- or 128-column chunk. The arithmetic is
 // the TPU kernels': every product takes its inputs in the input dtype and
 // accumulates in fp32 (an fp16 product is exact in fp32), the softmax
 // statistics are fp32, and P is rounded to the input dtype before the
@@ -526,8 +529,8 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // fp16's are named `_f16_simt`: at head widths up to 512 fp16 takes the
 // wgmma kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, and their wide
 // twins) and these only above. fp32's forward and dK/dV are named
-// `_f32_simt`: up to 128 fp32 takes flash_f32.cu's, and these only above;
-// fp32's dQ keeps its name.
+// `_f32_simt`: fp32 takes flash_f32.cu's at every width, and these are only
+// timed against them; fp32's dQ keeps its name.
 #define VODA_SIMT_ENTRIES(T, fwd_sfx, dq_sfx, dkv_sfx)                        \
   extern "C" int voda_flash_fwd_##fwd_sfx(                                    \
       const void* q, const void* k, const void* v, void* o, void* lse, int B, \

@@ -28,24 +28,27 @@ fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``       ``flash_dkv_
 fp16   256 to 512  ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
 fp16   > 512       ``flash_fwd_f16_wide``  ``flash_dq_f16_simt``  ``flash_dkv_f16_simt``
 fp32   ≤ 128       ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
-fp32   > 128       ``flash_fwd_f32_simt``  ``flash_dq_f32``       ``flash_dkv_f32_simt``
+fp32   > 128       ``flash_fwd_f32_wide``  ``flash_dq_f32``       ``flash_dkv_f32_wide``
 =====  ==========  ======================  =====================  ======================
 
 fp16's kernels up to D=512, and its forward above, are the bf16 kernels'
 TMA + wgmma design in fp16 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide
 twins ``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type).
-fp32's K1 and K3 up to D=128 run on the tensor cores in three TF32 passes
+fp32's K1 and K3 run on the tensor cores in three TF32 passes
 (``csrc/flash_f32.cu``: K1 on wgmma after a prologue that splits K and Vᵀ
-into scratch, K3 on mma.sync). fp16's dQ and dK/dV above 512, where bf16's
-cut D on ``wmma`` (bf16 code), fp32's K1 and K3 above 128 and fp32's K2 at
-every width multiply on the CUDA cores (``csrc/flash_simt.cu``). The choice
-is by width, never a fallback: a kernel that fails to build or launch
-raises. Above 512 the wide forward's entries launch the kernel that
+into scratch, K3 on mma.sync), up to D=128 with K, V or Q resident, above
+it (``_f32_wide``, every multiple of 128) streaming D in 32-column chunks
+and owning 128 columns of the output a CTA. fp16's dQ and dK/dV above 512,
+where bf16's cut D on ``wmma`` (bf16 code), and fp32's K2 at every width
+multiply on the CUDA cores (``csrc/flash_simt.cu``). The choice is by
+width, never a fallback: a kernel that fails to build or launch raises. Above 512 the wide forward's entries launch the kernel that
 streams D, whose launches count apart from the route's, under
 ``flash_fwd_chunked`` (bf16) and ``flash_fwd_f16_chunked`` (fp16). The
 forward's first wide kernel above 512 (``wmma``), which no wrapper routes
 to any more, keeps an entry of its own, ``flash_fwd_wmma``, to be timed
-against its replacement.
+against its replacement; so do fp32's CUDA-core forward and dK/dV
+(``flash_fwd_f32_simt``, ``flash_dkv_f32_simt``), which the wide TF32
+kernels replaced above 128.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -73,12 +76,14 @@ Divergences from the TPU kernels, on purpose:
   tiles of 64 rows (32 at D=128), in fp16 as in bf16 (and the wide
   kernels theirs, ``csrc/flash_*_wide.cu``); fp32's tensor-core forward
   takes 128 query rows against K/V tiles of 64 keys (32 at D=128), its
-  dK/dV 128 keys against Q/dO tiles of 64 rows (32 at D=128); the
-  CUDA-core kernels take 64×64 tiles of (queries, keys) and 64 or 128
-  columns of the output a CTA.
+  dK/dV 128 keys against Q/dO tiles of 64 rows (32 at D=128), and above
+  D=128 128 query rows against 64-key tiles and 128 keys against 32-row
+  tiles, 128 columns of the output a CTA; the CUDA-core kernels take 64×64
+  tiles of (queries, keys) and 64 or 128 columns of the output a CTA.
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
   signature and change none of them;
-- fp32's tensor-core kernels (``flash_fwd_f32``, ``flash_dkv_f32``) take
+- fp32's tensor-core kernels (``flash_fwd_f32``, ``flash_dkv_f32`` and
+  their ``_wide`` twins above D=128) take
   every fp32 product as three TF32 products (a_lo·b_hi + a_hi·b_lo +
   a_hi·b_hi, hi and lo the TF32 halves of each operand) in one fp32
   accumulator, where the TPU splits an f32 dot over bf16 passes of its
@@ -128,6 +133,7 @@ WGMMA_MAX_D = 512
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
             "flash_fwd_f32": 0, "flash_dq_f32": 0, "flash_dkv_f32": 0,
+            "flash_fwd_f32_wide": 0, "flash_dkv_f32_wide": 0,
             "flash_fwd_f32_simt": 0, "flash_dkv_f32_simt": 0,
             "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0,
             "flash_fwd_f16_wide": 0, "flash_dq_f16_wide": 0,
@@ -151,7 +157,8 @@ SIMT_KERNELS = frozenset({"flash_fwd_f32_simt", "flash_dq_f32",
                           "flash_dkv_f32_simt", "flash_fwd_f16_simt",
                           "flash_dq_f16_simt", "flash_dkv_f16_simt"})
 TF32_SOURCE = "flash_f32"
-TF32_KERNELS = frozenset({"flash_fwd_f32", "flash_dkv_f32"})
+TF32_KERNELS = frozenset({"flash_fwd_f32", "flash_dkv_f32",
+                          "flash_fwd_f32_wide", "flash_dkv_f32_wide"})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -165,7 +172,10 @@ _ARGTYPES = {
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
     # fp32's tensor-core K1 also takes its scratch (`f32_scratch`) after lse
     "flash_fwd_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "flash_fwd_f32_wide": [_P] * 6 + [_I] * 7 + [_F, _P],
 }
+# The K1 entries that take that scratch.
+F32_SCRATCH = frozenset({"flash_fwd_f32", "flash_fwd_f32_wide"})
 for _name in launches.keys() - CHUNKED_FWD.values():  # every variant
     # takes its function's arguments
     _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
@@ -216,7 +226,7 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     ``_f16`` and ``_f16_wide``, the forward at every width, dQ and dK/dV
     up to WGMMA_MAX_D and the CUDA-core ``_f16_simt`` above it; for fp32
     the tensor-core ``_f32`` forward and dK/dV at a width of HEAD_DIMS and
-    the CUDA-core ``_f32_simt`` ones above, and the CUDA-core
+    the tensor-core ``_f32_wide`` ones above, and the CUDA-core
     ``flash_dq_f32`` at every width."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
@@ -228,7 +238,7 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     if dtype == torch.float32:
         if name == "flash_dq" or D in HEAD_DIMS:
             return f"{name}_f32"
-        return f"{name}_f32_simt"
+        return f"{name}_f32_wide"
     if dtype == torch.float16 and D > WGMMA_MAX_D and name != "flash_fwd":
         return f"{name}_f16_simt"
     kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
@@ -305,7 +315,7 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     # fp32's tensor-core K1 also takes its scratch, held here until launched
     scratch = ([f32_scratch(B, H, Sk, D, q.device)]
-               if kernel == "flash_fwd_f32" else [])
+               if kernel in F32_SCRATCH else [])
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
             B, H, Sq, Sk, D, int(q_off), int(causal), _scale(scale, D),
@@ -315,8 +325,8 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
 
 def f32_scratch(B: int, H: int, Sk: int, D: int,
                 device: torch.device) -> torch.Tensor:
-    """The scratch of fp32's tensor-core K1 (``csrc/flash_f32.cu``), which
-    its prologue fills: K's TF32 halves K_hi and K_lo ([B, Sk, H, D] each),
+    """The scratch of fp32's tensor-core K1 (``csrc/flash_f32.cu``, at
+    every width), which its prologue fills: K's TF32 halves K_hi and K_lo ([B, Sk, H, D] each),
     then Vᵀ's, Vᵀ_hi and Vᵀ_lo ([B, H, D, SkP] each, SkP = Sk rounded up to
     8)."""
     skp = -(-Sk // 8) * 8
