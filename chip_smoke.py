@@ -11,10 +11,12 @@ Phases (any failure exits non-zero):
      at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
      D=256 (phase 9's wide llama), in fp16's wide forward, dQ or dK/dV at
      D=256 (phase 11's fp16 model in heads of 256), in the forward above
-     D=512 (flash_fwd_chunked_kernel, bf16 and fp16) at D=640, or in fp32's
+     D=512 (flash_fwd_chunked_kernel, bf16 and fp16) or fp16's dQ and
+     dK/dV above it (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) at
+     D=640, or in fp32's
      TF32 forward and dK/dV above D=128 (`_f32_wide`, one instantiation
      for every width: CW=128, which D=256 runs), and logs the spills at
-     D=128, 384 and 512 and the chunked forward's at 768 and 1024;
+     D=128, 384 and 512 and the chunked kernels' at 768 and 1024;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -36,18 +38,16 @@ Phases (any failure exits non-zero):
      TF32 passes, csrc/flash_f32.cu, up to D=128 and above it streaming D,
      `_f32_wide`, and fp32's dQ on the CUDA cores,
      csrc/flash_simt.cu; fp16's on the tensor cores up to D=128,
-     flash_{fwd,dq,dkv}_f16, and from 256 to 512,
-     flash_{fwd,dq,dkv}_f16_wide, and on the CUDA cores above,
-     `_f16_simt`) against the same plain versions at the main shape, a
+     flash_{fwd,dq,dkv}_f16, and above, flash_{fwd,dq,dkv}_f16_wide) against
+     the same plain versions at the main shape, a
      ragged non-causal S, D=128, D=16 padded, a ragged query slice behind
      q_offset and D=256 (SIMT_LIMITS),
      each timed at the main shape beside its plain version, the library
      call (fp32's backward: autograd through scaled_dot_product_attention)
      and its bound at that dtype's peak; fp16's wide forward, dQ and dK/dV
      at the wide bf16 kernels' shapes (d256, d512, d384, a ragged S, the
-     query slice behind q_offset, non-causal at 256) and the CUDA-core ones
-     at D=640, which only they take, held to the same bars, the wide ones
-     timed at d256 and the CUDA-core ones at D=640; fp16's CUDA-core
+     query slice behind q_offset, non-causal at 256), held to the same
+     bars and timed at d256; fp16's CUDA-core
      forward, dQ and dK/dV held to the same bars at the main shape and
      timed in turns with the tensor-core kernels there and at d256; and
      fp32's CUDA-core forward and dK/dV (`_f32_simt`) held to fp32's bars
@@ -69,7 +69,16 @@ Phases (any failure exits non-zero):
      the same bars there) beside the plain version, SDPA's forward and the
      bound, and once at D=1024 (B=8, H=1); the chunked kernel's launches
      count under flash_fwd_chunked and flash_fwd_f16_chunked, apart from
-     the wide forward's D ≤ 512 ones;
+     the wide forward's D ≤ 512 ones; then fp16's K2 and K3 above D=512
+     (flash_dq_chunked_kernel and flash_dkv_chunked_kernel, through
+     flash_dq_f16_wide and flash_dkv_f16_wide, counted as
+     flash_dq_f16_chunked and flash_dkv_f16_chunked) at the same
+     CHUNKED_CASES, K1, K2 and K3 launched twice and held bitwise under
+     SIMT_LIMITS, and timed in turns against the CUDA-core pair they took
+     the route from (`_f16_simt`, held to the same bars at D=640, B=2, H=2,
+     S=1024) beside the plain versions, the library's backward and the
+     bounds, at that shape (two rounds) and at CHUNKED_CASES' d640 (one),
+     K2 then K3 as one backward (`time[backward_f16_chunked turns]`);
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -248,11 +257,15 @@ WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide",
                    "flash_dkv_f16_wide")
 WIDE_HEAD_DIM = 256
 MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
-# The forward above D=512 (flash_fwd_chunked_kernel) is templated on the
-# width of its chunk of O, CW, not on D: D=640 runs CW=128, held to no
-# spill in both dtypes (CW=256, which D=768 and 1024 run, is only logged).
+# The kernels above D=512 that stream D (flash_fwd_chunked_kernel, and
+# fp16's flash_dq_chunked_kernel and flash_dkv_chunked_kernel) are templated
+# on the width of their chunk of the output, CW, not on D: D=640 runs
+# CW=128, held to no spill (the forward in both dtypes); CW=256, which
+# D=768 and 1024 run, is only logged.
 CHUNKED_SPILL_GATES = (("flash_fwd_chunked", 128),
-                       ("flash_fwd_chunked_f16", 128))
+                       ("flash_fwd_chunked_f16", 128),
+                       ("flash_dq_chunked_f16", 128),
+                       ("flash_dkv_chunked_f16", 128))
 # fp32's TF32 forward and dK/dV above D=128 take D at run time and are
 # templated on their chunk of the output alone, CW=128: the one
 # instantiation runs every width, D=256 (phase 11's fp32 model in heads of
@@ -390,8 +403,8 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS,
     (errors, ["name=err>bar", ...]). A head width
     the kernels are not built for goes in as the attention operator sends
     it: zero-padded along D to the kernels' width, with D's own scale, and
-    cut back to D; the plain versions run at D itself. With `twice`, K1
-    and K3 are launched a second time on the same inputs, and a result
+    cut back to D; the plain versions run at D itself. With `twice`, K1,
+    K2 and K3 are launched a second time on the same inputs, and a result
     that differs from the first by a bit is a broken bar."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(1)
@@ -417,13 +430,16 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS,
     differ = []
     if twice:
         o2, lse2 = fa.flash_fwd(qp, kp, vp, causal, q_off, scale=scale)
+        dq2, delta2 = fa.flash_dq(qp, kp, vp, fa.pad_head(o, width), dop,
+                                  lse, causal, q_off, scale=scale)
         dk2, dv2 = fa.flash_dkv(qp, kp, vp, dop, lse, delta_ref, causal,
                                 q_off, scale=scale)
         differ = [n for n, first, second in (
                       ("o", o, o2[..., :D]), ("lse", lse, lse2),
+                      ("dq", dq, dq2[..., :D]), ("delta", delta, delta2),
                       ("dk", dk, dk2[..., :D]), ("dv", dv, dv2[..., :D]))
                   if not torch.equal(first, second)]
-        del o2, lse2, dk2, dv2
+        del o2, lse2, dq2, delta2, dk2, dv2
     torch.cuda.synchronize()
     errs = {"o_row": row_err(o, o_ref), "o": abs_err(o, o_ref),
             "lse": abs_err(lse, lse_ref), "delta": abs_err(delta, delta_ref),
@@ -439,7 +455,8 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS,
         f"causal={causal} q_off={q_off} "
         + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
         + (" FAIL " + ",".join(bad) if bad else " ok")
-        + (", K1 and K3 bitwise equal twice" if twice and not bad else ""))
+        + (", K1, K2 and K3 bitwise equal twice" if twice and not bad
+           else ""))
     del q, k, v, do, qp, kp, vp, dop, o, lse, o_ref, lse_ref, dq, dq_ref
     del dk, dv
     torch.cuda.empty_cache()
@@ -448,7 +465,7 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS,
 
 def check_kernels(fa, cases, dtype=torch.bfloat16, limits=LIMITS,
                   twice=False):
-    """Each kernel against its plain version at every case (K1 and K3
+    """Each kernel against its plain version at every case (K1, K2 and K3
     launched twice and held bitwise, with `twice`); returns the errors at
     the first case (the main shape), with each case's under its name, and
     fails after reporting every case."""
@@ -573,9 +590,10 @@ def time_padded(fa, name, shape):
         f"bound_bwd_ms={bound(7, 8, 1, *shape)[0]:.4f}")
 
 
-# fp16's kernels on the CUDA cores: above D=512 the wrappers take them
-# (`_f16_simt`), and they take any width, so at D=64 and D=256 they stand
-# beside the tensor-core kernels that replaced them there.
+# fp16's kernels on the CUDA cores (`_f16_simt`), which no route takes since
+# the kernels that stream D replaced them above D=512: they take any width,
+# so at D=64 and D=256 they stand beside the tensor-core kernels that
+# replaced them there.
 CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_simt",
                  "flash_dq_f16": "flash_dq_f16_simt",
                  "flash_dkv_f16": "flash_dkv_f16_simt",
@@ -718,7 +736,7 @@ def check_chunked(fa, dtype, limits) -> dict:
     for name, shape in CHUNKED_CASES.items():
         route = fa._kernel("flash_fwd", shape[4], dtype)
         if route not in OLD_FWD_ABOVE_512 or \
-                fa.counted(route, shape[4]) != fa.CHUNKED_FWD[route]:
+                fa.counted(route, shape[4]) != fa.CHUNKED_COUNTS[route]:
             failures.append(f"{name}: not the chunked kernel's route")
         out[name], bad = forward_errors(fa, name, shape, dtype, limits)
         failures += [f"{name}: {b}" for b in bad]
@@ -784,7 +802,7 @@ def run_chunked(fa) -> dict:
     against the kernel it took the route from at CHUNKED_CASES["d640"], and
     once at D1024_SHAPE. Returns the rows of the kernels' JSON line, at
     d640: the new kernel's under the name it counts under
-    (fa.CHUNKED_FWD: the wide forward's d256 rows keep the route's name),
+    (fa.CHUNKED_COUNTS: the wide forward's d256 rows keep the route's name),
     the old kernels' under theirs."""
     rows = {}
     for dtype, limits in ((torch.bfloat16, LIMITS),
@@ -795,9 +813,114 @@ def run_chunked(fa) -> dict:
         timed = time_forward(fa, CHUNKED_CASES["d640"], dtype, old, rounds=1)
         timed[new]["err"] = max(errs["d640"]["o"], errs["d640"]["lse"])
         timed[old]["err"] = max(errs[old]["o"], errs[old]["lse"])
-        rows[fa.CHUNKED_FWD[new]] = timed[new]
+        rows[fa.CHUNKED_COUNTS[new]] = timed[new]
         rows[old] = timed[old]
         time_forward(fa, D1024_SHAPE, dtype)
+    return rows
+
+
+# fp16's K2 and K3 above D=512: flash_dq_chunked_kernel and
+# flash_dkv_chunked_kernel (csrc/flash_{dq,dkv}_wide.cu), which the wide
+# fp16 entries launch there, and the CUDA-core kernels they took that route
+# from, reached only to be timed against them in turns.
+OLD_BWD_ABOVE_512 = {"flash_dq_f16_wide": "flash_dq_f16_simt",
+                     "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
+# The shape of the CUDA-core pair's row of record (D=640, B=2, H=2, S=1024)
+BWD_RECORD_SHAPE = (2, 2, 1024, 1024, 640, True, 0)
+BWD_CHUNKED_COUNTS = ("flash_dq_f16_chunked", "flash_dkv_f16_chunked")
+
+
+def time_backward_turns(fa, shape, rounds: int) -> dict:
+    """fp16's K2 and K3 at `shape`: the kernels the wrappers take and the
+    CUDA-core ones (OLD_BWD_ABOVE_512), timed in turns `rounds` times
+    (time_turns), beside the plain versions, the library's backward and the
+    bounds; logged, K2 then K3 as one backward. Returns rows of the
+    kernels' JSON line by the names the kernels count under."""
+    f16 = torch.float16
+    med = time_turns(fa, shape, f16, OLD_BWD_ABOVE_512, rounds)
+    B, H, Sq, Sk, D, causal, q_off = shape
+    g = torch.Generator("cuda").manual_seed(2)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
+                   .to(f16) for S in (Sq, Sk, Sk, Sq))
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    plain = {"flash_dq": cuda_ms(lambda: fa.flash_dq_reference(
+                 q, k, v, o, do, lse, causal, q_off), warmup=1, reps=5),
+             "flash_dkv": cuda_ms(lambda: fa.flash_dkv_reference(
+                 q, k, v, do, lse, delta, causal, q_off), warmup=1, reps=5)}
+    _, lib_bwd = library_times(q, k, v, do, causal)
+    rows, pair = {}, {}
+    for name, n_products, line in (("flash_dq", 3, 215),
+                                   ("flash_dkv", 4, 260)):
+        new = fa._kernel(name, D, f16)
+        old = OLD_BWD_ABOVE_512[new]
+        b = bound(n_products, 6, 2, *shape, f16)
+        pair[name] = (med[new], med[old])
+        for kernel, count in ((new, fa.counted(new, D)), (old, old)):
+            rows[count] = dict(
+                ms=med[kernel], plain_ms=plain[name], b=b,
+                library_ms=lib_bwd, replaces=f"{TPU_SRC}:{line}",
+                source=("vodascheduler_tpu_torch/ops/csrc/"
+                        f"{fa.source(kernel)}.cu"))
+        log(f"time[f16 chunked] D={D} B={B} H={H} S={Sq} "
+            f"{fa.counted(new, D)} ms={med[new]:.4f} "
+            f"roofline_share={b[0] / med[new]:.3f} bound_ms={b[0]:.4f} "
+            f"({b[1]}) plain_ms={plain[name]:.4f} library_ms={lib_bwd:.4f} "
+            f"{old} ms={med[old]:.4f} "
+            f"cuda_cores_over_tensor_cores={med[old] / med[new]:.3f}")
+    new_ms, old_ms = (sum(t[x] for t in pair.values()) for x in (0, 1))
+    b = bound(7, 8, 1, *shape, f16)
+    log(f"time[backward_f16_chunked turns] D={D} B={B} H={H} S={Sq} "
+        f"flash_dq_f16_chunked then flash_dkv_f16_chunked ms={new_ms:.4f} "
+        f"(sum of the medians in turns) roofline_share={b[0] / new_ms:.3f} "
+        f"bound_ms={b[0]:.4f} ({b[1]}) library_ms={lib_bwd:.4f} "
+        f"library_over_kernels={lib_bwd / new_ms:.3f} _f16_simt pair "
+        f"ms={old_ms:.4f} cuda_cores_over_tensor_cores={old_ms / new_ms:.3f}")
+    del q, k, v, do, o, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_chunked_backward(fa) -> dict:
+    """Phase 3's fp16 K2 and K3 above D=512 (SIMT_LIMITS[float16]): each
+    kernel against its plain version at every CHUNKED_CASES, K1, K2 and K3
+    launched twice and held bitwise, K2's and K3's launches counted under
+    their chunked names; the CUDA-core pair they took the route from held to
+    the same bars at BWD_RECORD_SHAPE; both timed in turns there (two
+    rounds) and at CHUNKED_CASES["d640"] (one). Fails after reporting every
+    case; returns the rows of the kernels' JSON line at BWD_RECORD_SHAPE,
+    the new kernels' under the names they count under, the CUDA-core ones'
+    under theirs."""
+    f16 = torch.float16
+    limits = SIMT_LIMITS[f16]
+    failures = []
+    for name, shape in CHUNKED_CASES.items():
+        D = shape[4]
+        if tuple(fa.counted(fa._kernel(n, D, f16), D)
+                 for n in ("flash_dq", "flash_dkv")) != BWD_CHUNKED_COUNTS:
+            failures.append(f"{name}: not the chunked kernels' route")
+        before = dict(fa.launches)
+        _, bad = kernel_errors(fa, name, shape, f16, limits, twice=True)
+        got = {n: fa.launches[n] - before[n] for n in BWD_CHUNKED_COUNTS}
+        if got != dict.fromkeys(BWD_CHUNKED_COUNTS, 2):
+            bad.append(f"launches {got}")
+        failures += [f"{name}: {b}" for b in bad]
+    new_errs, bad = kernel_errors(fa, "d640_record", BWD_RECORD_SHAPE, f16,
+                                  limits)
+    failures += [f"d640_record: {b}" for b in bad]
+    with routed(fa, OLD_BWD_ABOVE_512):
+        old_errs, bad = kernel_errors(fa, "d640_cuda_cores", BWD_RECORD_SHAPE,
+                                      f16, limits)
+    failures += [f"_f16_simt d640: {b}" for b in bad]
+    if failures:
+        raise SystemExit("K2 and K3 above D=512 failed: "
+                         + "; ".join(failures))
+    rows = time_backward_turns(fa, BWD_RECORD_SHAPE, rounds=2)
+    for errs, (dq, dkv) in ((new_errs, BWD_CHUNKED_COUNTS),
+                            (old_errs, OLD_BWD_ABOVE_512.values())):
+        rows[dq]["err"] = errs["dq_abs"]
+        rows[dkv]["err"] = max(errs["dk_abs"], errs["dv_abs"])
+    time_backward_turns(fa, CHUNKED_CASES["d640"], rounds=1)
     return rows
 
 
@@ -2382,7 +2505,7 @@ def main() -> int:
     for new in CUDA_CORE_F32:
         rows[new]["ms"] = turns64[new]
     # fp32 above D=128: the TF32 kernels that stream D (`_f32_wide`) at
-    # F32_WIDE_CASES, K1 and K3 launched twice and held bitwise; timed at
+    # F32_WIDE_CASES, K1, K2 and K3 launched twice and held bitwise; timed at
     # d256 beside the plain versions, SDPA's fp32 forward and the library's
     # fp32 backward, and in turns there against the CUDA-core kernels they
     # took the route from, held at d256 too; those rows carry the wide
@@ -2435,19 +2558,17 @@ def main() -> int:
     f16_wide = [n for n in CUDA_CORE_F16 if n.endswith("_wide")]
     for name in f16_wide:
         rows[name] = d256_rows[name]
-    d640 = (2, 2, 1024, 1024, 640, True, 0)
-    d640_errs = check_kernels(fa, {"d640": d640}, f16, SIMT_LIMITS[f16])
-    time_kernels(fa, d640, d640_errs, "_f16_simt", f16)
     # bf16's wide kernels at D=640, where dQ and dK/dV cut D on wmma
     # (wide.cuh) and the forward streams D (flash_fwd_chunked_kernel)
+    d640 = BWD_RECORD_SHAPE
     time_kernels(fa, d640, check_kernels(fa, {"d640": d640}), "_wide")
     torch.cuda.empty_cache()
     # fp16's K1, K2 and K3 on the CUDA cores (`_f16_simt`), held to the same
     # bars at the main shape and timed in turns with the tensor-core
-    # kernels that replaced them there and at d256; their rows, from d256
-    # (phase 11's fp16 model in heads of 256), carry the plain and library
+    # kernels that replaced them there and at d256; their rows from d256
+    # (phase 11's fp16 model in heads of 256) carry the plain and library
     # times of the wide tensor-core rows (the same function on the same
-    # inputs) and their errors at D=640
+    # inputs), until the rows at D=640 take their place below
     with routed(fa, CUDA_CORE_F16):
         check_kernels(fa, {"main": main_shape}, f16, SIMT_LIMITS[f16])
     for shape in (main_shape, cases["d256"]):
@@ -2464,14 +2585,15 @@ def main() -> int:
             f"library_ms={rows[new]['library_ms']:.4f} {old} "
             f"ms={turns[old]:.4f} cuda_cores_over_tensor_cores="
             f"{turns[old] / rows[new]['ms']:.3f}")
-    rows["flash_dq_f16_simt"]["err"] = d640_errs["dq_abs"]
-    rows["flash_dkv_f16_simt"]["err"] = max(d640_errs["dk_abs"],
-                                            d640_errs["dv_abs"])
     torch.cuda.empty_cache()
     # K1 above D=512 in bf16 and fp16 (flash_fwd_chunked_kernel), and the
     # kernels it took the route from there (flash_fwd_f16_simt's row, at
-    # D=640, takes the place of its d256 one)
+    # D=640, takes the place of its d256 one); fp16's K2 and K3 above D=512
+    # (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) and the CUDA-core
+    # pair they took the route from (whose rows, at D=640, take the place of
+    # the d256 ones)
     rows.update(run_chunked(fa))
+    rows.update(run_chunked_backward(fa))
     phase("3 kernels")
 
     counts = run_slice(fa)[0]

@@ -2,7 +2,7 @@
 of two source trees against each other, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
-        [--shape main|d128|d256|d512|d640]
+        [--shape main|d128|d256|d512|d640] [--dtype bf16|fp16]
 
 `--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
 (the copy on the card is no git repository, so write it first, e.g. for the
@@ -19,13 +19,20 @@ median of 10 after 3 warm-ups), through the package's wrappers on the
 same inputs, beside PyTorch's own flash attention forward and backward
 (timed as a yardstick only) and each kernel's bound; K2 then K3, the whole
 backward, is timed the same way as a row of its own ("backward") beside
-the library's backward. The shapes (bf16, causal, S=2048, B=8): `main`,
+the library's backward. The shapes (causal, S=2048, B=8): `main`,
 llama_350m's attention (H=16, D=64, the kernels of flash_{fwd,dq,dkv}.cu,
 as `d128` at H=8, D=128); `d256` (H=4, D=256) and `d512` (H=2, D=512),
 the same width in wider heads, which run the wide kernels
 (flash_{fwd,dq,dkv}_wide.cu; rows named with `_wide`); `d640` (H=2,
-D=640), where the forward streams D (flash_fwd_chunked_kernel) and dQ and
-dK/dV cut it on wmma. Prints the
+D=640), where the forward streams D (flash_fwd_chunked_kernel) and bf16's
+dQ and dK/dV cut it on wmma, and fp16's stream it too
+(flash_dq_chunked_kernel, flash_dkv_chunked_kernel). `--dtype` (bf16 by
+default) picks the tensors' type; each row is named after the kernel that
+launches there, as its launches count (`flash_dq_f16_chunked` in fp16 at
+d640, say; the backward after dQ's suffix). A base tree must hold the
+entries the wrappers route to in that dtype (the parent of the commit that
+added fp16's chunked dQ and dK/dV returns an error for fp16 above 512).
+Prints the
 card's name and power limit, every reading, and a last line of JSON with
 the medians and base/tree ratios. Exits non-zero
 without a card or without the base sources; it prints no time it did not
@@ -56,13 +63,18 @@ SHAPES = {"main": MAIN_SHAPE,
           "d640": (8, 2, 2048, 2048, 640, True, 0)}
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 ROWS = KERNELS + ("backward",)
+DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
 
 
-def row_names(shape) -> dict:
-    """ROWS -> the name each row has at `shape`: a wide head's kernels and
-    backward carry `_wide`."""
-    suffix = "_wide" if shape[4] > 128 else ""
-    return {r: r + suffix for r in ROWS}
+def row_names(fa, shape, dtype=torch.bfloat16) -> dict:
+    """ROWS -> the name each row has at `shape` in `dtype`: each kernel's
+    as its launches count there (a wide head's carry `_wide`, fp16's
+    `_f16`, a kernel that streams D `_chunked`), the backward's with dQ's
+    suffix."""
+    D = shape[4]
+    names = {r: fa.counted(fa._kernel(r, D, dtype), D) for r in KERNELS}
+    names["backward"] = "backward" + names["flash_dq"][len("flash_dq"):]
+    return names
 
 
 def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
@@ -72,15 +84,20 @@ def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
     build._libs.clear()
     out = {}
     # an older tree may lack sources the package has since gained
-    # (the fp32/fp16 sources hold several entries and are not compared here)
+    # (the CUDA-core and TF32 sources are not compared here)
     present = [n for n in build.SOURCES
                if n not in (fa.SIMT_SOURCE, fa.TF32_SOURCE)
                and (Path(csrc) / f"{n}.cu").exists()]
-    for name, path in build.build(present).items():
-        fn = getattr(ctypes.CDLL(str(path)), f"voda_{name}")
-        fn.argtypes = fa._ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        out[name] = fn
+    libs = {src: ctypes.CDLL(str(path))
+            for src, path in build.build(present).items()}
+    # every entry of those sources the wrappers may route to (bf16's and
+    # fp16's), where the tree has it
+    for name in fa._ARGTYPES:
+        fn = getattr(libs.get(fa.source(name)), f"voda_{name}", None)
+        if fn is not None:
+            fn.argtypes = fa._ARGTYPES[name]
+            fn.restype = ctypes.c_int
+            out[name] = fn
     return out
 
 
@@ -89,10 +106,10 @@ def use_entries(fa, entries: dict) -> None:
     fa._entry = entries.__getitem__
 
 
-def inputs(shape):
+def inputs(shape, dtype=torch.bfloat16):
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(2)
-    return [torch.randn(B, S, H, D, generator=g, device="cuda").bfloat16()
+    return [torch.randn(B, S, H, D, generator=g, device="cuda").to(dtype)
             for S in (Sq, Sk, Sk, Sq)]
 
 
@@ -118,8 +135,9 @@ def main() -> int:
                                                    "csrc"))
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--shape", choices=sorted(SHAPES), default="main")
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="bf16")
     args = ap.parse_args()
-    shape, names = SHAPES[args.shape], row_names(SHAPES[args.shape])
+    shape, dtype = SHAPES[args.shape], DTYPES[args.dtype]
     if not torch.cuda.is_available():
         print("torch_kernel_ab: CUDA is not available", file=sys.stderr)
         return 1
@@ -131,14 +149,16 @@ def main() -> int:
     from vodascheduler_tpu_torch.ops import _build as build
     from vodascheduler_tpu_torch.ops import flash_attention as fa
 
+    names = row_names(fa, shape, dtype)
     log = chip_smoke.log
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
                        text=True, check=True).stdout.strip().splitlines()[0])
     sets = {"tree": load_entries(build, fa, build.CSRC, build.BUILD_ROOT),
             "base": load_entries(build, fa, base, base.parent / "lib")}
-    log(f"shape {args.shape} (B, H, Sq, Sk, D, causal, q_off) = {shape}")
-    q, k, v, do = inputs(shape)
+    log(f"shape {args.shape} (B, H, Sq, Sk, D, causal, q_off) = {shape} "
+        f"{args.dtype}")
+    q, k, v, do = inputs(shape, dtype)
     readings = {n: {"base": [], "tree": []} for n in ROWS}
     for rep in range(args.reps):
         for which in ("base", "tree", "tree", "base"):
@@ -149,10 +169,10 @@ def main() -> int:
                 log(f"rep {rep} {which} {names[name]} ms={ms:.4f}")
     lib_fwd, lib_bwd = chip_smoke.library_times(q, k, v, do, shape[5])
     log(f"library fwd_ms={lib_fwd:.4f} bwd_ms={lib_bwd:.4f} (dq, dk, dv)")
-    bounds = {"flash_fwd": chip_smoke.bound(2, 4, 1, *shape),
-              "flash_dq": chip_smoke.bound(3, 6, 2, *shape),
-              "flash_dkv": chip_smoke.bound(4, 6, 2, *shape),
-              "backward": chip_smoke.bound(7, 8, 1, *shape)}
+    bounds = {"flash_fwd": chip_smoke.bound(2, 4, 1, *shape, dtype),
+              "flash_dq": chip_smoke.bound(3, 6, 2, *shape, dtype),
+              "flash_dkv": chip_smoke.bound(4, 6, 2, *shape, dtype),
+              "backward": chip_smoke.bound(7, 8, 1, *shape, dtype)}
     library = {"flash_fwd": lib_fwd, "flash_dq": lib_bwd, "flash_dkv": lib_bwd,
                "backward": lib_bwd}
     summary = {}

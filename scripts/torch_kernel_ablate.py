@@ -3,7 +3,7 @@ against the sources as they stand, in turns, on one card: what each part
 of a kernel costs, and what each design choice of theirs is worth.
 
     python3 scripts/torch_kernel_ablate.py [--rounds 6] [--only NAME ...]
-        [--shape main|d128|d256|d512|d640]
+        [--shape main|d128|d256|d512|d640] [--dtype bf16|fp16]
 
 Each variant is a copy of ``vodascheduler_tpu_torch/ops/csrc`` with a few
 lines changed (VARIANTS below), built under ``build/kernel_ablate/<name>``
@@ -15,7 +15,9 @@ it) and are only timed. At `--shape` (scripts/torch_kernel_ab.py's:
 `d128` the same width in heads of 128; `d256` and `d512` in heads of 256
 and 512, which run the wide kernels, whose variants are named `fwdw_`,
 `dqw_` and `dkvw_`; `d640` in heads of 640, where the forward is
-flash_fwd_chunked_kernel, whose variants are named `fwdc_`) every round times the tree and then each variant, K1, K2, K3
+flash_fwd_chunked_kernel, whose variants are named `fwdc_`, and in fp16
+(`--dtype fp16`) dQ and dK/dV are flash_dq_chunked_kernel and
+flash_dkv_chunked_kernel, named `dqc_` and `dkvc_`) every round times the tree and then each variant, K1, K2, K3
 and K2 then K3 (the backward) each by CUDA events (chip_smoke.cuda_ms, 30
 repeats after 5 warm-ups); the script prints the
 card's name and power limit, the median of each, its ratio to the tree's,
@@ -40,10 +42,52 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
+import source_edits  # noqa: E402
 import torch_kernel_ab as ab  # noqa: E402
 
 F, Q, K = "flash_fwd.cu", "flash_dq.cu", "flash_dkv.cu"
 FW, QW, KW = "flash_fwd_wide.cu", "flash_dq_wide.cu", "flash_dkv_wide.cu"
+# the wide dQ and dK/dV kernels alone: their sources also hold the kernels
+# above D=512, which share some of their lines (scripts/source_edits.py)
+QWK, KWK = QW + ":flash_dq_wide_kernel", KW + ":flash_dkv_wide_kernel"
+# fp16's dQ and dK/dV above D=512 (run with --shape d640 --dtype fp16)
+QCK, KCK = QW + ":flash_dq_chunked_kernel", KW + ":flash_dkv_chunked_kernel"
+_DQC_SUM = """      for (int c = 0; c < nc; ++c) {
+        issue_chunk(j * nc + c);
+        wgmma_wait<0>();
+        fence_regs(part);
+        mbar_arrive(&empty[(j * nc + c) % ST]);
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) sc[e] += part[e];
+      }"""
+_DQC_ASYNC = """      issue_chunk(j * nc);
+      for (int c = 1; c < nc; ++c) {
+        issue_chunk(j * nc + c);
+        wgmma_wait<1>();
+        mbar_arrive(&empty[(j * nc + c - 1) % ST]);
+      }
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&empty[(j * nc + nc - 1) % ST]);"""
+_DQC_LOADS = """          mbar_expect_tx(&full[s], C::STAGE_BYTES);
+          tma_rows<KC>(qs + s * BM * KC, &tq, &full[s], BM, h, q0, b, c * KC);
+          tma_rows<KC>(dos + s * BM * KC, &tdo, &full[s], BM, h, q0, b,
+                       c * KC);
+          tma_rows<KC>(ks + s * BN * KC, &tk, &full[s], BN, h, j * BN, b,
+                       c * KC);
+          tma_rows<KC>(vs + s * BN * KC, &tv, &full[s], BN, h, j * BN, b,
+                       c * KC);"""
+_DKVC_LOADS = """            mbar_expect_tx(&full[s], C::STAGE_BYTES);
+            tma_rows<KC>(ks + s * BN * KC, &tk, &full[s], BN, h, k0, b,
+                         c * KC);
+            tma_rows<KC>(vs + s * BN * KC, &tv, &full[s], BN, h, k0, b,
+                         c * KC);
+            tma_rows<KC>(qs + s * BM * KC, &tq, &full[s], BM, h, q0, b,
+                         c * KC);
+            tma_rows<KC>(dos + s * BM * KC, &tdo, &full[s], BM, h, q0, b,
+                         c * KC);"""
+_CHUNK_PRODUCTS = "      for (int kk = 0; kk < KC / 16; ++kk)\n"
+_FIRST_CHUNK = "      for (int kk = 0; kk < (it % nc ? 0 : KC / 16); ++kk)\n"
 HOPPER = "hopper.cuh"  # the forwards' softmax_tile
 _KV_LOADS = """        mbar_expect_tx(&k_full[s], C::KV_BYTES);
         tma_rows<D>(ks + s * C::BN * D, &tk, &k_full[s], C::BN, h, j * C::BN, b);
@@ -156,27 +200,64 @@ VARIANTS = {
          "        if (lane == 0 && it < ST) {\n          mbar_expect_tx(&do_full[s]")]),
     "dkvw_no_handoff": ("wide K3 without waiting for the other warpgroup's "
                         "Pᵀ and dSᵀ (wrong results)", [
-        (KW, 'asm volatile("bar.sync 3, 256;" ::: "memory");', ""),
-        (KW, 'asm volatile("bar.arrive 3, 256;" ::: "memory");', ""),
-        (KW, 'asm volatile("bar.sync 4, 256;" ::: "memory");', ""),
-        (KW, 'asm volatile("bar.arrive 4, 256;" ::: "memory");', "")]),
+        (KWK, 'asm volatile("bar.sync 3, 256;" ::: "memory");', ""),
+        (KWK, 'asm volatile("bar.arrive 3, 256;" ::: "memory");', ""),
+        (KWK, 'asm volatile("bar.sync 4, 256;" ::: "memory");', ""),
+        (KWK, 'asm volatile("bar.arrive 4, 256;" ::: "memory");', "")]),
     "dkvw_no_exp": ("wide K3 with exp2 replaced by its argument (wrong "
                     "results)", [
-        (KW, "sc[4 * c + e] = fast_exp2(sc[4 * c + e]);", "")]),
+        (KWK, "sc[4 * c + e] = fast_exp2(sc[4 * c + e]);", "")]),
     "dqw_kv_once": ("wide K2 loading K/V for its first stages only (wrong "
                     "results)", [
         (QW, _KV_LOADS_DQW, "if (j < ST) {\n" + _KV_LOADS_DQW
          + "\n} else { mbar_arrive(&k_full[s]); mbar_arrive(&v_full[s]); }")]),
     "dqw_no_handoff": ("wide K2 without waiting for the other warpgroup's "
                        "P and dS (wrong results)", [
-        (QW, 'asm volatile("bar.sync 3, 256;" ::: "memory");', ""),
-        (QW, 'asm volatile("bar.arrive 3, 256;" ::: "memory");', ""),
-        (QW, 'asm volatile("bar.sync 4, 256;" ::: "memory");', ""),
-        (QW, 'asm volatile("bar.arrive 4, 256;" ::: "memory");', "")]),
+        (QWK, 'asm volatile("bar.sync 3, 256;" ::: "memory");', ""),
+        (QWK, 'asm volatile("bar.arrive 3, 256;" ::: "memory");', ""),
+        (QWK, 'asm volatile("bar.sync 4, 256;" ::: "memory");', ""),
+        (QWK, 'asm volatile("bar.arrive 4, 256;" ::: "memory");', "")]),
     "dqw_no_exp": ("wide K2 with exp2 replaced by its argument (wrong "
                    "results)", [
-        (QW, "sc[4 * c + e] = fast_exp2(fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]));",
+        (QWK, "sc[4 * c + e] = fast_exp2(fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]));",
          "sc[4 * c + e] = fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]);")]),
+    "dqc_async": ("fp16's K2 above D=512 summing S and dP over all of D in "
+                  "one tensor-core accumulator, each chunk's stage released "
+                  "under the next chunk's products (as the chunked forward; "
+                  "a fp32 add a chunk as it stands)", [
+        (QCK, "        wgmma_ss<BN, T>(part, ad + kmajor_step(BM, kk),\n"
+              "                        bd + kmajor_step(BN, kk), kk > 0);",
+         "        wgmma_ss<BN, T>(sc, ad + kmajor_step(BM, kk),\n"
+         "                        bd + kmajor_step(BN, kk), "
+         "it % nc > 0 || kk > 0);"),
+        (QCK, _DQC_SUM, _DQC_ASYNC)]),
+    "dqc_s_first_chunk": ("fp16's K2 above D=512 taking S's and dP's products "
+                          "of D's first chunk only, every chunk still loaded "
+                          "(wrong results)", [
+        (QCK, _CHUNK_PRODUCTS, _FIRST_CHUNK)]),
+    "dqc_loads_once": ("fp16's K2 above D=512 loading Q, dO, K and V chunks "
+                       "for the first stages only (wrong results)", [
+        (QCK, _DQC_LOADS, "if (it < ST) {\n" + _DQC_LOADS
+         + "\n} else { mbar_arrive(&full[s]); }")]),
+    "dqc_bn64": ("fp16's K2 above D=512 with 64-key tiles (128 as it stands)",
+                 [(QW, "static constexpr int BN = 128;  // keys of a tile",
+                   "static constexpr int BN = 64;  // keys of a tile")]),
+    "dkvc_s_first_chunk": ("fp16's K3 above D=512 taking Sᵀ's and dPᵀ's "
+                           "products of D's first chunk only, every chunk "
+                           "still loaded (wrong results)", [
+        (KCK, _CHUNK_PRODUCTS, _FIRST_CHUNK)]),
+    "dkvc_loads_once": ("fp16's K3 above D=512 loading K, V, Q and dO chunks "
+                        "for the first stages only (wrong results)", [
+        (KCK, _DKVC_LOADS, "if (it < ST) {\n" + _DKVC_LOADS
+         + "\n} else { mbar_arrive(&full[s]); }")]),
+    "dkvc_kc128": ("fp16's K3 above D=512 streaming D in 128-column chunks "
+                   "(64 as it stands)", [
+        (KW, "  static constexpr int KC = 64;   // columns of D in a stage\n"
+             "  static constexpr int HW = CW / 2;  // a consumer warpgroup's "
+             "half\n  static constexpr int CHUNK_BYTES",
+         "  static constexpr int KC = 128;   // columns of D in a stage\n"
+         "  static constexpr int HW = CW / 2;  // a consumer warpgroup's "
+         "half\n  static constexpr int CHUNK_BYTES")]),
 }
 
 
@@ -185,13 +266,14 @@ def make(sound: Path, name: str) -> Path:
     base = Path(ROOT) / "build" / "kernel_ablate" / name
     shutil.rmtree(base, ignore_errors=True)
     shutil.copytree(sound, base / "csrc")
-    for fname, old, new in VARIANTS[name][1]:
+    for target, old, new in VARIANTS[name][1]:
+        fname, kernel = source_edits.split(target)
         path = base / "csrc" / fname
-        text = path.read_text()
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: the lines to change are not once in "
-                             f"{fname}")
-        path.write_text(text.replace(old, new))
+        try:
+            path.write_text(source_edits.replace_once(path.read_text(),
+                                                      kernel, old, new))
+        except ValueError as e:
+            raise SystemExit(f"{name}: {fname}: {e}")
     return base / "csrc"
 
 
@@ -200,6 +282,7 @@ def main() -> int:
     ap.add_argument("--rounds", type=int, default=6)
     ap.add_argument("--only", nargs="*", choices=sorted(VARIANTS))
     ap.add_argument("--shape", choices=sorted(ab.SHAPES), default="main")
+    ap.add_argument("--dtype", choices=sorted(ab.DTYPES), default="bf16")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernel_ablate: CUDA is not available", file=sys.stderr)
@@ -219,9 +302,11 @@ def main() -> int:
         csrc = make(sound, name)
         sets[name] = ab.load_entries(build, fa, csrc, csrc.parent / "lib")
     shape = ab.SHAPES[args.shape]
-    names = ab.row_names(shape)
-    log(f"shape {args.shape} (B, H, Sq, Sk, D, causal, q_off) = {shape}")
-    q, k, v, do = ab.inputs(shape)
+    dtype = ab.DTYPES[args.dtype]
+    names = ab.row_names(fa, shape, dtype)
+    log(f"shape {args.shape} (B, H, Sq, Sk, D, causal, q_off) = {shape} "
+        f"{args.dtype}")
+    q, k, v, do = ab.inputs(shape, dtype)
     ms = {n: {names[kn]: [] for kn in ab.ROWS} for n in sets}
     for _ in range(args.rounds):
         for name, entries in sets.items():

@@ -41,6 +41,12 @@ small:
 - ``f32w_fwd_drop_chunk``, ``f32w_dkv_drop_chunk``: the same kernels leave
   D's second 32-column chunk out of every S (the forward) or every Sᵀ and
   dPᵀ (dK/dV), its stage still loaded, waited on and released.
+- ``dqc_f16_drop_chunk``: fp16's dQ above D=512 (flash_dq_wide.cu's
+  flash_dq_chunked_kernel) leaves D's second 64-column chunk out of every
+  S (its products still issued and waited on, its stage released).
+- ``dkvc_f16_no_rescale``: fp16's dK/dV above D=512 (flash_dkv_wide.cu's
+  flash_dkv_chunked_kernel) lowers a key row's exponent of dSᵀ but never
+  rescales what dK's row has summed so far.
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
@@ -52,10 +58,14 @@ tests/test_torch_cuda.py holds it; on random inputs and on an unscaled
 loss's dO of 1e-6), the fp32 one at llama_350m's attention shape in
 fp32 under chip_smoke.py's fp32 bars, and the chunked forward's at D=640
 (B=2, H=2, S=1024), the first in bf16, the second in fp16 under the fp16
-bars, and the fp32 wide ones at the wide shape in fp32 under the fp32
-bars, each required to break the bars of its own kernel (O for the
+bars, the fp32 wide ones at the wide shape in fp32 under the fp32
+bars, and the fp16 dQ and dK/dV above D=512 at D=640 under the fp16 bars,
+each required to break the bars of its own kernel (O for the
 forward, dK and dV for dK/dV, which runs on the sound forward's lse when
-the fault is its own). The script logs each kernel set's
+the fault is its own), the last two no bar of another kernel
+(`OWN_BARS`). A fault names its file as ``name.cu:kernel`` where two
+kernels of one source share the line it changes
+(``scripts/source_edits.py``). The script logs each kernel set's
 errors against the plain versions under chip_smoke.py's bars (the sound
 set at every shape and dtype, and against every model), then llama_350m's forward and
 backward through each set against the plain attention (chip_smoke.py's
@@ -76,6 +86,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+import source_edits  # noqa: E402
 
 MAIN_SHAPE = (8, 16, 2048, 2048, 64, True, 0)
 WIDE_SHAPE = (8, 4, 2048, 2048, 256, True, 0)
@@ -142,7 +155,7 @@ FAULTS = {
         "          wgmma_rs<HW, T>(acc, dsa[kk], kd + mnmajor_step(kk));\n",
         WIDE_SHAPE, torch.bfloat16),
     "dkvw_f16_no_rescale": (
-        "flash_dkv_wide.cu",
+        "flash_dkv_wide.cu:flash_dkv_wide_kernel",
         "      if (__any_sync(0xffffffffu, fell)) {\n",
         "      if (false && __any_sync(0xffffffffu, fell)) {\n",
         WIDE_SHAPE, torch.float16, "dkvw"),
@@ -152,7 +165,7 @@ FAULTS = {
         "        if (false && __any_sync(0xffffffffu, fell)) {\n",
         MAIN_SHAPE, torch.float16, "dq"),
     "dqw_f16_no_rescale": (
-        "flash_dq_wide.cu",
+        "flash_dq_wide.cu:flash_dq_wide_kernel",
         "      if (__any_sync(0xffffffffu, fell)) {\n",
         "      if (false && __any_sync(0xffffffffu, fell)) {\n",
         WIDE_SHAPE, torch.float16, "dqw"),
@@ -190,13 +203,30 @@ FAULTS = {
         "        if (live) {\n          const float* kc = stage(s);",
         "        if (live && c != 1) {\n          const float* kc = stage(s);",
         WIDE_SHAPE, torch.float32),
+    "dqc_f16_drop_chunk": (
+        "flash_dq_wide.cu:flash_dq_chunked_kernel",
+        "        for (int e = 0; e < BN / 2; ++e) sc[e] += part[e];\n",
+        "        for (int e = 0; e < BN / 2; ++e)\n"
+        "          sc[e] += cw == 0 && c == 1 ? 0.f : part[e];\n",
+        CHUNKED_SHAPE, torch.float16),
+    "dkvc_f16_no_rescale": (
+        "flash_dkv_wide.cu:flash_dkv_chunked_kernel",
+        "      if (__any_sync(0xffffffffu, fell)) {\n",
+        "      if (false && __any_sync(0xffffffffu, fell)) {\n",
+        CHUNKED_SHAPE, torch.float16),
 }
 # The bars a fault must break, where it is held against them: those of the
 # kernel it sits in.
 MUST_BREAK = {"f32w_fwd_one_pass": ("o_row",),
               "f32w_fwd_drop_chunk": ("o_row",),
               "f32w_dkv_one_pass": ("dk_row", "dv_row"),
-              "f32w_dkv_drop_chunk": ("dk_row", "dv_row")}
+              "f32w_dkv_drop_chunk": ("dk_row", "dv_row"),
+              "dqc_f16_drop_chunk": ("dq_row",),
+              "dkvc_f16_no_rescale": ("dk_row",)}
+# The faults that must break no bar but those of their own kernel (K2's dQ
+# and δ, K3's dK and dV).
+OWN_BARS = {"dqc_f16_drop_chunk": ("dq_row", "delta"),
+            "dkvc_f16_no_rescale": ("dk_row", "dv_row")}
 
 
 def model_errors(fa, which: str) -> list:
@@ -248,7 +278,8 @@ def use_sources(build, fa, csrc, build_root) -> None:
 def plant(sound_csrc: Path, name: str):
     """A copy of the sound sources with fault `name`: (csrc dir, build
     root)."""
-    fname, olds, news = FAULTS[name][:3]
+    target, olds, news = FAULTS[name][:3]
+    fname, kernel = source_edits.split(target)
     if isinstance(olds, str):
         olds, news = (olds,), (news,)
     base = os.path.join(ROOT, "build", "planted_fault", name)
@@ -259,10 +290,10 @@ def plant(sound_csrc: Path, name: str):
     with open(path) as f:
         text = f.read()
     for old, new in zip(olds, news):
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: a line to change is not once in "
-                             f"{fname}")
-        text = text.replace(old, new)
+        try:
+            text = source_edits.replace_once(text, kernel, old, new)
+        except ValueError as e:
+            raise SystemExit(f"{name}: {fname}: {e}")
     with open(path, "w") as f:
         f.write(text)
     return Path(csrc), Path(base) / "lib"
@@ -323,8 +354,12 @@ def main() -> int:
                   if not any(b.startswith(f"{n}=") for b in bad)]
         if missed:
             log(f"verdict[{name}] its kernel's bars not broken: {missed}")
+        others = [b for b in bad if name in OWN_BARS and not b.startswith(
+            tuple(f"{n}=" for n in OWN_BARS[name]))]
+        if others:
+            log(f"verdict[{name}] bars of another kernel broken: {others}")
         judged_right = (not (bad or slice_bad) if name == "sound"
-                        else bool(bad) and not missed)
+                        else bool(bad) and not missed and not others)
         if not judged_right:
             wrong.append(name)
     if wrong:

@@ -347,12 +347,11 @@ def test_fp16_dq_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off,
     assert err.item() <= 1e-3
 
 
-def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
-    """Above D=512 fp16's dQ and dK/dV are the CUDA-core kernels
-    (`_f16_simt`: the wmma kernels there are bf16 code), by width, and its
-    forward the wide one (`_f16_wide`, whose chunked kernel streams D and
-    counts as flash_fwd_f16_chunked); all match the plain versions at
-    SIMT_LIMITS."""
+def test_fp16_above_512_runs_the_chunked_kernels(cuda):
+    """Above D=512 fp16's forward, dQ and dK/dV take the wide entries,
+    whose kernels there stream D (counted as flash_fwd_f16_chunked,
+    flash_dq_f16_chunked and flash_dkv_f16_chunked; no `_f16_simt`); all
+    match the plain versions at SIMT_LIMITS."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[torch.float16]
     g = torch.Generator(cuda).manual_seed(10)
@@ -372,7 +371,8 @@ def test_fp16_above_512_runs_the_cuda_core_kernels(cuda):
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_f16_chunked=1, flash_dq_f16_simt=1, flash_dkv_f16_simt=1)
+        flash_fwd_f16_chunked=1, flash_dq_f16_chunked=1,
+        flash_dkv_f16_chunked=1)
 
 
 def _f32_inputs(B, H, Sq, Sk, D, seed, device="cuda"):
@@ -1001,7 +1001,7 @@ def test_chunked_forward_matches_its_model(cuda, dtype, B, H, Sq, Sk, D,
 def test_autograd_goes_through_the_chunked_forward(cuda, dtype):
     """attention_op at D=640: the forward that streams D, then the
     backward's kernels as they stand there (bf16's wmma dQ and dK/dV,
-    fp16's CUDA-core ones), against the same operator on CPU copies (the
+    fp16's that stream D too), against the same operator on CPU copies (the
     plain versions, O and the gradients rounded to the dtype as the
     kernels round them), row by row at the dtype's bars."""
     from chip_smoke import SIMT_LIMITS
@@ -1014,7 +1014,7 @@ def test_autograd_goes_through_the_chunked_forward(cuda, dtype):
     o = fa.flash_attention(q, k, v)
     (o.float() * w).sum().backward()
     suffix = {torch.bfloat16: ("_chunked", "_wide", "_wide"),
-              torch.float16: ("_f16_chunked", "_f16_simt", "_f16_simt")}[dtype]
+              torch.float16: ("_f16_chunked",) * 3}[dtype]
     assert fa.launches == _counts(**{
         f"flash_{n}{x}": 1 for n, x in zip(("fwd", "dq", "dkv"), suffix)})
     ref = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
@@ -1023,6 +1023,65 @@ def test_autograd_goes_through_the_chunked_forward(cuda, dtype):
     assert row_err(o.detach().cpu(), o_ref.detach()) <= limits["o_row"]
     for n, got, want in zip(("dq", "dk", "dv"), (q, k, v), ref):
         assert row_err(got.grad.cpu(), want.grad) <= limits[f"{n}_row"], n
+
+
+# ---- fp16's dQ and dK/dV above D=512 (flash_{dq,dkv}_chunked_kernel) ----------
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off,small", [
+    (1, 2, 200, 200, 640, True, 0, False),    # ragged query and key tiles
+    (2, 1, 130, 300, 640, False, 0, False),   # non-causal, Sq ≠ Sk
+    (1, 2, 65, 400, 640, True, 335, False),   # a query slice behind q_off
+    (1, 1, 256, 256, 1024, True, 0, False),   # CW=256, B·H = 1
+    (1, 2, 128, 128, 640, True, 0, True),     # an unscaled loss's dO
+])
+def test_chunked_backward_matches_its_model(cuda, B, H, Sq, Sk, D, causal,
+                                            q_off, small):
+    """flash_dq_chunked_kernel and flash_dkv_chunked_kernel, through fp16's
+    wide entries, against the plain model of their arithmetic
+    (tests/torch_bwd_chunked_model.py: S, dP, Sᵀ and dPᵀ over 64-column
+    chunks, the per-row exponents, the scaled dS rounded to fp16), on the
+    kernels' own lse and δ, at 1e-3 of the largest value (the kernels round
+    dQ, dK, dV to fp16, 2^-12 of a value, and sum in another order), each
+    launched twice and bitwise equal. `small` is the dO of 1e-6, with Q
+    scaled by 1/64 for dQ (K by 64) and by 64 for dK; dV, among fp16's
+    subnormals there, is not held."""
+    import numpy as np
+    import torch_bwd_chunked_model as model
+    import torch_f16_dkv_model as f16_model
+    for q_mult in ((1 / 64, 64) if small else (1,)):
+        rng = np.random.default_rng(Sq + D)
+        if small:
+            q, k, v, do = f16_model.small_gradient_inputs(rng, B, Sq, H, D,
+                                                          q_mult)
+        else:
+            q, do = (torch.from_numpy(rng.standard_normal((B, Sq, H, D))
+                                      .astype(np.float16)) for _ in range(2))
+            k, v = (torch.from_numpy(rng.standard_normal((B, Sk, H, D))
+                                     .astype(np.float16)) for _ in range(2))
+        qc, kc, vc, doc = (t.to(cuda) for t in (q, k, v, do))
+        o, lse = fa.flash_fwd(qc, kc, vc, causal, q_off)
+        before = dict(fa.launches)
+        got = [fa.flash_dq(qc, kc, vc, o, doc, lse, causal, q_off)
+               for _ in range(2)]
+        got = [(*dq_delta, *fa.flash_dkv(qc, kc, vc, doc, lse, dq_delta[1],
+                                         causal, q_off))
+               for dq_delta in got]
+        torch.cuda.synchronize()
+        assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+            flash_dq_f16_chunked=2, flash_dkv_f16_chunked=2)
+        for a, b in zip(*got):
+            assert torch.equal(a, b)
+        dq, delta, dk, dv = got[0]
+        dq_m = model.dq(q, k, v, do, lse.cpu(), delta.cpu(), causal, q_off,
+                        D ** -0.5)
+        dk_m, dv_m = model.dkv(q, k, v, do, lse.cpu(), delta.cpu(), causal,
+                               q_off, D ** -0.5)
+        held = {1 / 64: (("dq", dq, dq_m),), 64: (("dk", dk, dk_m),),
+                1: (("dq", dq, dq_m), ("dk", dk, dk_m), ("dv", dv, dv_m))}
+        for name, a, m in held[q_mult]:
+            err = ((a.cpu().float() - m).abs().max() / m.abs().max()).item()
+            assert err <= 1e-3, (name, err)
 
 
 # ---- the families on the card ------------------------------------------------

@@ -1,7 +1,7 @@
 """The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's dQ,
 and its forward and dK/dV, which the wrappers no longer take, ``_f32_simt``,
-fp16's dQ and dK/dV that they take above 512, and fp16's forward, which
-they no longer take, ``_f16_simt``)
+and fp16's forward, dQ and dK/dV, which they no longer take either,
+``_f16_simt``)
 against the JAX package's Pallas kernels in interpret mode, on the CPU.
 fp16's kernels up to 512 are wgmma kernels (``flash_fwd.cu``,
 ``flash_dq.cu``, ``flash_dkv.cu`` and their wide twins), and fp32's
@@ -119,8 +119,8 @@ def _jax(q, k, v, do, causal, q_off):
     (1, 1, 64, 192, 64, True, 128),
     # a head wider than one CTA's 128 output columns
     (1, 1, 64, 64, 256, True, 0),
-    # above 512, where the wrappers take the CUDA-core fp16 dQ and dK/dV
-    # unrouted (and the forward through the fixture's table)
+    # above 512, where the kernels that stream D took fp16's routes (the
+    # fixture's table sends the wide routes to the CUDA-core kernels)
     (1, 1, 64, 64, 640, True, 0),
 ])
 def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
@@ -155,10 +155,9 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 def test_the_wrappers_route_dtypes_to_their_kernels():
     """fp32 takes its CUDA-core dQ at every width and its forward and dK/dV
     on the tensor cores at every width (flash_f32.cu: `_f32` up to 128,
-    `_f32_wide` above); fp16 its tensor-core kernels up to 512 (in the
-    bf16 kernels' sources, `_f16` and `_f16_wide`), above it the wide
-    tensor-core forward (`_f16_wide`, which streams D there) and the
-    CUDA-core dQ and dK/dV (`_f16_simt`)."""
+    `_f32_wide` above); fp16 its tensor-core kernels at every width (in
+    the bf16 kernels' sources, `_f16` and `_f16_wide`, whose kernels stream
+    D above 512), never the CUDA-core `_f16_simt`."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512, 640):
             f32 = fa._kernel(name, D, torch.float32)
@@ -171,12 +170,9 @@ def test_the_wrappers_route_dtypes_to_their_kernels():
             f16 = fa._kernel(name, D, torch.float16)
             if D <= 128:
                 assert f16 == f"{name}_f16" and fa.source(f16) == name
-            elif D <= fa.WGMMA_MAX_D or name == "flash_fwd":
+            else:
                 assert f16 == f"{name}_f16_wide"
                 assert fa.source(f16) == f"{name}_wide"
-            else:
-                assert f16 == f"{name}_f16_simt"
-                assert fa.source(f16) == fa.SIMT_SOURCE
             assert f16 in fa.launches and f16 in fa._ARGTYPES
         assert fa._kernel(name, 64) == fa.source(name) == name
         assert fa._kernel(name, 256, torch.bfloat16) == f"{name}_wide"

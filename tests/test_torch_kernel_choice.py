@@ -9,10 +9,9 @@ the same source) and the CUDA-core dQ at every width (``flash_dq_f32``,
 ``csrc/flash_simt.cu``),
 fp16 tensors the wgmma forward, dQ and dK/dV up
 to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
-``flash_dkv_f16``) and from 256 to 512 (``_f16_wide``), above 512 the
-wgmma forward that streams D (``flash_fwd_f16_wide``) and the CUDA-core dQ
-and dK/dV (``_f16_simt``). So a Llama or Mixtral takes the
-kernels on CUDA whatever dtype it computes in, and no path gives way to the
+``flash_dkv_f16``) and above it (``_f16_wide``; above 512 the kernels of
+the same sources that stream D, counted as ``_f16_chunked``). So a Llama
+or Mixtral takes the kernels on CUDA whatever dtype it computes in, and no path gives way to the
 plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
 attention (0) or the kernels (1, which raises off CUDA). The card tests of
 the same choice are
@@ -102,30 +101,38 @@ def test_fp16_heads_above_128_take_the_wide_wgmma_forward_and_dkv(D):
 
 
 @pytest.mark.parametrize("D", [640, 1024])
-def test_fp16_heads_above_512_take_the_cuda_core_forward_and_dkv(D):
-    """Above 512, where bf16's wide dQ and dK/dV cut D on wmma (bf16 code),
-    fp16 takes the CUDA-core dQ and dK/dV, by width; its forward is the
-    wide one, whose chunked kernel streams D there in either dtype."""
-    want = {"flash_dq": "flash_dq_f16_simt",
-            "flash_dkv": "flash_dkv_f16_simt"}
-    for name, kernel in want.items():
-        assert fa._kernel(name, fa.kernel_head_dim(D), torch.float16) \
-            == kernel
-        assert fa.source(kernel) == fa.SIMT_SOURCE
+def test_fp16_heads_above_512_take_the_chunked_kernels(D):
+    """Above 512 fp16's forward, dQ and dK/dV take the wide entries, whose
+    kernels there stream D (flash_{fwd,dq,dkv}_wide.cu's chunked kernels),
+    counted apart as `_f16_chunked`; no route reaches the CUDA-core
+    `_f16_simt` kernels, which keep entries only to be timed. bf16 keeps its
+    wide kernels there (the forward the same chunked one, dQ and dK/dV on
+    wmma)."""
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        kernel = fa._kernel(name, fa.kernel_head_dim(D), torch.float16)
+        assert kernel == f"{name}_f16_wide"
+        assert fa.source(kernel) == f"{name}_wide"
         assert kernel in fa.launches and kernel in fa._ARGTYPES
-    fwd = fa._kernel("flash_fwd", fa.kernel_head_dim(D), torch.float16)
-    assert fwd == "flash_fwd_f16_wide"
-    assert fa.source(fwd) == "flash_fwd_wide"
-    # bf16 keeps its wide kernels there (the forward the same chunked one)
-    assert fa._kernel("flash_fwd", D, torch.bfloat16) == "flash_fwd_wide"
-    # the forward's wmma kernel, which no route takes, keeps an entry of
-    # its own in the same source, to be timed against its replacement
-    assert "flash_fwd_wmma" in fa.launches
-    assert fa.source("flash_fwd_wmma") == "flash_fwd_wide"
-    assert fa._ARGTYPES["flash_fwd_wmma"] == fa._ARGTYPES["flash_fwd_wide"]
+        count = fa.counted(kernel, D)
+        assert count == f"{name}_f16_chunked" and count in fa.launches
+        assert fa.source(count) == f"{name}_wide"
+        assert fa._kernel(name, D, torch.bfloat16) == f"{name}_wide"
+    assert fa.counted("flash_fwd_wide", D) == "flash_fwd_chunked"
+    for name in ("flash_dq_wide", "flash_dkv_wide"):
+        assert fa.counted(name, D) == name
+    # the kernels that lost their routes keep entries of their own, to be
+    # timed against their replacements
+    for old, src in (("flash_fwd_wmma", "flash_fwd_wide"),
+                     ("flash_fwd_f16_simt", fa.SIMT_SOURCE),
+                     ("flash_dq_f16_simt", fa.SIMT_SOURCE),
+                     ("flash_dkv_f16_simt", fa.SIMT_SOURCE)):
+        assert old in fa.launches and fa.source(old) == src
+        assert fa._ARGTYPES[old] == fa._ARGTYPES["_".join(
+            old.split("_")[:2])]
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
-        assert fa._kernel("flash_fwd", D, dtype) not in (
-            "flash_fwd_wmma", "flash_fwd_f16_simt")
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            assert not fa._kernel(name, D, dtype).endswith(
+                ("_wmma", "_f16_simt"))
 
 
 @pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640, 1024])
@@ -236,32 +243,41 @@ def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
 
 
 @pytest.mark.parametrize("dtype,route", [
-    (torch.bfloat16, "flash_fwd_wide"), (torch.float16, "flash_fwd_f16_wide")])
+    (torch.bfloat16, "flash_fwd_wide"), (torch.float16, "flash_fwd_f16_wide"),
+    (torch.float16, "flash_dq_f16_wide"), (torch.float16, "flash_dkv_f16_wide")])
 @pytest.mark.parametrize("D", [256, 512, 640, 1024])
 def test_the_chunked_forward_counts_apart_from_its_route(dtype, route, D,
                                                          monkeypatch):
-    """Above WGMMA_MAX_D the wide forward's entry launches the kernel that
-    streams D: the wrapper launches the route's entry and raises the
-    chunked kernel's own count (`CHUNKED_FWD`), so that the wide forward's
-    D ≤ 512 kernel and the chunked one are counted apart; a count's name
-    loads its route's entry from the route's source."""
+    """Above WGMMA_MAX_D the wide forward's entry, and fp16's wide dQ and
+    dK/dV entries, launch the kernel of their source that streams D: the
+    wrapper launches the route's entry and raises the chunked kernel's own
+    count (`CHUNKED_COUNTS`), so that the route's D ≤ 512 kernel and the
+    chunked one are counted apart; a count's name loads its route's entry
+    from the route's source."""
     launched = []
     monkeypatch.setattr(fa, "_launch", lambda name, device, *args, count:
                         launched.append((name, count)))
     q = torch.zeros(1, 3, 1, D, dtype=dtype)
-    fa.flash_fwd(q, q, q, True, 0)
-    chunked = fa.CHUNKED_FWD[route]
+    stat = torch.zeros(1, 1, 3)
+    fn = route.split("_")[1]
+    if fn == "fwd":
+        fa.flash_fwd(q, q, q, True, 0)
+    elif fn == "dq":
+        fa.flash_dq(q, q, q, q, q, stat, True, 0)
+    else:
+        fa.flash_dkv(q, q, q, q, stat, stat, True, 0)
+    chunked = fa.CHUNKED_COUNTS[route]
     assert launched == [(route, chunked if D > fa.WGMMA_MAX_D else route)]
     assert chunked in fa.launches and chunked not in fa._ARGTYPES
     assert fa.entry(chunked) == route and fa.entry(route) == route
-    assert fa.source(chunked) == fa.source(route) == "flash_fwd_wide"
+    assert fa.source(chunked) == fa.source(route) == f"flash_{fn}_wide"
     loaded, lib = [], types.SimpleNamespace(**{
         f"voda_{route}": types.SimpleNamespace()})
     monkeypatch.setattr(fa._build, "load",
                         lambda src: loaded.append(src) or lib)
     monkeypatch.setattr(fa, "_entry", fa._entry.__wrapped__)
     fa.load_kernels([chunked])
-    assert loaded == ["flash_fwd_wide"]
+    assert loaded == [f"flash_{fn}_wide"]
     assert getattr(lib, f"voda_{route}").argtypes == fa._ARGTYPES[route]
 
 

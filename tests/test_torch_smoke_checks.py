@@ -6,6 +6,7 @@ import re
 import sys
 
 import pytest
+import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -47,6 +48,11 @@ DKV128_F32 = DKV64_F32.replace("ILi64E", "ILi128E")
 FWDC128 = "_ZN4voda24flash_fwd_chunked_kernelILi128E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiiif"
 FWDC128_F16 = FWDC128.replace("13__nv_bfloat16", "6__half")
 FWDC256 = FWDC128.replace("ILi128E", "ILi256E")
+# fp16's dQ and dK/dV above D=512, templated the same way (fp16 only)
+DQC128_F16 = "_ZN4voda23flash_dq_chunked_kernelILi128E6__halfEEv14CUtensorMap_stS2_S2_S2_PKT0_S5_PKfPfPS3_iiiiiif"
+DKVC128_F16 = "_ZN4voda24flash_dkv_chunked_kernelILi128E6__halfEEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiiif"
+DQC256_F16 = DQC128_F16.replace("ILi128E", "ILi256E")
+DKVC256_F16 = DKVC128_F16.replace("ILi128E", "ILi256E")
 # fp32's TF32 forward and dK/dV above D=128, templated on their chunk of
 # the output alone (CW=128 runs every width)
 FWDW128_F32 = "_ZN4voda3f3225flash_fwd_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiiif"
@@ -57,6 +63,7 @@ MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 # (with the chunked forward's, gated beside the wide kernels)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
                   (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0),
+                  (DQC128_F16, 0, 0), (DKVC128_F16, 0, 0),
                   (FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0))
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
               *WIDE_F16_CLEAN)
@@ -156,6 +163,8 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
                       ("flash_dkv_f16_wide", 256): 0,
                       ("flash_fwd_chunked", 128): 0,
                       ("flash_fwd_chunked_f16", 128): 0,
+                      ("flash_dq_chunked_f16", 128): 0,
+                      ("flash_dkv_chunked_f16", 128): 0,
                       ("flash_fwd_f32_wide", 128): 0,
                       ("flash_dkv_f32_wide", 128): 0,
                       ("flash_fwd_wide", 512): 1132,
@@ -238,6 +247,103 @@ def test_spill_faults_refuse_a_spill_in_the_chunked_forward_at_d640(
     assert chip_smoke.spill_faults(spills) == []
 
 
+@pytest.mark.parametrize("chunked,fault", [
+    (((DQC128_F16, 8, 16), (DKVC128_F16, 0, 0)),
+     "flash_dq_chunked_f16 CW=128: 24 bytes spilled"),
+    (((DQC128_F16, 0, 0), (DKVC128_F16, 4, 4)),
+     "flash_dkv_chunked_f16 CW=128: 8 bytes spilled"),
+    # CW=256 (D=768, 1024) does not stand for D=640's CW=128
+    (((DQC128_F16, 0, 0), (DKVC256_F16, 0, 0)),
+     "flash_dkv_chunked_f16 CW=128: no ptxas spill line"),
+])
+def test_spill_faults_refuse_a_spill_in_the_chunked_backward_at_d640(
+        chunked, fault):
+    """fp16's dQ and dK/dV above D=512 are gated at D=640 (CW=128); their
+    spills at CW=256 are only logged."""
+    spills = chip_smoke.ptxas_spills(log_of(
+        *MAIN_CLEAN, *untouched(WIDE_CLEAN, chunked), *chunked,
+        (DQC256_F16, 8, 16)))
+    assert spills[("flash_dq_chunked_f16", 256)] == 24
+    assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
+    assert chip_smoke.spill_faults(spills) == []
+
+
+def _fake_bwd_phase(monkeypatch, launches_per_case=2, bad=()):
+    """run_chunked_backward on the CPU: kernel_errors stands in for the card,
+    raising the chunked counts as a case's two launches of K2 and K3 would
+    (or `launches_per_case` times) and reading `bad` at every case; the
+    times are rows of the names they are given. Returns the kernel_errors
+    calls (name, shape, routed K2 at D=640)."""
+    from vodascheduler_tpu_torch.ops import flash_attention as fa
+    calls = []
+
+    def kernel_errors(fa_, name, shape, dtype, limits, twice=False):
+        assert dtype == torch.float16
+        assert limits == chip_smoke.SIMT_LIMITS[torch.float16]
+        calls.append((name, shape, fa_._kernel("flash_dq", 640, dtype),
+                      twice))
+        if twice:
+            for n in chip_smoke.BWD_CHUNKED_COUNTS:
+                fa_.launches[n] += launches_per_case
+        errs = {"dq_abs": 1e-3, "dk_abs": 2e-3, "dv_abs": 3e-3}
+        if name == "d640_cuda_cores":
+            errs = {"dq_abs": 4e-3, "dk_abs": 6e-3, "dv_abs": 5e-3}
+        return errs, list(bad)
+
+    timed = []
+
+    def time_backward_turns(fa_, shape, rounds):
+        timed.append((shape, rounds))
+        return {n: {} for n in (*chip_smoke.BWD_CHUNKED_COUNTS,
+                                *chip_smoke.OLD_BWD_ABOVE_512.values())}
+
+    monkeypatch.setattr(chip_smoke, "kernel_errors", kernel_errors)
+    monkeypatch.setattr(chip_smoke, "time_backward_turns",
+                        time_backward_turns)
+    return fa, calls, timed
+
+
+def test_the_chunked_backward_phase_checks_every_case_and_the_old_pair(
+        monkeypatch):
+    """Phase 3's fp16 K2 and K3 above D=512: every CHUNKED_CASES launched
+    twice (K1, K2 and K3 held bitwise) and counted under the chunked names,
+    the CUDA-core pair held at BWD_RECORD_SHAPE through `routed`, both
+    timed in turns at that shape (two rounds) and at d640 (one); the rows
+    carry each pair's errors at the record shape."""
+    fa, calls, timed = _fake_bwd_phase(monkeypatch)
+    rows = chip_smoke.run_chunked_backward(fa)
+    cases = chip_smoke.CHUNKED_CASES
+    assert [c[:2] for c in calls[:len(cases)]] == list(cases.items())
+    assert all(c[3] and c[2] == "flash_dq_f16_wide"
+               for c in calls[:len(cases)])
+    assert calls[len(cases):] == [
+        ("d640_record", chip_smoke.BWD_RECORD_SHAPE, "flash_dq_f16_wide",
+         False),
+        ("d640_cuda_cores", chip_smoke.BWD_RECORD_SHAPE,
+         "flash_dq_f16_simt", False)]
+    assert timed == [(chip_smoke.BWD_RECORD_SHAPE, 2), (cases["d640"], 1)]
+    assert rows == {"flash_dq_f16_chunked": {"err": 1e-3},
+                    "flash_dkv_f16_chunked": {"err": 3e-3},
+                    "flash_dq_f16_simt": {"err": 4e-3},
+                    "flash_dkv_f16_simt": {"err": 6e-3}}
+    assert chip_smoke.BWD_RECORD_SHAPE == (2, 2, 1024, 1024, 640, True, 0)
+    assert fa._kernel("flash_dq", 640, torch.float16) == "flash_dq_f16_wide"
+
+
+@pytest.mark.parametrize("launches,bad,why", [
+    (1, (), "launches {'flash_dq_f16_chunked': 1, "
+            "'flash_dkv_f16_chunked': 1}"),
+    (2, ("dq_row=0.006>0.005",), "dq_row=0.006>0.005")])
+def test_the_chunked_backward_phase_fails_on_a_broken_bar_or_count(
+        monkeypatch, launches, bad, why):
+    fa, _, timed = _fake_bwd_phase(monkeypatch, launches, bad)
+    with pytest.raises(SystemExit, match="K2 and K3 above D=512 failed"
+                       ) as err:
+        chip_smoke.run_chunked_backward(fa)
+    assert f"d640: {why}" in str(err.value)
+    assert timed == []
+
+
 @pytest.mark.parametrize("f32w,fault", [
     (((FWDW128_F32, 0, 0), (DKVW128_F32, 6, 6)),
      "flash_dkv_f32_wide CW=128: 12 bytes spilled"),
@@ -271,6 +377,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_dkv_f32", 64) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_chunked", 128) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_chunked_f16", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dq_chunked_f16", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dkv_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_f32_wide", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_f32_wide", 128) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []

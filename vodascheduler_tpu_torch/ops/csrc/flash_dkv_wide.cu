@@ -68,7 +68,8 @@
 // each other's Pᵀ and dSᵀ take 5-19%, the exponentials no more than the
 // spread; at D=512 the loads of the single stage 22-24%, the waits 5-10%.
 //
-// Above D=512 K and V no longer fit beside a stage; those widths keep the
+// Above D=512 K and V no longer fit beside a stage: fp16 runs
+// flash_dkv_chunked_kernel there (below), which streams D; bf16 keeps the
 // first wide kernel (wmma, wide.cuh), which cuts D into 128-wide chunks.
 //
 // δ = rowsum(dO∘O) is read from `delta`, which the dQ kernel wrote earlier
@@ -507,6 +508,480 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // ------------------------------------------------------- widths above 512
+//
+// flash_dkv_chunked_kernel: K3 at any D that is a multiple of 128 (fp16's
+// entry sends it D > 512; bf16 keeps the wmma kernel below there). Bound at
+// B=8, H=2, S=2048, D=640, causal: four products of 42.9 GFLOP each, halved
+// under the mask, 174 µs at 989 TFLOP/s, against six [B,S,H,D] 16-bit
+// tensors and two row statistics ≈ 126 MB, 38 µs: compute-bound.
+//
+// Design: flash_dkv_wide_kernel's split of the work, with the contraction
+// of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over D streamed in chunks (K and V over
+// D=640 would take 80 KB each, resident).
+// - A CTA owns BN = 64 keys of one (b, h) and a chunk of dK and dV CW
+//   columns wide (the grid's y axis; cw_dkv below). One producer warpgroup
+//   (warp 0: lane 0 issues the TMA loads, the lanes stage each query tile's
+//   lse and δ) and two consumer warpgroups.
+// - For each tile of BM = 64 query rows the producer streams D in KC =
+//   64-column chunks through a ring of STAGES stages, each holding the
+//   chunk's K and V (the CTA's keys) and Q and dO (the tile's rows), then Q
+//   and dO over the CTA's own CW columns, the operands of dK's and dV's
+//   products, with the tile's lse and δ through a ring of one stage (loaded
+//   once the tile's first chunks are in flight, after the last tile's
+//   products have released it). Those columns are read twice a tile, in
+//   the sums and as operands: keeping their chunks' stages alive instead
+//   would save 2·BM·CW of the tile's (4·BM·D + 2·BM·CW)·2 bytes (9% at
+//   D=640), at the price of a chunk order that differs between the CTAs of
+//   a key block, and so of their exponents: not done.
+// - Warpgroup 0 sums Sᵀ and warpgroup 1 dPᵀ in registers over the D/KC
+//   chunk products (wgmma m64nBMk16, both operands K-major), one commit
+//   group a chunk, each chunk's stage released as in
+//   flash_dq_chunked_kernel (flash_dq_wide.cu), the first chunk of a tile
+//   issued apart.
+// - Then as in flash_dkv_wide_kernel: warpgroup 0 turns Sᵀ into Pᵀ and hands
+//   it to warpgroup 1 (named barrier 3), which forms dSᵀ and hands it back
+//   as A fragments of T (named barrier 4); each warpgroup runs
+//   dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half] of the
+//   CTA's chunk (m64n(CW/2)k16, Q and dO read MN-major through the
+//   transpose bit), dK and dV in registers.
+// - Each of the D/CW CTAs of a key block computes the same Sᵀ, dPᵀ and dSᵀ:
+//   the products do (2·D/CW + 2)/4 times the operations of the bound (3.0
+//   at D=640). K and V are read again for every query tile, from L2.
+// - Causal: the loop starts at the first query tile whose last row reaches
+//   the CTA's first key; only tiles that cross the diagonal or the ragged
+//   end of Sq are masked (Pᵀ = 0 there, so dSᵀ = 0). A key block that no
+//   query sees writes zeros. Keys past Sk arrive as zeros and are never
+//   stored.
+//
+// fp16: dSᵀ under the per-key-row power of two of flash_dkv_wide_kernel
+// (header). Each CTA keeps its own exponents; the CTAs of a key block agree
+// on every row's, as they sum the same chunks in the same order.
+// δ is read from `delta`, which the dQ kernel wrote earlier on the same
+// stream; lse and δ are staged by plain loads (a TMA of them hung the ring
+// at Sq=65, where a head's start is not 16-byte aligned).
+//
+// Shared memory (plus 1 KB to align the base, and the mbarriers): a stage
+// (K, V, Q, dO 8 KB each) is 32 KB; the own columns' stage 4·BM·CW bytes
+// (32 KB at CW=128) and lse, δ 0.5 KB; the exchange Pᵀ 16 KB, dSᵀ 8 KB, the
+// exponents 1 KB: at CW=128 4 stages 128 KB + 32.5 KB + 25 KB = 186 KB.
+// Registers (setmaxnreg: 40 for the producer warpgroup, 232 a consumer
+// thread): dK and dV CW/4 fp32 each, Sᵀ or dPᵀ BM/2 = 32 fp32, Pᵀ and dSᵀ as
+// A fragments BM/4 = 16 each. chip_smoke.py phase 2 refuses a spill at
+// D=640's instantiation (CW=128) and logs CW=256.
+// Where the time goes at D=640, B=8, H=2, S=2048 (scripts/
+// torch_kernel_ablate.py --shape d640 --dtype fp16 on an NVIDIA H100 80GB
+// HBM3 at its 700 W power limit, 3 rounds): the chunks' loads 40% (loaded
+// for the first stages only: 0.600 of the time), the products past D's
+// first chunk 0.3%; 128-column chunks (two stages) are 1.11× slower.
+
+template <int CW>
+struct DkvChunked {
+  static constexpr int BN = 64;   // keys of a CTA
+  static constexpr int BM = 64;   // query rows of a tile
+  static constexpr int KC = 64;   // columns of D in a stage
+  static constexpr int HW = CW / 2;  // a consumer warpgroup's half
+  static constexpr int CHUNK_BYTES = BN * KC * 2;  // a chunk of K, V, Q, dO
+  static constexpr int STAGE_BYTES = 4 * CHUNK_BYTES;
+  static constexpr int QD_BYTES = BM * CW * 2;  // Q or dO over CW columns
+  static constexpr int STAT_BYTES = 2 * BM * 4;  // lse, δ
+  // the exchange: Pᵀ as fp32, dSᵀ as A fragments, fp16's exponents
+  static constexpr int XCHG_BYTES = 256 * BM + 128 * BM + 8 * WG_THREADS;
+  // the stages that fit beside the own columns and the exchange, at most 4
+  static constexpr int FIT = (MAX_SMEM - 1024 - 2 * QD_BYTES - STAT_BYTES -
+                              XCHG_BYTES - 8 * (2 * 4 + 2)) /
+                             STAGE_BYTES;
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  static constexpr int V_OFF = STAGES * CHUNK_BYTES;
+  static constexpr int Q_OFF = 2 * STAGES * CHUNK_BYTES;
+  static constexpr int DO_OFF = 3 * STAGES * CHUNK_BYTES;
+  static constexpr int QW_OFF = 4 * STAGES * CHUNK_BYTES;  // own columns
+  static constexpr int DOW_OFF = QW_OFF + QD_BYTES;
+  static constexpr int STAT_OFF = DOW_OFF + QD_BYTES;
+  static constexpr int XP_OFF = STAT_OFF + STAT_BYTES;
+  static constexpr int XDS_OFF = XP_OFF + 256 * BM;
+  static constexpr int XE_OFF = XDS_OFF + 128 * BM;
+  static constexpr int BAR_OFF = XE_OFF + 8 * WG_THREADS;
+  // full[STAGES], empty[STAGES], qd_full, qd_empty
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 2);
+  static_assert(BN == BM, "a stage's four chunks share one size");
+  static_assert(STAGES >= 2 && SMEM <= MAX_SMEM, "the ring does not fit");
+};
+
+template <int CW, typename T = bf16>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dkv_chunked_kernel(const __grid_constant__ CUtensorMap tq,
+                             const __grid_constant__ CUtensorMap tk,
+                             const __grid_constant__ CUtensorMap tv,
+                             const __grid_constant__ CUtensorMap tdo,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int H,
+                             int Sq, int Sk, int D, int q_off, int causal,
+                             float scale) {
+  using C = DkvChunked<CW>;
+  constexpr bool SCALED = std::is_same<T, f16>::value;
+  constexpr int BM = C::BM, BN = C::BN, KC = C::KC, ST = C::STAGES;
+  constexpr int HW = C::HW;
+  // The producer warp also stages lse and δ, so it keeps 40 registers.
+  using Regs = RegSplit<40, 232>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  T* ks = reinterpret_cast<T*>(sm);
+  T* vs = reinterpret_cast<T*>(sm + C::V_OFF);
+  T* qs = reinterpret_cast<T*>(sm + C::Q_OFF);
+  T* dos = reinterpret_cast<T*>(sm + C::DO_OFF);
+  T* qw = reinterpret_cast<T*>(sm + C::QW_OFF);
+  T* dow = reinterpret_cast<T*>(sm + C::DOW_OFF);
+  float* lse_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // [BM], log2
+  float* del_s = lse_s + BM;                                  // [BM]
+  float4* xp = reinterpret_cast<float4*>(sm + C::XP_OFF);     // [BM/8][128]
+  uint4* xds = reinterpret_cast<uint4*>(sm + C::XDS_OFF);     // [BM/16][128]
+  int2* xe = reinterpret_cast<int2*>(sm + C::XE_OFF);  // fp16: [128] exponents
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + ST;
+  uint64_t* qd_full = empty + ST;
+  uint64_t* qd_empty = qd_full + 1;
+
+  const int k0 = blockIdx.x * BN;
+  const int c0 = blockIdx.y * CW;  // the CTA's columns of dK and dV
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int num_q = (Sq + BM - 1) / BM;
+  // first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
+  const int i0 = causal ? max(0, k0 - q_off) / BM : 0;
+  const int nc = D / KC;  // chunks of D a tile's Sᵀ and dPᵀ sum over
+  const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init(qd_full, 32);  // the producer warp's lanes
+    mbar_init(qd_empty, 2 * WG_THREADS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: warp 0 keeps both rings full, in the order the
+    // consumers take them; lane 0 issues the TMA loads
+    Regs::producer();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      const int qd_at = min(ST, nc) - 1;  // the chunk after which the own
+      int it = 0;                         // columns' stage; chunks issued
+      for (int i = i0; i < num_q; ++i) {
+        const int q0 = i * BM, n = i - i0;
+        for (int c = 0; c < nc; ++c, ++it) {
+          if (lane == 0) {
+            const int s = it % ST;
+            mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+            mbar_expect_tx(&full[s], C::STAGE_BYTES);
+            tma_rows<KC>(ks + s * BN * KC, &tk, &full[s], BN, h, k0, b,
+                         c * KC);
+            tma_rows<KC>(vs + s * BN * KC, &tv, &full[s], BN, h, k0, b,
+                         c * KC);
+            tma_rows<KC>(qs + s * BM * KC, &tq, &full[s], BM, h, q0, b,
+                         c * KC);
+            tma_rows<KC>(dos + s * BM * KC, &tdo, &full[s], BM, h, q0, b,
+                         c * KC);
+          }
+          if (c == qd_at) {
+            // the ring is full of this tile's chunks: the consumers are done
+            // with the last tile's products, or soon will be
+            float lv[BM / 32], dl[BM / 32];  // loaded before the wait
+#pragma unroll
+            for (int x = 0; x < BM / 32; ++x) {
+              const int r = q0 + lane + 32 * x;
+              lv[x] = r < Sq ? lse[stat + r] * LOG2E : 0.f;
+              dl[x] = r < Sq ? delta[stat + r] : 0.f;
+            }
+            mbar_wait(qd_empty, (n & 1) ^ 1);
+#pragma unroll
+            for (int x = 0; x < BM / 32; ++x) {
+              lse_s[lane + 32 * x] = lv[x];
+              del_s[lane + 32 * x] = dl[x];
+            }
+            if (lane == 0) {
+              mbar_expect_tx(qd_full, 2 * C::QD_BYTES);
+              tma_rows<CW>(qw, &tq, qd_full, BM, h, q0, b, c0);
+              tma_rows<CW>(dow, &tdo, qd_full, BM, h, q0, b, c0);
+            } else {
+              mbar_arrive(qd_full);
+            }
+          }
+        }
+      }
+      trap_if_stalled();
+    }
+  } else {
+    // ---- consumers: warpgroup 0 Sᵀ and Pᵀ, warpgroup 1 dPᵀ and dSᵀ; each
+    // dK and dV for its half of the chunk
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+    const int col0 = c0 + cw * HW;  // the warpgroup's first column
+    const float sl2 = scale * LOG2E;
+
+    float dka[HW / 2], dva[HW / 2];
+#pragma unroll
+    for (int e = 0; e < HW / 2; ++e) dka[e] = dva[e] = 0.f;
+    float sc[BM / 2];  // Sᵀ, then Pᵀ (warpgroup 0); dPᵀ, then dSᵀ (1)
+    uint32_t pa[BM / 16][4], dsa[BM / 16][4];
+    // fp16: the exponents of the thread's two key rows, the same in both
+    // warpgroups
+    int ex[2] = {E_MAX, E_MAX};
+    // fp16: dK's rows times 2^(en − ex) where an exponent fell, then ex = en
+    auto rescale = [&](const int (&en)[2]) {
+      float f[2];
+      bool fell = false;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        f[r] = pow2i(max(en[r] - ex[r], -126));
+        fell |= en[r] < ex[r];
+        ex[r] = en[r];
+      }
+      if (__any_sync(0xffffffffu, fell)) {
+#pragma unroll
+        for (int c = 0; c < HW / 8; ++c) {
+          dka[4 * c] *= f[0];
+          dka[4 * c + 1] *= f[0];
+          dka[4 * c + 2] *= f[1];
+          dka[4 * c + 3] *= f[1];
+        }
+      }
+    };
+
+    // The products of chunk `it` into sc, committed as one group: Sᵀ = K·Qᵀ
+    // (warpgroup 0) or dPᵀ = V·dOᵀ (warpgroup 1) over the chunk's KC
+    // columns; the first chunk of a tile (`first`, a constant at each
+    // call) overwrites sc.
+    auto issue_chunk = [&](int it, bool first) {
+      const int s = it % ST;
+      mbar_wait(&full[s], (it / ST) & 1);
+      const uint64_t ad = kmajor_desc((cw ? vs : ks) + s * BN * KC, 0);
+      const uint64_t bd = kmajor_desc((cw ? dos : qs) + s * BM * KC, 0);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 16; ++kk)
+        wgmma_ss<BM, T>(sc, ad + kmajor_step(BN, kk),
+                        bd + kmajor_step(BM, kk), !first || kk > 0);
+      wgmma_commit();
+    };
+    // Sᵀ or dPᵀ of the tile `n` tiles past i0, summed over the nc chunks of
+    // D as they arrive, each chunk's stage released once the next chunk is
+    // issued and its own products are done
+    auto issue_scores = [&](int n) {
+      issue_chunk(n * nc, true);
+      for (int c = 1; c < nc; ++c) {
+        issue_chunk(n * nc + c, false);
+        wgmma_wait<1>();
+        mbar_arrive(&empty[(n * nc + c - 1) % ST]);
+      }
+    };
+    // Warpgroup 0: Pᵀ of tile i from Sᵀ, handed over; the mask is a pass of
+    // its own behind a uniform branch
+    auto p_out = [&](int i) {
+      const int q0 = i * BM;
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c) {
+        const float2 ls =
+            *reinterpret_cast<const float2*>(lse_s + 8 * c + 2 * t);
+        sc[4 * c] = fmaf(sc[4 * c], sl2, -ls.x);
+        sc[4 * c + 1] = fmaf(sc[4 * c + 1], sl2, -ls.y);
+        sc[4 * c + 2] = fmaf(sc[4 * c + 2], sl2, -ls.x);
+        sc[4 * c + 3] = fmaf(sc[4 * c + 3], sl2, -ls.y);
+      }
+      if (q0 + BM > Sq || (causal && q_off + q0 < k0 + BN - 1)) {
+#pragma unroll
+        for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qpos = q0 + 8 * c + 2 * t + (e & 1);
+            if (qpos >= Sq || (causal && q_off + qpos < key[e >> 1]))
+              sc[4 * c + e] = NEG_INF;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[4 * c + e] = fast_exp2(sc[4 * c + e]);
+        xp[c * WG_THREADS + tid] = make_float4(sc[4 * c], sc[4 * c + 1],
+                                               sc[4 * c + 2], sc[4 * c + 3]);
+      }
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        acc_to_a<BM / 2, T>(pa[kk], sc, kk);
+      asm volatile("bar.arrive 3, 256;" ::: "memory");  // Pᵀ is out
+    };
+    // Warpgroup 0: dSᵀ of the same tile, from warpgroup 1 (fp16: with its
+    // rows' exponents, and dK's rows rescaled where they fell)
+    auto ds_in = [&]() {
+      asm volatile("bar.sync 4, 256;" ::: "memory");  // dSᵀ is in
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        const uint4 x = xds[kk * WG_THREADS + tid];
+        dsa[kk][0] = x.x;
+        dsa[kk][1] = x.y;
+        dsa[kk][2] = x.z;
+        dsa[kk][3] = x.w;
+      }
+      if constexpr (SCALED) {
+        const int2 e = xe[tid];
+        const int en[2] = {e.x, e.y};
+        rescale(en);
+      }
+    };
+    // Warpgroup 1: dSᵀ of the tile from dPᵀ and warpgroup 0's Pᵀ, handed
+    // back (fp16: under its rows' new exponents, which go with it, dK's
+    // rows rescaled where they fell)
+    auto ds_out = [&]() {
+      asm volatile("bar.sync 3, 256;" ::: "memory");  // Pᵀ is in
+      float mx[2] = {0.f, 0.f};  // fp16: the rows' largest |dSᵀ| / scale
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c) {
+        const float4 p = xp[c * WG_THREADS + tid];
+        const float2 dl =
+            *reinterpret_cast<const float2*>(del_s + 8 * c + 2 * t);
+        if constexpr (SCALED) {
+          sc[4 * c] = p.x * (sc[4 * c] - dl.x);
+          sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl.y);
+          sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl.x);
+          sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl.y);
+          mx[0] = fmaxf(mx[0], fmaxf(fabsf(sc[4 * c]), fabsf(sc[4 * c + 1])));
+          mx[1] = fmaxf(mx[1],
+                        fmaxf(fabsf(sc[4 * c + 2]), fabsf(sc[4 * c + 3])));
+        } else {
+          sc[4 * c] = p.x * (sc[4 * c] - dl.x) * scale;
+          sc[4 * c + 1] = p.y * (sc[4 * c + 1] - dl.y) * scale;
+          sc[4 * c + 2] = p.z * (sc[4 * c + 2] - dl.x) * scale;
+          sc[4 * c + 3] = p.w * (sc[4 * c + 3] - dl.y) * scale;
+        }
+        pa[c / 2][2 * (c % 2)] = pack2<T>(p.x, p.y);
+        pa[c / 2][2 * (c % 2) + 1] = pack2<T>(p.z, p.w);
+      }
+      if constexpr (SCALED) {
+        // each row's exponent, handed over beside dSᵀ; dK's rows rescaled
+        // where it fell; then dSᵀ times scale·2^e
+        int en[2];
+        float fs[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          en[r] = ds_exponent(quad_max(mx[r]) * scale, ex[r]);
+          fs[r] = scale * pow2i(en[r]);
+        }
+        xe[tid] = make_int2(en[0], en[1]);
+        rescale(en);
+#pragma unroll
+        for (int c = 0; c < BM / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[4 * c + e] *= fs[e >> 1];
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk) {
+        acc_to_a<BM / 2, T>(dsa[kk], sc, kk);
+        xds[kk * WG_THREADS + tid] =
+            make_uint4(dsa[kk][0], dsa[kk][1], dsa[kk][2], dsa[kk][3]);
+      }
+      asm volatile("bar.arrive 4, 256;" ::: "memory");  // dSᵀ is out
+    };
+    // dV[:, half] += Pᵀ·dO[:, half] and dK[:, half] += dSᵀ·Q[:, half] of
+    // the tile over the CTA's own columns, committed as one group
+    auto issue_grads = [&]() {
+      const int part = cw * (HW / 64) * BM * 64;
+      const uint64_t dd = mnmajor_desc(dow + part, BM);
+      const uint64_t qd = mnmajor_desc(qw + part, BM);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        wgmma_rs<HW, T>(dva, pa[kk], dd + mnmajor_step(kk));
+#pragma unroll
+      for (int kk = 0; kk < BM / 16; ++kk)
+        wgmma_rs<HW, T>(dka, dsa[kk], qd + mnmajor_step(kk));
+      wgmma_commit();
+    };
+
+    for (int i = i0; i < num_q; ++i) {
+      const int n = i - i0;
+      issue_scores(n);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      mbar_arrive(&empty[(n * nc + nc - 1) % ST]);
+      mbar_wait(qd_full, n & 1);  // lse, δ and the own columns
+      if (cw == 0) {
+        p_out(i);
+        ds_in();
+      } else {
+        ds_out();
+      }
+      issue_grads();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      mbar_arrive(qd_empty);
+    }
+
+    const int rs = H * D;
+    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + col0;
+    if constexpr (SCALED)
+      store_acc_rows<HW>(dk + koff, dka, key[0], Sk, rs, pow2i(-ex[0]),
+                         pow2i(-ex[1]), t);
+    else
+      store_acc_rows<HW>(dk + koff, dka, key[0], Sk, rs, 1.f, 1.f, t);
+    store_acc_rows<HW>(dv + koff, dva, key[0], Sk, rs, 1.f, 1.f, t);
+    trap_if_stalled();
+  }
+}
+
+template <int CW, typename T>
+int launch_dkv_chunked(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int H, int Sq, int Sk,
+                       int D, int q_off, int causal, float scale,
+                       cudaStream_t st) {
+  using C = DkvChunked<CW>;
+  CUtensorMap tq, tk, tv, tdo;
+  const CUtensorMapDataType ty = tma_type<T>();
+  int err = make_rows_map(&tq, q, B, Sq, H, D, C::BM, ty);
+  if (!err) err = make_rows_map(&tk, k, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tv, v, B, Sk, H, D, C::BN, ty);
+  if (!err) err = make_rows_map(&tdo, dout, B, Sq, H, D, C::BM, ty);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dkv_chunked_kernel<CW, T>),
+        C::SMEM);
+  if (err) return err;
+  const dim3 grid((Sk + C::BN - 1) / C::BN, D / CW, B * H);
+  flash_dkv_chunked_kernel<CW, T><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, D, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The chunk of dK and dV a CTA of the chunked kernel owns at head width D:
+// 256 columns where D divides by 256, else 128.
+inline int cw_dkv(int D) { return D % 256 == 0 ? 256 : 128; }
+
+// The chunked kernel on tensors of T at any D that is a multiple of 128.
+template <typename T>
+int dkv_chunked(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
+                int q_off, int causal, float scale, cudaStream_t st) {
+  if (cw_dkv(D) == 256)
+    return launch_dkv_chunked<256, T>(q, k, v, dout, lse, delta, dk, dv, B,
+                                      H, Sq, Sk, D, q_off, causal, scale, st);
+  return launch_dkv_chunked<128, T>(q, k, v, dout, lse, delta, dk, dv, B, H,
+                                    Sq, Sk, D, q_off, causal, scale, st);
+}
 
 namespace wide {
 
@@ -648,9 +1123,9 @@ extern "C" int voda_flash_dkv_wide(const void* q, const void* k,
   return static_cast<int>(cudaGetLastError());
 }
 
-// fp16 tensors, the same arguments; D = 256, 384 or 512 only (the wmma
-// kernel above 512 is bf16 code): any other width returns 1
-// (cudaErrorInvalidValue).
+// fp16 tensors, the same arguments: D = 256, 384, 512
+// flash_dkv_wide_kernel, any multiple of 128 above 512
+// flash_dkv_chunked_kernel (the wmma kernel there is bf16 code).
 extern "C" int voda_flash_dkv_f16_wide(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -659,9 +1134,12 @@ extern "C" int voda_flash_dkv_f16_wide(const void* q, const void* k,
                                        int causal, float scale,
                                        void* stream) {
   using namespace voda;
-  if (!wide::shape_ok(B, H, Sq, Sk, D) || D > 512)
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!wide::shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D > 512)
+    return dkv_chunked<f16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                            D, q_off, causal, scale, st);
   return dkv_wgmma<f16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D,
-                        q_off, causal, scale,
-                        static_cast<cudaStream_t>(stream));
+                        q_off, causal, scale, st);
 }

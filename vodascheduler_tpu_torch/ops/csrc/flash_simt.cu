@@ -1,20 +1,18 @@
-// K1, K2 and K3 for fp32 inputs, and for fp16 above a width of 512, on the
-// CUDA cores (sm_90a).
+// K1, K2 and K3 for fp32 and fp16 inputs on the CUDA cores (sm_90a).
 //
 // Replace `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` in
 // vodascheduler_tpu/ops/flash_attention.py for a model that computes in
 // float32 or float16: the TPU kernels compute in q.dtype. The wgmma kernels
-// beside this file take bf16, and fp16 at widths 64 and 128 (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu: voda_flash_{fwd,dq,dkv}_f16) and 256, 384 and
-// 512 (their wide twins: voda_flash_{fwd,dq,dkv}_f16_wide); fp32's forward
-// and dK/dV run on the tensor cores in three TF32 passes at every width
-// (flash_f32.cu: voda_flash_{fwd,dkv}_f32, and _f32_wide above 128). What
-// they do not take runs here: fp32's dQ at every width (voda_flash_dq_f32)
-// and fp16's dQ and dK/dV on heads wider than 512
-// (voda_flash_{dq,dkv}_f16_simt). fp32's forward and dK/dV here
-// (voda_flash_{fwd,dkv}_f32_simt) and fp16's forward
-// (voda_flash_fwd_f16_simt) lost their routes to the tensor-core kernels
-// and keep their entries only to be timed against them. The kernels
+// beside this file take bf16, and fp16 at every width (flash_fwd.cu,
+// flash_dq.cu, flash_dkv.cu: voda_flash_{fwd,dq,dkv}_f16 at 64 and 128;
+// their wide twins, voda_flash_{fwd,dq,dkv}_f16_wide, above, whose kernels
+// stream D above 512); fp32's forward and dK/dV run on the tensor cores in
+// three TF32 passes at every width (flash_f32.cu: voda_flash_{fwd,dkv}_f32,
+// and _f32_wide above 128). What they do not take runs here: fp32's dQ at
+// every width (voda_flash_dq_f32). fp32's forward and dK/dV here
+// (voda_flash_{fwd,dkv}_f32_simt) and fp16's forward, dQ and dK/dV
+// (voda_flash_{fwd,dq,dkv}_f16_simt) lost their routes to the tensor-core
+// kernels and keep their entries only to be timed against them. The kernels
 // themselves take any multiple of their 64- or 128-column chunk. The arithmetic is
 // the TPU kernels': every product takes its inputs in the input dtype and
 // accumulates in fp32 (an fp16 product is exact in fp32), the softmax
@@ -526,11 +524,12 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // The C interface, one entry a kernel and dtype, with the bf16 kernels'
 // arguments: q k v o lse | B H Sq Sk D q_off causal scale stream, and so on.
-// fp16's are named `_f16_simt`: at head widths up to 512 fp16 takes the
-// wgmma kernels (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, and their wide
-// twins) and these only above. fp32's forward and dK/dV are named
-// `_f32_simt`: fp32 takes flash_f32.cu's at every width, and these are only
-// timed against them; fp32's dQ keeps its name.
+// fp16's are named `_f16_simt`: fp16 takes the wgmma kernels at every width
+// (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, and their wide twins, whose
+// kernels stream D above 512), and these are only timed against them.
+// fp32's forward and dK/dV are named `_f32_simt`: fp32 takes flash_f32.cu's
+// at every width, and these are only timed against them; fp32's dQ keeps
+// its name.
 #define VODA_SIMT_ENTRIES(T, fwd_sfx, dq_sfx, dkv_sfx)                        \
   extern "C" int voda_flash_fwd_##fwd_sfx(                                    \
       const void* q, const void* k, const void* v, void* o, void* lse, int B, \

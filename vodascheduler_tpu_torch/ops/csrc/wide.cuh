@@ -1,11 +1,13 @@
 // Shared parts of the wmma flash-attention kernels for head widths above
-// 512: dQ and dK/dV (flash_dq_wide.cu, flash_dkv_wide.cu), and the forward
-// of flash_fwd_wide.cu, which no wrapper routes to any more (its entry,
-// voda_flash_fwd_wmma, is timed against flash_fwd_chunked_kernel, the TMA +
-// wgmma forward that streams D and took its route). Widths 256, 384 and
-// 512 run those files' TMA + wgmma kernels on hopper.cuh, which hold a
-// CTA's operands resident in shared memory beside a ring of tiles; above
-// 512 they no longer fit.
+// 512: bf16's dQ and dK/dV (flash_dq_wide.cu, flash_dkv_wide.cu), and the
+// forward of flash_fwd_wide.cu, which no wrapper routes to any more (its
+// entry, voda_flash_fwd_wmma, is timed against flash_fwd_chunked_kernel,
+// the TMA + wgmma forward that streams D and took its route). fp16's dQ and
+// dK/dV above 512 are those files' TMA + wgmma kernels that stream D
+// (flash_dq_chunked_kernel, flash_dkv_chunked_kernel); these wmma kernels
+// are bf16 code. Widths 256, 384 and 512 run those files' TMA + wgmma
+// kernels on hopper.cuh, which hold a CTA's operands resident in shared
+// memory beside a ring of tiles; above 512 they no longer fit.
 //
 // These kernels cut D instead: each CTA owns one 128-wide chunk of its
 // output's width (O, dQ, dK or dV) and recomputes the scores S = Q·Kᵀ (and

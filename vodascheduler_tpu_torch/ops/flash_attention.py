@@ -13,7 +13,7 @@ Those are built for head widths 64 and 128. Above 128 the JAX package takes
 any multiple of 128, and so does each wrapper, through a second kernel of
 the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``; on ``csrc/hopper.cuh``
 up to D=512, and the forward above it too, streaming D in 128-column
-chunks; dQ and dK/dV cut along D on ``csrc/wide.cuh`` above 512):
+chunks; bf16's dQ and dK/dV cut along D on ``csrc/wide.cuh`` above 512):
 ``flash_fwd_wide``, ``flash_dq_wide`` and ``flash_dkv_wide``, each counted
 apart. Those six take bf16. The JAX kernels compute in ``q.dtype``, so fp32 and fp16 tensors
 go to kernels of their own, each counted apart; which one, by function,
@@ -25,30 +25,35 @@ dtype  D           K1                      K2                     K3
 bf16   ≤ 128       ``flash_fwd``           ``flash_dq``           ``flash_dkv``
 bf16   > 128       ``flash_fwd_wide``      ``flash_dq_wide``      ``flash_dkv_wide``
 fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``       ``flash_dkv_f16``
-fp16   256 to 512  ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
-fp16   > 512       ``flash_fwd_f16_wide``  ``flash_dq_f16_simt``  ``flash_dkv_f16_simt``
+fp16   > 128       ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
 fp32   ≤ 128       ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
 fp32   > 128       ``flash_fwd_f32_wide``  ``flash_dq_f32``       ``flash_dkv_f32_wide``
 =====  ==========  ======================  =====================  ======================
 
-fp16's kernels up to D=512, and its forward above, are the bf16 kernels'
-TMA + wgmma design in fp16 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide
-twins ``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type).
+fp16's kernels are the bf16 kernels' TMA + wgmma designs in fp16
+(``csrc/flash_{fwd,dq,dkv}.cu`` and their wide twins
+``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type); above
+D=512 its dQ and dK/dV are the wide sources' kernels that stream D in
+64-column chunks (``flash_dq_chunked_kernel``, ``flash_dkv_chunked_kernel``),
+where bf16's stay on ``wmma``.
 fp32's K1 and K3 run on the tensor cores in three TF32 passes
 (``csrc/flash_f32.cu``: K1 on wgmma after a prologue that splits K and Vᵀ
 into scratch, K3 on mma.sync), up to D=128 with K, V or Q resident, above
 it (``_f32_wide``, every multiple of 128) streaming D in 32-column chunks
-and owning 128 columns of the output a CTA. fp16's dQ and dK/dV above 512,
-where bf16's cut D on ``wmma`` (bf16 code), and fp32's K2 at every width
-multiply on the CUDA cores (``csrc/flash_simt.cu``). The choice is by
-width, never a fallback: a kernel that fails to build or launch raises. Above 512 the wide forward's entries launch the kernel that
-streams D, whose launches count apart from the route's, under
-``flash_fwd_chunked`` (bf16) and ``flash_fwd_f16_chunked`` (fp16). The
-forward's first wide kernel above 512 (``wmma``), which no wrapper routes
-to any more, keeps an entry of its own, ``flash_fwd_wmma``, to be timed
-against its replacement; so do fp32's CUDA-core forward and dK/dV
+and owning 128 columns of the output a CTA. fp32's K2 multiplies on the
+CUDA cores at every width (``csrc/flash_simt.cu``). The choice is by
+width, never a fallback: a kernel that fails to build or launch raises.
+Above 512 the kernels that stream D count apart from their route's
+entries (`CHUNKED_COUNTS`): ``flash_fwd_chunked`` (bf16),
+``flash_fwd_f16_chunked``, ``flash_dq_f16_chunked`` and
+``flash_dkv_f16_chunked`` (fp16). The forward's first wide kernel above 512
+(``wmma``), which no wrapper routes to any more, keeps an entry of its own,
+``flash_fwd_wmma``, to be timed against its replacement; so do the CUDA-core
+kernels that lost their routes: fp32's forward and dK/dV
 (``flash_fwd_f32_simt``, ``flash_dkv_f32_simt``), which the wide TF32
-kernels replaced above 128.
+kernels replaced above 128, and fp16's forward, dQ and dK/dV
+(``flash_{fwd,dq,dkv}_f16_simt``), which the chunked kernels replaced above
+512.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -74,7 +79,9 @@ Divergences from the TPU kernels, on purpose:
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
   tiles of 64 rows (32 at D=128), in fp16 as in bf16 (and the wide
-  kernels theirs, ``csrc/flash_*_wide.cu``); fp32's tensor-core forward
+  kernels theirs, ``csrc/flash_*_wide.cu``: above D=512 fp16's dQ 64 query
+  rows against 128-key tiles, its dK/dV 64 keys against 64-row tiles);
+  fp32's tensor-core forward
   takes 128 query rows against K/V tiles of 64 keys (32 at D=128), its
   dK/dV 128 keys against Q/dO tiles of 64 rows (32 at D=128), and above
   D=128 128 query rows against 64-key tiles and 128 keys against 32-row
@@ -101,7 +108,9 @@ Divergences from the TPU kernels, on purpose:
   query row of dS for dQ (``flash_dq_f16``, ``flash_dq_f16_wide``). In the
   wide kernels (``csrc/flash_{dq,dkv}_wide.cu``) the warpgroup that forms
   dS hands each row's exponent to the other with the fragments, as both
-  accumulate over the same rows. Each wrapper picks the kernel by the
+  accumulate over the same rows; above D=512 each CTA of a row (or key)
+  block keeps its own exponents, which agree, as every such CTA sums the
+  same chunks of D in the same order. Each wrapper picks the kernel by the
   tensors' dtype, which all must share; any other dtype raises.
 
 The wgmma kernels read their tiles through TMA tensor maps built from the
@@ -123,9 +132,10 @@ from vodascheduler_tpu_torch.parallel.ring_attention import NEG_INF
 HEAD_DIMS = (64, 128)
 # Above HEAD_DIMS[-1], the widths the wide kernels take: multiples of this.
 WIDE_CHUNK = 128
-# The widest head of the wide wgmma dQ and dK/dV; above it bf16's cut D on
-# wmma, and fp16's run on the CUDA cores. The wide forward takes every width
-# (above it, flash_fwd_wide.cu's chunked kernel).
+# The widest head of the wide wgmma kernels that hold a CTA's operands over
+# all of D. Above it the wide forward's entries, and fp16's wide dQ and
+# dK/dV entries, launch the kernels of their sources that stream D (counted
+# apart: CHUNKED_COUNTS); bf16's dQ and dK/dV cut D on wmma there.
 WGMMA_MAX_D = 512
 
 # Launches of each kernel since the last `reset_launches()`: one plain int
@@ -140,12 +150,17 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_dkv_f16_wide": 0, "flash_fwd_f16_simt": 0,
             "flash_dq_f16_simt": 0, "flash_dkv_f16_simt": 0,
             "flash_fwd_wmma": 0, "flash_fwd_chunked": 0,
-            "flash_fwd_f16_chunked": 0}
-# Above WGMMA_MAX_D the wide forward's entries launch a second kernel,
-# flash_fwd_wide.cu's flash_fwd_chunked_kernel, which streams D: its
-# launches count under a name of its own, by the route that reaches it.
-CHUNKED_FWD = {"flash_fwd_wide": "flash_fwd_chunked",
-               "flash_fwd_f16_wide": "flash_fwd_f16_chunked"}
+            "flash_fwd_f16_chunked": 0, "flash_dq_f16_chunked": 0,
+            "flash_dkv_f16_chunked": 0}
+# Above WGMMA_MAX_D these routes' entries launch a second kernel of their
+# source, one that streams D (flash_fwd_wide.cu's flash_fwd_chunked_kernel,
+# flash_dq_wide.cu's flash_dq_chunked_kernel, flash_dkv_wide.cu's
+# flash_dkv_chunked_kernel): its launches count under a name of its own, by
+# the route that reaches it.
+CHUNKED_COUNTS = {"flash_fwd_wide": "flash_fwd_chunked",
+                  "flash_fwd_f16_wide": "flash_fwd_f16_chunked",
+                  "flash_dq_f16_wide": "flash_dq_f16_chunked",
+                  "flash_dkv_f16_wide": "flash_dkv_f16_chunked"}
 # The suffix of the kernel names of fp32 and fp16 tensors.
 SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
 # The kernels on the CUDA cores, all in one source, and fp32's on the
@@ -176,7 +191,7 @@ _ARGTYPES = {
 }
 # The K1 entries that take that scratch.
 F32_SCRATCH = frozenset({"flash_fwd_f32", "flash_fwd_f32_wide"})
-for _name in launches.keys() - CHUNKED_FWD.values():  # every variant
+for _name in launches.keys() - CHUNKED_COUNTS.values():  # every variant
     # takes its function's arguments
     _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
 
@@ -188,8 +203,8 @@ def reset_launches() -> None:
 
 def entry(kernel: str) -> str:
     """The C entry (``voda_<entry>``) that launches `kernel`, or the
-    kernel that a count names: the chunked forward's, the route's."""
-    return {c: r for r, c in CHUNKED_FWD.items()}.get(kernel, kernel)
+    kernel that a count names: a chunked kernel's, its route's."""
+    return {c: r for r, c in CHUNKED_COUNTS.items()}.get(kernel, kernel)
 
 
 def source(kernel: str) -> str:
@@ -223,11 +238,9 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel of wrapper `name` for head width D and tensors of
     `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
     at a multiple of WIDE_CHUNK above them; for fp16 the same, named
-    ``_f16`` and ``_f16_wide``, the forward at every width, dQ and dK/dV
-    up to WGMMA_MAX_D and the CUDA-core ``_f16_simt`` above it; for fp32
-    the tensor-core ``_f32`` forward and dK/dV at a width of HEAD_DIMS and
-    the tensor-core ``_f32_wide`` ones above, and the CUDA-core
-    ``flash_dq_f32`` at every width."""
+    ``_f16`` and ``_f16_wide``; for fp32 the tensor-core ``_f32`` forward
+    and dK/dV at a width of HEAD_DIMS and the tensor-core ``_f32_wide``
+    ones above, and the CUDA-core ``flash_dq_f32`` at every width."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
             f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
@@ -239,17 +252,15 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
         if name == "flash_dq" or D in HEAD_DIMS:
             return f"{name}_f32"
         return f"{name}_f32_wide"
-    if dtype == torch.float16 and D > WGMMA_MAX_D and name != "flash_fwd":
-        return f"{name}_f16_simt"
     kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
     return kernel if D in HEAD_DIMS else f"{kernel}_wide"
 
 
 def counted(kernel: str, D: int) -> str:
-    """The count that a launch of `kernel` at head width D raises: the
-    chunked forward's above WGMMA_MAX_D, else the kernel's own."""
-    if kernel in CHUNKED_FWD and D > WGMMA_MAX_D:
-        return CHUNKED_FWD[kernel]
+    """The count that a launch of `kernel` at head width D raises: its
+    chunked kernel's above WGMMA_MAX_D (CHUNKED_COUNTS), else its own."""
+    if kernel in CHUNKED_COUNTS and D > WGMMA_MAX_D:
+        return CHUNKED_COUNTS[kernel]
     return kernel
 
 
@@ -345,7 +356,7 @@ def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
-            _scale(scale, D))
+            _scale(scale, D), count=counted(kernel, D))
     return dq, delta
 
 
@@ -361,7 +372,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int,
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
-            _scale(scale, D))
+            _scale(scale, D), count=counted(kernel, D))
     return dk, dv
 
 
