@@ -7,16 +7,18 @@ Phases (any failure exits non-zero):
   2. build: the CUDA kernels of vodascheduler_tpu_torch/ops/csrc, by nvcc;
      fails if ptxas spills registers in the forward, dQ or dK/dV kernel at
      D=64 (the main path), in fp16's tensor-core forward, dQ or dK/dV at
-     D=64 (phase 11's fp16 model), in fp32's tensor-core forward or dK/dV
-     at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
+     D=64 (phase 11's fp16 model), in fp32's tensor-core forward, dQ or
+     dK/dV at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
      D=256 (phase 9's wide llama), in fp16's wide forward, dQ or dK/dV at
      D=256 (phase 11's fp16 model in heads of 256), in the forward above
      D=512 (flash_fwd_chunked_kernel, bf16 and fp16) or fp16's dQ and
      dK/dV above it (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) at
      D=640, or in fp32's
      TF32 forward and dK/dV above D=128 (`_f32_wide`, one instantiation
-     for every width: CW=128, which D=256 runs), and logs the spills at
-     D=128, 384 and 512 and the chunked kernels' at 768 and 1024;
+     for every width: CW=128, which D=256 runs), or in fp32's TF32 dQ
+     (flash_dq_f32_kernel, one kernel at every width) at CW=64 (D=64) and
+     CW=128 (D=128 and every width above), and logs the spills at D=128,
+     384 and 512 and the chunked kernels' at 768 and 1024;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -34,10 +36,10 @@ Phases (any failure exits non-zero):
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
      autograd through scaled_dot_product_attention), and bf16's wide
      kernels at D=640, where dQ and dK/dV cut D on wmma; then the fp32 and the
-     fp16 kernels (fp32's forward and dK/dV on the tensor cores in three
-     TF32 passes, csrc/flash_f32.cu, up to D=128 and above it streaming D,
-     `_f32_wide`, and fp32's dQ on the CUDA cores,
-     csrc/flash_simt.cu; fp16's on the tensor cores up to D=128,
+     fp16 kernels (fp32's forward, dQ and dK/dV on the tensor cores in
+     three TF32 passes, csrc/flash_f32.cu, up to D=128 and above it
+     streaming D, `_f32_wide`, fp32's dQ held against the plain version
+     computed in fp64, F32_DQ_ACC; fp16's on the tensor cores up to D=128,
      flash_{fwd,dq,dkv}_f16, and above, flash_{fwd,dq,dkv}_f16_wide) against
      the same plain versions at the main shape, a
      ragged non-causal S, D=128, D=16 padded, a ragged query slice behind
@@ -50,15 +52,18 @@ Phases (any failure exits non-zero):
      bars and timed at d256; fp16's CUDA-core
      forward, dQ and dK/dV held to the same bars at the main shape and
      timed in turns with the tensor-core kernels there and at d256; and
-     fp32's CUDA-core forward and dK/dV (`_f32_simt`) held to fp32's bars
-     at the main shape and timed in turns with the TF32 ones there; fp32's
-     TF32 forward and dK/dV above D=128 (`_f32_wide`, which stream D) at
+     fp32's CUDA-core forward, dQ and dK/dV (`_f32_simt`) held to fp32's
+     bars at the main shape and timed in turns with the TF32 ones there, K2
+     then K3 as one backward (`time[backward_f32 turns]`); fp32's TF32
+     forward, dQ and dK/dV above D=128 (`_f32_wide`, which stream D) at
      F32_WIDE_CASES (d256 at B=8, H=4, S=2048; d384, d512, d640; a ragged
      S; non-causal with Sq ≠ Sk; a query slice behind q_offset; Sq=65;
      B·H=1), each launched twice and held bitwise, timed at d256 beside
      their plain versions, SDPA's fp32 forward, the library's fp32 backward
      and their bounds, and in turns there against the `_f32_simt` kernels
-     they took the route from (held at d256 too); then K1 above D=512
+     they took the route from (held at d256 too), K2 then K3 as one
+     backward against the `_f32_simt` pair (`time[backward_f32_wide
+     turns]`); then K1 above D=512
      (flash_fwd_chunked_kernel, through flash_fwd_wide and
      flash_fwd_f16_wide) in bf16 (LIMITS) and fp16 (SIMT_LIMITS) at
      CHUNKED_CASES (D=640 at B=8, H=2, S=2048; 768, 896 and 1024; a ragged
@@ -192,11 +197,11 @@ Phases (any failure exits non-zero):
      the loss scaled by 1024 for the comparison),
      5 steps (finite, falling), one counted step launching that dtype's
      K1 8, K2 4 and K3 4 times and no other kernel (fp32: flash_fwd_f32,
-     flash_dq_f32, flash_dkv_f32; fp16: flash_fwd_f16, flash_dq_f16,
+     flash_dq_f32, flash_dkv_f32, all in TF32; fp16: flash_fwd_f16, flash_dq_f16,
      flash_dkv_f16); then the same fp16 model in 4 heads of 256, through
      the wgmma flash_fwd_f16_wide, flash_dq_f16_wide and
      flash_dkv_f16_wide (8/4/4), and the fp32 model in 4 heads of 256,
-     through flash_fwd_f32_wide, flash_dq_f32 and flash_dkv_f32_wide
+     through flash_fwd_f32_wide, flash_dq_f32_wide and flash_dkv_f32_wide
      (8/4/4), and no `_f16_simt` or `_f32_simt` kernel;
   12. one JSON line of the kernels, then the device line last.
 
@@ -247,7 +252,7 @@ def log(*a) -> None:
 # bf16 kernels, fp16's on the tensor cores and fp32's in TF32).
 SPILL_FREE = ("flash_fwd", "flash_dq", "flash_dkv", "flash_fwd_f16",
               "flash_dq_f16", "flash_dkv_f16", "flash_fwd_f32",
-              "flash_dkv_f32")
+              "flash_dq_f32", "flash_dkv_f32")
 MAIN_HEAD_DIM = 64
 # The wide kernels redesigned on wgmma, held to no spill at the width of
 # phase 9's 256-wide llama and of phase 11's fp16 model in heads of 256
@@ -269,9 +274,12 @@ CHUNKED_SPILL_GATES = (("flash_fwd_chunked", 128),
 # fp32's TF32 forward and dK/dV above D=128 take D at run time and are
 # templated on their chunk of the output alone, CW=128: the one
 # instantiation runs every width, D=256 (phase 11's fp32 model in heads of
-# 256) among them, and is held to no spill.
+# 256) among them, and is held to no spill. So is fp32's TF32 dQ
+# (flash_dq_f32_kernel, one kernel at every width) at CW=128, which D=128
+# and every width above run; D=64 runs CW=64 (MAIN_SPILL_GATES).
 F32_WIDE_SPILL_GATES = (("flash_fwd_f32_wide", 128),
-                        ("flash_dkv_f32_wide", 128))
+                        ("flash_dkv_f32_wide", 128),
+                        ("flash_dq_f32", 128))
 SPILL_GATES = (MAIN_SPILL_GATES
                + tuple((n, WIDE_HEAD_DIM) for n in WIDE_SPILL_FREE)
                + CHUNKED_SPILL_GATES + F32_WIDE_SPILL_GATES)
@@ -381,14 +389,17 @@ def row_err(got, ref) -> float:
 # tile from the sum of a 2048-long row.
 LIMITS = {"o_row": 1e-2, "lse": 1e-2, "delta": 3e-2, "dq_row": 1.5e-2,
           "dk_row": 1.5e-2, "dv_row": 1.5e-2}
-# The same bars for the fp32 and fp16 kernels (csrc/flash_simt.cu). fp32:
-# the kernels and the plain versions both compute in fp32 and differ by
-# the order of their sums; dQ's first rows are 0 by cancellation (δ against
-# dO·V), held to 1e-3 of the largest row (`row_err`), where the order reads
-# up to 3.7e-4 (H100). fp16: O, dQ, dK, dV are rounded to fp16 and the
+# The same bars for the fp32 and fp16 kernels. fp32: the kernels and the
+# plain versions both compute in fp32 and differ by the order of their
+# sums; dQ's first rows are 0 by cancellation (δ against dO·V), held to
+# 1e-3 of the largest row (`row_err`), where the plain version's own fp32
+# rounding reads up to 2.6e-3 against its fp64 value at D=512 (H100), so
+# fp32's dQ is held against the plain version computed in fp64
+# (F32_DQ_ACC). fp16: O, dQ, dK, dV are rounded to fp16 and the
 # kernels round P to fp16 before its products, as the TPU kernels do and
 # the plain versions do not: half a bf16 bar. lse and δ are fp32 sums of
 # the same terms in both.
+F32_DQ_ACC = torch.float64
 SIMT_LIMITS = {
     torch.float32: {"o_row": 1e-4, "lse": 1e-4, "delta": 1e-4,
                     "dq_row": 1e-3, "dk_row": 1e-4, "dv_row": 1e-4},
@@ -422,6 +433,10 @@ def kernel_errors(fa, name, shape, dtype=torch.bfloat16, limits=LIMITS,
     dq = dq[..., :D]
     dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
                                               q_off)
+    if dtype == torch.float32:
+        # fp32's dQ against the plain version computed in fp64 (F32_DQ_ACC)
+        dq_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off,
+                                       acc=F32_DQ_ACC)[0]
     dk, dv = fa.flash_dkv(qp, kp, vp, dop, lse, delta_ref, causal, q_off,
                           scale=scale)
     dk, dv = dk[..., :D], dv[..., :D]
@@ -600,15 +615,17 @@ CUDA_CORE_F16 = {"flash_fwd_f16": "flash_fwd_f16_simt",
                  "flash_fwd_f16_wide": "flash_fwd_f16_simt",
                  "flash_dq_f16_wide": "flash_dq_f16_simt",
                  "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
-# fp32's forward and dK/dV on the CUDA cores (`_f32_simt`): no route takes
-# them since the TF32 kernels replaced them at every width, and they take
-# any width, so at D=64 they stand beside the TF32 kernels that replaced
-# them there. fp32's dQ is on the CUDA cores at every width.
+# fp32's forward, dQ and dK/dV on the CUDA cores (`_f32_simt`): no route
+# takes them since the TF32 kernels replaced them at every width, and they
+# take any width, so at D=64 they stand beside the TF32 kernels that
+# replaced them there.
 CUDA_CORE_F32 = {"flash_fwd_f32": "flash_fwd_f32_simt",
+                 "flash_dq_f32": "flash_dq_f32_simt",
                  "flash_dkv_f32": "flash_dkv_f32_simt"}
 # Above D=128 the same CUDA-core kernels stand beside the TF32 wide ones
 # that took their route (flash_f32.cu: `_f32_wide`), to be timed in turns.
 CUDA_CORE_F32_WIDE = {"flash_fwd_f32_wide": "flash_fwd_f32_simt",
+                      "flash_dq_f32_wide": "flash_dq_f32_simt",
                       "flash_dkv_f32_wide": "flash_dkv_f32_simt"}
 # (B, H, Sq, Sk, D, causal, q_off) of fp32 above D=128: the timed shape
 # first (the wide bf16 rows' d256), the widths of three, four and five
@@ -624,6 +641,22 @@ F32_WIDE_CASES = {
     "d256_q_offset": (2, 4, 512, 2048, 256, True, 1536),
     "d512_sq65": (2, 2, 65, 65, 512, True, 0),
     "d256_bh1": (1, 1, 1000, 1000, 256, True, 0)}
+
+
+def backward_turns(tag, D, turns, table, library_ms, card) -> None:
+    """Logs K2 then K3 as one backward, each pair the sum of its kernels'
+    medians in turns (`time_turns`): the tensor-core pair of `table` (its
+    dQ and dK/dV keys) against the CUDA-core pair it maps them to, beside
+    the library's backward."""
+    new = [n for n in table if "_dq_" in n or "_dkv_" in n]
+    old = [table[n] for n in new]
+    ms_new, ms_old = (sum(turns[n] for n in pair) for pair in (new, old))
+    log(f"time[{tag} turns] D={D} {new[0]} then {new[1]} ms={ms_new:.4f} "
+        f"({new[0]} {turns[new[0]]:.4f}; sums of the medians in turns) "
+        f"{old[0]} then {old[1]} ms={ms_old:.4f} "
+        f"cuda_cores_over_tensor_cores={ms_old / ms_new:.3f} "
+        f"library_ms={library_ms:.4f} "
+        f"kernels_over_library={ms_new / library_ms:.3f} card={card}")
 
 
 @contextlib.contextmanager
@@ -1273,11 +1306,10 @@ def _epoch_losses(text: str) -> dict:
 
 # Phase 11: llama_350m's width computing in fp32 and in fp16, depth cut to
 # DTYPE_LAYERS so that the fp32 step stays short. fp32 takes the TF32
-# forward and dK/dV (csrc/flash_f32.cu) and the CUDA-core dQ
-# (csrc/flash_simt.cu); fp16 the tensor-core forward, dQ and dK/dV
-# (flash_fwd_f16, flash_dq_f16, flash_dkv_f16), and in heads of 256 the
-# wide ones (`_f16_wide`; fp32's: flash_fwd_f32_wide, flash_dkv_f32_wide
-# and the CUDA-core dQ). Against the plain attention (which computes in
+# forward, dQ and dK/dV (csrc/flash_f32.cu); fp16 the tensor-core forward,
+# dQ and dK/dV (flash_fwd_f16, flash_dq_f16, flash_dkv_f16), and in heads
+# of 256 the wide ones (`_f16_wide`; fp32's: flash_fwd_f32_wide,
+# flash_dq_f32_wide, flash_dkv_f32_wide). Against the plain attention (which computes in
 # fp32): fp32 differs by summation order alone, fp16 by the rounding of P
 # and of the scaled dS to fp16 inside the kernels, held to the bf16
 # slice's bars. fp16's
@@ -1298,7 +1330,7 @@ DTYPE_SLICES = {  # tag: (dtype, heads, bars, comparison's loss scale,
                      ("flash_fwd_f16_wide", "flash_dq_f16_wide",
                       "flash_dkv_f16_wide")),
     "float32_d256": ("float32", 4, F32_SLICE_LIMITS, 1.0,
-                     ("flash_fwd_f32_wide", "flash_dq_f32",
+                     ("flash_fwd_f32_wide", "flash_dq_f32_wide",
                       "flash_dkv_f32_wide"))}
 
 
@@ -2490,14 +2522,13 @@ def main() -> int:
         "main", "ragged_noncausal", "d128", "d16", "ragged_q_offset")}
     simt_cases["d256"] = (2, 4, 1024, 1024, 256, True, 0)
     for dtype, suffix in ((torch.float32, "_f32"), (torch.float16, "_f16")):
-        simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype])
+        simt_errs = check_kernels(fa, simt_cases, dtype, SIMT_LIMITS[dtype],
+                                  twice=dtype == torch.float32)
         rows.update(time_kernels(fa, main_shape, simt_errs, suffix, dtype))
         torch.cuda.empty_cache()
-    # fp32's forward and dK/dV on the CUDA cores (`_f32_simt`, which no
-    # route takes), held to fp32's bars at the main shape and
-    # timed in turns with the TF32 kernels that replaced them there; their
-    # rows carry the plain and library times of the TF32 rows (the same
-    # function on the same inputs)
+    # fp32's forward, dQ and dK/dV on the CUDA cores (`_f32_simt`, which no
+    # route takes), held to fp32's bars at the main shape and timed in turns
+    # with the TF32 kernels that replaced them there
     f32 = torch.float32
     with routed(fa, CUDA_CORE_F32):
         check_kernels(fa, {"main": main_shape}, f32, SIMT_LIMITS[f32])
@@ -2523,7 +2554,8 @@ def main() -> int:
         rows[new] = {**f32_d256[new], "ms": turns[new]}
         rows[old] = {**f32_d256[new], "ms": turns[old],
                      "err": (max(simt_d256["o"], simt_d256["lse"])
-                             if "fwd" in new else
+                             if "fwd" in new else simt_d256["dq_abs"]
+                             if "dq" in new else
                              max(simt_d256["dk_abs"], simt_d256["dv_abs"])),
                      "source": ("vodascheduler_tpu_torch/ops/csrc/"
                                 f"{fa.source(old)}.cu")}
@@ -2536,15 +2568,10 @@ def main() -> int:
             f"{old} ms={turns[old]:.4f} "
             f"cuda_cores_over_tensor_cores={turns[old] / turns[new]:.3f} "
             f"card={card}")
-    log(f"time[backward_f32_wide turns] D=256 flash_dq_f32 then "
-        f"flash_dkv_f32_wide ms={turns['flash_dq_f32'] + turns['flash_dkv_f32_wide']:.4f} "
-        f"(flash_dq_f32 {turns['flash_dq_f32']:.4f}; sum of the medians in "
-        f"turns) library_ms={rows['flash_dkv_f32_wide']['library_ms']:.4f} "
-        f"card={card}")
-    lib_bwd = rows["flash_dkv_f32"]["library_ms"]
-    log(f"time[backward_f32 turns] D=64 flash_dq_f32 then flash_dkv_f32 "
-        f"ms={turns64['flash_dq_f32'] + turns64['flash_dkv_f32']:.4f} (sum "
-        f"of the medians in turns) library_ms={lib_bwd:.4f}")
+    backward_turns("backward_f32_wide", 256, turns, CUDA_CORE_F32_WIDE,
+                   rows["flash_dkv_f32_wide"]["library_ms"], card)
+    backward_turns("backward_f32", 64, turns64, CUDA_CORE_F32,
+                   rows["flash_dkv_f32"]["library_ms"], card)
     torch.cuda.empty_cache()
     # fp16's wide forward, dQ and dK/dV (wgmma) at the wide bf16 kernels'
     # shapes and non-causal, timed at d256; the CUDA-core ones at D=640,

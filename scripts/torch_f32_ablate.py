@@ -1,7 +1,7 @@
-"""Times variants of fp32's tensor-core forward and dK/dV
+"""Times variants of fp32's tensor-core forward, dQ and dK/dV
 (``vodascheduler_tpu_torch/ops/csrc/flash_f32.cu``) against the source as
-it stands, in turns, on one card: what the three TF32 passes and the
-splitting of the operands into TF32 halves cost.
+it stands, in turns, on one card: what the three TF32 passes, the
+splitting of the operands into TF32 halves and dQ's loads cost.
 
     python3 scripts/torch_f32_ablate.py [--rounds 2] [--shape d64|d256]
 
@@ -12,15 +12,28 @@ variant computes wrong results on purpose (it drops work to weigh it) and
 is only timed:
 
 - ``one_pass``: every product as hi·hi alone (the K3 mma.sync and the K1
-  wgmma issue one product, not three; the lo halves are never read);
+  and K2 wgmma issue one product, not three; the lo halves are never read);
 - ``no_split``: hi and lo are the raw fp32 bits, with no rounding and no
-  subtraction (three products still, of unsplit operands).
+  subtraction (three products still, of unsplit operands);
+- ``dq_no_qsplit``: K2's warpgroups do not split their rows of each chunk
+  of Q and dO in shared memory (Q_lo and dO_lo as the buffers hold them);
+- ``dq_no_prologue``: K2's entry launches no prologue (K, V and Kᵀ's
+  halves as the scratch holds them);
+- ``dq_loads_once``: K2's producer loads the ring's chunks and Kᵀ's tile
+  for their first stages only, and arrives on the later ones' barriers;
+- ``dq_turns``: K2's warpgroups take turns at issuing their products
+  (hopper.cuh's `Turns`, as K1 up to D=128 does);
+- ``dq_split_ahead``: at CW=64 (D=64), where a second set of the
+  warpgroups' lo buffers fits, each warpgroup splits its rows of the next
+  chunk of Q and dO while its products of this chunk run (the results
+  right; the wide instantiation unchanged).
 
 At llama_350m's attention shape in fp32 (B=8, H=16, S=2048, D=64, causal;
 ``--shape d256``: B=8, H=4, D=256, where the wrappers take the kernels
 that stream D, ``_f32_wide``, whose products the same variants reach)
 each round times the tree and each variant, then the variants and the
-tree in reverse order, K1 and K3 each by CUDA events (chip_smoke.cuda_ms);
+tree in reverse order, K1, K2 and K3 each by CUDA events
+(chip_smoke.cuda_ms);
 the script prints the card's name and power limit, the median of each and
 its ratio to the tree's. Exits non-zero without a card or when a variant's
 lines are not in the source.
@@ -62,6 +75,118 @@ _S3W = """        wgmma_ss_tf32<BN>(sc, qlod + qs, khid + ks, !first || kk > 0);
 _PV3W = """        wgmma_rs_tf32<CW>(acc, pl[kk], vhid + vk);
         wgmma_rs_tf32<CW>(acc, ph[kk], vlod + vk);
         wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);"""
+# K2's (flash_dq_f32_kernel): its producer's loads, and its prologue
+_DQ_LOADS = """          mbar_expect_tx(&full[s], C::STAGE_BYTES);
+          tma_load(st, &tq, &full[s], c * KC, h, q0, b);
+          tma_load(st + BM * KC, &tdo, &full[s], c * KC, h, q0, b);
+          float* kv = st + 2 * BM * KC;
+          tma_load(kv, &tkh, &full[s], c * KC, h, j * BN, b);
+          tma_load(kv + BN * KC, &tkl, &full[s], c * KC, h, j * BN, b);
+          tma_load(kv + 2 * BN * KC, &tvh, &full[s], c * KC, h, j * BN, b);
+          tma_load(kv + 3 * BN * KC, &tvl, &full[s], c * KC, h, j * BN, b);"""
+_DQ_KT_LOADS = """            mbar_expect_tx(kt_full, 2 * C::KT_BYTES);
+#pragma unroll
+            for (int p = 0; p < BN / 32; ++p) {
+              tma_load(kt + p * CW * 32, &tth, kt_full, j * BN + 32 * p, c0,
+                       h, b);
+              tma_load(kt + CW * BN + p * CW * 32, &ttl, kt_full,
+                       j * BN + 32 * p, c0, h, b);
+            }"""
+_DQ_PROLOGUE = """        reinterpret_cast<const void*>(&flash_dq_f32_kernel<CW>), C::SMEM);
+  if (!err) err = kv.launch(k, v, B, H, Sk, D, st);"""
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+from torch_planted_fault import _F32DQ_DQ, _F32DQ_S  # noqa: E402
+
+# K2 with the warpgroups taking turns at issuing (named barriers 1 and 2;
+# the split's own barrier moves to 3 and 4)
+_DQ_TURNS = [
+    ("""      asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+      const uint64_t qhd = sw128_desc(qhi, 16), qld = sw128_desc(qlo, 16);""",
+     """      asm volatile("bar.sync %0, 128;" ::"r"(3 + cw) : "memory");
+      const uint64_t qhd = sw128_desc(qhi, 16), qld = sw128_desc(qlo, 16);
+      turns.begin();"""),
+    ("""                          vhd + kmajor_step(BN, kk), 1);
+      wgmma_commit();
+    };""",
+     """                          vhd + kmajor_step(BN, kk), 1);
+      wgmma_commit();
+      turns.end(false);
+    };"""),
+    ("""    float* dolo = qlo + 64 * KC;
+""", """    float* dolo = qlo + 64 * KC;
+    const Turns<> turns{cw};
+"""),
+    ("""    for (int j = 0; j < n_k; ++j) {
+      // S and dP of tile j, summed""",
+     """    turns.start_kernel();
+    for (int j = 0; j < n_k; ++j) {
+      // S and dP of tile j, summed"""),
+    ("""      const uint64_t tld = sw128_desc(kt + CW * BN, 16);
+      wgmma_fence();""",
+     """      const uint64_t tld = sw128_desc(kt + CW * BN, 16);
+      turns.begin();
+      wgmma_fence();"""),
+    ("""        wgmma_rs_tf32<CW>(acc, dsh[kk], thd + bk);
+      }
+      wgmma_commit();""",
+     """        wgmma_rs_tf32<CW>(acc, dsh[kk], thd + bk);
+      }
+      wgmma_commit();
+      turns.end(j == n_k - 1);""")]
+# K2 splitting the next chunk under this chunk's products, at CW=64
+_DQ_SPLIT_AHEAD = [
+    ("""  static constexpr int LO_OFF = STAGES * STAGE_BYTES;
+  static constexpr int KT_OFF = LO_OFF + 4 * LO_BYTES;""",
+     """  static constexpr int LO_SETS = CW == 64 ? 2 : 1;
+  static constexpr int LO_OFF = STAGES * STAGE_BYTES;
+  static constexpr int KT_OFF = LO_OFF + LO_SETS * 4 * LO_BYTES;"""),
+    ("""    float* qlo = lo + 2 * cw * 64 * KC;
+    float* dolo = qlo + 64 * KC;
+""", """    constexpr int LS = C::LO_SETS;
+    auto lo_of = [&](int it) {
+      return lo + ((it % LS) * 2 + cw) * 2 * 64 * KC;
+    };
+"""),
+    ("""    auto issue_chunk = [&](int it) {
+      const int s = it % ST;
+      float* qhi = stage(s) + cw * 64 * KC;
+      float* dohi = qhi + BM * KC;
+      const float* khi = stage(s) + 2 * BM * KC;
+      mbar_wait(&full[s], (it / ST) & 1);
+      split_rows(qhi, qlo);
+      split_rows(dohi, dolo);""",
+     """    auto split_chunk = [&](int it) {
+      float* qhi = stage(it % ST) + cw * 64 * KC;
+      mbar_wait(&full[it % ST], (it / ST) & 1);
+      split_rows(qhi, lo_of(it));
+      split_rows(qhi + BM * KC, lo_of(it) + 64 * KC);
+    };
+    auto issue_chunk = [&](int it) {
+      const int s = it % ST;
+      float* qhi = stage(s) + cw * 64 * KC;
+      float* dohi = qhi + BM * KC;
+      float* qlo = lo_of(it);
+      float* dolo = qlo + 64 * KC;
+      const float* khi = stage(s) + 2 * BM * KC;"""),
+    ("""      for (int c = 0; c < nc; ++c) {
+        issue_chunk(j * nc + c);
+        wgmma_wait<0>();""",
+     """      for (int c = 0; c < nc; ++c) {
+        const int it = j * nc + c;
+        if constexpr (LS == 1) split_chunk(it);
+        issue_chunk(it);
+        if constexpr (LS == 2) {
+          if (it + 1 < n_k * nc) split_chunk(it + 1);
+        }
+        wgmma_wait<0>();"""),
+    ("""    for (int j = 0; j < n_k; ++j) {
+      // S and dP of tile j, summed""",
+     """    if constexpr (LS == 2) {
+      if (n_k > 0) split_chunk(0);
+    }
+    for (int j = 0; j < n_k; ++j) {
+      // S and dP of tile j, summed""")]
+
 # name -> [(the lines as they stand in flash_f32.cu, the lines instead)]
 VARIANTS = {
     "one_pass": [(_MMA3, "  mma_tf32(c, ahi, b0.hi, b1.hi);"),
@@ -70,9 +195,20 @@ VARIANTS = {
                  (_PV3, "        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);"),
                  (_S3W, "        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, "
                         "!first || kk > 0);"),
-                 (_PV3W, "        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);")],
+                 (_PV3W, "        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);"),
+                 *_F32DQ_S, _F32DQ_DQ],
     "no_split": [(_SPLIT, "  const uint32_t hi = __float_as_uint(x);\n"
                           "  const uint32_t lo = hi;")],
+    "dq_no_qsplit": [("      split_rows(qhi, qlo);\n"
+                      "      split_rows(dohi, dolo);\n", "")],
+    "dq_no_prologue": [(_DQ_PROLOGUE, _DQ_PROLOGUE.splitlines()[0])],
+    "dq_loads_once": [
+        (_DQ_LOADS, "if (it < ST) {\n" + _DQ_LOADS
+         + "\n} else { mbar_arrive(&full[s]); }"),
+        (_DQ_KT_LOADS, "if (j == 0) {\n" + _DQ_KT_LOADS
+         + "\n} else { mbar_arrive(kt_full); }")],
+    "dq_turns": _DQ_TURNS,
+    "dq_split_ahead": _DQ_SPLIT_AHEAD,
 }
 
 
@@ -125,7 +261,7 @@ def main() -> int:
     for name in VARIANTS:
         csrc = make(sound, name)
         sets[name] = build_set(build, fa, csrc, csrc.parent / "lib")
-    build.CSRC, build.BUILD_ROOT = sound, sound_root  # K2 from the tree
+    build.CSRC, build.BUILD_ROOT = sound, sound_root
     B, H, Sq, Sk, D, causal, q_off = SHAPES[args.shape]
     g = torch.Generator("cuda").manual_seed(2)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
@@ -136,6 +272,8 @@ def main() -> int:
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     calls = {fa._kernel("flash_fwd", D, torch.float32):
              lambda: fa.flash_fwd(q, k, v, causal, q_off),
+             fa._kernel("flash_dq", D, torch.float32):
+             lambda: fa.flash_dq(q, k, v, o, do, lse, causal, q_off),
              fa._kernel("flash_dkv", D, torch.float32):
              lambda: fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)}
     ms = {n: {kn: [] for kn in calls} for n in sets}

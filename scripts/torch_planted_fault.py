@@ -47,6 +47,11 @@ small:
 - ``dkvc_f16_no_rescale``: fp16's dK/dV above D=512 (flash_dkv_wide.cu's
   flash_dkv_chunked_kernel) lowers a key row's exponent of dSᵀ but never
   rescales what dK's row has summed so far.
+- ``f32_dq_one_pass``: fp32's TF32 dQ (flash_f32.cu's flash_dq_f32_kernel,
+  at every width) takes S, dP and dS·K as hi·hi alone, one pass.
+- ``f32_dq_drop_chunk``: the same kernel leaves D's second 32-column chunk
+  out of every S and dP (its products still issued and waited on, its
+  stage released).
 
 The first three are held at llama_350m's attention shape (B=8, H=16,
 S=2048, D=64, bf16, causal), the wide one at the same width in heads of
@@ -59,11 +64,13 @@ loss's dO of 1e-6), the fp32 one at llama_350m's attention shape in
 fp32 under chip_smoke.py's fp32 bars, and the chunked forward's at D=640
 (B=2, H=2, S=1024), the first in bf16, the second in fp16 under the fp16
 bars, the fp32 wide ones at the wide shape in fp32 under the fp32
-bars, and the fp16 dQ and dK/dV above D=512 at D=640 under the fp16 bars,
-each required to break the bars of its own kernel (O for the
+bars, the fp16 dQ and dK/dV above D=512 at D=640 under the fp16 bars,
+and fp32's TF32 dQ, its one pass at the main shape and its dropped chunk
+at the wide one, under the fp32 bars, each required to break the bars of
+its own kernel (O for the
 forward, dK and dV for dK/dV, which runs on the sound forward's lse when
-the fault is its own), the last two no bar of another kernel
-(`OWN_BARS`). A fault names its file as ``name.cu:kernel`` where two
+the fault is its own), the fp16 and fp32 dQ and dK/dV ones no bar of
+another kernel (`OWN_BARS`). A fault names its file as ``name.cu:kernel`` where two
 kernels of one source share the line it changes
 (``scripts/source_edits.py``). The script logs each kernel set's
 errors against the plain versions under chip_smoke.py's bars (the sound
@@ -129,6 +136,27 @@ _F32W_MMA = tuple(
         ("dpa", "vf", "doc", "r", "col", "r", "col + 4", " " * 19),
         ("dva", "pf", "dow", "r", "cc", "r + 1", "cc", " " * 17),
         ("dka", "sf", "qw", "r", "cc", "r + 1", "cc", " " * 17)))
+# fp32's TF32 dQ (flash_dq_f32_kernel): each chunk's small terms of S and
+# dP, then its hi·hi terms; one pass keeps the hi·hi loop alone, which then
+# starts the chunk's accumulator. dQ += dS·K in three passes.
+_F32DQ_S = tuple((
+    f"        wgmma_ss_tf32<BN>({c}, {a}ld + a, {b}hd + bk, kk > 0);\n"
+    f"        wgmma_ss_tf32<BN>({c}, {a}hd + a, {b}ld + bk, 1);\n"
+    "      }\n#pragma unroll\n"
+    "      for (int kk = 0; kk < KC / 8; ++kk)\n"
+    f"        wgmma_ss_tf32<BN>({c}, {a}hd + kmajor_step(64, kk),\n"
+    f"                          {b}hd + kmajor_step(BN, kk), 1);\n",
+    "        (void)a;\n        (void)bk;\n"
+    "      }\n#pragma unroll\n"
+    "      for (int kk = 0; kk < KC / 8; ++kk)\n"
+    f"        wgmma_ss_tf32<BN>({c}, {a}hd + kmajor_step(64, kk),\n"
+    f"                          {b}hd + kmajor_step(BN, kk), kk > 0);\n")
+    for c, a, b in (("ps", "q", "k"), ("pp", "d", "v")))
+_F32DQ_DQ = ("""        wgmma_rs_tf32<CW>(acc, dsl[kk], thd + bk);
+        wgmma_rs_tf32<CW>(acc, dsh[kk], tld + bk);
+        wgmma_rs_tf32<CW>(acc, dsh[kk], thd + bk);
+""", """        wgmma_rs_tf32<CW>(acc, dsh[kk], thd + bk);
+""")
 FAULTS = {
     "fwd_last_tile": (
         "flash_fwd.cu",
@@ -214,6 +242,16 @@ FAULTS = {
         "      if (__any_sync(0xffffffffu, fell)) {\n",
         "      if (false && __any_sync(0xffffffffu, fell)) {\n",
         CHUNKED_SHAPE, torch.float16),
+    "f32_dq_one_pass": (
+        "flash_f32.cu:flash_dq_f32_kernel",
+        (*(o for o, _ in _F32DQ_S), _F32DQ_DQ[0]),
+        (*(n for _, n in _F32DQ_S), _F32DQ_DQ[1]), MAIN_SHAPE, torch.float32),
+    "f32_dq_drop_chunk": (
+        "flash_f32.cu:flash_dq_f32_kernel",
+        "          sc[e] += ps[e];\n          dp[e] += pp[e];\n",
+        "          sc[e] += c == 1 ? 0.f : ps[e];\n"
+        "          dp[e] += c == 1 ? 0.f : pp[e];\n",
+        WIDE_SHAPE, torch.float32),
 }
 # The bars a fault must break, where it is held against them: those of the
 # kernel it sits in.
@@ -222,11 +260,15 @@ MUST_BREAK = {"f32w_fwd_one_pass": ("o_row",),
               "f32w_dkv_one_pass": ("dk_row", "dv_row"),
               "f32w_dkv_drop_chunk": ("dk_row", "dv_row"),
               "dqc_f16_drop_chunk": ("dq_row",),
-              "dkvc_f16_no_rescale": ("dk_row",)}
+              "dkvc_f16_no_rescale": ("dk_row",),
+              "f32_dq_one_pass": ("dq_row",),
+              "f32_dq_drop_chunk": ("dq_row",)}
 # The faults that must break no bar but those of their own kernel (K2's dQ
 # and δ, K3's dK and dV).
 OWN_BARS = {"dqc_f16_drop_chunk": ("dq_row", "delta"),
-            "dkvc_f16_no_rescale": ("dk_row", "dv_row")}
+            "dkvc_f16_no_rescale": ("dk_row", "dv_row"),
+            "f32_dq_one_pass": ("dq_row", "delta"),
+            "f32_dq_drop_chunk": ("dq_row", "delta")}
 
 
 def model_errors(fa, which: str) -> list:

@@ -144,12 +144,12 @@ def test_narrow_heads_train_through_the_kernels(cuda, model, monkeypatch):
 def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
                                                     D, q_off, Sq):
     """The kernels of fp32 and fp16 tensors against the plain versions, at
-    chip_smoke.py's SIMT_LIMITS: fp32's forward and dK/dV in TF32 at every
-    width (csrc/flash_f32.cu: `_f32` up to D=128, `_f32_wide` above), its
-    dQ on the CUDA cores (csrc/flash_simt.cu); fp16's on the tensor
-    cores up to D=128 (flash_fwd_f16, flash_dq_f16, flash_dkv_f16) and from
-    256 to 512 (`_f16_wide`)."""
-    from chip_smoke import SIMT_LIMITS
+    chip_smoke.py's SIMT_LIMITS: fp32's forward, dQ and dK/dV in TF32 at
+    every width (csrc/flash_f32.cu: `_f32` up to D=128, `_f32_wide` above;
+    dQ against the plain version in fp64, F32_DQ_ACC, as chip_smoke.py
+    holds it); fp16's on the tensor cores up to D=128 (flash_fwd_f16,
+    flash_dq_f16, flash_dkv_f16) and from 256 to 512 (`_f16_wide`)."""
+    from chip_smoke import F32_DQ_ACC, SIMT_LIMITS
     limits = SIMT_LIMITS[dtype]
     g = torch.Generator(cuda).manual_seed(7)
     q, do = (torch.randn(2, Sq, 3, D, generator=g, device=cuda).to(dtype)
@@ -163,6 +163,9 @@ def test_fp32_and_fp16_kernels_match_plain_versions(cuda, dtype, causal, S,
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
     dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
                                               q_off)
+    if dtype == torch.float32:
+        dq_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off,
+                                       acc=F32_DQ_ACC)[0]
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
                                             q_off)
     torch.cuda.synchronize()
@@ -447,9 +450,9 @@ def test_fp32_tensor_core_kernels_match_their_model(cuda, B, H, Sq, Sk, D,
 @pytest.mark.parametrize("D", [16, 96])
 def test_fp32_padded_heads_take_the_tf32_kernels(cuda, D):
     """Heads of 16 and 96 in fp32: the operator's padded path (to 64 and
-    128) through the TF32 forward and dK/dV and the CUDA-core dQ, against
-    the plain versions at D itself, at SIMT_LIMITS[float32]."""
-    from chip_smoke import SIMT_LIMITS
+    128) through the TF32 forward, dQ and dK/dV, against the plain versions
+    at D itself (dQ's in fp64), at SIMT_LIMITS[float32]."""
+    from chip_smoke import F32_DQ_ACC, SIMT_LIMITS
     limits = SIMT_LIMITS[torch.float32]
     q, k, v, do = _f32_inputs(2, 3, 200, 200, D, D)
     before = dict(fa.launches)
@@ -457,7 +460,9 @@ def test_fp32_padded_heads_take_the_tf32_kernels(cuda, D):
     dq, dk, dv = fa.padded_backward(fa.flash_dq, fa.flash_dkv, q, k, v, o,
                                     do, lse, True, 0)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, 0)
-    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
+    _, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)
+    dq_ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0,
+                                   acc=F32_DQ_ACC)[0]
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta_ref,
                                             True, 0)
     torch.cuda.synchronize()
@@ -472,43 +477,49 @@ def test_fp32_padded_heads_take_the_tf32_kernels(cuda, D):
 
 @pytest.mark.parametrize("D", [64, 128])
 def test_fp32_tensor_core_kernels_are_deterministic(cuda, D):
-    """No atomics in flash_fwd_f32 or flash_dkv_f32: two launches on the
-    same inputs give bitwise-equal O, lse, dK and dV."""
+    """No atomics in flash_fwd_f32, flash_dq_f32 or flash_dkv_f32: two
+    launches on the same inputs give bitwise-equal O, lse, dQ, δ, dK and
+    dV."""
     q, k, v, do = _f32_inputs(2, 3, 320, 320, D, 9)
     o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
     o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
-    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq1, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq2, delta2 = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
     dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     torch.cuda.synchronize()
-    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+    for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (delta, delta2),
+                 (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a, b)
 
 
 def test_autograd_goes_through_the_fp32_kernels(cuda):
-    """fp32 through the operator: K1 and K3 in TF32, K2 on the CUDA cores,
-    and the gradients of the plain path on the CPU, at SIMT_LIMITS."""
+    """fp32 through the operator: K1, K2 and K3 in TF32, and the gradients
+    of the plain path on the CPU, at SIMT_LIMITS. The loss weighs O by a
+    fixed random tensor, as the wide test's does: under O.square().sum()
+    dO is 2·O, the first query's dP − δ cancels terms of |2·o₀·v₀|, and its
+    row of dQ, 0 in exact arithmetic, reads only the two paths' rounding of
+    them (1.5e-3 of the bar's measure on the card with the TF32 K2)."""
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[torch.float32]
-    host = [t.requires_grad_() for t in _f32_inputs(1, 2, 200, 200, 64, 11,
-                                                    "cpu")[:3]]
+    *host, w = _f32_inputs(1, 2, 200, 200, 64, 11, "cpu")
+    host = [t.requires_grad_() for t in host[:3]]
     card = [t.detach().to(cuda).requires_grad_() for t in host]
     fa.reset_launches()
-    fa.flash_attention(*card).square().sum().backward()
+    (fa.flash_attention(*card) * w.to(cuda)).sum().backward()
     assert fa.launches == _counts(flash_fwd_f32=1, flash_dq_f32=1,
                                   flash_dkv_f32=1)
-    fa.flash_attention(*host).square().sum().backward()
+    (fa.flash_attention(*host) * w).sum().backward()
     for n, got, ref in zip(("dq", "dk", "dv"), card, host):
         assert row_err(got.grad.cpu(), ref.grad) <= limits[f"{n}_row"], n
 
 
 def test_fp32_above_128_runs_the_cuda_core_forward_and_dkv(cuda):
-    """fp32's CUDA-core forward and dK/dV (`_f32_simt`), which the wrappers
-    no longer route to (above D=128 the TF32 `_f32_wide` kernels replaced
-    them) but chip_smoke.py times in turns against their replacements,
-    still run above 128 when routed to (`chip_smoke.CUDA_CORE_F32_WIDE`),
-    beside the CUDA-core dQ, and match the plain versions at
-    SIMT_LIMITS."""
+    """fp32's CUDA-core forward, dQ and dK/dV (`_f32_simt`), which the
+    wrappers no longer route to (the TF32 kernels replaced them) but
+    chip_smoke.py times in turns against their replacements, still run
+    above 128 when routed to (`chip_smoke.CUDA_CORE_F32_WIDE`) and match
+    the plain versions at SIMT_LIMITS."""
     from chip_smoke import CUDA_CORE_F32_WIDE, SIMT_LIMITS, routed
     limits = SIMT_LIMITS[torch.float32]
     q, k, v, do = _f32_inputs(2, 2, 200, 200, 256, 12)
@@ -526,7 +537,7 @@ def test_fp32_above_128_runs_the_cuda_core_forward_and_dkv(cuda):
                         ("dv", dv, dv_ref)):
         assert row_err(got, ref) <= limits[f"{n}_row"], n
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_f32_simt=1, flash_dq_f32=1, flash_dkv_f32_simt=1)
+        flash_fwd_f32_simt=1, flash_dq_f32_simt=1, flash_dkv_f32_simt=1)
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
@@ -579,24 +590,83 @@ def test_fp32_wide_kernels_match_their_model(cuda, B, H, Sq, Sk, D, causal,
     assert all(e <= F32_MODEL_TOL for e in errs.values()), errs
 
 
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 256, 256, 64, True, 0),
+    (2, 1, 200, 200, 64, False, 0),      # ragged, non-causal
+    (1, 2, 1000, 1000, 64, True, 0),     # neither a multiple of 64 nor 128
+    (1, 2, 130, 500, 64, True, 370),     # a query slice behind an offset
+    (1, 1, 200, 333, 64, False, 0),      # B·H = 1, Sq ≠ Sk, non-causal
+    (1, 2, 192, 192, 128, True, 0),
+    (2, 1, 200, 333, 128, False, 0),
+    (1, 1, 65, 700, 128, True, 635),
+    (1, 2, 256, 256, 256, True, 0),
+    (2, 1, 200, 200, 256, False, 0),
+    (1, 2, 1000, 1000, 256, True, 0),
+    (1, 2, 130, 500, 256, True, 370),
+    (1, 1, 200, 333, 384, False, 0),
+    (2, 1, 65, 65, 384, True, 0),        # Sq = 65
+    (1, 2, 192, 192, 512, True, 0),
+    (1, 1, 130, 200, 640, True, 70),
+])
+def test_fp32_dq_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off):
+    """fp32's TF32 dQ (flash_dq_f32_kernel: `flash_dq_f32` up to D=128,
+    `flash_dq_f32_wide` above) at the edges a ring, a tile or a chunk of D
+    can get wrong, on the kernel forward's O and lse: against the plain
+    version in fp64 at SIMT_LIMITS[float32] (dq_row; δ against the fp32
+    plain version's), against the plain model of its arithmetic
+    (tests/torch_f32x3_model.py `dq`: S and dP over 32-column chunks, each
+    summed apart, dQ in min(D, 128)-column chunks) at F32_MODEL_TOL, and
+    launched twice, bitwise equal."""
+    import torch_f32x3_model as model
+    from chip_smoke import F32_DQ_ACC, SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    q, k, v, do = _f32_inputs(B, H, Sq, Sk, D, Sq + Sk + D + 1)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    before = dict(fa.launches)
+    dq, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    dq2, delta2 = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
+    _, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dq_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off,
+                                   acc=F32_DQ_ACC)[0]
+    torch.cuda.synchronize()
+    kernel = "flash_dq_f32" if D <= 128 else "flash_dq_f32_wide"
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        **{kernel: 2})
+    assert torch.equal(dq, dq2) and torch.equal(delta, delta2)
+    errs = {"dq_row": row_err(dq, dq_ref),
+            "delta": (delta - delta_ref).abs().max().item()}
+    print("f32 dq plain", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(errs[n] <= limits[n] for n in errs), errs
+    cpu = [t.cpu() for t in (q, k, v, o, do, lse)]
+    dq_m, delta_m = model.dq(*cpu, causal, q_off, D ** -0.5)
+    errs = {"dq": ((dq.cpu() - dq_m).abs().max()
+                   / dq_m.abs().max()).item(),
+            "delta": (delta.cpu() - delta_m).abs().max().item()}
+    print("f32 dq model", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(e <= F32_MODEL_TOL for e in errs.values()), errs
+
+
 @pytest.mark.parametrize("D", [256, 640])
 def test_fp32_wide_kernels_are_deterministic(cuda, D):
-    """No atomics in flash_fwd_f32_wide or flash_dkv_f32_wide: two launches
-    on the same inputs give bitwise-equal O, lse, dK and dV."""
+    """No atomics in flash_fwd_f32_wide, flash_dq_f32_wide or
+    flash_dkv_f32_wide: two launches on the same inputs give bitwise-equal
+    O, lse, dQ, δ, dK and dV."""
     q, k, v, do = _f32_inputs(2, 2, 320, 320, D, 10)
     o1, lse1 = fa.flash_fwd(q, k, v, True, 0)
     o2, lse2 = fa.flash_fwd(q, k, v, True, 0)
-    _, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq1, delta = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
+    dq2, delta2 = fa.flash_dq(q, k, v, o1, do, lse1, True, 0)
     dk1, dv1 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     dk2, dv2 = fa.flash_dkv(q, k, v, do, lse1, delta, True, 0)
     torch.cuda.synchronize()
-    for a, b in ((o1, o2), (lse1, lse2), (dk1, dk2), (dv1, dv2)):
+    for a, b in ((o1, o2), (lse1, lse2), (dq1, dq2), (delta, delta2),
+                 (dk1, dk2), (dv1, dv2)):
         assert torch.equal(a, b)
 
 
 def test_autograd_goes_through_the_fp32_wide_kernels(cuda):
-    """fp32 in heads of 256 through the operator: K1 and K3 on the wide
-    TF32 kernels, K2 on the CUDA cores, and the gradients of the plain path
+    """fp32 in heads of 256 through the operator: K1, K2 and K3 on the
+    wide TF32 kernels, and the gradients of the plain path
     on the CPU, at SIMT_LIMITS. The loss weighs O by a fixed random tensor:
     under O.square().sum() dO is 2·O, and the first query's dQ (one key,
     P = 1) is 0 by exact cancellation in every implementation, so its row
@@ -608,7 +678,7 @@ def test_autograd_goes_through_the_fp32_wide_kernels(cuda):
     card = [t.detach().to(cuda).requires_grad_() for t in host]
     fa.reset_launches()
     (fa.flash_attention(*card) * w.to(cuda)).sum().backward()
-    assert fa.launches == _counts(flash_fwd_f32_wide=1, flash_dq_f32=1,
+    assert fa.launches == _counts(flash_fwd_f32_wide=1, flash_dq_f32_wide=1,
                                   flash_dkv_f32_wide=1)
     (fa.flash_attention(*host) * w).sum().backward()
     for n, got, ref in zip(("dq", "dk", "dv"), card, host):
@@ -618,9 +688,9 @@ def test_autograd_goes_through_the_fp32_wide_kernels(cuda):
 def test_fp32_llama_in_heads_of_256_trains_through_the_wide_kernels(
         cuda, monkeypatch):
     """A Llama that computes in fp32 in heads of 256 (dim 512, 2 heads)
-    takes the wide TF32 forward and dK/dV and the CUDA-core dQ on the card,
-    no other kernel, and its loss is the CPU's on the same weights and
-    batch within 1e-4 relative."""
+    takes the wide TF32 forward, dQ and dK/dV on the card, no other kernel,
+    and its loss is the CPU's on the same weights and batch within 1e-4
+    relative."""
     import dataclasses
 
     from vodascheduler_tpu_torch.models import llama
@@ -641,7 +711,7 @@ def test_fp32_llama_in_heads_of_256_trains_through_the_wide_kernels(
     assert fa.launches["flash_fwd_f32_wide"] >= L
     assert fa.launches == _counts(
         flash_fwd_f32_wide=fa.launches["flash_fwd_f32_wide"],
-        flash_dq_f32=L, flash_dkv_f32_wide=L)
+        flash_dq_f32_wide=L, flash_dkv_f32_wide=L)
     want = host.train_step(batch)
     assert torch.isfinite(got)
     assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))

@@ -22,6 +22,19 @@ the Pallas kernels at D=256 and against the plain versions at D=384 and
 second chunk out of every sum (the planted faults ``f32w_*`` of
 scripts/torch_planted_fault.py) must break them. The card tests are
 `test_torch_cuda.py::test_fp32_wide_kernels_match_their_model`.
+
+K2 (``voda_flash_dq_f32``, ``voda_flash_dq_f32_wide``: one kernel at every
+width) has a model of its own, `model.dq`: S and dP over 32-column chunks
+of D, each chunk's passes summed apart, 64-key tiles, dQ in
+min(D, 128)-column chunks. It is held at the dq_row and δ bars against the
+Pallas dQ kernel in interpret mode (D 64/128/256) and against the plain
+version computed in fp64 (`chip_smoke.F32_DQ_ACC`, as chip_smoke.py holds
+the kernel: a query row that sees one key has dP − δ cancel, and there the
+plain version's own fp32 rounding reads near the bar at D=512), also at D
+384, 512 and 640; the one-pass model and a model that leaves D's second
+chunk out of S and dP must break dq_row more than tenfold (the planted
+faults ``f32_dq_one_pass`` and ``f32_dq_drop_chunk``). The card tests are
+`test_torch_cuda.py::test_fp32_dq_matches_its_model`.
 """
 
 import os
@@ -56,17 +69,18 @@ def _inputs(B, H, Sq, Sk, D, seed):
 
 
 def _pallas(q, k, v, do, causal, q_off):
-    """(o, lse [B,H,Sq], dk, dv) of the Pallas kernels in interpret mode,
-    [B,S,H,D]."""
+    """(o, lse [B,H,Sq], dk, dv, dq) of the Pallas kernels in interpret
+    mode, [B,S,H,D]."""
     t = lambda x: jnp.asarray(x).transpose(0, 2, 1, 3)
     off = jnp.asarray(q_off, jnp.int32).reshape(1, 1)
     o, lse = jax_fwd(t(q), t(k), t(v), off, causal, BLOCK, BLOCK, True)
-    _, dk, dv = jax_bwd(t(q), t(k), t(v), o, lse, t(do), off, causal, BLOCK,
-                        BLOCK, True)
+    dq, dk, dv = jax_bwd(t(q), t(k), t(v), o, lse, t(do), off, causal,
+                         BLOCK, BLOCK, True)
     B, H, Sq = q.shape[0], q.shape[2], q.shape[1]
     back = lambda x: torch.from_numpy(np.array(x)).transpose(1, 2)
     return (back(o), torch.from_numpy(np.asarray(
-        lse[:, :, :, 0, :]).reshape(B, H, Sq)), back(dk), back(dv))
+        lse[:, :, :, 0, :]).reshape(B, H, Sq)), back(dk), back(dv),
+        back(dq))
 
 
 def _model(q, k, v, do, causal, q_off, passes=3, drop_chunk=None):
@@ -126,7 +140,7 @@ def test_three_passes_match_pallas_and_plain(B, H, Sq, Sk, D, causal, q_off):
     qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
     got = _model(qt, kt, vt, dot, causal, q_off)
     for want in (_plain(qt, kt, vt, dot, got, causal, q_off),
-                 _pallas(q, k, v, do, causal, q_off)):
+                 _pallas(q, k, v, do, causal, q_off)[:4]):
         errs = _errors(got, want)
         print("parity f32x3", B, H, Sq, Sk, D, causal, q_off, errs)
         assert all(errs[n] <= LIMITS[n] for n in errs), errs
@@ -204,3 +218,104 @@ def test_wide_faults_break_the_bars(fault):
     assert fwd_alone["o_row"] > LIMITS["o_row"], fwd_alone
     for n in ("dk_row", "dv_row"):
         assert dkv_alone[n] > LIMITS[n], (n, dkv_alone)
+
+
+def _dq_errors(q, k, v, o, do, lse, causal, q_off, **fault) -> dict:
+    """dq_row and δ of K2's model (`fault`: passes=1 or drop_chunk=1)
+    against the plain version computed in fp64, on the given o and lse."""
+    D = q.shape[-1]
+    dq, delta = model.dq(q, k, v, o, do, lse, causal, q_off, D ** -0.5,
+                         **fault)
+    dq_ref, delta_ref = fa.flash_dq_reference(q, k, v, o, do, lse, causal,
+                                              q_off, acc=chip_smoke.F32_DQ_ACC)
+    return {"dq_row": chip_smoke.row_err(dq, dq_ref),
+            "delta": (delta - delta_ref).abs().max().item()}
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 256, 256, 64, True, 0),
+    (2, 1, 192, 192, 64, False, 0),
+    (1, 2, 64, 192, 64, True, 128),      # a query slice behind an offset
+    (1, 2, 128, 128, 128, True, 0),
+    (1, 1, 128, 128, 128, False, 0),
+    (1, 1, 64, 192, 128, True, 128),
+    (1, 2, 192, 192, 256, True, 0),
+    (2, 1, 128, 192, 256, False, 0),
+    (1, 2, 64, 256, 256, True, 192),
+])
+def test_dq_three_passes_match_pallas_and_plain(B, H, Sq, Sk, D, causal,
+                                                q_off):
+    """K2's model on the Pallas forward's O and lse against the Pallas dQ
+    kernel in fp32 and against the plain version in fp64, within
+    SIMT_LIMITS[float32] (dq_row; δ against the plain version's)."""
+    q, k, v, do = _inputs(B, H, Sq, Sk, D, Sq + D + 1)
+    o, lse, _, _, dq_pallas = _pallas(q, k, v, do, causal, q_off)
+    qt, kt, vt, dot = (torch.from_numpy(x) for x in (q, k, v, do))
+    errs = _dq_errors(qt, kt, vt, o, dot, lse, causal, q_off)
+    dq, _ = model.dq(qt, kt, vt, o, dot, lse, causal, q_off, D ** -0.5)
+    errs["dq_row_pallas"] = chip_smoke.row_err(dq, dq_pallas)
+    print("parity f32x3 dq", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert errs["dq_row"] <= LIMITS["dq_row"], errs
+    assert errs["dq_row_pallas"] <= LIMITS["dq_row"], errs
+    assert errs["delta"] <= LIMITS["delta"], errs
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 160, 160, 384, True, 0),
+    (1, 1, 96, 200, 384, False, 0),
+    (1, 1, 130, 130, 640, True, 0),
+    (1, 1, 64, 192, 640, True, 128),
+])
+def test_dq_wide_tiling_matches_plain(B, H, Sq, Sk, D, causal, q_off):
+    """K2's model at widths of three and five 128-column chunks of dQ
+    (D=384, 640: each CTA of a row block sums the same S and dP over every
+    chunk of D) against the plain version in fp64, within
+    SIMT_LIMITS[float32]."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(B, H, Sq, Sk, D, Sq + D + 1))
+    o, lse = fa.flash_attention_reference(q, k, v, causal, q_off)
+    errs = _dq_errors(q, k, v, o, do, lse, causal, q_off)
+    print("parity f32x3 dq wide", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(errs[n] <= LIMITS[n] for n in errs), errs
+
+
+@pytest.mark.parametrize("D", [64, 512])
+def test_dq_holds_the_rows_whose_dp_and_delta_cancel(D):
+    """A causal head from position 0: the first query sees one key, so P =
+    1, O = V's first row and dP − δ = dO·(v₀ − o₀) cancels to rounding;
+    dQ's row is near 0 and `row_err` holds it to 1e-3 of the largest row.
+    The model reads within the bar there against the plain version in
+    fp64 (the plain version in fp32, printed beside, carries its own
+    rounding of that cancellation)."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(1, 2, 512, 512, D, 8))
+    o, lse = fa.flash_attention_reference(q, k, v, True, 0)
+    ref = fa.flash_dq_reference(q, k, v, o, do, lse, True, 0,
+                                acc=chip_smoke.F32_DQ_ACC)[0]
+    norms = ref.norm(dim=-1)
+    assert (norms[:, 0] < 1e-3 * norms.max()).all()  # the cancelling row
+    errs = _dq_errors(q, k, v, o, do, lse, True, 0)
+    fp32 = chip_smoke.row_err(
+        fa.flash_dq_reference(q, k, v, o, do, lse, True, 0)[0], ref)
+    print("parity f32x3 dq cancelling", D, errs, "plain fp32", fp32)
+    assert all(errs[n] <= LIMITS[n] for n in errs), errs
+
+
+@pytest.mark.parametrize("fault", ["one_pass", "drop_chunk"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_dq_faults_break_the_bar_tenfold(fault, D):
+    """A causal head of 1024, as phase 3's cases: K2's one-pass model
+    (hi·hi alone in S, dP and dS·K) and a model whose S and dP leave D's
+    second 32-column chunk out read dq_row above ten times its bar, where
+    the sound model reads below the bar. δ is the kernel's own sum, untouched
+    by either fault."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(1, 2, 1024, 1024, D, 7))
+    o, lse = fa.flash_attention_reference(q, k, v, True, 0)
+    sound = _dq_errors(q, k, v, o, do, lse, True, 0)
+    kw = {"passes": 1} if fault == "one_pass" else {"drop_chunk": 1}
+    faulty = _dq_errors(q, k, v, o, do, lse, True, 0, **kw)
+    print("parity f32x3 dq fault", fault, D, sound, faulty)
+    assert all(sound[n] <= LIMITS[n] for n in sound), sound
+    assert faulty["dq_row"] > 10 * LIMITS["dq_row"], faulty
+    assert faulty["delta"] == sound["delta"]

@@ -1,11 +1,11 @@
-"""The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's dQ,
-and its forward and dK/dV, which the wrappers no longer take, ``_f32_simt``,
+"""The CUDA-core attention kernels (``ops/csrc/flash_simt.cu``: fp32's
+forward, dQ and dK/dV, which the wrappers no longer take, ``_f32_simt``,
 and fp16's forward, dQ and dK/dV, which they no longer take either,
 ``_f16_simt``)
 against the JAX package's Pallas kernels in interpret mode, on the CPU.
 fp16's kernels up to 512 are wgmma kernels (``flash_fwd.cu``,
 ``flash_dq.cu``, ``flash_dkv.cu`` and their wide twins), and fp32's
-forward and dK/dV tensor-core ones at every width (``flash_f32.cu``), which
+forward, dQ and dK/dV tensor-core ones at every width (``flash_f32.cu``), which
 no CPU runs: here the wrappers route fp16 and fp32 to the CUDA-core kernels
 at every width (the fixture `wrappers`), as those kernels take any width.
 
@@ -153,20 +153,16 @@ def test_kernels_match_the_pallas_kernels(wrappers, dtype, B, H, Sq, Sk, D,
 
 
 def test_the_wrappers_route_dtypes_to_their_kernels():
-    """fp32 takes its CUDA-core dQ at every width and its forward and dK/dV
-    on the tensor cores at every width (flash_f32.cu: `_f32` up to 128,
-    `_f32_wide` above); fp16 its tensor-core kernels at every width (in
+    """fp32 takes its forward, dQ and dK/dV on the tensor cores at every
+    width (flash_f32.cu: `_f32` up to 128, `_f32_wide` above), never the
+    CUDA-core `_f32_simt`; fp16 its tensor-core kernels at every width (in
     the bf16 kernels' sources, `_f16` and `_f16_wide`, whose kernels stream
     D above 512), never the CUDA-core `_f16_simt`."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         for D in (64, 128, 256, 512, 640):
             f32 = fa._kernel(name, D, torch.float32)
-            if name == "flash_dq":
-                assert f32 == "flash_dq_f32"
-                assert fa.source(f32) == fa.SIMT_SOURCE
-            else:
-                assert f32 == f"{name}_f32" + ("_wide" if D > 128 else "")
-                assert fa.source(f32) == fa.TF32_SOURCE
+            assert f32 == f"{name}_f32" + ("_wide" if D > 128 else "")
+            assert fa.source(f32) == fa.TF32_SOURCE
             f16 = fa._kernel(name, D, torch.float16)
             if D <= 128:
                 assert f16 == f"{name}_f16" and fa.source(f16) == name

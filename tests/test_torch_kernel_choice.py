@@ -2,11 +2,10 @@
 CPU (a ``torch.device("cuda")`` object needs no card).
 
 The JAX kernels compute in ``q.dtype``, and so do the port's: bf16 tensors
-take the wgmma kernels, fp32 tensors the TF32 forward and dK/dV up to a
-head width of 128 (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
-``flash_dkv_f32``), the TF32 ones that stream D above it (``_f32_wide``,
-the same source) and the CUDA-core dQ at every width (``flash_dq_f32``,
-``csrc/flash_simt.cu``),
+take the wgmma kernels, fp32 tensors the TF32 forward, dQ and dK/dV up to
+a head width of 128 (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
+``flash_dq_f32``, ``flash_dkv_f32``) and the TF32 ones that stream D above
+it (``_f32_wide``, the same source),
 fp16 tensors the wgmma forward, dQ and dK/dV up
 to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
 ``flash_dkv_f16``) and above it (``_f16_wide``; above 512 the kernels of
@@ -77,11 +76,9 @@ def test_each_dtype_has_its_kernels(dtype, suffix):
         kernel = fa._kernel(name, fa.kernel_head_dim(16), dtype)
         assert kernel == name + suffix
         assert kernel in fa.launches and kernel in fa._ARGTYPES
-        # fp32's forward and dK/dV are the TF32 ones, its dQ the CUDA-core
-        # one; fp16's sit in the bf16 kernels' sources
+        # fp32's are the TF32 ones; fp16's sit in the bf16 kernels' sources
         if dtype == torch.float32:
-            assert fa.source(kernel) == (fa.SIMT_SOURCE if name == "flash_dq"
-                                         else fa.TF32_SOURCE)
+            assert fa.source(kernel) == fa.TF32_SOURCE
         else:
             assert fa.source(kernel) == name
 
@@ -137,14 +134,14 @@ def test_fp16_heads_above_512_take_the_chunked_kernels(D):
 
 @pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640, 1024])
 def test_fp32_takes_the_tf32_forward_and_dkv_at_every_width(D, monkeypatch):
-    """fp32's forward and dK/dV run on the tensor cores in three TF32
+    """fp32's forward, dQ and dK/dV run on the tensor cores in three TF32
     passes at every width (flash_f32.cu): `_f32` up to a head width of 128,
-    `_f32_wide` above it, each counted apart; fp32's dQ runs on the CUDA
-    cores at every width. Both forwards take their scratch after lse, one
-    pointer more than the CUDA-core forward, and the wrapper passes it."""
+    `_f32_wide` above it, each counted apart. Both forwards take their
+    scratch after lse and both dQ entries after dq, one pointer more than
+    the CUDA-core kernels, and the wrapper passes it."""
     width = fa.kernel_head_dim(D)
     suffix = "_f32" if width in fa.HEAD_DIMS else "_f32_wide"
-    for name in ("flash_fwd", "flash_dkv"):
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         kernel = fa._kernel(name, width, torch.float32)
         assert kernel == name + suffix
         assert fa.source(kernel) == fa.TF32_SOURCE
@@ -152,19 +149,20 @@ def test_fp32_takes_the_tf32_forward_and_dkv_at_every_width(D, monkeypatch):
         assert kernel in fa.launches and kernel in fa._ARGTYPES
         assert fa.counted(kernel, width) == kernel
     assert fa._ARGTYPES["flash_dkv" + suffix] == fa._ARGTYPES["flash_dkv"]
-    dq = fa._kernel("flash_dq", width, torch.float32)
-    assert dq == "flash_dq_f32" and fa.source(dq) == fa.SIMT_SOURCE
-    fwd = "flash_fwd" + suffix
-    assert fa._ARGTYPES[fwd] == fa._ARGTYPES["flash_fwd_f32"]
-    assert len(fa._ARGTYPES[fwd]) == \
-        len(fa._ARGTYPES["flash_fwd_f32_simt"]) + 1
+    fwd, dq = "flash_fwd" + suffix, "flash_dq" + suffix
+    for kernel in (fwd, dq):
+        assert kernel in fa.F32_SCRATCH
+        assert len(fa._ARGTYPES[kernel]) == len(fa._ARGTYPES[
+            kernel.replace(suffix, "_f32_simt")]) + 1
     launched = []
     monkeypatch.setattr(fa, "_launch", lambda name, device, *args, count:
                         launched.append((name, count, len(args))))
     q = torch.zeros(1, 3, 1, width, dtype=torch.float32)
     fa.flash_fwd(q, q, q, True, 0)
+    fa.flash_dq(q, q, q, q, q, torch.zeros(1, 1, 3), True, 0)
     # the stream is the one argument _launch adds
-    assert launched == [(fwd, fwd, len(fa._ARGTYPES[fwd]) - 1)]
+    assert launched == [(k, k, len(fa._ARGTYPES[k]) - 1) for k in (fwd, dq)]
+    assert "flash_dq_f32" not in fa.SIMT_KERNELS
 
 
 def test_the_tf32_forward_scratch_holds_the_split_k_and_vt():
@@ -181,25 +179,40 @@ def test_the_tf32_forward_scratch_holds_the_split_k_and_vt():
     assert "2·B·H·D·(Sk + SkP) floats" in text
 
 
+def test_the_tf32_dq_scratch_holds_the_split_k_v_and_kt():
+    """K_hi, K_lo, V_hi, V_lo ([B, Sk, H, D]) and Kᵀ_hi, Kᵀ_lo ([B, H, D,
+    SkP]), as flash_f32.cu's SplitDq slices it for dQ at every width: six
+    times K's floats, and Kᵀ's padded keys beside."""
+    for B, H, Sk, D in ((2, 3, 200, 64), (1, 1, 8, 128), (1, 2, 1, 64),
+                        (2, 1, 333, 256), (1, 2, 65, 640)):
+        skp = -(-Sk // 8) * 8
+        t = fa.f32_scratch(B, H, Sk, D, CPU, "flash_dq")
+        assert t.dtype == torch.float32
+        assert t.numel() == 4 * B * Sk * H * D + 2 * B * H * D * skp
+    text = (_build.CSRC / "flash_f32.cu").read_text()
+    assert "2·B·H·D·(2·Sk + SkP) floats" in text
+
+
 @pytest.mark.parametrize("source,exports,lacks", [
     ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide",
                         "voda_flash_fwd_wmma"), ()),
     ("flash_dkv_wide", ("voda_flash_dkv_wide", "voda_flash_dkv_f16_wide"),
      ()),
-    ("flash_simt", ("voda_flash_fwd_f32_simt", "voda_flash_dq_f32",
+    ("flash_simt", ("voda_flash_fwd_f32_simt", "voda_flash_dq_f32_simt",
                     "voda_flash_dkv_f32_simt", "voda_flash_dq_f16_simt",
                     "voda_flash_fwd_f16_simt", "voda_flash_dkv_f16_simt"),
      ("voda_flash_fwd_f16_wide", "voda_flash_dkv_f16_wide",
       "voda_flash_dq_f16", "voda_flash_dq_f16_wide", "voda_flash_fwd_f32",
-      "voda_flash_dkv_f32", "voda_flash_fwd_f32_wide",
-      "voda_flash_dkv_f32_wide")),
+      "voda_flash_dq_f32", "voda_flash_dkv_f32", "voda_flash_fwd_f32_wide",
+      "voda_flash_dq_f32_wide", "voda_flash_dkv_f32_wide")),
     ("flash_dq", ("voda_flash_dq", "voda_flash_dq_f16"),
      ("voda_flash_dq_f16_simt",)),
     ("flash_dq_wide", ("voda_flash_dq_wide", "voda_flash_dq_f16_wide"),
      ("voda_flash_dq_f16",)),
-    ("flash_f32", ("voda_flash_fwd_f32", "voda_flash_dkv_f32",
-                   "voda_flash_fwd_f32_wide", "voda_flash_dkv_f32_wide"),
-     ("voda_flash_dq_f32", "voda_flash_fwd_f32_simt",
+    ("flash_f32", ("voda_flash_fwd_f32", "voda_flash_dq_f32",
+                   "voda_flash_dkv_f32", "voda_flash_fwd_f32_wide",
+                   "voda_flash_dq_f32_wide", "voda_flash_dkv_f32_wide"),
+     ("voda_flash_fwd_f32_simt", "voda_flash_dq_f32_simt",
       "voda_flash_dkv_f32_simt")),
 ])
 def test_each_source_exports_the_entries_its_kernels_are_named_by(
@@ -207,15 +220,13 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
     """The C entry points, read from the sources' text (no nvcc here): the
     dQ sources and the wide ones export fp16's `_f16` and `_f16_wide`
     entries beside bf16's, flash_simt.cu exports the renamed `_f16_simt`
-    and `_f32_simt` ones and no other fp16 entry, and flash_f32.cu fp32's
-    forward and dK/dV alone, at both widths (`_f32`, `_f32_wide`). Each name the wrappers route to a source is an
-    entry of it."""
+    and `_f32_simt` ones and no other entry, and flash_f32.cu fp32's
+    forward, dQ and dK/dV alone, at both widths (`_f32`, `_f32_wide`). Each
+    name the wrappers route to a source is an entry of it."""
     text = (_build.CSRC / f"{source}.cu").read_text()
     entries = set(re.findall(r'extern "C" int (voda_\w+)\(', text))
-    for fwd, dq, dkv in re.findall(
-            r"VODA_SIMT_ENTRIES\(\w+, (\w+), (\w+), (\w+)\)", text):
-        entries |= {f"voda_flash_fwd_{fwd}", f"voda_flash_dq_{dq}",
-                    f"voda_flash_dkv_{dkv}"}
+    for sfx in re.findall(r"VODA_SIMT_ENTRIES\(\w+, (\w+)\)", text):
+        entries |= {f"voda_flash_{n}_{sfx}" for n in ("fwd", "dq", "dkv")}
     assert set(exports) <= entries
     assert not set(lacks) & entries
     routed = {f"voda_{fa.entry(k)}" for k in fa.launches
@@ -227,12 +238,12 @@ def test_each_source_exports_the_entries_its_kernels_are_named_by(
     ("flash_fwd", "flash_dq", "flash_dkv"),
     ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide"),
     ("flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32"),
-    ("flash_fwd_f32_wide", "flash_dq_f32", "flash_dkv_f32_wide"),
+    ("flash_fwd_f32_wide", "flash_dq_f32_wide", "flash_dkv_f32_wide"),
     (),
     ("flash_fwd_f16", "flash_dq_f16", "flash_dkv_f16"),
     ("flash_fwd_f16_wide", "flash_dq_f16_wide", "flash_dkv_f16_wide"),
     ("flash_fwd_f16_simt", "flash_dq_f16_simt", "flash_dkv_f16_simt"),
-    ("flash_fwd_f32_simt", "flash_dq_f32", "flash_dkv_f32_simt")])
+    ("flash_fwd_f32_simt", "flash_dq_f32_simt", "flash_dkv_f32_simt")])
 def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
     """What the resize bench's restart child loads before the session: the
     kernels the prepare child's steps launched, and no other."""
@@ -292,5 +303,6 @@ def test_each_entry_takes_the_arguments_its_wrapper_passes():
                 r'extern "C" int voda_(\w+)\(([^)]*)\)', text):
             assert len(params.split(",")) == len(fa._ARGTYPES[name]), name
             checked.add(name)
-    assert {"flash_fwd_f32", "flash_dkv_f32", "flash_fwd_f32_wide",
-            "flash_dkv_f32_wide", "flash_fwd", "flash_dkv_f16_wide"} <= checked
+    assert {"flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
+            "flash_fwd_f32_wide", "flash_dq_f32_wide", "flash_dkv_f32_wide",
+            "flash_fwd", "flash_dkv_f16_wide"} <= checked

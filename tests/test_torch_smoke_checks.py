@@ -57,14 +57,19 @@ DKVC256_F16 = DKVC128_F16.replace("ILi128E", "ILi256E")
 # the output alone (CW=128 runs every width)
 FWDW128_F32 = "_ZN4voda3f3225flash_fwd_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiiif"
 DKVW128_F32 = "_ZN4voda3f3225flash_dkv_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PfS5_iiiiiif"
+# fp32's TF32 dQ, one kernel at every width, templated on its chunk of dQ:
+# CW=64 at D=64, CW=128 at D=128 and above
+DQ64_F32 = "_ZN4voda3f3219flash_dq_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_S2_S2_S2_S2_PKfS4_S4_PfS5_iiiiiif"
+DQ128_F32 = DQ64_F32.replace("ILi64E", "ILi128E")
 F16_CLEAN = ((FWD64_F16, 0, 0), (DQ64_F16, 0, 0), (DKV64_F16, 0, 0),
-             (FWD64_F32, 0, 0), (DKV64_F32, 0, 0))
+             (FWD64_F32, 0, 0), (DQ64_F32, 0, 0), (DKV64_F32, 0, 0))
 MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 # (with the chunked forward's, gated beside the wide kernels)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
                   (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0),
                   (DQC128_F16, 0, 0), (DKVC128_F16, 0, 0),
-                  (FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0))
+                  (FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0),
+                  (DQ128_F32, 0, 0))
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
               *WIDE_F16_CLEAN)
 
@@ -98,8 +103,8 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
                       ("flash_dkv", 64): 0, ("flash_dkv", 128): 344,
                       ("flash_fwd_f16", 64): 0, ("flash_dq_f16", 64): 0,
                       ("flash_dkv_f16", 64): 0, ("flash_dkv_f16", 128): 16,
-                      ("flash_fwd_f32", 64): 0, ("flash_dkv_f32", 64): 0,
-                      ("flash_dkv_f32", 128): 152}
+                      ("flash_fwd_f32", 64): 0, ("flash_dq_f32", 64): 0,
+                      ("flash_dkv_f32", 64): 0, ("flash_dkv_f32", 128): 152}
     assert chip_smoke.spill_faults(spills) == []
 
 
@@ -131,6 +136,11 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
      "flash_dkv_f32 D=64: 624 bytes spilled"),
     (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (FWD128_F32, 0, 0)),
      "flash_fwd_f32 D=64: no ptxas spill line"),
+    # fp32's TF32 dQ at D=64 (CW=64); its CW=128 line does not stand for it
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DQ64_F32, 8, 8)),
+     "flash_dq_f32 CW=64: 16 bytes spilled"),
+    (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DQ128_F32, 0, 0)),
+     "flash_dq_f32 CW=64: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_or_a_missing_line_at_d64(kernels, fault):
     """Each case's log also holds the fp16 and fp32 tensor-core kernels'
@@ -156,6 +166,7 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
                       ("flash_dkv", 64): 0, ("flash_fwd_f16", 64): 0,
                       ("flash_dq_f16", 64): 0,
                       ("flash_fwd_f32", 64): 0, ("flash_dkv_f32", 64): 0,
+                      ("flash_dq_f32", 64): 0, ("flash_dq_f32", 128): 0,
                       ("flash_dkv_f16", 64): 0, ("flash_fwd_wide", 256): 0,
                       ("flash_dq_wide", 256): 0, ("flash_dkv_wide", 256): 0,
                       ("flash_fwd_f16_wide", 256): 0,
@@ -352,13 +363,16 @@ def test_the_chunked_backward_phase_fails_on_a_broken_bar_or_count(
     # the D ≤ 128 kernels' lines do not stand for the wide ones
     (((FWDW128_F32, 0, 0), (DKV128_F32, 0, 0)),
      "flash_dkv_f32_wide CW=128: no ptxas spill line"),
+    # fp32's TF32 dQ at CW=128 (D=128 and every width above)
+    (((FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0), (DQ128_F32, 4, 4)),
+     "flash_dq_f32 CW=128: 8 bytes spilled"),
 ])
 def test_spill_faults_refuse_a_spill_in_the_fp32_wide_kernels(f32w, fault):
     """fp32's TF32 forward and dK/dV above D=128 are gated at their one
-    instantiation (CW=128, which D=256 runs); the main path's gate alone
-    does not look at them."""
+    instantiation (CW=128, which D=256 runs), and so is its dQ at CW=128;
+    the main path's gate alone does not look at them."""
     others = untouched(WIDE_CLEAN, ((FWDW128_F32, 0, 0),
-                                    (DKVW128_F32, 0, 0)))
+                                    (DKVW128_F32, 0, 0), *f32w))
     spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *others, *f32w))
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
     assert chip_smoke.spill_faults(spills) == []
@@ -381,6 +395,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_dkv_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_f32_wide", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_f32_wide", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dq_f32", 64) in chip_smoke.SPILL_GATES
+    assert ("flash_dq_f32", 128) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []
 
 
@@ -559,3 +575,25 @@ def test_family_twin_reads_a_name_of_twin_seeds_over_its_seeds(monkeypatch):
     alone = chip_smoke.family_twin("resnet_tiny", session,
                                    session.make_batch())
     assert alone == per_seed[0]
+
+
+def test_backward_turns_sums_each_pair_of_the_table(capsys):
+    """Phase 3's fp32 backward lines: K2 then K3 of the tensor-core pair
+    that a CUDA-core table maps (its dQ and dK/dV keys, not the forward's)
+    and of the CUDA-core pair it maps them to, each the sum of its two
+    medians in turns, beside the library's backward."""
+    turns = {"flash_fwd_f32_wide": 1.5, "flash_dq_f32_wide": 2.5,
+             "flash_dkv_f32_wide": 7.5, "flash_fwd_f32_simt": 9.0,
+             "flash_dq_f32_simt": 10.5, "flash_dkv_f32_simt": 16.5}
+    chip_smoke.backward_turns("backward_f32_wide", 256, turns,
+                              chip_smoke.CUDA_CORE_F32_WIDE, 5.0, "card")
+    line = capsys.readouterr().out
+    assert line.startswith("time[backward_f32_wide turns] D=256 "
+                           "flash_dq_f32_wide then flash_dkv_f32_wide "
+                           "ms=10.0000 (flash_dq_f32_wide 2.5000;")
+    assert "flash_dq_f32_simt then flash_dkv_f32_simt ms=27.0000 " in line
+    assert "cuda_cores_over_tensor_cores=2.700 " in line
+    assert "library_ms=5.0000 kernels_over_library=2.000 card=card" in line
+    for table in (chip_smoke.CUDA_CORE_F32, chip_smoke.CUDA_CORE_F32_WIDE):
+        assert [n.split("_")[1] for n in table] == ["fwd", "dq", "dkv"]
+        assert all(old.endswith("_f32_simt") for old in table.values())

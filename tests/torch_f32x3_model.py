@@ -29,6 +29,16 @@ in the same order, and own WIDE_CW columns of the output a CTA, each CTA
 computing the same S: both functions do the same at those widths (`cut`),
 and `drop_chunk` leaves one chunk of D out of every such sum, as a kernel
 that skipped a stage's products would.
+
+`dq` models K2 (``voda_flash_dq_f32``, ``voda_flash_dq_f32_wide``: one
+kernel at every width) at its tiling: for each tile of DQ_BN keys, S =
+Q·Kᵀ and dP = dO·Vᵀ over D's WIDE_KC-column chunks, each chunk's three
+passes summed apart (the small terms first) and the chunks' sums added in
+fp32 (`mm3_parts`);
+P·scale = exp(S·scale − lse)·scale, dS = P·scale∘(dP − δ), then dQ += dS·K
+in three passes with the keys of each k-step in the order PERM (Kᵀ's order
+in the kernel's scratch), over min(D, WIDE_CW) columns of dQ a CTA, each
+CTA computing the same S and dP (`dq_cut`). δ = rowsum(dO∘O) in fp32.
 """
 
 import torch
@@ -211,3 +221,76 @@ def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
         dvs.append(dv)
     dk, dv = torch.cat(dks, -1), torch.cat(dvs, -1)
     return (dk.transpose(1, 2).contiguous(), dv.transpose(1, 2).contiguous())
+
+
+# K2's keys of a tile (`DqF32::BN`).
+DQ_BN = 64
+
+
+def dq_cut(D: int):
+    """(columns of dQ a CTA owns, columns of D a stage holds) of K2 at head
+    width D: (min(D, WIDE_CW), WIDE_KC) at every width."""
+    return min(D, WIDE_CW), WIDE_KC
+
+
+def mm3_small_first(a: torch.Tensor, b: torch.Tensor,
+                    passes: int = 3) -> torch.Tensor:
+    """a·b over the last axis of `a` in k-steps of 8, as K2 orders one
+    chunk's products: every k-step's a_lo·b_hi and a_hi·b_lo first, then
+    every k-step's a_hi·b_hi (passes=3); a_hi·b_hi alone (passes=1)."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    out = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    small = ((al, bh), (ah, bl)) if passes == 3 else ()
+    for terms in (small, ((ah, bh),)):
+        for k0 in range(0, a.shape[-1], 8):
+            for x, y in terms:
+                out = out + x[..., k0:k0 + 8] @ y[..., k0:k0 + 8, :]
+    return out
+
+
+def mm3_parts(a: torch.Tensor, b: torch.Tensor, passes: int, kc: int,
+              drop_chunk=None) -> torch.Tensor:
+    """a·b over the last axis of `a` (D) as K2 sums it: each chunk of kc
+    columns into an accumulator of its own (`mm3_small_first`), the chunks'
+    sums added in fp32 in order; chunk `drop_chunk` (an index, or None)
+    left out."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32)
+    for c0 in range(0, a.shape[-1], kc):
+        if c0 // kc != drop_chunk:
+            out = out + mm3_small_first(a[..., c0:c0 + kc],
+                                        b[..., c0:c0 + kc, :], passes)
+    return out
+
+
+def dq(q, k, v, o, do, lse, causal: bool, q_off: int, scale: float,
+       passes: int = 3, drop_chunk=None):
+    """(dq [B,Sq,H,D], delta [B,H,Sq]) as fp32's K2 computes them on the
+    given o and lse: for each chunk of dQ's columns (`dq_cut`), the key
+    tiles, S and dP summed over D's chunks apart (`mm3_parts`)."""
+    q, k, v, o, do = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    cw, kc = dq_cut(D)
+    nk = -(-Sk // DQ_BN)
+    k, v = _pad(k, 2, nk * DQ_BN), _pad(v, 2, nk * DQ_BN)
+    delta = (do * o).sum(-1)
+    rows = torch.arange(Sq)
+    order = perm_index(DQ_BN)
+    outs = []
+    for c0 in range(0, D, cw):  # the CTAs of a row block
+        acc = torch.zeros(B, H, Sq, cw)
+        for j in range(nk):
+            cols = j * DQ_BN + torch.arange(DQ_BN)
+            kj = k[:, :, j * DQ_BN:(j + 1) * DQ_BN]
+            vj = v[:, :, j * DQ_BN:(j + 1) * DQ_BN]
+            s = mm3_parts(q, kj.transpose(-1, -2), passes, kc, drop_chunk)
+            dp = mm3_parts(do, vj.transpose(-1, -2), passes, kc, drop_chunk)
+            p = torch.exp(s * scale - lse.float()[..., None]) * scale
+            p = p.masked_fill(_mask(rows, cols, Sq, Sk, causal, q_off), 0.0)
+            ds = p * (dp - delta[..., None])
+            acc = mm3(ds[..., order], kj[:, :, order, c0:c0 + cw], passes,
+                      acc)
+        outs.append(acc)
+    return (torch.cat(outs, -1).transpose(1, 2).contiguous(),
+            delta.contiguous())

@@ -1,15 +1,16 @@
-// K1 and K3 for fp32 inputs on Hopper's tensor cores (sm_90a): the forward
-// and dK/dV at head widths 64 and 128 (voda_flash_fwd_f32,
+// K1, K2 and K3 for fp32 inputs on Hopper's tensor cores (sm_90a): the
+// forward and dK/dV at head widths 64 and 128 (voda_flash_fwd_f32,
 // voda_flash_dkv_f32) and at every multiple of 128 above (the same
 // functions streaming D: voda_flash_fwd_f32_wide, voda_flash_dkv_f32_wide,
-// below the D ≤ 128 kernels).
+// below the D ≤ 128 kernels), and dQ at every width, one kernel that
+// streams D (voda_flash_dq_f32 up to 128, voda_flash_dq_f32_wide above; at
+// the end of the file).
 //
-// Replace `_fwd_kernel` and `_dkv_kernel` in
+// Replace `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` in
 // vodascheduler_tpu/ops/flash_attention.py for a model that computes in
 // float32 (the TPU kernels compute in q.dtype), at every width the JAX
-// package takes. fp32's dQ stays on the CUDA cores (flash_simt.cu:
-// voda_flash_dq_f32), as do the CUDA-core forward and dK/dV that the wide
-// kernels replaced (voda_flash_{fwd,dkv}_f32_simt, timed only).
+// package takes. The CUDA-core kernels these replaced keep their entries in
+// flash_simt.cu only to be timed (voda_flash_{fwd,dq,dkv}_f32_simt).
 //
 // The arithmetic: three TF32 passes. Every product a·b of fp32 inputs
 // becomes three tensor-core products of TF32 halves summed in one fp32
@@ -20,9 +21,9 @@
 // 2^-22 of the product, is dropped, so the result is as accurate as an fp32
 // product on the CUDA cores; one pass (hi·hi alone) keeps 11 bits and reads
 // about 1000× further from the plain version (tests/torch_f32x3_model.py).
-// P and dSᵀ stay fp32 and are split like any operand (`p.astype(v.dtype)` is
-// a no-op for fp32); the softmax statistics, lse and δ are fp32 as on the
-// CUDA cores.
+// P, dSᵀ and dS stay fp32 and are split like any operand (`p.astype(v.dtype)`
+// and `ds.astype(k.dtype)` are no-ops for fp32); the softmax statistics, lse
+// and δ are fp32 as on the CUDA cores.
 //
 // A fifth divergence from the TPU kernels, beside lse's layout, any sequence
 // length, the zero-padded head widths and the fixed tiles (the module
@@ -1529,6 +1530,500 @@ int launch_dkv_wide(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K2: dQ and δ, at every width
+// ---------------------------------------------------------------------------
+//
+// flash_dq_f32_kernel computes what `_dq_kernel` computes: with P =
+// exp(S·scale − lse) from the forward's lse and δ = rowsum(dO∘O), dS =
+// P∘(dO·Vᵀ − δ)·scale and dQ = Σ_j dS·K_j; it writes δ to `delta` for K3.
+// Bound on an H100 SXM at B=8, H=16, S=2048, D=64, causal: three products
+// of 34.4 GFLOP (S, dP, dS·K), 0.625 ms at 495/3 TFLOP/s, against six
+// [B,S,H,D] fp32 tensors and two row statistics ≈ 202 MB, 0.060 ms:
+// bound by operations (the same at B=8, H=4, D=256).
+//
+// One design takes every width: D=128 must stream D in any case (Q and dO
+// resident and split would take 256 KB at 128 rows), and D=64 is the same
+// kernel with CW=64. flash_dq_wide.cu's flash_dq_chunked_kernel schedule in
+// three TF32 passes, with the work split between the warpgroups by rows:
+// - A CTA owns BM = 128 query rows of one (b, h), 64 a consumer warpgroup,
+//   and CW = min(D, 128) columns of dQ (the grid's x axis, fastest, so the
+//   CTAs of a row block read the same chunks from L2 together). One
+//   producer warp issues every TMA load.
+// - A prologue (flash_f32_split_dq_kernel, launched by the same C entry)
+//   writes K_hi, K_lo, V_hi and V_lo ([B, Sk, H, D]) and Kᵀ_hi, Kᵀ_lo ([B,
+//   H, D, SkP], keys contiguous in the order PERM within each group of 8)
+//   into scratch that the wrapper allocates, six times K's bytes.
+// - For each tile of BN = 64 keys, S = Q·Kᵀ and dP = dO·Vᵀ sum over D in
+//   KC = 32-column chunks (one 128-byte swizzle part) through a ring of two
+//   stages, each holding the chunk of Q and dO (128 rows, raw as TMA brings
+//   them) and of K_hi, K_lo, V_hi and V_lo. Each consumer warpgroup splits
+//   its 64 rows of the chunk's Q and dO in shared memory, hi in place and
+//   lo into a buffer of its own, as K1 splits Q, and issues both products
+//   in three passes (wgmma m64n64k8, both operands from shared memory).
+// - Each chunk's products go into accumulators of their own, one commit
+//   group, which once done (wgmma_wait<0>) releases the chunk's stage and
+//   adds into the tile's S and dP in fp32 on the CUDA cores: the tensor
+//   cores truncate their fp32 sums at every k-step, and a query row that
+//   sees one key has dP − δ cancel (flash_dq_chunked_kernel's finding, at
+//   4.8e-3 against a 5e-3 bar in fp16 with one accumulator over all of
+//   D). The warpgroup waits on its own products a chunk; the other
+//   warpgroup's fill the tensor cores meanwhile.
+// - Then P·scale = exp2(S·scale·log2e − lse2), lse2 = lse·log2e − log2
+//   scale (the scale rides in the exponent, as in K1), dS = P·scale∘(dP −
+//   δ) on the accumulator, split into TF32 halves: with Kᵀ's keys in PERM
+//   order the accumulator pair of each k-step is its A fragment, as P is in
+//   K1's P·V. dQ += dS_lo·Kᵀ_hi + dS_hi·Kᵀ_lo + dS_hi·Kᵀ_hi (wgmma
+//   m64nCWk8, A from registers) over the CTA's CW columns, dQ in registers;
+//   Kᵀ's tile (CW × BN, hi and lo) has a stage of its own, loaded once the
+//   ring holds the tile's first chunks and released after the product.
+// - δ: each warpgroup computes it for its rows before the first tile, from
+//   O and dO read from device memory in one fixed order (thread t of a quad
+//   takes the 16-byte chunks t, t + 4, … of the row, the quad sums), so
+//   every CTA of a row block holds the same δ, bitwise; the CTA of columns
+//   0 writes it out. No atomics: each CTA writes its own rows of dQ.
+// - Why by rows, not flash_dq_chunked_kernel's split by operand (one
+//   warpgroup S, the other dP, P and dS handed across): that exchange, 32
+//   KB of fp32 at 128 rows, does not fit beside this ring, and at 64 rows a
+//   CTA would read K, V and Kᵀ from L2 twice as often (8.6 GB against 5.6
+//   at the D=64 shape). By rows, no warpgroup waits on the other.
+// - Each of the D/CW CTAs of a row block computes the same S, dP and dS,
+//   so the products do (2·D/CW + 1)/3 of the bound's operations (5/3 at
+//   D=256), the price of one dS per row without atomics. Q and dO are read
+//   again for every key tile, from L2.
+// - Causal: key tiles past the block's last row are never loaded; only
+//   tiles that cross the diagonal or the ragged end of Sk are masked. The
+//   query tiles run longest first. Rows past Sq arrive from TMA as zeros,
+//   take lse 0 and δ 0 (so dS = 0) and are never stored; keys past Sk
+//   arrive as zeros and are masked.
+// Shared memory (plus 1 KB to align the base, and the mbarriers):
+//   2 × (Q, dO 16 KB each + K_hi, K_lo, V_hi, V_lo 8 KB each) + Q_lo and
+//   dO_lo of each warpgroup 4 × 8 KB + Kᵀ_hi, Kᵀ_lo 2 × CW × BN × 4
+//   = 224 KB at CW=128, 192 KB at CW=64.
+// Registers (setmaxnreg: 24 a producer, 240 a consumer thread): dQ CW/2
+// fp32, S and dP BN/2 = 32 each, a chunk's products of each 32 more; dS's
+// hi and lo fragments (BN/2 each) take the place of S, dP and the products.
+// ptxas spills nothing at CW=64 or 128 (chip_smoke.py phase 2 gates both).
+// Where the time goes (scripts/torch_f32_ablate.py on an NVIDIA H100 80GB
+// HBM3 at its 700 W power limit, B=8, S=2048, causal; D=64 with H=16, then
+// D=256 with H=4): the split of Q and dO, redone for every key tile, 26%
+// and 32%; the lo passes 24% and 27%; the prologue 11% and 8%; the loads
+// 0-3%. Splitting the next chunk under this chunk's products (a second set
+// of lo buffers, which fits at CW=64 alone) and turns between the
+// warpgroups made it no faster: the split costs shared-memory throughput
+// beside the products, not latency.
+
+// K2's prologue: K_hi, K_lo, V_hi, V_lo as [B, Sk, H, D] and Kᵀ_hi, Kᵀ_lo as
+// [B, H, D, SkP] (keys contiguous in the order PERM within each group of 8,
+// zeros past Sk).
+__global__ void __launch_bounds__(256)
+    flash_f32_split_dq_kernel(const float* __restrict__ k,
+                              const float* __restrict__ v,
+                              float* __restrict__ kh, float* __restrict__ kl,
+                              float* __restrict__ vh, float* __restrict__ vl,
+                              float* __restrict__ kth, float* __restrict__ ktl,
+                              int H, int Sk, int SkP, int D) {
+  __shared__ float tile[PT][PT + 1];  // K[key0 + r][d0 + c]
+  const int key0 = blockIdx.x * PT, d0 = blockIdx.y * PT;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < PT; r += 8) {
+    const int key = key0 + r;
+    float x = 0.f;
+    if (key < Sk) {
+      const size_t i =
+          ((static_cast<size_t>(b) * Sk + key) * H + h) * D + d0 + tx;
+      x = k[i];
+      const Split s = split(x), sv = split(v[i]);
+      kh[i] = __uint_as_float(s.hi);
+      kl[i] = __uint_as_float(s.lo);
+      vh[i] = __uint_as_float(sv.hi);
+      vl[i] = __uint_as_float(sv.lo);
+    }
+    tile[r][tx] = x;
+  }
+  __syncthreads();
+  const int pos = key0 + tx;
+  if (pos >= SkP) return;
+  const int src = (tx & ~7) + perm8(tx & 7);
+#pragma unroll
+  for (int r = ty; r < PT; r += 8) {
+    const Split s = split(tile[src][r]);
+    const size_t i =
+        ((static_cast<size_t>(b) * H + h) * D + d0 + r) * SkP + pos;
+    kth[i] = __uint_as_float(s.hi);
+    ktl[i] = __uint_as_float(s.lo);
+  }
+}
+
+// K2's scratch: K_hi, K_lo, V_hi, V_lo ([B, Sk, H, D] each), Kᵀ_hi, Kᵀ_lo
+// ([B, H, D, SkP] each), in that order: 2·B·H·D·(2·Sk + SkP) floats. make()
+// also builds the tensor maps of K2's tiles over it: the first four in
+// boxes of `bn` rows, Kᵀ_hi and Kᵀ_lo in boxes of 32 keys by `cw` columns
+// of D.
+struct SplitDq {
+  int SkP;
+  float *kh, *kl, *vh, *vl, *kth, *ktl;
+  CUtensorMap tkh, tkl, tvh, tvl, tth, ttl;
+
+  int make(void* scratch, int B, int H, int Sk, int D, int bn, int cw) {
+    SkP = (Sk + 7) / 8 * 8;
+    const size_t n = static_cast<size_t>(B) * Sk * H * D;
+    kh = static_cast<float*>(scratch);
+    kl = kh + n;
+    vh = kl + n;
+    vl = vh + n;
+    kth = vl + n;
+    ktl = kth + static_cast<size_t>(B) * H * D * SkP;
+    int err = rows_map(&tkh, kh, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tkl, kl, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tvh, vh, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tvl, vl, B, Sk, H, D, bn);
+    // Kᵀ: coordinates (key, column, h, b)
+    if (!err) err = make_map(&tth, kth, {SkP, D, H, B}, {32, cw, 1, 1});
+    if (!err) err = make_map(&ttl, ktl, {SkP, D, H, B}, {32, cw, 1, 1});
+    return err;
+  }
+
+  // The prologue: K and V split into the scratch.
+  int launch(const void* k, const void* v, int B, int H, int Sk, int D,
+             cudaStream_t st) const {
+    flash_f32_split_dq_kernel<<<dim3((SkP + PT - 1) / PT, D / PT, B * H), 256,
+                                0, st>>>(static_cast<const float*>(k),
+                                         static_cast<const float*>(v), kh, kl,
+                                         vh, vl, kth, ktl, H, Sk, SkP, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int CW>
+struct DqF32 {
+  static constexpr int BM = 128;  // query rows of a CTA, 64 a warpgroup
+  static constexpr int BN = 64;   // keys of a tile
+  static constexpr int KC = 32;   // columns of D in a stage
+  static constexpr int STAGES = 2;
+  static constexpr int T_BYTES = BM * KC * 4;   // a chunk of Q or dO
+  static constexpr int KV_BYTES = BN * KC * 4;  // of K_hi, K_lo, V_hi, V_lo
+  static constexpr int STAGE_BYTES = 2 * T_BYTES + 4 * KV_BYTES;
+  static constexpr int LO_BYTES = 64 * KC * 4;  // a warpgroup's Q_lo, dO_lo
+  static constexpr int KT_BYTES = CW * BN * 4;  // each of Kᵀ_hi, Kᵀ_lo
+  static constexpr int LO_OFF = STAGES * STAGE_BYTES;
+  static constexpr int KT_OFF = LO_OFF + 4 * LO_BYTES;
+  static constexpr int BAR_OFF = KT_OFF + 2 * KT_BYTES;
+  // full[STAGES], empty[STAGES], kt_full, kt_empty
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 2);
+  static_assert(SMEM <= MAX_SMEM, "K2's ring exceeds shared memory");
+};
+
+template <int CW>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dq_f32_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const __grid_constant__ CUtensorMap tkh,
+                        const __grid_constant__ CUtensorMap tkl,
+                        const __grid_constant__ CUtensorMap tvh,
+                        const __grid_constant__ CUtensorMap tvl,
+                        const __grid_constant__ CUtensorMap tth,
+                        const __grid_constant__ CUtensorMap ttl,
+                        const float* __restrict__ o,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        float* __restrict__ delta, float* __restrict__ dq,
+                        int H, int Sq, int Sk, int D, int q_off, int causal,
+                        float scale) {
+  using C = DqF32<CW>;
+  using Regs = RegSplit<24, 240>;
+  constexpr int BM = C::BM, BN = C::BN, KC = C::KC, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // stage s: Q (raw, then Q_hi), dO (raw, then dO_hi), K_hi, K_lo, V_hi,
+  // V_lo over one chunk of D
+  auto stage = [&](int s) {
+    return reinterpret_cast<float*>(sm + s * C::STAGE_BYTES);
+  };
+  float* lo = reinterpret_cast<float*>(sm + C::LO_OFF);  // [wg][Q_lo, dO_lo]
+  float* kt = reinterpret_cast<float*>(sm + C::KT_OFF);  // Kᵀ_hi, Kᵀ_lo
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + ST;
+  uint64_t* kt_full = empty + ST;
+  uint64_t* kt_empty = kt_full + 1;
+
+  const int c0 = blockIdx.x * CW;            // the CTA's columns of dQ
+  const int i = gridDim.y - 1 - blockIdx.y;  // longest query tiles first
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int q0 = i * BM;
+  const int last_row = q_off + min(q0 + BM, Sq) - 1;
+  const int nk_all = (Sk + BN - 1) / BN;
+  const int n_k = causal ? min(nk_all, last_row / BN + 1) : nk_all;
+  const int nc = D / KC;  // chunks of D a tile's S and dP sum over
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init(kt_full, 1);
+    mbar_init(kt_empty, 2 * WG_THREADS);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring and Kᵀ's stage full, in the
+    // order the consumers take them
+    Regs::producer();
+    if (threadIdx.x == 0) {
+      const int kt_at = min(ST, nc) - 1;  // the chunk after which Kᵀ's tile
+      int it = 0;                         // chunks issued
+      for (int j = 0; j < n_k; ++j) {
+        for (int c = 0; c < nc; ++c, ++it) {
+          const int s = it % ST;
+          float* st = stage(s);
+          mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+          mbar_expect_tx(&full[s], C::STAGE_BYTES);
+          tma_load(st, &tq, &full[s], c * KC, h, q0, b);
+          tma_load(st + BM * KC, &tdo, &full[s], c * KC, h, q0, b);
+          float* kv = st + 2 * BM * KC;
+          tma_load(kv, &tkh, &full[s], c * KC, h, j * BN, b);
+          tma_load(kv + BN * KC, &tkl, &full[s], c * KC, h, j * BN, b);
+          tma_load(kv + 2 * BN * KC, &tvh, &full[s], c * KC, h, j * BN, b);
+          tma_load(kv + 3 * BN * KC, &tvl, &full[s], c * KC, h, j * BN, b);
+          if (c == kt_at) {
+            // the ring is full of this tile's chunks: the consumers are done
+            // with the last tile's dQ, or soon will be
+            mbar_wait(kt_empty, (j & 1) ^ 1);
+            mbar_expect_tx(kt_full, 2 * C::KT_BYTES);
+#pragma unroll
+            for (int p = 0; p < BN / 32; ++p) {
+              tma_load(kt + p * CW * 32, &tth, kt_full, j * BN + 32 * p, c0,
+                       h, b);
+              tma_load(kt + CW * BN + p * CW * 32, &ttl, kt_full,
+                       j * BN + 32 * p, c0, h, b);
+            }
+          }
+        }
+      }
+    }
+    trap_if_stalled();
+  } else {
+    // ---- consumers: 64 query rows per warpgroup, S, dP, dS and dQ each
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_loc = cw * 64 + warp * 16 + g;  // the thread's first row
+    const int row[2] = {q_off + q0 + r_loc, q_off + q0 + r_loc + 8};
+    const int wg_row0 = q_off + q0 + cw * 64;   // the warpgroup's first row
+    const float sl2 = scale * LOG2E;
+    const int rs = H * D;
+    const size_t head = (static_cast<size_t>(b) * Sq * H + h) * D;
+    const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
+
+    // lse of the thread's rows as lse·log2e − log2 scale, so that
+    // exp2(S·sl2 − lse2) = P·scale, and δ over all of D (float4 chunks t,
+    // t + 4, … of the row, the quad summing); 0 past Sq
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int gr = q0 + r_loc + 8 * r;
+      float s = 0.f;
+      lse2[r] = 0.f;
+      if (gr < Sq) {
+        lse2[r] = fmaf(lse[stat + gr], LOG2E, -log2f(scale));
+        const size_t at = head + static_cast<size_t>(gr) * rs;
+        const float4* orow = reinterpret_cast<const float4*>(o + at);
+        const float4* drow = reinterpret_cast<const float4*>(dout + at);
+#pragma unroll 4
+        for (int x = t; x < D / 4; x += 4) {
+          const float4 a = __ldg(drow + x), c = __ldg(orow + x);
+          s = fmaf(a.x, c.x, s);
+          s = fmaf(a.y, c.y, s);
+          s = fmaf(a.z, c.z, s);
+          s = fmaf(a.w, c.w, s);
+        }
+      }
+      dl[r] = quad_sum(s);
+      if (t == 0 && gr < Sq && blockIdx.x == 0) delta[stat + gr] = dl[r];
+    }
+
+    float acc[CW / 2];
+#pragma unroll
+    for (int e = 0; e < CW / 2; ++e) acc[e] = 0.f;
+    float sc[BN / 2], dp[BN / 2];  // S (then dS) and dP of the tile
+    float ps[BN / 2], pp[BN / 2];  // a chunk's products of S and dP
+    float* qlo = lo + 2 * cw * 64 * KC;
+    float* dolo = qlo + 64 * KC;
+
+    // The warpgroup's 64 rows of a chunk of Q or dO at `hi` split: hi in
+    // place, lo into `lo_`
+    auto split_rows = [&](float* hi, float* lo_) {
+#pragma unroll
+      for (int x = 0; x < 64 * KC / 4 / WG_THREADS; ++x) {
+        const int e = tid + WG_THREADS * x;
+        const float4 v = reinterpret_cast<const float4*>(hi)[e];
+        const Split a = split(v.x), bb = split(v.y), c = split(v.z),
+                    d = split(v.w);
+        reinterpret_cast<float4*>(hi)[e] =
+            make_float4(__uint_as_float(a.hi), __uint_as_float(bb.hi),
+                        __uint_as_float(c.hi), __uint_as_float(d.hi));
+        reinterpret_cast<float4*>(lo_)[e] =
+            make_float4(__uint_as_float(a.lo), __uint_as_float(bb.lo),
+                        __uint_as_float(c.lo), __uint_as_float(d.lo));
+      }
+    };
+    // The products of chunk `it` (of all the tiles' chunks) into ps and pp,
+    // committed as one group: S = Q·Kᵀ and dP = dO·Vᵀ over the chunk's KC
+    // columns, after the warpgroup has split its rows of Q and dO and
+    // handed them to the async proxy.
+    auto issue_chunk = [&](int it) {
+      const int s = it % ST;
+      float* qhi = stage(s) + cw * 64 * KC;
+      float* dohi = qhi + BM * KC;
+      const float* khi = stage(s) + 2 * BM * KC;
+      mbar_wait(&full[s], (it / ST) & 1);
+      split_rows(qhi, qlo);
+      split_rows(dohi, dolo);
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + cw) : "memory");
+      const uint64_t qhd = sw128_desc(qhi, 16), qld = sw128_desc(qlo, 16);
+      const uint64_t dhd = sw128_desc(dohi, 16), dld = sw128_desc(dolo, 16);
+      const uint64_t khd = sw128_desc(khi, 16);
+      const uint64_t kld = sw128_desc(khi + BN * KC, 16);
+      const uint64_t vhd = sw128_desc(khi + 2 * BN * KC, 16);
+      const uint64_t vld = sw128_desc(khi + 3 * BN * KC, 16);
+      // the small terms of the chunk first, then hi·hi: a term the tensor
+      // cores add truncates the sum at the sum's own magnitude, so the
+      // products near the sum's size come last and fewest
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const uint32_t a = kmajor_step(64, kk), bk = kmajor_step(BN, kk);
+        wgmma_ss_tf32<BN>(ps, qld + a, khd + bk, kk > 0);
+        wgmma_ss_tf32<BN>(ps, qhd + a, kld + bk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk)
+        wgmma_ss_tf32<BN>(ps, qhd + kmajor_step(64, kk),
+                          khd + kmajor_step(BN, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const uint32_t a = kmajor_step(64, kk), bk = kmajor_step(BN, kk);
+        wgmma_ss_tf32<BN>(pp, dld + a, vhd + bk, kk > 0);
+        wgmma_ss_tf32<BN>(pp, dhd + a, vld + bk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk)
+        wgmma_ss_tf32<BN>(pp, dhd + kmajor_step(64, kk),
+                          vhd + kmajor_step(BN, kk), 1);
+      wgmma_commit();
+    };
+
+    for (int j = 0; j < n_k; ++j) {
+      // S and dP of tile j, summed over the nc chunks of D as they arrive:
+      // each chunk's products, once done, release its stage and add into
+      // sc and dp in fp32 (header)
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) sc[e] = dp[e] = 0.f;
+      for (int c = 0; c < nc; ++c) {
+        issue_chunk(j * nc + c);
+        wgmma_wait<0>();
+        fence_regs(ps);
+        fence_regs(pp);
+        mbar_arrive(&empty[(j * nc + c) % ST]);
+#pragma unroll
+        for (int e = 0; e < BN / 2; ++e) {
+          sc[e] += ps[e];
+          dp[e] += pp[e];
+        }
+      }
+      // P·scale, then dS = P·scale∘(dP − δ) in place of S; the mask is a
+      // pass of its own behind a uniform branch
+      const int k0 = j * BN;
+      if (k0 + BN > Sk || (causal && k0 + BN - 1 > wg_row0)) {
+#pragma unroll
+        for (int c = 0; c < BN / 8; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * c + 2 * t + (e & 1);
+            if (col >= Sk || (causal && row[e >> 1] < col))
+              sc[4 * c + e] = NEG_INF;
+          }
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e)
+        sc[e] = fast_exp2(fmaf(sc[e], sl2, -lse2[(e >> 1) & 1])) *
+                (dp[e] - dl[(e >> 1) & 1]);
+      // dS split as the A fragments of dQ's product: the thread's columns
+      // 2t, 2t+1 of k-step kk are logical columns t, t+4 (Kᵀ in PERM order)
+      uint32_t dsh[BN / 8][4], dsl[BN / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk)
+        split_frag(dsh[kk], dsl[kk], sc[4 * kk], sc[4 * kk + 2],
+                   sc[4 * kk + 1], sc[4 * kk + 3]);
+      // dQ += dS·K over the CTA's columns: Kᵀ_hi, Kᵀ_lo K-major
+      mbar_wait(kt_full, j & 1);
+      const uint64_t thd = sw128_desc(kt, 16);
+      const uint64_t tld = sw128_desc(kt + CW * BN, 16);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 8; ++kk) {
+        const uint32_t bk = kmajor_step(CW, kk);
+        wgmma_rs_tf32<CW>(acc, dsl[kk], thd + bk);
+        wgmma_rs_tf32<CW>(acc, dsh[kk], tld + bk);
+        wgmma_rs_tf32<CW>(acc, dsh[kk], thd + bk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(kt_empty);
+    }
+
+    // dQ of the thread's rows, columns c0 + 8c + 2t, 2t + 1
+    float* qb = dq + head + c0;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = q0 + r_loc + 8 * half;
+      if (r >= Sq) continue;
+      float* p = qb + static_cast<size_t>(r) * rs + 2 * t;
+#pragma unroll
+      for (int c = 0; c < CW / 8; ++c)
+        *reinterpret_cast<float2*>(p + 8 * c) =
+            make_float2(acc[4 * c + 2 * half], acc[4 * c + 2 * half + 1]);
+    }
+    trap_if_stalled();
+  }
+}
+
+template <int CW>
+int launch_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const void* lse, void* delta, void* dq,
+              void* scratch, int B, int H, int Sq, int Sk, int D, int q_off,
+              int causal, float scale, cudaStream_t st) {
+  using C = DqF32<CW>;
+  SplitDq kv;
+  CUtensorMap tq, tdo;
+  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
+  if (!err) err = rows_map(&tdo, dout, B, Sq, H, D, C::BM);
+  if (!err) err = kv.make(scratch, B, H, Sk, D, C::BN, CW);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dq_f32_kernel<CW>), C::SMEM);
+  if (!err) err = kv.launch(k, v, B, H, Sk, D, st);
+  if (err) return err;
+  const dim3 grid(D / CW, (Sq + C::BM - 1) / C::BM, B * H);
+  flash_dq_f32_kernel<CW><<<grid, WS_THREADS, C::SMEM, st>>>(
+      tq, tdo, kv.tkh, kv.tkl, kv.tvh, kv.tvl, kv.tth, kv.ttl,
+      static_cast<const float*>(o), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<float*>(delta),
+      static_cast<float*>(dq), H, Sq, Sk, D, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline bool takes(int B, int H, int Sq, int Sk, int D) {
   return B > 0 && H > 0 && Sq > 0 && Sk > 0 && (D == 64 || D == 128);
 }
@@ -1603,4 +2098,38 @@ extern "C" int voda_flash_dkv_f32_wide(const void* q, const void* k,
   return launch_dkv_wide<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
                               Sk, D, q_off, causal, scale,
                               static_cast<cudaStream_t>(stream));
+}
+
+// K2 at D = 64 or 128 (CW = D) and, below, at every multiple of 128 above
+// (CW = 128): the bf16 dQ's arguments, then its scratch, 2·B·H·D·(2·Sk +
+// SkP) floats (the wrapper's `f32_scratch`), 16-byte aligned; 1
+// (cudaErrorInvalidValue) for any other width.
+extern "C" int voda_flash_dq_f32(const void* q, const void* k, const void* v,
+                                 const void* o, const void* dout,
+                                 const void* lse, void* delta, void* dq,
+                                 void* scratch, int B, int H, int Sq, int Sk,
+                                 int D, int q_off, int causal, float scale,
+                                 void* stream) {
+  using namespace voda::f32;
+  if (!takes(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_dq<64>(q, k, v, o, dout, lse, delta, dq, scratch, B,
+                                 H, Sq, Sk, D, q_off, causal, scale, st)
+                 : launch_dq<128>(q, k, v, o, dout, lse, delta, dq, scratch,
+                                  B, H, Sq, Sk, D, q_off, causal, scale, st);
+}
+
+extern "C" int voda_flash_dq_f32_wide(const void* q, const void* k,
+                                      const void* v, const void* o,
+                                      const void* dout, const void* lse,
+                                      void* delta, void* dq, void* scratch,
+                                      int B, int H, int Sq, int Sk, int D,
+                                      int q_off, int causal, float scale,
+                                      void* stream) {
+  using namespace voda::f32;
+  if (!takes_wide(B, H, Sq, Sk, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dq<128>(q, k, v, o, dout, lse, delta, dq, scratch, B, H, Sq,
+                        Sk, D, q_off, causal, scale,
+                        static_cast<cudaStream_t>(stream));
 }

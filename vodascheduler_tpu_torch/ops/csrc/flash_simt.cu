@@ -6,14 +6,13 @@
 // beside this file take bf16, and fp16 at every width (flash_fwd.cu,
 // flash_dq.cu, flash_dkv.cu: voda_flash_{fwd,dq,dkv}_f16 at 64 and 128;
 // their wide twins, voda_flash_{fwd,dq,dkv}_f16_wide, above, whose kernels
-// stream D above 512); fp32's forward and dK/dV run on the tensor cores in
-// three TF32 passes at every width (flash_f32.cu: voda_flash_{fwd,dkv}_f32,
-// and _f32_wide above 128). What they do not take runs here: fp32's dQ at
-// every width (voda_flash_dq_f32). fp32's forward and dK/dV here
-// (voda_flash_{fwd,dkv}_f32_simt) and fp16's forward, dQ and dK/dV
-// (voda_flash_{fwd,dq,dkv}_f16_simt) lost their routes to the tensor-core
-// kernels and keep their entries only to be timed against them. The kernels
-// themselves take any multiple of their 64- or 128-column chunk. The arithmetic is
+// stream D above 512); fp32's forward, dQ and dK/dV run on the tensor cores
+// in three TF32 passes at every width (flash_f32.cu:
+// voda_flash_{fwd,dq,dkv}_f32, and _f32_wide above 128). So no route runs
+// here: fp32's forward, dQ and dK/dV (voda_flash_{fwd,dq,dkv}_f32_simt) and
+// fp16's (voda_flash_{fwd,dq,dkv}_f16_simt) lost their routes to the
+// tensor-core kernels and keep their entries only to be timed against them.
+// The kernels themselves take any multiple of their 64- or 128-column chunk. The arithmetic is
 // the TPU kernels': every product takes its inputs in the input dtype and
 // accumulates in fp32 (an fp16 product is exact in fp32), the softmax
 // statistics are fp32, and P is rounded to the input dtype before the
@@ -527,18 +526,17 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
 // fp16's are named `_f16_simt`: fp16 takes the wgmma kernels at every width
 // (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, and their wide twins, whose
 // kernels stream D above 512), and these are only timed against them.
-// fp32's forward and dK/dV are named `_f32_simt`: fp32 takes flash_f32.cu's
-// at every width, and these are only timed against them; fp32's dQ keeps
-// its name.
-#define VODA_SIMT_ENTRIES(T, fwd_sfx, dq_sfx, dkv_sfx)                        \
-  extern "C" int voda_flash_fwd_##fwd_sfx(                                    \
+// fp32's are named `_f32_simt`: fp32 takes flash_f32.cu's at every width,
+// and these are only timed against them.
+#define VODA_SIMT_ENTRIES(T, sfx)                                             \
+  extern "C" int voda_flash_fwd_##sfx(                                        \
       const void* q, const void* k, const void* v, void* o, void* lse, int B, \
       int H, int Sq, int Sk, int D, int q_off, int causal, float scale,       \
       void* stream) {                                                         \
     return voda::simt::fwd<T>(q, k, v, o, lse, B, H, Sq, Sk, D, q_off,       \
                               causal, scale, stream);                         \
   }                                                                           \
-  extern "C" int voda_flash_dq_##dq_sfx(                                      \
+  extern "C" int voda_flash_dq_##sfx(                                         \
       const void* q, const void* k, const void* v, const void* o,            \
       const void* dout, const void* lse, void* delta, void* dq, int B, int H, \
       int Sq, int Sk, int D, int q_off, int causal, float scale,              \
@@ -546,7 +544,7 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
     return voda::simt::dq<T>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, \
                              D, q_off, causal, scale, stream);                \
   }                                                                           \
-  extern "C" int voda_flash_dkv_##dkv_sfx(                                    \
+  extern "C" int voda_flash_dkv_##sfx(                                        \
       const void* q, const void* k, const void* v, const void* dout,         \
       const void* lse, const void* delta, void* dk, void* dv, int B, int H,  \
       int Sq, int Sk, int D, int q_off, int causal, float scale,              \
@@ -555,5 +553,5 @@ int dkv(const void* q, const void* k, const void* v, const void* dout,
                               Sk, D, q_off, causal, scale, stream);           \
   }
 
-VODA_SIMT_ENTRIES(float, f32_simt, f32, f32_simt)
-VODA_SIMT_ENTRIES(__half, f16_simt, f16_simt, f16_simt)
+VODA_SIMT_ENTRIES(float, f32_simt)
+VODA_SIMT_ENTRIES(__half, f16_simt)

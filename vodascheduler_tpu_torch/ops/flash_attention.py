@@ -27,7 +27,7 @@ bf16   > 128       ``flash_fwd_wide``      ``flash_dq_wide``      ``flash_dkv_wi
 fp16   ≤ 128       ``flash_fwd_f16``       ``flash_dq_f16``       ``flash_dkv_f16``
 fp16   > 128       ``flash_fwd_f16_wide``  ``flash_dq_f16_wide``  ``flash_dkv_f16_wide``
 fp32   ≤ 128       ``flash_fwd_f32``       ``flash_dq_f32``       ``flash_dkv_f32``
-fp32   > 128       ``flash_fwd_f32_wide``  ``flash_dq_f32``       ``flash_dkv_f32_wide``
+fp32   > 128       ``flash_fwd_f32_wide``  ``flash_dq_f32_wide``  ``flash_dkv_f32_wide``
 =====  ==========  ======================  =====================  ======================
 
 fp16's kernels are the bf16 kernels' TMA + wgmma designs in fp16
@@ -36,24 +36,25 @@ fp16's kernels are the bf16 kernels' TMA + wgmma designs in fp16
 D=512 its dQ and dK/dV are the wide sources' kernels that stream D in
 64-column chunks (``flash_dq_chunked_kernel``, ``flash_dkv_chunked_kernel``),
 where bf16's stay on ``wmma``.
-fp32's K1 and K3 run on the tensor cores in three TF32 passes
+fp32's K1, K2 and K3 run on the tensor cores in three TF32 passes
 (``csrc/flash_f32.cu``: K1 on wgmma after a prologue that splits K and Vᵀ
 into scratch, K3 on mma.sync), up to D=128 with K, V or Q resident, above
 it (``_f32_wide``, every multiple of 128) streaming D in 32-column chunks
-and owning 128 columns of the output a CTA. fp32's K2 multiplies on the
-CUDA cores at every width (``csrc/flash_simt.cu``). The choice is by
-width, never a fallback: a kernel that fails to build or launch raises.
+and owning 128 columns of the output a CTA; K2 on wgmma at every width,
+streaming D in 32-column chunks after a prologue that splits K, V and Kᵀ
+into scratch, owning min(D, 128) columns of dQ a CTA (``flash_dq_f32`` up
+to 128, ``flash_dq_f32_wide`` above, one kernel). The choice is by width,
+never a fallback: a kernel that fails to build or launch raises.
 Above 512 the kernels that stream D count apart from their route's
 entries (`CHUNKED_COUNTS`): ``flash_fwd_chunked`` (bf16),
 ``flash_fwd_f16_chunked``, ``flash_dq_f16_chunked`` and
 ``flash_dkv_f16_chunked`` (fp16). The forward's first wide kernel above 512
 (``wmma``), which no wrapper routes to any more, keeps an entry of its own,
 ``flash_fwd_wmma``, to be timed against its replacement; so do the CUDA-core
-kernels that lost their routes: fp32's forward and dK/dV
-(``flash_fwd_f32_simt``, ``flash_dkv_f32_simt``), which the wide TF32
-kernels replaced above 128, and fp16's forward, dQ and dK/dV
-(``flash_{fwd,dq,dkv}_f16_simt``), which the chunked kernels replaced above
-512.
+kernels that lost their routes: fp32's forward, dQ and dK/dV
+(``flash_{fwd,dq,dkv}_f32_simt``), which the TF32 kernels replaced at every
+width, and fp16's forward, dQ and dK/dV (``flash_{fwd,dq,dkv}_f16_simt``),
+which the chunked kernels replaced above 512.
 
 Beside each stands its plain PyTorch version (`flash_attention_reference`,
 `flash_dq_reference`, `flash_dkv_reference`), which computes the same
@@ -85,17 +86,20 @@ Divergences from the TPU kernels, on purpose:
   takes 128 query rows against K/V tiles of 64 keys (32 at D=128), its
   dK/dV 128 keys against Q/dO tiles of 64 rows (32 at D=128), and above
   D=128 128 query rows against 64-key tiles and 128 keys against 32-row
-  tiles, 128 columns of the output a CTA; the CUDA-core kernels take 64×64
+  tiles, 128 columns of the output a CTA; its dQ 128 query rows against
+  64-key tiles at every width, min(D, 128) columns of dQ a CTA; the
+  CUDA-core kernels take 64×64
   tiles of (queries, keys) and 64 or 128 columns of the output a CTA.
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
   signature and change none of them;
-- fp32's tensor-core kernels (``flash_fwd_f32``, ``flash_dkv_f32`` and
-  their ``_wide`` twins above D=128) take
+- fp32's tensor-core kernels (``flash_fwd_f32``, ``flash_dq_f32``,
+  ``flash_dkv_f32`` and their ``_wide`` twins above D=128) take
   every fp32 product as three TF32 products (a_lo·b_hi + a_hi·b_lo +
   a_hi·b_hi, hi and lo the TF32 halves of each operand) in one fp32
   accumulator, where the TPU splits an f32 dot over bf16 passes of its
   matrix unit: at least as accurate, and as accurate as fp32 on the CUDA
-  cores;
+  cores (dQ's S and dP sum each 32-column chunk of D in an accumulator of
+  its own, added in fp32, as the tensor cores truncate their sums);
 - fp32 and fp16 run the TPU kernels' arithmetic (products of the input
   dtype accumulated in fp32, P rounded to the input dtype before its
   products) except for dS, which the TPU kernels round to the input dtype
@@ -143,8 +147,9 @@ WGMMA_MAX_D = 512
 launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_wide": 0, "flash_dq_wide": 0, "flash_dkv_wide": 0,
             "flash_fwd_f32": 0, "flash_dq_f32": 0, "flash_dkv_f32": 0,
-            "flash_fwd_f32_wide": 0, "flash_dkv_f32_wide": 0,
-            "flash_fwd_f32_simt": 0, "flash_dkv_f32_simt": 0,
+            "flash_fwd_f32_wide": 0, "flash_dq_f32_wide": 0,
+            "flash_dkv_f32_wide": 0, "flash_fwd_f32_simt": 0,
+            "flash_dq_f32_simt": 0, "flash_dkv_f32_simt": 0,
             "flash_fwd_f16": 0, "flash_dq_f16": 0, "flash_dkv_f16": 0,
             "flash_fwd_f16_wide": 0, "flash_dq_f16_wide": 0,
             "flash_dkv_f16_wide": 0, "flash_fwd_f16_simt": 0,
@@ -168,12 +173,13 @@ SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
 # its bf16 kernel (fp16's flash_dq_f16 is in flash_dq.cu, flash_dq_f16_wide
 # in flash_dq_wide.cu), the forward's wmma kernel that of the wide one.
 SIMT_SOURCE = "flash_simt"
-SIMT_KERNELS = frozenset({"flash_fwd_f32_simt", "flash_dq_f32",
+SIMT_KERNELS = frozenset({"flash_fwd_f32_simt", "flash_dq_f32_simt",
                           "flash_dkv_f32_simt", "flash_fwd_f16_simt",
                           "flash_dq_f16_simt", "flash_dkv_f16_simt"})
 TF32_SOURCE = "flash_f32"
-TF32_KERNELS = frozenset({"flash_fwd_f32", "flash_dkv_f32",
-                          "flash_fwd_f32_wide", "flash_dkv_f32_wide"})
+TF32_KERNELS = frozenset({"flash_fwd_f32", "flash_dq_f32", "flash_dkv_f32",
+                          "flash_fwd_f32_wide", "flash_dq_f32_wide",
+                          "flash_dkv_f32_wide"})
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -185,12 +191,16 @@ _ARGTYPES = {
     "flash_dq": [_P] * 8 + [_I] * 7 + [_F, _P],
     # q k v do lse delta dk dv | B H Sq Sk D q_off causal scale stream
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
-    # fp32's tensor-core K1 also takes its scratch (`f32_scratch`) after lse
+    # fp32's tensor-core K1 also takes its scratch (`f32_scratch`) after
+    # lse, its K2 after dq
     "flash_fwd_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
     "flash_fwd_f32_wide": [_P] * 6 + [_I] * 7 + [_F, _P],
+    "flash_dq_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "flash_dq_f32_wide": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
-# The K1 entries that take that scratch.
-F32_SCRATCH = frozenset({"flash_fwd_f32", "flash_fwd_f32_wide"})
+# The entries that take that scratch.
+F32_SCRATCH = frozenset({"flash_fwd_f32", "flash_fwd_f32_wide",
+                         "flash_dq_f32", "flash_dq_f32_wide"})
 for _name in launches.keys() - CHUNKED_COUNTS.values():  # every variant
     # takes its function's arguments
     _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
@@ -237,10 +247,8 @@ def load_kernels(names) -> None:
 def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     """The kernel of wrapper `name` for head width D and tensors of
     `dtype`: for bf16 its own at a width of HEAD_DIMS and its wide variant
-    at a multiple of WIDE_CHUNK above them; for fp16 the same, named
-    ``_f16`` and ``_f16_wide``; for fp32 the tensor-core ``_f32`` forward
-    and dK/dV at a width of HEAD_DIMS and the tensor-core ``_f32_wide``
-    ones above, and the CUDA-core ``flash_dq_f32`` at every width."""
+    at a multiple of WIDE_CHUNK above them; for fp16 and fp32 the same,
+    named ``_f16`` and ``_f16_wide``, ``_f32`` and ``_f32_wide``."""
     if D not in HEAD_DIMS and not (D > HEAD_DIMS[-1] and D % WIDE_CHUNK == 0):
         raise NotImplementedError(
             f"{name}: head_dim {D} is neither in {HEAD_DIMS} nor a multiple "
@@ -248,11 +256,8 @@ def _kernel(name: str, D: int, dtype: torch.dtype = torch.bfloat16) -> str:
     if dtype not in (torch.bfloat16, *SIMT_SUFFIX):
         raise TypeError(f"{name}: the CUDA kernels take bfloat16, float32 "
                         f"and float16, got {dtype}")
-    if dtype == torch.float32:
-        if name == "flash_dq" or D in HEAD_DIMS:
-            return f"{name}_f32"
-        return f"{name}_f32_wide"
-    kernel = name if dtype == torch.bfloat16 else f"{name}_f16"
+    kernel = (name if dtype == torch.bfloat16
+              else f"{name}_{SIMT_SUFFIX[dtype]}")
     return kernel if D in HEAD_DIMS else f"{kernel}_wide"
 
 
@@ -325,7 +330,7 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     # fp32's tensor-core K1 also takes its scratch, held here until launched
-    scratch = ([f32_scratch(B, H, Sk, D, q.device)]
+    scratch = ([f32_scratch(B, H, Sk, D, q.device, "flash_fwd")]
                if kernel in F32_SCRATCH else [])
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in scratch),
@@ -334,15 +339,18 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
     return o, lse
 
 
-def f32_scratch(B: int, H: int, Sk: int, D: int,
-                device: torch.device) -> torch.Tensor:
-    """The scratch of fp32's tensor-core K1 (``csrc/flash_f32.cu``, at
-    every width), which its prologue fills: K's TF32 halves K_hi and K_lo ([B, Sk, H, D] each),
-    then Vᵀ's, Vᵀ_hi and Vᵀ_lo ([B, H, D, SkP] each, SkP = Sk rounded up to
-    8)."""
+def f32_scratch(B: int, H: int, Sk: int, D: int, device: torch.device,
+                name: str = "flash_fwd") -> torch.Tensor:
+    """The scratch of fp32's tensor-core K1 or K2 (`name`: ``flash_fwd`` or
+    ``flash_dq``; ``csrc/flash_f32.cu``, at every width), which the
+    kernel's prologue fills with TF32 halves: K1's K_hi and K_lo ([B, Sk, H,
+    D] each), then Vᵀ_hi and Vᵀ_lo ([B, H, D, SkP] each, SkP = Sk rounded
+    up to 8); K2's K_hi, K_lo, V_hi and V_lo ([B, Sk, H, D] each), then
+    Kᵀ_hi and Kᵀ_lo ([B, H, D, SkP] each)."""
     skp = -(-Sk // 8) * 8
-    return torch.empty(2 * B * H * D * (Sk + skp), dtype=torch.float32,
-                       device=device)
+    rows = {"flash_fwd": 1, "flash_dq": 2}[name]
+    return torch.empty(2 * B * H * D * (rows * Sk + skp),
+                       dtype=torch.float32, device=device)
 
 
 def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
@@ -353,10 +361,14 @@ def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
     _check_stat(lse, B, H, Sq)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
+    # fp32's tensor-core K2 also takes its scratch, held here until launched
+    scratch = ([f32_scratch(B, H, Sk, D, q.device, "flash_dq")]
+               if kernel in F32_SCRATCH else [])
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
-            _scale(scale, D), count=counted(kernel, D))
+            dq.data_ptr(), *(t.data_ptr() for t in scratch), B, H, Sq, Sk,
+            D, int(q_off), int(causal), _scale(scale, D),
+            count=counted(kernel, D))
     return dq, delta
 
 
@@ -392,11 +404,11 @@ def _check_stat(t: torch.Tensor, B: int, H: int, Sq: int) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, causal: bool, q_off: int,
-            scale: Optional[float]) -> torch.Tensor:
-    """Scaled, masked fp32 scores [B,H,Sq,Sk]."""
-    qf = q.transpose(1, 2).float()
-    kf = k.transpose(1, 2).float()
+def _scores(q, k, causal: bool, q_off: int, scale: Optional[float],
+            acc: torch.dtype = torch.float32) -> torch.Tensor:
+    """Scaled, masked scores [B,H,Sq,Sk] in `acc` (fp32 by default)."""
+    qf = q.transpose(1, 2).to(acc)
+    kf = k.transpose(1, 2).to(acc)
     s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * _scale(scale, q.shape[-1])
     if causal:
         rows = q_off + torch.arange(q.shape[1], device=q.device)
@@ -419,23 +431,29 @@ def flash_attention_reference(q, k, v, causal: bool = True, q_offset: int = 0,
 
 
 def _p_ds(q, k, v, do, lse, delta, causal: bool, q_off: int,
-          scale: Optional[float]):
-    """The backward's shared fp32 terms [B,H,Sq,Sk]: P = exp(S - lse) and
-    dS = P∘(dO·Vᵀ - δ)·scale; also dO as fp32 [B,H,Sq,D]."""
-    p = torch.exp(_scores(q, k, causal, q_off, scale) - lse[..., None])
-    dof = do.transpose(1, 2).float()
-    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.transpose(1, 2).float())
+          scale: Optional[float], acc: torch.dtype = torch.float32):
+    """The backward's shared terms [B,H,Sq,Sk] in `acc` (fp32 by default):
+    P = exp(S - lse) and dS = P∘(dO·Vᵀ - δ)·scale; also dO as [B,H,Sq,D]."""
+    p = torch.exp(_scores(q, k, causal, q_off, scale, acc)
+                  - lse.to(acc)[..., None])
+    dof = do.transpose(1, 2).to(acc)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.transpose(1, 2).to(acc))
     ds = p * (dp - delta[..., None]) * _scale(scale, q.shape[-1])
     return p, ds, dof
 
 
 def flash_dq_reference(q, k, v, o, do, lse, causal: bool = True,
-                       q_offset: int = 0, scale: Optional[float] = None):
-    """Plain version of K2: (dq in q's dtype, delta fp32 [B,H,Sq])."""
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2)
-    _, ds, _ = _p_ds(q, k, v, do, lse, delta, causal, q_offset, scale)
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.transpose(1, 2).float())
-    return dq.transpose(1, 2).to(q.dtype), delta.contiguous()
+                       q_offset: int = 0, scale: Optional[float] = None,
+                       acc: torch.dtype = torch.float32):
+    """Plain version of K2: (dq in q's dtype, delta fp32 [B,H,Sq]). `acc`
+    is the type it computes in: fp32, or fp64 where a check wants the
+    function nearer its exact value than fp32's own rounding (dQ's rows
+    whose dP − δ cancels)."""
+    delta = (do.to(acc) * o.to(acc)).sum(-1).transpose(1, 2)
+    _, ds, _ = _p_ds(q, k, v, do, lse, delta, causal, q_offset, scale, acc)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.transpose(1, 2).to(acc))
+    return (dq.transpose(1, 2).to(q.dtype),
+            delta.to(torch.float32).contiguous())
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
