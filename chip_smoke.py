@@ -14,11 +14,12 @@ Phases (any failure exits non-zero):
      D=512 (flash_fwd_chunked_kernel, bf16 and fp16) or fp16's dQ and
      dK/dV above it (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) at
      D=640, or in fp32's
-     TF32 forward and dK/dV above D=128 (`_f32_wide`, one instantiation
-     for every width: CW=128, which D=256 runs), or in fp32's TF32 dQ
-     (flash_dq_f32_kernel, one kernel at every width) at CW=64 (D=64) and
-     CW=128 (D=128 and every width above), and logs the spills at D=128,
-     384 and 512 and the chunked kernels' at 768 and 1024;
+     TF32 forward above D=128 (`_f32_wide`, one instantiation for every
+     width: CW=128, which D=256 runs), or in fp32's TF32 dQ and dK/dV
+     (flash_dq_f32_kernel, flash_dkv_f32_kernel, one kernel each at every
+     width) at CW=64 (D=64) and CW=128 (D=128 and every width above), and
+     logs the spills at D=128, 384 and 512 and the chunked kernels' at 768
+     and 1024;
   3. kernels: each kernel against its plain PyTorch version at llama_350m's
      attention shapes (B=8, H=16, S=2048, D=64, bf16, causal), at
      mixtral_small's (H=10), at a ragged S=1000, at D=128, at a query slice
@@ -237,7 +238,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 # bf16 on the tensor cores; fp32 at TF32's 495 TFLOP/s over three passes,
 # the card's fp32-accurate rate (each fp32 product as a_lo·b_hi + a_hi·b_lo
 # + a_hi·b_hi of TF32 halves), on which the library's own fp32 attention and
-# the port's fp32 K1 and K3 run (NVIDIA data sheet, SXM).
+# the port's fp32 K1, K2 and K3 run (NVIDIA data sheet, SXM).
 PEAK_FLOPS = {torch.bfloat16: PEAK_BF16_FLOPS, torch.float16: 989e12,
               torch.float32: 495e12 / 3}
 TPU_SRC = "vodascheduler_tpu/ops/flash_attention.py"
@@ -271,15 +272,15 @@ CHUNKED_SPILL_GATES = (("flash_fwd_chunked", 128),
                        ("flash_fwd_chunked_f16", 128),
                        ("flash_dq_chunked_f16", 128),
                        ("flash_dkv_chunked_f16", 128))
-# fp32's TF32 forward and dK/dV above D=128 take D at run time and are
-# templated on their chunk of the output alone, CW=128: the one
-# instantiation runs every width, D=256 (phase 11's fp32 model in heads of
-# 256) among them, and is held to no spill. So is fp32's TF32 dQ
-# (flash_dq_f32_kernel, one kernel at every width) at CW=128, which D=128
-# and every width above run; D=64 runs CW=64 (MAIN_SPILL_GATES).
+# fp32's TF32 forward above D=128 takes D at run time and is templated on
+# its chunk of O alone, CW=128: the one instantiation runs every width,
+# D=256 (phase 11's fp32 model in heads of 256) among them, and is held to
+# no spill. So are fp32's TF32 dQ and dK/dV (flash_dq_f32_kernel,
+# flash_dkv_f32_kernel, one kernel each at every width) at CW=128, which
+# D=128 and every width above run; D=64 runs CW=64 (MAIN_SPILL_GATES).
 F32_WIDE_SPILL_GATES = (("flash_fwd_f32_wide", 128),
-                        ("flash_dkv_f32_wide", 128),
-                        ("flash_dq_f32", 128))
+                        ("flash_dq_f32", 128),
+                        ("flash_dkv_f32", 128))
 SPILL_GATES = (MAIN_SPILL_GATES
                + tuple((n, WIDE_HEAD_DIM) for n in WIDE_SPILL_FREE)
                + CHUNKED_SPILL_GATES + F32_WIDE_SPILL_GATES)

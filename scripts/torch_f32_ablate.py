@@ -1,7 +1,8 @@
 """Times variants of fp32's tensor-core forward, dQ and dK/dV
 (``vodascheduler_tpu_torch/ops/csrc/flash_f32.cu``) against the source as
 it stands, in turns, on one card: what the three TF32 passes, the
-splitting of the operands into TF32 halves and dQ's loads cost.
+splitting of the operands into TF32 halves, the prologues, the chunks'
+separate sums and dQ's and dK/dV's loads cost.
 
     python3 scripts/torch_f32_ablate.py [--rounds 2] [--shape d64|d256]
 
@@ -11,8 +12,8 @@ package's build module; the package's sources are not touched. Every
 variant computes wrong results on purpose (it drops work to weigh it) and
 is only timed:
 
-- ``one_pass``: every product as hi·hi alone (the K3 mma.sync and the K1
-  and K2 wgmma issue one product, not three; the lo halves are never read);
+- ``one_pass``: every product as hi·hi alone (K1, K2 and K3 issue one
+  wgmma product, not three; the lo halves are never read);
 - ``no_split``: hi and lo are the raw fp32 bits, with no rounding and no
   subtraction (three products still, of unsplit operands);
 - ``dq_no_qsplit``: K2's warpgroups do not split their rows of each chunk
@@ -26,7 +27,17 @@ is only timed:
 - ``dq_split_ahead``: at CW=64 (D=64), where a second set of the
   warpgroups' lo buffers fits, each warpgroup splits its rows of the next
   chunk of Q and dO while its products of this chunk run (the results
-  right; the wide instantiation unchanged).
+  right; the wide instantiation unchanged);
+- ``dkv_no_prologue``: K3's entry launches no prologue (the halves of Q,
+  dO, K, V, Qᵀ and dOᵀ as the scratch holds them);
+- ``dkv_joint_sums``: K3 sums each tile's Sᵀ and dPᵀ over all of D's
+  chunks in the tensor cores' accumulator, not each chunk apart (the
+  per-chunk wait stays);
+- ``dkv_loads_once``: K3's producer loads the ring's first two items (a
+  tile's first chunks) only, and arrives on the later ones' barriers;
+- ``dkv_no_frag_split``: K3 takes Pᵀ and dSᵀ as their raw fp32 bits for
+  both halves of its A fragments, where it splits them in the CTA (three
+  products still).
 
 At llama_350m's attention shape in fp32 (B=8, H=16, S=2048, D=64, causal;
 ``--shape d256``: B=8, H=4, D=256, where the wrappers take the kernels
@@ -57,9 +68,6 @@ sys.path.insert(0, ROOT)
 
 SHAPES = {"d64": (8, 16, 2048, 2048, 64, True, 0),
           "d256": (8, 4, 2048, 2048, 256, True, 0)}
-_MMA3 = """  mma_tf32(c, alo, b0.hi, b1.hi);
-  mma_tf32(c, ahi, b0.lo, b1.lo);
-  mma_tf32(c, ahi, b0.hi, b1.hi);"""
 _S3 = """        wgmma_ss_tf32<BN>(sc, qld + qa, khd + kb, kk > 0);
         wgmma_ss_tf32<BN>(sc, qhd + qa, kld + kb, 1);
         wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, 1);"""
@@ -95,7 +103,30 @@ _DQ_KT_LOADS = """            mbar_expect_tx(kt_full, 2 * C::KT_BYTES);
 _DQ_PROLOGUE = """        reinterpret_cast<const void*>(&flash_dq_f32_kernel<CW>), C::SMEM);
   if (!err) err = kv.launch(k, v, B, H, Sk, D, st);"""
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
-from torch_planted_fault import _F32DQ_DQ, _F32DQ_S  # noqa: E402
+from torch_planted_fault import (_F32DKV_PV, _F32DKV_S, _F32DQ_DQ,  # noqa: E402
+                                 _F32DQ_S)
+
+# K3's (flash_dkv_f32_kernel): its chunks' sums, its producer's chunk
+# loads, its prologue and the split of its A fragments
+_DKV_SUMS = [
+    ("        wgmma_ss_tf32<BM>(ps, kh + KV + a, qh + bk, kk > 0);",
+     "        wgmma_ss_tf32<BM>(ps, kh + KV + a, qh + bk, 1);"),
+    ("        wgmma_ss_tf32<BM>(pp, kh + 3 * KV + a, qh + 2 * T + bk, kk > 0);",
+     "        wgmma_ss_tf32<BM>(pp, kh + 3 * KV + a, qh + 2 * T + bk, 1);"),
+    ("      for (int e = 0; e < BM / 2; ++e) st[e] = dpt[e] = 0.f;",
+     "      for (int e = 0; e < BM / 2; ++e)\n"
+     "        st[e] = dpt[e] = ps[e] = pp[e] = 0.f;"),
+    ("          st[e] += ps[e];\n          dpt[e] += pp[e];",
+     "          st[e] = ps[e];\n          dpt[e] = pp[e];")]
+_DKV_LOADS = ("          if (c < nc) {\n"
+              "            mbar_expect_tx(&full[s], C::CHUNK_BYTES);")
+_DKV_PROLOGUE = ("  if (!err) err = x.launch(q, dout, k, v, B, H, Sq, Sk, D, st);\n")
+_DKV_FRAGS = [(f"""        split_frag(ah[kk], al[kk], {x}[4 * kk], {x}[4 * kk + 2],
+                   {x}[4 * kk + 1], {x}[4 * kk + 3]);""",
+               "{\n" + "".join(f"        ah[kk][{i}] = al[kk][{i}] = "
+                                f"__float_as_uint({x}[4 * kk + {j}]);\n"
+                                for i, j in enumerate((0, 2, 1, 3))) + "}")
+              for x in ("st", "dpt")]
 
 # K2 with the warpgroups taking turns at issuing (named barriers 1 and 2;
 # the split's own barrier moves to 3 and 4)
@@ -189,14 +220,13 @@ _DQ_SPLIT_AHEAD = [
 
 # name -> [(the lines as they stand in flash_f32.cu, the lines instead)]
 VARIANTS = {
-    "one_pass": [(_MMA3, "  mma_tf32(c, ahi, b0.hi, b1.hi);"),
-                 (_S3, "        wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, "
+    "one_pass": [(_S3, "        wgmma_ss_tf32<BN>(sc, qhd + qa, khd + kb, "
                        "kk > 0);"),
                  (_PV3, "        wgmma_rs_tf32<D>(acc, ph[kk], vhd + vb);"),
                  (_S3W, "        wgmma_ss_tf32<BN>(sc, qhid + qs, khid + ks, "
                         "!first || kk > 0);"),
                  (_PV3W, "        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);"),
-                 *_F32DQ_S, _F32DQ_DQ],
+                 *_F32DQ_S, _F32DQ_DQ, *_F32DKV_S, *_F32DKV_PV],
     "no_split": [(_SPLIT, "  const uint32_t hi = __float_as_uint(x);\n"
                           "  const uint32_t lo = hi;")],
     "dq_no_qsplit": [("      split_rows(qhi, qlo);\n"
@@ -209,6 +239,13 @@ VARIANTS = {
          + "\n} else { mbar_arrive(kt_full); }")],
     "dq_turns": _DQ_TURNS,
     "dq_split_ahead": _DQ_SPLIT_AHEAD,
+    "dkv_no_prologue": [(_DKV_PROLOGUE, "")],
+    "dkv_joint_sums": _DKV_SUMS,
+    "dkv_loads_once": [(_DKV_LOADS, "          if (it >= ST) {\n"
+                        "            mbar_arrive(&full[s]);\n"
+                        "          } else if (c < nc) {\n"
+                        "            mbar_expect_tx(&full[s], C::CHUNK_BYTES);")],
+    "dkv_no_frag_split": _DKV_FRAGS,
 }
 
 

@@ -2,7 +2,7 @@
 of two source trees against each other, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
-        [--shape main|d128|d256|d512|d640] [--dtype bf16|fp16]
+        [--shape main|d128|d256|d512|d640] [--dtype bf16|fp16|fp32]
 
 `--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
 (the copy on the card is no git repository, so write it first, e.g. for the
@@ -32,7 +32,9 @@ launches there, as its launches count (`flash_dq_f16_chunked` in fp16 at
 d640, say; the backward after dQ's suffix). A base tree must hold the
 entries the wrappers route to in that dtype (the parent of the commit that
 added fp16's chunked dQ and dK/dV returns an error for fp16 above 512).
-Prints the
+Where a base entry takes one pointer fewer than the tree's, its scratch,
+which the wrappers pass last among the pointers (fp32's dK/dV before its
+wgmma redesign took none), the base is called without it. Prints the
 card's name and power limit, every reading, and a last line of JSON with
 the medians and base/tree ratios. Exits non-zero
 without a card or without the base sources; it prints no time it did not
@@ -45,6 +47,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -63,7 +66,8 @@ SHAPES = {"main": MAIN_SHAPE,
           "d640": (8, 2, 2048, 2048, 640, True, 0)}
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 ROWS = KERNELS + ("backward",)
-DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16}
+DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,
+          "fp32": torch.float32}
 
 
 def row_names(fa, shape, dtype=torch.bfloat16) -> dict:
@@ -77,26 +81,42 @@ def row_names(fa, shape, dtype=torch.bfloat16) -> dict:
     return names
 
 
+def pointers(text: str, name: str):
+    """The number of pointer parameters of C entry ``voda_<name>`` in the
+    source `text`, or None where it is not there."""
+    m = re.search(rf'extern "C" int voda_{name}\(([^)]*)\)', text)
+    return None if m is None else m.group(1).count("*") - 1  # the stream
+
+
 def load_entries(build, fa, csrc: Path, build_root: Path) -> dict:
     """Builds the sources in `csrc` into `build_root` and returns each
-    kernel's C entry point, configured as the wrappers call it."""
+    kernel's C entry point, as the wrappers call it: an entry that takes
+    one pointer fewer than the wrappers pass (no scratch) is called
+    without the last of them."""
     build.CSRC, build.BUILD_ROOT = Path(csrc), Path(build_root)
     build._libs.clear()
     out = {}
     # an older tree may lack sources the package has since gained
-    # (the CUDA-core and TF32 sources are not compared here)
+    # (the CUDA-core sources are not compared here)
     present = [n for n in build.SOURCES
-               if n not in (fa.SIMT_SOURCE, fa.TF32_SOURCE)
-               and (Path(csrc) / f"{n}.cu").exists()]
+               if n != fa.SIMT_SOURCE and (Path(csrc) / f"{n}.cu").exists()]
     libs = {src: ctypes.CDLL(str(path))
             for src, path in build.build(present).items()}
-    # every entry of those sources the wrappers may route to (bf16's and
-    # fp16's), where the tree has it
+    # every entry of those sources the wrappers may route to, where the
+    # tree has it
     for name in fa._ARGTYPES:
         fn = getattr(libs.get(fa.source(name)), f"voda_{name}", None)
-        if fn is not None:
-            fn.argtypes = fa._ARGTYPES[name]
-            fn.restype = ctypes.c_int
+        if fn is None:
+            continue
+        types = fa._ARGTYPES[name]
+        n = types.index(ctypes.c_int)  # the wrappers' pointers
+        text = (Path(csrc) / f"{fa.source(name)}.cu").read_text()
+        fn.restype = ctypes.c_int
+        if pointers(text, name) == n - 1:
+            fn.argtypes = types[:n - 1] + types[n:]
+            out[name] = (lambda *a, fn=fn, n=n: fn(*a[:n - 1], *a[n:]))
+        else:
+            fn.argtypes = types
             out[name] = fn
     return out
 

@@ -26,21 +26,28 @@ small:
 - ``dqw_f16_no_rescale``: the same in fp16's wide K2 (flash_dq_wide.cu), in
   both warpgroups: warpgroup 0 still takes the exponents that warpgroup 1
   hands over (for its epilogue) but rescales nothing with them.
-- ``f32_one_pass``: fp32's tensor-core K1 and K3 (flash_f32.cu) drop the lo
-  terms of the three TF32 passes (every lo half is 0), so each product is
-  hi·hi alone, 11 bits of each operand.
+- ``f32_one_pass``: fp32's tensor-core kernels (flash_f32.cu) drop the lo
+  terms of the three TF32 passes (every lo half is 0, in the CTAs and in
+  the prologues' scratch), so each product is hi·hi alone, 11 bits of each
+  operand.
 - ``fwdc_drop_chunk``: the forward above D=512 (flash_fwd_wide.cu's
   flash_fwd_chunked_kernel) leaves the second 128-column chunk of D out of
   every S (its stage still loaded, waited on and released).
 - ``fwdc_no_correction``: the same kernel never rescales O's rows when a
   tile raises their running max.
-- ``f32w_fwd_one_pass``, ``f32w_dkv_one_pass``: fp32's TF32 forward and
-  dK/dV above D=128 (flash_f32.cu: flash_fwd_f32_wide_kernel,
-  flash_dkv_f32_wide_kernel) take every product as hi·hi alone, one pass
-  (the forward's S and P·V, dK/dV's Sᵀ, dPᵀ, dV and dK).
+- ``f32w_fwd_one_pass``, ``f32w_dkv_one_pass``: fp32's TF32 forward above
+  D=128 (flash_f32.cu: flash_fwd_f32_wide_kernel) and its dK/dV
+  (flash_dkv_f32_kernel, at every width) take every product as hi·hi alone,
+  one pass (the forward's S and P·V, dK/dV's Sᵀ, dPᵀ, dV and dK).
 - ``f32w_fwd_drop_chunk``, ``f32w_dkv_drop_chunk``: the same kernels leave
   D's second 32-column chunk out of every S (the forward) or every Sᵀ and
-  dPᵀ (dK/dV), its stage still loaded, waited on and released.
+  dPᵀ (dK/dV), its stage still loaded, waited on and released (dK/dV's
+  products still issued and waited on).
+- ``f32_dkv_natural_order``: fp32's dK/dV prologue
+  (flash_f32_split_dkv_kernel) writes Qᵀ and dOᵀ with the queries in their
+  natural order, not in the order PERM that the A fragments of Pᵀ and dSᵀ
+  take, so that dV and dK pair each query's P and dS with another query's
+  dO and Q within each group of 8.
 - ``dqc_f16_drop_chunk``: fp16's dQ above D=512 (flash_dq_wide.cu's
   flash_dq_chunked_kernel) leaves D's second 64-column chunk out of every
   S (its products still issued and waited on, its stage released).
@@ -66,7 +73,8 @@ fp32 under chip_smoke.py's fp32 bars, and the chunked forward's at D=640
 bars, the fp32 wide ones at the wide shape in fp32 under the fp32
 bars, the fp16 dQ and dK/dV above D=512 at D=640 under the fp16 bars,
 and fp32's TF32 dQ, its one pass at the main shape and its dropped chunk
-at the wide one, under the fp32 bars, each required to break the bars of
+at the wide one, and fp32's dK/dV prologue in natural order at the main
+shape, under the fp32 bars, each required to break the bars of
 its own kernel (O for the
 forward, dK and dV for dK/dV, which runs on the sound forward's lse when
 the fault is its own), the fp16 and fp32 dQ and dK/dV ones no bar of
@@ -124,18 +132,31 @@ _F32W_PV = ("""        wgmma_rs_tf32<CW>(acc, pl[kk], vhid + vk);
         wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);
 """, """        wgmma_rs_tf32<CW>(acc, ph[kk], vhid + vk);
 """)
-# dK/dV's products, each as mma3(c, a_hi, a_lo, b0, b1): one pass is
-# mma_tf32(c, a_hi, b0.hi, b1.hi)
-_F32W_MMA = tuple(
-    (f"mma3({c}[n], {a}h, {a}l, split({t}[at(BM, {r}, {col})]),\n"
-     f"{pad}split({t}[at(BM, {r2}, {col2})]));",
-     f"mma_tf32({c}[n], {a}h, split({t}[at(BM, {r}, {col})]).hi,\n"
-     f"{pad}split({t}[at(BM, {r2}, {col2})]).hi);")
-    for c, a, t, r, col, r2, col2, pad in (
-        ("sta", "kf", "qc", "r", "col", "r", "col + 4", " " * 19),
-        ("dpa", "vf", "doc", "r", "col", "r", "col + 4", " " * 19),
-        ("dva", "pf", "dow", "r", "cc", "r + 1", "cc", " " * 17),
-        ("dka", "sf", "qw", "r", "cc", "r + 1", "cc", " " * 17)))
+# fp32's TF32 dK/dV (flash_dkv_f32_kernel): each chunk's small terms of Sᵀ
+# and dPᵀ, then its hi·hi terms; one pass keeps the hi·hi loop alone, which
+# then starts the chunk's accumulator. dV += Pᵀ·dO and dK += dSᵀ·Q in three
+# passes a k-step.
+_F32DKV_S = tuple((
+    f"        wgmma_ss_tf32<BM>({c}, kh + {lo} + a, qh + {bh}bk, kk > 0);\n"
+    f"        wgmma_ss_tf32<BM>({c}, kh + {hi}a, qh + {bl} + bk, 1);\n"
+    "      }\n#pragma unroll\n"
+    "      for (int kk = 0; kk < KC / 8; ++kk)\n"
+    f"        wgmma_ss_tf32<BM>({c}, kh + {hi}kmajor_step(64, kk),\n"
+    f"                          qh + {bh}kmajor_step(BM, kk), 1);\n",
+    "        (void)a;\n        (void)bk;\n"
+    "      }\n#pragma unroll\n"
+    "      for (int kk = 0; kk < KC / 8; ++kk)\n"
+    f"        wgmma_ss_tf32<BM>({c}, kh + {hi}kmajor_step(64, kk),\n"
+    f"                          qh + {bh}kmajor_step(BM, kk), kk > 0);\n")
+    for c, lo, hi, bh, bl in (("ps", "KV", "", "", "T"),
+                              ("pp", "3 * KV", "2 * KV + ", "2 * T + ",
+                               "3 * T")))
+_F32DKV_PV = tuple((
+    f"        wgmma_rs_tf32<CW>({c}, al[kk], {b});\n"
+    f"        wgmma_rs_tf32<CW>({c}, ah[kk], {b} + TR);\n"
+    f"        wgmma_rs_tf32<CW>({c}, ah[kk], {b});\n",
+    f"        wgmma_rs_tf32<CW>({c}, ah[kk], {b});\n")
+    for c, b in (("dva", "dth"), ("dka", "bq")))
 # fp32's TF32 dQ (flash_dq_f32_kernel): each chunk's small terms of S and
 # dP, then its hi·hi terms; one pass keeps the hi·hi loop alone, which then
 # starts the chunk's accumulator. dQ += dS·K in three passes.
@@ -217,8 +238,10 @@ FAULTS = {
         "flash_f32.cu", (_F32W_S[0], _F32W_PV[0]), (_F32W_S[1], _F32W_PV[1]),
         WIDE_SHAPE, torch.float32),
     "f32w_dkv_one_pass": (
-        "flash_f32.cu", tuple(o for o, _ in _F32W_MMA),
-        tuple(n for _, n in _F32W_MMA), WIDE_SHAPE, torch.float32),
+        "flash_f32.cu:flash_dkv_f32_kernel",
+        tuple(o for o, _ in _F32DKV_S + _F32DKV_PV),
+        tuple(n for _, n in _F32DKV_S + _F32DKV_PV), WIDE_SHAPE,
+        torch.float32),
     "f32w_fwd_drop_chunk": (
         "flash_f32.cu",
         "      for (int kk = 0; kk < KC / 8; ++kk) {\n"
@@ -227,10 +250,15 @@ FAULTS = {
         "        const uint32_t qs = kmajor_step(BM, kk)",
         WIDE_SHAPE, torch.float32),
     "f32w_dkv_drop_chunk": (
-        "flash_f32.cu",
-        "        if (live) {\n          const float* kc = stage(s);",
-        "        if (live && c != 1) {\n          const float* kc = stage(s);",
+        "flash_f32.cu:flash_dkv_f32_kernel",
+        "          st[e] += ps[e];\n          dpt[e] += pp[e];\n",
+        "          st[e] += c == 1 ? 0.f : ps[e];\n"
+        "          dpt[e] += c == 1 ? 0.f : pp[e];\n",
         WIDE_SHAPE, torch.float32),
+    "f32_dkv_natural_order": (
+        "flash_f32.cu:flash_f32_split_dkv_kernel",
+        "  const int src = (tx & ~7) + perm8(tx & 7);\n",
+        "  const int src = tx;\n", MAIN_SHAPE, torch.float32),
     "dqc_f16_drop_chunk": (
         "flash_dq_wide.cu:flash_dq_chunked_kernel",
         "        for (int e = 0; e < BN / 2; ++e) sc[e] += part[e];\n",
@@ -259,13 +287,17 @@ MUST_BREAK = {"f32w_fwd_one_pass": ("o_row",),
               "f32w_fwd_drop_chunk": ("o_row",),
               "f32w_dkv_one_pass": ("dk_row", "dv_row"),
               "f32w_dkv_drop_chunk": ("dk_row", "dv_row"),
+              "f32_dkv_natural_order": ("dk_row", "dv_row"),
               "dqc_f16_drop_chunk": ("dq_row",),
               "dkvc_f16_no_rescale": ("dk_row",),
               "f32_dq_one_pass": ("dq_row",),
               "f32_dq_drop_chunk": ("dq_row",)}
 # The faults that must break no bar but those of their own kernel (K2's dQ
 # and δ, K3's dK and dV).
-OWN_BARS = {"dqc_f16_drop_chunk": ("dq_row", "delta"),
+OWN_BARS = {"f32w_dkv_one_pass": ("dk_row", "dv_row"),
+            "f32w_dkv_drop_chunk": ("dk_row", "dv_row"),
+            "f32_dkv_natural_order": ("dk_row", "dv_row"),
+            "dqc_f16_drop_chunk": ("dq_row", "delta"),
             "dkvc_f16_no_rescale": ("dk_row", "dv_row"),
             "f32_dq_one_pass": ("dq_row", "delta"),
             "f32_dq_drop_chunk": ("dq_row", "delta")}

@@ -417,7 +417,8 @@ def test_fp32_tensor_core_kernels_match_their_model(cuda, B, H, Sq, Sk, D,
     at SIMT_LIMITS[float32] and against the plain model of their arithmetic
     (tests/torch_f32x3_model.py, at each kernel's tiling) at
     F32_MODEL_TOL. dK/dV runs on the kernel forward's lse and the plain
-    version's δ, as does its model."""
+    version's δ, as does its model, and is launched twice, bitwise
+    equal."""
     import torch_f32x3_model as model
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[torch.float32]
@@ -427,11 +428,13 @@ def test_fp32_tensor_core_kernels_match_their_model(cuda, B, H, Sq, Sk, D,
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
     _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
                                             q_off)
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_f32=1, flash_dkv_f32=1)
+        flash_fwd_f32=1, flash_dkv_f32=2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert row_err(o, o_ref) <= limits["o_row"]
     assert (lse - lse_ref).abs().max().item() <= limits["lse"]
     assert row_err(dk, dk_ref) <= limits["dk_row"]
@@ -557,9 +560,11 @@ def test_fp32_wide_kernels_match_their_model(cuda, B, H, Sq, Sk, D, causal,
     chunk of D can get wrong, against the plain versions at
     SIMT_LIMITS[float32] and against the plain model of their arithmetic
     (tests/torch_f32x3_model.py at their tiling: S, Sᵀ and dPᵀ over
-    32-column chunks of D, the output in 128-column chunks) at
+    32-column chunks of D, Sᵀ's and dPᵀ's each summed apart, the output in
+    128-column chunks) at
     F32_MODEL_TOL. dK/dV runs on the kernel forward's lse and the plain
-    version's δ, as does its model."""
+    version's δ, as does its model, and is launched twice, bitwise
+    equal."""
     import torch_f32x3_model as model
     from chip_smoke import SIMT_LIMITS
     limits = SIMT_LIMITS[torch.float32]
@@ -569,11 +574,13 @@ def test_fp32_wide_kernels_match_their_model(cuda, B, H, Sq, Sk, D, causal,
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
     _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
     dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
                                             q_off)
     torch.cuda.synchronize()
     assert {n: fa.launches[n] - before[n] for n in before} == _counts(
-        flash_fwd_f32_wide=1, flash_dkv_f32_wide=1)
+        flash_fwd_f32_wide=1, flash_dkv_f32_wide=2)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     errs = {"o_row": row_err(o, o_ref),
             "lse": (lse - lse_ref).abs().max().item(),
             "dk_row": row_err(dk, dk_ref), "dv_row": row_err(dv, dv_ref)}
@@ -643,6 +650,62 @@ def test_fp32_dq_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off):
                    / dq_m.abs().max()).item(),
             "delta": (delta.cpu() - delta_m).abs().max().item()}
     print("f32 dq model", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(e <= F32_MODEL_TOL for e in errs.values()), errs
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (1, 2, 256, 256, 64, True, 0),
+    (2, 1, 200, 200, 64, False, 0),      # ragged, non-causal
+    (1, 2, 1000, 1000, 64, True, 0),     # neither a multiple of 64 nor 128
+    (1, 2, 130, 500, 64, True, 370),     # a query slice behind an offset
+    (1, 1, 200, 333, 64, False, 0),      # B·H = 1, Sq ≠ Sk, non-causal
+    (2, 2, 65, 65, 64, True, 0),         # Sq = 65: a tile of one row
+    (2, 2, 1, 64, 64, False, 0),         # one query: dSᵀ sums to 0
+    (1, 2, 192, 192, 128, True, 0),
+    (2, 1, 200, 333, 128, False, 0),
+    (1, 1, 65, 700, 128, True, 635),
+    (1, 2, 256, 256, 256, True, 0),
+    (2, 1, 200, 200, 256, False, 0),
+    (1, 2, 1000, 1000, 256, True, 0),
+    (1, 2, 130, 500, 256, True, 370),
+    (1, 1, 200, 333, 384, False, 0),
+    (2, 1, 65, 65, 384, True, 0),        # Sq = 65
+    (1, 2, 192, 192, 512, True, 0),
+    (1, 1, 130, 200, 640, True, 70),
+])
+def test_fp32_dkv_matches_its_model(cuda, B, H, Sq, Sk, D, causal, q_off):
+    """fp32's TF32 dK/dV (flash_dkv_f32_kernel: `flash_dkv_f32` up to
+    D=128, `flash_dkv_f32_wide` above) at the edges a ring, a tile or a
+    chunk of D can get wrong, on the kernel forward's lse and the plain δ:
+    against the plain version in fp64 at SIMT_LIMITS[float32] (dk_row,
+    dv_row), against the plain model of its arithmetic
+    (tests/torch_f32x3_model.py `dkv`: Sᵀ and dPᵀ over 32-column chunks,
+    each summed apart, dK and dV in min(D, 128)-column chunks) at
+    F32_MODEL_TOL, and launched twice, bitwise equal."""
+    import torch_f32x3_model as model
+    from chip_smoke import SIMT_LIMITS
+    limits = SIMT_LIMITS[torch.float32]
+    q, k, v, do = _f32_inputs(B, H, Sq, Sk, D, Sq + Sk + D + 2)
+    o, lse = fa.flash_fwd(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    before = dict(fa.launches)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    dk2, dv2 = fa.flash_dkv(q, k, v, do, lse, delta, causal, q_off)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            q_off, acc=torch.float64)
+    torch.cuda.synchronize()
+    kernel = "flash_dkv_f32" if D <= 128 else "flash_dkv_f32_wide"
+    assert {n: fa.launches[n] - before[n] for n in before} == _counts(
+        **{kernel: 2})
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    errs = {"dk_row": row_err(dk, dk_ref), "dv_row": row_err(dv, dv_ref)}
+    print("f32 dkv plain", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(errs[n] <= limits[n] for n in errs), errs
+    cpu = [t.cpu() for t in (q, k, v, do, lse, delta)]
+    dk_m, dv_m = model.dkv(*cpu, causal, q_off, D ** -0.5)
+    errs = {n: ((got.cpu() - ref).abs().max() / ref.abs().max()).item()
+            for n, got, ref in (("dk", dk, dk_m), ("dv", dv, dv_m))}
+    print("f32 dkv model", B, H, Sq, Sk, D, causal, q_off, errs)
     assert all(e <= F32_MODEL_TOL for e in errs.values()), errs
 
 

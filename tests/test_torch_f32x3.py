@@ -9,19 +9,30 @@ The bars are chip_smoke.py's `SIMT_LIMITS[float32]`, which hold the
 kernels on the card: O, dK, dV row by row at 1e-4 (`row_err`), lse at 1e-4
 absolute. The one-pass model (hi·hi alone, what the kernels compute if the
 lo terms are dropped: scripts/torch_planted_fault.py's ``f32_one_pass``)
-breaks them, so the bars tell the sound arithmetic from that fault. The card
-tests of the kernels against the same model are
+breaks them, so the bars tell the sound arithmetic from that fault. dK and
+dV are held against the plain version computed in fp64 (its fp32 rounding
+reads up to 1.8e-5 against its fp64 value on a single query's keys). The
+card tests of the kernels against the same model are
 `test_torch_cuda.py::test_fp32_tensor_core_kernels_match_their_model`.
 
-Above D=128 the model takes the wide kernels' tiling (``flash_f32.cu``:
-``voda_flash_fwd_f32_wide``, ``voda_flash_dkv_f32_wide``): S, Sᵀ and dPᵀ
-summed over D's 32-column chunks, the output in 128-column chunks, 64-key
-tiles in the forward and 32-row query tiles in dK/dV. It is held against
-the Pallas kernels at D=256 and against the plain versions at D=384 and
-640, at the same bars, and the one-pass model and a model that leaves D's
-second chunk out of every sum (the planted faults ``f32w_*`` of
-scripts/torch_planted_fault.py) must break them. The card tests are
+Above D=128 the model takes the wide forward's tiling (``flash_f32.cu``:
+``voda_flash_fwd_f32_wide``): S summed over D's 32-column chunks, O in
+128-column chunks, 64-key tiles. It is held against the Pallas kernels at
+D=256 and against the plain versions at D=384 and 640, at the same bars,
+and the one-pass model and a model that leaves D's second chunk out of
+every sum (the planted faults ``f32w_*`` of scripts/torch_planted_fault.py)
+must break them. The card tests are
 `test_torch_cuda.py::test_fp32_wide_kernels_match_their_model`.
+
+K3 (``voda_flash_dkv_f32``, ``voda_flash_dkv_f32_wide``: one kernel at
+every width) is modelled by `model.dkv`: Sᵀ and dPᵀ over 32-column chunks
+of D, each chunk's passes summed apart, 64-row query tiles at D=64 and 32
+from D=128, dK and dV in min(D, 128)-column chunks. Beside the cases above
+it is held, at the dk_row and dv_row bars against the plain version in
+fp64, on one query whose dSᵀ sums to zero over the keys (Sq = 1,
+non-causal) and at Sq = 65; its one-pass model and a model that leaves D's
+second chunk out of Sᵀ and dPᵀ break dk_row tenfold and dv_row beyond its
+bar (the planted faults ``f32w_dkv_one_pass`` and ``f32w_dkv_drop_chunk``).
 
 K2 (``voda_flash_dq_f32``, ``voda_flash_dq_f32_wide``: one kernel at every
 width) has a model of its own, `model.dq`: S and dP over 32-column chunks
@@ -147,13 +158,13 @@ def test_three_passes_match_pallas_and_plain(B, H, Sq, Sk, D, causal, q_off):
 
 
 def _plain(q, k, v, do, got, causal, q_off):
-    """(o, lse, dk, dv) of the port's plain versions, K3 on the model's lse
-    and the plain δ."""
+    """(o, lse, dk, dv) of the port's plain versions, K3 computed in fp64
+    on the model's lse and the plain δ."""
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, q_off)
     _, delta = fa.flash_dq_reference(q, k, v, got[0], do, got[1], causal,
                                      q_off)
     dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, got[1], delta,
-                                            causal, q_off)
+                                            causal, q_off, acc=torch.float64)
     return o_ref, lse_ref, dk_ref, dv_ref
 
 
@@ -319,3 +330,57 @@ def test_dq_faults_break_the_bar_tenfold(fault, D):
     assert all(sound[n] <= LIMITS[n] for n in sound), sound
     assert faulty["dq_row"] > 10 * LIMITS["dq_row"], faulty
     assert faulty["delta"] == sound["delta"]
+
+
+def _dkv_errors(q, k, v, do, causal, q_off, **fault) -> dict:
+    """dk_row and dv_row of K3's model (`fault`: passes=1 or drop_chunk=1)
+    against the plain version computed in fp64, on the plain forward's lse
+    and the plain δ."""
+    D = q.shape[-1]
+    o, lse = fa.flash_attention_reference(q, k, v, causal, q_off)
+    _, delta = fa.flash_dq_reference(q, k, v, o, do, lse, causal, q_off)
+    dk, dv = model.dkv(q, k, v, do, lse, delta, causal, q_off, D ** -0.5,
+                       **fault)
+    dk_ref, dv_ref = fa.flash_dkv_reference(q, k, v, do, lse, delta, causal,
+                                            q_off, acc=torch.float64)
+    return {"dk_row": chip_smoke.row_err(dk, dk_ref),
+            "dv_row": chip_smoke.row_err(dv, dv_ref)}
+
+
+@pytest.mark.parametrize("B,H,Sq,Sk,D,causal,q_off", [
+    (2, 2, 1, 64, 64, False, 0),      # one query: Σ over the keys of dSᵀ is 0
+    (2, 2, 1, 200, 256, False, 0),
+    (1, 2, 65, 65, 64, True, 0),      # Sq = 65: a tile of one row
+    (2, 1, 65, 65, 384, True, 0),
+])
+def test_dkv_holds_one_query_and_a_ragged_tile(B, H, Sq, Sk, D, causal,
+                                               q_off):
+    """K3's model on a single query (dSᵀ = P∘(dP − δ)·scale, whose sum over
+    the keys cancels: δ is P's weighted dP) and at Sq = 65, where the last
+    query tile holds one row, the rest TMA's zeros, masked: within the
+    dk_row and dv_row bars of the plain version in fp64."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(B, H, Sq, Sk, D, Sq + D + 2))
+    errs = _dkv_errors(q, k, v, do, causal, q_off)
+    print("parity f32x3 dkv edge", B, H, Sq, Sk, D, causal, q_off, errs)
+    assert all(errs[n] <= LIMITS[n] for n in errs), errs
+
+
+@pytest.mark.parametrize("fault", ["one_pass", "drop_chunk"])
+@pytest.mark.parametrize("D", [64, 256])
+def test_dkv_faults_break_the_bars(fault, D):
+    """A causal head of 1024, as phase 3's cases: K3's one-pass model (hi·hi
+    alone in Sᵀ, dPᵀ, dV and dK) and a model whose Sᵀ and dPᵀ leave D's
+    second 32-column chunk out read dk_row above ten times its bar and
+    dv_row above its bar (one pass: dk_row 1.7e-3 to 1.9e-3, dv_row 1.0e-3
+    to 1.2e-3; the dropped chunk above 0.6), where the sound model reads
+    below both against the plain version in fp64."""
+    q, k, v, do = (torch.from_numpy(x)
+                   for x in _inputs(1, 2, 1024, 1024, D, 7))
+    sound = _dkv_errors(q, k, v, do, True, 0)
+    kw = {"passes": 1} if fault == "one_pass" else {"drop_chunk": 1}
+    faulty = _dkv_errors(q, k, v, do, True, 0, **kw)
+    print("parity f32x3 dkv fault", fault, D, sound, faulty)
+    assert all(sound[n] <= LIMITS[n] for n in sound), sound
+    assert faulty["dk_row"] > 10 * LIMITS["dk_row"], faulty
+    assert faulty["dv_row"] > LIMITS["dv_row"], faulty

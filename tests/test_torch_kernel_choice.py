@@ -137,8 +137,9 @@ def test_fp32_takes_the_tf32_forward_and_dkv_at_every_width(D, monkeypatch):
     """fp32's forward, dQ and dK/dV run on the tensor cores in three TF32
     passes at every width (flash_f32.cu): `_f32` up to a head width of 128,
     `_f32_wide` above it, each counted apart. Both forwards take their
-    scratch after lse and both dQ entries after dq, one pointer more than
-    the CUDA-core kernels, and the wrapper passes it."""
+    scratch after lse, both dQ entries after dq and both dK/dV entries
+    after dv, one pointer more than the CUDA-core kernels, and the wrapper
+    passes it."""
     width = fa.kernel_head_dim(D)
     suffix = "_f32" if width in fa.HEAD_DIMS else "_f32_wide"
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
@@ -148,9 +149,9 @@ def test_fp32_takes_the_tf32_forward_and_dkv_at_every_width(D, monkeypatch):
         assert kernel in fa.TF32_KERNELS and kernel not in fa.SIMT_KERNELS
         assert kernel in fa.launches and kernel in fa._ARGTYPES
         assert fa.counted(kernel, width) == kernel
-    assert fa._ARGTYPES["flash_dkv" + suffix] == fa._ARGTYPES["flash_dkv"]
-    fwd, dq = "flash_fwd" + suffix, "flash_dq" + suffix
-    for kernel in (fwd, dq):
+    fwd, dq, dkv = ("flash_fwd" + suffix, "flash_dq" + suffix,
+                    "flash_dkv" + suffix)
+    for kernel in (fwd, dq, dkv):
         assert kernel in fa.F32_SCRATCH
         assert len(fa._ARGTYPES[kernel]) == len(fa._ARGTYPES[
             kernel.replace(suffix, "_f32_simt")]) + 1
@@ -160,8 +161,11 @@ def test_fp32_takes_the_tf32_forward_and_dkv_at_every_width(D, monkeypatch):
     q = torch.zeros(1, 3, 1, width, dtype=torch.float32)
     fa.flash_fwd(q, q, q, True, 0)
     fa.flash_dq(q, q, q, q, q, torch.zeros(1, 1, 3), True, 0)
+    fa.flash_dkv(q, q, q, q, torch.zeros(1, 1, 3), torch.zeros(1, 1, 3),
+                 True, 0)
     # the stream is the one argument _launch adds
-    assert launched == [(k, k, len(fa._ARGTYPES[k]) - 1) for k in (fwd, dq)]
+    assert launched == [(k, k, len(fa._ARGTYPES[k]) - 1)
+                        for k in (fwd, dq, dkv)]
     assert "flash_dq_f32" not in fa.SIMT_KERNELS
 
 
@@ -191,6 +195,23 @@ def test_the_tf32_dq_scratch_holds_the_split_k_v_and_kt():
         assert t.numel() == 4 * B * Sk * H * D + 2 * B * H * D * skp
     text = (_build.CSRC / "flash_f32.cu").read_text()
     assert "2·B·H·D·(2·Sk + SkP) floats" in text
+
+
+def test_the_tf32_dkv_scratch_holds_every_operands_halves():
+    """Q_hi, Q_lo, dO_hi, dO_lo ([B, Sq, H, D]), K_hi, K_lo, V_hi, V_lo ([B,
+    Sk, H, D]) and Qᵀ_hi, Qᵀ_lo, dOᵀ_hi, dOᵀ_lo ([B, H, D, SqP], SqP = Sq
+    rounded up to 8), as flash_f32.cu's SplitDkv slices it for dK/dV at
+    every width."""
+    for B, H, Sq, Sk, D in ((2, 3, 200, 200, 64), (1, 1, 8, 24, 128),
+                            (1, 2, 1, 64, 64), (2, 1, 65, 333, 256),
+                            (1, 2, 65, 65, 640)):
+        sqp = -(-Sq // 8) * 8
+        t = fa.f32_scratch(B, H, Sk, D, CPU, "flash_dkv", Sq)
+        assert t.dtype == torch.float32
+        assert t.numel() == (4 * B * Sq * H * D + 4 * B * Sk * H * D
+                             + 4 * B * H * D * sqp)
+    text = (_build.CSRC / "flash_f32.cu").read_text()
+    assert "4·B·H·D·(Sq + Sk + SqP) floats" in text
 
 
 @pytest.mark.parametrize("source,exports,lacks", [

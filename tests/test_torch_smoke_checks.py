@@ -38,10 +38,12 @@ DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
 DQW512 = DQW256.replace("ILi256E", "ILi512E")
 # the wmma dQ kernel above D=512 is not templated on its width
 DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
-# fp32's TF32 forward and dK/dV, templated on their width alone
+# fp32's TF32 forward, templated on its width alone
 FWD64_F32 = "_ZN4voda3f3220flash_fwd_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiif"
-DKV64_F32 = "_ZN4voda3f3220flash_dkv_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PfS5_iiiiif"
 FWD128_F32 = FWD64_F32.replace("ILi64E", "ILi128E")
+# fp32's TF32 dK/dV, one kernel at every width, templated on its chunk of
+# dK and dV: CW=64 at D=64, CW=128 at D=128 and above
+DKV64_F32 = "_ZN4voda3f3220flash_dkv_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_S2_S2_S2_S2_S2_S2_S2_S2_PKfS4_PfS5_iiiiiif"
 DKV128_F32 = DKV64_F32.replace("ILi64E", "ILi128E")
 # the forward above D=512, templated on its chunk of O (CW) and element
 # type: D=640 runs CW=128
@@ -53,10 +55,9 @@ DQC128_F16 = "_ZN4voda23flash_dq_chunked_kernelILi128E6__halfEEv14CUtensorMap_st
 DKVC128_F16 = "_ZN4voda24flash_dkv_chunked_kernelILi128E6__halfEEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiiif"
 DQC256_F16 = DQC128_F16.replace("ILi128E", "ILi256E")
 DKVC256_F16 = DKVC128_F16.replace("ILi128E", "ILi256E")
-# fp32's TF32 forward and dK/dV above D=128, templated on their chunk of
-# the output alone (CW=128 runs every width)
+# fp32's TF32 forward above D=128, templated on its chunk of O alone
+# (CW=128 runs every width)
 FWDW128_F32 = "_ZN4voda3f3225flash_fwd_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiiif"
-DKVW128_F32 = "_ZN4voda3f3225flash_dkv_f32_wide_kernelILi128EEEv14CUtensorMap_stS2_S2_S2_PKfS4_PfS5_iiiiiif"
 # fp32's TF32 dQ, one kernel at every width, templated on its chunk of dQ:
 # CW=64 at D=64, CW=128 at D=128 and above
 DQ64_F32 = "_ZN4voda3f3219flash_dq_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_S2_S2_S2_S2_PKfS4_S4_PfS5_iiiiiif"
@@ -68,7 +69,7 @@ MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
                   (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0),
                   (DQC128_F16, 0, 0), (DKVC128_F16, 0, 0),
-                  (FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0),
+                  (FWDW128_F32, 0, 0), (DKV128_F32, 0, 0),
                   (DQ128_F32, 0, 0))
 WIDE_CLEAN = ((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
               *WIDE_F16_CLEAN)
@@ -131,9 +132,10 @@ def test_ptxas_spills_reads_every_kernel_and_head_dim():
      "flash_dq_f16 D=64: 16 bytes spilled"),
     (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DQ128_F16, 0, 0)),
      "flash_dq_f16 D=64: no ptxas spill line"),
-    # fp32's TF32 forward and dK/dV, gated as the bf16 ones
+    # fp32's TF32 forward and dK/dV, gated as the bf16 ones (dK/dV by its
+    # chunk of the output, CW=64 at D=64)
     (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (DKV64_F32, 320, 304)),
-     "flash_dkv_f32 D=64: 624 bytes spilled"),
+     "flash_dkv_f32 CW=64: 624 bytes spilled"),
     (((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), (FWD128_F32, 0, 0)),
      "flash_fwd_f32 D=64: no ptxas spill line"),
     # fp32's TF32 dQ at D=64 (CW=64); its CW=128 line does not stand for it
@@ -177,7 +179,7 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
                       ("flash_dq_chunked_f16", 128): 0,
                       ("flash_dkv_chunked_f16", 128): 0,
                       ("flash_fwd_f32_wide", 128): 0,
-                      ("flash_dkv_f32_wide", 128): 0,
+                      ("flash_dkv_f32", 128): 0,
                       ("flash_fwd_wide", 512): 1132,
                       ("flash_dkv_wide", 384): 0,
                       ("flash_dkv_f16_wide", 512): 32}
@@ -356,23 +358,24 @@ def test_the_chunked_backward_phase_fails_on_a_broken_bar_or_count(
 
 
 @pytest.mark.parametrize("f32w,fault", [
-    (((FWDW128_F32, 0, 0), (DKVW128_F32, 6, 6)),
-     "flash_dkv_f32_wide CW=128: 12 bytes spilled"),
-    (((FWDW128_F32, 8, 0), (DKVW128_F32, 0, 0)),
+    (((FWDW128_F32, 0, 0), (DKV128_F32, 6, 6)),
+     "flash_dkv_f32 CW=128: 12 bytes spilled"),
+    (((FWDW128_F32, 8, 0), (DKV128_F32, 0, 0)),
      "flash_fwd_f32_wide CW=128: 8 bytes spilled"),
-    # the D ≤ 128 kernels' lines do not stand for the wide ones
-    (((FWDW128_F32, 0, 0), (DKV128_F32, 0, 0)),
-     "flash_dkv_f32_wide CW=128: no ptxas spill line"),
+    # dK/dV's line at CW=64 does not stand for CW=128
+    (((FWDW128_F32, 0, 0), (DKV64_F32, 0, 0)),
+     "flash_dkv_f32 CW=128: no ptxas spill line"),
     # fp32's TF32 dQ at CW=128 (D=128 and every width above)
-    (((FWDW128_F32, 0, 0), (DKVW128_F32, 0, 0), (DQ128_F32, 4, 4)),
+    (((FWDW128_F32, 0, 0), (DKV128_F32, 0, 0), (DQ128_F32, 4, 4)),
      "flash_dq_f32 CW=128: 8 bytes spilled"),
 ])
 def test_spill_faults_refuse_a_spill_in_the_fp32_wide_kernels(f32w, fault):
-    """fp32's TF32 forward and dK/dV above D=128 are gated at their one
-    instantiation (CW=128, which D=256 runs), and so is its dQ at CW=128;
-    the main path's gate alone does not look at them."""
+    """fp32's TF32 forward above D=128 is gated at its one instantiation
+    (CW=128, which D=256 runs), and so are its dQ and dK/dV at CW=128, which
+    D=128 and every width above run; the main path's gate alone does not
+    look at them."""
     others = untouched(WIDE_CLEAN, ((FWDW128_F32, 0, 0),
-                                    (DKVW128_F32, 0, 0), *f32w))
+                                    (DKV128_F32, 0, 0), *f32w))
     spills = chip_smoke.ptxas_spills(log_of(*MAIN_CLEAN, *others, *f32w))
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == [fault]
     assert chip_smoke.spill_faults(spills) == []
@@ -394,7 +397,7 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_dq_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_f32_wide", 128) in chip_smoke.SPILL_GATES
-    assert ("flash_dkv_f32_wide", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dkv_f32", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dq_f32", 64) in chip_smoke.SPILL_GATES
     assert ("flash_dq_f32", 128) in chip_smoke.SPILL_GATES
     assert chip_smoke.spill_faults(spills, chip_smoke.SPILL_GATES) == []

@@ -1,8 +1,8 @@
 """A plain PyTorch model of the fp32 tensor-core kernels' arithmetic
 (``vodascheduler_tpu_torch/ops/csrc/flash_f32.cu``: the forward,
-``voda_flash_fwd_f32``, and dK/dV, ``voda_flash_dkv_f32``), written apart
-from the package so that the tests hold the kernels' design, and the
-kernels themselves, against it.
+``voda_flash_fwd_f32``, dQ, ``voda_flash_dq_f32``, and dK/dV,
+``voda_flash_dkv_f32``), written apart from the package so that the tests
+hold the kernels' design, and the kernels themselves, against it.
 
 Every product a·b of fp32 inputs is three TF32 products summed in fp32:
 hi = tf32(x), lo = tf32(x − hi), a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi,
@@ -15,20 +15,27 @@ kernels compute without the lo terms.
 D=64, 32 at D=128, 64 above) with the online softmax: S = Q·Kᵀ, the running
 max and sum, P = exp(S·scale − m) split and multiplied by V with the keys
 of each k-step in the kernel's order PERM (Vᵀ's order in the kernel's
-scratch), O rescaled by each tile's correction. `dkv` walks the query tiles
-of `dkv_tiling` (64 rows at D=64, 32 from D=128): Sᵀ = K·Qᵀ and dPᵀ =
-V·dOᵀ, Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale, then dV +=
-Pᵀ·dO and dK += dSᵀ·Q with the queries of each k-step in the order PERM.
-Inputs and outputs are [B, S, H, D] fp32 (lse and δ [B, H, Sq]), as the
-kernels take them.
+scratch), O rescaled by each tile's correction. Inputs and outputs are
+[B, S, H, D] fp32 (lse and δ [B, H, Sq]), as the kernels take them.
 
-Above D=128 the kernels (``voda_flash_fwd_f32_wide``,
-``voda_flash_dkv_f32_wide``) sum the products over D (S in the forward, Sᵀ
-and dPᵀ in dK/dV) chunk by chunk of WIDE_KC columns, in the same k-steps
-in the same order, and own WIDE_CW columns of the output a CTA, each CTA
-computing the same S: both functions do the same at those widths (`cut`),
-and `drop_chunk` leaves one chunk of D out of every such sum, as a kernel
-that skipped a stage's products would.
+Above D=128 the forward (``voda_flash_fwd_f32_wide``) sums S over D chunk
+by chunk of WIDE_KC columns into one accumulator, in the same k-steps in
+the same order, and owns WIDE_CW columns of O a CTA, each CTA computing the
+same S: `fwd` does the same at those widths (`cut`), and `drop_chunk`
+leaves one chunk of D out of every S, as a kernel that skipped a stage's
+products would.
+
+`dkv` models K3 (``voda_flash_dkv_f32``, ``voda_flash_dkv_f32_wide``: one
+kernel at every width) at its tiling: for each query tile of `dkv_tiling`
+rows (64 at D=64, 32 from D=128), the last tile first, as the kernel
+walks them, Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over D's
+WIDE_KC-column chunks, each chunk's three passes summed apart (the small
+terms first) and the chunks' sums added in fp32 (`mm3_parts`); Pᵀ =
+exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale, then dV += Pᵀ·dO and dK +=
+dSᵀ·Q in three passes a k-step with the queries of each k-step in the
+order PERM (Qᵀ's and dOᵀ's order in the kernel's scratch), over min(D,
+WIDE_CW) columns of the output a CTA, each CTA computing the same Sᵀ and
+dPᵀ (`bwd_cut`).
 
 `dq` models K2 (``voda_flash_dq_f32``, ``voda_flash_dq_f32_wide``: one
 kernel at every width) at its tiling: for each tile of DQ_BN keys, S =
@@ -38,7 +45,7 @@ fp32 (`mm3_parts`);
 P·scale = exp(S·scale − lse)·scale, dS = P·scale∘(dP − δ), then dQ += dS·K
 in three passes with the keys of each k-step in the order PERM (Kᵀ's order
 in the kernel's scratch), over min(D, WIDE_CW) columns of dQ a CTA, each
-CTA computing the same S and dP (`dq_cut`). δ = rowsum(dO∘O) in fp32.
+CTA computing the same S and dP (`bwd_cut`). δ = rowsum(dO∘O) in fp32.
 """
 
 import torch
@@ -85,8 +92,9 @@ def perm_index(n: int) -> torch.Tensor:
     return (base + torch.tensor(PERM)[None, :]).reshape(-1)
 
 
-# Above D=128: columns of the output a CTA owns (`FwdF32Wide`,
-# `DkvF32Wide`: CW) and columns of D a stage holds (KC).
+# Above D=128: columns of O a CTA of the forward owns (`FwdF32Wide`: CW);
+# at every width, of dQ and of dK and dV (`DqF32`, `DkvF32`: min(D, CW));
+# columns of D a stage holds (KC).
 WIDE_CW = 128
 WIDE_KC = 32
 
@@ -98,15 +106,22 @@ def fwd_tiling(D: int) -> int:
 
 
 def dkv_tiling(D: int) -> int:
-    """Query rows of a Q/dO tile of the fp32 dK/dV (`Dkv::BM`,
-    `DkvF32Wide::BM` above 128)."""
-    return 64 if D == 64 else 32
+    """Query rows of a Q/dO tile of the fp32 dK/dV (`DkvF32::BM`: 64 at
+    CW = 64, 32 at CW = 128)."""
+    return 64 if bwd_cut(D)[0] == 64 else 32
 
 
 def cut(D: int):
-    """(columns of the output a CTA owns, columns of D a stage holds) at
-    head width D: the whole of D up to 128, (WIDE_CW, WIDE_KC) above."""
+    """(columns of O a CTA of the forward owns, columns of D a stage
+    holds) at head width D: the whole of D up to 128, (WIDE_CW, WIDE_KC)
+    above."""
     return (D, D) if D <= 128 else (WIDE_CW, WIDE_KC)
+
+
+def bwd_cut(D: int):
+    """(columns of the output a CTA owns, columns of D a stage holds) of K2
+    and K3 at head width D: (min(D, WIDE_CW), WIDE_KC) at every width."""
+    return min(D, WIDE_CW), WIDE_KC
 
 
 def mm3_chunks(a: torch.Tensor, b: torch.Tensor, passes: int, kc: int,
@@ -186,14 +201,15 @@ def fwd(q, k, v, causal: bool, q_off: int, scale: float, passes: int = 3,
 
 def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
         passes: int = 3, drop_chunk=None):
-    """(dk, dv), each [B,Sk,H,D] fp32, as the fp32 dK/dV computes them on
-    the given lse and δ: for each chunk of the output's columns (`cut`), the
-    query tiles, Sᵀ and dPᵀ summed over D's chunks."""
+    """(dk, dv), each [B,Sk,H,D] fp32, as fp32's K3 computes them on the
+    given lse and δ: for each chunk of the output's columns (`bwd_cut`),
+    the query tiles, Sᵀ and dPᵀ summed over D's chunks apart
+    (`mm3_parts`)."""
     q, k, v, do = (t.float().transpose(1, 2) for t in (q, k, v, do))
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
     BM = dkv_tiling(D)
-    cw, kc = cut(D)
+    cw, kc = bwd_cut(D)
     nq = -(-Sq // BM)
     q, do = _pad(q, 2, nq * BM), _pad(do, 2, nq * BM)
     lse, delta = (_pad(t.float(), 2, nq * BM) for t in (lse, delta))
@@ -203,14 +219,14 @@ def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
     for c0 in range(0, D, cw):  # the CTAs of a key block
         dk = torch.zeros(B, H, Sk, cw)
         dv = torch.zeros(B, H, Sk, cw)
-        for i in range(nq):
+        for i in reversed(range(nq)):  # the kernel's order: the last first
             rows = i * BM + torch.arange(BM)
             qt = q[:, :, i * BM:(i + 1) * BM]
             dot = do[:, :, i * BM:(i + 1) * BM]
-            st = mm3_chunks(k, qt.transpose(-1, -2), passes, kc,
-                            drop_chunk)                      # [B,H,Sk,BM]
-            dpt = mm3_chunks(v, dot.transpose(-1, -2), passes, kc,
-                             drop_chunk)
+            st = mm3_parts(k, qt.transpose(-1, -2), passes, kc,
+                           drop_chunk)                       # [B,H,Sk,BM]
+            dpt = mm3_parts(v, dot.transpose(-1, -2), passes, kc,
+                            drop_chunk)
             off = _mask(rows, keys, Sq, Sk, causal, q_off).transpose(0, 1)
             p = torch.exp(st * scale - lse[:, :, None, i * BM:(i + 1) * BM])
             p = p.masked_fill(off, 0.0)
@@ -227,15 +243,9 @@ def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
 DQ_BN = 64
 
 
-def dq_cut(D: int):
-    """(columns of dQ a CTA owns, columns of D a stage holds) of K2 at head
-    width D: (min(D, WIDE_CW), WIDE_KC) at every width."""
-    return min(D, WIDE_CW), WIDE_KC
-
-
 def mm3_small_first(a: torch.Tensor, b: torch.Tensor,
                     passes: int = 3) -> torch.Tensor:
-    """a·b over the last axis of `a` in k-steps of 8, as K2 orders one
+    """a·b over the last axis of `a` in k-steps of 8, as K2 and K3 order one
     chunk's products: every k-step's a_lo·b_hi and a_hi·b_lo first, then
     every k-step's a_hi·b_hi (passes=3); a_hi·b_hi alone (passes=1)."""
     ah, al = split(a)
@@ -251,7 +261,7 @@ def mm3_small_first(a: torch.Tensor, b: torch.Tensor,
 
 def mm3_parts(a: torch.Tensor, b: torch.Tensor, passes: int, kc: int,
               drop_chunk=None) -> torch.Tensor:
-    """a·b over the last axis of `a` (D) as K2 sums it: each chunk of kc
+    """a·b over the last axis of `a` (D) as K2 and K3 sum it: each chunk of kc
     columns into an accumulator of its own (`mm3_small_first`), the chunks'
     sums added in fp32 in order; chunk `drop_chunk` (an index, or None)
     left out."""
@@ -266,12 +276,12 @@ def mm3_parts(a: torch.Tensor, b: torch.Tensor, passes: int, kc: int,
 def dq(q, k, v, o, do, lse, causal: bool, q_off: int, scale: float,
        passes: int = 3, drop_chunk=None):
     """(dq [B,Sq,H,D], delta [B,H,Sq]) as fp32's K2 computes them on the
-    given o and lse: for each chunk of dQ's columns (`dq_cut`), the key
+    given o and lse: for each chunk of dQ's columns (`bwd_cut`), the key
     tiles, S and dP summed over D's chunks apart (`mm3_parts`)."""
     q, k, v, o, do = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    cw, kc = dq_cut(D)
+    cw, kc = bwd_cut(D)
     nk = -(-Sk // DQ_BN)
     k, v = _pad(k, 2, nk * DQ_BN), _pad(v, 2, nk * DQ_BN)
     delta = (do * o).sum(-1)

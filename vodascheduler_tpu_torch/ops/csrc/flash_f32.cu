@@ -1,10 +1,10 @@
 // K1, K2 and K3 for fp32 inputs on Hopper's tensor cores (sm_90a): the
-// forward and dK/dV at head widths 64 and 128 (voda_flash_fwd_f32,
-// voda_flash_dkv_f32) and at every multiple of 128 above (the same
-// functions streaming D: voda_flash_fwd_f32_wide, voda_flash_dkv_f32_wide,
-// below the D ≤ 128 kernels), and dQ at every width, one kernel that
-// streams D (voda_flash_dq_f32 up to 128, voda_flash_dq_f32_wide above; at
-// the end of the file).
+// forward at head widths 64 and 128 (voda_flash_fwd_f32) and at every
+// multiple of 128 above (the same function streaming D:
+// voda_flash_fwd_f32_wide, below the D ≤ 128 kernel); dQ and dK/dV at every
+// width, one kernel each that streams D (voda_flash_dq_f32 and
+// voda_flash_dkv_f32 up to 128, voda_flash_dq_f32_wide and
+// voda_flash_dkv_f32_wide above; at the end of the file).
 //
 // Replace `_fwd_kernel`, `_dq_kernel` and `_dkv_kernel` in
 // vodascheduler_tpu/ops/flash_attention.py for a model that computes in
@@ -34,11 +34,12 @@
 // Bound on an H100 SXM: the card's fp32-accurate rate is TF32's 495 TFLOP/s
 // over three passes, 165 TFLOP/s. K1 does two products of 2·B·H·Sq·Sk·D
 // FLOPs, halved under the causal mask: 68.7 GFLOP at B=8, H=16, S=2048,
-// D=64, 0.417 ms, against 4·33.6 MB + lse ≈ 135 MB, 0.040 ms; K3 four,
-// 0.833 ms against 0.061 ms. Both are bound by operations, and so are the
-// wide kernels at the same B·H·D (B=8, H=4, D=256: the same 0.417 and 0.833
-// ms), where each of the D/128 CTAs of a row or key block computes the same
-// S, so that they do (D/128 + 1)/2 times the bound's operations.
+// D=64, 0.417 ms, against 4·33.6 MB + lse ≈ 135 MB, 0.040 ms; K2 three,
+// 0.625 ms; K3 four, 0.833 ms against 0.061 ms. All are bound by
+// operations, and so are they at the same B·H·D in heads of 256 (B=8, H=4),
+// where each of the D/128 CTAs of a row or key block computes the same S
+// (Sᵀ and dPᵀ in K3), so that K1 and K3 do (D/128 + 1)/2 times the bound's
+// operations.
 //
 // K1 (flash_fwd_f32_kernel): the TMA + warp-specialised wgmma design of
 // flash_fwd.cu (one producer warp of TMA loads into a ring, two consumer
@@ -69,35 +70,14 @@
 // - Rows past Sq arrive from TMA as zeros and are never stored; keys past
 //   Sk arrive as zeros and are masked to the finite NEG_INF.
 //
-// K3 (flash_dkv_f32_kernel): mma.sync m16n8k8 TF32 from shared memory, the
-// instruction of the library's fp32 kernel, in flash_dkv.cu's schedule.
-// K3 reads Q and dO in both majors (Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ take them
-// K-major, dK += dSᵀ·Q and dV += Pᵀ·dO MN-major); under wgmma's K-major
-// rule each query tile would need Q, dO and their transposes, each split:
-// eight tiles, 128 KB at 64 rows beside K and V. So:
-// - a producer warpgroup, whose warp 0 issues every load: K and V of the
-//   CTA's 128 keys arrive once by TMA and stay, raw fp32; Q and dO tiles of
-//   BM query rows, with their lse and δ, pass raw through a ring of STAGES
-//   stages guarded by mbarriers;
-// - two consumer warpgroups, eight warps of 16 keys each, load their
-//   fragments from shared memory by lane index, which reads a tile in
-//   either major and takes the accumulator-to-A-fragment order (PERM
-//   again, on the query axis) for free, split them into hi/lo in
-//   registers and issue three mma.sync per fragment pair. Shared memory
-//   holds each input once, in TMA's 128-byte swizzle, under which both
-//   majors' fragment loads are free of bank conflicts. Every warp splits
-//   every Q and dO value it loads, which is a third of K3's time on an
-//   H100 (scripts/torch_f32_ablate.py);
-// - a warp skips a query tile wholly above its keys under the causal mask;
-// - registers: a consumer holds dK and dV (D/2 fp32 each), Sᵀ and dPᵀ (BM/2
-//   each) and the fragments in flight. With one producer warp (288 threads)
-//   ptxas held every thread to 168 registers, as an SM's four register
-//   files each hold a third warp, and spilled 1.6 KB at D=64; a producer
-//   warpgroup that setmaxnreg shrinks gives the consumers 232, as in
-//   flash_dkv.cu;
-// - no atomics: each CTA owns its keys' dK and dV, as flash_dkv.cu.
+// K2 and K3 (flash_dq_f32_kernel, flash_dkv_f32_kernel) have their own
+// headers below: the same TMA + wgmma design, with the operands that stay
+// in shared memory split into TF32 halves by a prologue (K2 still splits Q
+// and dO in the CTA; K3 splits nothing there but Pᵀ and dSᵀ), and S (K2)
+// or Sᵀ and dPᵀ (K3) summed over 32-column chunks of D, each chunk apart.
 //
-// Nothing is carried between CTAs, so both kernels are deterministic.
+// Nothing is carried between CTAs and no kernel uses atomics, so all of
+// them are deterministic.
 
 #include "hopper.cuh"
 
@@ -125,9 +105,9 @@ __device__ __forceinline__ Split split(float x) {
   return {hi, lo};
 }
 
-// Key order of Vᵀ within each group of 8 (K1), and of the query axis of
-// the A fragments of Pᵀ and dSᵀ (K3): logical column j of a k-step holds
-// physical column PERM(j).
+// Key order of Vᵀ (K1) and Kᵀ (K2) within each group of 8, and of the query
+// axis of Qᵀ and dOᵀ (K3): logical column j of a k-step holds physical
+// column PERM(j).
 __host__ __device__ constexpr int perm8(int j) {
   return j < 4 ? 2 * j : 2 * (j - 4) + 1;
 }
@@ -139,11 +119,6 @@ __host__ __device__ constexpr int perm8(int j) {
 // row r at chunk c ^ (r % 8)); part p starts at p * rows * 128 bytes. As in
 // hopper.cuh for 16-bit tiles, one k-step of wgmma is 32 bytes of a row, so
 // kmajor_step(rows, kk) addresses k-step kk (8 values) of such a tile.
-// The index of element (r, c) of a tile of `rows` rows:
-__device__ __forceinline__ int at(int rows, int r, int c) {
-  return (c >> 5) * rows * 32 + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
-         (c & 3);
-}
 
 // A tensor map over a contiguous fp32 tensor of dims (innermost first)
 // `dims`, boxes of `box`, 128-byte swizzle, zeros out of bounds. Returns 0 or
@@ -272,26 +247,6 @@ __device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[64],
 #undef VODA_R16
 #undef VODA_R32
 #undef VODA_R64
-
-// c[16 x 8] += A · B, one mma.sync m16n8k8 in TF32: a the A fragment (rows
-// g, g+8; columns t, t+4), b0 and b1 the B fragment (rows t, t+4; column g).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b in three passes: a_lo·b_hi, a_hi·b_lo, a_hi·b_hi.
-__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4], Split b0,
-                                     Split b1) {
-  mma_tf32(c, alo, b0.hi, b1.hi);
-  mma_tf32(c, ahi, b0.lo, b1.lo);
-  mma_tf32(c, ahi, b0.hi, b1.hi);
-}
 
 // The A fragment {x0, x1, x2, x3} split into its hi and lo fragments.
 __device__ __forceinline__ void split_frag(uint32_t (&hi)[4], uint32_t (&lo)[4],
@@ -673,266 +628,16 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK and dV
-// ---------------------------------------------------------------------------
-
-template <int D>
-struct Dkv {
-  static constexpr int BN = 128;  // keys of a CTA, 16 a consumer warp
-  // query rows of a stage: at D=128 a thread holds dK and dV in 128 fp32
-  // registers, so the stage takes 32 rows, which halves Sᵀ and dPᵀ
-  static constexpr int BM = D == 64 ? 64 : 32;
-  static constexpr int STAGES = D == 64 ? 3 : 2;
-  static constexpr int KV_BYTES = BN * D * 4;
-  static constexpr int T_BYTES = BM * D * 4;
-  static constexpr int V_OFF = KV_BYTES;
-  static constexpr int Q_OFF = 2 * KV_BYTES;
-  static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
-  static constexpr int STAT_OFF = DO_OFF + STAGES * T_BYTES;  // lse, δ
-  static constexpr int BAR_OFF = STAT_OFF + STAGES * 2 * BM * 4;
-  // kv_full, q_full[STAGES], do_full[STAGES], empty[STAGES]; 1 KB of slack
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (1 + 3 * STAGES);
-  static_assert(SMEM <= MAX_SMEM, "K3's tiles exceed shared memory");
-};
-
-template <int D>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-    flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tdo,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dk, float* __restrict__ dv, int H,
-                         int Sq, int Sk, int q_off, int causal, float scale) {
-  using C = Dkv<D>;
-  // The producer warp also stages lse and δ, so it keeps 40 registers.
-  using Regs = RegSplit<40, 232>;
-  constexpr int BM = C::BM, BN = C::BN;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  const float* ks = reinterpret_cast<const float*>(sm);
-  const float* vs = reinterpret_cast<const float*>(sm + C::V_OFF);
-  float* qs = reinterpret_cast<float*>(sm + C::Q_OFF);
-  float* dos = reinterpret_cast<float*>(sm + C::DO_OFF);
-  float* stat_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // [S][2][BM]
-  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
-  uint64_t* q_full = kv_full + 1;
-  uint64_t* do_full = q_full + C::STAGES;
-  uint64_t* empty = do_full + C::STAGES;
-
-  const int h = blockIdx.x, b = blockIdx.y, j = blockIdx.z;
-  const int k0 = j * BN;
-  const int num_q = (Sq + BM - 1) / BM;
-  // first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
-  const int i0 = causal ? max(0, k0 - q_off) / BM : 0;
-  const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
-
-  if (threadIdx.x == 0) {
-    mbar_init(kv_full, 1);
-    for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(&q_full[s], 32);  // the producer warp's lanes
-      mbar_init(&do_full[s], 32);
-      mbar_init(&empty[s], 2 * WG_THREADS);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp < 4) {
-    // ---- producer: warp 0; lane 0 issues the TMA loads, the lanes stage
-    // the tile's lse (in log2 units) and δ, zero past Sq
-    Regs::producer();
-    if (warp == 0 && lane == 0) {
-      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
-      tma_rows<D>(const_cast<float*>(ks), &tk, kv_full, BN, h, k0, b);
-      tma_rows<D>(const_cast<float*>(vs), &tv, kv_full, BN, h, k0, b);
-    }
-    for (int i = i0; i < num_q && warp == 0; ++i) {
-      const int it = i - i0, s = it % C::STAGES;
-      const int q0 = i * BM;
-      float* lse_s = stat_s + s * 2 * BM;
-      float* del_s = lse_s + BM;
-      float lv[(BM + 31) / 32], dl[(BM + 31) / 32];
-#pragma unroll
-      for (int x = 0; x < (BM + 31) / 32; ++x) {
-        const int r = q0 + lane + 32 * x;
-        lv[x] = r < Sq ? lse[stat + r] * LOG2E : 0.f;
-        dl[x] = r < Sq ? delta[stat + r] : 0.f;
-      }
-      mbar_wait(&empty[s], ((it / C::STAGES) & 1) ^ 1);
-#pragma unroll
-      for (int x = 0; x < (BM + 31) / 32; ++x) {
-        lse_s[lane + 32 * x] = lv[x];
-        del_s[lane + 32 * x] = dl[x];
-      }
-      if (lane == 0) {
-        mbar_expect_tx(&q_full[s], C::T_BYTES);
-        tma_rows<D>(qs + s * BM * D, &tq, &q_full[s], BM, h, q0, b);
-        mbar_expect_tx(&do_full[s], C::T_BYTES);
-        tma_rows<D>(dos + s * BM * D, &tdo, &do_full[s], BM, h, q0, b);
-      } else {
-        mbar_arrive(&q_full[s]);
-        mbar_arrive(&do_full[s]);
-      }
-    }
-    trap_if_stalled();
-  } else {
-    // ---- consumers: 16 keys a warp
-    Regs::consumer();
-    const int g = lane >> 2, t = lane & 3;
-    const int kr = (warp - 4) * 16;   // the warp's first row of K and V
-    const int kw = k0 + kr;           // and its first key
-    const int key[2] = {kw + g, kw + g + 8};
-    const float sl2 = scale * LOG2E;
-
-    float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-    mbar_wait(kv_full, 0);
-    for (int i = i0; i < num_q; ++i) {
-      const int it = i - i0, s = it % C::STAGES;
-      const uint32_t ph = (it / C::STAGES) & 1;
-      const int q0 = i * BM;
-      mbar_wait(&q_full[s], ph);
-      mbar_wait(&do_full[s], ph);
-      // a tile wholly above the warp's keys under the causal mask adds 0
-      if (!(causal && q_off + q0 + BM - 1 < kw)) {
-        const float* qt = qs + s * BM * D;
-        const float* dot = dos + s * BM * D;
-        const float* lse_s = stat_s + s * 2 * BM;
-        const float* del_s = lse_s + BM;
-
-        // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over D: the warp's 16 keys × BM queries
-        float st[BM / 8][4], dpt[BM / 8][4];
-#pragma unroll
-        for (int n = 0; n < BM / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-        // not unrolled: unrolled, ptxas hoisted the fragments of later
-        // k-steps and spilled 624 bytes at D=64
-#pragma unroll 1
-        for (int kk = 0; kk < D / 8; ++kk) {
-          const int c = 8 * kk + t;
-          uint32_t khi[4], klo[4], vhi[4], vlo[4];
-          split_frag(khi, klo, ks[at(BN, kr + g, c)], ks[at(BN, kr + g + 8, c)],
-                     ks[at(BN, kr + g, c + 4)], ks[at(BN, kr + g + 8, c + 4)]);
-          split_frag(vhi, vlo, vs[at(BN, kr + g, c)], vs[at(BN, kr + g + 8, c)],
-                     vs[at(BN, kr + g, c + 4)], vs[at(BN, kr + g + 8, c + 4)]);
-#pragma unroll
-          for (int n = 0; n < BM / 8; ++n) {
-            const int r = 8 * n + g;
-            mma3(st[n], khi, klo, split(qt[at(BM, r, c)]),
-                 split(qt[at(BM, r, c + 4)]));
-            mma3(dpt[n], vhi, vlo, split(dot[at(BM, r, c)]),
-                 split(dot[at(BM, r, c + 4)]));
-          }
-        }
-
-        // Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale; accumulator
-        // element e of n-tile n is key g + 8(e>>1), query 8n + 2t + (e&1)
-        const bool masked = q0 + BM > Sq || (causal && q_off + q0 < kw + 15);
-#pragma unroll
-        for (int n = 0; n < BM / 8; ++n) {
-          const float2 ls =
-              *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
-          const float2 dl =
-              *reinterpret_cast<const float2*>(del_s + 8 * n + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float x = fmaf(st[n][e], sl2, (e & 1) ? -ls.y : -ls.x);
-            if (masked) {
-              const int qpos = q0 + 8 * n + 2 * t + (e & 1);
-              if (qpos >= Sq || (causal && q_off + qpos < key[e >> 1]))
-                x = NEG_INF;
-            }
-            const float p = fast_exp2(x);
-            st[n][e] = p;
-            dpt[n][e] = p * (dpt[n][e] - ((e & 1) ? dl.y : dl.x)) * scale;
-          }
-        }
-
-        // dV += Pᵀ·dO and dK += dSᵀ·Q over the BM queries: the thread's
-        // queries 2t, 2t+1 of k-step kk are logical columns t, t+4, so the
-        // B fragments read dO and Q at rows 8kk + 2t and 8kk + 2t + 1
-#pragma unroll
-        for (int kk = 0; kk < BM / 8; ++kk) {
-          uint32_t phi[4], plo[4], shi[4], slo[4];
-          split_frag(phi, plo, st[kk][0], st[kk][2], st[kk][1], st[kk][3]);
-          split_frag(shi, slo, dpt[kk][0], dpt[kk][2], dpt[kk][1], dpt[kk][3]);
-          const int r = 8 * kk + 2 * t;
-#pragma unroll
-          for (int n = 0; n < D / 8; ++n) {
-            const int c = 8 * n + g;
-            mma3(dva[n], phi, plo, split(dot[at(BM, r, c)]),
-                 split(dot[at(BM, r + 1, c)]));
-            mma3(dka[n], shi, slo, split(qt[at(BM, r, c)]),
-                 split(qt[at(BM, r + 1, c)]));
-          }
-        }
-      }
-      mbar_arrive(&empty[s]);
-    }
-
-    // dK and dV of the thread's keys g and g + 8, columns 8n + 2t, 2t + 1
-    const size_t rs = static_cast<size_t>(H) * D;
-    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (key[half] >= Sk) continue;
-      float* pk = dk + koff + key[half] * rs;
-      float* pv = dv + koff + key[half] * rs;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        *reinterpret_cast<float2*>(pk + 8 * n) =
-            make_float2(dka[n][2 * half], dka[n][2 * half + 1]);
-        *reinterpret_cast<float2*>(pv + 8 * n) =
-            make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
-      }
-    }
-    trap_if_stalled();
-  }
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, int B,
-               int H, int Sq, int Sk, int q_off, int causal, float scale,
-               cudaStream_t st) {
-  using C = Dkv<D>;
-  CUtensorMap tq, tk, tv, tdo;
-  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = rows_map(&tv, v, B, Sk, H, D, C::BN);
-  if (!err) err = rows_map(&tdo, dout, B, Sq, H, D, C::BM);
-  if (!err)
-    err = prepare_ws_kernel(
-        reinterpret_cast<const void*>(&flash_dkv_f32_kernel<D>), C::SMEM);
-  if (err) return err;
-  const dim3 grid(H, B, (Sk + C::BN - 1) / C::BN);
-  flash_dkv_f32_kernel<D><<<grid, WS_THREADS, C::SMEM, st>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, Sq, Sk, q_off, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// Above D=128: K1 and K3 streaming D
+// Above D=128: K1 streaming D
 // ---------------------------------------------------------------------------
 //
-// Both kernels take every D that is a multiple of 128 (the JAX package's
+// The kernel takes every D that is a multiple of 128 (the JAX package's
 // wide widths) at one instantiation, CW = 128: a CTA owns CW columns of the
-// output (the grid's x axis), and the products that sum over all of D (S
-// in K1; Sᵀ and dPᵀ in K3) stream D through a TMA ring in chunks of KC = 32
-// columns, one 128-byte swizzle part. Each of the D/CW CTAs of a row (K1) or
-// key (K3) block computes the same S, so the products do (D/CW + 1)/2 times
-// the operations of the bound: 1.5 at D=256, 2 at 384, 2.5 at 512.
+// output (the grid's x axis), and S, which sums over all of D, streams D
+// through a TMA ring in chunks of KC = 32 columns, one 128-byte swizzle
+// part. Each of the D/CW CTAs of a row block computes the same S, so the
+// products do (D/CW + 1)/2 times the operations of the bound: 1.5 at D=256,
+// 2 at 384, 2.5 at 512.
 
 // K1 above 128 (flash_fwd_f32_wide_kernel): flash_fwd_f32_kernel's three
 // TF32 passes and warp specialisation on flash_fwd_wide.cu's chunked
@@ -1237,296 +942,6 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, void* o,
   flash_fwd_f32_wide_kernel<CW><<<grid, WS_THREADS, C::SMEM, st>>>(
       tq, kv.tkh, kv.tkl, kv.tvh, kv.tvl, static_cast<float*>(o),
       static_cast<float*>(lse), H, Sq, Sk, D, q_off, causal, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K3 above 128 (flash_dkv_f32_wide_kernel): flash_dkv_f32_kernel's
-// mma.sync m16n8k8 in three TF32 passes, 128 keys a CTA and 16 a warp, dK
-// and dV in registers over the CTA's CW columns (so a thread holds what it
-// holds at D=128), no atomics. K and V over all of D no longer fit (256 KB
-// for 128 keys at D=256), so for each query tile of BM rows a stage of (K,
-// V, Q, dO) over 32 columns of D streams through the ring, chunk by chunk,
-// raw: K and V are read again from L2 for every query tile, as K1 reads Q
-// again. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ sum over the chunks in registers; then
-// Pᵀ and dSᵀ, and dV += Pᵀ·dO, dK += dSᵀ·Q over the CTA's columns, from a
-// second buffer that holds the tile's Q and dO over those columns with its
-// lse and δ (one buffer: it loads while the next tile's chunks stream).
-// Every warp splits every value it loads into TF32 halves in registers, as
-// flash_dkv_f32_kernel does.
-// - No producer warpgroup: 8 warps, every thread up to 255 registers
-//   (__launch_bounds__(256, 1)). Thread 0 issues the ring's loads ST − 1
-//   chunks ahead of the one the CTA takes, once the chunk that held the
-//   stage is released; warp 0 stages each tile's lse and δ and issues its
-//   buffer once the last tile's is released. Under the warp-specialised
-//   split of flash_dkv_f32_kernel (232 registers a consumer, 240 with a
-//   24-register producer) ptxas spilled 72 (44) bytes at CW=128; here it
-//   spills none.
-// Shared memory (plus 1 KB to align the base, lse, δ and the mbarriers):
-//   4 × (K 16 KB + V 16 KB + Q 4 KB + dO 4 KB) + Q, dO 2 × 16 KB = 192 KB.
-// Registers: dK and dV CW/2 = 64 fp32 each, Sᵀ and dPᵀ BM/2 = 16 each.
-template <int CW>
-struct DkvF32Wide {
-  static constexpr int BN = 128;  // keys of a CTA, 16 a consumer warp
-  static constexpr int BM = 32;   // query rows of a tile
-  static constexpr int KC = 32;   // columns of D in a stage
-  static constexpr int STAGES = 4;
-  static constexpr int THREADS = 8 * 32;      // 16 keys a warp
-  static constexpr int KV_BYTES = BN * KC * 4;  // each of K, V
-  static constexpr int T_BYTES = BM * KC * 4;   // each of Q, dO
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES + 2 * T_BYTES;
-  static constexpr int W_BYTES = BM * CW * 4;   // each of Q, dO over CW
-  static constexpr int W_OFF = STAGES * STAGE_BYTES;
-  static constexpr int STAT_OFF = W_OFF + 2 * W_BYTES;  // lse, δ
-  static constexpr int BAR_OFF = STAT_OFF + 2 * BM * 4;
-  // full[STAGES], empty[STAGES], w_full, w_empty
-  static constexpr int SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 2);
-  static_assert(SMEM <= MAX_SMEM, "K3's ring exceeds shared memory");
-};
-
-template <int CW>
-__global__ void __launch_bounds__(8 * 32, 1)
-    flash_dkv_f32_wide_kernel(const __grid_constant__ CUtensorMap tq,
-                              const __grid_constant__ CUtensorMap tk,
-                              const __grid_constant__ CUtensorMap tv,
-                              const __grid_constant__ CUtensorMap tdo,
-                              const float* __restrict__ lse,
-                              const float* __restrict__ delta,
-                              float* __restrict__ dk, float* __restrict__ dv,
-                              int H, int Sq, int Sk, int D, int q_off,
-                              int causal, float scale) {
-  using C = DkvF32Wide<CW>;
-  constexpr int BM = C::BM, BN = C::BN, KC = C::KC, ST = C::STAGES;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* sm = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  // stage s: K, V, Q, dO over one chunk of D
-  auto stage = [&](int s) {
-    return reinterpret_cast<float*>(sm + s * C::STAGE_BYTES);
-  };
-  float* qw = reinterpret_cast<float*>(sm + C::W_OFF);  // Q over CW, dO
-  float* dow = qw + BM * CW;
-  float* lse_s = reinterpret_cast<float*>(sm + C::STAT_OFF);  // log2 units
-  float* del_s = lse_s + BM;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
-  uint64_t* empty = full + ST;
-  uint64_t* w_full = empty + ST;
-  uint64_t* w_empty = w_full + 1;
-
-  const int c0 = blockIdx.x * CW;  // the CTA's columns of dK and dV
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int k0 = blockIdx.z * BN;
-  const int num_q = (Sq + BM - 1) / BM;
-  // first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
-  const int i0 = causal ? max(0, k0 - q_off) / BM : 0;
-  const int nc = D / KC;
-  const int n_chunks = (num_q - i0) * nc;  // the CTA's chunks, in order
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], C::THREADS);
-    }
-    mbar_init(w_full, 32);  // warp 0's lanes
-    mbar_init(w_empty, C::THREADS);
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  // Chunk `idx` of the CTA's into its stage, once the chunk that held the
-  // stage before it is released; issued by thread 0.
-  auto load_chunk = [&](int idx) {
-    if (idx >= n_chunks) return;
-    const int s = idx % ST, c = idx % nc;
-    const int q0 = (i0 + idx / nc) * BM;
-    float* st = stage(s);
-    mbar_wait(&empty[s], ((idx / ST) & 1) ^ 1);
-    mbar_expect_tx(&full[s], C::STAGE_BYTES);
-    tma_load(st, &tk, &full[s], c * KC, h, k0, b);
-    tma_load(st + BN * KC, &tv, &full[s], c * KC, h, k0, b);
-    tma_load(st + 2 * BN * KC, &tq, &full[s], c * KC, h, q0, b);
-    tma_load(st + 2 * BN * KC + BM * KC, &tdo, &full[s], c * KC, h, q0, b);
-  };
-  if (threadIdx.x == 0)
-    for (int idx = 0; idx < ST - 1; ++idx) load_chunk(idx);
-
-  {
-    // 16 keys a warp
-    const int g = lane >> 2, t = lane & 3;
-    const int kr = warp * 16;         // the warp's first row of K and V
-    const int kw = k0 + kr;           // and its first key
-    const int key[2] = {kw + g, kw + g + 8};
-    const float sl2 = scale * LOG2E;
-
-    float dka[CW / 8][4], dva[CW / 8][4];
-#pragma unroll
-    for (int n = 0; n < CW / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-    int it = 0;  // chunks taken
-    for (int i = i0; i < num_q; ++i) {
-      const int q0 = i * BM;
-      if (warp == 0) {
-        // the tile's Q and dO over the CTA's columns, and its lse (log2
-        // units) and δ, zero past Sq, once every warp is done with the
-        // last tile's; they arrive while the tile's chunks stream
-        const int r = q0 + lane;  // BM = 32: a row a lane
-        // a 32-bit offset on the parameters: a 64-bit row pointer, live
-        // across the loop for this block alone, was spilled (12 bytes)
-        const int at_r = static_cast<int>(blockIdx.y) * Sq + r;
-        const float lv = r < Sq ? lse[at_r] * LOG2E : 0.f;
-        const float dl = r < Sq ? delta[at_r] : 0.f;
-        mbar_wait(w_empty, ((i - i0) & 1) ^ 1);
-        lse_s[lane] = lv;
-        del_s[lane] = dl;
-        if (lane == 0) {
-          mbar_expect_tx(w_full, 2 * C::W_BYTES);
-#pragma unroll
-          for (int p = 0; p < CW / 32; ++p) {
-            tma_load(qw + p * BM * 32, &tq, w_full, c0 + 32 * p, h, q0, b);
-            tma_load(dow + p * BM * 32, &tdo, w_full, c0 + 32 * p, h, q0, b);
-          }
-        } else {
-          mbar_arrive(w_full);
-        }
-      }
-      // a tile wholly above the warp's keys under the causal mask adds 0
-      const bool live = !(causal && q_off + q0 + BM - 1 < kw);
-
-      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over D, chunk by chunk: the warp's 16
-      // keys × BM queries
-      float sta[BM / 8][4], dpa[BM / 8][4];
-#pragma unroll
-      for (int n = 0; n < BM / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sta[n][e] = dpa[n][e] = 0.f;
-      for (int c = 0; c < nc; ++c, ++it) {
-        // the ring ST − 1 chunks ahead of this one
-        if (threadIdx.x == 0) load_chunk(it + ST - 1);
-        const int s = it % ST;
-        mbar_wait(&full[s], (it / ST) & 1);
-        if (live) {
-          const float* kc = stage(s);
-          const float* vc = kc + BN * KC;
-          const float* qc = kc + 2 * BN * KC;
-          const float* doc = qc + BM * KC;
-          // not unrolled, as in flash_dkv_f32_kernel
-#pragma unroll 1
-          for (int kk = 0; kk < KC / 8; ++kk) {
-            const int col = 8 * kk + t;
-            uint32_t kfh[4], kfl[4], vfh[4], vfl[4];
-            split_frag(kfh, kfl, kc[at(BN, kr + g, col)],
-                       kc[at(BN, kr + g + 8, col)],
-                       kc[at(BN, kr + g, col + 4)],
-                       kc[at(BN, kr + g + 8, col + 4)]);
-            split_frag(vfh, vfl, vc[at(BN, kr + g, col)],
-                       vc[at(BN, kr + g + 8, col)],
-                       vc[at(BN, kr + g, col + 4)],
-                       vc[at(BN, kr + g + 8, col + 4)]);
-#pragma unroll
-            for (int n = 0; n < BM / 8; ++n) {
-              const int r = 8 * n + g;
-              mma3(sta[n], kfh, kfl, split(qc[at(BM, r, col)]),
-                   split(qc[at(BM, r, col + 4)]));
-              mma3(dpa[n], vfh, vfl, split(doc[at(BM, r, col)]),
-                   split(doc[at(BM, r, col + 4)]));
-            }
-          }
-        }
-        mbar_arrive(&empty[s]);
-      }
-
-      mbar_wait(w_full, (i - i0) & 1);
-      if (live) {
-        // Pᵀ = exp(Sᵀ·scale − lse), dSᵀ = Pᵀ∘(dPᵀ − δ)·scale; accumulator
-        // element e of n-tile n is key g + 8(e>>1), query 8n + 2t + (e&1)
-        const bool masked =
-            q0 + BM > Sq || (causal && q_off + q0 < kw + 15);
-#pragma unroll
-        for (int n = 0; n < BM / 8; ++n) {
-          const float2 ls =
-              *reinterpret_cast<const float2*>(lse_s + 8 * n + 2 * t);
-          const float2 dl =
-              *reinterpret_cast<const float2*>(del_s + 8 * n + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            float x = fmaf(sta[n][e], sl2, (e & 1) ? -ls.y : -ls.x);
-            if (masked) {
-              const int qpos = q0 + 8 * n + 2 * t + (e & 1);
-              if (qpos >= Sq || (causal && q_off + qpos < key[e >> 1]))
-                x = NEG_INF;
-            }
-            const float p = fast_exp2(x);
-            sta[n][e] = p;
-            dpa[n][e] = p * (dpa[n][e] - ((e & 1) ? dl.y : dl.x)) * scale;
-          }
-        }
-
-        // dV += Pᵀ·dO and dK += dSᵀ·Q over the BM queries and the CTA's
-        // columns (PERM on the query axis, as in flash_dkv_f32_kernel)
-#pragma unroll
-        for (int kk = 0; kk < BM / 8; ++kk) {
-          uint32_t pfh[4], pfl[4], sfh[4], sfl[4];
-          split_frag(pfh, pfl, sta[kk][0], sta[kk][2], sta[kk][1],
-                     sta[kk][3]);
-          split_frag(sfh, sfl, dpa[kk][0], dpa[kk][2], dpa[kk][1],
-                     dpa[kk][3]);
-          const int r = 8 * kk + 2 * t;
-#pragma unroll
-          for (int n = 0; n < CW / 8; ++n) {
-            const int cc = 8 * n + g;
-            mma3(dva[n], pfh, pfl, split(dow[at(BM, r, cc)]),
-                 split(dow[at(BM, r + 1, cc)]));
-            mma3(dka[n], sfh, sfl, split(qw[at(BM, r, cc)]),
-                 split(qw[at(BM, r + 1, cc)]));
-          }
-        }
-      }
-      mbar_arrive(w_empty);
-    }
-
-    // dK and dV of the thread's keys g and g + 8, columns c0 + 8n + 2t, 2t+1
-    const size_t rs = static_cast<size_t>(H) * D;
-    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + c0 + 2 * t;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      if (key[half] >= Sk) continue;
-      float* pk = dk + koff + key[half] * rs;
-      float* pv = dv + koff + key[half] * rs;
-#pragma unroll
-      for (int n = 0; n < CW / 8; ++n) {
-        *reinterpret_cast<float2*>(pk + 8 * n) =
-            make_float2(dka[n][2 * half], dka[n][2 * half + 1]);
-        *reinterpret_cast<float2*>(pv + 8 * n) =
-            make_float2(dva[n][2 * half], dva[n][2 * half + 1]);
-      }
-    }
-    trap_if_stalled();
-  }
-}
-
-template <int CW>
-int launch_dkv_wide(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    void* dk, void* dv, int B, int H, int Sq, int Sk, int D,
-                    int q_off, int causal, float scale, cudaStream_t st) {
-  using C = DkvF32Wide<CW>;
-  CUtensorMap tq, tk, tv, tdo;
-  int err = rows_map(&tq, q, B, Sq, H, D, C::BM);
-  if (!err) err = rows_map(&tk, k, B, Sk, H, D, C::BN);
-  if (!err) err = rows_map(&tv, v, B, Sk, H, D, C::BN);
-  if (!err) err = rows_map(&tdo, dout, B, Sq, H, D, C::BM);
-  if (!err)
-    err = static_cast<int>(cudaFuncSetAttribute(
-        flash_dkv_f32_wide_kernel<CW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM));
-  if (err) return err;
-  const dim3 grid(D / CW, B * H, (Sk + C::BN - 1) / C::BN);
-  flash_dkv_f32_wide_kernel<CW><<<grid, C::THREADS, C::SMEM, st>>>(
-      tq, tk, tv, tdo, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, Sq, Sk, D, q_off, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2024,6 +1439,513 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// K3: dK and dV, at every width
+// ---------------------------------------------------------------------------
+//
+// flash_dkv_f32_kernel computes what `_dkv_kernel` computes: with Pᵀ =
+// exp(Sᵀ·scale − lse), Sᵀ = K·Qᵀ, from the forward's lse and K2's δ, and
+// dSᵀ = Pᵀ∘(dPᵀ − δ)·scale, dPᵀ = V·dOᵀ: dV = Σ Pᵀ·dO and dK = Σ dSᵀ·Q
+// over the query tiles. Bound on an H100 SXM at B=8, H=16, S=2048, D=64,
+// causal: four products of 34.4 GFLOP, 0.833 ms at 495/3 TFLOP/s, against
+// six [B,S,H,D] fp32 tensors and two row statistics ≈ 202 MB, 0.060 ms:
+// bound by operations (the same at B=8, H=4, D=256).
+//
+// One design takes every width, as K2's does. A CTA owns BN = 128 keys of
+// one (b, h), 64 a consumer warpgroup, and CW = min(D, 128) columns of dK
+// and dV; the grid's x axis is the CW chunks (fastest, so that the CTAs of
+// a key block read the same chunks from L2 together), its y axis the key
+// blocks of a head, longest first under the causal mask. One producer warp
+// issues every TMA load. Every CTA walks its query tiles from the last one
+// down, so that the key blocks of a head, which start together, read the
+// same tile's chunks from L2 at the same time; walked upward, each from
+// its own diagonal, they took 1.26× (D=64) and 1.41× (D=256) as long.
+// - Operands. wgmma's .tf32 form reads both operands K-major. Sᵀ = K·Qᵀ
+//   and dPᵀ = V·dOᵀ reduce over D: K and V (A) and Q and dO (B) are read in
+//   their natural rows. dV += Pᵀ·dO and dK += dSᵀ·Q reduce over the query
+//   axis: Pᵀ and dSᵀ are the register A operand, and with the query axis in
+//   PERM order the accumulator pair of each k-step is the thread's A
+//   fragment, as P is in K1 and dS in K2; the B operands are dOᵀ and Qᵀ,
+//   queries contiguous.
+// - A prologue (flash_f32_split_dkv_kernel, launched by the same C entry)
+//   writes every operand's TF32 halves into scratch that the wrapper
+//   allocates: Q_hi, Q_lo, dO_hi, dO_lo ([B, Sq, H, D]), K_hi, K_lo, V_hi,
+//   V_lo ([B, Sk, H, D]) and Qᵀ_hi, Qᵀ_lo, dOᵀ_hi, dOᵀ_lo ([B, H, D, SqP],
+//   queries in the order PERM within each group of 8, zeros past Sq):
+//   twelve [B,S,H,D] tensors, 805 MB at both timed shapes, some 0.32 ms
+//   of traffic at 3.35 TB/s. The CTA splits nothing but Pᵀ and dSᵀ:
+//   splitting in shared memory, again for every tile, cost K2 26% of its
+//   time at D=64 and 32% at D=256, its prologue 11% and 8%.
+// - For each query tile of BM rows, Sᵀ and dPᵀ sum over D in KC = 32-column
+//   chunks through a ring of two stages, each holding the chunk of K_hi,
+//   K_lo, V_hi and V_lo (the CTA's 128 keys) and of Q_hi, Q_lo, dO_hi and
+//   dO_lo (BM rows); then the tile's Qᵀ and dOᵀ halves over the CTA's CW
+//   columns come through the same ring as one more item. Each chunk's
+//   products go into accumulators of their own, small terms first, one
+//   commit group, which once done releases the chunk's stage and adds into
+//   the tile's Sᵀ and dPᵀ in fp32 on the CUDA cores (the tensor cores
+//   truncate their sums at every k-step; K2's header). The warpgroup waits
+//   on its own products a chunk; the other warpgroup's fill the tensor
+//   cores meanwhile.
+// - Then Pᵀ = exp2(Sᵀ·scale·log2e − lse·log2e) (the scale rides in the
+//   exponent) and dSᵀ on the accumulator, each split into TF32 halves, and
+//   dV += Pᵀ·dO, dK += dSᵀ·Q (wgmma m64nCWk8, A from registers, three
+//   passes a k-step), dK and dV in registers. lse and δ are read from device
+//   memory, 0 past Sq.
+// - Causal: query tiles wholly above the CTA's keys are never loaded; the
+//   one a warpgroup may meet above its own 64 keys is masked whole, its
+//   products issued all the same (a branch around them spilled 224 bytes
+//   at CW=64 and cost 1.09× at D=64, 1.06× at D=256). Only tiles that
+//   cross the diagonal or the ragged ends of Sq and Sk are masked. Rows
+//   past Sq arrive from TMA as zeros, take lse 0 and δ 0 and are masked;
+//   keys past Sk arrive as zeros, are masked and never stored. No atomics:
+//   each CTA writes its own keys' dK and dV over its columns.
+// - Why K and V stream: resident, their halves would take 128 KB a 128 keys
+//   at D=64 and 256 KB at D=128, beside Q's and dO's. So they are read again
+//   from L2 for every query tile: at the D=64 shape (BM = 64) a tile reads
+//   128 KB of K and V, 32 KB of Q and dO and 64 KB of Qᵀ and dOᵀ, 8.9 GB in
+//   all (K2 reads 5.6); at the d256 shape (BM = 32, two CTAs a key block)
+//   24.5 GB. Two warpgroups on the same 64 keys on alternate query tiles
+//   would read as much for the same work, and 64 keys a CTA twice as much.
+// - Each of the D/CW CTAs of a key block computes the same Sᵀ and dPᵀ, so
+//   the products do (D/CW + 1)/2 of the bound's operations (1.5 at D=256).
+// Shared memory (plus 1 KB to align the base, and the mbarriers): two stages
+//   of the larger of a chunk (K, V halves 4 × 16 KB + Q, dO halves 4 × BM ×
+//   128 B) and the transposes (4 × CW × BM × 4 B): 2 × 96 KB at CW=64 (BM =
+//   64), 2 × 80 KB at CW=128 (BM = 32).
+// Registers (setmaxnreg: 24 a producer, 240 a consumer thread): dK and dV
+//   CW/2 fp32 each, Sᵀ and dPᵀ BM/2 each, a chunk's products of each BM/2
+//   more: 192 at both widths, which is why BM is 32 at CW=128 (BM = 32 at
+//   CW=64 as well took 1.25× as long at D=64: twice the K and V reads).
+//   Pᵀ's halves take the place of Sᵀ and the products; dSᵀ's those of Pᵀ,
+//   once dV's products are done, and one descriptor register pair stands
+//   for a stage's eight operands (with both halves live and a pair for each
+//   operand, ptxas spilled 712 bytes at CW=64 and serialised the wgmma).
+// Where the time goes (scripts/torch_f32_ablate.py on an NVIDIA H100 80GB
+// HBM3 at its 700 W power limit, B=8, S=2048, causal; D=64 with H=16, then
+// D=256 with H=4): the prologue 15% and 10%; the lo passes 19% and 15%;
+// the loads 8% and 25% (at D=256 the K and V halves of the key blocks in
+// flight come to some 32 MB, read again every tile); the split of Pᵀ and
+// dSᵀ 8% and 2%; the chunks' separate sums 2% and 1%.
+
+// K3's scratch, in this order: Q_hi, Q_lo, dO_hi, dO_lo ([B, Sq, H, D]
+// each), K_hi, K_lo, V_hi, V_lo ([B, Sk, H, D] each), Qᵀ_hi, Qᵀ_lo, dOᵀ_hi,
+// dOᵀ_lo ([B, H, D, SqP] each): 4·B·H·D·(Sq + Sk + SqP) floats.
+struct DkvHalves {
+  float *qh, *ql, *dh, *dl;
+  float *kh, *kl, *vh, *vl;
+  float *qth, *qtl, *dth, *dtl;
+};
+
+// K3's prologue: rows [r0, r0 + PT) of both sequences, columns [d0, d0 +
+// PT), split into the halves; Q and dO also transposed, queries in the
+// order PERM within each group of 8, zeros past Sq.
+__global__ void __launch_bounds__(256)
+    flash_f32_split_dkv_kernel(const float* __restrict__ q,
+                               const float* __restrict__ dout,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v, DkvHalves o,
+                               int H, int Sq, int Sk, int SqP, int D) {
+  __shared__ float tq[PT][PT + 1], td[PT][PT + 1];  // Q, dO [r0 + r][d0 + c]
+  const int r0 = blockIdx.x * PT, d0 = blockIdx.y * PT;
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int r = ty; r < PT; r += 8) {
+    const int row = r0 + r;
+    float xq = 0.f, xd = 0.f;
+    if (row < Sq) {
+      const size_t i =
+          ((static_cast<size_t>(b) * Sq + row) * H + h) * D + d0 + tx;
+      xq = q[i];
+      xd = dout[i];
+      const Split a = split(xq), c = split(xd);
+      o.qh[i] = __uint_as_float(a.hi);
+      o.ql[i] = __uint_as_float(a.lo);
+      o.dh[i] = __uint_as_float(c.hi);
+      o.dl[i] = __uint_as_float(c.lo);
+    }
+    if (row < Sk) {
+      const size_t i =
+          ((static_cast<size_t>(b) * Sk + row) * H + h) * D + d0 + tx;
+      const Split a = split(k[i]), c = split(v[i]);
+      o.kh[i] = __uint_as_float(a.hi);
+      o.kl[i] = __uint_as_float(a.lo);
+      o.vh[i] = __uint_as_float(c.hi);
+      o.vl[i] = __uint_as_float(c.lo);
+    }
+    tq[r][tx] = xq;
+    td[r][tx] = xd;
+  }
+  __syncthreads();
+  const int pos = r0 + tx;
+  if (pos >= SqP) return;
+  const int src = (tx & ~7) + perm8(tx & 7);
+#pragma unroll
+  for (int r = ty; r < PT; r += 8) {
+    const Split a = split(tq[src][r]), c = split(td[src][r]);
+    const size_t i =
+        ((static_cast<size_t>(b) * H + h) * D + d0 + r) * SqP + pos;
+    o.qth[i] = __uint_as_float(a.hi);
+    o.qtl[i] = __uint_as_float(a.lo);
+    o.dth[i] = __uint_as_float(c.hi);
+    o.dtl[i] = __uint_as_float(c.lo);
+  }
+}
+
+// The halves' places in the scratch and the tensor maps of K3's tiles over
+// them: the row-major halves in boxes of `bm` (Q, dO) or `bn` (K, V) rows,
+// the transposes in boxes of 32 queries by `cw` columns of D.
+struct SplitDkv {
+  int SqP;
+  DkvHalves p;
+  CUtensorMap tqh, tql, tdh, tdl, tkh, tkl, tvh, tvl, tqth, tqtl, tdth, tdtl;
+
+  int make(void* scratch, int B, int H, int Sq, int Sk, int D, int bm,
+           int bn, int cw) {
+    SqP = (Sq + 7) / 8 * 8;
+    const size_t nq = static_cast<size_t>(B) * Sq * H * D;
+    const size_t nk = static_cast<size_t>(B) * Sk * H * D;
+    const size_t nt = static_cast<size_t>(B) * H * D * SqP;
+    p.qh = static_cast<float*>(scratch);
+    p.ql = p.qh + nq;
+    p.dh = p.ql + nq;
+    p.dl = p.dh + nq;
+    p.kh = p.dl + nq;
+    p.kl = p.kh + nk;
+    p.vh = p.kl + nk;
+    p.vl = p.vh + nk;
+    p.qth = p.vl + nk;
+    p.qtl = p.qth + nt;
+    p.dth = p.qtl + nt;
+    p.dtl = p.dth + nt;
+    int err = rows_map(&tqh, p.qh, B, Sq, H, D, bm);
+    if (!err) err = rows_map(&tql, p.ql, B, Sq, H, D, bm);
+    if (!err) err = rows_map(&tdh, p.dh, B, Sq, H, D, bm);
+    if (!err) err = rows_map(&tdl, p.dl, B, Sq, H, D, bm);
+    if (!err) err = rows_map(&tkh, p.kh, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tkl, p.kl, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tvh, p.vh, B, Sk, H, D, bn);
+    if (!err) err = rows_map(&tvl, p.vl, B, Sk, H, D, bn);
+    // Qᵀ and dOᵀ: coordinates (query, column, h, b)
+    if (!err) err = make_map(&tqth, p.qth, {SqP, D, H, B}, {32, cw, 1, 1});
+    if (!err) err = make_map(&tqtl, p.qtl, {SqP, D, H, B}, {32, cw, 1, 1});
+    if (!err) err = make_map(&tdth, p.dth, {SqP, D, H, B}, {32, cw, 1, 1});
+    if (!err) err = make_map(&tdtl, p.dtl, {SqP, D, H, B}, {32, cw, 1, 1});
+    return err;
+  }
+
+  // The prologue: Q, dO, K and V split into the scratch.
+  int launch(const void* q, const void* dout, const void* k, const void* v,
+             int B, int H, int Sq, int Sk, int D, cudaStream_t st) const {
+    const int rows = SqP > Sk ? SqP : Sk;
+    flash_f32_split_dkv_kernel<<<dim3((rows + PT - 1) / PT, D / PT, B * H),
+                                 256, 0, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(dout),
+        static_cast<const float*>(k), static_cast<const float*>(v), p, H, Sq,
+        Sk, SqP, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int CW>
+struct DkvF32 {
+  static constexpr int BN = 128;                 // keys of a CTA
+  static constexpr int BM = CW == 64 ? 64 : 32;  // query rows of a tile
+  static constexpr int KC = 32;                  // columns of D in a chunk
+  static constexpr int STAGES = 2;
+  static constexpr int KV_BYTES = BN * KC * 4;  // of K_hi, K_lo, V_hi, V_lo
+  static constexpr int T_BYTES = BM * KC * 4;   // of Q_hi, Q_lo, dO_hi, dO_lo
+  static constexpr int CHUNK_BYTES = 4 * KV_BYTES + 4 * T_BYTES;
+  // each of Qᵀ_hi, Qᵀ_lo, dOᵀ_hi, dOᵀ_lo over the CTA's columns
+  static constexpr int TR_BYTES = CW * BM * 4;
+  static constexpr int STAGE_BYTES =
+      CHUNK_BYTES > 4 * TR_BYTES ? CHUNK_BYTES : 4 * TR_BYTES;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  // full[STAGES], empty[STAGES]
+  static constexpr int SMEM = 1024 + BAR_OFF + 8 * 2 * STAGES;
+  static_assert(SMEM <= MAX_SMEM, "K3's ring exceeds shared memory");
+};
+
+template <int CW>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    flash_dkv_f32_kernel(const __grid_constant__ CUtensorMap tkh,
+                         const __grid_constant__ CUtensorMap tkl,
+                         const __grid_constant__ CUtensorMap tvh,
+                         const __grid_constant__ CUtensorMap tvl,
+                         const __grid_constant__ CUtensorMap tqh,
+                         const __grid_constant__ CUtensorMap tql,
+                         const __grid_constant__ CUtensorMap tdh,
+                         const __grid_constant__ CUtensorMap tdl,
+                         const __grid_constant__ CUtensorMap tqth,
+                         const __grid_constant__ CUtensorMap tqtl,
+                         const __grid_constant__ CUtensorMap tdth,
+                         const __grid_constant__ CUtensorMap tdtl,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int H, int Sq, int Sk, int D, int q_off, int causal,
+                         float scale) {
+  using C = DkvF32<CW>;
+  using Regs = RegSplit<24, 240>;
+  constexpr int BM = C::BM, BN = C::BN, KC = C::KC, ST = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  // an item of the ring: a chunk (K_hi, K_lo, V_hi, V_lo, then Q_hi, Q_lo,
+  // dO_hi, dO_lo over KC columns) or a tile's transposes (Qᵀ_hi, Qᵀ_lo,
+  // dOᵀ_hi, dOᵀ_lo over the CTA's columns)
+  auto stage = [&](int s) {
+    return reinterpret_cast<float*>(sm + s * C::STAGE_BYTES);
+  };
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  uint64_t* empty = full + ST;
+
+  const int c0 = blockIdx.x * CW;  // the CTA's columns of dK and dV
+  const int k0 = blockIdx.y * BN;  // its first key
+  const int b = blockIdx.z / H, h = blockIdx.z % H;
+  const int num_q = (Sq + BM - 1) / BM;
+  // the first query tile whose last row q_off + (i+1)·BM − 1 reaches key k0
+  const int i0 = causal ? min(num_q, max(0, k0 - q_off) / BM) : 0;
+  const int nc = D / KC;  // chunks of D a tile's Sᵀ and dPᵀ sum over
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, in the order the
+    // consumers take it: a tile's nc chunks, then its transposes
+    Regs::producer();
+    if (threadIdx.x == 0) {
+      int it = 0;  // items issued
+      for (int i = num_q - 1; i >= i0; --i) {
+        const int q0 = i * BM;
+        for (int c = 0; c <= nc; ++c, ++it) {
+          const int s = it % ST;
+          float* st = stage(s);
+          mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+          if (c < nc) {
+            mbar_expect_tx(&full[s], C::CHUNK_BYTES);
+            tma_load(st, &tkh, &full[s], c * KC, h, k0, b);
+            tma_load(st + BN * KC, &tkl, &full[s], c * KC, h, k0, b);
+            tma_load(st + 2 * BN * KC, &tvh, &full[s], c * KC, h, k0, b);
+            tma_load(st + 3 * BN * KC, &tvl, &full[s], c * KC, h, k0, b);
+            float* qs = st + 4 * BN * KC;
+            tma_load(qs, &tqh, &full[s], c * KC, h, q0, b);
+            tma_load(qs + BM * KC, &tql, &full[s], c * KC, h, q0, b);
+            tma_load(qs + 2 * BM * KC, &tdh, &full[s], c * KC, h, q0, b);
+            tma_load(qs + 3 * BM * KC, &tdl, &full[s], c * KC, h, q0, b);
+          } else {
+            mbar_expect_tx(&full[s], 4 * C::TR_BYTES);
+#pragma unroll
+            for (int p = 0; p < BM / 32; ++p) {
+              float* tp = st + p * CW * 32;
+              const int x = q0 + 32 * p;
+              tma_load(tp, &tqth, &full[s], x, c0, h, b);
+              tma_load(tp + CW * BM, &tqtl, &full[s], x, c0, h, b);
+              tma_load(tp + 2 * CW * BM, &tdth, &full[s], x, c0, h, b);
+              tma_load(tp + 3 * CW * BM, &tdtl, &full[s], x, c0, h, b);
+            }
+          }
+        }
+      }
+    }
+    trap_if_stalled();
+  } else {
+    // ---- consumers: 64 keys per warpgroup, Sᵀ, dPᵀ, dK and dV each
+    Regs::consumer();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % WG_THREADS;
+    const int warp = tid / 32, lane = tid % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kw = k0 + cw * 64;  // the warpgroup's first key
+    const int key[2] = {kw + warp * 16 + g, kw + warp * 16 + g + 8};
+    const float sl2 = scale * LOG2E;
+    const size_t stat = (static_cast<size_t>(b) * H + h) * Sq;
+
+    float dka[CW / 2], dva[CW / 2];
+#pragma unroll
+    for (int e = 0; e < CW / 2; ++e) dka[e] = dva[e] = 0.f;
+    float st[BM / 2], dpt[BM / 2];  // Sᵀ (then Pᵀ), dPᵀ (then dSᵀ)
+    float ps[BM / 2], pp[BM / 2];   // a chunk's products of each
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over one chunk's KC columns into ps and pp,
+    // committed as one group: the small terms of the chunk first, then
+    // hi·hi (a term the tensor cores add truncates the sum at the sum's own
+    // magnitude, so the products near the sum's size come last and fewest).
+    // Every operand's descriptor is the stage's plus a constant (16-byte
+    // units), so that one register pair stands for all eight.
+    auto issue_chunk = [&](const float* stg) {
+      const uint64_t d0 = sw128_desc(stg, 16);
+      const uint64_t kh = d0 + (cw * 64 * KC * 4 >> 4);  // the 64 keys
+      constexpr uint32_t KV = C::KV_BYTES >> 4, T = C::T_BYTES >> 4;
+      const uint64_t qh = d0 + 4 * KV;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const uint32_t a = kmajor_step(64, kk), bk = kmajor_step(BM, kk);
+        wgmma_ss_tf32<BM>(ps, kh + KV + a, qh + bk, kk > 0);
+        wgmma_ss_tf32<BM>(ps, kh + a, qh + T + bk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk)
+        wgmma_ss_tf32<BM>(ps, kh + kmajor_step(64, kk),
+                          qh + kmajor_step(BM, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk) {
+        const uint32_t a = kmajor_step(64, kk), bk = kmajor_step(BM, kk);
+        wgmma_ss_tf32<BM>(pp, kh + 3 * KV + a, qh + 2 * T + bk, kk > 0);
+        wgmma_ss_tf32<BM>(pp, kh + 2 * KV + a, qh + 3 * T + bk, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC / 8; ++kk)
+        wgmma_ss_tf32<BM>(pp, kh + 2 * KV + kmajor_step(64, kk),
+                          qh + 2 * T + kmajor_step(BM, kk), 1);
+      wgmma_commit();
+    };
+
+    int it = 0;  // items taken
+    for (int i = num_q - 1; i >= i0; --i) {
+      const int q0 = i * BM;
+      // Sᵀ and dPᵀ of the tile, summed over the nc chunks of D as they
+      // arrive: each chunk's products, once done, release its stage and
+      // add into st and dpt in fp32 (header)
+#pragma unroll
+      for (int e = 0; e < BM / 2; ++e) st[e] = dpt[e] = 0.f;
+      for (int c = 0; c < nc; ++c, ++it) {
+        const int s = it % ST;
+        mbar_wait(&full[s], (it / ST) & 1);
+        issue_chunk(stage(s));
+        wgmma_wait<0>();
+        fence_regs(ps);
+        fence_regs(pp);
+        mbar_arrive(&empty[s]);
+#pragma unroll
+        for (int e = 0; e < BM / 2; ++e) {
+          st[e] += ps[e];
+          dpt[e] += pp[e];
+        }
+      }
+      const int s = it % ST;
+      // Pᵀ in place of Sᵀ, dSᵀ in place of dPᵀ: element 4n + e is key
+      // key[e >> 1], query q0 + 8n + 2t + (e & 1); the mask is a pass
+      // behind a uniform branch, and masks the whole of a tile above the
+      // warpgroup's keys (its products are issued all the same: a branch
+      // around them cost registers and time)
+      const bool masked = q0 + BM > Sq || kw + 64 > Sk ||
+                          (causal && q_off + q0 < kw + 63);
+#pragma unroll
+      for (int n = 0; n < BM / 8; ++n) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qpos = q0 + 8 * n + 2 * t + u;
+          const float lv = qpos < Sq ? lse[stat + qpos] * LOG2E : 0.f;
+          const float dl = qpos < Sq ? delta[stat + qpos] : 0.f;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int e = 4 * n + 2 * r + u;
+            float x = fmaf(st[e], sl2, -lv);
+            if (masked && (qpos >= Sq || key[r] >= Sk ||
+                           (causal && q_off + qpos < key[r])))
+              x = NEG_INF;
+            const float p = fast_exp2(x);
+            st[e] = p;
+            dpt[e] = p * (dpt[e] - dl) * scale;
+          }
+        }
+      }
+      // dV += Pᵀ·dO, then dK += dSᵀ·Q, over the CTA's columns (dOᵀ and Qᵀ
+      // K-major), each A operand split as it is issued: the thread's
+      // queries 2t, 2t+1 of k-step kk are logical columns t, t+4 (Qᵀ and
+      // dOᵀ in PERM order). dV's products are done before dSᵀ is split,
+      // so that the halves of only one of Pᵀ and dSᵀ are live at a time.
+      uint32_t ah[BM / 8][4], al[BM / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < BM / 8; ++kk)
+        split_frag(ah[kk], al[kk], st[4 * kk], st[4 * kk + 2],
+                   st[4 * kk + 1], st[4 * kk + 3]);
+      mbar_wait(&full[s], (it / ST) & 1);
+      const uint64_t qth = sw128_desc(stage(s), 16);
+      constexpr uint32_t TR = C::TR_BYTES >> 4;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 8; ++kk) {
+        const uint64_t dth = qth + 2 * TR + kmajor_step(CW, kk);
+        wgmma_rs_tf32<CW>(dva, al[kk], dth);
+        wgmma_rs_tf32<CW>(dva, ah[kk], dth + TR);
+        wgmma_rs_tf32<CW>(dva, ah[kk], dth);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+#pragma unroll
+      for (int kk = 0; kk < BM / 8; ++kk)
+        split_frag(ah[kk], al[kk], dpt[4 * kk], dpt[4 * kk + 2],
+                   dpt[4 * kk + 1], dpt[4 * kk + 3]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BM / 8; ++kk) {
+        const uint64_t bq = qth + kmajor_step(CW, kk);
+        wgmma_rs_tf32<CW>(dka, al[kk], bq);
+        wgmma_rs_tf32<CW>(dka, ah[kk], bq + TR);
+        wgmma_rs_tf32<CW>(dka, ah[kk], bq);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dka);
+      mbar_arrive(&empty[s]);
+      ++it;
+    }
+
+    // dK and dV of the thread's keys, columns c0 + 8c + 2t, 2t + 1
+    const size_t rs = static_cast<size_t>(H) * D;
+    const size_t koff = (static_cast<size_t>(b) * Sk * H + h) * D + c0 + 2 * t;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (key[half] >= Sk) continue;
+      float* pk = dk + koff + key[half] * rs;
+      float* pv = dv + koff + key[half] * rs;
+#pragma unroll
+      for (int c = 0; c < CW / 8; ++c) {
+        *reinterpret_cast<float2*>(pk + 8 * c) =
+            make_float2(dka[4 * c + 2 * half], dka[4 * c + 2 * half + 1]);
+        *reinterpret_cast<float2*>(pv + 8 * c) =
+            make_float2(dva[4 * c + 2 * half], dva[4 * c + 2 * half + 1]);
+      }
+    }
+    trap_if_stalled();
+  }
+}
+
+template <int CW>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv,
+               void* scratch, int B, int H, int Sq, int Sk, int D, int q_off,
+               int causal, float scale, cudaStream_t st) {
+  using C = DkvF32<CW>;
+  SplitDkv x;
+  int err = x.make(scratch, B, H, Sq, Sk, D, C::BM, C::BN, CW);
+  if (!err)
+    err = prepare_ws_kernel(
+        reinterpret_cast<const void*>(&flash_dkv_f32_kernel<CW>), C::SMEM);
+  if (!err) err = x.launch(q, dout, k, v, B, H, Sq, Sk, D, st);
+  if (err) return err;
+  const dim3 grid(D / CW, (Sk + C::BN - 1) / C::BN, B * H);
+  flash_dkv_f32_kernel<CW><<<grid, WS_THREADS, C::SMEM, st>>>(
+      x.tkh, x.tkl, x.tvh, x.tvl, x.tqh, x.tql, x.tdh, x.tdl, x.tqth, x.tqtl,
+      x.tdth, x.tdtl, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Sq, Sk, D, q_off, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 inline bool takes(int B, int H, int Sq, int Sk, int D) {
   return B > 0 && H > 0 && Sq > 0 && Sk > 0 && (D == 64 || D == 128);
 }
@@ -2039,8 +1961,10 @@ inline bool takes_wide(int B, int H, int Sq, int Sk, int D) {
 // The C entries. Each returns 0, or the error of the tensor-map encoding, a
 // kernel's set-up or its launch; 1 (cudaErrorInvalidValue) for a head_dim
 // other than 64 or 128. K1 takes one more pointer than the bf16 forward,
-// after lse: its scratch, 2·B·H·D·(Sk + SkP) floats (fwd_scratch; the
-// wrapper's `f32_scratch`), 16-byte aligned.
+// after lse: its scratch, 2·B·H·D·(Sk + SkP) floats; K3 after dv: its
+// scratch, 4·B·H·D·(Sq + Sk + SqP) floats (SqP = Sq rounded up to 8); both
+// the wrapper's `f32_scratch`, 16-byte aligned. K3 runs CW = D at D = 64 or
+// 128.
 
 extern "C" int voda_flash_fwd_f32(const void* q, const void* k, const void* v,
                                   void* o, void* lse, void* scratch, int B,
@@ -2057,20 +1981,21 @@ extern "C" int voda_flash_fwd_f32(const void* q, const void* k, const void* v,
 
 extern "C" int voda_flash_dkv_f32(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
-                                  const void* delta, void* dk, void* dv, int B,
-                                  int H, int Sq, int Sk, int D, int q_off,
-                                  int causal, float scale, void* stream) {
+                                  const void* delta, void* dk, void* dv,
+                                  void* scratch, int B, int H, int Sq, int Sk,
+                                  int D, int q_off, int causal, float scale,
+                                  void* stream) {
   using namespace voda::f32;
   if (!takes(B, H, Sq, Sk, D)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                                  Sk, q_off, causal, scale, st)
-                 : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                                   Sk, q_off, causal, scale, st);
+  return D == 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, scratch,
+                                  B, H, Sq, Sk, D, q_off, causal, scale, st)
+                 : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, scratch,
+                                   B, H, Sq, Sk, D, q_off, causal, scale, st);
 }
 
-// Above 128 (every multiple of 128): the wide kernels, with the same
-// arguments as the entries above, K1's scratch included; 1
+// Above 128 (every multiple of 128): the wide K1, and K3 at CW = 128, with
+// the same arguments as the entries above, their scratch included; 1
 // (cudaErrorInvalidValue) for any other width.
 extern "C" int voda_flash_fwd_f32_wide(const void* q, const void* k,
                                        const void* v, void* o, void* lse,
@@ -2088,16 +2013,16 @@ extern "C" int voda_flash_fwd_f32_wide(const void* q, const void* k,
 extern "C" int voda_flash_dkv_f32_wide(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
-                                       void* dk, void* dv, int B, int H,
-                                       int Sq, int Sk, int D, int q_off,
-                                       int causal, float scale,
+                                       void* dk, void* dv, void* scratch,
+                                       int B, int H, int Sq, int Sk, int D,
+                                       int q_off, int causal, float scale,
                                        void* stream) {
   using namespace voda::f32;
   if (!takes_wide(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dkv_wide<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
-                              Sk, D, q_off, causal, scale,
-                              static_cast<cudaStream_t>(stream));
+  return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, scratch, B, H, Sq,
+                         Sk, D, q_off, causal, scale,
+                         static_cast<cudaStream_t>(stream));
 }
 
 // K2 at D = 64 or 128 (CW = D) and, below, at every multiple of 128 above

@@ -36,15 +36,17 @@ fp16's kernels are the bf16 kernels' TMA + wgmma designs in fp16
 D=512 its dQ and dK/dV are the wide sources' kernels that stream D in
 64-column chunks (``flash_dq_chunked_kernel``, ``flash_dkv_chunked_kernel``),
 where bf16's stay on ``wmma``.
-fp32's K1, K2 and K3 run on the tensor cores in three TF32 passes
-(``csrc/flash_f32.cu``: K1 on wgmma after a prologue that splits K and Vᵀ
-into scratch, K3 on mma.sync), up to D=128 with K, V or Q resident, above
-it (``_f32_wide``, every multiple of 128) streaming D in 32-column chunks
-and owning 128 columns of the output a CTA; K2 on wgmma at every width,
-streaming D in 32-column chunks after a prologue that splits K, V and Kᵀ
-into scratch, owning min(D, 128) columns of dQ a CTA (``flash_dq_f32`` up
-to 128, ``flash_dq_f32_wide`` above, one kernel). The choice is by width,
-never a fallback: a kernel that fails to build or launch raises.
+fp32's K1, K2 and K3 run on the tensor cores in three TF32 passes on
+wgmma (``csrc/flash_f32.cu``). K1, after a prologue that splits K and Vᵀ
+into scratch, holds Q resident up to D=128 and above it (``_f32_wide``,
+every multiple of 128) streams D in 32-column chunks, owning 128 columns of
+O a CTA. K2 and K3 are one kernel each at every width, streaming D in
+32-column chunks and owning min(D, 128) columns of the output a CTA: K2
+after a prologue that splits K, V and Kᵀ into scratch, K3 after one that
+splits Q, dO, K, V, Qᵀ and dOᵀ (``flash_dq_f32`` and ``flash_dkv_f32`` up
+to 128, ``flash_dq_f32_wide`` and ``flash_dkv_f32_wide`` above). The choice
+is by width, never a fallback: a kernel that fails to build or launch
+raises.
 Above 512 the kernels that stream D count apart from their route's
 entries (`CHUNKED_COUNTS`): ``flash_fwd_chunked`` (bf16),
 ``flash_fwd_f16_chunked``, ``flash_dq_f16_chunked`` and
@@ -83,11 +85,11 @@ Divergences from the TPU kernels, on purpose:
   kernels theirs, ``csrc/flash_*_wide.cu``: above D=512 fp16's dQ 64 query
   rows against 128-key tiles, its dK/dV 64 keys against 64-row tiles);
   fp32's tensor-core forward
-  takes 128 query rows against K/V tiles of 64 keys (32 at D=128), its
-  dK/dV 128 keys against Q/dO tiles of 64 rows (32 at D=128), and above
-  D=128 128 query rows against 64-key tiles and 128 keys against 32-row
-  tiles, 128 columns of the output a CTA; its dQ 128 query rows against
-  64-key tiles at every width, min(D, 128) columns of dQ a CTA; the
+  takes 128 query rows against K/V tiles of 64 keys (32 at D=128), and
+  above D=128 against 64-key tiles, 128 columns of O a CTA; its dQ 128
+  query rows against 64-key tiles at every width, min(D, 128) columns of
+  dQ a CTA; its dK/dV 128 keys against Q/dO tiles of 64 rows at D=64 and
+  32 rows from D=128, min(D, 128) columns of dK and dV a CTA; the
   CUDA-core kernels take 64×64
   tiles of (queries, keys) and 64 or 128 columns of the output a CTA.
   ``block_q``, ``block_k`` and ``block_bwd`` are accepted for the same
@@ -98,8 +100,9 @@ Divergences from the TPU kernels, on purpose:
   a_hi·b_hi, hi and lo the TF32 halves of each operand) in one fp32
   accumulator, where the TPU splits an f32 dot over bf16 passes of its
   matrix unit: at least as accurate, and as accurate as fp32 on the CUDA
-  cores (dQ's S and dP sum each 32-column chunk of D in an accumulator of
-  its own, added in fp32, as the tensor cores truncate their sums);
+  cores (dQ's S and dP, and dK/dV's Sᵀ and dPᵀ, sum each 32-column chunk
+  of D in an accumulator of its own, added in fp32, as the tensor cores
+  truncate their sums);
 - fp32 and fp16 run the TPU kernels' arithmetic (products of the input
   dtype accumulated in fp32, P rounded to the input dtype before its
   products) except for dS, which the TPU kernels round to the input dtype
@@ -192,15 +195,18 @@ _ARGTYPES = {
     # q k v do lse delta dk dv | B H Sq Sk D q_off causal scale stream
     "flash_dkv": [_P] * 8 + [_I] * 7 + [_F, _P],
     # fp32's tensor-core K1 also takes its scratch (`f32_scratch`) after
-    # lse, its K2 after dq
+    # lse, its K2 after dq, its K3 after dv
     "flash_fwd_f32": [_P] * 6 + [_I] * 7 + [_F, _P],
     "flash_fwd_f32_wide": [_P] * 6 + [_I] * 7 + [_F, _P],
     "flash_dq_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
     "flash_dq_f32_wide": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "flash_dkv_f32": [_P] * 9 + [_I] * 7 + [_F, _P],
+    "flash_dkv_f32_wide": [_P] * 9 + [_I] * 7 + [_F, _P],
 }
 # The entries that take that scratch.
 F32_SCRATCH = frozenset({"flash_fwd_f32", "flash_fwd_f32_wide",
-                         "flash_dq_f32", "flash_dq_f32_wide"})
+                         "flash_dq_f32", "flash_dq_f32_wide",
+                         "flash_dkv_f32", "flash_dkv_f32_wide"})
 for _name in launches.keys() - CHUNKED_COUNTS.values():  # every variant
     # takes its function's arguments
     _ARGTYPES.setdefault(_name, _ARGTYPES["_".join(_name.split("_")[:2])])
@@ -340,17 +346,22 @@ def flash_fwd(q, k, v, causal: bool, q_off: int,
 
 
 def f32_scratch(B: int, H: int, Sk: int, D: int, device: torch.device,
-                name: str = "flash_fwd") -> torch.Tensor:
-    """The scratch of fp32's tensor-core K1 or K2 (`name`: ``flash_fwd`` or
-    ``flash_dq``; ``csrc/flash_f32.cu``, at every width), which the
-    kernel's prologue fills with TF32 halves: K1's K_hi and K_lo ([B, Sk, H,
-    D] each), then Vᵀ_hi and Vᵀ_lo ([B, H, D, SkP] each, SkP = Sk rounded
-    up to 8); K2's K_hi, K_lo, V_hi and V_lo ([B, Sk, H, D] each), then
-    Kᵀ_hi and Kᵀ_lo ([B, H, D, SkP] each)."""
-    skp = -(-Sk // 8) * 8
-    rows = {"flash_fwd": 1, "flash_dq": 2}[name]
-    return torch.empty(2 * B * H * D * (rows * Sk + skp),
-                       dtype=torch.float32, device=device)
+                name: str = "flash_fwd", Sq: int = 0) -> torch.Tensor:
+    """The scratch of fp32's tensor-core K1, K2 or K3 (`name`:
+    ``flash_fwd``, ``flash_dq`` or ``flash_dkv``; ``csrc/flash_f32.cu``, at
+    every width), which the kernel's prologue fills with TF32 halves: K1's
+    K_hi and K_lo ([B, Sk, H, D] each), then Vᵀ_hi and Vᵀ_lo ([B, H, D,
+    SkP] each, SkP = Sk rounded up to 8); K2's K_hi, K_lo, V_hi and V_lo
+    ([B, Sk, H, D] each), then Kᵀ_hi and Kᵀ_lo ([B, H, D, SkP] each); K3's
+    Q_hi, Q_lo, dO_hi and dO_lo ([B, Sq, H, D] each), K_hi, K_lo, V_hi and
+    V_lo ([B, Sk, H, D] each), then Qᵀ_hi, Qᵀ_lo, dOᵀ_hi and dOᵀ_lo ([B, H,
+    D, SqP] each, SqP = Sq rounded up to 8). `Sq` is read for K3 alone."""
+    if name == "flash_dkv":
+        n = 4 * B * H * D * (Sq + Sk + -(-Sq // 8) * 8)
+    else:
+        rows = {"flash_fwd": 1, "flash_dq": 2}[name]
+        n = 2 * B * H * D * (rows * Sk + -(-Sk // 8) * 8)
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def flash_dq(q, k, v, o, do, lse, causal: bool, q_off: int,
@@ -381,10 +392,14 @@ def flash_dkv(q, k, v, do, lse, delta, causal: bool, q_off: int,
     _check_stat(delta, B, H, Sq)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    # fp32's tensor-core K3 also takes its scratch, held here until launched
+    scratch = ([f32_scratch(B, H, Sk, D, q.device, "flash_dkv", Sq)]
+               if kernel in F32_SCRATCH else [])
     _launch(kernel, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, H, Sq, Sk, D, int(q_off), int(causal),
-            _scale(scale, D), count=counted(kernel, D))
+            dv.data_ptr(), *(t.data_ptr() for t in scratch), B, H, Sq, Sk,
+            D, int(q_off), int(causal), _scale(scale, D),
+            count=counted(kernel, D))
     return dk, dv
 
 
@@ -457,10 +472,13 @@ def flash_dq_reference(q, k, v, o, do, lse, causal: bool = True,
 
 
 def flash_dkv_reference(q, k, v, do, lse, delta, causal: bool = True,
-                        q_offset: int = 0, scale: Optional[float] = None):
-    """Plain version of K3: (dk, dv) in k's and v's dtypes."""
-    p, ds, dof = _p_ds(q, k, v, do, lse, delta, causal, q_offset, scale)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.transpose(1, 2).float())
+                        q_offset: int = 0, scale: Optional[float] = None,
+                        acc: torch.dtype = torch.float32):
+    """Plain version of K3: (dk, dv) in k's and v's dtypes. `acc` is the
+    type it computes in: fp32, or fp64 where a check wants the function
+    nearer its exact value than fp32's own rounding."""
+    p, ds, dof = _p_ds(q, k, v, do, lse, delta, causal, q_offset, scale, acc)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.transpose(1, 2).to(acc))
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     return dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)
 
