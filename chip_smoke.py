@@ -10,10 +10,9 @@ Phases (any failure exits non-zero):
      D=64 (phase 11's fp16 model), in fp32's tensor-core forward, dQ or
      dK/dV at D=64 (phase 11's fp32 model), in the wide forward, dQ or dK/dV at
      D=256 (phase 9's wide llama), in fp16's wide forward, dQ or dK/dV at
-     D=256 (phase 11's fp16 model in heads of 256), in the forward above
-     D=512 (flash_fwd_chunked_kernel, bf16 and fp16) or fp16's dQ and
-     dK/dV above it (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) at
-     D=640, or in fp32's
+     D=256 (phase 11's fp16 model in heads of 256), in the forward, dQ or
+     dK/dV above D=512 (flash_fwd_chunked_kernel, flash_dq_chunked_kernel,
+     flash_dkv_chunked_kernel, bf16 and fp16) at D=640, or in fp32's
      TF32 forward above D=128 (`_f32_wide`, one instantiation for every
      width: CW=128, which D=256 runs), or in fp32's TF32 dQ and dK/dV
      (flash_dq_f32_kernel, flash_dkv_f32_kernel, one kernel each at every
@@ -35,8 +34,7 @@ Phases (any failure exits non-zero):
      dK/dV timed as one backward beside the library's backward; the padded
      widths' forward and backward timed beside the library's, and the
      wide kernels at 256, 512 and 384 (the library's backward above 256 is
-     autograd through scaled_dot_product_attention), and bf16's wide
-     kernels at D=640, where dQ and dK/dV cut D on wmma; then the fp32 and the
+     autograd through scaled_dot_product_attention); then the fp32 and the
      fp16 kernels (fp32's forward, dQ and dK/dV on the tensor cores in
      three TF32 passes, csrc/flash_f32.cu, up to D=128 and above it
      streaming D, `_f32_wide`, fp32's dQ held against the plain version
@@ -70,21 +68,22 @@ Phases (any failure exits non-zero):
      CHUNKED_CASES (D=640 at B=8, H=2, S=2048; 768, 896 and 1024; a ragged
      S; non-causal with Sq ≠ Sk; a query slice behind q_offset; Sq=65;
      B·H=1), each launched twice and held to give bitwise the same O and
-     lse, timed in turns (one round) at D=640 against the kernels it took
-     the route from (bf16's wmma flash_fwd_wmma, fp16's flash_fwd_f16_simt, held to
-     the same bars there) beside the plain version, SDPA's forward and the
-     bound, and once at D=1024 (B=8, H=1); the chunked kernel's launches
-     count under flash_fwd_chunked and flash_fwd_f16_chunked, apart from
-     the wide forward's D ≤ 512 ones; then fp16's K2 and K3 above D=512
-     (flash_dq_chunked_kernel and flash_dkv_chunked_kernel, through
-     flash_dq_f16_wide and flash_dkv_f16_wide, counted as
-     flash_dq_f16_chunked and flash_dkv_f16_chunked) at the same
-     CHUNKED_CASES, K1, K2 and K3 launched twice and held bitwise under
-     SIMT_LIMITS, and timed in turns against the CUDA-core pair they took
-     the route from (`_f16_simt`, held to the same bars at D=640, B=2, H=2,
-     S=1024) beside the plain versions, the library's backward and the
-     bounds, at that shape (two rounds) and at CHUNKED_CASES' d640 (one),
-     K2 then K3 as one backward (`time[backward_f16_chunked turns]`);
+     lse, timed at D=640 (fp16's in turns, one round, against
+     flash_fwd_f16_simt, which it took the route from, held to the same
+     bars there) beside the plain version, SDPA's forward and the bound,
+     and once at D=1024 (B=8, H=1); the chunked kernel's launches count
+     under flash_fwd_chunked and flash_fwd_f16_chunked, apart from the wide
+     forward's D ≤ 512 ones; then K2 and K3 above D=512
+     (flash_dq_chunked_kernel and flash_dkv_chunked_kernel, through the
+     wide entries, counted as flash_dq_chunked and flash_dkv_chunked in
+     bf16, flash_dq_f16_chunked and flash_dkv_f16_chunked in fp16) at the
+     same CHUNKED_CASES, K1, K2 and K3 launched twice and held bitwise
+     under LIMITS (bf16) and SIMT_LIMITS (fp16), and timed beside the plain
+     versions, the library's backward and the bounds at D=640, B=2, H=2,
+     S=1024 (two rounds) and at CHUNKED_CASES' d640 (one), fp16's in turns
+     against the CUDA-core pair it took the route from (`_f16_simt`, held
+     to the same bars at the first shape), K2 then K3 as one backward
+     (`time[backward_chunked turns]`, `time[backward_f16_chunked turns]`);
   4. slice: llama_350m at full width in a TrainSession on the card — one
      forward and backward through the kernels against the plain attention
      (the step-0 loss, the hidden state before the final norm, every
@@ -263,13 +262,15 @@ WIDE_SPILL_FREE = ("flash_fwd_wide", "flash_dq_wide", "flash_dkv_wide",
                    "flash_dkv_f16_wide")
 WIDE_HEAD_DIM = 256
 MAIN_SPILL_GATES = tuple((n, MAIN_HEAD_DIM) for n in SPILL_FREE)
-# The kernels above D=512 that stream D (flash_fwd_chunked_kernel, and
-# fp16's flash_dq_chunked_kernel and flash_dkv_chunked_kernel) are templated
-# on the width of their chunk of the output, CW, not on D: D=640 runs
-# CW=128, held to no spill (the forward in both dtypes); CW=256, which
-# D=768 and 1024 run, is only logged.
+# The kernels above D=512 that stream D (flash_fwd_chunked_kernel,
+# flash_dq_chunked_kernel and flash_dkv_chunked_kernel) are templated on
+# the width of their chunk of the output, CW, not on D: D=640 runs CW=128,
+# held to no spill in both dtypes; CW=256, which D=768 and 1024 run, is
+# only logged.
 CHUNKED_SPILL_GATES = (("flash_fwd_chunked", 128),
                        ("flash_fwd_chunked_f16", 128),
+                       ("flash_dq_chunked", 128),
+                       ("flash_dkv_chunked", 128),
                        ("flash_dq_chunked_f16", 128),
                        ("flash_dkv_chunked_f16", 128))
 # fp32's TF32 forward above D=128 takes D at run time and is templated on
@@ -674,10 +675,11 @@ def routed(fa, table):
 
 def time_turns(fa, shape, dtype=torch.float16, table=CUDA_CORE_F16,
                rounds=2) -> dict:
-    """K1, K2 and K3 of `dtype` (fp16 or fp32) at `shape`, on the tensor
-    cores and on the CUDA cores (`table`: CUDA_CORE_F16 or CUDA_CORE_F32),
-    timed in turns (tensor, CUDA, CUDA, tensor) `rounds` times on the same
-    inputs by CUDA events; logged, and returned as {kernel: median ms}."""
+    """K1, K2 and K3 of `dtype` at `shape`, on the tensor cores and on the
+    CUDA cores (`table`: CUDA_CORE_F16 or CUDA_CORE_F32; an empty table
+    times the tensor-core kernels alone), timed in turns (tensor, CUDA,
+    CUDA, tensor) `rounds` times on the same inputs by CUDA events; logged,
+    and returned as {kernel: median ms}."""
     B, H, Sq, Sk, D, causal, q_off = shape
     g = torch.Generator("cuda").manual_seed(2)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
@@ -709,10 +711,10 @@ def time_turns(fa, shape, dtype=torch.float16, table=CUDA_CORE_F16,
 
 
 # K1 above D=512: flash_fwd_chunked_kernel (csrc/flash_fwd_wide.cu), which
-# the wide forward's entries launch there in bf16 and fp16, and the kernels
-# it took that route from, reached only to be timed against it in turns.
-OLD_FWD_ABOVE_512 = {"flash_fwd_wide": "flash_fwd_wmma",
-                     "flash_fwd_f16_wide": "flash_fwd_f16_simt"}
+# the wide forward's entries launch there in bf16 and fp16, and the kernel
+# fp16's took that route from, reached only to be timed against it in turns
+# (bf16's, on wmma, is gone).
+OLD_FWD_ABOVE_512 = {"flash_fwd_f16_wide": "flash_fwd_f16_simt"}
 # (B, H, Sq, Sk, D, causal, q_off): the timed shape first (B·H·D near
 # d256's and d512's), every chunk width to 1024, a ragged S, non-causal
 # with Sq ≠ Sk, a query slice behind q_offset, Sq = 65, B·H = 1
@@ -763,21 +765,22 @@ def forward_errors(fa, name, shape, dtype, limits):
 
 def check_chunked(fa, dtype, limits) -> dict:
     """K1 above D=512 at every CHUNKED_CASES in `dtype`, by
-    forward_errors; then the kernel it took the route from at the first
-    case. Fails after reporting every case; returns the errors by case,
-    the old kernel's under its name."""
+    forward_errors; then, where `dtype` has one (OLD_FWD_ABOVE_512), the
+    kernel it took the route from at the first case. Fails after reporting
+    every case; returns the errors by case, the old kernel's under its
+    name."""
     failures, out = [], {}
     for name, shape in CHUNKED_CASES.items():
         route = fa._kernel("flash_fwd", shape[4], dtype)
-        if route not in OLD_FWD_ABOVE_512 or \
-                fa.counted(route, shape[4]) != fa.CHUNKED_COUNTS[route]:
+        if fa.counted(route, shape[4]) != fa.CHUNKED_COUNTS.get(route):
             failures.append(f"{name}: not the chunked kernel's route")
         out[name], bad = forward_errors(fa, name, shape, dtype, limits)
         failures += [f"{name}: {b}" for b in bad]
-    with routed(fa, OLD_FWD_ABOVE_512):
-        old = fa._kernel("flash_fwd", 640, dtype)
-        out[old], bad = forward_errors(fa, "d640", CHUNKED_CASES["d640"],
-                                       dtype, limits)
+    if fa._kernel("flash_fwd", 640, dtype) in OLD_FWD_ABOVE_512:
+        with routed(fa, OLD_FWD_ABOVE_512):
+            old = fa._kernel("flash_fwd", 640, dtype)
+            out[old], bad = forward_errors(fa, "d640", CHUNKED_CASES["d640"],
+                                           dtype, limits)
         failures += [f"{old} d640: {b}" for b in bad]
     if failures:
         raise SystemExit("K1 above D=512 failed: " + "; ".join(failures))
@@ -832,50 +835,60 @@ def time_forward(fa, shape, dtype, old=None, rounds=2) -> dict:
 
 def run_chunked(fa) -> dict:
     """Phase 3's K1 above D=512 in bf16 (LIMITS) and fp16
-    (SIMT_LIMITS[float16]): checked at every CHUNKED_CASES, timed in turns
-    against the kernel it took the route from at CHUNKED_CASES["d640"], and
-    once at D1024_SHAPE. Returns the rows of the kernels' JSON line, at
-    d640: the new kernel's under the name it counts under
+    (SIMT_LIMITS[float16]): checked at every CHUNKED_CASES, timed at
+    CHUNKED_CASES["d640"] (fp16's in turns against the kernel it took the
+    route from), and once at D1024_SHAPE. Returns the rows of the kernels'
+    JSON line, at d640: the new kernel's under the name it counts under
     (fa.CHUNKED_COUNTS: the wide forward's d256 rows keep the route's name),
-    the old kernels' under theirs."""
+    the old kernel's under its own."""
     rows = {}
     for dtype, limits in ((torch.bfloat16, LIMITS),
                           (torch.float16, SIMT_LIMITS[torch.float16])):
         errs = check_chunked(fa, dtype, limits)
         new = fa._kernel("flash_fwd", 640, dtype)
-        old = OLD_FWD_ABOVE_512[new]
+        old = OLD_FWD_ABOVE_512.get(new)
         timed = time_forward(fa, CHUNKED_CASES["d640"], dtype, old, rounds=1)
         timed[new]["err"] = max(errs["d640"]["o"], errs["d640"]["lse"])
-        timed[old]["err"] = max(errs[old]["o"], errs[old]["lse"])
         rows[fa.CHUNKED_COUNTS[new]] = timed[new]
-        rows[old] = timed[old]
+        if old:
+            timed[old]["err"] = max(errs[old]["o"], errs[old]["lse"])
+            rows[old] = timed[old]
         time_forward(fa, D1024_SHAPE, dtype)
     return rows
 
 
-# fp16's K2 and K3 above D=512: flash_dq_chunked_kernel and
+# K2 and K3 above D=512: flash_dq_chunked_kernel and
 # flash_dkv_chunked_kernel (csrc/flash_{dq,dkv}_wide.cu), which the wide
-# fp16 entries launch there, and the CUDA-core kernels they took that route
-# from, reached only to be timed against them in turns.
+# entries launch there in bf16 and fp16, and the CUDA-core kernels fp16's
+# took that route from, reached only to be timed against them in turns
+# (bf16's, on wmma, are gone).
 OLD_BWD_ABOVE_512 = {"flash_dq_f16_wide": "flash_dq_f16_simt",
                      "flash_dkv_f16_wide": "flash_dkv_f16_simt"}
-# The shape of the CUDA-core pair's row of record (D=640, B=2, H=2, S=1024)
+# The shape of the row of record of the pairs they replaced (D=640, B=2,
+# H=2, S=1024)
 BWD_RECORD_SHAPE = (2, 2, 1024, 1024, 640, True, 0)
-BWD_CHUNKED_COUNTS = ("flash_dq_f16_chunked", "flash_dkv_f16_chunked")
+# The counts of K2 and K3 above D=512, and their bars, by dtype
+BWD_CHUNKED_COUNTS = {
+    torch.bfloat16: ("flash_dq_chunked", "flash_dkv_chunked"),
+    torch.float16: ("flash_dq_f16_chunked", "flash_dkv_f16_chunked")}
+BWD_CHUNKED_LIMITS = {torch.bfloat16: LIMITS,
+                      torch.float16: SIMT_LIMITS[torch.float16]}
 
 
-def time_backward_turns(fa, shape, rounds: int) -> dict:
-    """fp16's K2 and K3 at `shape`: the kernels the wrappers take and the
-    CUDA-core ones (OLD_BWD_ABOVE_512), timed in turns `rounds` times
-    (time_turns), beside the plain versions, the library's backward and the
-    bounds; logged, K2 then K3 as one backward. Returns rows of the
-    kernels' JSON line by the names the kernels count under."""
-    f16 = torch.float16
-    med = time_turns(fa, shape, f16, OLD_BWD_ABOVE_512, rounds)
+def time_backward_turns(fa, shape, rounds: int, dtype) -> dict:
+    """K2 and K3 of `dtype` at `shape`: the kernels the wrappers take and,
+    in fp16, the CUDA-core ones (OLD_BWD_ABOVE_512), timed in turns
+    `rounds` times (time_turns), beside the plain versions, the library's
+    backward and the bounds; logged, K2 then K3 as one backward. Returns
+    rows of the kernels' JSON line by the names the kernels count under."""
     B, H, Sq, Sk, D, causal, q_off = shape
+    routes = [fa._kernel(n, D, dtype) for n in ("flash_dq", "flash_dkv")]
+    table = {r: OLD_BWD_ABOVE_512[r] for r in routes
+             if r in OLD_BWD_ABOVE_512}
+    med = time_turns(fa, shape, dtype, table, rounds)
     g = torch.Generator("cuda").manual_seed(2)
     q, k, v, do = (torch.randn(B, S, H, D, generator=g, device="cuda")
-                   .to(f16) for S in (Sq, Sk, Sk, Sq))
+                   .to(dtype) for S in (Sq, Sk, Sk, Sq))
     o, lse = fa.flash_fwd(q, k, v, causal, q_off)
     _, delta = fa.flash_dq(q, k, v, o, do, lse, causal, q_off)
     plain = {"flash_dq": cuda_ms(lambda: fa.flash_dq_reference(
@@ -883,78 +896,97 @@ def time_backward_turns(fa, shape, rounds: int) -> dict:
              "flash_dkv": cuda_ms(lambda: fa.flash_dkv_reference(
                  q, k, v, do, lse, delta, causal, q_off), warmup=1, reps=5)}
     _, lib_bwd = library_times(q, k, v, do, causal)
+    tag = "" if dtype == torch.bfloat16 else f"_{fa.SIMT_SUFFIX[dtype]}"
     rows, pair = {}, {}
     for name, n_products, line in (("flash_dq", 3, 215),
                                    ("flash_dkv", 4, 260)):
-        new = fa._kernel(name, D, f16)
-        old = OLD_BWD_ABOVE_512[new]
-        b = bound(n_products, 6, 2, *shape, f16)
-        pair[name] = (med[new], med[old])
+        new = fa._kernel(name, D, dtype)
+        old = table.get(new)
+        b = bound(n_products, 6, 2, *shape, dtype)
+        pair[name] = (med[new], med.get(old))
         for kernel, count in ((new, fa.counted(new, D)), (old, old)):
+            if kernel is None:
+                continue
             rows[count] = dict(
                 ms=med[kernel], plain_ms=plain[name], b=b,
                 library_ms=lib_bwd, replaces=f"{TPU_SRC}:{line}",
                 source=("vodascheduler_tpu_torch/ops/csrc/"
                         f"{fa.source(kernel)}.cu"))
-        log(f"time[f16 chunked] D={D} B={B} H={H} S={Sq} "
+        log(f"time[{fa.SIMT_SUFFIX.get(dtype, 'bf16')} chunked] D={D} B={B} "
+            f"H={H} S={Sq} "
             f"{fa.counted(new, D)} ms={med[new]:.4f} "
             f"roofline_share={b[0] / med[new]:.3f} bound_ms={b[0]:.4f} "
-            f"({b[1]}) plain_ms={plain[name]:.4f} library_ms={lib_bwd:.4f} "
-            f"{old} ms={med[old]:.4f} "
-            f"cuda_cores_over_tensor_cores={med[old] / med[new]:.3f}")
-    new_ms, old_ms = (sum(t[x] for t in pair.values()) for x in (0, 1))
-    b = bound(7, 8, 1, *shape, f16)
-    log(f"time[backward_f16_chunked turns] D={D} B={B} H={H} S={Sq} "
-        f"flash_dq_f16_chunked then flash_dkv_f16_chunked ms={new_ms:.4f} "
-        f"(sum of the medians in turns) roofline_share={b[0] / new_ms:.3f} "
-        f"bound_ms={b[0]:.4f} ({b[1]}) library_ms={lib_bwd:.4f} "
-        f"library_over_kernels={lib_bwd / new_ms:.3f} _f16_simt pair "
-        f"ms={old_ms:.4f} cuda_cores_over_tensor_cores={old_ms / new_ms:.3f}")
+            f"({b[1]}) plain_ms={plain[name]:.4f} library_ms={lib_bwd:.4f}"
+            + (f" {old} ms={med[old]:.4f} cuda_cores_over_tensor_cores="
+               f"{med[old] / med[new]:.3f}" if old else ""))
+    new_ms = sum(t[0] for t in pair.values())
+    b = bound(7, 8, 1, *shape, dtype)
+    dq, dkv = (fa.counted(fa._kernel(n, D, dtype), D)
+               for n in ("flash_dq", "flash_dkv"))
+    line = (f"time[backward{tag}_chunked turns] D={D} B={B} H={H} S={Sq} "
+            f"{dq} then {dkv} ms={new_ms:.4f} (sum of the medians in turns) "
+            f"roofline_share={b[0] / new_ms:.3f} bound_ms={b[0]:.4f} "
+            f"({b[1]}) library_ms={lib_bwd:.4f} "
+            f"library_over_kernels={lib_bwd / new_ms:.3f}")
+    if table:
+        old_ms = sum(t[1] for t in pair.values())
+        line += (f" _f16_simt pair ms={old_ms:.4f} "
+                 f"cuda_cores_over_tensor_cores={old_ms / new_ms:.3f}")
+    log(line)
     del q, k, v, do, o, lse, delta
     torch.cuda.empty_cache()
     return rows
 
 
 def run_chunked_backward(fa) -> dict:
-    """Phase 3's fp16 K2 and K3 above D=512 (SIMT_LIMITS[float16]): each
-    kernel against its plain version at every CHUNKED_CASES, K1, K2 and K3
-    launched twice and held bitwise, K2's and K3's launches counted under
-    their chunked names; the CUDA-core pair they took the route from held to
-    the same bars at BWD_RECORD_SHAPE; both timed in turns there (two
-    rounds) and at CHUNKED_CASES["d640"] (one). Fails after reporting every
-    case; returns the rows of the kernels' JSON line at BWD_RECORD_SHAPE,
-    the new kernels' under the names they count under, the CUDA-core ones'
-    under theirs."""
-    f16 = torch.float16
-    limits = SIMT_LIMITS[f16]
-    failures = []
-    for name, shape in CHUNKED_CASES.items():
-        D = shape[4]
-        if tuple(fa.counted(fa._kernel(n, D, f16), D)
-                 for n in ("flash_dq", "flash_dkv")) != BWD_CHUNKED_COUNTS:
-            failures.append(f"{name}: not the chunked kernels' route")
-        before = dict(fa.launches)
-        _, bad = kernel_errors(fa, name, shape, f16, limits, twice=True)
-        got = {n: fa.launches[n] - before[n] for n in BWD_CHUNKED_COUNTS}
-        if got != dict.fromkeys(BWD_CHUNKED_COUNTS, 2):
-            bad.append(f"launches {got}")
-        failures += [f"{name}: {b}" for b in bad]
-    new_errs, bad = kernel_errors(fa, "d640_record", BWD_RECORD_SHAPE, f16,
-                                  limits)
-    failures += [f"d640_record: {b}" for b in bad]
-    with routed(fa, OLD_BWD_ABOVE_512):
-        old_errs, bad = kernel_errors(fa, "d640_cuda_cores", BWD_RECORD_SHAPE,
-                                      f16, limits)
-    failures += [f"_f16_simt d640: {b}" for b in bad]
+    """Phase 3's K2 and K3 above D=512 in bf16 (LIMITS) and fp16
+    (SIMT_LIMITS[float16]): each kernel against its plain version at every
+    CHUNKED_CASES, K1, K2 and K3 launched twice and held bitwise, K2's and
+    K3's launches counted under their chunked names (BWD_CHUNKED_COUNTS);
+    in fp16 the CUDA-core pair it took the route from held to the same bars
+    at BWD_RECORD_SHAPE. Then each dtype's pair timed there (two rounds;
+    fp16's in turns against the CUDA-core pair) and at
+    CHUNKED_CASES["d640"] (one). Fails after reporting every case of both
+    dtypes, before any timing; returns the rows of the kernels' JSON line
+    at BWD_RECORD_SHAPE, the new kernels' under the names they count
+    under, the CUDA-core ones' under theirs."""
+    failures, errs = [], {}
+    for dtype, counts in BWD_CHUNKED_COUNTS.items():
+        limits = BWD_CHUNKED_LIMITS[dtype]
+        what = str(dtype)[6:]
+        for name, shape in CHUNKED_CASES.items():
+            D = shape[4]
+            if tuple(fa.counted(fa._kernel(n, D, dtype), D)
+                     for n in ("flash_dq", "flash_dkv")) != counts:
+                failures.append(f"{what} {name}: not the chunked kernels' "
+                                "route")
+            before = dict(fa.launches)
+            _, bad = kernel_errors(fa, name, shape, dtype, limits,
+                                   twice=True)
+            got = {n: fa.launches[n] - before[n] for n in counts}
+            if got != dict.fromkeys(counts, 2):
+                bad.append(f"launches {got}")
+            failures += [f"{what} {name}: {b}" for b in bad]
+        errs[counts], bad = kernel_errors(fa, "d640_record",
+                                          BWD_RECORD_SHAPE, dtype, limits)
+        failures += [f"{what} d640_record: {b}" for b in bad]
+        if fa._kernel("flash_dq", 640, dtype) in OLD_BWD_ABOVE_512:
+            with routed(fa, OLD_BWD_ABOVE_512):
+                old, bad = kernel_errors(fa, "d640_cuda_cores",
+                                         BWD_RECORD_SHAPE, dtype, limits)
+            errs[tuple(OLD_BWD_ABOVE_512.values())] = old
+            failures += [f"_f16_simt d640: {b}" for b in bad]
     if failures:
         raise SystemExit("K2 and K3 above D=512 failed: "
                          + "; ".join(failures))
-    rows = time_backward_turns(fa, BWD_RECORD_SHAPE, rounds=2)
-    for errs, (dq, dkv) in ((new_errs, BWD_CHUNKED_COUNTS),
-                            (old_errs, OLD_BWD_ABOVE_512.values())):
-        rows[dq]["err"] = errs["dq_abs"]
-        rows[dkv]["err"] = max(errs["dk_abs"], errs["dv_abs"])
-    time_backward_turns(fa, CHUNKED_CASES["d640"], rounds=1)
+    rows = {}
+    for dtype in BWD_CHUNKED_COUNTS:
+        rows.update(time_backward_turns(fa, BWD_RECORD_SHAPE, 2, dtype))
+    for (dq, dkv), e in errs.items():
+        rows[dq]["err"] = e["dq_abs"]
+        rows[dkv]["err"] = max(e["dk_abs"], e["dv_abs"])
+    for dtype in BWD_CHUNKED_COUNTS:
+        time_backward_turns(fa, CHUNKED_CASES["d640"], 1, dtype)
     return rows
 
 
@@ -2586,11 +2618,6 @@ def main() -> int:
     f16_wide = [n for n in CUDA_CORE_F16 if n.endswith("_wide")]
     for name in f16_wide:
         rows[name] = d256_rows[name]
-    # bf16's wide kernels at D=640, where dQ and dK/dV cut D on wmma
-    # (wide.cuh) and the forward streams D (flash_fwd_chunked_kernel)
-    d640 = BWD_RECORD_SHAPE
-    time_kernels(fa, d640, check_kernels(fa, {"d640": d640}), "_wide")
-    torch.cuda.empty_cache()
     # fp16's K1, K2 and K3 on the CUDA cores (`_f16_simt`), held to the same
     # bars at the main shape and timed in turns with the tensor-core
     # kernels that replaced them there and at d256; their rows from d256
@@ -2615,11 +2642,11 @@ def main() -> int:
             f"{turns[old] / rows[new]['ms']:.3f}")
     torch.cuda.empty_cache()
     # K1 above D=512 in bf16 and fp16 (flash_fwd_chunked_kernel), and the
-    # kernels it took the route from there (flash_fwd_f16_simt's row, at
-    # D=640, takes the place of its d256 one); fp16's K2 and K3 above D=512
-    # (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) and the CUDA-core
-    # pair they took the route from (whose rows, at D=640, take the place of
-    # the d256 ones)
+    # kernel fp16's took the route from there (flash_fwd_f16_simt's row, at
+    # D=640, takes the place of its d256 one); K2 and K3 above D=512 in bf16
+    # and fp16 (flash_dq_chunked_kernel, flash_dkv_chunked_kernel) and the
+    # CUDA-core pair fp16's took the route from (whose rows, at D=640, take
+    # the place of the d256 ones)
     rows.update(run_chunked(fa))
     rows.update(run_chunked_backward(fa))
     phase("3 kernels")

@@ -2,7 +2,8 @@
 of two source trees against each other, in turns, on one card.
 
     python3 scripts/torch_kernel_ab.py [--base build/ab_parent/csrc] [--reps 3]
-        [--shape main|d128|d256|d512|d640] [--dtype bf16|fp16|fp32]
+        [--shape main|d128|d256|d512|d640|d640_record]
+        [--dtype bf16|fp16|fp32]
 
 `--base` is a copy of another commit's ``vodascheduler_tpu_torch/ops/csrc``
 (the copy on the card is no git repository, so write it first, e.g. for the
@@ -24,14 +25,17 @@ llama_350m's attention (H=16, D=64, the kernels of flash_{fwd,dq,dkv}.cu,
 as `d128` at H=8, D=128); `d256` (H=4, D=256) and `d512` (H=2, D=512),
 the same width in wider heads, which run the wide kernels
 (flash_{fwd,dq,dkv}_wide.cu; rows named with `_wide`); `d640` (H=2,
-D=640), where the forward streams D (flash_fwd_chunked_kernel) and bf16's
-dQ and dK/dV cut it on wmma, and fp16's stream it too
-(flash_dq_chunked_kernel, flash_dkv_chunked_kernel). `--dtype` (bf16 by
-default) picks the tensors' type; each row is named after the kernel that
-launches there, as its launches count (`flash_dq_f16_chunked` in fp16 at
-d640, say; the backward after dQ's suffix). A base tree must hold the
-entries the wrappers route to in that dtype (the parent of the commit that
-added fp16's chunked dQ and dK/dV returns an error for fp16 above 512).
+D=640), where the forward, dQ and dK/dV stream D (flash_fwd_chunked_kernel,
+flash_dq_chunked_kernel, flash_dkv_chunked_kernel, in bf16 and fp16);
+`d640_record` the same width at B=2, H=2, S=1024, the shape of the rows of
+record of the kernels those replaced. `--dtype` (bf16 by default) picks the
+tensors' type; each row is named after the kernel that launches there in
+the tree, as its launches count (`flash_dq_f16_chunked` in fp16 at d640,
+say; the backward after dQ's suffix), whatever kernel the base's entry
+launches there (a base older than bf16's chunked dQ and dK/dV runs its
+wmma pair under those rows). A base tree must hold the entries the
+wrappers route to in that dtype (the parent of the commit that added
+fp16's chunked dQ and dK/dV returns an error for fp16 above 512).
 Where a base entry takes one pointer fewer than the tree's, its scratch,
 which the wrappers pass last among the pointers (fp32's dK/dV before its
 wgmma redesign took none), the base is called without it. Prints the
@@ -63,7 +67,8 @@ SHAPES = {"main": MAIN_SHAPE,
           "d128": (8, 8, 2048, 2048, 128, True, 0),
           "d256": (8, 4, 2048, 2048, 256, True, 0),
           "d512": (8, 2, 2048, 2048, 512, True, 0),
-          "d640": (8, 2, 2048, 2048, 640, True, 0)}
+          "d640": (8, 2, 2048, 2048, 640, True, 0),
+          "d640_record": (2, 2, 1024, 1024, 640, True, 0)}
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 ROWS = KERNELS + ("backward",)
 DTYPES = {"bf16": torch.bfloat16, "fp16": torch.float16,

@@ -3,7 +3,7 @@ against the sources as they stand, in turns, on one card: what each part
 of a kernel costs, and what each design choice of theirs is worth.
 
     python3 scripts/torch_kernel_ablate.py [--rounds 6] [--only NAME ...]
-        [--shape main|d128|d256|d512|d640] [--dtype bf16|fp16]
+        [--shape main|d128|d256|d512|d640|d640_record] [--dtype bf16|fp16]
 
 Each variant is a copy of ``vodascheduler_tpu_torch/ops/csrc`` with a few
 lines changed (VARIANTS below), built under ``build/kernel_ablate/<name>``
@@ -15,9 +15,10 @@ it) and are only timed. At `--shape` (scripts/torch_kernel_ab.py's:
 `d128` the same width in heads of 128; `d256` and `d512` in heads of 256
 and 512, which run the wide kernels, whose variants are named `fwdw_`,
 `dqw_` and `dkvw_`; `d640` in heads of 640, where the forward is
-flash_fwd_chunked_kernel, whose variants are named `fwdc_`, and in fp16
-(`--dtype fp16`) dQ and dK/dV are flash_dq_chunked_kernel and
-flash_dkv_chunked_kernel, named `dqc_` and `dkvc_`) every round times the tree and then each variant, K1, K2, K3
+flash_fwd_chunked_kernel, whose variants are named `fwdc_`, and dQ and
+dK/dV are flash_dq_chunked_kernel and flash_dkv_chunked_kernel, named
+`dqc_` and `dkvc_`, in bf16 and fp16 alike: `--dtype` picks the
+instantiation they weigh) every round times the tree and then each variant, K1, K2, K3
 and K2 then K3 (the backward) each by CUDA events (chip_smoke.cuda_ms, 30
 repeats after 5 warm-ups); the script prints the
 card's name and power limit, the median of each, its ratio to the tree's,
@@ -50,7 +51,7 @@ FW, QW, KW = "flash_fwd_wide.cu", "flash_dq_wide.cu", "flash_dkv_wide.cu"
 # the wide dQ and dK/dV kernels alone: their sources also hold the kernels
 # above D=512, which share some of their lines (scripts/source_edits.py)
 QWK, KWK = QW + ":flash_dq_wide_kernel", KW + ":flash_dkv_wide_kernel"
-# fp16's dQ and dK/dV above D=512 (run with --shape d640 --dtype fp16)
+# dQ and dK/dV above D=512 (run with --shape d640, in either dtype)
 QCK, KCK = QW + ":flash_dq_chunked_kernel", KW + ":flash_dkv_chunked_kernel"
 _DQC_SUM = """      for (int c = 0; c < nc; ++c) {
         issue_chunk(j * nc + c);
@@ -221,7 +222,7 @@ VARIANTS = {
                    "results)", [
         (QWK, "sc[4 * c + e] = fast_exp2(fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]));",
          "sc[4 * c + e] = fmaf(sc[4 * c + e], sl2, -lse2[e >> 1]);")]),
-    "dqc_async": ("fp16's K2 above D=512 summing S and dP over all of D in "
+    "dqc_async": ("K2 above D=512 summing S and dP over all of D in "
                   "one tensor-core accumulator, each chunk's stage released "
                   "under the next chunk's products (as the chunked forward; "
                   "a fp32 add a chunk as it stands)", [
@@ -231,26 +232,26 @@ VARIANTS = {
          "                        bd + kmajor_step(BN, kk), "
          "it % nc > 0 || kk > 0);"),
         (QCK, _DQC_SUM, _DQC_ASYNC)]),
-    "dqc_s_first_chunk": ("fp16's K2 above D=512 taking S's and dP's products "
+    "dqc_s_first_chunk": ("K2 above D=512 taking S's and dP's products "
                           "of D's first chunk only, every chunk still loaded "
                           "(wrong results)", [
         (QCK, _CHUNK_PRODUCTS, _FIRST_CHUNK)]),
-    "dqc_loads_once": ("fp16's K2 above D=512 loading Q, dO, K and V chunks "
+    "dqc_loads_once": ("K2 above D=512 loading Q, dO, K and V chunks "
                        "for the first stages only (wrong results)", [
         (QCK, _DQC_LOADS, "if (it < ST) {\n" + _DQC_LOADS
          + "\n} else { mbar_arrive(&full[s]); }")]),
-    "dqc_bn64": ("fp16's K2 above D=512 with 64-key tiles (128 as it stands)",
+    "dqc_bn64": ("K2 above D=512 with 64-key tiles (128 as it stands)",
                  [(QW, "static constexpr int BN = 128;  // keys of a tile",
                    "static constexpr int BN = 64;  // keys of a tile")]),
-    "dkvc_s_first_chunk": ("fp16's K3 above D=512 taking Sᵀ's and dPᵀ's "
+    "dkvc_s_first_chunk": ("K3 above D=512 taking Sᵀ's and dPᵀ's "
                            "products of D's first chunk only, every chunk "
                            "still loaded (wrong results)", [
         (KCK, _CHUNK_PRODUCTS, _FIRST_CHUNK)]),
-    "dkvc_loads_once": ("fp16's K3 above D=512 loading K, V, Q and dO chunks "
+    "dkvc_loads_once": ("K3 above D=512 loading K, V, Q and dO chunks "
                         "for the first stages only (wrong results)", [
         (KCK, _DKVC_LOADS, "if (it < ST) {\n" + _DKVC_LOADS
          + "\n} else { mbar_arrive(&full[s]); }")]),
-    "dkvc_kc128": ("fp16's K3 above D=512 streaming D in 128-column chunks "
+    "dkvc_kc128": ("K3 above D=512 streaming D in 128-column chunks "
                    "(64 as it stands)", [
         (KW, "  static constexpr int KC = 64;   // columns of D in a stage\n"
              "  static constexpr int HW = CW / 2;  // a consumer warpgroup's "

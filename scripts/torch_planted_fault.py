@@ -54,6 +54,11 @@ small:
 - ``dkvc_f16_no_rescale``: fp16's dK/dV above D=512 (flash_dkv_wide.cu's
   flash_dkv_chunked_kernel) lowers a key row's exponent of dSᵀ but never
   rescales what dK's row has summed so far.
+- ``dqc_bf16_drop_chunk``: ``dqc_f16_drop_chunk``'s edit, held in bf16
+  (the kernel is one template for both types).
+- ``dkvc_bf16_drop_chunk``: bf16's dK/dV above D=512 (the same
+  flash_dkv_chunked_kernel) leaves D's second 64-column chunk out of every
+  Sᵀ and dPᵀ (its stage still loaded, waited on and released).
 - ``f32_dq_one_pass``: fp32's TF32 dQ (flash_f32.cu's flash_dq_f32_kernel,
   at every width) takes S, dP and dS·K as hi·hi alone, one pass.
 - ``f32_dq_drop_chunk``: the same kernel leaves D's second 32-column chunk
@@ -72,7 +77,7 @@ fp32 under chip_smoke.py's fp32 bars, and the chunked forward's at D=640
 (B=2, H=2, S=1024), the first in bf16, the second in fp16 under the fp16
 bars, the fp32 wide ones at the wide shape in fp32 under the fp32
 bars, the fp16 dQ and dK/dV above D=512 at D=640 under the fp16 bars,
-and fp32's TF32 dQ, its one pass at the main shape and its dropped chunk
+and the bf16 ones there under the bf16 bars (`LIMITS`), and fp32's TF32 dQ, its one pass at the main shape and its dropped chunk
 at the wide one, and fp32's dK/dV prologue in natural order at the main
 shape, under the fp32 bars, each required to break the bars of
 its own kernel (O for the
@@ -270,6 +275,17 @@ FAULTS = {
         "      if (__any_sync(0xffffffffu, fell)) {\n",
         "      if (false && __any_sync(0xffffffffu, fell)) {\n",
         CHUNKED_SHAPE, torch.float16),
+    "dqc_bf16_drop_chunk": (
+        "flash_dq_wide.cu:flash_dq_chunked_kernel",
+        "        for (int e = 0; e < BN / 2; ++e) sc[e] += part[e];\n",
+        "        for (int e = 0; e < BN / 2; ++e)\n"
+        "          sc[e] += cw == 0 && c == 1 ? 0.f : part[e];\n",
+        CHUNKED_SHAPE, torch.bfloat16),
+    "dkvc_bf16_drop_chunk": (
+        "flash_dkv_wide.cu:flash_dkv_chunked_kernel",
+        "      for (int kk = 0; kk < KC / 16; ++kk)\n",
+        "      for (int kk = 0; kk < (it % nc == 1 ? 0 : KC / 16); ++kk)\n",
+        CHUNKED_SHAPE, torch.bfloat16),
     "f32_dq_one_pass": (
         "flash_f32.cu:flash_dq_f32_kernel",
         (*(o for o, _ in _F32DQ_S), _F32DQ_DQ[0]),
@@ -290,6 +306,8 @@ MUST_BREAK = {"f32w_fwd_one_pass": ("o_row",),
               "f32_dkv_natural_order": ("dk_row", "dv_row"),
               "dqc_f16_drop_chunk": ("dq_row",),
               "dkvc_f16_no_rescale": ("dk_row",),
+              "dqc_bf16_drop_chunk": ("dq_row",),
+              "dkvc_bf16_drop_chunk": ("dk_row", "dv_row"),
               "f32_dq_one_pass": ("dq_row",),
               "f32_dq_drop_chunk": ("dq_row",)}
 # The faults that must break no bar but those of their own kernel (K2's dQ
@@ -299,6 +317,8 @@ OWN_BARS = {"f32w_dkv_one_pass": ("dk_row", "dv_row"),
             "f32_dkv_natural_order": ("dk_row", "dv_row"),
             "dqc_f16_drop_chunk": ("dq_row", "delta"),
             "dkvc_f16_no_rescale": ("dk_row", "dv_row"),
+            "dqc_bf16_drop_chunk": ("dq_row", "delta"),
+            "dkvc_bf16_drop_chunk": ("dk_row", "dv_row"),
             "f32_dq_one_pass": ("dq_row", "delta"),
             "f32_dq_drop_chunk": ("dq_row", "delta")}
 

@@ -8,8 +8,9 @@ a head width of 128 (``csrc/flash_f32.cu``: ``flash_fwd_f32``,
 it (``_f32_wide``, the same source),
 fp16 tensors the wgmma forward, dQ and dK/dV up
 to a head width of 128 (``flash_fwd_f16``, ``flash_dq_f16``,
-``flash_dkv_f16``) and above it (``_f16_wide``; above 512 the kernels of
-the same sources that stream D, counted as ``_f16_chunked``). So a Llama
+``flash_dkv_f16``) and above it (``_f16_wide``; above 512, in both types,
+the kernels of the same sources that stream D, counted as ``_chunked`` and
+``_f16_chunked``). So a Llama
 or Mixtral takes the kernels on CUDA whatever dtype it computes in, and no path gives way to the
 plain attention on the card. ``VODA_FLASH_ATTENTION`` forces the plain
 attention (0) or the kernels (1, which raises off CUDA). The card tests of
@@ -102,9 +103,9 @@ def test_fp16_heads_above_512_take_the_chunked_kernels(D):
     """Above 512 fp16's forward, dQ and dK/dV take the wide entries, whose
     kernels there stream D (flash_{fwd,dq,dkv}_wide.cu's chunked kernels),
     counted apart as `_f16_chunked`; no route reaches the CUDA-core
-    `_f16_simt` kernels, which keep entries only to be timed. bf16 keeps its
-    wide kernels there (the forward the same chunked one, dQ and dK/dV on
-    wmma)."""
+    `_f16_simt` kernels, which keep entries only to be timed. bf16's take
+    the same chunked kernels through its wide entries, counted as
+    `_chunked`; its wmma kernels are gone."""
     for name in ("flash_fwd", "flash_dq", "flash_dkv"):
         kernel = fa._kernel(name, fa.kernel_head_dim(D), torch.float16)
         assert kernel == f"{name}_f16_wide"
@@ -114,13 +115,13 @@ def test_fp16_heads_above_512_take_the_chunked_kernels(D):
         assert count == f"{name}_f16_chunked" and count in fa.launches
         assert fa.source(count) == f"{name}_wide"
         assert fa._kernel(name, D, torch.bfloat16) == f"{name}_wide"
-    assert fa.counted("flash_fwd_wide", D) == "flash_fwd_chunked"
-    for name in ("flash_dq_wide", "flash_dkv_wide"):
-        assert fa.counted(name, D) == name
+        assert fa.counted(f"{name}_wide", D) == f"{name}_chunked"
+        assert f"{name}_chunked" in fa.launches
+        assert fa.source(f"{name}_chunked") == f"{name}_wide"
+    assert not any("wmma" in k for k in fa.launches)
     # the kernels that lost their routes keep entries of their own, to be
     # timed against their replacements
-    for old, src in (("flash_fwd_wmma", "flash_fwd_wide"),
-                     ("flash_fwd_f16_simt", fa.SIMT_SOURCE),
+    for old, src in (("flash_fwd_f16_simt", fa.SIMT_SOURCE),
                      ("flash_dq_f16_simt", fa.SIMT_SOURCE),
                      ("flash_dkv_f16_simt", fa.SIMT_SOURCE)):
         assert old in fa.launches and fa.source(old) == src
@@ -128,8 +129,7 @@ def test_fp16_heads_above_512_take_the_chunked_kernels(D):
             old.split("_")[:2])]
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-            assert not fa._kernel(name, D, dtype).endswith(
-                ("_wmma", "_f16_simt"))
+            assert not fa._kernel(name, D, dtype).endswith("_f16_simt")
 
 
 @pytest.mark.parametrize("D", [16, 64, 96, 128, 256, 384, 640, 1024])
@@ -215,8 +215,8 @@ def test_the_tf32_dkv_scratch_holds_every_operands_halves():
 
 
 @pytest.mark.parametrize("source,exports,lacks", [
-    ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide",
-                        "voda_flash_fwd_wmma"), ()),
+    ("flash_fwd_wide", ("voda_flash_fwd_wide", "voda_flash_fwd_f16_wide"),
+     ("voda_flash_fwd_wmma",)),
     ("flash_dkv_wide", ("voda_flash_dkv_wide", "voda_flash_dkv_f16_wide"),
      ()),
     ("flash_simt", ("voda_flash_fwd_f32_simt", "voda_flash_dq_f32_simt",
@@ -276,12 +276,13 @@ def test_load_kernels_loads_the_named_kernels(names, monkeypatch):
 
 @pytest.mark.parametrize("dtype,route", [
     (torch.bfloat16, "flash_fwd_wide"), (torch.float16, "flash_fwd_f16_wide"),
-    (torch.float16, "flash_dq_f16_wide"), (torch.float16, "flash_dkv_f16_wide")])
+    (torch.float16, "flash_dq_f16_wide"), (torch.float16, "flash_dkv_f16_wide"),
+    (torch.bfloat16, "flash_dq_wide"), (torch.bfloat16, "flash_dkv_wide")])
 @pytest.mark.parametrize("D", [256, 512, 640, 1024])
 def test_the_chunked_forward_counts_apart_from_its_route(dtype, route, D,
                                                          monkeypatch):
-    """Above WGMMA_MAX_D the wide forward's entry, and fp16's wide dQ and
-    dK/dV entries, launch the kernel of their source that streams D: the
+    """Above WGMMA_MAX_D the wide entries of the forward, dQ and dK/dV, in
+    bf16 and fp16, launch the kernel of their source that streams D: the
     wrapper launches the route's entry and raises the chunked kernel's own
     count (`CHUNKED_COUNTS`), so that the route's D ≤ 512 kernel and the
     chunked one are counted apart; a count's name loads its route's entry

@@ -36,8 +36,6 @@ DQW512_F16 = DQW256_F16.replace("ILi256E", "ILi512E")
 FWDW512 = FWDW256.replace("ILi256E", "ILi512E")
 DKVW384 = DKVW256.replace("ILi256E", "ILi384E")
 DQW512 = DQW256.replace("ILi256E", "ILi512E")
-# the wmma dQ kernel above D=512 is not templated on its width
-DQW = "_ZN4voda4wide20flash_dq_wmma_kernelEPK13__nv_bfloat16S3_S3_S3_S3_PKfPfPS1_iiiiiif"
 # fp32's TF32 forward, templated on its width alone
 FWD64_F32 = "_ZN4voda3f3220flash_fwd_f32_kernelILi64EEEv14CUtensorMap_stS2_S2_S2_S2_PfS3_iiiiif"
 FWD128_F32 = FWD64_F32.replace("ILi64E", "ILi128E")
@@ -50,9 +48,13 @@ DKV128_F32 = DKV64_F32.replace("ILi64E", "ILi128E")
 FWDC128 = "_ZN4voda24flash_fwd_chunked_kernelILi128E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_PT0_Pfiiiiiif"
 FWDC128_F16 = FWDC128.replace("13__nv_bfloat16", "6__half")
 FWDC256 = FWDC128.replace("ILi128E", "ILi256E")
-# fp16's dQ and dK/dV above D=512, templated the same way (fp16 only)
-DQC128_F16 = "_ZN4voda23flash_dq_chunked_kernelILi128E6__halfEEv14CUtensorMap_stS2_S2_S2_PKT0_S5_PKfPfPS3_iiiiiif"
-DKVC128_F16 = "_ZN4voda24flash_dkv_chunked_kernelILi128E6__halfEEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiiif"
+# dQ and dK/dV above D=512, templated the same way, in bf16 and fp16
+DQC128 = "_ZN4voda23flash_dq_chunked_kernelILi128E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKT0_S5_PKfPfPS3_iiiiiif"
+DKVC128 = "_ZN4voda24flash_dkv_chunked_kernelILi128E13__nv_bfloat16EEv14CUtensorMap_stS2_S2_S2_PKfS4_PT0_S6_iiiiiif"
+DQC256 = DQC128.replace("ILi128E", "ILi256E")
+DKVC256 = DKVC128.replace("ILi128E", "ILi256E")
+DQC128_F16 = DQC128.replace("13__nv_bfloat16", "6__half")
+DKVC128_F16 = DKVC128.replace("13__nv_bfloat16", "6__half")
 DQC256_F16 = DQC128_F16.replace("ILi128E", "ILi256E")
 DKVC256_F16 = DKVC128_F16.replace("ILi128E", "ILi256E")
 # fp32's TF32 forward above D=128, templated on its chunk of O alone
@@ -68,6 +70,7 @@ MAIN_CLEAN = ((FWD64, 0, 0), (DQ64, 0, 0), (DKV64, 0, 0), *F16_CLEAN)
 # (with the chunked forward's, gated beside the wide kernels)
 WIDE_F16_CLEAN = ((FWDW256_F16, 0, 0), (DQW256_F16, 0, 0),
                   (DKVW256_F16, 0, 0), (FWDC128, 0, 0), (FWDC128_F16, 0, 0),
+                  (DQC128, 0, 0), (DKVC128, 0, 0),
                   (DQC128_F16, 0, 0), (DKVC128_F16, 0, 0),
                   (FWDW128_F32, 0, 0), (DKV128_F32, 0, 0),
                   (DQ128_F32, 0, 0))
@@ -163,7 +166,7 @@ def test_spill_at_d128_is_only_logged():
 def test_ptxas_spills_reads_the_wide_kernels_by_width():
     spills = chip_smoke.ptxas_spills(log_of(
         *MAIN_CLEAN, *WIDE_CLEAN, (FWDW512, 600, 532), (DKVW384, 0, 0),
-        (DQW, 12, 12), (DKVW512_F16, 16, 16)))
+        (DQC256, 12, 12), (DKVW512_F16, 16, 16)))
     assert spills == {("flash_fwd", 64): 0, ("flash_dq", 64): 0,
                       ("flash_dkv", 64): 0, ("flash_fwd_f16", 64): 0,
                       ("flash_dq_f16", 64): 0,
@@ -176,6 +179,9 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
                       ("flash_dkv_f16_wide", 256): 0,
                       ("flash_fwd_chunked", 128): 0,
                       ("flash_fwd_chunked_f16", 128): 0,
+                      ("flash_dq_chunked", 128): 0,
+                      ("flash_dkv_chunked", 128): 0,
+                      ("flash_dq_chunked", 256): 24,
                       ("flash_dq_chunked_f16", 128): 0,
                       ("flash_dkv_chunked_f16", 128): 0,
                       ("flash_fwd_f32_wide", 128): 0,
@@ -199,8 +205,9 @@ def test_ptxas_spills_reads_the_wide_kernels_by_width():
      "flash_dq_wide D=256: 12 bytes spilled"),
     (((FWDW256, 0, 0), (DKVW256, 0, 0)),
      "flash_dq_wide D=256: no ptxas spill line"),
-    # neither the wmma dQ kernel nor the new one at 512 stands for D=256
-    (((FWDW256, 0, 0), (DQW, 0, 0), (DQW512, 0, 0), (DKVW256, 0, 0)),
+    # neither bf16's dQ above D=512 nor the wide one at 512 stands for
+    # D=256
+    (((FWDW256, 0, 0), (DQC128, 0, 0), (DQW512, 0, 0), (DKVW256, 0, 0)),
      "flash_dq_wide D=256: no ptxas spill line"),
     # fp16's wide forward and dK/dV, gated as the bf16 ones
     (((FWDW256, 0, 0), (DQW256, 0, 0), (DKVW256, 0, 0),
@@ -268,11 +275,16 @@ def test_spill_faults_refuse_a_spill_in_the_chunked_forward_at_d640(
     # CW=256 (D=768, 1024) does not stand for D=640's CW=128
     (((DQC128_F16, 0, 0), (DKVC256_F16, 0, 0)),
      "flash_dkv_chunked_f16 CW=128: no ptxas spill line"),
+    # bf16's, gated as fp16's; neither type's line stands for the other's
+    (((DQC128, 4, 4), (DKVC128, 0, 0)),
+     "flash_dq_chunked CW=128: 8 bytes spilled"),
+    (((DQC128, 0, 0), (DKVC256, 0, 0)),
+     "flash_dkv_chunked CW=128: no ptxas spill line"),
 ])
 def test_spill_faults_refuse_a_spill_in_the_chunked_backward_at_d640(
         chunked, fault):
-    """fp16's dQ and dK/dV above D=512 are gated at D=640 (CW=128); their
-    spills at CW=256 are only logged."""
+    """dQ and dK/dV above D=512 are gated at D=640 (CW=128) in bf16 and
+    fp16; their spills at CW=256 are only logged."""
     spills = chip_smoke.ptxas_spills(log_of(
         *MAIN_CLEAN, *untouched(WIDE_CLEAN, chunked), *chunked,
         (DQC256_F16, 8, 16)))
@@ -283,32 +295,35 @@ def test_spill_faults_refuse_a_spill_in_the_chunked_backward_at_d640(
 
 def _fake_bwd_phase(monkeypatch, launches_per_case=2, bad=()):
     """run_chunked_backward on the CPU: kernel_errors stands in for the card,
-    raising the chunked counts as a case's two launches of K2 and K3 would
-    (or `launches_per_case` times) and reading `bad` at every case; the
-    times are rows of the names they are given. Returns the kernel_errors
-    calls (name, shape, routed K2 at D=640)."""
+    raising the dtype's chunked counts as a case's two launches of K2 and
+    K3 would (or `launches_per_case` times) and reading `bad` at every case;
+    the times are rows of the names they are given. Returns the
+    kernel_errors calls (dtype, name, shape, routed K2 at D=640, twice) and
+    the timings (dtype, shape, rounds)."""
     from vodascheduler_tpu_torch.ops import flash_attention as fa
     calls = []
 
     def kernel_errors(fa_, name, shape, dtype, limits, twice=False):
-        assert dtype == torch.float16
-        assert limits == chip_smoke.SIMT_LIMITS[torch.float16]
-        calls.append((name, shape, fa_._kernel("flash_dq", 640, dtype),
-                      twice))
+        assert limits == chip_smoke.BWD_CHUNKED_LIMITS[dtype]
+        calls.append((dtype, name, shape,
+                      fa_._kernel("flash_dq", 640, dtype), twice))
         if twice:
-            for n in chip_smoke.BWD_CHUNKED_COUNTS:
+            for n in chip_smoke.BWD_CHUNKED_COUNTS[dtype]:
                 fa_.launches[n] += launches_per_case
         errs = {"dq_abs": 1e-3, "dk_abs": 2e-3, "dv_abs": 3e-3}
+        if dtype == torch.bfloat16:
+            errs = {"dq_abs": 7e-3, "dk_abs": 9e-3, "dv_abs": 8e-3}
         if name == "d640_cuda_cores":
             errs = {"dq_abs": 4e-3, "dk_abs": 6e-3, "dv_abs": 5e-3}
         return errs, list(bad)
 
     timed = []
 
-    def time_backward_turns(fa_, shape, rounds):
-        timed.append((shape, rounds))
-        return {n: {} for n in (*chip_smoke.BWD_CHUNKED_COUNTS,
-                                *chip_smoke.OLD_BWD_ABOVE_512.values())}
+    def time_backward_turns(fa_, shape, rounds, dtype):
+        timed.append((dtype, shape, rounds))
+        old = (chip_smoke.OLD_BWD_ABOVE_512.values()
+               if dtype == torch.float16 else ())
+        return {n: {} for n in (*chip_smoke.BWD_CHUNKED_COUNTS[dtype], *old)}
 
     monkeypatch.setattr(chip_smoke, "kernel_errors", kernel_errors)
     monkeypatch.setattr(chip_smoke, "time_backward_turns",
@@ -318,29 +333,37 @@ def _fake_bwd_phase(monkeypatch, launches_per_case=2, bad=()):
 
 def test_the_chunked_backward_phase_checks_every_case_and_the_old_pair(
         monkeypatch):
-    """Phase 3's fp16 K2 and K3 above D=512: every CHUNKED_CASES launched
-    twice (K1, K2 and K3 held bitwise) and counted under the chunked names,
-    the CUDA-core pair held at BWD_RECORD_SHAPE through `routed`, both
-    timed in turns at that shape (two rounds) and at d640 (one); the rows
+    """Phase 3's K2 and K3 above D=512, bf16 then fp16: every CHUNKED_CASES
+    launched twice (K1, K2 and K3 held bitwise) and counted under the
+    dtype's chunked names, each pair held at BWD_RECORD_SHAPE, fp16's
+    CUDA-core pair there too through `routed` (bf16 has none left), each
+    dtype timed at that shape (two rounds) and at d640 (one); the rows
     carry each pair's errors at the record shape."""
     fa, calls, timed = _fake_bwd_phase(monkeypatch)
     rows = chip_smoke.run_chunked_backward(fa)
     cases = chip_smoke.CHUNKED_CASES
-    assert [c[:2] for c in calls[:len(cases)]] == list(cases.items())
-    assert all(c[3] and c[2] == "flash_dq_f16_wide"
-               for c in calls[:len(cases)])
-    assert calls[len(cases):] == [
-        ("d640_record", chip_smoke.BWD_RECORD_SHAPE, "flash_dq_f16_wide",
-         False),
-        ("d640_cuda_cores", chip_smoke.BWD_RECORD_SHAPE,
-         "flash_dq_f16_simt", False)]
-    assert timed == [(chip_smoke.BWD_RECORD_SHAPE, 2), (cases["d640"], 1)]
-    assert rows == {"flash_dq_f16_chunked": {"err": 1e-3},
+    bf16, f16, rec = torch.bfloat16, torch.float16, chip_smoke.BWD_RECORD_SHAPE
+    n = len(cases)
+    for dtype, route, got in ((bf16, "flash_dq_wide", calls[:n]),
+                              (f16, "flash_dq_f16_wide",
+                               calls[n + 1:2 * n + 1])):
+        assert [c[1:3] for c in got] == list(cases.items())
+        assert all(c[0] == dtype and c[3] == route and c[4] for c in got)
+    assert calls[n] == (bf16, "d640_record", rec, "flash_dq_wide", False)
+    assert calls[2 * n + 1:] == [
+        (f16, "d640_record", rec, "flash_dq_f16_wide", False),
+        (f16, "d640_cuda_cores", rec, "flash_dq_f16_simt", False)]
+    assert timed == [(bf16, rec, 2), (f16, rec, 2),
+                     (bf16, cases["d640"], 1), (f16, cases["d640"], 1)]
+    assert rows == {"flash_dq_chunked": {"err": 7e-3},
+                    "flash_dkv_chunked": {"err": 9e-3},
+                    "flash_dq_f16_chunked": {"err": 1e-3},
                     "flash_dkv_f16_chunked": {"err": 3e-3},
                     "flash_dq_f16_simt": {"err": 4e-3},
                     "flash_dkv_f16_simt": {"err": 6e-3}}
-    assert chip_smoke.BWD_RECORD_SHAPE == (2, 2, 1024, 1024, 640, True, 0)
-    assert fa._kernel("flash_dq", 640, torch.float16) == "flash_dq_f16_wide"
+    assert rec == (2, 2, 1024, 1024, 640, True, 0)
+    assert fa._kernel("flash_dq", 640, f16) == "flash_dq_f16_wide"
+    assert fa._kernel("flash_dq", 640, bf16) == "flash_dq_wide"
 
 
 @pytest.mark.parametrize("launches,bad,why", [
@@ -396,6 +419,8 @@ def test_a_clean_wide_log_passes_every_gate():
     assert ("flash_fwd_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dq_chunked_f16", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_chunked_f16", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dq_chunked", 128) in chip_smoke.SPILL_GATES
+    assert ("flash_dkv_chunked", 128) in chip_smoke.SPILL_GATES
     assert ("flash_fwd_f32_wide", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dkv_f32", 128) in chip_smoke.SPILL_GATES
     assert ("flash_dq_f32", 64) in chip_smoke.SPILL_GATES

@@ -1,10 +1,15 @@
-"""A plain PyTorch model of the arithmetic of fp16's dQ and dK/dV above
-D=512 (``vodascheduler_tpu_torch/ops/csrc/flash_dq_wide.cu``,
+"""A plain PyTorch model of the arithmetic of dQ and dK/dV above D=512
+(``vodascheduler_tpu_torch/ops/csrc/flash_dq_wide.cu``,
 ``flash_dq_chunked_kernel``, and ``flash_dkv_wide.cu``,
-``flash_dkv_chunked_kernel``, which ``voda_flash_dq_f16_wide`` and
-``voda_flash_dkv_f16_wide`` launch there), written apart from the package
-so that the tests hold the kernels' design, and the kernels themselves,
-against it.
+``flash_dkv_chunked_kernel``, which the wide entries launch there, in fp16
+and in bf16), written apart from the package so that the tests hold the
+kernels' design, and the kernels themselves, against it.
+
+The type of the kernel's tensors (`dtype`: fp16 by default, or bf16) is
+the type it rounds P and dS to. In fp16, dS is rounded under the per-row
+power of two below; in bf16, which keeps fp32's exponent range, P and dS
+are rounded as they stand (the Pallas kernels' ``astype``), with no
+exponent.
 
 `dq`: a CTA owns 64 query rows and a chunk of dQ's columns (`cw`: 256
 where D divides by 256, else 128) and walks the key tiles of 128 keys up
@@ -20,7 +25,7 @@ to the last one its last row sees under the causal mask. Per tile:
   −E_MAX), and the row of dQ's fp32 accumulator is multiplied by
   2^(new − old);
 - dS·2^e_i is rounded to fp16, and dQ's chunk += that times K's chunk of
-  columns (fp16), summed in fp32.
+  columns (fp16), summed in fp32 (bf16: dS rounded to bf16, no exponent).
 
 dQ is the accumulator times 2^−e_i. Every CTA of a row block forms the
 same dS, so one pass over the rows stands for all of them.
@@ -34,12 +39,12 @@ above on m = max |dSᵀ/scale| · scale, dK's row rescaled; dSᵀ·scale·2^e_j
 rounded to fp16 times Q's chunk, Pᵀ rounded to fp16 times dO's chunk,
 summed in fp32. dK is the accumulator times 2^−e_j.
 
-Both return fp32, before the kernels round to fp16. The planted faults of
-the kernels, which the tests show breaking the bars: ``drop_chunk`` leaves
-one chunk of D out of every S (Sᵀ), ``rescale=False`` lowers an exponent
-without rescaling what the row has summed; ``scaled=False`` rounds dS to
-fp16 as it stands (the Pallas kernels' ``ds.astype``), which is what the
-scale repairs.
+Both return fp32, before the kernels round to their dtype. The planted
+faults of the kernels, which the tests show breaking the bars:
+``drop_chunk`` leaves one chunk of D out of every S (Sᵀ), ``rescale=False``
+lowers an exponent without rescaling what the row has summed;
+``scaled=False`` rounds dS to fp16 as it stands (the Pallas kernels'
+``ds.astype``), which is what the scale repairs (bf16 never scales).
 """
 
 import torch
@@ -76,10 +81,32 @@ def _floats(*ts):
     return (t.float().transpose(1, 2) for t in ts)
 
 
+def bf16_small_gradient_inputs(rng, B=1, S=128, H=2, D=640):
+    """An unscaled loss's backward in bf16: dO of 1e-6, which puts dS near
+    1e-8, among bf16's normal numbers (its range is fp32's), so Q and K
+    stay as drawn. Returns bf16 (q, k, v, do)."""
+    q, k, v = (rng.standard_normal((B, S, H, D)) for _ in range(3))
+    do = 1e-6 * rng.standard_normal((B, S, H, D))
+    return tuple(torch.from_numpy(x.astype("float32")).bfloat16()
+                 for x in (q, k, v, do))
+
+
+def _scaled(dtype, scaled: bool) -> bool:
+    """Whether dS is rounded under the per-row power of two: in fp16 unless
+    `scaled` is False, never in bf16."""
+    if dtype not in (torch.float16, torch.bfloat16):
+        raise TypeError(f"the chunked kernels take fp16 and bf16, not {dtype}")
+    return scaled and dtype == torch.float16
+
+
 def dq(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
-       drop_chunk=None, rescale: bool = True, scaled: bool = True):
+       drop_chunk=None, rescale: bool = True, scaled: bool = True,
+       dtype=None):
     """dQ [B, Sq, H, D] fp32 as flash_dq_chunked_kernel computes it. q, k,
-    v, do are fp16 [B, S, H, D]; lse and delta fp32 [B, H, Sq]."""
+    v, do are [B, S, H, D] of `dtype` (default: q's dtype, fp16 or bf16);
+    lse and delta fp32 [B, H, Sq]."""
+    dtype = dtype or q.dtype
+    scaled = _scaled(dtype, scaled)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     BM, BN = DQ_TILES
@@ -116,7 +143,7 @@ def dq(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
                 ds = u * torch.exp2(ex.float())[..., None]
             else:
                 ds = u
-            ds = ds.half().float()
+            ds = ds.to(dtype).float()
             for c0 in range(0, D, width):
                 acc[..., c0:c0 + width] += ds @ kb[..., c0:c0 + width]
         if scaled:
@@ -126,9 +153,13 @@ def dq(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
 
 
 def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
-        drop_chunk=None, rescale: bool = True, scaled: bool = True):
+        drop_chunk=None, rescale: bool = True, scaled: bool = True,
+        dtype=None):
     """dK, dV [B, Sk, H, D] fp32 as flash_dkv_chunked_kernel computes them.
-    q, k, v, do are fp16 [B, S, H, D]; lse and delta fp32 [B, H, Sq]."""
+    q, k, v, do are [B, S, H, D] of `dtype` (default: q's dtype, fp16 or
+    bf16); lse and delta fp32 [B, H, Sq]."""
+    dtype = dtype or q.dtype
+    scaled = _scaled(dtype, scaled)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
     BN, BM = DKV_TILES
@@ -163,7 +194,7 @@ def dkv(q, k, v, do, lse, delta, causal: bool, q_off: int, scale: float,
                 ds = u * (sc * torch.exp2(ex.float()))[..., None]
             else:
                 ds = u * sc
-            ds, pt = ds.half().float(), pt.half().float()
+            ds, pt = ds.to(dtype).float(), pt.to(dtype).float()
             for c0 in range(0, D, width):
                 cols = slice(c0, c0 + width)
                 acc_k[..., cols] += ds @ qt[..., cols]

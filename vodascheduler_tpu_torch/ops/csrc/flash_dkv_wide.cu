@@ -68,9 +68,8 @@
 // each other's Pᵀ and dSᵀ take 5-19%, the exponentials no more than the
 // spread; at D=512 the loads of the single stage 22-24%, the waits 5-10%.
 //
-// Above D=512 K and V no longer fit beside a stage: fp16 runs
-// flash_dkv_chunked_kernel there (below), which streams D; bf16 keeps the
-// first wide kernel (wmma, wide.cuh), which cuts D into 128-wide chunks.
+// Above D=512 K and V no longer fit beside a stage: both types run
+// flash_dkv_chunked_kernel there (below), which streams D.
 //
 // δ = rowsum(dO∘O) is read from `delta`, which the dQ kernel wrote earlier
 // on the same stream. No atomics: each CTA writes its own rows and columns
@@ -108,7 +107,6 @@
 // compiled (`if constexpr`), and its shared layout is the parent's.
 
 #include "hopper.cuh"
-#include "wide.cuh"
 
 namespace voda {
 
@@ -509,8 +507,8 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
 
 // ------------------------------------------------------- widths above 512
 //
-// flash_dkv_chunked_kernel: K3 at any D that is a multiple of 128 (fp16's
-// entry sends it D > 512; bf16 keeps the wmma kernel below there). Bound at
+// flash_dkv_chunked_kernel: K3 at any D that is a multiple of 128 (the bf16
+// and fp16 entries send it D > 512). Bound at
 // B=8, H=2, S=2048, D=640, causal: four products of 42.9 GFLOP each, halved
 // under the mask, 174 µs at 989 TFLOP/s, against six [B,S,H,D] 16-bit
 // tensors and two row statistics ≈ 126 MB, 38 µs: compute-bound.
@@ -556,6 +554,10 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
 // fp16: dSᵀ under the per-key-row power of two of flash_dkv_wide_kernel
 // (header). Each CTA keeps its own exponents; the CTAs of a key block agree
 // on every row's, as they sum the same chunks in the same order.
+// bf16: none of the exponent work is compiled (`if constexpr (SCALED)`): Pᵀ
+// and dSᵀ = Pᵀ∘(dPᵀ − δ)·scale are rounded to bf16 as they stand, as the
+// Pallas kernel rounds them; the shared layout is fp16's, the exponents'
+// slot unused.
 // δ is read from `delta`, which the dQ kernel wrote earlier on the same
 // stream; lse and δ are staged by plain loads (a TMA of them hung the ring
 // at Sq=65, where a head's start is not 16-byte aligned).
@@ -572,7 +574,9 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout,
 // torch_kernel_ablate.py --shape d640 --dtype fp16 on an NVIDIA H100 80GB
 // HBM3 at its 700 W power limit, 3 rounds): the chunks' loads 40% (loaded
 // for the first stages only: 0.600 of the time), the products past D's
-// first chunk 0.3%; 128-column chunks (two stages) are 1.11× slower.
+// first chunk 0.3%; 128-column chunks (two stages) are 1.11× slower. In
+// bf16 (--dtype bf16, the same card): the loads 42% (0.581 of the time),
+// the products past D's first chunk within the spread (0.995).
 
 template <int CW>
 struct DkvChunked {
@@ -983,118 +987,12 @@ int dkv_chunked(const void* q, const void* k, const void* v,
                                     Sq, Sk, D, q_off, causal, scale, st);
 }
 
-namespace wide {
-
-constexpr int DKV_SMEM = 4 * TILE_BYTES + 2 * SCORE_BYTES + 2 * PTILE_BYTES +
-                         2 * BN * 4;
-static_assert(2 * OUT_BYTES <= 4 * TILE_BYTES,
-              "dK's and dV's chunks are staged in the tiles' space");
-
-// A CTA owns 64 keys and one 128-wide chunk c of dK and dV; for each tile
-// of 64 queries it sums Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over every chunk of D,
-// computes Pᵀ and dSᵀ in shared memory (four threads a key), then
-// dV += Pᵀ·dO and dK += dSᵀ·Q with Q's and dO's chunk c, both kept as wmma
-// accumulators.
-__global__ void __launch_bounds__(THREADS)
-    flash_dkv_wmma_kernel(const __nv_bfloat16* __restrict__ q,
-                          const __nv_bfloat16* __restrict__ k,
-                          const __nv_bfloat16* __restrict__ v,
-                          const __nv_bfloat16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv, int H, int Sq,
-                          int Sk, int D, int q_off, int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem + TILE_BYTES);
-  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(smem + 2 * TILE_BYTES);
-  __nv_bfloat16* dot =
-      reinterpret_cast<__nv_bfloat16*>(smem + 3 * TILE_BYTES);
-  float* st = reinterpret_cast<float*>(smem + 4 * TILE_BYTES);
-  float* dpt = st + BM * LDS;
-  __nv_bfloat16* pt = reinterpret_cast<__nv_bfloat16*>(
-      smem + 4 * TILE_BYTES + 2 * SCORE_BYTES);
-  __nv_bfloat16* dst = pt + BM * LDP;
-  float* lse_s = reinterpret_cast<float*>(smem + 4 * TILE_BYTES +
-                                          2 * SCORE_BYTES + 2 * PTILE_BYTES);
-  float* dl_s = lse_s + BN;
-
-  const int k0 = blockIdx.x * BM, c0 = blockIdx.y * CW, bh = blockIdx.z;
-  const int b = bh / H, h = bh % H;
-  const long rs = (long)H * D;
-  const long q_head = ((long)b * Sq * H + h) * D;
-  const long k_head = ((long)b * Sk * H + h) * D;
-  const __nv_bfloat16 *qh = q + q_head, *doh = dout + q_head;
-  const __nv_bfloat16 *kh = k + k_head, *vh = v + k_head;
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = 16 * (warp % 4), ws = 32 * (warp / 4), wo = 64 * (warp / 4);
-  const int r = tid / 4, part = tid % 4;  // row-wise work: key, 16 queries
-  const int key = k0 + r;
-
-  FragC dkc[4], dvc[4];
-  zero(dkc);
-  zero(dvc);
-  int qstart = causal ? max(0, k0 - q_off) : 0;
-  qstart -= qstart % BN;
-  const int nc = D / CW;
-  for (int q0 = qstart; q0 < Sq; q0 += BN) {
-    // The last readers of the statistics finished before the barrier
-    // ahead of the previous tile's products.
-    if (tid < BN) {
-      const bool in = q0 + tid < Sq;
-      lse_s[tid] = in ? lse[(long)bh * Sq + q0 + tid] : 0.0f;
-      dl_s[tid] = in ? delta[(long)bh * Sq + q0 + tid] : 0.0f;
-    }
-    FragC sc[2], pc[2];
-    zero(sc);
-    zero(pc);
-    for (int j = 0; j < nc; ++j) {
-      __syncthreads();  // the tiles' last readers are done
-      load_tile(kt, kh, k0, Sk, rs, j * CW);
-      load_tile(qt, qh, q0, Sq, rs, j * CW);
-      load_tile(vt, vh, k0, Sk, rs, j * CW);
-      load_tile(dot, doh, q0, Sq, rs, j * CW);
-      __syncthreads();
-      mma_abt(sc, kt, wr, qt, ws);
-      mma_abt(pc, vt, wr, dot, ws);
-    }
-    store_scores(st, sc, wr, ws);
-    store_scores(dpt, pc, wr, ws);
-    __syncthreads();
-    load_tile(qt, qh, q0, Sq, rs, c0);  // Q's and dO's chunk c, beside Pᵀ
-    load_tile(dot, doh, q0, Sq, rs, c0);
-
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int cc = part * 16 + i, qq = q0 + cc;
-      const bool ok = qq < Sq && key < Sk && (!causal || key <= q_off + qq);
-      const float pv =
-          ok ? __expf(st[r * LDS + cc] * scale - lse_s[cc]) : 0.0f;
-      pt[r * LDP + cc] = __float2bfloat16(pv);
-      dst[r * LDP + cc] =
-          __float2bfloat16(pv * (dpt[r * LDS + cc] - dl_s[cc]) * scale);
-    }
-    __syncthreads();  // Pᵀ, dSᵀ and the chunks are in place
-    mma_pv(dvc, pt, wr, dot, wo);
-    mma_pv(dkc, dst, wr, qt, wo);
-  }
-  __syncthreads();
-  float* dk_out = reinterpret_cast<float*>(smem);
-  float* dv_out = reinterpret_cast<float*>(smem + OUT_BYTES);
-  store_out(dk_out, dkc, wr, wo);
-  store_out(dv_out, dvc, wr, wo);
-  __syncthreads();
-  write_chunk(dk + k_head, dk_out, nullptr, k0, Sk, rs, c0);
-  write_chunk(dv + k_head, dv_out, nullptr, k0, Sk, rs, c0);
-}
-
-}  // namespace wide
 }  // namespace voda
 
 // Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
 // its launch; 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
+// D = 256, 384, 512: flash_dkv_wide_kernel; any multiple of 128 above 512:
+// flash_dkv_chunked_kernel.
 extern "C" int voda_flash_dkv_wide(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const void* lse, const void* delta,
@@ -1103,29 +1001,16 @@ extern "C" int voda_flash_dkv_wide(const void* q, const void* k,
                                    float scale, void* stream) {
   using namespace voda;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide::shape_ok(B, H, Sq, Sk, D))
+  if (!shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 256 || D == 384 || D == 512)
-    return dkv_wgmma<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D,
-                           q_off, causal, scale, st);
-  using namespace voda::wide;
-  cudaError_t err = allow_smem(flash_dkv_wmma_kernel, DKV_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sk + BM - 1) / BM, D / CW, B * H);
-  flash_dkv_wmma_kernel<<<grid, THREADS, DKV_SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), H, Sq,
-      Sk, D, q_off, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (D > 512)
+    return dkv_chunked<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,
+                             D, q_off, causal, scale, st);
+  return dkv_wgmma<bf16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk, D,
+                         q_off, causal, scale, st);
 }
 
-// fp16 tensors, the same arguments: D = 256, 384, 512
-// flash_dkv_wide_kernel, any multiple of 128 above 512
-// flash_dkv_chunked_kernel (the wmma kernel there is bf16 code).
+// fp16 tensors, the same arguments and the same kernels.
 extern "C" int voda_flash_dkv_f16_wide(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
@@ -1135,7 +1020,7 @@ extern "C" int voda_flash_dkv_f16_wide(const void* q, const void* k,
                                        void* stream) {
   using namespace voda;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide::shape_ok(B, H, Sq, Sk, D))
+  if (!shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D > 512)
     return dkv_chunked<f16>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq, Sk,

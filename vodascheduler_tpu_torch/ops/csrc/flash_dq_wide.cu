@@ -66,10 +66,8 @@
 // of 3 rounds): at D=256 the handoff waits 6-9%, the exponentials 0-3%, the
 // K/V loads no more than the spread; at D=512 the single stage's loads 21%.
 //
-// Above D=512 Q and dO no longer fit beside a stage: fp16 runs
-// flash_dq_chunked_kernel there (below), which streams D; bf16 keeps the
-// first wide kernel (wmma, wide.cuh), which cuts dQ into 128-wide chunks and
-// recomputes S and dP in each chunk's CTA.
+// Above D=512 Q and dO no longer fit beside a stage: both types run
+// flash_dq_chunked_kernel there (below), which streams D.
 //
 // No atomics: each CTA writes its own rows of dQ and δ, so both are
 // deterministic.
@@ -103,7 +101,6 @@
 // shared layout is the parent's.
 
 #include "hopper.cuh"
-#include "wide.cuh"
 
 namespace voda {
 
@@ -489,8 +486,8 @@ int dq_wgmma(const void* q, const void* k, const void* v, const void* o,
 
 // ------------------------------------------------------- widths above 512
 //
-// flash_dq_chunked_kernel: K2 at any D that is a multiple of 128 (fp16's
-// entry sends it D > 512; bf16 keeps the wmma kernel below there). Bound
+// flash_dq_chunked_kernel: K2 at any D that is a multiple of 128 (the bf16
+// and fp16 entries send it D > 512). Bound
 // at B=8, H=2, S=2048, D=640, causal: three products of 42.9 GFLOP each,
 // halved under the mask, 130 µs at 989 TFLOP/s, against six [B,S,H,D]
 // 16-bit tensors and two row statistics ≈ 126 MB, 38 µs: compute-bound.
@@ -548,6 +545,11 @@ int dq_wgmma(const void* q, const void* k, const void* v, const void* o,
 // them in its own epilogue, so nothing passes between CTAs; the CTAs of a
 // row block agree on every row's exponent all the same, as they sum the
 // same chunks in the same order and so form the same dS.
+// bf16: the same kernel on bf16 tensors, none of the exponent work compiled
+// (`if constexpr (SCALED)`): dS = P·scale∘(dP − δ) is rounded to bf16 as it
+// stands, as the Pallas kernel rounds it (`ds.astype`). bf16 keeps fp32's
+// exponent range, so an unscaled loss's dS (near 1e-8) does not flush. The
+// shared layout is fp16's; the exponents' 1 KB slot goes unused.
 //
 // Shared memory (plus 1 KB to align the base, and the mbarriers): a stage
 // (Q, dO 8 KB each, K, V 16 KB each) is 48 KB; the exchange P 32 KB, dS
@@ -557,14 +559,17 @@ int dq_wgmma(const void* q, const void* k, const void* v, const void* o,
 // Registers (setmaxnreg: 24 for the producer, 240 a consumer thread): S or
 // dP BN/2 = 64 fp32, a chunk's products 64 more, dS as A fragments BN/4 =
 // 32, dQ CW/4 fp32 (32 at CW=128, 64 at 256). chip_smoke.py phase 2
-// refuses a spill at CW=128 (D=640) and logs CW=256 (24 bytes).
+// refuses a spill at CW=128 (D=640) and logs CW=256 (24 bytes), in both
+// types (bf16 allocates as fp16 does).
 // Where the time goes at D=640, B=8, H=2, S=2048 (scripts/
 // torch_kernel_ablate.py --shape d640 --dtype fp16 on an NVIDIA H100 80GB
 // HBM3 at its 700 W power limit, 3 rounds): the chunks' loads 25% (loaded
 // for the first stages only: 0.753 of the time), the products past D's
 // first chunk 1%; 64-key tiles are 1.25× slower; the sums over all of D in
 // one tensor-core accumulator, pipelined as in the chunked forward, read
-// 0.995: the fp32 adds cost nothing that shows.
+// 0.995: the fp32 adds cost nothing that shows. In bf16 (--dtype bf16, the
+// same card): the loads 26% (0.742 of the time), the products past D's
+// first chunk 1%.
 
 template <int CW>
 struct DqChunked {
@@ -948,129 +953,12 @@ int dq_chunked(const void* q, const void* k, const void* v, const void* o,
                                    Sq, Sk, D, q_off, causal, scale, st);
 }
 
-namespace wide {
-
-constexpr int DQ_SMEM = 4 * TILE_BYTES + 2 * SCORE_BYTES + PTILE_BYTES +
-                        2 * BM * 4;
-
-// A CTA owns 64 query rows and one 128-wide chunk c of dQ. It computes δ of
-// its rows over the whole of D (the CTA of chunk 0 writes it out), then,
-// for each tile of 64 keys, S and dP summed over every chunk of D (each of
-// the D/128 CTAs of a row block computes them), dS in shared memory (four
-// threads a row), and dQ += dS·K with K's chunk c, kept as wmma
-// accumulators. Causal: key tiles past the block's last row are never
-// loaded.
-
-__global__ void __launch_bounds__(THREADS)
-    flash_dq_wmma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         const __nv_bfloat16* __restrict__ o,
-                         const __nv_bfloat16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int H, int Sq,
-                         int Sk, int D, int q_off, int causal, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qt = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kt = reinterpret_cast<__nv_bfloat16*>(smem + TILE_BYTES);
-  __nv_bfloat16* dot =
-      reinterpret_cast<__nv_bfloat16*>(smem + 2 * TILE_BYTES);
-  __nv_bfloat16* vt = reinterpret_cast<__nv_bfloat16*>(smem + 3 * TILE_BYTES);
-  // S then dP, contiguous: at the end they hold dQ's chunk as fp32.
-  float* s = reinterpret_cast<float*>(smem + 4 * TILE_BYTES);
-  float* dp = s + BM * LDS;
-  __nv_bfloat16* ds = reinterpret_cast<__nv_bfloat16*>(
-      smem + 4 * TILE_BYTES + 2 * SCORE_BYTES);
-  float* lse_s = reinterpret_cast<float*>(smem + 4 * TILE_BYTES +
-                                          2 * SCORE_BYTES + PTILE_BYTES);
-  float* dl_s = lse_s + BM;
-
-  const int q0 = blockIdx.x * BM, c0 = blockIdx.y * CW, bh = blockIdx.z;
-  const int b = bh / H, h = bh % H;
-  const long rs = (long)H * D;
-  const long q_head = ((long)b * Sq * H + h) * D;
-  const long k_head = ((long)b * Sk * H + h) * D;
-  const __nv_bfloat16 *qh = q + q_head, *oh = o + q_head,
-                      *doh = dout + q_head;
-  const __nv_bfloat16 *kh = k + k_head, *vh = v + k_head;
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = 16 * (warp % 4), ws = 32 * (warp / 4), wo = 64 * (warp / 4);
-  const int r = tid / 4, part = tid % 4;
-  const int row = q_off + q0 + r;
-
-  // δ of row r over the whole of D: four threads a row, D/4 columns each.
-  float dl = 0.0f;
-  if (q0 + r < Sq) {
-    const __nv_bfloat16* orow = oh + (long)(q0 + r) * rs;
-    const __nv_bfloat16* drow = doh + (long)(q0 + r) * rs;
-    for (int c = part * (D / 4); c < (part + 1) * (D / 4); c += 8) {
-      const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-      const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
-      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 of = __bfloat1622float2(o2[i]);
-        const float2 df = __bfloat1622float2(d2[i]);
-        dl += of.x * df.x + of.y * df.y;
-      }
-    }
-  }
-  dl += __shfl_xor_sync(0xffffffffu, dl, 1);
-  dl += __shfl_xor_sync(0xffffffffu, dl, 2);
-  if (part == 0) {
-    dl_s[r] = dl;
-    lse_s[r] = q0 + r < Sq ? lse[(long)bh * Sq + q0 + r] : 0.0f;
-    if (blockIdx.y == 0 && q0 + r < Sq) delta[(long)bh * Sq + q0 + r] = dl;
-  }
-
-  FragC dqc[4];
-  zero(dqc);
-  const int kend = causal ? min(Sk, q_off + q0 + BM) : Sk;
-  const int nc = D / CW;
-  for (int k0 = 0; k0 < kend; k0 += BN) {
-    FragC sc[2], pc[2];
-    zero(sc);
-    zero(pc);
-    for (int j = 0; j < nc; ++j) {
-      __syncthreads();  // the tiles' last readers are done
-      load_tile(qt, qh, q0, Sq, rs, j * CW);
-      load_tile(kt, kh, k0, Sk, rs, j * CW);
-      load_tile(dot, doh, q0, Sq, rs, j * CW);
-      load_tile(vt, vh, k0, Sk, rs, j * CW);
-      __syncthreads();
-      mma_abt(sc, qt, wr, kt, ws);
-      mma_abt(pc, dot, wr, vt, ws);
-    }
-    store_scores(s, sc, wr, ws);
-    store_scores(dp, pc, wr, ws);
-    __syncthreads();
-    load_tile(kt, kh, k0, Sk, rs, c0);  // K's chunk c, beside dS
-
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int cc = part * 16 + i, col = k0 + cc;
-      const bool ok = col < Sk && (!causal || col <= row);
-      const float pv = ok ? __expf(s[r * LDS + cc] * scale - lse_s[r]) : 0.0f;
-      ds[r * LDP + cc] =
-          __float2bfloat16(pv * (dp[r * LDS + cc] - dl_s[r]) * scale);
-    }
-    __syncthreads();  // dS and K's chunk are in place
-    mma_pv(dqc, ds, wr, kt, wo);
-  }
-  __syncthreads();
-  store_out(s, dqc, wr, wo);
-  __syncthreads();
-  write_chunk(dq + q_head, s, nullptr, q0, Sq, rs, c0);
-}
-
-}  // namespace wide
 }  // namespace voda
 
 // Returns 0, or the error of the tensor-map encoding, the kernel's set-up or
 // its launch; 1 (cudaErrorInvalidValue) for a shape the kernels do not take.
+// D = 256, 384, 512: flash_dq_wide_kernel; any multiple of 128 above 512:
+// flash_dq_chunked_kernel.
 extern "C" int voda_flash_dq_wide(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq,
@@ -1079,29 +967,16 @@ extern "C" int voda_flash_dq_wide(const void* q, const void* k, const void* v,
                                   void* stream) {
   using namespace voda;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide::shape_ok(B, H, Sq, Sk, D))
+  if (!shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (D == 256 || D == 384 || D == 512)
-    return dq_wgmma<bf16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D,
-                          q_off, causal, scale, st);
-  using namespace voda::wide;
-  cudaError_t err = allow_smem(flash_dq_wmma_kernel, DQ_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + BM - 1) / BM, D / CW, B * H);
-  flash_dq_wmma_kernel<<<grid, THREADS, DQ_SMEM, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(o),
-      static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<float*>(delta),
-      static_cast<__nv_bfloat16*>(dq), H, Sq, Sk, D, q_off, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (D > 512)
+    return dq_chunked<bf16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D,
+                            q_off, causal, scale, st);
+  return dq_wgmma<bf16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D,
+                        q_off, causal, scale, st);
 }
 
-// fp16 tensors, the same arguments: D = 256, 384, 512 flash_dq_wide_kernel,
-// any multiple of 128 above 512 flash_dq_chunked_kernel (the wmma kernel
-// there is bf16 code).
+// fp16 tensors, the same arguments and the same kernels.
 extern "C" int voda_flash_dq_f16_wide(const void* q, const void* k,
                                       const void* v, const void* o,
                                       const void* dout, const void* lse,
@@ -1110,7 +985,7 @@ extern "C" int voda_flash_dq_f16_wide(const void* q, const void* k,
                                       int causal, float scale, void* stream) {
   using namespace voda;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!wide::shape_ok(B, H, Sq, Sk, D))
+  if (!shape_ok(B, H, Sq, Sk, D))
     return static_cast<int>(cudaErrorInvalidValue);
   if (D > 512)
     return dq_chunked<f16>(q, k, v, o, dout, lse, delta, dq, B, H, Sq, Sk, D,

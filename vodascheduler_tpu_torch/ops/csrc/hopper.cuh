@@ -5,8 +5,8 @@
 // wgmma descriptors and the wgmma instructions the kernels issue,
 // setmaxnreg, the named barriers of the consumer warpgroups' turns, the
 // forwards' online softmax on a score accumulator, fp16's per-row scale of
-// dS, the host-side tensor maps, and the scalar helpers (bf16 and fp16
-// packing, quad reductions).
+// dS, the host-side tensor maps and shape check, and the scalar helpers
+// (bf16 and fp16 packing, quad reductions).
 //
 // Layout: q, k, v, o, do, dq, dk, dv are bf16 [B, S, H, D] contiguous (the
 // model layout, so no transpose runs around the kernels); lse and delta are
@@ -662,6 +662,14 @@ inline int prepare_ws_kernel(const void* kernel, int smem) {
   if (attr.numRegs < LAUNCH_REGS)
     return static_cast<int>(cudaErrorLaunchOutOfResources);
   return 0;
+}
+
+// What every entry of the wide sources (flash_{fwd,dq,dkv}_wide.cu) checks
+// before a launch: D a multiple of 128, and B·H and D/128 within a grid
+// axis.
+inline bool shape_ok(int B, int H, int Sq, int Sk, int D) {
+  return B > 0 && H > 0 && Sq > 0 && Sk > 0 && D > 0 && D % 128 == 0 &&
+         (long)B * H <= 65535 && D / 128 <= 65535;
 }
 
 }  // namespace voda

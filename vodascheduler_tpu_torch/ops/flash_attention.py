@@ -11,9 +11,9 @@ kernels (``ops/csrc``) replace its three Pallas kernels:
 
 Those are built for head widths 64 and 128. Above 128 the JAX package takes
 any multiple of 128, and so does each wrapper, through a second kernel of
-the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``; on ``csrc/hopper.cuh``
-up to D=512, and the forward above it too, streaming D in 128-column
-chunks; bf16's dQ and dK/dV cut along D on ``csrc/wide.cuh`` above 512):
+the same function (``csrc/flash_{fwd,dq,dkv}_wide.cu``, on
+``csrc/hopper.cuh``; above D=512 each source's second kernel, which streams
+D: the forward in 128-column chunks, dQ and dK/dV in 64-column chunks):
 ``flash_fwd_wide``, ``flash_dq_wide`` and ``flash_dkv_wide``, each counted
 apart. Those six take bf16. The JAX kernels compute in ``q.dtype``, so fp32 and fp16 tensors
 go to kernels of their own, each counted apart; which one, by function,
@@ -32,10 +32,9 @@ fp32   > 128       ``flash_fwd_f32_wide``  ``flash_dq_f32_wide``  ``flash_dkv_f3
 
 fp16's kernels are the bf16 kernels' TMA + wgmma designs in fp16
 (``csrc/flash_{fwd,dq,dkv}.cu`` and their wide twins
-``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type); above
-D=512 its dQ and dK/dV are the wide sources' kernels that stream D in
-64-column chunks (``flash_dq_chunked_kernel``, ``flash_dkv_chunked_kernel``),
-where bf16's stay on ``wmma``.
+``csrc/flash_{fwd,dq,dkv}_wide.cu``, templated on the element type), above
+D=512 too (``flash_fwd_chunked_kernel``, ``flash_dq_chunked_kernel``,
+``flash_dkv_chunked_kernel``).
 fp32's K1, K2 and K3 run on the tensor cores in three TF32 passes on
 wgmma (``csrc/flash_f32.cu``). K1, after a prologue that splits K and Vᵀ
 into scratch, holds Q resident up to D=128 and above it (``_f32_wide``,
@@ -48,12 +47,11 @@ to 128, ``flash_dq_f32_wide`` and ``flash_dkv_f32_wide`` above). The choice
 is by width, never a fallback: a kernel that fails to build or launch
 raises.
 Above 512 the kernels that stream D count apart from their route's
-entries (`CHUNKED_COUNTS`): ``flash_fwd_chunked`` (bf16),
-``flash_fwd_f16_chunked``, ``flash_dq_f16_chunked`` and
-``flash_dkv_f16_chunked`` (fp16). The forward's first wide kernel above 512
-(``wmma``), which no wrapper routes to any more, keeps an entry of its own,
-``flash_fwd_wmma``, to be timed against its replacement; so do the CUDA-core
-kernels that lost their routes: fp32's forward, dQ and dK/dV
+entries (`CHUNKED_COUNTS`): ``flash_fwd_chunked``, ``flash_dq_chunked`` and
+``flash_dkv_chunked`` (bf16), ``flash_fwd_f16_chunked``,
+``flash_dq_f16_chunked`` and ``flash_dkv_f16_chunked`` (fp16). The CUDA-core
+kernels that lost their routes keep entries of their own, to be timed
+against their replacements: fp32's forward, dQ and dK/dV
 (``flash_{fwd,dq,dkv}_f32_simt``), which the TF32 kernels replaced at every
 width, and fp16's forward, dQ and dK/dV (``flash_{fwd,dq,dkv}_f16_simt``),
 which the chunked kernels replaced above 512.
@@ -82,8 +80,8 @@ Divergences from the TPU kernels, on purpose:
   query rows a CTA against K/V tiles of 128 keys (64 at D=128), dQ 128
   query rows against 64-key tiles, dK/dV 128 keys a CTA against Q/dO
   tiles of 64 rows (32 at D=128), in fp16 as in bf16 (and the wide
-  kernels theirs, ``csrc/flash_*_wide.cu``: above D=512 fp16's dQ 64 query
-  rows against 128-key tiles, its dK/dV 64 keys against 64-row tiles);
+  kernels theirs, ``csrc/flash_*_wide.cu``: above D=512 dQ 64 query rows
+  against 128-key tiles, dK/dV 64 keys against 64-row tiles);
   fp32's tensor-core forward
   takes 128 query rows against K/V tiles of 64 keys (32 at D=128), and
   above D=128 against 64-key tiles, 128 columns of O a CTA; its dQ 128
@@ -140,9 +138,9 @@ HEAD_DIMS = (64, 128)
 # Above HEAD_DIMS[-1], the widths the wide kernels take: multiples of this.
 WIDE_CHUNK = 128
 # The widest head of the wide wgmma kernels that hold a CTA's operands over
-# all of D. Above it the wide forward's entries, and fp16's wide dQ and
-# dK/dV entries, launch the kernels of their sources that stream D (counted
-# apart: CHUNKED_COUNTS); bf16's dQ and dK/dV cut D on wmma there.
+# all of D. Above it the wide entries of the forward, dQ and dK/dV, in bf16
+# and fp16, launch the kernels of their sources that stream D (counted
+# apart: CHUNKED_COUNTS).
 WGMMA_MAX_D = 512
 
 # Launches of each kernel since the last `reset_launches()`: one plain int
@@ -157,15 +155,17 @@ launches = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
             "flash_fwd_f16_wide": 0, "flash_dq_f16_wide": 0,
             "flash_dkv_f16_wide": 0, "flash_fwd_f16_simt": 0,
             "flash_dq_f16_simt": 0, "flash_dkv_f16_simt": 0,
-            "flash_fwd_wmma": 0, "flash_fwd_chunked": 0,
-            "flash_fwd_f16_chunked": 0, "flash_dq_f16_chunked": 0,
-            "flash_dkv_f16_chunked": 0}
+            "flash_fwd_chunked": 0, "flash_dq_chunked": 0,
+            "flash_dkv_chunked": 0, "flash_fwd_f16_chunked": 0,
+            "flash_dq_f16_chunked": 0, "flash_dkv_f16_chunked": 0}
 # Above WGMMA_MAX_D these routes' entries launch a second kernel of their
 # source, one that streams D (flash_fwd_wide.cu's flash_fwd_chunked_kernel,
 # flash_dq_wide.cu's flash_dq_chunked_kernel, flash_dkv_wide.cu's
 # flash_dkv_chunked_kernel): its launches count under a name of its own, by
 # the route that reaches it.
 CHUNKED_COUNTS = {"flash_fwd_wide": "flash_fwd_chunked",
+                  "flash_dq_wide": "flash_dq_chunked",
+                  "flash_dkv_wide": "flash_dkv_chunked",
                   "flash_fwd_f16_wide": "flash_fwd_f16_chunked",
                   "flash_dq_f16_wide": "flash_dq_f16_chunked",
                   "flash_dkv_f16_wide": "flash_dkv_f16_chunked"}
@@ -174,7 +174,7 @@ SIMT_SUFFIX = {torch.float32: "f32", torch.float16: "f16"}
 # The kernels on the CUDA cores, all in one source, and fp32's on the
 # tensor cores, in another; every other kernel's source carries the name of
 # its bf16 kernel (fp16's flash_dq_f16 is in flash_dq.cu, flash_dq_f16_wide
-# in flash_dq_wide.cu), the forward's wmma kernel that of the wide one.
+# in flash_dq_wide.cu).
 SIMT_SOURCE = "flash_simt"
 SIMT_KERNELS = frozenset({"flash_fwd_f32_simt", "flash_dq_f32_simt",
                           "flash_dkv_f32_simt", "flash_fwd_f16_simt",
@@ -230,7 +230,7 @@ def source(kernel: str) -> str:
         return SIMT_SOURCE
     if kernel in TF32_KERNELS:
         return TF32_SOURCE
-    return kernel.replace("_f16", "").replace("_wmma", "_wide")
+    return kernel.replace("_f16", "")
 
 
 @functools.cache
