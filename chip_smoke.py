@@ -203,7 +203,20 @@ Phases (any failure exits non-zero):
      flash_dkv_f16_wide (8/4/4), and the fp32 model in 4 heads of 256,
      through flash_fwd_f32_wide, flash_dq_f32_wide and flash_dkv_f32_wide
      (8/4/4), and no `_f16_simt` or `_f32_simt` kernel;
-  12. one JSON line of the kernels, then the device line last.
+  12. one job on a process group: llama_350m (B=8, S=2048, AdamW) through
+     the supervisor's rendezvous at world size 1 (the coordinator's
+     environment for one process: the agent spawns one rank, NCCL, a
+     DeviceMesh of one, every parameter a DTensor, K1-K3 on the rank's
+     local tensors, 48/24/24 a step), every step's loss (printed inside the
+     rank by a user script) within 1e-3 relative of the plain one-card
+     TrainSession's same step, finite and falling over its first 6 steps;
+     SIGTERM after its epoch of 6 steps: exit 3 with a sharded checkpoint;
+     the one-card path (no coordinator) resumes it (`resumed at step N on 1
+     chips`) and is stopped likewise, and the rank resumes that plain
+     checkpoint and trains to step 17; the rank's step time (CSV rows)
+     beside the one-card path's and the plain session's, the saves and the
+     restores, with the card's name and power limit;
+  13. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
 
@@ -2480,6 +2493,291 @@ def run_resize(card: str) -> None:
     shutil.rmtree(workdir)
 
 
+# ---------------------------------------------------------------------------
+# one job on a process group: the supervisor's rendezvous (phase 12)
+# ---------------------------------------------------------------------------
+
+# llama_350m through the supervisor, 6 steps an epoch, 3 epochs. Run A: the
+# coordinator's environment for one process (the agent, one NCCL rank,
+# every parameter a DTensor), SIGTERMed after its epoch (steps 0-5): it
+# stops at the next epoch's start, its epoch's save the checkpoint; run B:
+# the one-card path (no coordinator) resumes A's sharded checkpoint,
+# SIGTERMed likewise (steps 6-11); run C: the rank again, resuming B's plain
+# checkpoint, to the end (steps 12-17). One save a run (4.2 GB, ~9 s to
+# write), and the timed steps of each run's epoch overlap no write. Every
+# step's loss (printed in the rank by the probe below) within DIST_LOSS_REL
+# of the plain TrainSession's same step.
+DIST_STEPS_PER_EPOCH, DIST_EPOCHS = 6, 3
+DIST_LOSS_REL = 1e-3  # phase 5b's bar
+DIST_LAUNCHES = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
+
+# The job's user script: llama_350m, its loss printed at every step and its
+# parameters' types and meshes at the first, from inside the rank.
+DIST_PROBE = """
+import time
+
+from vodascheduler_tpu_torch.models import get_model as _get
+
+
+def get_model(spec):
+    bundle = _get(spec.model)
+    loss_fn = bundle.loss_fn
+    calls = [0]
+
+    def probed(module, batch):
+        if calls[0] == 0:
+            from torch.distributed.tensor import DTensor
+            params = list(module.parameters())
+            meshes = sorted({{str(p.device_mesh) for p in params
+                              if isinstance(p, DTensor)}})
+            print(f"probe params {{len(params)}} dtensor "
+                  f"{{sum(isinstance(p, DTensor) for p in params)}} "
+                  f"meshes {{meshes}}", flush=True)
+        loss = loss_fn(module, batch)
+        print(f"probe loss {{calls[0]}} {{loss.item():.9g}}", flush=True)
+        calls[0] += 1
+        time.sleep({delay})
+        return loss
+
+    bundle.loss_fn = probed
+    return bundle
+"""
+
+
+def parse_dist_run(text: str) -> dict:
+    """What a phase-12 supervisor run printed: the distributed line, the
+    probe's parameter count and DTensors, each step's loss (by the step it
+    trained: the probe counts from the run's first step), the launches, the
+    checkpoint line, the resumed step and the restore seconds."""
+    out = {"backend": None, "plan": None, "params": None, "dtensor": None,
+           "meshes": None, "losses": {}, "launches": None,
+           "checkpoint": None, "resumed": None, "restore_s": None}
+    m = re.search(r"^distributed rank 0 of (\d+) backend (\S+) plan "
+                  r"(MeshPlan\([^)]*\)) params (\S+)$", text, re.M)
+    if m:
+        out["backend"], out["plan"] = m.group(2), m.group(3)
+    m = re.search(r"^probe params (\d+) dtensor (\d+) meshes (.*)$", text,
+                  re.M)
+    if m:
+        out["params"], out["dtensor"] = int(m.group(1)), int(m.group(2))
+        out["meshes"] = m.group(3)
+    m = re.search(r"^resumed at step (\d+) on (\d+) chips$", text, re.M)
+    out["resumed"] = int(m.group(1)) if m else None
+    start = out["resumed"] or 0
+    for m in re.finditer(r"^probe loss (\d+) (\S+)$", text, re.M):
+        out["losses"][start + int(m.group(1))] = float(m.group(2))
+    m = re.search(r"^kernel launches (.*)$", text, re.M)
+    out["launches"] = json.loads(m.group(1)) if m else None
+    m = re.search(r"^checkpoint step (\d+) bytes (\d+) host_copy_s (\S+) "
+                  r"write_s (\S+)$", text, re.M)
+    if m:
+        out["checkpoint"] = (int(m.group(1)), int(m.group(2)),
+                             float(m.group(3)), float(m.group(4)))
+    m = re.search(r"^restore took (\S+) s$", text, re.M)
+    out["restore_s"] = float(m.group(1)) if m else None
+    return out
+
+
+def dist_run_faults(run: dict, rc: int, plain: list, distributed: bool,
+                    start: int, want_rc: int, falling: bool = False,
+                    backend: str = "nccl",
+                    launches: dict = DIST_LAUNCHES) -> list:
+    """Phase 12's bars on one parsed run (parse_dist_run) that exited `rc`:
+    the path (NCCL and every parameter a DTensor, or neither), the exit,
+    the resumed step, each trained step's loss finite and within
+    DIST_LOSS_REL of `plain` (the plain session's losses by step), falling
+    from the first to the last if `falling`, DIST_LAUNCHES a step, and the
+    checkpoint at the step reached when the run was stopped. `backend` and
+    `launches` are the card's; the CPU rehearsal passes gloo and none."""
+    bad = []
+    if rc != want_rc:
+        bad.append(f"exit {rc}, want {want_rc}")
+    if distributed:
+        if run["backend"] != backend:
+            bad.append(f"backend {run['backend']}, want {backend}")
+        if not run["params"] or run["dtensor"] != run["params"]:
+            bad.append(f"{run['dtensor']} of {run['params']} parameters "
+                       "are DTensors")
+    elif run["backend"] is not None or run["dtensor"] != 0:
+        bad.append(f"the one-card path ran backend {run['backend']} with "
+                   f"{run['dtensor']} DTensors")
+    if (run["resumed"] or 0) != start:
+        bad.append(f"resumed at {run['resumed']}, want {start}")
+    steps = sorted(run["losses"])
+    if not steps or steps != list(range(start, steps[-1] + 1)):
+        bad.append(f"steps {steps} from {start}")
+        return bad
+    for step in steps:
+        got, want = run["losses"][step], plain[step]
+        if not (math.isfinite(got) and abs(got - want)
+                <= DIST_LOSS_REL * abs(want)):
+            bad.append(f"step {step} loss {got} against {want}")
+    if falling and not run["losses"][steps[-1]] < run["losses"][steps[0]]:
+        bad.append(f"losses do not fall: {run['losses']}")
+    n = len(steps)
+    want_launches = {k: launches.get(k, 0) * n for k in DIST_LAUNCHES}
+    got = {k: (run["launches"] or {}).get(k) for k in DIST_LAUNCHES}
+    if got != want_launches:
+        bad.append(f"launches {got} over {n} steps, want {want_launches}")
+    if want_rc == 3 and (run["checkpoint"] is None
+                         or run["checkpoint"][0] != steps[-1] + 1):
+        bad.append(f"checkpoint {run['checkpoint']} after step {steps[-1]}")
+    return bad
+
+
+def _dist_launches(run: dict) -> dict:
+    return {k: (run["launches"] or {}).get(k) for k in DIST_LAUNCHES}
+
+
+def _dist_supervisor(workdir: str, tag: str, coordinator: bool,
+                     hermetic: bool):
+    """The supervisor of phase 12's job; with `coordinator`, the agent of
+    one process at a free port; `hermetic`: on one CPU device."""
+    out = open(os.path.join(workdir, f"{tag}.out"), "w")
+    err = open(os.path.join(workdir, f"{tag}.err"), "w")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    for name in ("VODA_FORCE_CPU_DEVICES", "VODA_COORDINATOR_ADDRESS",
+                 "VODA_NUM_PROCESSES", "VODA_PROCESS_ID"):
+        env.pop(name, None)
+    if hermetic:
+        env["VODA_FORCE_CPU_DEVICES"] = "1"
+    if coordinator:
+        env.update({"VODA_COORDINATOR_ADDRESS":
+                    f"127.0.0.1:{_free_ports(1)[0]}",
+                    "VODA_NUM_PROCESSES": "1", "VODA_PROCESS_ID": "0"})
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "vodascheduler_tpu_torch.runtime.supervisor",
+         "--workdir", workdir, "--num-chips", "1"],
+        stdout=out, stderr=err, cwd=REPO, env=env)
+    out.close()
+    err.close()
+    return proc
+
+
+def run_distributed(card: str, hermetic: bool = False) -> None:
+    """Phase 12: llama_350m through the supervisor's rendezvous at world
+    size 1 (NCCL, a DeviceMesh, every parameter a DTensor, K1-K3 on the
+    rank's local tensors), against the plain one-card session; a sharded
+    checkpoint resumed on the one-card path and a plain one resumed in the
+    rank; the distributed path's step time beside the one-card path's, the
+    saves and the restores. `hermetic` rehearses it on the CPU: llama_tiny
+    on one CPU device, gloo, no kernel, 8 epochs of 2 steps, each step
+    slowed by 0.3 s. There a save's host copy takes no time, so a SIGTERM
+    after an epoch's line lands in the next epoch, and a run stops one or
+    two epochs later than on the card."""
+    from vodascheduler_tpu_torch.common.job import JobConfig, JobSpec
+    from vodascheduler_tpu_torch.metricscollector.csv_logger import (
+        read_epoch_csv,
+    )
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    steps_per_epoch, epochs = ((2, 8) if hermetic
+                               else (DIST_STEPS_PER_EPOCH, DIST_EPOCHS))
+    total = steps_per_epoch * epochs
+    model = "llama_tiny" if hermetic else "llama_350m"
+    session = TrainSession(get_model(model), 1, global_batch_size=8,
+                           device="cpu" if hermetic else None)
+    plain, plain_ms = [], []
+    for _ in range(total):
+        t0 = time.perf_counter()
+        plain.append(session.train_step(session.make_batch()).item())
+        if not hermetic:
+            torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    del session
+    gc.collect()
+    if not hermetic:
+        torch.cuda.empty_cache()
+    log(f"dist plain session losses={[round(x, 6) for x in plain]} "
+        f"step_ms={statistics.median(plain_ms[1:]):.3f} (median of steps "
+        f"2-{total}) card={card}")
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_dist"
+                           + ("_hermetic" if hermetic else ""))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    name = f"{model}_dist"
+    with open(os.path.join(workdir, "probe.py"), "w") as f:
+        f.write(DIST_PROBE.format(delay=0.3 if hermetic else 0))
+    spec = JobSpec(name=name, model=model, global_batch_size=8,
+                   steps_per_epoch=steps_per_epoch,
+                   config=JobConfig(epochs=epochs),
+                   extra={"script": os.path.join(workdir, "probe.py")})
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec.to_dict(), f)
+
+    runs, bad = {}, []
+    for tag, coordinator, stop, start in (("a", True, True, 0),
+                                          ("b", False, True, None),
+                                          ("c", True, False, None)):
+        if start is None:  # where the previous run stopped
+            prev = runs[chr(ord(tag) - 1)]
+            start = prev["checkpoint"][0] if prev["checkpoint"] else -1
+        t0 = time.monotonic()
+        proc = _dist_supervisor(workdir, tag, coordinator, hermetic)
+        if stop:
+            # After its epoch's line: the signal lands during the epoch
+            # save's host copy, and the ranks stop at the next epoch's
+            # start.
+            _wait(proc, workdir, tag,
+                  lambda: re.search(r"^epoch \d+ loss", _text(
+                      workdir, f"{tag}.out"), re.M) is not None,
+                  "its epoch", timeout=300.0)
+            proc.send_signal(signal.SIGTERM)
+        rc = _finish(proc, workdir, tag)
+        wall_s = time.monotonic() - t0
+        run = parse_dist_run(_text(workdir, f"{tag}.out"))
+        runs[tag] = run
+        faults = dist_run_faults(
+            run, rc, plain, coordinator, start, 3 if stop else 0,
+            # llama_tiny's loss on random tokens starts near its floor
+            # and does not fall in 6 steps; llama_350m's does
+            falling=tag == "a" and not hermetic,
+            backend="gloo" if hermetic else "nccl",
+            launches={} if hermetic else DIST_LAUNCHES)
+        log(f"dist[{tag}] {'rank (NCCL)' if coordinator else 'one-card'} "
+            f"exit={rc} wall_s={wall_s:.1f} backend={run['backend']} "
+            f"plan={run['plan']} params={run['params']} "
+            f"dtensor={run['dtensor']} meshes={run['meshes']} "
+            f"resumed={run['resumed']} restore_s={run['restore_s']} "
+            f"checkpoint={run['checkpoint']} "
+            f"launches={_dist_launches(run)} "
+            f"losses={run['losses']}")
+        if faults:
+            bad.append(f"run {tag}: " + "; ".join(faults) + "\n"
+                       + _text(workdir, f"{tag}.err")[-3000:])
+            break
+    if not bad and runs["c"]["losses"] and max(runs["c"]["losses"]) != \
+            total - 1:
+        bad.append(f"run c ended at step {max(runs['c']['losses'])}")
+    if bad:
+        raise SystemExit("dist: " + "\n".join(bad))
+
+    rows = read_epoch_csv(os.path.join(workdir, "metrics", f"{name}.csv"))
+    by_run = {"a": [], "b": [], "c": []}
+    bounds = {"a": runs["b"]["resumed"], "b": runs["c"]["resumed"]}
+    for r in rows:
+        first = int(r["epoch"]) * steps_per_epoch
+        tag = "a" if first < bounds["a"] else "b" if first < bounds["b"] \
+            else "c"
+        by_run[tag].append(1e3 * float(r["step_time_sec"]))
+    log(f"dist step_ms (CSV rows, timed steps of each epoch) rank_a="
+        f"{[round(x, 3) for x in by_run['a']]} one_card_b="
+        f"{[round(x, 3) for x in by_run['b']]} rank_c="
+        f"{[round(x, 3) for x in by_run['c']]} plain_session="
+        f"{statistics.median(plain_ms[1:]):.3f} card={card}")
+    rank_ms = statistics.median(by_run["a"] + by_run["c"])
+    one_ms = statistics.median(by_run["b"])
+    log(f"dist rank_step_ms={rank_ms:.3f} one_card_step_ms={one_ms:.3f} "
+        f"rank_over_one_card={rank_ms / one_ms:.4f} "
+        f"save_a={runs['a']['checkpoint']} save_b={runs['b']['checkpoint']} "
+        f"restore_b_s={runs['b']['restore_s']} "
+        f"restore_c_s={runs['c']['restore_s']} card={card}")
+    shutil.rmtree(workdir)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2686,6 +2984,10 @@ def main() -> int:
     phase("10 resize")
     counts.update(run_dtype_slices(fa))
     phase("11 fp32 and fp16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_distributed(card)
+    phase("12 one job on a process group")
 
     # every row's launches from a counted step: K1 above D=512 and the
     # kernels it replaced there (no model runs that width) read 0 there

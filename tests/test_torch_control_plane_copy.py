@@ -65,8 +65,12 @@ COPIED = (
 )
 
 DIVERGED = {
-    "cluster/__init__.py": "trimmed: no gke or multihost backend (ROADMAP "
-                           "A21); LocalBackend is the port's own",
+    "cluster/__init__.py": "trimmed: no gke backend (ROADMAP A21); "
+                           "LocalBackend is the port's own",
+    "cluster/multihost.py": "one docstring line: the reference's Go source "
+                            "named by its path in that repository, not by a "
+                            "path on one machine; the code is the "
+                            "reference's",
     "native/__init__.py": "the loader builds into build/native/<source "
                           "hash>/ with a per-process temporary name, not "
                           "beside its source under one fixed name",

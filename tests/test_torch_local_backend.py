@@ -17,9 +17,9 @@
   returns them; a grow beyond the grant goes the cold path, and an
   in-place shrink hands back the cards it left; a stop is SIGTERM, the
   grace period, then SIGKILL.
-- A grant of two cards, which the supervisor cannot train yet, ends as a
-  `job_failed` event carrying its message, and the scheduler goes on to
-  run the next job.
+- A grant of two cards trains on two ranks and completes; one the port
+  cannot split (an MoE job) ends as a `job_failed` event carrying the
+  supervisor's message, and the scheduler goes on to run the next job.
 
 Every wait has its own deadline (the story takes about 27 s alone on
 the CPU, about 75 s beside five other test workers: most of it is three
@@ -27,6 +27,7 @@ supervisors importing torch). The supervisors run with one torch thread
 each.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -348,11 +349,13 @@ def test_stop_is_sigterm_then_grace_then_sigkill(tmp_path, stub_spawn,
 
 def test_a_two_card_grant_fails_with_the_supervisors_message(
         tmp_path, supervisor_env):
-    """Until multi-GPU training is ported a supervisor cannot train on two
-    devices: the grant ends as job_failed with its message, and the
-    scheduler runs the next job."""
+    """A two-card grant trains on two ranks: a llama_tiny job completes
+    (its supervisor the host's agent of two gloo ranks). A job the port
+    cannot split, mixtral_tiny on two cards (its experts over ep), ends as
+    job_failed with the supervisor's message, and the scheduler runs the
+    next job."""
     backend = LocalBackend(os.path.join(str(tmp_path), "jobs"), chips=2,
-                           hermetic_devices=1)
+                           hermetic_devices=2)
     store, sched, admission = _world(backend)
     events = []
     scheduler_cb = backend._event_cb
@@ -363,16 +366,20 @@ def test_a_two_card_grant_fails_with_the_supervisors_message(
 
     backend.set_event_callback(observed)
     try:
-        wide = admission.create_training_job(_spec("wide", 1, "", chips=2))
-        _wait(sched, lambda: _status(store, wide) == "Failed",
-              "the two-card job to fail")
-        failed = [e for e in events if e.name == wide]
+        moe = admission.create_training_job(dataclasses.replace(
+            _spec("moe", 1, "", chips=2), model="mixtral_tiny"))
+        _wait(sched, lambda: _status(store, moe) == "Failed",
+              "the two-card MoE job to fail")
+        failed = [e for e in events if e.name == moe]
         assert [e.kind for e in failed] == [ClusterEventKind.JOB_FAILED]
         assert failed[0].detail.startswith("exit code 1: NotImplementedError")
-        assert "item 10" in failed[0].detail
-        narrow = admission.create_training_job(_spec("narrow", 1, ""))
-        _wait(sched, lambda: _status(store, narrow) == "Completed",
-              "the next job to complete")
+        assert "ep item" in failed[0].detail
+        wide = admission.create_training_job(_spec("wide", 1, "", chips=2))
+        _wait(sched, lambda: _status(store, wide) == "Completed",
+              "the two-card job to complete")
+        log = _log(backend.workdir, wide)
+        assert "distributed rank 0 of 2 backend gloo" in log
+        assert "epoch 0 loss" in log
     finally:
         sched.stop()
         backend.close()

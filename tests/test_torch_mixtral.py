@@ -16,7 +16,7 @@
   Mixtral tree with their shapes, at MIXTRAL_TINY and, on the meta device,
   MIXTRAL_SMALL, and Adafactor factors them as optax does.
 - The presets and the registry: the three Mixtral bundles, and
-  mixtral_8x7b refused naming queue A item 10.
+  mixtral_8x7b refused naming the ep item.
 """
 
 import dataclasses
@@ -216,5 +216,5 @@ def test_registry_builds_the_mixtral_bundles():
         assert (bundle.seq_len, bundle.optimizer, bundle.num_experts) == (
             ref.seq_len, ref.optimizer, ref.num_experts), name
     for name in ("mixtral_8x7b", "mixtral"):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(NotImplementedError, match="ep item"):
             get_model(name)

@@ -625,3 +625,87 @@ def test_backward_turns_sums_each_pair_of_the_table(capsys):
     for table in (chip_smoke.CUDA_CORE_F32, chip_smoke.CUDA_CORE_F32_WIDE):
         assert [n.split("_")[1] for n in table] == ["fwd", "dq", "dkv"]
         assert all(old.endswith("_f32_simt") for old in table.values())
+
+
+# ---- phase 12: one job on a process group ------------------------------------
+
+DIST_TEXT = """agent 0 of 1: ranks 0..0 of 1 on cuda, plan MeshPlan(dp=1, fsdp=1, tp=1, sp=1, ep=1, pp=1)
+distributed rank 0 of 1 backend nccl plan MeshPlan(dp=1, fsdp=1, tp=1, sp=1, ep=1, pp=1) params DTensor
+resumed at step 6 on 1 chips
+restore took 2.500 s
+probe params 219 dtensor 219 meshes ["DeviceMesh((dp=1, fsdp=1), 'cuda', stride=(1, 1))"]
+probe loss 0 10.5
+warmup step 7 took 3.000 s
+probe loss 1 10.4
+probe loss 2 10.3
+epoch 2 loss 10.300000
+kernel launches {"flash_fwd": 144, "flash_dq": 72, "flash_dkv": 72, "flash_fwd_wide": 0}
+checkpoint step 9 bytes 4186053774 host_copy_s 1.200 write_s 3.400
+"""
+
+
+def _dist_faults(text, rc=3, distributed=True, start=6, want_rc=3,
+                 plain=None, **kw):
+    plain = plain or {6: 10.5, 7: 10.4, 8: 10.3}
+    steps = [plain.get(i, 0.0) for i in range(18)]
+    run = chip_smoke.parse_dist_run(text)
+    return chip_smoke.dist_run_faults(run, rc, steps, distributed, start,
+                                      want_rc, **kw)
+
+
+def test_phase_12_reads_a_run_and_passes_a_sound_one():
+    run = chip_smoke.parse_dist_run(DIST_TEXT)
+    assert run["backend"] == "nccl" and run["params"] == run["dtensor"] == 219
+    assert run["resumed"] == 6 and run["restore_s"] == 2.5
+    assert run["losses"] == {6: 10.5, 7: 10.4, 8: 10.3}
+    assert run["checkpoint"] == (9, 4186053774, 1.2, 3.4)
+    assert _dist_faults(DIST_TEXT, falling=True) == []
+    # the bar is relative: 1e-3 of 10.5 passes, 2e-3 does not
+    assert _dist_faults(DIST_TEXT, plain={6: 10.5 * (1 + 9e-4),
+                                          7: 10.4, 8: 10.3}) == []
+    assert _dist_faults(DIST_TEXT, plain={6: 10.5 * (1 + 2e-3),
+                                          7: 10.4, 8: 10.3})
+
+
+@pytest.mark.parametrize("edit, fault", [
+    (("backend nccl", "backend gloo"), "backend gloo"),
+    (("dtensor 219", "dtensor 218"), "DTensors"),
+    (("probe loss 1 10.4", "probe loss 1 nan"), "step 7 loss"),
+    (("\"flash_dq\": 72", "\"flash_dq\": 48"), "launches"),
+    (("checkpoint step 9", "checkpoint step 6"), "checkpoint"),
+    (("resumed at step 6", "resumed at step 3"), "resumed at 3"),
+    (("probe loss 2 10.3\n", ""), "launches"),
+])
+def test_phase_12_fails_a_broken_run(edit, fault):
+    text = DIST_TEXT.replace(*edit)
+    assert text != DIST_TEXT
+    faults = _dist_faults(text)
+    assert any(fault in f for f in faults), faults
+
+
+def test_phase_12_holds_the_path_and_the_exit():
+    assert any("exit 0" in f for f in _dist_faults(DIST_TEXT, rc=0))
+    # the one-card path must show no process group and no DTensor
+    assert _dist_faults(DIST_TEXT, distributed=False)
+    one_card = DIST_TEXT.replace(
+        "distributed rank 0 of 1 backend nccl plan MeshPlan(dp=1, fsdp=1, "
+        "tp=1, sp=1, ep=1, pp=1) params DTensor\n", "").replace(
+        "dtensor 219", "dtensor 0")
+    assert _dist_faults(one_card, distributed=False) == []
+    rising = DIST_TEXT.replace("probe loss 2 10.3", "probe loss 2 10.6")
+    assert any("do not fall" in f for f in _dist_faults(
+        rising, plain={6: 10.5, 7: 10.4, 8: 10.6}, falling=True))
+
+
+def test_phase_12_rehearses_on_the_cpu(monkeypatch):
+    """The phase's three supervisor runs on one CPU device (gloo, no
+    kernel): rank -> SIGTERM -> one-card resume -> SIGTERM -> rank resume
+    to the end, every step's loss the plain session's. One thread in each
+    process: the job is tiny, and the test runs beside other workers."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        chip_smoke.run_distributed("cpu", hermetic=True)
+    finally:
+        torch.set_num_threads(threads)

@@ -192,15 +192,71 @@ def test_memory_reading_is_none_without_cuda():
 
 
 def test_device_requests_beyond_one_card(tmp_path, monkeypatch):
+    """More chips than visible devices exit 2. VODA_FORCE_CPU_DEVICES=2
+    forms two gloo ranks, and the coordinator's environment for one
+    process one rank with a process group; each trains the job to its
+    end, rank 0 writing the rows."""
     monkeypatch.setenv("VODA_FORCE_CPU_DEVICES", "1")
     assert tsup.run_job(str(tmp_path), 2) == 2
-    monkeypatch.setenv("VODA_FORCE_CPU_DEVICES", "2")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsup.run_job(str(tmp_path), 1)
-    monkeypatch.setenv("VODA_FORCE_CPU_DEVICES", "1")
-    monkeypatch.setenv("VODA_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsup.run_job(str(tmp_path), 1)
+    two = _workdir(tmp_path, "two", delay=0)
+    code, out, err = _finish(
+        _start(two, {"VODA_FORCE_CPU_DEVICES": "2"}, num_chips=2), two)
+    assert code == 0, err
+    assert "distributed rank 0 of 2 backend gloo plan MeshPlan(dp=2" in out
+    assert "params DTensor\n" in out
+    assert len(_epoch_losses(out)) == 3
+    assert [int(r["workers"]) for r in _csv_rows(two, "two")] == [2, 2, 2]
+    one = _workdir(tmp_path, "one", delay=0)
+    coordinator = {"VODA_COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
+                   "VODA_NUM_PROCESSES": "1", "VODA_PROCESS_ID": "0"}
+    code, out, err = _finish(_start(one, coordinator), one)
+    assert code == 0, err
+    assert "distributed rank 0 of 1 backend gloo plan MeshPlan(dp=1" in out
+    assert len(_epoch_losses(out)) == 3 and len(_csv_rows(one, "one")) == 3
+
+
+FAILING_RANK_SCRIPT = '''
+import os
+from vodascheduler_tpu_torch.models import get_model as _get
+
+
+def get_model(spec):
+    if os.environ.get("VODA_RANK") == "1":
+        raise RuntimeError("rank 1 cannot build its model")
+    return _get(spec.model)
+'''
+
+
+def test_a_failed_rank_fails_the_agent_with_its_message(tmp_path):
+    """A rank that fails ends its agent: the other rank, waiting for it in
+    a collective, is killed, and the agent exits with the failure's code,
+    its message the last line on stderr (the backend's failure detail)."""
+    workdir = _workdir(tmp_path, "failing", delay=0)
+    script = os.path.join(workdir, "failing.py")
+    with open(script, "w") as f:
+        f.write(FAILING_RANK_SCRIPT)
+    spec = json.loads(_output(workdir, "spec.json"))
+    spec["extra"]["script"] = script
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    t0 = time.monotonic()
+    code, out, err = _finish(
+        _start(workdir, {"VODA_FORCE_CPU_DEVICES": "2"}, num_chips=2),
+        workdir)
+    assert code == 1
+    assert err.strip().splitlines()[-1] == (
+        "supervisor: rank 1 failed: RuntimeError: rank 1 cannot build its "
+        "model")
+    assert time.monotonic() - t0 < TIMEOUT
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
 
 
 # ---- the supervisor as a subprocess ----------------------------------------
@@ -240,7 +296,7 @@ def _workdir(root, name, delay, trace=None):
     return str(workdir)
 
 
-def _start(workdir, env_extra=None, force_cpu=True):
+def _start(workdir, env_extra=None, force_cpu=True, num_chips=1):
     """The supervisor in a subprocess, its stdout and stderr to files of
     the workdir (read back by `_output` and `_finish`)."""
     env = {k: v for k, v in os.environ.items()
@@ -256,7 +312,7 @@ def _start(workdir, env_extra=None, force_cpu=True):
         return subprocess.Popen(
             [sys.executable, "-m",
              "vodascheduler_tpu_torch.runtime.supervisor",
-             "--workdir", workdir, "--num-chips", "1"],
+             "--workdir", workdir, "--num-chips", str(num_chips)],
             stdout=out, stderr=err, text=True, env=env, cwd=workdir)
 
 

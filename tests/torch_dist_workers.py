@@ -1,0 +1,210 @@
+"""Rank processes for the port's multi-rank CPU tests, without JAX.
+
+`run_ranks(fn, world, tmp, **kwargs)` starts `world` processes of
+
+    python -m tests.torch_dist_workers <fn> <rank> <world> <port> <out> <json>
+
+each of which joins a gloo process group of `world` ranks on the CPU
+(`torch.set_num_threads(1)`), runs `fn(rank, world, **kwargs)` from this
+module and saves what it returns to ``<out>/rank<r>.pt``. Every process is
+waited for with one deadline and all are killed when it passes, so a hang
+fails the test at once. The module imports no JAX, so the ranks start
+without it; the tests compare what rank 0 returns with the JAX package in
+their own process.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DEADLINE_S = 90.0
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_ranks(fn: str, world: int, tmp: str, deadline: float = DEADLINE_S,
+              **kwargs) -> List[Any]:
+    """Run `fn` on `world` gloo ranks; returns each rank's result."""
+    out = os.path.join(str(tmp), f"{fn}_{world}_{time.monotonic_ns()}")
+    os.makedirs(out)
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO,
+               TORCH_CPP_LOG_LEVEL="ERROR")
+    env.pop("VODA_FORCE_CPU_DEVICES", None)
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "tests.torch_dist_workers", fn, str(r),
+         str(world), str(port), out, json.dumps(kwargs)],
+        cwd=REPO, env=env, stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    end = time.monotonic() + deadline
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, end - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        tails = []
+        for r in range(world):
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (exit {codes[r]}) ---\n"
+                             + f.read()[-3000:])
+        raise AssertionError(f"{fn} on {world} ranks failed "
+                             f"(deadline {deadline} s):\n" + "\n".join(tails))
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+# ---------------------------------------------------------------------------
+# what the ranks run
+# ---------------------------------------------------------------------------
+
+SEQ = 16
+
+
+def bundle_for(model: str = "llama_tiny", dtype: str = "float32",
+               optimizer: str = "adamw", cfg: Optional[Dict] = None,
+               seq: int = SEQ):
+    """A llama bundle of LLAMA_TINY's family in `dtype` at `seq`, with
+    `cfg`'s fields replaced; any other `model` from the registry."""
+    from vodascheduler_tpu_torch.models import llama
+    from vodascheduler_tpu_torch.models.registry import get_model, llama_bundle
+    if model != "llama_tiny":
+        return get_model(model)
+    c = dataclasses.replace(llama.LLAMA_TINY, dtype=dtype, **(cfg or {}))
+    return llama_bundle("llama_tiny", c, seq, optimizer)
+
+
+def lm_batches(vocab: int, steps: int, batch: int, seq: int = SEQ,
+               seed: int = 0) -> List[Dict[str, np.ndarray]]:
+    """`steps` token batches of [batch, seq], from `seed` with numpy."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(steps):
+        tokens = rng.integers(0, vocab, (batch, seq + 1))
+        out.append({"inputs": tokens[:, :-1], "targets": tokens[:, 1:]})
+    return out
+
+
+def full_params(module) -> Dict[str, torch.Tensor]:
+    """The module's whole parameters (and buffers), on every rank."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return {k: v.detach().clone() for k, v in module.state_dict().items()}
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        get_model_state_dict,
+    )
+    sd = get_model_state_dict(module, options=StateDictOptions(
+        full_state_dict=True))
+    return {k: v.detach().clone() for k, v in sd.items()}
+
+
+def realised_placements(module) -> Dict[str, Dict[str, int]]:
+    """Each parameter's DTensor placements as {mesh axis: torch dim} of the
+    axes (of size above 1) that split it."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for name, p in module.named_parameters():
+        split = {}
+        if isinstance(p, DTensor):
+            names = p.device_mesh.mesh_dim_names
+            sizes = p.device_mesh.mesh.shape
+            for axis, size, placement in zip(names, sizes, p.placements):
+                # Shard, or the _StridedShard of fsdp over a tp split
+                if size > 1 and not (placement.is_replicate()
+                                     or placement.is_partial()):
+                    split[axis] = placement.dim
+        out[name] = split
+    return out
+
+
+def train(rank: int, world: int, plan: Optional[Dict] = None,
+          steps: int = 1, batch: int = 8, params: Optional[str] = None,
+          model: str = "llama_tiny", dtype: str = "float32",
+          optimizer: str = "adamw", cfg: Optional[Dict] = None,
+          seq: int = SEQ, save_to: Optional[str] = None,
+          resume_from: Optional[str] = None) -> Dict[str, Any]:
+    """Build (or resume) a session of `world` chips at `plan`, optionally
+    from the full state_dict saved at `params`, run `steps` steps on
+    `lm_batches` (the batches after a resumed step when resuming), save to
+    `save_to`; return the losses, the whole parameters before and after,
+    and the parameters' placements."""
+    from vodascheduler_tpu_torch import bridge
+    from vodascheduler_tpu_torch.parallel.mesh import MeshPlan
+    from vodascheduler_tpu_torch.runtime.train import TrainSession
+
+    bundle = bundle_for(model, dtype, optimizer, cfg, seq)
+    mesh_plan = MeshPlan(**plan) if plan else None
+    if resume_from:
+        session = TrainSession.resume(bundle, world, resume_from,
+                                      global_batch_size=batch, device="cpu",
+                                      plan=mesh_plan)
+    else:
+        session = TrainSession(bundle, world, global_batch_size=batch,
+                               device="cpu", plan=mesh_plan)
+    if params:
+        sd = torch.load(params) if rank == 0 else {}
+        bridge.load_reference_params(session.module, sd)
+    start = session.step
+    before = full_params(session.module)
+    batches = lm_batches(bundle.cfg.vocab_size, start + steps, batch, seq)
+    losses = []
+    for b in batches[start:]:
+        tb = {k: torch.tensor(v) for k, v in b.items()}
+        losses.append(float(session.train_step(tb)))
+    if save_to:
+        session.save(save_to)
+        session.finish_saves()
+    return {"losses": losses, "before": before,
+            "after": full_params(session.module), "step": session.step,
+            "placements": realised_placements(session.module),
+            "plan": dataclasses.asdict(session.plan) if session.plan
+            else None}
+
+
+def main(argv: List[str]) -> None:
+    fn, rank, world, port, out, kwargs = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=DEADLINE_S))
+    try:
+        result = globals()[fn](rank, world, **json.loads(kwargs))
+        torch.save(result, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

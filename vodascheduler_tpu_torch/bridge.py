@@ -284,3 +284,32 @@ vit_to_flax = bert_to_flax  # ViTConfig has BERT's dim and num_heads
 
 def nmt_to_flax(state_dict, cfg) -> Dict[str, Any]:
     return state_dict_to_tree(state_dict, cfg.head_dim)[0]
+
+
+# ---------------------------------------------------------------------------
+# into a sharded module
+# ---------------------------------------------------------------------------
+
+
+def load_reference_params(module: torch.nn.Module, state_dict) -> None:
+    """Load a full state_dict (as `flax_to_state_dict` or
+    `tree_to_state_dict` give it from the reference's numpy params) into
+    `module`, sharded or not. Under a process group rank 0's copy is
+    broadcast (`set_model_state_dict` with full state dicts), so the other
+    ranks may pass an empty dict; each rank keeps its shards."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        module.load_state_dict(state_dict)
+        return
+    from torch.distributed.checkpoint.state_dict import (
+        StateDictOptions,
+        set_model_state_dict,
+    )
+    device = next(module.parameters()).device
+    # contiguous: the broadcast sends a tensor's storage as laid out, and
+    # the bridge's transposed kernels are views
+    full = ({k: torch.as_tensor(v).to(device).contiguous()
+             for k, v in state_dict.items()}
+            if dist.get_rank() == 0 else {})
+    set_model_state_dict(module, full, options=StateDictOptions(
+        full_state_dict=True, broadcast_from_rank0=True))

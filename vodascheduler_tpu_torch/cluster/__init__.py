@@ -12,8 +12,11 @@ interface:
 - `local.LocalBackend`: real PyTorch trainer processes
   (runtime/supervisor.py) on the local machine's GPUs, one card index
   list per grant.
+- `multihost.MultiHostBackend`: one supervisor process per host with a
+  backend-issued coordinator address, where the hosts' supervisors meet
+  and number their ranks (runtime/supervisor.py).
 
-The port has no `gke` or `multihost` backend yet.
+The port has no `gke` backend yet (ROADMAP A21).
 """
 
 from vodascheduler_tpu_torch.cluster.backend import (
@@ -23,3 +26,4 @@ from vodascheduler_tpu_torch.cluster.backend import (
     ResizePath,
 )
 from vodascheduler_tpu_torch.cluster.local import LocalBackend
+from vodascheduler_tpu_torch.cluster.multihost import MultiHostBackend

@@ -42,13 +42,16 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
                                      generator=generator)
 
 
-class Dense(nn.Module):
+class Dense(nn.Linear):
     """Dense layer, weight [out, in] in fp32, cast at use; bias-free
-    unless `bias` (flax's Dense has one, its DenseGeneral here none)."""
+    unless `bias` (flax's Dense has one, its DenseGeneral here none). An
+    `nn.Linear`, so that torch's tensor-parallel styles
+    (`parallel/sharding.py`) take it."""
 
     def __init__(self, in_features: int, out_features: int, device=None,
                  bias: bool = False):
-        super().__init__()
+        nn.Module.__init__(self)
+        self.in_features, self.out_features = in_features, out_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features,
                                                device=device))
         self.bias = (nn.Parameter(torch.empty(out_features, device=device))
@@ -190,6 +193,9 @@ class Attention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.attn_fn = attn_fn
+        # The first of this rank's q heads when tp splits q but not k/v
+        # (set by parallel/sharding.py); 0 otherwise.
+        self.head_offset = 0
         hd = cfg.head_dim
         self.q_proj = Dense(dim, cfg.num_heads * hd, device)
         self.k_proj = Dense(dim, cfg.num_kv_heads * hd, device)
@@ -203,9 +209,11 @@ class Attention(nn.Module):
         B, S, _ = x.shape
         kv_src = x if context is None else context
         Sk = kv_src.shape[1]
-        q = self.q_proj(x).view(B, S, cfg.num_heads, cfg.head_dim)
-        k = self.k_proj(kv_src).view(B, Sk, cfg.num_kv_heads, cfg.head_dim)
-        v = self.v_proj(kv_src).view(B, Sk, cfg.num_kv_heads, cfg.head_dim)
+        # Heads by the projections' own widths: under tensor parallelism
+        # (parallel/sharding.py) q/k/v hold this rank's heads.
+        q = self.q_proj(x).unflatten(-1, (-1, cfg.head_dim))
+        k = self.k_proj(kv_src).unflatten(-1, (-1, cfg.head_dim))
+        v = self.v_proj(kv_src).unflatten(-1, (-1, cfg.head_dim))
         if positions is None:
             positions = torch.arange(S, device=x.device).expand(B, S)
         if cfg.rope_base > 0:
@@ -219,11 +227,17 @@ class Attention(nn.Module):
         if groups > 1:  # expand kv heads h0,h0,h1,h1,... as jnp.repeat does
             k = k.repeat_interleave(groups, dim=2)
             v = v.repeat_interleave(groups, dim=2)
+        if k.shape[2] != q.shape[2]:
+            # q split over tp and k/v whole (tp divides the heads but not
+            # the kv heads): this rank's heads of the expanded k/v.
+            first = self.head_offset
+            k = k[:, :, first:first + q.shape[2]]
+            v = v[:, :, first:first + q.shape[2]]
         if self.attn_fn is None:
             out = reference_attention(q, k, v, causal=cfg.causal)
         else:
             out = self.attn_fn(q, k, v)
-        return self.o_proj(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
+        return self.o_proj(out.flatten(2))
 
 
 class SwiGLU(nn.Module):

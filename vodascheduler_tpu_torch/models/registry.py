@@ -1,9 +1,10 @@
 """Model registry: name -> everything the runtime needs to train it.
 
 Counterpart of the JAX package's ``models/registry.py``: every bundle of
-the reference that trains on one card, with the reference's batches and
-losses (synthetic batches keep the framework hermetic; the ``_text`` and
-``digits`` bundles train on real data, ``data/real.py``). A torch module
+the reference but mixtral_8x7b, with the reference's batches, losses,
+scale (`params_b`, for plan_mesh) and sharding rules (synthetic batches
+keep the framework hermetic; the ``_text`` and ``digits`` bundles train
+on real data, ``data/real.py``). A torch module
 allocates its parameters when it is built, so a bundle holds a builder,
 not a module: `build_module(device, generator)` returns the initialised
 model. `loss_fn(module, batch)` calls the module on the batch's input
@@ -20,6 +21,11 @@ import torch.nn.functional as F
 
 from vodascheduler_tpu_torch.models import bert, llama, mixtral, mlp, nmt
 from vodascheduler_tpu_torch.models import resnet, vit
+from vodascheduler_tpu_torch.parallel.sharding import (
+    CONV_RULES,
+    TRANSFORMER_RULES,
+    ShardingRules,
+)
 
 
 @dataclasses.dataclass
@@ -34,6 +40,10 @@ class ModelBundle:
     seq_len: int = 0
     optimizer: str = "adamw"
     num_experts: int = 0  # MoE bundles: hwbench counts active parameters
+    params_b: float = 0.0  # billions, for plan_mesh
+    # how the parameters shard over a mesh (parallel/sharding.py)
+    rules: ShardingRules = dataclasses.field(
+        default_factory=lambda: TRANSFORMER_RULES)
 
 
 def input_key(batch) -> str:
@@ -101,7 +111,8 @@ def _image_batch(size: int, channels: int, classes: int):
 
 
 def family_bundle(name: str, cls, cfg, make_batch, loss_fn,
-                  seq_len: int = 0) -> ModelBundle:
+                  seq_len: int = 0, rules: ShardingRules = TRANSFORMER_RULES,
+                  params_b: float = 0.0) -> ModelBundle:
     """A bundle of a family whose module is `cls(cfg, device=...)`."""
     def build(device, generator):
         module = cls(cfg, device=device)
@@ -109,16 +120,16 @@ def family_bundle(name: str, cls, cfg, make_batch, loss_fn,
         return module
     return ModelBundle(name=name, cfg=cfg, build_module=build,
                        make_batch=make_batch, loss_fn=loss_fn,
-                       seq_len=seq_len)
+                       seq_len=seq_len, rules=rules, params_b=params_b)
 
 
 def _text_lm_bundle(name: str, cfg: llama.LlamaConfig,
-                    seq_len: int) -> ModelBundle:
+                    seq_len: int, params_b: float = 0.0) -> ModelBundle:
     """Byte-level Llama on the bundled real-prose corpus (data/real.py):
     the batch's windows are drawn by the step's generator, so a resumed job
     sees the stream an uninterrupted one would have seen."""
     from vodascheduler_tpu_torch.data import load_text_corpus, make_lm_batch_fn
-    bundle = llama_bundle(name, cfg, seq_len)
+    bundle = llama_bundle(name, cfg, seq_len, params_b=params_b)
     bundle.make_batch = make_lm_batch_fn(load_text_corpus(), seq_len)
     return bundle
 
@@ -130,11 +141,12 @@ def _digits_bundle() -> ModelBundle:
     )
     return family_bundle("digits_mlp", mlp.Mlp, mlp.DIGITS_MLP,
                          make_sampling_batch_fn(load_digits_dataset()),
-                         _cls_loss)
+                         _cls_loss, rules=CONV_RULES)
 
 
 def llama_bundle(name: str, cfg: llama.LlamaConfig, seq_len: int,
-                 optimizer: str = "adamw") -> ModelBundle:
+                 optimizer: str = "adamw",
+                 params_b: float = 0.0) -> ModelBundle:
     def build(device, generator):
         module = llama.Llama(cfg, device=device)
         module.reset_parameters(generator)
@@ -142,11 +154,12 @@ def llama_bundle(name: str, cfg: llama.LlamaConfig, seq_len: int,
     return ModelBundle(name=name, cfg=cfg, build_module=build,
                        make_batch=_lm_batch(cfg.vocab_size, seq_len),
                        loss_fn=_lm_fused_loss, seq_len=seq_len,
-                       optimizer=optimizer)
+                       optimizer=optimizer, params_b=params_b)
 
 
 def mixtral_bundle(name: str, cfg: mixtral.MixtralConfig, seq_len: int,
-                   optimizer: str = "adamw") -> ModelBundle:
+                   optimizer: str = "adamw",
+                   params_b: float = 0.0) -> ModelBundle:
     def build(device, generator):
         module = mixtral.Mixtral(cfg, device=device)
         module.reset_parameters(generator)
@@ -154,41 +167,44 @@ def mixtral_bundle(name: str, cfg: mixtral.MixtralConfig, seq_len: int,
     return ModelBundle(name=name, cfg=cfg, build_module=build,
                        make_batch=_lm_batch(cfg.vocab_size, seq_len),
                        loss_fn=_lm_fused_loss, seq_len=seq_len,
-                       optimizer=optimizer, num_experts=cfg.num_experts)
+                       optimizer=optimizer, num_experts=cfg.num_experts,
+                       params_b=params_b)
 
 
 def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
+    # params_b and the rules are the reference's, bundle by bundle.
     return {
         "mnist_mlp": lambda: family_bundle(
             "mnist_mlp", mlp.Mlp, mlp.MNIST_MLP, _image_batch(28, 1, 10),
             lambda m, b: _cls_loss(lambda x: m(x.reshape(x.shape[0], -1)),
-                                   b)),
+                                   b), rules=CONV_RULES),
         # Real data: the batch is a function of the step's generator, so a
         # resized job resumes its stream exactly.
         "digits_mlp": _digits_bundle,
         "resnet50": lambda: family_bundle(
             "resnet50", resnet.ResNet, resnet.RESNET50,
-            _image_batch(224, 3, 1000), _cls_loss),
+            _image_batch(224, 3, 1000), _cls_loss, rules=CONV_RULES,
+            params_b=0.026),
         "resnet_tiny": lambda: family_bundle(
             "resnet_tiny", resnet.ResNet, resnet.RESNET_TINY,
-            _image_batch(32, 3, 10), _cls_loss),
+            _image_batch(32, 3, 10), _cls_loss, rules=CONV_RULES),
         "bert_base": lambda: family_bundle(
             "bert_base", bert.Bert, bert.BERT_BASE,
             _lm_batch(bert.BERT_BASE.vocab_size, 512), _mlm_loss,
-            seq_len=512),
+            seq_len=512, params_b=0.11),
         "bert_tiny": lambda: family_bundle(
             "bert_tiny", bert.Bert, bert.BERT_TINY,
             _lm_batch(bert.BERT_TINY.vocab_size, 64), _mlm_loss, seq_len=64),
         "vit_l16": lambda: family_bundle(
             "vit_l16", vit.ViT, vit.VIT_L16, _image_batch(224, 3, 1000),
-            _cls_loss),
+            _cls_loss, params_b=0.30),
         "vit_tiny": lambda: family_bundle(
             "vit_tiny", vit.ViT, vit.VIT_TINY, _image_batch(32, 3, 10),
             _cls_loss),
         "nmt_base": lambda: family_bundle(
             "nmt_base", nmt.Seq2SeqTransformer, nmt.NMT_BASE,
             _nmt_batch(nmt.NMT_BASE.vocab_size, 256, 256), _lm_loss,
-            seq_len=256),
+            seq_len=256, params_b=0.07),
         "nmt_tiny": lambda: family_bundle(
             "nmt_tiny", nmt.Seq2SeqTransformer, nmt.NMT_TINY,
             _nmt_batch(nmt.NMT_TINY.vocab_size, 32, 32), _lm_loss,
@@ -196,34 +212,38 @@ def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
         "llama_tiny_text": lambda: _text_lm_bundle(
             "llama_tiny_text", llama.LLAMA_TINY, 64),
         "llama_350m_text": lambda: _text_lm_bundle(
-            "llama_350m_text", llama.LLAMA_350M_BYTES, 2048),
+            "llama_350m_text", llama.LLAMA_350M_BYTES, 2048, params_b=0.32),
         "llama_tiny": lambda: llama_bundle("llama_tiny", llama.LLAMA_TINY, 64),
         "llama_350m": lambda: llama_bundle("llama_350m", llama.LLAMA_350M,
-                                           2048),
-        "llama_350m_8k": lambda: llama_bundle("llama_350m_8k",
-                                              llama.LLAMA_350M_8K, 8192),
+                                           2048, params_b=0.35),
+        "llama_350m_8k": lambda: llama_bundle(
+            "llama_350m_8k", llama.LLAMA_350M_8K, 8192, params_b=0.35),
         "llama_1b": lambda: llama_bundle("llama_1b", llama.LLAMA_1B, 2048,
-                                         "adafactor"),
+                                         "adafactor", params_b=1.0),
+        "llama3_8b": lambda: llama_bundle("llama3_8b", llama.LLAMA3_8B, 4096,
+                                          params_b=8.0),
         "llama_350m_af": lambda: llama_bundle(
-            "llama_350m_af", llama.LLAMA_350M_AF, 2048, "adafactor"),
+            "llama_350m_af", llama.LLAMA_350M_AF, 2048, "adafactor",
+            params_b=0.35),
         "llama_350m_8k_af": lambda: llama_bundle(
-            "llama_350m_8k_af", llama.LLAMA_350M_8K_AF, 8192, "adafactor"),
+            "llama_350m_8k_af", llama.LLAMA_350M_8K_AF, 8192, "adafactor",
+            params_b=0.35),
         "mixtral_tiny": lambda: mixtral_bundle(
             "mixtral_tiny", mixtral.MIXTRAL_TINY, 64),
         "mixtral_small": lambda: mixtral_bundle(
-            "mixtral_small", mixtral.MIXTRAL_SMALL, 2048),
+            "mixtral_small", mixtral.MIXTRAL_SMALL, 2048, params_b=0.39),
         "mixtral_small_af": lambda: mixtral_bundle(
-            "mixtral_small_af", mixtral.MIXTRAL_SMALL_AF, 2048, "adafactor"),
+            "mixtral_small_af", mixtral.MIXTRAL_SMALL_AF, 2048, "adafactor",
+            params_b=0.39),
     }
 
 
 # Bundles of the reference not ported yet, with the ROADMAP item that ports
 # each.
 _NOT_PORTED = {
-    "llama3_8b": "queue A item 10 (multi-GPU: 8B fp32 masters plus AdamW "
-                 "state exceed one card)",
-    "mixtral_8x7b": "queue A item 10 (multi-GPU: 47B parameters need "
-                    "several cards; the expert all_to_all with A12)",
+    "mixtral_8x7b": "the ep item after A11 (47B parameters need several "
+                    "cards, and MoE under data parallelism the expert "
+                    "all_to_all)",
 }
 
 MODEL_REGISTRY = tuple(sorted(_bundles()))

@@ -597,4 +597,38 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ("block_bwd", block_bwd)):
         if blk < 1:
             raise ValueError(f"{name} must be positive, got {blk}")
+    _refuse_dtensors(q, k, v)
     return attention_op(q, k, v, bool(causal), int(q_offset or 0))[0]
+
+
+def _refuse_dtensors(*tensors: torch.Tensor) -> None:
+    """The kernels take a rank's local tensors. A DTensor is refused, never
+    redistributed: gathering it would run the kernel on every rank's
+    whole batch and heads."""
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import DTensor
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(
+            "voda::flash_attention takes local tensors, got a DTensor: "
+            "shard the projections with use_local_output=True "
+            "(parallel/sharding.py) or pass DTensor.to_local()")
+
+
+def make_flash_attention(mesh=None, causal: bool = True):
+    """`attn_fn` for a sharded session: K1–K3 on this rank's local
+    [B/(dp·fsdp), S, H/tp, D] tensors. Counterpart of the reference's
+    `make_flash_attention` (B4a), which shard_maps the kernel over the
+    data and tp axes. Here the layers already hold local tensors (tp's
+    projections give local outputs, each data rank its own rows), so the
+    function is the kernel itself; `mesh` is accepted for the reference's
+    signature.
+
+    Divergence: the reference falls back to the plain attention where the
+    batch or the heads do not divide the mesh. The port does not: the
+    sharding rules keep whole the projections whose heads tp does not
+    divide, and a batch that does not divide the data axes is refused
+    when the session starts, so the kernel runs on whatever local heads
+    there are."""
+    del mesh
+    return functools.partial(flash_attention, causal=causal)

@@ -1,2 +1,3 @@
-"""Parallelism for the port. Only `reference_attention` exists so far; ring
-attention and the mesh planner come with the multi-GPU slice."""
+"""Parallelism for the port: the mesh plan (`mesh.py`), the sharding rules
+(`sharding.py`) and `reference_attention` (`ring_attention.py`; ring
+attention itself comes with sequence parallelism, ROADMAP A13)."""

@@ -2,7 +2,8 @@
 
 Counterpart of `reference_attention` in the JAX package's
 ``parallel/ring_attention.py``. Ring attention itself (sequence shards
-passed around a ring of devices) waits for the multi-GPU slice.
+passed around a ring of devices) comes with sequence parallelism (ROADMAP
+A13).
 """
 
 from __future__ import annotations

@@ -1,0 +1,368 @@
+"""Sharding rules: map parameters and batches onto the mesh.
+
+Counterpart of the JAX package's ``parallel/sharding.py``. The rules are
+the reference's, path regex -> spec, first match wins, over the
+reference's parameter paths (the bridge names each parameter of the port
+by its reference leaf, `reference_leaves`): the same model reshapes onto
+any mesh, the property elastic resize depends on. A spec is a tuple of
+axis names (or None) per dimension of the reference leaf, as a
+`PartitionSpec` lists them; `_fit_spec` drops an axis that does not divide
+its dimension, as the reference does.
+
+`apply_rules` turns the fitted specs into torch's mechanisms:
+
+- ``tp``: `parallelize_module`. A q/k/v, gate/up or fc1 projection split
+  over tp is `ColwiseParallel` and its o, down or fc2 partner
+  `RowwiseParallel`, with local outputs (`use_local_output=True`), so the
+  attention and the MLP run on this rank's heads and hidden columns and
+  one all-reduce closes each block. The rules split no other Dense of the
+  registry's bundles over tp; one that they did would raise.
+- ``dp`` × ``fsdp``: `fully_shard` of each layer and of the root over the
+  (dp, fsdp) sub-mesh: HSDP, replicated over dp and sharded over fsdp,
+  also when both are 1, so one code path serves every plan and every
+  parameter is a DTensor.
+
+Where torch's layout differs from the reference's, no result changes:
+
+- a Dense weight is [out, in] (the reference's kernel is [in, out]) and
+  q/k/v weights are [H·hd, D] (the reference's [D, H, hd]): tp splits the
+  same heads and columns, on torch's axis (`reference_leaves` maps each
+  reference dimension to torch's);
+- FSDP2 shards every parameter on its dimension 0 over fsdp, padding an
+  uneven one, where the reference shards the rule's dimension and
+  replicates norms, biases and dimensions fsdp does not divide;
+- the token embedding and the Llama head (``embed/embedding``,
+  ``lm_head_kernel``, `UNSPLIT_OVER_TP`) stay whole over tp: the model
+  reads them as tensors (`F.embedding`, the chunked loss), not through a
+  module that a tp style could split. The reference splits the embedding's
+  model dimension and the head's vocabulary over tp;
+- a plan whose tp divides the heads but not the kv heads splits q and o
+  and keeps k and v whole, as the reference's `_fit_spec` does; each rank
+  then takes its heads of the expanded k/v (`Attention.head_offset`).
+
+Batches: the batch dimension over the data axes (dp, fsdp), as
+`batch_sharding` says; each data rank takes its contiguous rows
+(`local_rows`), and the tp ranks of a data group take the same rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import re
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+Spec = Tuple[Optional[str], ...]
+
+
+def P(*axes: Optional[str]) -> Spec:
+    """A spec: one mesh axis name (or None) per dimension."""
+    return tuple(axes)
+
+
+@dataclasses.dataclass
+class ShardingRules:
+    """Ordered (path-regex, spec) rules; first match wins. `default`
+    applies when nothing matches (replicate)."""
+
+    rules: List[Tuple[str, Spec]]
+    default: Spec = ()
+
+    def spec_for(self, path: str) -> Spec:
+        for pattern, spec in self.rules:
+            if re.search(pattern, path):
+                return spec
+        return self.default
+
+
+# The reference's per-layer transformer rules: tp splits the attention
+# heads and the MLP's hidden width, fsdp the other big axis, the experts
+# go over ep. The scanned rules are derived from this list.
+_LAYER_RULES = [
+    (r"(q_proj|k_proj|v_proj).*kernel$", P("fsdp", "tp")),
+    (r"o_proj.*kernel$", P("tp", "fsdp")),
+    (r"(up_proj|gate_proj|fc1).*kernel$", P("fsdp", "tp")),
+    (r"(down_proj|fc2).*kernel$", P("tp", "fsdp")),
+    (r"experts.*(up|gate).*kernel$", P("ep", "fsdp", "tp")),
+    (r"experts.*down.*kernel$", P("ep", "tp", "fsdp")),
+    (r"router.*kernel$", P("fsdp", None)),
+]
+
+TRANSFORMER_RULES = ShardingRules(rules=(
+    [(r"layers_scan.*" + pattern, P("pp", *spec))
+     for pattern, spec in _LAYER_RULES]
+    + [(r"embed.*embedding$", P("fsdp", "tp"))]
+    + _LAYER_RULES
+    + [(r"lm_head.*kernel$", P("fsdp", "tp")),
+       (r"(norm|scale|bias|ln)", P())]))
+
+CONV_RULES = ShardingRules(rules=[
+    (r"conv.*kernel$", P(None, None, None, "fsdp")),
+    (r"dense.*kernel$", P("fsdp", "tp")),
+    (r"(bn|norm|scale|bias)", P()),
+])
+
+# Reference leaves the port keeps whole over tp (module docstring).
+UNSPLIT_OVER_TP = (r"embed.*embedding$", r"lm_head.*kernel$")
+
+
+def _fit_spec(spec: Spec, shape: Sequence[int],
+              mesh_shape: Dict[str, int]) -> Spec:
+    """Trim a spec to the array's rank and drop the axes that are absent,
+    of size 1 or do not divide their dimension (that dimension is then
+    replicated)."""
+    out = []
+    for i, dim in enumerate(shape):
+        axis = spec[i] if i < len(spec) else None
+        size = mesh_shape.get(axis, 1) if axis is not None else 1
+        out.append(axis if size > 1 and dim % size == 0 else None)
+    return tuple(out)
+
+
+def batch_sharding(mesh_shape: Dict[str, int],
+                   seq_axis: Optional[str] = None) -> Spec:
+    """The batch's spec: its dimension 0 over the data axes of size above
+    1 (dp, fsdp), and optionally the sequence over `seq_axis`."""
+    data = tuple(a for a in ("dp", "fsdp") if mesh_shape.get(a, 1) > 1)
+    # one axis is named alone, as a PartitionSpec normalises it
+    batch = data[0] if len(data) == 1 else (data or None)
+    if seq_axis and mesh_shape.get(seq_axis, 1) > 1:
+        return (batch, seq_axis)
+    return (batch,)
+
+
+def local_rows(batch: Any, data_size: int, data_rank: int) -> Any:
+    """This data rank's contiguous rows of every tensor of `batch` (a
+    tensor or nested dicts/lists of them), the global batch cut in
+    `data_size` equal parts along dimension 0."""
+    if data_size == 1:
+        return batch
+    if isinstance(batch, torch.Tensor):
+        if batch.shape[0] % data_size:
+            raise ValueError(
+                f"global batch {batch.shape[0]} does not divide over "
+                f"{data_size} data ranks (dp · fsdp)")
+        rows = batch.shape[0] // data_size
+        return batch[data_rank * rows:(data_rank + 1) * rows]
+    if isinstance(batch, dict):
+        return {k: local_rows(v, data_size, data_rank)
+                for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(local_rows(v, data_size, data_rank)
+                           for v in batch)
+    return batch
+
+
+# ---------------------------------------------------------------------------
+# the port's parameters as the reference's leaves
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Leaf:
+    """A parameter of the port seen as (its slice of) a reference leaf:
+    the leaf's path and shape, and for each of the leaf's dimensions the
+    torch dimension that holds it (None: the stacked layer axis, which a
+    parameter of one layer does not have)."""
+
+    path: str
+    shape: Tuple[int, ...]
+    torch_dims: Tuple[Optional[int], ...]
+
+
+def _owner(module: nn.Module, name: str) -> Tuple[nn.Module, str]:
+    parent, _, leaf = name.rpartition(".")
+    return (module.get_submodule(parent) if parent else module), leaf
+
+
+def reference_leaves(module: nn.Module) -> Dict[str, Leaf]:
+    """Every parameter of `module` by name -> its reference Leaf. Llama
+    and Mixtral go through the bridge's leaf groups (their layers are
+    named apart, bridge.py); the other families name every submodule as
+    flax does, and only the layouts change."""
+    from vodascheduler_tpu_torch import bridge
+    from vodascheduler_tpu_torch.models.layers import Attention, Conv, Dense
+    from vodascheduler_tpu_torch.models.llama import Llama
+    from vodascheduler_tpu_torch.models.mixtral import Mixtral
+
+    out: Dict[str, Leaf] = {}
+    named = list(module.named_parameters())
+    if isinstance(module, (Llama, Mixtral)):
+        by_param = {}
+        for g in bridge.reference_param_groups(named, module.cfg):
+            for p in g["params"]:
+                by_param[id(p)] = g
+        for name, p in named:
+            g = by_param[id(p)]
+            slice_shape = g["shape"][1:] if g["stacked"] else g["shape"]
+            if not g["transposed"]:
+                dims = tuple(range(len(slice_shape)))
+            elif len(slice_shape) == 3:  # q/k/v [D, H, hd] of [H*hd, D]
+                dims = (1, 0, 0)
+            else:  # Dense [in, out] of [out, in]
+                dims = (1, 0)
+            if g["stacked"]:
+                dims = (None,) + dims
+            out[name] = Leaf(g["leaf"], tuple(g["shape"]), dims)
+        return out
+    for name, p in named:
+        owner, attr = _owner(module, name)
+        parts = name.split(".")
+        shape = tuple(p.shape)
+        dims: Tuple[Optional[int], ...] = tuple(range(p.dim()))
+        if isinstance(owner, nn.Embedding):
+            parts[-1] = "embedding"
+        elif isinstance(owner, Conv) and attr == "weight":  # HWIO of OIHW
+            parts[-1] = "kernel"
+            shape = (shape[2], shape[3], shape[1], shape[0])
+            dims = (2, 3, 1, 0)
+        elif isinstance(owner, Dense) and attr == "weight":
+            parts[-1] = "kernel"
+            parent, _ = _owner(module, name.rpartition(".")[0])
+            if isinstance(parent, Attention) and parts[-2] in (
+                    "q_proj", "k_proj", "v_proj"):
+                hd = parent.cfg.head_dim
+                shape = (shape[1], shape[0] // hd, hd)
+                dims = (1, 0, 0)
+            else:
+                shape = (shape[1], shape[0])
+                dims = (1, 0)
+        out[name] = Leaf("/".join(parts), shape, dims)
+    return out
+
+
+def param_placements(module: nn.Module, rules: ShardingRules,
+                     mesh_shape: Dict[str, int]) -> Dict[str, Dict[str, Any]]:
+    """For each parameter: its reference leaf, the rules' spec fitted to
+    the leaf and `mesh_shape`, and the torch dimension each mesh axis
+    splits ({axis: dim}). tp is as `apply_rules` realises it (without the
+    leaves of UNSPLIT_OVER_TP); fsdp is the reference's rule (FSDP2 itself
+    splits dimension 0, module docstring)."""
+    out = {}
+    for name, leaf in reference_leaves(module).items():
+        spec = _fit_spec(rules.spec_for(leaf.path), leaf.shape, mesh_shape)
+        split = {}
+        for i, axis in enumerate(spec):
+            if axis is not None and leaf.torch_dims[i] is not None:
+                split[axis] = leaf.torch_dims[i]
+        if "tp" in split and any(re.search(p, leaf.path)
+                                 for p in UNSPLIT_OVER_TP):
+            del split["tp"]
+        out[name] = {"leaf": leaf, "spec": spec, "split": split}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rules as torch's mechanisms
+# ---------------------------------------------------------------------------
+
+# (module class name, the projections that split their output, the one
+# that takes the split input): the pairs whose activations stay split
+# between two products.
+_PAIRS = {"Attention": (("q_proj", "k_proj", "v_proj"), "o_proj"),
+          "SwiGLU": (("gate_proj", "up_proj"), "down_proj"),
+          "EncoderBlock": (("fc1",), "fc2")}
+
+
+class _SumGradOverGroup(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over `group`."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        torch.distributed.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def _sum_grad_hook(group, module, inputs, output):
+    return _SumGradOverGroup.apply(output, group)
+
+
+def _tp_plan(module: nn.Module, placements: Dict[str, Dict[str, Any]],
+             tp_rank: int, tp_size: int, tp_group=None) -> Dict[str, Any]:
+    """parallelize_module's plan: FQN of a Dense -> its style."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.parallel import (
+        ColwiseParallel,
+        RowwiseParallel,
+    )
+
+    from vodascheduler_tpu_torch.models.layers import Dense
+
+    def tp_dim(fqn: str) -> Optional[int]:
+        entry = placements.get(f"{fqn}.weight")
+        return None if entry is None else entry["split"].get("tp")
+
+    plan: Dict[str, Any] = {}
+    paired = set()
+    for fqn, sub in module.named_modules():
+        pair = _PAIRS.get(type(sub).__name__)
+        if pair is None:
+            continue
+        producers, consumer = pair
+        prefix = f"{fqn}." if fqn else ""
+        split_in = False
+        for name in producers:
+            paired.add(prefix + name)
+            if tp_dim(prefix + name) == 0:
+                plan[prefix + name] = ColwiseParallel()
+                split_in = split_in or name == producers[0]
+        paired.add(prefix + consumer)
+        if tp_dim(prefix + consumer) == 1:
+            plan[prefix + consumer] = RowwiseParallel(
+                input_layouts=Shard(-1) if split_in else Replicate())
+        if type(sub).__name__ == "Attention":
+            if prefix + "o_proj" not in plan and split_in:
+                raise ValueError(f"{fqn}: q split over tp but not o_proj")
+            kv_split = tp_dim(prefix + "k_proj") == 0
+            if split_in and not kv_split:
+                sub.head_offset = tp_rank * (sub.cfg.num_heads // tp_size)
+                # Each rank reads its heads of the whole k/v: their
+                # gradients are the sum over the tp ranks.
+                for name in ("k_proj", "v_proj"):
+                    getattr(sub, name).register_forward_hook(
+                        functools.partial(_sum_grad_hook, tp_group))
+    for fqn, sub in module.named_modules():
+        if fqn not in paired and isinstance(sub, Dense) and \
+                tp_dim(fqn) is not None:
+            raise NotImplementedError(
+                f"{fqn}: the rules split it over tp, and the port splits "
+                "only the attention's and the MLP's projections")
+    return plan
+
+
+def _fsdp_units(module: nn.Module) -> List[nn.Module]:
+    """The submodules FSDP2 gathers one at a time: each layer of a
+    `layers` list (the decoder families), before the root."""
+    layers = getattr(module, "layers", None)
+    return list(layers) if isinstance(layers, nn.ModuleList) else []
+
+
+def apply_rules(module: nn.Module, mesh, rules: ShardingRules) -> nn.Module:
+    """Shard `module` in place over `mesh` (axes dp, fsdp, tp) by `rules`
+    (module docstring); returns it. Every parameter becomes a DTensor."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor.parallel import parallelize_module
+
+    mesh_shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    tp_size = mesh_shape.get("tp", 1)
+    if tp_size > 1:
+        placements = param_placements(module, rules, mesh_shape)
+        tp_mesh = mesh["tp"]
+        plan = _tp_plan(module, placements, tp_mesh.get_local_rank(),
+                        tp_size, tp_mesh.get_group())
+        if plan:
+            parallelize_module(module, tp_mesh, plan)
+    data_mesh = mesh["dp", "fsdp"]
+    for unit in _fsdp_units(module):
+        fully_shard(unit, mesh=data_mesh)
+    fully_shard(module, mesh=data_mesh)
+    return module

@@ -24,6 +24,14 @@ arithmetic on the leaf, and scatters the update back. The state is optax's,
 in the leaf's shape, kept on the group's first parameter (the others hold
 an empty entry). Parameters given without groups are each a leaf of their
 own shape.
+
+On sharded parameters (DTensors: FSDP2 and tensor parallelism,
+parallel/sharding.py) the row, column and whole-leaf means must be the
+whole leaf's, as optax takes them under GSPMD. So each rank gathers the
+group's gradients whole, runs the same arithmetic on the whole leaf as
+every other rank (the state is whole and identical on every rank), and
+adds its own shard of the update; the parameters' RMS is a sum over the
+shards.
 """
 
 from __future__ import annotations
@@ -83,6 +91,23 @@ def _leaf_groups(params) -> List[dict]:
              "stacked": False, "transposed": False} for p in params]
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole (a plain tensor as is)."""
+    full = getattr(t, "full_tensor", None)
+    return t if full is None else full()
+
+
+def _like(p: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """`whole`, a tensor of p's global shape, laid out as `p`: for a
+    DTensor, this rank's shard of it, cut locally (every rank holds the
+    same `whole`)."""
+    if getattr(p, "device_mesh", None) is None:
+        return whole
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(whole, p.device_mesh, p.placements,
+                             src_data_rank=None)
+
+
 class Adafactor(torch.optim.Optimizer):
     """`optax.adafactor(learning_rate=lr)` over reference leaves (module
     docstring)."""
@@ -118,8 +143,8 @@ class Adafactor(torch.optim.Optimizer):
             params = group["params"]
             if all(p.grad is None for p in params):
                 continue
-            grad = to_leaf(group, [torch.zeros_like(p) if p.grad is None
-                                   else p.grad for p in params])
+            grad = to_leaf(group, [_whole(torch.zeros_like(p) if p.grad is None
+                                          else p.grad) for p in params])
             state = self.state[params[0]]
             update = self._factored_rms(group, state, grad)
             # clip_by_block_rms: the RMS of the whole leaf's update
@@ -128,11 +153,12 @@ class Adafactor(torch.optim.Optimizer):
             update = update * group["lr"]
             # scale_by_param_block_rms: the RMS of the whole leaf's values
             numel = sum(p.numel() for p in params)
-            rms = (sum(p.square().sum() for p in params) / numel).sqrt()
+            rms = (sum(_whole(p.square().sum()) for p in params)
+                   / numel).sqrt()
             update = update * torch.clamp(rms, min=MIN_PARAM_SCALE)
             update = update * -1
             for i, p in enumerate(params):
-                p.add_(from_leaf(group, update, i))
+                p.add_(_like(p, from_leaf(group, update, i)))
             state["step"] += 1
         return loss
 
