@@ -176,20 +176,29 @@ Phases (any failure exits non-zero):
      48/24/24 of flash_*_wide;
   10. what a resize costs: the port's benchrunner (a fresh workdir, no
      cache) over ``meta`` and ``resize:llama_350m:b8``, whose worker runs
-     the resize bench's two children on the card (prepare: 3 AdamW steps,
-     the async save's initiate and drain, a synced save; restart: the cold
-     start through `TrainSession.resume`'s halves to the first step). Both
-     rows measured; every restart segment present and >= 0, summing to
-     the total within 1 ms a segment; checkpoint_bytes within 1% of the
-     state's bytes; the cold row's seconds equal to resize_cost_seconds,
-     the fast row None with its A10 error; the children's telemetry
-     peaking above 1 GiB and at most the card's memory; each child's
-     launches of K1-K3 (48/24/24 a step) and the kernels found built; the
-     restart's first and second step losses within 1e-3 relative of the
-     same steps in the prepare child (the second reads the restored
-     optimizer state); `derive_costs` on the row finite for every family,
-     "measured on llama_350m". Printed: the segments, the saves and the
-     derived family costs, with the card's name and power limit;
+     the resize bench's three children on the card (prepare: 3 AdamW
+     steps, the async save's initiate and drain, a synced save; restart:
+     the cold start through `TrainSession.resume`'s halves to the first
+     step; fast: one NCCL rank of a process group of one, the prepare
+     child's 4 steps, then `TrainSession.resize(1)` (the in-place path:
+     plan, mesh, groups, module with its kernels, optimizer, every state
+     tensor moved) and the first step, timed together). Both rows
+     measured; every restart segment present and >= 0, summing to the
+     total within 1 ms a segment; checkpoint_bytes within 1% of the
+     state's bytes; the cold row's seconds equal to resize_cost_seconds;
+     the fast row measured 1 -> 1, its seconds fast_resize_ms's, no
+     fast_error, its first step launching 48/24/24 and its loss within
+     1e-5 relative of the prepare child's same step, the peak of device
+     memory across the resize above the memory before it and at most the
+     card's; the children's telemetry peaking above 1 GiB and at most the
+     card's memory; the prepare and restart children's launches of K1-K3
+     (48/24/24 a step) and the kernels found built; the restart's first
+     and second step losses within 1e-3 relative of the same steps in the
+     prepare child (the second reads the restored optimizer state);
+     `derive_costs` on the row finite for every family, both costs
+     "measured on llama_350m". Printed: the segments, the saves, the fast
+     row beside the cold one and the derived family costs, with the card's
+     name and power limit;
   11. models that compute in fp32 and in fp16: a llama_350m-width bundle
      of 4 layers in each, through TrainSession on the card, its step
      through the fp32 or fp16 kernels against the plain attention (fp32:
@@ -210,6 +219,9 @@ Phases (any failure exits non-zero):
      local tensors, 48/24/24 a step), every step's loss (printed inside the
      rank by a user script) within 1e-3 relative of the plain one-card
      TrainSession's same step, finite and falling over its first 6 steps;
+     in its first epoch a resize to 1 acked in place and a resize to 2
+     nacked ``restart_required`` (the rank holds one card; the user script
+     holds the rank's first step until the first command is written);
      SIGTERM after its epoch of 6 steps: exit 3 with a sharded checkpoint;
      the one-card path (no coordinator) resumes it (`resumed at step N on 1
      chips`) and is stopped likewise, and the rank resumes that plain
@@ -2383,6 +2395,14 @@ RESIZE_LOSS_LIMIT = 1e-3
 RESIZE_BYTES_LIMIT = 1e-2
 # One step of llama_350m (full remat: K1 twice a layer).
 RESIZE_LAUNCHES = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
+# The fast child's first step after its in-place resize against the prepare
+# child's same step: the same arithmetic on the same state, on a rank of
+# one (phase 12 held that path within 4.7e-8 of the one-card session).
+FAST_LOSS_LIMIT = 1e-5
+# Steps a child takes with its kernels counted: prepare 3 warm steps, one
+# before the synced save and the 2 after it; restart 2 after the restore;
+# fast the first step after the resize.
+RESIZE_COUNTED_STEPS = {"prepare": 6, "restart": 2, "fast": 1}
 
 
 def resize_faults(rows: dict, total_bytes: int) -> list:
@@ -2411,20 +2431,32 @@ def resize_faults(rows: dict, total_bytes: int) -> list:
     if paths["cold"]["seconds"] != d["resize_cost_seconds"]:
         bad.append(f"cold row {paths['cold']} against resize_cost_seconds "
                    f"{d['resize_cost_seconds']}")
-    if (paths["fast"]["seconds"] is not None
-            or "A10" not in paths["fast"].get("error", "")
-            or d["fast_resize_ms"] is not None):
-        bad.append(f"fast row {paths['fast']}")
+    fast_ms = d.get("fast_resize_ms")
+    if (d.get("fast_error") or not fast_ms or fast_ms <= 0
+            or paths["fast"] != {"path": "fast",
+                                 "seconds": round(fast_ms / 1000.0, 2),
+                                 "from_chips": 1, "to_chips": 1}):
+        bad.append(f"fast row {paths['fast']} fast_resize_ms {fast_ms} "
+                   f"error {d.get('fast_error')}")
+    else:
+        a, b = d["prepare_next_step_loss"], d["fast_first_step_loss"]
+        if not (math.isfinite(b) and abs(b - a) <= FAST_LOSS_LIMIT * abs(a)):
+            bad.append(f"first-step loss {b} after the in-place resize "
+                       f"against {a}")
+        before, peak = d["fast_memory_before_bytes"], d["fast_peak_bytes"]
+        if not (before and peak and before < peak <= total_bytes):
+            bad.append(f"device memory across the resize: {before} before, "
+                       f"peak {peak} (at most {total_bytes})")
     peaks = [m["allocated_bytes.all.peak"]
              for child in (row.get("telemetry") or {}).values()
              for m in child.get("memory", {}).values()]
     if not peaks or not GIB < max(peaks) <= total_bytes:
         bad.append(f"telemetry peaks {peaks} (want above 1 GiB, at most "
                    f"{total_bytes})")
+    if set(d["launches"]) != set(RESIZE_COUNTED_STEPS):
+        bad.append(f"launches of {sorted(d['launches'])}")
     for child, launches in d["launches"].items():
-        # restart: 2 steps after the restore; prepare: 3 warm steps, one
-        # before the synced save and the 2 after it
-        want = {k: v * (2 if child == "restart" else 6)
+        want = {k: v * RESIZE_COUNTED_STEPS.get(child, 0)
                 for k, v in RESIZE_LAUNCHES.items()}
         if launches != want:
             bad.append(f"{child} child launched {launches}, want {want}")
@@ -2441,15 +2473,17 @@ def resize_faults(rows: dict, total_bytes: int) -> list:
     else:
         for fam, cost in restart_costs.derive_costs([d]).items():
             if not (math.isfinite(cost.restart_s)
-                    and f"measured on {RESIZE_MODEL})" in cost.provenance):
+                    and f"measured on {RESIZE_MODEL})" in cost.provenance
+                    and f"measured on {RESIZE_MODEL})"
+                    in cost.inplace_provenance):
                 bad.append(f"{fam}: {cost}")
     return bad
 
 
 def run_resize(card: str) -> None:
     """Phase 10: the port's benchrunner over meta and resize:llama_350m:b8
-    (the resize bench's prepare and restart children on the card), in a
-    fresh workdir with no cache."""
+    (the resize bench's prepare, restart and fast children on the card),
+    in a fresh workdir with no cache."""
     from vodascheduler_tpu_torch.benchrunner import (
         BenchOrchestrator,
         default_registry,
@@ -2486,6 +2520,20 @@ def run_resize(card: str) -> None:
         f"{d['prepare_next_step_loss']}, second-step loss "
         f"{d['restart_second_step_loss']} against "
         f"{d['prepare_second_step_loss']}")
+    log(f"resize fast {RESIZE_MODEL} B={RESIZE_BATCH} on {card}: "
+        f"fast_resize_ms {d['fast_resize_ms']} (in place "
+        f"{d['fast_from_chips']} -> {d['fast_to_chips']} chips, one NCCL "
+        f"rank: resize(1) and the first step) beside the cold "
+        f"resize_cost_seconds {d['resize_cost_seconds']} "
+        f"(fast_over_cold "
+        f"{d['fast_resize_ms'] / 1000.0 / d['resize_cost_seconds']:.4f}); "
+        f"device memory {d['fast_memory_before_bytes']} bytes before the "
+        f"resize, peak {d['fast_peak_bytes']} across it "
+        f"({d['fast_peak_bytes'] / d['fast_memory_before_bytes']:.3f}x); "
+        f"segments_ms {json.dumps(d['fast_segments_ms'])}; "
+        f"first-step loss {d['fast_first_step_loss']} against "
+        f"{d['prepare_next_step_loss']}; launches "
+        f"{json.dumps(d['launches']['fast'])}")
     for fam, cost in restart_costs.derive_costs([d]).items():
         log(f"resize family {fam} on {card}: restart_s {cost.restart_s} "
             f"({cost.provenance}) inplace_s {cost.inplace_s} "
@@ -2512,11 +2560,17 @@ DIST_LOSS_REL = 1e-3  # phase 5b's bar
 DIST_LAUNCHES = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
 
 # The job's user script: llama_350m, its loss printed at every step and its
-# parameters' types and meshes at the first, from inside the rank.
+# parameters' types and meshes at the first, from inside the rank. The
+# first step of a run waits (at most 120 s) until the job's control channel
+# holds a command, so that run A's rank reads the phase's first resize at
+# the boundary after that step, within its first epoch.
 DIST_PROBE = """
+import os
 import time
 
 from vodascheduler_tpu_torch.models import get_model as _get
+
+COMMAND = {command!r}
 
 
 def get_model(spec):
@@ -2526,6 +2580,9 @@ def get_model(spec):
 
     def probed(module, batch):
         if calls[0] == 0:
+            deadline = time.monotonic() + 120.0
+            while not os.path.exists(COMMAND) and time.monotonic() < deadline:
+                time.sleep(0.01)
             from torch.distributed.tensor import DTensor
             params = list(module.parameters())
             meshes = sorted({{str(p.device_mesh) for p in params
@@ -2625,6 +2682,24 @@ def dist_run_faults(run: dict, rc: int, plain: list, distributed: bool,
     return bad
 
 
+def dist_resize_faults(acks: list) -> list:
+    """Phase 12's bars on run A's two resize acks: a resize to 1 acked in
+    place at a step of its first epoch, one to 2 nacked restart_required
+    (one rank: a grow needs a process-group change)."""
+    bad = []
+    first, second = acks
+    if not (first and first.get("ok") and first.get("path") == "inplace"
+            and first.get("num_chips") == 1
+            and 0 < first.get("step", 0) <= DIST_STEPS_PER_EPOCH):
+        bad.append(f"the resize to 1: {first}")
+    if not (second and second.get("ok") is False
+            and second.get("path") == "restart_required"
+            and "2 needs a process-group change" in second.get("reason",
+                                                             "")):
+        bad.append(f"the resize to 2: {second}")
+    return bad
+
+
 def _dist_launches(run: dict) -> dict:
     return {k: (run["launches"] or {}).get(k) for k in DIST_LAUNCHES}
 
@@ -2672,6 +2747,10 @@ def run_distributed(card: str, hermetic: bool = False) -> None:
     )
     from vodascheduler_tpu_torch.models import get_model
     from vodascheduler_tpu_torch.runtime import TrainSession
+    from vodascheduler_tpu_torch.runtime.supervisor import (
+        read_resize_ack,
+        request_resize,
+    )
 
     steps_per_epoch, epochs = ((2, 8) if hermetic
                                else (DIST_STEPS_PER_EPOCH, DIST_EPOCHS))
@@ -2700,7 +2779,9 @@ def run_distributed(card: str, hermetic: bool = False) -> None:
     os.makedirs(workdir)
     name = f"{model}_dist"
     with open(os.path.join(workdir, "probe.py"), "w") as f:
-        f.write(DIST_PROBE.format(delay=0.3 if hermetic else 0))
+        f.write(DIST_PROBE.format(
+            delay=0.3 if hermetic else 0,
+            command=os.path.join(workdir, "control", "cmd.json")))
     spec = JobSpec(name=name, model=model, global_batch_size=8,
                    steps_per_epoch=steps_per_epoch,
                    config=JobConfig(epochs=epochs),
@@ -2717,6 +2798,22 @@ def run_distributed(card: str, hermetic: bool = False) -> None:
             start = prev["checkpoint"][0] if prev["checkpoint"] else -1
         t0 = time.monotonic()
         proc = _dist_supervisor(workdir, tag, coordinator, hermetic)
+        acks = None
+        if tag == "a":
+            # The in-place arm on the rank, in its first epoch: a resize to
+            # its size is acked in place, one beyond its card nacked. The
+            # rank's channel exists before its "distributed" line; its
+            # first step waits for the first command.
+            _wait(proc, workdir, tag,
+                  lambda: "distributed rank 0 of 1" in _text(
+                      workdir, f"{tag}.out"), "its process group",
+                  timeout=300.0)
+            seqs = [request_resize(workdir, 1)]
+            _wait(proc, workdir, tag,
+                  lambda: read_resize_ack(workdir, seqs[0]) is not None,
+                  "the ack of a resize to 1", timeout=300.0)
+            acks = [read_resize_ack(workdir, seqs[0])]
+            seqs.append(request_resize(workdir, 2))
         if stop:
             # After its epoch's line: the signal lands during the epoch
             # save's host copy, and the ranks stop at the next epoch's
@@ -2730,7 +2827,11 @@ def run_distributed(card: str, hermetic: bool = False) -> None:
         wall_s = time.monotonic() - t0
         run = parse_dist_run(_text(workdir, f"{tag}.out"))
         runs[tag] = run
-        faults = dist_run_faults(
+        if acks is not None:
+            acks.append(read_resize_ack(workdir, seqs[1]))
+            log(f"dist[{tag}] resize acks {json.dumps(acks)}")
+        faults = ([] if acks is None else
+                  dist_resize_faults(acks)) + dist_run_faults(
             run, rc, plain, coordinator, start, 3 if stop else 0,
             # llama_tiny's loss on random tokens starts near its floor
             # and does not fall in 6 steps; llama_350m's does

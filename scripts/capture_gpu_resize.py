@@ -10,9 +10,10 @@ the resize rows in the schema of the JAX package's artifact (``{"note":
 ..., "points": [...]}``), each point tagged with ``"backend": "gpu"``, the
 card's name and power limit as ``nvidia-smi
 --query-gpu=name,power.limit --format=csv,noheader`` gives them
-(``"device"``) and ``"session"``, and prints the per-family restart costs
-that ``replay/restart_costs.py`` derives from them. It writes nothing and
-exits 1 unless every point measured and is complete.
+(``"device"``) and ``"session"``, and prints the per-family restart and
+in-place costs that ``replay/restart_costs.py`` derives from them. It
+writes nothing and exits 1 unless every point measured and is complete,
+its fast (in-place) row included.
 
 The default points are the models of the JAX package's artifact, both
 AdamW (the 12 bytes a parameter that ``FAMILY_FOOTPRINT`` assumes). On the
@@ -43,8 +44,9 @@ from vodascheduler_tpu_torch.replay import restart_costs  # noqa: E402
 NOTE = ("Measured on one card by vodascheduler_tpu_torch/runtime/"
         "resize_bench.py through the port's benchrunner "
         "(scripts/capture_gpu_resize.py); consumed by the port's "
-        "replay/restart_costs.py. The fast (in-place) path is not measured "
-        "on one card (ROADMAP A10/A11): its rows carry seconds null.")
+        "replay/restart_costs.py. The fast (in-place) row is one NCCL rank "
+        "resized 1 -> 1 (TrainSession.resize and the first step): the card "
+        "is one device.")
 
 
 def device_line() -> str:
@@ -90,6 +92,9 @@ def capture(points, session: str, workdir: str):
             point["telemetry"] = row["telemetry"]
         if not restart_costs._complete(point):
             problems.append(f"{row['point_id']}: incomplete point")
+        if point.get("fast_error") or not point.get("fast_resize_ms"):
+            problems.append(f"{row['point_id']}: no fast row "
+                            f"({point.get('fast_error')})")
         rows.append(point)
     return {"note": NOTE, "points": rows}, problems
 
@@ -118,7 +123,10 @@ def main(argv=None) -> int:
             "model", "batch", "checkpoint_bytes", "save_async_initiate_ms",
             "save_async_drain_ms", "save_sync_ms", "save_sync_host_copy_ms",
             "save_sync_write_ms", "warm_step_ms", "restart_segments_ms",
-            "restart_total_ms", "resize_cost_seconds",
+            "restart_total_ms", "resize_cost_seconds", "fast_resize_ms",
+            "fast_segments_ms",
+            "fast_memory_before_bytes", "fast_peak_bytes",
+            "fast_first_step_loss", "fast_error",
             "prepare_next_step_loss", "restart_first_step_loss",
             "prepare_second_step_loss", "restart_second_step_loss",
             "launches", "device")}), flush=True)

@@ -2,11 +2,13 @@
 
 Mirrors `tests/test_resize_bench.py`: the measurement means something only
 on the card, so these hold its machinery under ``VODA_HWBENCH_ON_CPU=1``
-with tiny models: two sequential children, the restart's marks stitched
-across processes into segments that sum to its total, the checkpoint's
-size, the fast row left unmeasured with its reason, the first two steps
-after the restart against the same steps before it (equal at 1e-6
-relative; the second reads the restored optimizer state), and
+with tiny models: three sequential children, the restart's marks
+stitched across processes into segments that sum to its total, the
+checkpoint's size, the fast row measured (a rank of a gloo group of one
+resized 1 -> 1 in place, its first step after the resize the prepare
+child's same step), the first two steps after the restart against the same
+steps before it (equal at 1e-6 relative; the second reads the restored
+optimizer state), and
 `main`'s stream mode. Unlike the reference's, they run in tier-1: a torch
 child starts in seconds. Without the switch and without CUDA a child
 raises: nothing measures the CPU unless asked.
@@ -67,30 +69,40 @@ def test_resize_cost_breakdown_tiny(model, batch, monkeypatch, tmp_path):
     assert out["save_async_drain_ms"] > 0
     assert 0 < (out["save_sync_host_copy_ms"] + out["save_sync_write_ms"]
                 <= out["save_sync_ms"])
-    # The cold row is what the replay charges; the fast row is not
-    # measured on one card, and says why.
+    # The cold row is what the replay charges a restart; the fast row is
+    # measured: one rank resized 1 -> 1 in place, and its first step.
     paths = {p["path"]: p for p in out["resize_paths"]}
     assert set(paths) == {"fast", "cold"}
     assert paths["cold"]["seconds"] == out["resize_cost_seconds"] == round(
         (out["save_sync_ms"] + out["restart_total_ms"]) / 1000.0, 2)
-    assert paths["fast"]["seconds"] is None
-    assert "A10" in paths["fast"]["error"]
-    assert out["fast_resize_ms"] is None
-    assert out["fast_error"] == paths["fast"]["error"]
+    assert out["fast_resize_ms"] > 0 and "fast_error" not in out
+    assert paths["fast"] == {"path": "fast", "seconds": round(
+        out["fast_resize_ms"] / 1000.0, 2), "from_chips": 1, "to_chips": 1}
+    assert (out["fast_from_chips"], out["fast_to_chips"]) == (1, 1)
+    seg = out["fast_segments_ms"]
+    assert list(seg) == ["set_up", "move", "release", "first_step"]
+    assert all(v >= 0 for v in seg.values())
+    assert sum(seg.values()) <= out["fast_resize_ms"] + 1.0
     # The restart's first two steps are the prepare child's same steps: the
-    # second reads the restored optimizer state.
+    # second reads the restored optimizer state. The fast child's first
+    # step after its resize is the first of them.
     for a, b in ((out["prepare_next_step_loss"],
                   out["restart_first_step_loss"]),
                  (out["prepare_second_step_loss"],
-                  out["restart_second_step_loss"])):
+                  out["restart_second_step_loss"]),
+                 (out["prepare_next_step_loss"],
+                  out["fast_first_step_loss"])):
         assert abs(a - b) <= 1e-6 * abs(a)
-    # No kernel on the CPU; the row prices restarts.
-    assert out["launches"] == {"prepare": {}, "restart": {}}
+    # No kernel and no device memory on the CPU; the row prices restarts
+    # and in-place resizes.
+    assert out["launches"] == {"prepare": {}, "restart": {}, "fast": {}}
+    assert out["fast_peak_bytes"] is None
     assert out["kernel_cache_hit"] is None
     assert restart_costs._complete(out)
     costs = restart_costs.derive_costs([out])
     assert all(f"measured on {model})" in c.provenance
-               and c.inplace_provenance == "assumed"
+               and c.inplace_provenance.startswith("scaled:")
+               and f"measured on {model})" in c.inplace_provenance
                for c in costs.values())
 
 

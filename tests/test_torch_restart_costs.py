@@ -46,9 +46,17 @@ def test_the_card_artifact_is_complete_and_names_its_card():
         assert "H100" in p["device"] and p["device"].endswith(" W")
         assert p["session"]
         assert p["batch"] == 8
+        # The fast row is measured: one NCCL rank resized 1 -> 1 in place,
+        # its first step the prepare child's same step.
         fast = {r["path"]: r for r in p["resize_paths"]}["fast"]
-        assert fast["seconds"] is None and "A10" in fast["error"]
-        assert p["fast_resize_ms"] is None
+        assert p["fast_resize_ms"] > 0 and not p.get("fast_error")
+        assert fast == {"path": "fast", "seconds": round(
+            p["fast_resize_ms"] / 1000.0, 2), "from_chips": 1, "to_chips": 1}
+        assert 0 < p["fast_resize_ms"] / 1000.0 < p["resize_cost_seconds"]
+        a, b = p["prepare_next_step_loss"], p["fast_first_step_loss"]
+        assert abs(a - b) <= 1e-5 * abs(a)
+        assert (p["fast_memory_before_bytes"] < p["fast_peak_bytes"]
+                < 80e9)
         for a, b in ((p["prepare_next_step_loss"],
                       p["restart_first_step_loss"]),
                      (p["prepare_second_step_loss"],
@@ -65,9 +73,12 @@ def test_family_costs_derive_from_the_card_artifact():
         assert cost.provenance.startswith("scaled:")
         assert cost.provenance.endswith(
             "(measured on llama_350m,mixtral_small)")
-        # No fast point on one card: the in-place costs stay assumed.
-        assert cost.inplace_provenance == "assumed"
-        assert cost.inplace_s == port.ASSUMED_INPLACE_S[fam]
+        # The fast points give the in-place costs: a measured share of
+        # the cold ones.
+        assert cost.inplace_provenance.startswith("scaled:")
+        assert cost.inplace_provenance.endswith(
+            "(measured on llama_350m,mixtral_small)")
+        assert 0.5 <= cost.inplace_s < cost.restart_s
 
 
 def test_the_reference_still_derives_from_the_tpu_file():

@@ -709,3 +709,86 @@ def test_phase_12_rehearses_on_the_cpu(monkeypatch):
         chip_smoke.run_distributed("cpu", hermetic=True)
     finally:
         torch.set_num_threads(threads)
+
+
+def test_phase_12_holds_run_a_to_its_resize_acks():
+    ok = [{"seq": 1, "ok": True, "path": "inplace", "num_chips": 1,
+           "step": 1},
+          {"seq": 2, "ok": False, "path": "restart_required",
+           "reason": "resize to 2 needs a process-group change (1 devices "
+                     "held across 1 processes)"}]
+    assert chip_smoke.dist_resize_faults(ok) == []
+    for i, edit in ((0, {"ok": False}), (0, {"path": "restart_required"}),
+                    (0, {"step": 7}), (1, {"ok": True}),
+                    (1, {"reason": "the job is stopping"})):
+        acks = [dict(a) for a in ok]
+        acks[i].update(edit)
+        assert chip_smoke.dist_resize_faults(acks), (i, edit)
+    assert chip_smoke.dist_resize_faults([ok[0], None])
+
+
+# ---- phase 10: what a resize costs -------------------------------------------
+
+GB = 1 << 30
+
+
+def _resize_rows(**edits):
+    """A sound phase-10 summary (the benchrunner's rows), with `edits` to
+    the resize row's data."""
+    seg = dict(zip(chip_smoke.RESIZE_SEGMENTS,
+                   (100.0, 2000.0, 3000.0, 500.0, 6000.0, 8000.0, 1200.0)))
+    launches = {child: {k: v * n for k, v in
+                        chip_smoke.RESIZE_LAUNCHES.items()}
+                for child, n in chip_smoke.RESIZE_COUNTED_STEPS.items()}
+    d = {"model": "llama_350m", "batch": 8, "checkpoint_bytes": 4_190_000_000,
+         "state_bytes": 4_184_421_228, "save_sync_ms": 12000.0,
+         "restart_segments_ms": seg, "restart_total_ms": sum(seg.values()),
+         "resize_cost_seconds": round((12000.0 + sum(seg.values())) / 1e3, 2),
+         "fast_resize_ms": 3500.0, "fast_from_chips": 1, "fast_to_chips": 1,
+         "fast_first_step_loss": 10.5, "fast_memory_before_bytes": 6 * GB,
+         "fast_peak_bytes": 14 * GB, "prepare_next_step_loss": 10.5,
+         "restart_first_step_loss": 10.5, "prepare_second_step_loss": 10.4,
+         "restart_second_step_loss": 10.4, "kernel_cache_hit": True,
+         "launches": launches}
+    d.update(edits)
+    d["resize_paths"] = [
+        {"path": "fast", "seconds": (round(d["fast_resize_ms"] / 1e3, 2)
+                                     if d["fast_resize_ms"] else None),
+         "from_chips": d["fast_from_chips"], "to_chips": d["fast_to_chips"]},
+        {"path": "cold", "seconds": d["resize_cost_seconds"]}]
+    telemetry = {child: {"memory": {"0": {"allocated_bytes.all.peak":
+                                          14 * GB}}}
+                 for child in chip_smoke.RESIZE_COUNTED_STEPS}
+    return {"meta": {"provenance": "measured", "kind": "meta", "data": {}},
+            "resize:llama_350m:b8": {"provenance": "measured",
+                                     "kind": "resize", "data": d,
+                                     "telemetry": telemetry}}
+
+
+def test_phase_10_passes_a_sound_fast_row():
+    assert chip_smoke.resize_faults(_resize_rows(), 80 * GB) == []
+
+
+@pytest.mark.parametrize("edits, fault", [
+    ({"fast_resize_ms": None, "fast_error": "RuntimeError: no"},
+     "fast row"),
+    ({"fast_to_chips": 2}, "fast row"),
+    ({"fast_first_step_loss": 10.5 * (1 + 2e-5)}, "in-place resize"),
+    ({"fast_first_step_loss": float("nan")}, "in-place resize"),
+    ({"fast_peak_bytes": None}, "across the resize"),
+    ({"fast_peak_bytes": 81 * GB}, "across the resize"),
+])
+def test_phase_10_fails_a_broken_fast_row(edits, fault):
+    faults = chip_smoke.resize_faults(_resize_rows(**edits), 80 * GB)
+    assert any(fault in f for f in faults), faults
+
+
+def test_phase_10_counts_the_fast_childs_step():
+    rows = _resize_rows()
+    launches = rows["resize:llama_350m:b8"]["data"]["launches"]
+    launches["fast"] = dict(launches["prepare"])  # every warm step counted
+    faults = chip_smoke.resize_faults(rows, 80 * GB)
+    assert any(f.startswith("fast child launched") for f in faults), faults
+    del launches["fast"]
+    assert any("launches of" in f for f in chip_smoke.resize_faults(
+        rows, 80 * GB))

@@ -6,7 +6,9 @@
   `request_resize` reaches the port's ControlChannel and the port's ack
   reaches its `read_resize_ack`; the port's span records carry its keys
   and stitch to its TraceContext.
-- The session's switches: VODA_FLASH_ATTENTION and the one-card resize.
+- The session's switches: VODA_FLASH_ATTENTION, and the one-device
+  resize: `resize(1)` rebuilds on the device with the state bitwise, and
+  any other size raises.
 - The supervisor as a subprocess (VODA_FORCE_CPU_DEVICES=1, llama_tiny, 2
   steps per epoch, 3 epochs): an uninterrupted run that answers a resize
   to 1 in place and nacks one to 2 while it trains on, and a run stopped by
@@ -174,16 +176,33 @@ def test_flash_attention_switch(monkeypatch):
 
 
 def test_one_card_resize():
-    session = TrainSession(get_model("llama_tiny"), global_batch_size=2,
-                           device="cpu")
-    session.run_steps(1)
-    before = {k: v.clone() for k, v in session.module.state_dict().items()}
+    """Without a process group `resize(1)` rebuilds on the device: a new
+    module and optimizer holding the same state bitwise, and the next step
+    an uninterrupted run's, exactly; `resize(2)` raises before anything
+    moves (a one-device job grows through a restart)."""
+    from tests.torch_dist_workers import whole_state
+
+    bundle = get_model("llama_tiny")
+    straight = TrainSession(bundle, global_batch_size=2, device="cpu")
+    want = [float(straight.train_step(straight.make_batch()))
+            for _ in range(3)]
+    session = TrainSession(bundle, global_batch_size=2, device="cpu")
+    session.run_steps(2)
+    before = whole_state(session)
+    module, optimizer = session.module, session.optimizer
     assert session.resize(1) is session
-    with pytest.raises(ValueError, match="checkpoint-restart"):
-        session.resize(2)
-    assert session.num_chips == 1 and session.step == 1
-    for k, v in session.module.state_dict().items():
-        assert v.equal(before[k])
+    assert session.module is not module and session.optimizer is not optimizer
+    assert session.num_chips == 1 and session.step == 2
+    for what in ("1 -> 1", "refused 1 -> 2"):
+        after = whole_state(session)
+        assert set(after) == set(before) and any("exp_avg" in k
+                                                 for k in after), what
+        assert all(after[k].equal(v) for k, v in before.items()), what
+        if what == "1 -> 1":
+            with pytest.raises(ValueError, match="checkpoint-restart"):
+                session.resize(2)
+    assert session.num_chips == 1
+    assert float(session.train_step(session.make_batch())) == want[2]
 
 
 def test_memory_reading_is_none_without_cuda():

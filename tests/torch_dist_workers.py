@@ -6,7 +6,8 @@
 
 each of which joins a gloo process group of `world` ranks on the CPU
 (`torch.set_num_threads(1)`), runs `fn(rank, world, **kwargs)` from this
-module and saves what it returns to ``<out>/rank<r>.pt``. Every process is
+module and saves what it returns to ``<out>/rank<r>.pt``: `train`, or
+`resize_story(ies)`, a session's steps and in-place resizes. Every process is
 waited for with one deadline and all are killed when it passes, so a hang
 fails the test at once. The module imports no JAX, so the ranks start
 without it; the tests compare what rank 0 returns with the JAX package in
@@ -189,6 +190,113 @@ def train(rank: int, world: int, plan: Optional[Dict] = None,
             "placements": realised_placements(session.module),
             "plan": dataclasses.asdict(session.plan) if session.plan
             else None}
+
+
+def whole_state(session) -> Dict[str, torch.Tensor]:
+    """Every tensor of the session's module and optimizer state, whole
+    (`full_tensor()` of a DTensor), keyed by its path; a number as a 0-d
+    tensor. Empty on a rank beyond the mesh."""
+    from torch.distributed.tensor import DTensor
+
+    from vodascheduler_tpu_torch.parallel import sharding
+    if not session.active:
+        return {}
+    leaves = sharding._state_dicts((session.module, session.optimizer),
+                                   True)[3]
+    out = {}
+    for path, v in leaves.items():
+        if isinstance(v, DTensor):
+            v = v.full_tensor()
+        out["/".join(map(str, path))] = (
+            v.detach().clone() if isinstance(v, torch.Tensor)
+            else torch.tensor(v))
+    return out
+
+
+def load_whole(module, state_dict) -> None:
+    """A full state_dict (numpy or torch) into `module`, each rank cutting
+    its own shards, without a collective."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    with torch.no_grad():
+        for key, v in module.state_dict().items():
+            w = torch.as_tensor(state_dict[key]).to(v.dtype).contiguous()
+            if isinstance(v, DTensor):
+                v.to_local().copy_(distribute_tensor(
+                    w, v.device_mesh, v.placements,
+                    src_data_rank=None).to_local())
+            else:
+                v.copy_(w)
+
+
+def resize_story(rank: int, world: int, chips: int,
+                 actions: List[List[Any]], plan: Optional[Dict] = None,
+                 batch: int = 8, params: Optional[str] = None,
+                 model: str = "llama_tiny", dtype: str = "float32",
+                 optimizer: str = "adamw", cfg: Optional[Dict] = None,
+                 seq: int = SEQ) -> List[Dict[str, Any]]:
+    """A session of `chips` of the `world` ranks at `plan`, optionally from
+    the full state_dict at `params`, then `actions` in order, each giving
+    one record:
+
+    - ["steps", n]: n steps on `lm_batches` (the batch of each step by its
+      number); the losses;
+    - ["resize", n, plan or None]: `TrainSession.resize`; the chips, the
+      plan and whether this rank is in the mesh;
+    - ["refuse", n, plan or None]: a resize that must raise before
+      anything moves; the error's type and message;
+    - ["state"]: `whole_state`.
+    """
+    from vodascheduler_tpu_torch.parallel.mesh import MeshPlan
+    from vodascheduler_tpu_torch.runtime.train import TrainSession
+
+    bundle = bundle_for(model, dtype, optimizer, cfg, seq)
+    session = TrainSession(bundle, chips, global_batch_size=batch,
+                           device="cpu",
+                           plan=MeshPlan(**plan) if plan else None)
+    if params and session.active:
+        load_whole(session.module, torch.load(params))
+    total = sum(a[1] for a in actions if a[0] == "steps")
+    batches = lm_batches(bundle.cfg.vocab_size, total, batch, seq)
+    records = []
+    for action in actions:
+        kind = action[0]
+        if kind == "steps":
+            losses = []
+            for _ in range(action[1]):
+                b = batches[session.step]
+                tb = {k: torch.tensor(v) for k, v in b.items()}
+                if session.active:
+                    losses.append(float(session.train_step(tb)))
+            records.append({"losses": losses, "step": session.step})
+        elif kind in ("resize", "refuse"):
+            new_plan = MeshPlan(**action[2]) if action[2] else None
+            try:
+                session.resize(action[1], plan=new_plan)
+            except Exception as e:  # noqa: BLE001
+                if kind == "resize":
+                    raise
+                records.append({"error": type(e).__name__,
+                                "message": str(e)})
+                continue
+            if kind == "refuse":
+                raise AssertionError(f"resize to {action[1]} did not raise")
+            records.append({"chips": session.num_chips,
+                            "active": session.active,
+                            "plan": dataclasses.asdict(session.plan),
+                            "attn_fn": getattr(session.module, "attn_fn",
+                                               None) is not None})
+        elif kind == "state":
+            records.append(whole_state(session))
+        else:
+            raise ValueError(kind)
+    return records
+
+
+def resize_stories(rank: int, world: int,
+                   stories: Dict[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """Several `resize_story`s in turn on one process group, by name."""
+    return {name: resize_story(rank, world, **kwargs)
+            for name, kwargs in stories.items()}
 
 
 def main(argv: List[str]) -> None:

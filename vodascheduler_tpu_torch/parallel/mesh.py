@@ -18,10 +18,11 @@ arguments: tp up to the host's card count for models of 1B parameters and
 more, fsdp over the rest, dp outermost. `remesh_plan` is the planning half
 of the reference's `remesh` (the granted slice of a topology).
 `build_mesh` turns a plan into a torch `DeviceMesh` over the process
-group's ranks, in the reference's axis order with tp innermost, so that tp
-spans consecutive ranks, which the supervisor gives to the cards of one
-host. Elastic resize is the plan at the new count plus a resharding
-restore (runtime/checkpoint.py).
+group's first ranks, in the reference's axis order with tp innermost, so
+that tp spans consecutive ranks, which the supervisor gives to the cards of
+one host. An elastic resize is the plan at the new count and the live state
+moved onto its mesh (`sharding.reshard_state`), or a resharding restore
+(runtime/checkpoint.py).
 """
 
 from __future__ import annotations
@@ -157,17 +158,20 @@ def check_runnable(plan: MeshPlan) -> None:
 
 
 def build_mesh(plan: MeshPlan, device_type: str) -> "DeviceMesh":
-    """The plan as a DeviceMesh over the process group's ranks: axes
-    MESH_AXES, tp innermost, every axis present even at size 1 (so that
-    one code path serves every plan). Needs a process group of
-    `plan.num_chips` ranks."""
+    """The plan as a DeviceMesh over the ranks [0, plan.num_chips) of the
+    process group: axes MESH_AXES, tp innermost, every axis present even at
+    size 1 (so that one code path serves every plan). Every rank of the
+    process group calls it (building the mesh's groups is collective); a
+    rank beyond the mesh gets no coordinate. Over the whole group it is
+    the mesh `init_device_mesh` gives."""
+    import torch
     import torch.distributed as dist
-    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.device_mesh import DeviceMesh
 
     check_runnable(plan)
     world = dist.get_world_size()
-    if world != plan.num_chips:
+    if plan.num_chips > world:
         raise ValueError(f"mesh plan {plan} needs {plan.num_chips} ranks, "
                          f"the process group has {world}")
-    return init_device_mesh(device_type, (plan.dp, plan.fsdp, plan.tp),
-                            mesh_dim_names=MESH_AXES)
+    ranks = torch.arange(plan.num_chips).reshape(plan.dp, plan.fsdp, plan.tp)
+    return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)

@@ -43,6 +43,9 @@ Where torch's layout differs from the reference's, no result changes:
 Batches: the batch dimension over the data axes (dp, fsdp), as
 `batch_sharding` says; each data rank takes its contiguous rows
 (`local_rows`), and the tp ranks of a data group take the same rows.
+
+`reshard_state` moves a live module's and optimizer's state from one mesh
+to another: the data half of the in-place resize.
 """
 
 from __future__ import annotations
@@ -366,3 +369,131 @@ def apply_rules(module: nn.Module, mesh, rules: ShardingRules) -> nn.Module:
         fully_shard(unit, mesh=data_mesh)
     fully_shard(module, mesh=data_mesh)
     return module
+
+
+# ---------------------------------------------------------------------------
+# the live state from one mesh to another
+# ---------------------------------------------------------------------------
+
+
+def _leaves(tree: Any, path: Tuple = ()):
+    """(path, leaf) of every leaf of nested dicts."""
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            yield from _leaves(value, path + (key,))
+    else:
+        yield path, tree
+
+
+def _state_dicts(pair, optimizer: bool):
+    """The (module, optimizer) pair's state dicts, as torch's checkpoint
+    tools give them (keyed by parameter names), and their leaves by path;
+    without `optimizer`, the module's alone."""
+    from torch.distributed.checkpoint.state_dict import (
+        get_model_state_dict,
+        get_state_dict,
+    )
+
+    module, optim = pair
+    if optimizer:
+        model_sd, optim_sd = get_state_dict(module, optim)
+    else:
+        model_sd, optim_sd = get_model_state_dict(module), None
+    tree = {"model": model_sd,
+            "optim": optim_sd["state"] if optim_sd is not None else {}}
+    return model_sd, optim_sd, tree, dict(_leaves(tree))
+
+
+def _sent(tensor: torch.Tensor, group, device) -> torch.Tensor:
+    """`tensor` as the group's rank 0 holds it, on every rank of `group`
+    (as is without one), on `device` for the collective."""
+    if group is None:
+        return tensor
+    moved = tensor.to(device, copy=True).contiguous()
+    torch.distributed.broadcast(moved, src=0, group=group)
+    return moved
+
+
+def reshard_state(old, new, group, optimizer: bool = True) -> None:
+    """Move the live state of a module and its optimizer from the old
+    mesh's layout to the new one's: the data half of the in-place resize
+    (the reference's `reshard_state`).
+
+    `old` and `new` are (module, optimizer) pairs, None on a rank outside
+    that mesh, and `group` the new mesh's ranks (None without a process
+    group): every rank of either mesh calls this. One tensor at a time, in
+    the order of the state's sorted keys, so that every rank takes the same
+    collectives in the same order: a DTensor is gathered whole on the old
+    mesh (`full_tensor`), sent from the new mesh's rank 0 to its other
+    ranks, where a rank new to the mesh passes an empty tensor of the
+    right shape, and cut there to the new layout (`distribute_tensor`
+    without a source rank). A scatter along each of the mesh's dimensions
+    would start from that dimension's first rank, which a rank new to the
+    mesh can be. A tensor that every rank holds whole (AdamW's `step`,
+    Adafactor's moments, a BatchNorm's buffers) and a number (Adafactor's
+    step) go from rank 0 likewise. Every tensor of the module and of the
+    optimizer moves, AdamW's per-parameter `step`, which sets the bias
+    correction, and Adafactor's factored leaves included; the new module
+    and optimizer then load the moved state (`set_state_dict`). Pure data
+    movement: the values arrive bitwise. The collectives run on the old
+    mesh's groups and on `group`, never on the default group.
+    `optimizer=False` moves the module's state alone (before the first
+    step, when torch's optimizers hold none).
+
+    Divergence: the reference's donated `device_put` keeps device memory
+    near one copy of the state. Here a rank holds the old and the new state
+    together until the caller drops the old one.
+    """
+    from torch.distributed.checkpoint.state_dict import (
+        set_model_state_dict,
+        set_state_dict,
+    )
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    if old is None and new is None:
+        return
+    src = _state_dicts(old, optimizer)[3] if old is not None else None
+    dst_tree = dst = None
+    if new is not None:
+        model_sd, optim_sd, dst_tree, dst = _state_dicts(new, optimizer)
+    if src is not None and dst is not None and set(src) != set(dst):
+        raise ValueError(
+            f"the old and the new state differ: "
+            f"{sorted(set(src) ^ set(dst), key=str)[:5]}")
+    device = (next(new[0].parameters()).device if new is not None
+              else None)
+    with torch.no_grad():
+        for path in sorted(src if src is not None else dst,
+                           key=lambda p: tuple(map(str, p))):
+            value = src[path] if src is not None else None
+            if isinstance(value, DTensor):
+                value = value.full_tensor()
+            if dst is None:
+                continue
+            target = dst[path]
+            if isinstance(target, DTensor):
+                local = target.to_local()
+                whole = (value if value is not None else torch.empty(
+                    target.shape, dtype=target.dtype, device=local.device))
+                whole = _sent(whole, group, device)
+                local.copy_(distribute_tensor(
+                    whole, target.device_mesh, target.placements,
+                    src_data_rank=None).to_local())
+            elif isinstance(target, torch.Tensor):
+                whole = value if value is not None else target
+                target.copy_(_sent(whole, group, device))
+            else:  # a number
+                number = torch.tensor(value if value is not None else target,
+                                      dtype=torch.float64)
+                parent = dst_tree
+                for key in path[:-1]:
+                    parent = parent[key]
+                parent[path[-1]] = type(target)(
+                    _sent(number, group, device).item())
+        if new is None:
+            return
+        if optimizer:
+            set_state_dict(new[0], new[1], model_state_dict=model_sd,
+                           optim_state_dict=optim_sd)
+        else:
+            set_model_state_dict(new[0], model_sd)

@@ -8,9 +8,9 @@ resize; on this design a resize is a checkpoint-restart, so its cost is
 measured, not assumed (`replay/restart_costs.py` derives the per-family
 costs from this module's rows).
 
-The cold checkpoint-restart path, as the reference measures it, in
-sequential child processes (the card changes hands as in a restart: each
-child exits before the next initialises CUDA):
+Both paths, as the reference measures them, in sequential child processes
+(the card changes hands as in a restart: each child exits before the next
+initialises CUDA):
 
   prepare: a TrainSession at step 0, `warm_steps` steps, then the saves:
            ``save(wait=False)`` (the device→host copy: what the running job
@@ -32,19 +32,24 @@ child exits before the next initialises CUDA):
                        imports its package in this segment
       restored         `TrainSession.restore`: the checkpoint read and set
       first_step_done  one step, synchronised
+  fast:    the in-place path in one process: one rank of a process group
+           of one (NCCL on the card, gloo under ``VODA_HWBENCH_ON_CPU=1``),
+           the prepare child's steps up to its synced save, then
+           `TrainSession.resize(1)` and the first step, timed together as
+           ``fast_resize_ms``: everything the in-place path pays (the plan,
+           the mesh and its groups, the module, its kernels and the
+           optimizer built anew, every tensor of the state moved, the first
+           step), nothing it does not (no save, no process exit, no
+           restore). The card is one device, so it resizes 1 → 1, as the
+           reference does on a one-chip host (it takes 1 → 2 where a second
+           device exists). A failure of the fast child leaves the cold row
+           standing, with ``fast_error``.
 
 Segments are differences of `time.monotonic()` marks (CLOCK_MONOTONIC,
 comparable across processes on one host) against the parent's spawn time.
 
 Divergences from the reference, on purpose:
 
-- the FAST (in-place) path is not measured. On one card
-  `TrainSession.resize` takes only its own size (ROADMAP A10/A11), and in
-  eager PyTorch a 1→1 "resize" rebuilds and reshards nothing, so a
-  measurement would publish a free in-place resize. No fast child is
-  spawned: the fast row carries ``"seconds": None`` and an error naming
-  A10/A11, `fast_resize_ms` is None, and `restart_costs` keeps its assumed
-  in-place costs, as for reference artifacts without fast points;
 - ``runtime/compile_cache.py`` has no counterpart: nothing compiles at run
   time here but the kernels, which ``ops/_build.py`` already caches by
   source hash; the ``kernels_loaded`` segment is that cache's read;
@@ -54,10 +59,14 @@ Divergences from the reference, on purpose:
   first two steps, the prepare child the losses of the same two steps
   (batches are a function of (seed, step)) taken after its synced save has
   committed; the first reads the restored parameters, the second the
-  restored optimizer state too. Each child reports its kernel launches and
-  its memory (`gpu_monitor.telemetry_snapshot`), and the restart child
-  fails if its steps launched a kernel it had not loaded before, or did
-  not launch one it had.
+  restored optimizer state too. The fast child's first step after the
+  resize is the same step as the first of those. Each child reports its
+  kernel launches (the fast child those of that step alone) and its memory
+  (`gpu_monitor.telemetry_snapshot`), the fast child also the peak of
+  device memory across the resize (it holds the old and the new state
+  together, `sharding.reshard_state`), and the restart child fails if its steps
+  launched a kernel it had not loaded before, or did not launch one it
+  had.
 
 Run: python -m vodascheduler_tpu_torch.runtime.resize_bench '{"points": [["llama_350m", 8]]}'
 (``"stream": true`` prints one ``{"kind": "resize", "data": ...}`` line a
@@ -84,12 +93,6 @@ RESTART_MARKS = ("proc_start", "torch_imported", "cuda_ready",
 # Steps the restart child takes (the first one timed) and the prepare child
 # takes after its synced save, their losses compared.
 AFTER_RESTORE_STEPS = 2
-
-FAST_PATH_ERROR = (
-    "not measured: an in-place resize needs more than one card "
-    "(ROADMAP A10/A11); on one card TrainSession.resize takes only its own "
-    "size and rebuilds and reshards nothing")
-
 
 def _emit_mark(name: str) -> None:
     print(f"{MARK_PREFIX}{json.dumps({'mark': name, 't': time.monotonic()})}",
@@ -133,12 +136,14 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
                       warm_steps: int = 3,
                       child_timeout: float = 900.0,
                       workdir: Optional[str] = None) -> Dict[str, Any]:
-    """The cold-path resize cost of one model on one card.
+    """The resize cost of one model on one card, both paths.
 
-    Two sequential children (the card changes hands as in a
+    Three sequential children (the card changes hands as in a
     scheduler-driven restart):
       prepare: init -> warm steps -> timed saves -> exit
-      restart: cold start -> restore -> first step
+      restart: cold start -> restore -> first step  (the cold path)
+      fast:    init -> warm steps -> live resize() -> first step
+               (the in-place path, one process end to end)
     """
     import shutil
     import tempfile
@@ -152,6 +157,18 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
         restart, marks, spawn_t = _run_child(
             "restart", model_name, global_batch_size, ckpt_dir, 1,
             child_timeout, kernels=sorted(prep["launches"]))
+        # The fast child is additive evidence: its failure must not discard
+        # the cold measurements above (the row ships with fast_resize_ms
+        # None and the error noted). Its warm steps are the prepare
+        # child's up to the synced save, so that its first step after the
+        # resize is the restart child's first.
+        fast_error = None
+        try:
+            fast, _, _ = _run_child("fast", model_name, global_batch_size,
+                                    ckpt_dir, warm_steps + 1, child_timeout)
+        except Exception as e:  # noqa: BLE001
+            fast = {}
+            fast_error = f"{type(e).__name__}: {str(e)[:300]}"
         t = {m["mark"]: m["t"] for m in marks}
         seg = {}
         prev = spawn_t
@@ -164,11 +181,18 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
         cold_seconds = round(
             ((prep.get("save_sync_ms") or 0.0) + (total_ms or 0.0))
             / 1000.0, 2)
+        fast_ms = fast.get("fast_resize_ms")
+        fast_row = {"path": "fast",
+                    # None (not 0.0) when unmeasured: a consumer must see
+                    # a missing fast measurement, never a free resize.
+                    "seconds": (round(fast_ms / 1000.0, 2)
+                                if fast_ms else None),
+                    "from_chips": fast.get("fast_from_chips"),
+                    "to_chips": fast.get("fast_to_chips")}
+        if fast_error:
+            fast_row["error"] = fast_error
         resize_paths = [
-            # None (not 0.0): a consumer must see a missing fast
-            # measurement, never a free resize.
-            {"path": "fast", "seconds": None, "from_chips": None,
-             "to_chips": None, "error": FAST_PATH_ERROR},
+            fast_row,
             {"path": "cold", "seconds": cold_seconds,
              "phases": "save_sync + cold restart + restore + first step"},
         ]
@@ -183,10 +207,12 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
             "warm_step_ms": prep.get("warm_step_ms"),
             "restart_segments_ms": seg,
             "restart_total_ms": total_ms,
-            "fast_resize_ms": None,
-            "fast_from_chips": None,
-            "fast_to_chips": None,
-            "fast_error": FAST_PATH_ERROR,
+            # The in-place path: the live resize and its first step, no
+            # process exit.
+            "fast_resize_ms": fast_ms,
+            "fast_from_chips": fast.get("fast_from_chips"),
+            "fast_to_chips": fast.get("fast_to_chips"),
+            **({"fast_error": fast_error} if fast_error else {}),
             "resize_paths": resize_paths,
             # The number the replay charges a cold resize: the synced save
             # (what a preemption pays) + the whole restart.
@@ -204,10 +230,21 @@ def bench_resize_cost(model_name: str, global_batch_size: int,
             "prepare_second_step_loss": prep["next_step_losses"][1],
             "restart_second_step_loss": restart["step_losses"][1],
             "kernel_cache_hit": restart.get("kernel_cache_hit"),
+            # The fast child's first step after the resize (the same step
+            # as the restart child's first), and device memory before the
+            # resize and at its peak across it (None off the card).
+            "fast_first_step_loss": fast.get("first_step_loss"),
+            # resize()'s halves and the swap (TrainSession.last_resize_ms),
+            # then the first step
+            "fast_segments_ms": fast.get("segments_ms"),
+            "fast_memory_before_bytes": fast.get("memory_before_bytes"),
+            "fast_peak_bytes": fast.get("peak_bytes"),
             "launches": {"prepare": prep.get("launches"),
-                         "restart": restart.get("launches")},
+                         "restart": restart.get("launches"),
+                         "fast": fast.get("launches")},
             "child_telemetry": {"prepare": prep.get("telemetry"),
-                                "restart": restart.get("telemetry")},
+                                "restart": restart.get("telemetry"),
+                                "fast": fast.get("telemetry")},
         }
     finally:
         if own_dir:
@@ -329,6 +366,8 @@ def _child_main(argv: Sequence[str]) -> None:
         losses += [session.run_steps(1)
                    for _ in range(AFTER_RESTORE_STEPS - 1)]
         out["step_losses"] = losses
+    elif phase == "fast":
+        out.update(_fast(torch, device, bundle, batch, steps))
     else:
         raise ValueError(f"unknown phase {phase!r}")
     out["launches"] = {k: v for k, v in fa.launches.items() if v}
@@ -338,6 +377,49 @@ def _child_main(argv: Sequence[str]) -> None:
             f"the steps launched {sorted(out['launches'])}")
     out["telemetry"] = telemetry_snapshot()
     print(f"{RESULT_PREFIX}{json.dumps(out)}", flush=True)
+
+
+def _fast(torch, device, bundle, batch: int, steps: int) -> Dict[str, Any]:
+    """The fast child's body: one rank of a process group of one, `steps`
+    steps, then `TrainSession.resize(1)` and the first step, timed."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vodascheduler_tpu_torch.ops import flash_attention as fa
+    from vodascheduler_tpu_torch.runtime.train import TrainSession
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    kwargs = {"device_id": device} if device.type == "cuda" else {}
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1, **kwargs)
+    try:
+        session = TrainSession(bundle, 1, global_batch_size=batch,
+                               device=device)
+        session.run_steps(steps)  # returns a float: synchronised
+        cuda = device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device) if cuda else None
+        fa.reset_launches()
+        t0 = time.monotonic()
+        session.resize(1)
+        t1 = time.monotonic()
+        loss = session.run_steps(1)
+        t2 = time.monotonic()
+        return {"fast_resize_ms": round((t2 - t0) * 1000.0, 1),
+                "fast_from_chips": 1, "fast_to_chips": 1,
+                "segments_ms": {**session.last_resize_ms, "first_step": round(
+                    (t2 - t1) * 1000.0, 1)},
+                "first_step_loss": loss,
+                "memory_before_bytes": before,
+                "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                               if cuda else None)}
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -17,27 +17,41 @@ contract towards the backend that spawns it:
 It runs on CUDA. ``VODA_FORCE_CPU_DEVICES=N`` asks for N CPU devices (the
 tests do); with neither, it exits non-zero.
 
-One device and no coordinator: the supervisor trains in its own process.
-Otherwise it is its host's agent (the backend's contract is unchanged: one
-supervisor per host): for ``--num-chips N`` it spawns one rank process per
-local device (every local device under ``VODA_COORDINATOR_ADDRESS``, else
-N), each with one device. The agents meet in a TCPStore at the
-coordinator's address (agent ``VODA_PROCESS_ID`` 0 serves it; without a
-coordinator the agent takes a free port): each publishes its local count,
-and its ranks' global ranks start at the sum of the counts before it. The
-ranks form a process group of N (NCCL on CUDA, gloo on the CPU; no
-fallback between them) over that store and train one job over the mesh
-of `TrainSession` (runtime/train.py). The agent forwards SIGTERM and
-SIGINT to its ranks; the ranks agree on stopping with one all-reduce (MAX)
-at each chunk boundary, checkpoint together and exit PREEMPTED_EXIT_CODE.
-Rank 0 alone writes the CSV rows, the spans and the control channel's
-acks, and nacks an in-place resize to another size (a restart with
-reshard serves it). The agent exits with its ranks' code, or with the
-first failure's, its message the last line on stderr.
+One device and no coordinator: the supervisor trains in its own process;
+such a job grows only through a restart (the reference's one process
+holds every chip of its host and resizes within them). Otherwise it is its
+host's agent (the backend's contract is unchanged: one supervisor per
+host): it spawns one rank process per device it holds, each with one
+device. The agents meet in a TCPStore at the coordinator's address (agent
+``VODA_PROCESS_ID`` 0 serves it; without a coordinator the agent takes a
+free port): each publishes its local count, and its ranks' global ranks
+start at the sum of the counts before it. The ranks form one process group
+(NCCL on CUDA, gloo on the CPU; no fallback between them) over that store,
+and the job's mesh (`TrainSession`, runtime/train.py) covers its first
+``--num-chips`` ranks. The agent forwards SIGTERM and SIGINT to its ranks.
+
+At each chunk boundary the job's live ranks take one all-reduce (MAX): the
+stop flag of any rank, the resize that rank 0 read from the channel and
+let through its gate, and whether training is done, so that every rank
+acts at the same boundary. On a stop the mesh's ranks checkpoint together
+and every rank exits PREEMPTED_EXIT_CODE. A resize runs in place (the
+reference's in-place arm) when the job has one agent and the target lies
+between 1 and the job's live ranks: every rank rebuilds and the live state
+moves rank to rank (`TrainSession.resize`), the first step runs at the new
+size, and rank 0 acks. A rank beyond the new mesh leaves the job on CUDA,
+exiting LEFT_EXIT_CODE so that the backend can hand its card to another
+job, and waits on the CPU, where a later grow takes it back
+(`leaves_at_resize`); once ranks have left, a resize to another size
+fails its set-up (a new mesh is built by every rank of the process group).
+Anything else is nacked ``restart_required``, and a restart with reshard
+serves it. Rank 0 alone writes the CSV rows, the spans
+and the control channel's acks. The agent exits with the code of the ranks
+that stayed, or with the first failure's, its message the last line on
+stderr.
 
 Exit codes: 0 = training complete; PREEMPTED_EXIT_CODE = checkpointed and
-exited on request; 2 = fewer devices than asked for; anything else =
-failure.
+exited on request; 2 = fewer devices than asked for; LEFT_EXIT_CODE (a
+rank's only) = left the job at a resize; anything else = failure.
 """
 
 from __future__ import annotations
@@ -58,6 +72,10 @@ from vodascheduler_tpu_torch.obs import tracer as obs_tracer
 # Chunk size between stop-flag checks: small enough that SIGTERM turns into
 # a checkpoint promptly, big enough to amortise the checks.
 STEPS_PER_CHUNK = 10
+
+# The exit code of a rank that left the job at a resize (`leaves_at_resize`):
+# its agent exits with the other ranks' code.
+LEFT_EXIT_CODE = 4
 
 # ---- control channel (backend <-> supervisor) ----------------------------
 #
@@ -243,9 +261,11 @@ def run_job(workdir: str, num_chips: int,
 
 
 def _train(workdir: str, num_chips: int, metrics_dir: Optional[str],
-           rank: Optional[int] = None) -> int:
+           rank: Optional[int] = None,
+           ranks_left: Optional[dict] = None) -> int:
     """The training loop: one device (`rank` None), or one rank of the
-    job's process group."""
+    job's process group; `ranks_left["any"]` is set when ranks of the group
+    leave the job (`_settle`)."""
     # The control channel must exist before any slow start-up: its
     # constructor marks the commands that predate this process, and one
     # landing during start-up must be seen as fresh.
@@ -261,7 +281,6 @@ def _train(workdir: str, num_chips: int, metrics_dir: Optional[str],
         EpochCsvLogger,
     )
     from vodascheduler_tpu_torch.runtime.checkpoint import latest_step
-    from vodascheduler_tpu_torch.runtime.gpu_monitor import hbm_in_use_bytes
     from vodascheduler_tpu_torch.runtime.train import (
         ResizeStateInvalid,
         TrainSession,
@@ -284,7 +303,10 @@ def _train(workdir: str, num_chips: int, metrics_dir: Optional[str],
     session = TrainSession(bundle, num_chips, device=device,
                            global_batch_size=spec.global_batch_size,
                            topology=topology)
-    resumed = latest_step(ckpt_dir, session.ckpt_group) is not None
+    if _settle(session, device, ranks_left):  # more ranks than chips
+        return LEFT_EXIT_CODE
+    resumed = (session.active
+               and latest_step(ckpt_dir, session.ckpt_group) is not None)
     if resumed:
         t0 = time.monotonic()
         session.restore(ckpt_dir)
@@ -337,6 +359,9 @@ def _train(workdir: str, num_chips: int, metrics_dir: Optional[str],
     placement_spread = float(os.environ.get("VODA_PLACEMENT_SPREAD") or 0.0)
     placement_cotenancy = float(os.environ.get("VODA_PLACEMENT_COTENANCY")
                                 or 0.0)
+    # The agents that hold the job's ranks: the in-place resize runs
+    # within one.
+    agents = int(os.environ.get("VODA_NUM_PROCESSES") or 1)
 
     # The first step after a (re)start builds or loads the kernels and
     # warms the allocator. It must not enter the telemetry: the collector's
@@ -347,158 +372,273 @@ def _train(workdir: str, num_chips: int, metrics_dir: Optional[str],
     profile_pending = lead and os.environ.get("VODA_PROFILE") == "1"
     profile_dir = os.path.join(workdir, "profile")
 
-    warmup_pending = True
+    # The untimed step: a start's warmup, or the first at a new size.
+    first_step = True
+    resized = None  # (start, old size, request) of a resize to be acked
     warmup_step_time = 0.0
     last_loss = float("nan")
-    while session.step < total_steps:
-        epoch_end_step = min(total_steps,
-                             (session.step // steps_per_epoch + 1)
-                             * steps_per_epoch)
-        steps_this_epoch = epoch_end_step - session.step
-        if warmup_pending:
-            t0 = time.monotonic()
-            last_loss = session.run_steps(1)
-            warmup_step_time = time.monotonic() - t0
-            warmup_pending = False
-            if lead:
-                print(f"warmup step {session.step} took "
-                      f"{warmup_step_time:.3f} s", flush=True)
-        timed_steps = 0
-        timed_time = 0.0
-        profiled_steps = 0
-        profiled_time = 0.0
-        while session.step < epoch_end_step:
-            if _agree_to_stop(stop_requested["flag"], session):
-                # Durable before exit (save drains any in-flight epoch
-                # write first, then waits for this one). Every rank saves:
-                # the save is collective.
-                session.save(ckpt_dir, wait=True)
-                session.finish_saves()
-                if lead:
-                    _report(session)
-                return PREEMPTED_EXIT_CODE
-            # Rank 0 alone reads the channel and acks; the other ranks go
-            # on to the same chunk, so the ranks stay in step.
-            cmd = control.poll() if lead else None
-            if cmd is not None and cmd.get("op") == "resize":
-                seq = int(cmd.get("seq", 0))
-                new_n = int(cmd.get("num_chips", 0))
-                # The cross-process leaf of the scheduler's resched trace,
-                # ended by the ack whichever arm takes it; it carries the
-                # device memory in use before and after.
-                rs = tracer.start_span(
-                    "supervisor.resize", component="supervisor",
-                    parent=obs_tracer.TraceContext.from_dict(
-                        cmd.get("trace")),
-                    attrs={"job": spec.name, "from_chips": num_chips,
-                           "to_chips": new_n, "seq": seq})
-                mem_before = hbm_in_use_bytes()
-                if mem_before is not None:
-                    rs.set_attr("hbm_in_use_before_bytes", int(mem_before))
-
-                def ack(seq, _span=rs, **fields):
-                    mem_after = hbm_in_use_bytes()
-                    if mem_after is not None:
-                        _span.set_attr("hbm_in_use_after_bytes",
-                                       int(mem_after))
-                    for k, v in fields.items():
-                        _span.set_attr(k, v)
-                    _span.end()
-                    control.ack(seq, **fields)
-
-                # The in-place gate: a target beyond this process's
-                # visible devices, or any other size of a process group,
-                # needs the checkpoint-restart path; nack and let the
-                # backend fall back (it SIGTERMs and respawns).
-                if session.mesh is not None and new_n != num_chips:
-                    ack(seq, ok=False, path="restart_required",
-                        reason=(f"resize to {new_n} needs a process-group "
-                                f"change ({num_chips} ranks; an in-place "
-                                "resize of a process group is ROADMAP A11)"))
-                elif not 0 < new_n <= visible:
-                    ack(seq, ok=False, path="restart_required",
-                        reason=(f"resize to {new_n} needs a process-group "
-                                f"change ({visible} devices visible across "
-                                "1 processes)"))
-                elif new_n == num_chips:
-                    ack(seq, ok=True, path="inplace", num_chips=num_chips,
-                        step=session.step)
-                else:
-                    try:
-                        # On one card no other size succeeds
-                        # (TrainSession.resize).
-                        session.resize(new_n)
-                    except ResizeStateInvalid as e:
-                        # The live state may be gone: nack and exit
-                        # through the preemption protocol; the backend
-                        # restores the last committed checkpoint.
-                        ack(seq, ok=False, path="restart_required",
-                            reason=str(e)[:300])
-                        print(f"supervisor: {e}; exiting for "
-                              "checkpoint-restart", file=sys.stderr)
-                        _report(session)
-                        return PREEMPTED_EXIT_CODE
-                    except Exception as e:  # noqa: BLE001
-                        # A set-up failure: the session was never mutated.
-                        # Nack so the backend takes the cold path, and keep
-                        # training at the old size until its SIGTERM.
-                        ack(seq, ok=False, path="restart_required",
-                            reason=f"{type(e).__name__}: {str(e)[:300]}")
-                        print(f"supervisor: in-place resize to {new_n} "
-                              f"infeasible ({type(e).__name__}: {e}); "
-                              "continuing at current size", file=sys.stderr)
-                if session.mesh is None:
-                    continue
-            n = min(STEPS_PER_CHUNK, epoch_end_step - session.step)
-            if profile_pending:
-                # The profiled chunk enters the telemetry only when it is
-                # the epoch's only post-warmup sample.
-                profile_pending = False
-                activities = [torch.profiler.ProfilerActivity.CPU]
-                if device.type == "cuda":
-                    activities.append(torch.profiler.ProfilerActivity.CUDA)
-                os.makedirs(profile_dir, exist_ok=True)
+    epoch = None  # the current epoch's end and timed samples (mesh ranks)
+    while True:
+        if session.active and session.step < total_steps:
+            if epoch is None:
+                epoch = _Epoch(session.step, steps_per_epoch, total_steps)
+            if first_step:
+                first_step = False
                 t0 = time.monotonic()
-                with torch.profiler.profile(activities=activities) as prof:
+                try:
+                    last_loss = session.run_steps(1)
+                except Exception as e:  # noqa: BLE001
+                    if resized is None:
+                        raise
+                    # The first step at the new size failed: nack and exit
+                    # through the preemption protocol; the backend restores
+                    # the last committed checkpoint.
+                    if lead:
+                        resized[2].ack(ok=False, path="restart_required",
+                                       reason=f"{type(e).__name__}: "
+                                              f"{str(e)[:300]}")
+                    print(f"supervisor: first step after in-place resize "
+                          f"to {num_chips} failed ({type(e).__name__}: "
+                          f"{e}); exiting for checkpoint-restart",
+                          file=sys.stderr)
+                    return PREEMPTED_EXIT_CODE
+                # It stays out of the epoch's samples; after a resize it
+                # re-anchors the warmup fallback to the new size.
+                warmup_step_time = time.monotonic() - t0
+                if resized is None and lead:
+                    print(f"warmup step {session.step} took "
+                          f"{warmup_step_time:.3f} s", flush=True)
+                elif lead:
+                    # Acked after the first step at the new size, so that
+                    # the ack means "training at the new size".
+                    resize_ms = (time.monotonic() - resized[0]) * 1000.0
+                    resized[2].ack(ok=True, path="inplace",
+                                   num_chips=num_chips, step=session.step,
+                                   resize_ms=round(resize_ms, 1))
+                    # Greppable fast-path evidence (the counterpart of the
+                    # cold path's "resumed at step" line).
+                    print(f"resized in-place {resized[1]} -> {num_chips} "
+                          f"chips at step {session.step} "
+                          f"({resize_ms:.0f} ms)", flush=True)
+                resized = None
+            else:
+                n = min(STEPS_PER_CHUNK, epoch.end - session.step)
+                if profile_pending:
+                    # The profiled chunk enters the telemetry only when it
+                    # is the epoch's only post-warmup sample.
+                    profile_pending = False
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if device.type == "cuda":
+                        activities.append(
+                            torch.profiler.ProfilerActivity.CUDA)
+                    os.makedirs(profile_dir, exist_ok=True)
+                    t0 = time.monotonic()
+                    with torch.profiler.profile(
+                            activities=activities) as prof:
+                        last_loss = session.run_steps(n)
+                    epoch.profiled_time += time.monotonic() - t0
+                    epoch.profiled_steps += n
+                    prof.export_chrome_trace(os.path.join(
+                        profile_dir, f"trace_step{session.step}.json"))
+                else:
+                    t0 = time.monotonic()
                     last_loss = session.run_steps(n)
-                profiled_time += time.monotonic() - t0
-                profiled_steps += n
-                prof.export_chrome_trace(os.path.join(
-                    profile_dir, f"trace_step{session.step}.json"))
-                continue
-            t0 = time.monotonic()
-            last_loss = session.run_steps(n)
-            timed_time += time.monotonic() - t0
-            timed_steps += n
-        # Fallback order when an epoch has no cleanly timed steps: the
-        # profiled chunk (trace overhead included) beats the warmup step
-        # (start-up included).
-        if timed_steps:
-            step_time = timed_time / timed_steps
-        elif profiled_steps:
-            step_time = profiled_time / profiled_steps
-        else:
-            step_time = warmup_step_time
-        if lead:
-            logger.log_epoch(epoch_time_sec=step_time * steps_this_epoch,
-                             step_time_sec=step_time,
-                             workers=num_chips,
-                             start_time=str(time.time()),
-                             spread=placement_spread,
-                             cotenancy=placement_cotenancy)
-            # Greppable per-epoch loss: it shows the loss continuing
-            # across a checkpoint restart. Not in the CSV, whose columns
-            # are the collector's contract.
-            print(f"epoch {(session.step - 1) // steps_per_epoch} "
-                  f"loss {last_loss:.6f}", flush=True)
-        # Async: the next epoch's steps overlap this save's write (the
-        # device->host copy is synchronous inside save).
-        session.save(ckpt_dir, wait=False)
+                    epoch.timed_time += time.monotonic() - t0
+                    epoch.timed_steps += n
+            if session.step == epoch.end:
+                if lead:
+                    step_time = epoch.step_time(warmup_step_time)
+                    logger.log_epoch(epoch_time_sec=step_time * epoch.steps,
+                                     step_time_sec=step_time,
+                                     workers=num_chips,
+                                     start_time=str(time.time()),
+                                     spread=placement_spread,
+                                     cotenancy=placement_cotenancy)
+                    # Greppable per-epoch loss: it shows the loss
+                    # continuing across a checkpoint restart. Not in the
+                    # CSV, whose columns are the collector's contract.
+                    print(f"epoch {(session.step - 1) // steps_per_epoch} "
+                          f"loss {last_loss:.6f}", flush=True)
+                # Async: the next epoch's steps overlap this save's write
+                # (the device->host copy is synchronous inside save).
+                session.save(ckpt_dir, wait=False)
+                epoch = None
 
-    session.finish_saves()
-    if lead:
-        _report(session)
-    return 0
+        # Rank 0 alone reads the channel and acks; the resize it lets
+        # through its gate reaches every rank with the agreement below.
+        request, target = None, 0
+        cmd = control.poll() if lead else None
+        if cmd is not None and cmd.get("op") == "resize":
+            request = _ResizeRequest(cmd, spec.name, num_chips, control)
+            refusal = _refusal(request.num_chips, session, agents)
+            if refusal is not None:
+                # A target beyond the job's ranks needs the
+                # checkpoint-restart path: nack, and the backend falls
+                # back (it SIGTERMs and respawns).
+                request.ack(ok=False, path="restart_required",
+                            reason=refusal)
+            elif request.num_chips == num_chips:
+                request.ack(ok=True, path="inplace", num_chips=num_chips,
+                            step=session.step)
+            else:
+                target = request.num_chips
+        stop, target, done = _agree(
+            session, stop_requested["flag"], target,
+            lead and session.step >= total_steps)
+        if stop or done:
+            if target and lead:
+                request.ack(ok=False, path="restart_required",
+                            reason="the job is stopping" if stop
+                            else "the job has completed")
+            if stop and session.active:
+                # Durable before exit (save drains any in-flight epoch
+                # write first, then waits for this one). Every rank of the
+                # mesh saves: the save is collective.
+                session.save(ckpt_dir, wait=True)
+            session.finish_saves()
+            if lead:
+                _report(session)
+            return PREEMPTED_EXIT_CODE if stop else 0
+        if not target:
+            continue
+        t0 = time.monotonic()
+        try:
+            session.resize(target)
+        except ResizeStateInvalid as e:
+            # The ranks may stand at different points of the move: nack and
+            # exit through the preemption protocol; the backend restores
+            # the last committed checkpoint.
+            if lead:
+                request.ack(ok=False, path="restart_required",
+                            reason=str(e)[:300])
+                _report(session)
+            print(f"supervisor: {e}; exiting for checkpoint-restart",
+                  file=sys.stderr)
+            return PREEMPTED_EXIT_CODE
+        except Exception as e:  # noqa: BLE001
+            # A set-up failure, the same on every rank, before anything
+            # moved: nack so the backend takes the cold path, and keep
+            # training at the old size until its SIGTERM.
+            if lead:
+                request.ack(ok=False, path="restart_required",
+                            reason=f"{type(e).__name__}: {str(e)[:300]}")
+                print(f"supervisor: in-place resize to {target} infeasible "
+                      f"({type(e).__name__}: {e}); continuing at current "
+                      "size", file=sys.stderr)
+            continue
+        resized, num_chips = (t0, num_chips, request), target
+        if _settle(session, device, ranks_left):
+            return LEFT_EXIT_CODE
+        # A rank beyond the new mesh waits for a grow that takes it back.
+        first_step = session.active
+        if epoch is not None:
+            # The epoch's timed steps ran at the old size; the row must
+            # reflect the size it reports.
+            epoch.reset()
+        if not session.active:
+            epoch = None
+
+
+class _Epoch:
+    """The current epoch as one incarnation's mesh rank sees it: the step
+    it ends at, its steps from where this rank began it, and the timed
+    samples of its step time."""
+
+    def __init__(self, step: int, steps_per_epoch: int, total_steps: int):
+        self.end = min(total_steps,
+                       (step // steps_per_epoch + 1) * steps_per_epoch)
+        self.steps = self.end - step
+        self.reset()
+
+    def reset(self) -> None:
+        self.timed_steps = 0
+        self.timed_time = 0.0
+        self.profiled_steps = 0
+        self.profiled_time = 0.0
+
+    def step_time(self, warmup_step_time: float) -> float:
+        """The timed steps' mean; without any, the profiled chunk (trace
+        overhead included) beats the warmup step (start-up included)."""
+        if self.timed_steps:
+            return self.timed_time / self.timed_steps
+        if self.profiled_steps:
+            return self.profiled_time / self.profiled_steps
+        return warmup_step_time
+
+
+class _ResizeRequest:
+    """A resize command rank 0 read, with its span (the cross-process leaf
+    of the scheduler's resched trace, ended by the ack whichever arm takes
+    it; it carries the device memory in use before and after)."""
+
+    def __init__(self, cmd: dict, job: str, from_chips: int,
+                 control: ControlChannel):
+        from vodascheduler_tpu_torch.runtime.gpu_monitor import (
+            hbm_in_use_bytes,
+        )
+        self.seq = int(cmd.get("seq", 0))
+        self.num_chips = int(cmd.get("num_chips", 0))
+        self._control = control
+        self._hbm_in_use_bytes = hbm_in_use_bytes
+        self.span = obs_tracer.get_tracer().start_span(
+            "supervisor.resize", component="supervisor",
+            parent=obs_tracer.TraceContext.from_dict(cmd.get("trace")),
+            attrs={"job": job, "from_chips": from_chips,
+                   "to_chips": self.num_chips, "seq": self.seq})
+        mem_before = hbm_in_use_bytes()
+        if mem_before is not None:
+            self.span.set_attr("hbm_in_use_before_bytes", int(mem_before))
+
+    def ack(self, **fields) -> None:
+        mem_after = self._hbm_in_use_bytes()
+        if mem_after is not None:
+            self.span.set_attr("hbm_in_use_after_bytes", int(mem_after))
+        for k, v in fields.items():
+            self.span.set_attr(k, v)
+        self.span.end()
+        self._control.ack(self.seq, **fields)
+
+
+def _refusal(new_n: int, session, agents: int) -> Optional[str]:
+    """Why the in-place arm refuses a resize to `new_n`, or None (the
+    reference's gate): the resize runs within the ranks of one agent's
+    process group, 1 to its live ranks (one device without a process
+    group: 1)."""
+    if agents > 1:
+        return (f"resize to {new_n} needs a process-group change (the "
+                f"job's ranks span {agents} processes)")
+    if not 0 < new_n <= session.ranks:
+        return (f"resize to {new_n} needs a process-group change "
+                f"({session.ranks} devices held across 1 processes)")
+    return None
+
+
+def leaves_at_resize(device: torch.device) -> bool:
+    """Whether a rank beyond the job's mesh leaves the job, or waits for a
+    grow that takes it back: a CUDA rank leaves, so that its card goes back
+    to the backend (LocalBackend returns a shrink's cards to its free
+    list); a CPU rank waits, since the backend still counts its device
+    visible."""
+    return device.type == "cuda"
+
+
+def _settle(session, device: torch.device,
+            ranks_left: Optional[dict]) -> bool:
+    """After the mesh was built at a start or a resize, under a process
+    group whose ranks beyond the mesh leave (`leaves_at_resize`): the
+    mesh's ranks become the job's, `ranks_left["any"]` is set, and True on
+    a rank that leaves."""
+    if (session.plan is None or session.ranks == session.num_chips
+            or not leaves_at_resize(device)):
+        return False
+    if ranks_left is not None:
+        ranks_left["any"] = True
+    leaving = not session.active
+    session.leave_idle_ranks()
+    if leaving:
+        print(f"supervisor: rank {torch.distributed.get_rank()} leaves the "
+              f"job at {session.num_chips} chips", flush=True)
+    return leaving
 
 
 def _read_spec(workdir: str):
@@ -517,16 +657,21 @@ def _topology():
     return PoolTopology.parse(raw)
 
 
-def _agree_to_stop(flag: bool, session) -> bool:
-    """Whether to stop now: this process's flag, or under a process group
-    the flag of any rank (one all-reduce MAX), so that every rank stops at
-    the same chunk boundary and none waits in a collective alone."""
-    if session.mesh is None:
-        return flag
-    t = torch.tensor([1 if flag else 0], dtype=torch.int32,
+def _agree(session, stop: bool, target: int,
+           done: bool) -> Tuple[bool, int, bool]:
+    """One agreement a chunk boundary, so that every rank of the job,
+    waiting ranks too, acts at the same one: under a process group one
+    all-reduce (MAX) over the job's live ranks of this rank's stop flag,
+    the resize rank 0 let through its gate (0: none) and whether training
+    is done (rank 0's reading)."""
+    if session.plan is None:
+        return stop, target, done
+    t = torch.tensor([int(stop), target, int(done)], dtype=torch.int64,
                      device=session.device)
-    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
-    return bool(t.item())
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX,
+                                 group=session.job_group)
+    stop, target, done = t.tolist()
+    return bool(stop), int(target), bool(done)
 
 
 # ---- the host's agent and its ranks ----------------------------------------
@@ -575,14 +720,15 @@ def _run_agent(workdir: str, num_chips: int,
         host, port = coord.rsplit(":", 1)
         nprocs = int(os.environ.get("VODA_NUM_PROCESSES", "1"))
         pid = int(os.environ.get("VODA_PROCESS_ID", "0"))
-        count = len(local)
     else:
         host, port, nprocs, pid = "127.0.0.1", _free_port(), 1, 0
-        count = num_chips
-    if count > len(local):
-        print(f"supervisor: need {count} devices, have {len(local)}",
-              file=sys.stderr)
-        return 2
+        if num_chips > len(local):
+            print(f"supervisor: need {num_chips} devices, have "
+                  f"{len(local)}", file=sys.stderr)
+            return 2
+    # One rank a device the agent holds; the job's mesh covers the first
+    # num_chips of the ranks, and the others leave or wait (_settle).
+    count = len(local)
     # Refuse a plan the port cannot run before any process group forms.
     spec = _read_spec(workdir)
     plan = plan_for(load_bundle(spec), num_chips, spec.global_batch_size,
@@ -594,7 +740,7 @@ def _run_agent(workdir: str, num_chips: int,
     store.set(_AGENT_KEY.format(pid), str(count))
     counts = [int(store.get(_AGENT_KEY.format(i))) for i in range(nprocs)]
     world, first = sum(counts), sum(counts[:pid])
-    if world != num_chips:
+    if world < num_chips:
         print(f"supervisor: need {num_chips} devices, the job's hosts have "
               f"{world}", file=sys.stderr)
         return 2
@@ -640,7 +786,7 @@ def _run_agent(workdir: str, num_chips: int,
         codes = [p.poll() for p in procs]
         if failed is None:
             for i, c in enumerate(codes):
-                if c not in (None, 0, PREEMPTED_EXIT_CODE):
+                if c not in (None, 0, PREEMPTED_EXIT_CODE, LEFT_EXIT_CODE):
                     failed, failed_at = (first + i, c), time.monotonic()
                     break
         if all(c is not None for c in codes):
@@ -653,8 +799,10 @@ def _run_agent(workdir: str, num_chips: int,
                     p.kill()
         time.sleep(0.1)
     if failed is None:
-        if len(set(codes)) == 1:
-            return codes[0]
+        # The ranks that stayed in the job to its end (rank 0 always does).
+        kept = {c for c in codes if c != LEFT_EXIT_CODE}
+        if len(kept) == 1:
+            return kept.pop()
         # Some completed and some checkpointed: the ranks disagreed.
         print(f"supervisor: the ranks exited {codes}", file=sys.stderr)
         return 1
@@ -707,10 +855,15 @@ def _run_rank(workdir: str, num_chips: int,
         torch.distributed.init_process_group(
             "nccl" if kind == "cuda" else "gloo", store=store, rank=rank,
             world_size=world, timeout=timeout, **kwargs)
+        ranks_left = {"any": False}
         try:
-            return _train(workdir, num_chips, metrics_dir, rank=rank)
+            return _train(workdir, num_chips, metrics_dir, rank=rank,
+                          ranks_left=ranks_left)
         finally:
-            torch.distributed.destroy_process_group()
+            # Once ranks have left, no rank destroys the process group:
+            # on NCCL that waits for every rank of it.
+            if not ranks_left["any"]:
+                torch.distributed.destroy_process_group()
     except BaseException as e:
         if isinstance(e, SystemExit):
             raise

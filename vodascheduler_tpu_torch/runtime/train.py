@@ -15,18 +15,28 @@ seen.
 
 Without a process group a session holds one device. Under one
 (runtime/supervisor.py forms it, one rank a device) a session of N chips
-is one of N ranks: it plans the mesh (`plan_for`, parallel/mesh.py), builds
-the whole module from the seed on its device, shards it by the bundle's
-rules (parallel/sharding.py) and takes its data rank's rows of every
-global batch, so that N ranks take the step that one device takes on the
-same global batch. A checkpoint written at one world size restores at any
-other (runtime/checkpoint.py): the resize is a restart with reshard.
+holds the job's ranks [0, R) of which the first N form the mesh: it plans
+the mesh (`plan_for`, parallel/mesh.py), builds the whole module from the
+seed on each of the mesh's ranks, shards it by the bundle's rules
+(parallel/sharding.py) and takes its data rank's rows of every global
+batch, so that N ranks take the step that one device takes on the same
+global batch. A rank beyond the mesh holds no module (`active` is False)
+until a resize takes it in. A checkpoint written at one world size restores
+at any other (runtime/checkpoint.py).
+
+`resize` is the reference's tier-A resize (its ``TrainSession.resize``):
+the running ranks change the mesh within the ranks they hold and move the
+live state onto it rank to rank, with no checkpoint and no process exit.
+The checkpoint-restart path serves every resize the supervisor nacks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import os
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -80,11 +90,11 @@ def batch_seed(seed: int, step: int) -> int:
 
 
 class ResizeStateInvalid(RuntimeError):
-    """An in-place resize failed after the live state may have been
-    consumed: the session must not keep training on it, and the caller
-    falls back to checkpoint-restart. A resize failure raised as anything
-    else happened before any mutation, and the session may keep training
-    at its old size."""
+    """An in-place resize failed while the state moved: the ranks may
+    stand at different points of the move, so the session must not keep
+    training, and the caller falls back to checkpoint-restart. A resize
+    failure raised as anything else happened before anything moved, and
+    the session may keep training at its old size."""
 
 
 def distributed() -> bool:
@@ -122,9 +132,27 @@ def plan_for(bundle: ModelBundle, num_chips: int, global_batch_size: int,
     return plan
 
 
+@dataclasses.dataclass
+class _Layout:
+    """What a session builds for one size: the plan and the mesh, this
+    rank's data rank and groups, and on the mesh's ranks the module and
+    the optimizer (None on a rank beyond the mesh)."""
+
+    num_chips: int
+    plan: Optional[mesh_lib.MeshPlan] = None
+    mesh: Any = None
+    # the mesh's ranks as one group (the loss), and on gloo (checkpoints)
+    group: Any = None
+    ckpt_group: Any = None
+    data_rank: int = 0
+    data_size: int = 1
+    module: Any = None
+    optimizer: Any = None
+
+
 class TrainSession:
     """A live training session on one device, or on one rank of a process
-    group of `num_chips` ranks."""
+    group whose first `num_chips` ranks form the mesh."""
 
     def __init__(self, bundle: ModelBundle, num_chips: int = 1,
                  global_batch_size: int = 8, seed: int = 0,
@@ -132,57 +160,105 @@ class TrainSession:
                  plan: Optional[mesh_lib.MeshPlan] = None,
                  topology: Any = None):
         self.bundle = bundle
-        self.num_chips = num_chips
         self.global_batch_size = global_batch_size
         self.seed = seed
         self.learning_rate = learning_rate
+        self.topology = topology
         self.device = resolve_device(device)
-        self.plan: Optional[mesh_lib.MeshPlan] = None
-        self.mesh = None
-        self.data_rank, self.data_size = 0, 1
-        self.ckpt_group = None
-        if distributed():
-            self.plan = plan_for(bundle, num_chips, global_batch_size,
-                                 topology=topology, plan=plan)
-            self.mesh = mesh_lib.build_mesh(self.plan, self.device.type)
-            dp, fsdp, _ = self.mesh.get_coordinate()
-            self.data_rank = dp * self.plan.fsdp + fsdp
-            self.data_size = self.plan.data_size
-            # Checkpoints run their collectives on a group of their own,
-            # on the host, so that a background write never meets a step's
-            # collectives on the training group (runtime/checkpoint.py).
-            self.ckpt_group = torch.distributed.new_group(backend="gloo")
-        elif num_chips != 1 or (plan is not None and plan.num_chips != 1):
+        # The job's live ranks are [0, ranks) of the process group. Its
+        # collectives that are not the mesh's run on `job_group`: the
+        # default group (None) while every rank of it is live.
+        self.ranks = (torch.distributed.get_world_size() if distributed()
+                      else 1)
+        self.job_group = None
+        self._saver: Optional[ckpt.AsyncCheckpointSaver] = None
+        self._last_save = None  # (abspath ckpt_dir, step) of latest save
+        if not distributed() and (num_chips != 1 or (
+                plan is not None and plan.num_chips != 1)):
             raise ValueError(
                 f"num_chips={num_chips}: a session of several chips is one "
                 "rank of a process group of as many ranks (the supervisor "
                 "forms it); without one a session holds one device")
-        init_gen = torch.Generator(self.device).manual_seed(seed)
-        self.module = bundle.build_module(self.device, init_gen)
+        self._install(self._lay_out(num_chips, plan, learning_rate))
+        self.state = {"step": 0}
+
+    def _lay_out(self, num_chips: int, plan: Optional[mesh_lib.MeshPlan],
+                 learning_rate: float) -> _Layout:
+        """The plan, the mesh and its groups at `num_chips`, and on the
+        mesh's ranks the module (the kernels as its `attn_fn`) and the
+        optimizer. Under a process group every rank of it calls this: the
+        mesh and the groups are collective. Every refusal comes first and
+        is the same on every rank: a plan the port does not run, a batch
+        the data axes do not divide, a size beyond the job's ranks."""
+        layout = _Layout(num_chips)
+        if distributed():
+            layout.plan = plan_for(self.bundle, num_chips,
+                                   self.global_batch_size,
+                                   topology=self.topology, plan=plan)
+            world = torch.distributed.get_world_size()
+            if num_chips > self.ranks:
+                raise ValueError(
+                    f"{num_chips} chips: the job holds {self.ranks} ranks, "
+                    "and a resize beyond them requires a checkpoint-restart")
+            if self.ranks < world:
+                raise ValueError(
+                    f"{world - self.ranks} ranks of the process group have "
+                    "left the job, and a mesh is built by every rank of it: "
+                    "a resize requires a checkpoint-restart")
+            mesh = mesh_lib.build_mesh(layout.plan, self.device.type)
+            # The job's first `num_chips` ranks: the loss's mean, and the
+            # checkpoints' collectives on the host, so that a background
+            # write never meets a step's collectives (runtime/checkpoint.py).
+            ranks = list(range(num_chips))
+            group = torch.distributed.new_group(ranks)
+            ckpt_group = torch.distributed.new_group(ranks, backend="gloo")
+            coordinate = mesh.get_coordinate()
+            if coordinate is None:  # beyond the mesh: no module
+                return layout
+            layout.mesh, layout.group, layout.ckpt_group = (mesh, group,
+                                                            ckpt_group)
+            dp, fsdp, _ = coordinate
+            layout.data_rank = dp * layout.plan.fsdp + fsdp
+            layout.data_size = layout.plan.data_size
+        init_gen = torch.Generator(self.device).manual_seed(self.seed)
+        module = self.bundle.build_module(self.device, init_gen)
         if (_flash_attention_enabled(self.device)
-                and hasattr(self.module, "attn_fn")):
+                and hasattr(module, "attn_fn")):
             # The injected kernel replaces the layers' own masking, so the
             # module has to declare it.
-            causal = getattr(type(self.module), "causal_attention", None)
+            causal = getattr(type(module), "causal_attention", None)
             if causal is None:
                 raise TypeError(
-                    f"{type(self.module).__name__} has attn_fn but no "
+                    f"{type(module).__name__} has attn_fn but no "
                     "`causal_attention`; declare it so kernel injection "
                     "cannot silently change masking")
-            self.module.attn_fn = make_flash_attention(self.mesh,
-                                                       causal=causal)
-        if self.mesh is not None:
-            sharding.apply_rules(self.module, self.mesh, bundle.rules)
-        params = self.module.parameters()
-        if bundle.optimizer == "adafactor":
+            module.attn_fn = make_flash_attention(layout.mesh, causal=causal)
+        if layout.mesh is not None:
+            sharding.apply_rules(module, layout.mesh, self.bundle.rules)
+        params = module.parameters()
+        if self.bundle.optimizer == "adafactor":
             params = bridge.reference_param_groups(
-                self.module.named_parameters(), getattr(self.module, "cfg",
-                                                        None))
-        self.optimizer = make_optimizer(bundle.optimizer, learning_rate)(
-            params)
-        self.state = {"step": 0}
-        self._saver: Optional[ckpt.AsyncCheckpointSaver] = None
-        self._last_save = None  # (abspath ckpt_dir, step) of latest save
+                module.named_parameters(), getattr(module, "cfg", None))
+        layout.module = module
+        layout.optimizer = make_optimizer(self.bundle.optimizer,
+                                          learning_rate)(params)
+        return layout
+
+    def _install(self, layout: _Layout) -> None:
+        self.num_chips = layout.num_chips
+        self.plan = layout.plan
+        self.mesh = layout.mesh
+        self.group = layout.group
+        self.ckpt_group = layout.ckpt_group
+        self.data_rank, self.data_size = layout.data_rank, layout.data_size
+        self.module = layout.module
+        self.optimizer = layout.optimizer
+
+    @property
+    def active(self) -> bool:
+        """Whether this rank holds the model: one device, or a rank of the
+        mesh."""
+        return self.module is not None
 
     @property
     def step(self) -> int:
@@ -199,6 +275,9 @@ class TrainSession:
         """One optimizer step on the global `batch`, of which this rank
         takes its data rank's rows; returns the global batch's loss (a 0-d
         tensor)."""
+        if not self.active:
+            raise RuntimeError(f"this rank is beyond the job's mesh of "
+                               f"{self.num_chips} ranks and holds no model")
         self.optimizer.zero_grad(set_to_none=True)
         local = sharding.local_rows(batch, self.data_size, self.data_rank)
         loss = self.bundle.loss_fn(self.module, local)
@@ -210,7 +289,7 @@ class TrainSession:
             # The mean over the data ranks' equal parts (a data group's tp
             # ranks hold the same value).
             loss = loss.clone()
-            torch.distributed.all_reduce(loss)
+            torch.distributed.all_reduce(loss, group=self.group)
             loss /= self.plan.num_chips
         return loss
 
@@ -222,18 +301,98 @@ class TrainSession:
             loss = self.train_step(self.make_batch())
         return float(loss)
 
-    def resize(self, new_num_chips: int) -> "TrainSession":
-        """In-place resize. The only size is the current one: a resize to
-        it changes nothing, and any other raises before the state is
-        touched, so the caller keeps training and falls back to
-        checkpoint-restart (a resize within the process group is ROADMAP
-        A11)."""
-        if new_num_chips != self.num_chips:
+    def resize(self, new_num_chips: int,
+               plan: Optional[mesh_lib.MeshPlan] = None,
+               learning_rate: Optional[float] = None) -> "TrainSession":
+        """The in-place resize (the reference's ``TrainSession.resize``):
+        the session rebuilt at `new_num_chips` and its live state moved
+        onto the new layout, with no checkpoint and no process exit. Under
+        a process group every rank of the job calls it, and the mesh
+        covers the job's first `new_num_chips` ranks; at the same size it
+        rebuilds, as the reference's `make_train_setup` does. A session
+        without one resizes to 1 only: it rebuilds on its device.
+
+        Two halves. The set-up (`_lay_out`): plan, mesh, groups, module
+        with its kernels, optimizer. A refusal there (a plan the port does
+        not run, a batch the data axes do not divide, a size beyond the
+        job's ranks) raises a plain error before anything moves, and the
+        session keeps training at its old size. The move: step, seed and
+        the latest save's key from rank 0 to the new mesh's ranks, then
+        `sharding.reshard_state` from the old module and optimizer to the
+        new ones, then the swap; a failure there raises
+        ResizeStateInvalid. Batches are a function of (seed, step), so the
+        next batch is the one an uninterrupted run would see.
+
+        `learning_rate` defaults to the session's; pass the rescaled value
+        for linear-LR-scaling policies, as on the cold path's restore."""
+        if learning_rate is None:
+            learning_rate = self.learning_rate
+        if not distributed() and (new_num_chips != 1 or (
+                plan is not None and plan.num_chips != 1)):
             raise ValueError(
                 f"in-place resize from {self.num_chips} to {new_num_chips} "
-                "chips is not ported (ROADMAP A11); this resize requires a "
+                "chips needs a process group of as many ranks; without one "
+                "a session holds one device, and this resize requires a "
                 "checkpoint-restart")
+        t0 = time.monotonic()
+        # An in-flight save writes on the old checkpoint group: let it
+        # commit before the groups change.
+        self.finish_saves()
+        if self.active:
+            # The last step's gradients: no state (every step sets them
+            # anew), and one copy of the parameters less at the peak.
+            self.optimizer.zero_grad(set_to_none=True)
+        new = self._lay_out(new_num_chips, plan, learning_rate)
+        t1 = time.monotonic()
+        try:
+            self._move(new)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        except Exception as e:  # noqa: BLE001
+            raise ResizeStateInvalid(
+                f"live reshard to {new_num_chips} chips failed: "
+                f"{type(e).__name__}: {e}") from e
+        t2 = time.monotonic()
+        # The swap releases the old module and optimizer.
+        self._install(new)
+        self.learning_rate = learning_rate
+        self._saver = None  # its group is the old mesh's
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        # Where the resize's time went (the resize bench reports it).
+        self.last_resize_ms = {
+            "set_up": round((t1 - t0) * 1000.0, 1),
+            "move": round((t2 - t1) * 1000.0, 1),
+            "release": round((time.monotonic() - t2) * 1000.0, 1)}
         return self
+
+    def _move(self, new: _Layout) -> None:
+        """The move half of `resize`: rank 0's step, seed and latest save
+        to the new mesh's ranks (a rank new to it holds none of them),
+        then every tensor of the state."""
+        carry = [(self.step, self.seed, self._last_save)]
+        if new.ckpt_group is not None:
+            torch.distributed.broadcast_object_list(carry, src=0,
+                                                    group=new.ckpt_group)
+        step, seed, last_save = carry[0]
+        sharding.reshard_state(
+            (self.module, self.optimizer) if self.active else None,
+            (new.module, new.optimizer) if new.module is not None else None,
+            new.group,
+            # torch's optimizers make their state at the first step
+            optimizer=step > 0)
+        self.state["step"], self.seed, self._last_save = (step, seed,
+                                                          last_save)
+
+    def leave_idle_ranks(self) -> None:
+        """The ranks beyond the mesh leave the job (they exit and hand back
+        their devices): from now on the job's collectives run on the
+        mesh's group, and a resize to another size requires a
+        checkpoint-restart, since a new mesh is built by every rank of the
+        process group."""
+        self.ranks = self.num_chips
+        self.job_group = self.group
 
     def checkpoint_state(self) -> dict:
         """The checkpoint payload: the module's and the optimizer's state
