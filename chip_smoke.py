@@ -121,12 +121,12 @@ Phases (any failure exits non-zero):
      kernels against the plain attention at mixtral_small's shape;
   6. the scheduler on the card: the port's Scheduler, its GPU LocalBackend
      (the card counted), AdmissionService, the real clock and
-     ElasticTiresias take two llama_350m_af jobs (B=8, 5 steps per epoch;
+     ElasticTiresias take two llama_350m_af jobs (B=8, 3 steps per epoch;
      A 4 epochs, B 2). A is submitted; at its first checkpoint the queue-0
      threshold and the lease are lowered so that A is demoted, and B is
      submitted and preempts it (SIGTERM, exit 3 with a checkpoint); B runs
      only after A's process has exited, and completes; A resumes (``resumed
-     at step N on 1 chips``, N >= 5) and completes. One CSV row per epoch
+     at step N on 1 chips``, N >= 3) and completes. One CSV row per epoch
      each, K1, K2 and K3 launched by every supervisor process, and A's
      second-epoch loss equal to B's (1e-3 relative: the same batches at the
      same steps). Printed: each job's submit -> first step and submit ->
@@ -135,7 +135,7 @@ Phases (any failure exits non-zero):
   7. the service on the card: ``python -m vodascheduler_tpu_torch.service
      --chips 1 --algorithm ElasticFIFO`` (free ports, the journal on, the
      GPU monitor on through ``VODA_TPU_MONITOR=1``) takes two
-     llama_350m_af jobs (B=8, 5 steps per epoch, 3 epochs) from ``python
+     llama_350m_af jobs (B=8, 4 steps per epoch, 3 epochs) from ``python
      -m vodascheduler_tpu_torch.cli create -f``; B waits. At A's first
      checkpoint (its epoch-0 CSV row) the scheduler's /metrics reads A's
      memory (``voda_gpu_memory_bytes_in_use`` above its reading before A
@@ -147,7 +147,7 @@ Phases (any failure exits non-zero):
      the server (exit 0; A: SIGTERM, a checkpoint, exit 3), no supervisor
      is left, and ``cli fsck`` finds the journal clean. ``--resume`` on
      the same workdir brings the server back: A resumes (``resumed at
-     step N on 1 chips``, N >= 5 and its last checkpoint) and completes,
+     step N on 1 chips``, N >= 4 and its last checkpoint) and completes,
      then B. ``cli get jobs`` lists both Completed, 3 CSV rows each,
      K1, K2 and K3 launched by every supervisor process, and A's
      last-epoch loss equal to B's (1e-3 relative). Printed: server up,
@@ -227,7 +227,15 @@ Phases (any failure exits non-zero):
      chips`) and is stopped likewise, and the rank resumes that plain
      checkpoint and trains to step 17; the rank's step time (CSV rows)
      beside the one-card path's and the plain session's, the saves and the
-     restores, with the card's name and power limit;
+     restores, with the card's name and power limit. Then mixtral_small
+     (B=8, S=2048, AdamW, dim 640, 12 layers, 8 experts) the same way for
+     one epoch of 4 steps: the rank runs the expert-parallel form of the
+     gather dispatch (the routing's all-gather over the data axes and the
+     experts' sums over ep and tp, NCCL groups of one), 24/12/12 a step,
+     each step's loss within 1e-3 of the plain session's and falling, a
+     sharded save at the end, which the one-card path resumes in this
+     process, its next step within 1e-3 of the plain session's; the rank's
+     step ms beside the one-card path's, the save and restore s;
   13. one JSON line of the kernels, then the device line last.
 
 A line "phase N took T s" follows each phase.
@@ -1514,7 +1522,9 @@ def run_job_cycle():
                          "uninterrupted run's")
 
 
-SCHED_STEPS_PER_EPOCH, SCHED_EPOCHS = 5, {"a": 4, "b": 2}
+# 3 steps an epoch (5 before phase 12's MoE run): A still has 9 steps and
+# 3 saves to train after its first checkpoint when B preempts it.
+SCHED_STEPS_PER_EPOCH, SCHED_EPOCHS = 3, {"a": 4, "b": 2}
 # Launch-count keys of K1, K2 and K3 in a supervisor's exit line.
 KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
@@ -1720,7 +1730,9 @@ def run_scheduler():
     return {k: sum(c[k] for c in launches) for k in KERNELS}
 
 
-SERVER_STEPS_PER_EPOCH, SERVER_EPOCHS = 5, 3
+# 4 steps an epoch (5 before phase 12's MoE run): A trains on while the
+# monitor reads its memory at its first checkpoint.
+SERVER_STEPS_PER_EPOCH, SERVER_EPOCHS = 4, 3
 # The GPU monitor's sampling interval in phase 7 (the collector's).
 SERVER_COLLECT_S = 5.0
 GIB = 1 << 30
@@ -2559,11 +2571,12 @@ DIST_STEPS_PER_EPOCH, DIST_EPOCHS = 6, 3
 DIST_LOSS_REL = 1e-3  # phase 5b's bar
 DIST_LAUNCHES = {"flash_fwd": 48, "flash_dq": 24, "flash_dkv": 24}
 
-# The job's user script: llama_350m, its loss printed at every step and its
-# parameters' types and meshes at the first, from inside the rank. The
-# first step of a run waits (at most 120 s) until the job's control channel
-# holds a command, so that run A's rank reads the phase's first resize at
-# the boundary after that step, within its first epoch.
+# The job's user script: the job's model, its loss printed at every step
+# and its parameters' types and meshes at the first, from inside the rank.
+# With WAIT_FOR_COMMAND the first step of a run waits (at most 120 s) until
+# the job's control channel holds a command, so that llama_350m's run A
+# reads the phase's first resize at the boundary after that step, within
+# its first epoch.
 DIST_PROBE = """
 import os
 import time
@@ -2571,6 +2584,7 @@ import time
 from vodascheduler_tpu_torch.models import get_model as _get
 
 COMMAND = {command!r}
+WAIT_FOR_COMMAND = {wait!r}
 
 
 def get_model(spec):
@@ -2581,7 +2595,8 @@ def get_model(spec):
     def probed(module, batch):
         if calls[0] == 0:
             deadline = time.monotonic() + 120.0
-            while not os.path.exists(COMMAND) and time.monotonic() < deadline:
+            while (WAIT_FOR_COMMAND and not os.path.exists(COMMAND)
+                   and time.monotonic() < deadline):
                 time.sleep(0.01)
             from torch.distributed.tensor import DTensor
             params = list(module.parameters())
@@ -2780,7 +2795,7 @@ def run_distributed(card: str, hermetic: bool = False) -> None:
     name = f"{model}_dist"
     with open(os.path.join(workdir, "probe.py"), "w") as f:
         f.write(DIST_PROBE.format(
-            delay=0.3 if hermetic else 0,
+            delay=0.3 if hermetic else 0, wait=True,
             command=os.path.join(workdir, "control", "cmd.json")))
     spec = JobSpec(name=name, model=model, global_batch_size=8,
                    steps_per_epoch=steps_per_epoch,
@@ -2876,6 +2891,109 @@ def run_distributed(card: str, hermetic: bool = False) -> None:
         f"save_a={runs['a']['checkpoint']} save_b={runs['b']['checkpoint']} "
         f"restore_b_s={runs['b']['restore_s']} "
         f"restore_c_s={runs['c']['restore_s']} card={card}")
+    shutil.rmtree(workdir)
+
+
+# mixtral_small through the same rendezvous (phase 12's MoE run): one
+# epoch of DIST_MOE_STEPS steps on one NCCL rank, which runs the
+# expert-parallel form of the gather dispatch (the routing's all-gather and
+# the experts' sums on the rank's groups of one), a sharded save at its end;
+# every step's loss within DIST_LOSS_REL of the plain session's, falling.
+# Then the one-card path resumes that checkpoint in this process and its
+# next step is held to the plain session's.
+DIST_MOE_STEPS = 4
+DIST_MOE_LAUNCHES = {"flash_fwd": 24, "flash_dq": 12, "flash_dkv": 12}
+
+
+def run_distributed_moe(card: str, hermetic: bool = False) -> None:
+    """Phase 12's MoE run (above). `hermetic` rehearses it on the CPU:
+    mixtral_tiny on one CPU device, gloo, no kernel."""
+    from vodascheduler_tpu_torch.common.job import JobConfig, JobSpec
+    from vodascheduler_tpu_torch.metricscollector.csv_logger import (
+        read_epoch_csv,
+    )
+    from vodascheduler_tpu_torch.models import get_model
+    from vodascheduler_tpu_torch.runtime import TrainSession
+
+    model = "mixtral_tiny" if hermetic else "mixtral_small"
+    device = "cpu" if hermetic else None
+    steps = DIST_MOE_STEPS
+    session = TrainSession(get_model(model), 1, global_batch_size=8,
+                           device=device)
+    plain, plain_ms = [], []
+    for _ in range(steps + 1):
+        t0 = time.perf_counter()
+        plain.append(session.train_step(session.make_batch()).item())
+        if not hermetic:
+            torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    del session
+    gc.collect()
+    if not hermetic:
+        torch.cuda.empty_cache()
+    one_card_ms = statistics.median(plain_ms[1:])
+    log(f"dist_moe plain session losses={[round(x, 6) for x in plain]} "
+        f"step_ms={one_card_ms:.3f} (median of steps 2-{steps + 1}) "
+        f"card={card}")
+
+    workdir = os.path.join(REPO, "build", "chip_smoke_dist_moe"
+                           + ("_hermetic" if hermetic else ""))
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    name = f"{model}_dist"
+    with open(os.path.join(workdir, "probe.py"), "w") as f:
+        f.write(DIST_PROBE.format(delay=0, wait=False, command=""))
+    spec = JobSpec(name=name, model=model, global_batch_size=8,
+                   steps_per_epoch=steps, config=JobConfig(epochs=1),
+                   extra={"script": os.path.join(workdir, "probe.py")})
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec.to_dict(), f)
+    t0 = time.monotonic()
+    proc = _dist_supervisor(workdir, "moe", True, hermetic)
+    rc = _finish(proc, workdir, "moe")
+    wall_s = time.monotonic() - t0
+    run = parse_dist_run(_text(workdir, "moe.out"))
+    # mixtral_tiny's loss on random tokens starts near its floor, as
+    # llama_tiny's does (run_distributed)
+    bad = dist_run_faults(run, rc, plain, True, 0, 0, falling=not hermetic,
+                          backend="gloo" if hermetic else "nccl",
+                          launches={} if hermetic else DIST_MOE_LAUNCHES)
+    if run["checkpoint"] is None or run["checkpoint"][0] != steps:
+        bad.append(f"checkpoint {run['checkpoint']}, want step {steps}")
+    log(f"dist_moe rank exit={rc} wall_s={wall_s:.1f} "
+        f"backend={run['backend']} plan={run['plan']} "
+        f"params={run['params']} dtensor={run['dtensor']} "
+        f"checkpoint={run['checkpoint']} launches={_dist_launches(run)} "
+        f"losses={run['losses']}")
+    if bad:
+        raise SystemExit("dist_moe: " + "; ".join(bad) + "\n"
+                         + _text(workdir, "moe.err")[-3000:])
+
+    t0 = time.perf_counter()
+    resumed = TrainSession.resume(get_model(model), 1,
+                                  os.path.join(workdir, "ckpt"),
+                                  global_batch_size=8, device=device)
+    restore_s = time.perf_counter() - t0
+    if resumed.step != steps or torch.distributed.is_initialized():
+        raise SystemExit(f"dist_moe: the one-card path resumed at step "
+                         f"{resumed.step}, want {steps}")
+    loss = resumed.train_step(resumed.make_batch()).item()
+    del resumed
+    gc.collect()
+    if not hermetic:
+        torch.cuda.empty_cache()
+    gap = abs(loss - plain[steps]) / abs(plain[steps])
+    rows = read_epoch_csv(os.path.join(workdir, "metrics", f"{name}.csv"))
+    rank_ms = 1e3 * float(rows[0]["step_time_sec"]) if rows else math.nan
+    log(f"dist_moe rank_step_ms={rank_ms:.3f} (CSV row, the epoch's timed "
+        f"steps) one_card_step_ms={one_card_ms:.3f} rank_over_one_card="
+        f"{rank_ms / one_card_ms:.4f} launches={_dist_launches(run)} "
+        f"save={run['checkpoint']} restore_one_card_s={restore_s:.3f} "
+        f"step {steps} loss one_card_resumed={loss:.9g} "
+        f"plain={plain[steps]:.9g} rel_gap={gap:.3g} card={card}")
+    if not (math.isfinite(loss) and gap <= DIST_LOSS_REL):
+        raise SystemExit(f"dist_moe: the resumed step {steps} loss {loss} "
+                         f"against {plain[steps]}")
     shutil.rmtree(workdir)
 
 
@@ -3088,6 +3206,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     run_distributed(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_distributed_moe(card)
     phase("12 one job on a process group")
 
     # every row's launches from a counted step: K1 above D=512 and the

@@ -1275,25 +1275,28 @@ def test_llama_tiny_text_step_launches_the_kernels(cuda, monkeypatch):
     assert fa.launches == _counts(flash_fwd=2, flash_dq=2, flash_dkv=2)
 
 
+@pytest.mark.parametrize("model", ["llama_tiny", "mixtral_tiny"])
 def test_one_rank_nccl_session_launches_the_kernels(cuda, monkeypatch,
-                                                    tmp_path):
+                                                    tmp_path, model):
     """A session of one NCCL rank (a DeviceMesh of one, every parameter a
     DTensor) launches K1-K3 on its local tensors and takes the plain
-    session's steps (phase 12's bar: 1e-3 relative)."""
+    session's steps (phase 12's bar: 1e-3 relative); mixtral_tiny's
+    through the expert-parallel form of its dispatch (the routing's
+    all-gather and the experts' sums on NCCL groups of one)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     from vodascheduler_tpu_torch.models import get_model
     from vodascheduler_tpu_torch.runtime import TrainSession
     monkeypatch.delenv("VODA_FLASH_ATTENTION", raising=False)
-    plain = TrainSession(get_model("llama_tiny"), global_batch_size=2,
+    plain = TrainSession(get_model(model), global_batch_size=2,
                          device=cuda)
     want = [float(plain.train_step(plain.make_batch())) for _ in range(3)]
     dist.init_process_group("nccl", init_method=f"file://{tmp_path}/pg",
                             rank=0, world_size=1,
                             device_id=torch.device("cuda", 0))
     try:
-        session = TrainSession(get_model("llama_tiny"), global_batch_size=2,
+        session = TrainSession(get_model(model), global_batch_size=2,
                                device=cuda)
         assert session.plan.num_chips == 1
         assert all(isinstance(p, DTensor)
@@ -1302,7 +1305,12 @@ def test_one_rank_nccl_session_launches_the_kernels(cuda, monkeypatch,
         got = [float(session.train_step(session.make_batch()))
                for _ in range(3)]
         torch.cuda.synchronize()
+        # both: 2 layers, no remat, so K1 once a layer
         assert fa.launches == _counts(flash_fwd=6, flash_dq=6, flash_dkv=6)
+        if model == "mixtral_tiny":
+            layout = session.module.layers[0].moe.layout
+            assert len(layout.data_groups) == 2
+            assert len(layout.expert_groups) == 2
     finally:
         dist.destroy_process_group()
     for g, w in zip(got, want):

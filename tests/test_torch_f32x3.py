@@ -70,6 +70,18 @@ LIMITS = chip_smoke.SIMT_LIMITS[torch.float32]
 BLOCK = 64  # the Pallas kernels' blocks at these sizes
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The models run thousands of small products, each a parallel region
+    of torch's thread pool: beside other test workers on the same cores the
+    pool's threads wait on each other (the file took over 20 minutes on one
+    of six workers, 77 s alone in one thread). One thread, restored after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _inputs(B, H, Sq, Sk, D, seed):
     rng = np.random.default_rng(seed)
     q, do = (rng.standard_normal((B, Sq, H, D)).astype(np.float32)

@@ -209,15 +209,14 @@ def test_llama_tiny_text_step_matches_jax():
 
 
 def test_registry_matches_the_reference():
-    """Every bundle of the reference but mixtral_8x7b (the ep item), the
+    """Every bundle of the reference (mixtral_8x7b since the ep axis), the
     aliases, and each bundle's config, sequence length and optimizer.
     The port's bundles have no `has_batch_stats`: a BatchNorm model keeps
     its statistics as module buffers, which the checkpoint and the step
     treat like any other model's, so the reference's flag stands exactly
     for the ResNet configs."""
-    assert set(treg.MODEL_REGISTRY) == set(jreg.MODEL_REGISTRY) - {
-        "mixtral_8x7b"}
-    assert set(treg._NOT_PORTED) == {"mixtral_8x7b"}
+    assert set(treg.MODEL_REGISTRY) == set(jreg.MODEL_REGISTRY)
+    assert not treg._NOT_PORTED
     assert treg._ALIASES == jreg._ALIASES
     for name in treg.MODEL_REGISTRY:
         ref, got = jreg.get_model(name), treg.get_model(name)
@@ -233,9 +232,9 @@ def test_registry_matches_the_reference():
     for name in ("llama3_8b", "llama8b"):  # in MODEL_REGISTRY since A10
         assert dataclasses.asdict(treg.get_model(name).cfg) == \
             dataclasses.asdict(jreg.get_model(name).module.cfg)
-    for name in ("mixtral_8x7b", "mixtral"):
-        with pytest.raises(NotImplementedError, match="ep item"):
-            treg.get_model(name)
+    for name in ("mixtral_8x7b", "mixtral"):  # in MODEL_REGISTRY since ep
+        assert dataclasses.asdict(treg.get_model(name).cfg) == \
+            dataclasses.asdict(jreg.get_model(name).module.cfg)
 
 
 @pytest.mark.parametrize("name", ["mnist_mlp", "resnet_tiny", "bert_tiny",

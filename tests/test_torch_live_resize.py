@@ -23,7 +23,8 @@ session-level story, each a `TrainSession` of its own:
   moves: the state bitwise as before, and the session trains on.
 
 Then the supervisor, through `LocalBackend(hermetic_devices=4)`: a running
-2-chip job (4 rank processes, two waiting) is resized to 4 and then to 1,
+2-chip job of llama_tiny, and one of mixtral_tiny (ep2 at 2 chips, ep4 at
+4), (4 rank processes, two waiting) is resized to 4 and then to 1,
 each `INPLACE` with the same pid and no checkpoint; a later re-placement
 (SIGTERM) checkpoints from the live rank and the job resumes at 1 chip and
 completes, its last CSV row at 1 chip. And the rule for ranks beyond the
@@ -269,11 +270,12 @@ def get_model(spec):
 '''
 
 
-def _spec(root, name, steps, force_leave=False, delay=0.1):
+def _spec(root, name, steps, force_leave=False, delay=0.1,
+          model="llama_tiny"):
     script = os.path.join(str(root), f"{name}.py")
     with open(script, "w") as f:
         f.write(SLOW_SCRIPT.format(force_leave=force_leave, delay=delay))
-    return JobSpec(name=name, model="llama_tiny", global_batch_size=BATCH,
+    return JobSpec(name=name, model=model, global_batch_size=BATCH,
                    steps_per_epoch=steps,
                    config=JobConfig(epochs=1, max_num_chips=4),
                    extra={"script": script})
@@ -299,16 +301,19 @@ def supervisor_env(monkeypatch):
         monkeypatch.delenv(name, raising=False)
 
 
+@pytest.mark.parametrize("model", ["llama_tiny", "mixtral_tiny"])
 def test_local_backend_resizes_a_running_job_in_place(tmp_path,
-                                                      supervisor_env):
+                                                      supervisor_env, model):
     """One epoch spans the job, so that its only scheduled save is the
-    last: any checkpoint seen at an ack would be the resize's own."""
+    last: any checkpoint seen at an ack would be the resize's own. The MoE
+    job moves its experts from ep2 to ep4 and back to one rank."""
     backend = LocalBackend(str(tmp_path), hermetic_devices=4,
                            stop_grace_seconds=60.0)
     try:
         events = []
         backend.set_event_callback(events.append)
-        backend.start_job(_spec(tmp_path, "live", 120), num_workers=2)
+        backend.start_job(_spec(tmp_path, "live", 120, model=model),
+                          num_workers=2)
         pid = backend._procs["live"].popen.pid
         ckpt_dir = str(tmp_path / "live" / "ckpt")
         log_path = str(tmp_path / "live" / "supervisor.log")

@@ -351,7 +351,8 @@ def test_a_two_card_grant_fails_with_the_supervisors_message(
         tmp_path, supervisor_env):
     """A two-card grant trains on two ranks: a llama_tiny job completes
     (its supervisor the host's agent of two gloo ranks). A job the port
-    cannot split, mixtral_tiny on two cards (its experts over ep), ends as
+    cannot split, a global batch of 3 over two data ranks (an MoE job
+    splits since the ep axis, test_torch_live_resize.py), ends as
     job_failed with the supervisor's message, and the scheduler runs the
     next job."""
     backend = LocalBackend(os.path.join(str(tmp_path), "jobs"), chips=2,
@@ -366,14 +367,14 @@ def test_a_two_card_grant_fails_with_the_supervisors_message(
 
     backend.set_event_callback(observed)
     try:
-        moe = admission.create_training_job(dataclasses.replace(
-            _spec("moe", 1, "", chips=2), model="mixtral_tiny"))
-        _wait(sched, lambda: _status(store, moe) == "Failed",
-              "the two-card MoE job to fail")
-        failed = [e for e in events if e.name == moe]
+        odd = admission.create_training_job(dataclasses.replace(
+            _spec("odd", 1, "", chips=2), global_batch_size=3))
+        _wait(sched, lambda: _status(store, odd) == "Failed",
+              "the two-card job of an odd batch to fail")
+        failed = [e for e in events if e.name == odd]
         assert [e.kind for e in failed] == [ClusterEventKind.JOB_FAILED]
-        assert failed[0].detail.startswith("exit code 1: NotImplementedError")
-        assert "ep item" in failed[0].detail
+        assert failed[0].detail.startswith("exit code 1: ValueError")
+        assert "does not divide over 2 data ranks" in failed[0].detail
         wide = admission.create_training_job(_spec("wide", 1, "", chips=2))
         _wait(sched, lambda: _status(store, wide) == "Completed",
               "the two-card job to complete")

@@ -15,8 +15,8 @@
 - `reference_param_groups` names the leaves of the reference's scanned
   Mixtral tree with their shapes, at MIXTRAL_TINY and, on the meta device,
   MIXTRAL_SMALL, and Adafactor factors them as optax does.
-- The presets and the registry: the three Mixtral bundles, and
-  mixtral_8x7b refused naming the ep item.
+- The presets and the registry: the four Mixtral bundles, mixtral_8x7b
+  among them since the ep axis.
 """
 
 import dataclasses
@@ -215,6 +215,9 @@ def test_registry_builds_the_mixtral_bundles():
             ref.module.cfg), name
         assert (bundle.seq_len, bundle.optimizer, bundle.num_experts) == (
             ref.seq_len, ref.optimizer, ref.num_experts), name
-    for name in ("mixtral_8x7b", "mixtral"):
-        with pytest.raises(NotImplementedError, match="ep item"):
-            get_model(name)
+    for name in ("mixtral_8x7b", "mixtral"):  # ported with the ep axis
+        bundle, ref = get_model(name), jregistry.get_model(name)
+        assert dataclasses.asdict(bundle.cfg) == dataclasses.asdict(
+            ref.module.cfg) == dataclasses.asdict(tmixtral.MIXTRAL_8X7B_LIKE)
+        assert (bundle.name, bundle.params_b, bundle.seq_len,
+                bundle.num_experts) == ("mixtral_8x7b", 47.0, 4096, 8)

@@ -11,9 +11,9 @@
   fitted to it equal the reference's `param_shardings` on a mesh of the
   same shape, and the torch dimension each axis splits is the one that
   holds the reference's dimension (tp split nowhere on UNSPLIT_OVER_TP).
-- The refusals: sp, pp and ep plans, an MoE bundle over data or tp, and a
-  batch the data axes do not divide, before any process group forms; a
-  session of several chips without one.
+- The refusals: sp and pp plans (an MoE bundle's too, whose dp, fsdp, ep
+  and tp plans run), and a batch the data axes do not divide, before any
+  process group forms; a session of several chips without one.
 - make_flash_attention refuses a DTensor and runs on local tensors.
 """
 
@@ -71,7 +71,7 @@ def test_plan_mesh_equals_the_reference(topology):
     # not run
     order = ("dp", "pp", "fsdp", "sp", "ep", "tp")
     assert tmesh.MESH_AXES == tuple(a for a in order
-                                    if a not in ("pp", "sp", "ep"))
+                                    if a not in ("pp", "sp"))
 
 
 @pytest.mark.parametrize("topology", TOPOLOGIES)
@@ -231,11 +231,11 @@ def _bundle(name="llama_tiny"):
 @pytest.mark.parametrize("plan, match", [
     (tmesh.MeshPlan(sp=2), "A13"),
     (tmesh.MeshPlan(pp=2), "A13"),
-    (tmesh.MeshPlan(ep=2), "ep item"),
+    (tmesh.MeshPlan(ep=2, sp=2), "A13"),
 ])
 def test_plans_the_port_does_not_run_are_refused(plan, match):
     with pytest.raises(NotImplementedError, match=match):
-        plan_for(_bundle(), 2, 8, plan=plan)
+        plan_for(_bundle(), plan.num_chips, 8, plan=plan)
     with pytest.raises(NotImplementedError, match=match):
         tmesh.check_runnable(plan)
 
@@ -244,9 +244,17 @@ def test_plans_the_port_does_not_run_are_refused(plan, match):
                                   tmesh.MeshPlan(fsdp=2),
                                   tmesh.MeshPlan(tp=2)])
 def test_an_moe_bundle_on_several_ranks_is_refused(plan):
-    with pytest.raises(NotImplementedError, match="all_to_all"):
-        plan_for(_bundle("mixtral_tiny"), 2, 8, plan=plan)
-    assert plan_for(_bundle("mixtral_tiny"), 1, 8) == tmesh.MeshPlan()
+    """Since the ep axis, an MoE bundle runs over dp, fsdp, ep and tp; it
+    is refused on several ranks only where an axis is one the port does
+    not run (sp, pp: A13), as every bundle is."""
+    moe = _bundle("mixtral_tiny")
+    assert plan_for(moe, 2, 8, plan=plan) == plan
+    assert plan_for(moe, 2, 8) == tmesh.MeshPlan(ep=2)
+    assert plan_for(moe, 1, 8) == tmesh.MeshPlan()
+    for axis in ("sp", "pp"):
+        refused = dataclasses.replace(plan, **{axis: 2})
+        with pytest.raises(NotImplementedError, match="A13"):
+            plan_for(moe, refused.num_chips, 8, plan=refused)
 
 
 def test_batches_and_sessions_the_mesh_cannot_take_are_refused():

@@ -697,6 +697,22 @@ def test_phase_12_holds_the_path_and_the_exit():
         rising, plain={6: 10.5, 7: 10.4, 8: 10.6}, falling=True))
 
 
+def test_phase_12_holds_the_moe_run_to_its_launches():
+    """mixtral_small's run on the rank: one epoch from step 0 to its end
+    (exit 0), DIST_MOE_LAUNCHES a step (K1 twice a layer under remat, 12
+    layers), held to the plain session's losses."""
+    moe = DIST_TEXT.replace("resumed at step 6 on 1 chips\n", "").replace(
+        '"flash_fwd": 144, "flash_dq": 72, "flash_dkv": 72',
+        '"flash_fwd": 72, "flash_dq": 36, "flash_dkv": 36')
+    plain = {0: 10.5, 1: 10.4, 2: 10.3}
+    kw = dict(rc=0, start=0, want_rc=0, plain=plain, falling=True)
+    assert chip_smoke.DIST_MOE_LAUNCHES == {"flash_fwd": 24, "flash_dq": 12,
+                                            "flash_dkv": 12}
+    assert _dist_faults(moe, launches=chip_smoke.DIST_MOE_LAUNCHES,
+                        **kw) == []
+    assert any("launches" in f for f in _dist_faults(moe, **kw))
+
+
 def test_phase_12_rehearses_on_the_cpu(monkeypatch):
     """The phase's three supervisor runs on one CPU device (gloo, no
     kernel): rank -> SIGTERM -> one-card resume -> SIGTERM -> rank resume

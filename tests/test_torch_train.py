@@ -149,7 +149,8 @@ def test_registry_ports_the_single_card_adamw_llamas():
     for name in ("llama3_8b", "llama8b"):  # ported with the mesh
         bundle = get_model(name)
         assert bundle.name == "llama3_8b" and bundle.params_b == 8.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("mixtral_8x7b")
+    for name in ("mixtral_8x7b", "mixtral"):  # ported with the ep axis
+        bundle = get_model(name)
+        assert bundle.name == "mixtral_8x7b" and bundle.params_b == 47.0
     with pytest.raises(ValueError):
         get_model("no_such_model")

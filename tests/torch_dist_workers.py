@@ -93,10 +93,19 @@ SEQ = 16
 def bundle_for(model: str = "llama_tiny", dtype: str = "float32",
                optimizer: str = "adamw", cfg: Optional[Dict] = None,
                seq: int = SEQ):
-    """A llama bundle of LLAMA_TINY's family in `dtype` at `seq`, with
-    `cfg`'s fields replaced; any other `model` from the registry."""
-    from vodascheduler_tpu_torch.models import llama
-    from vodascheduler_tpu_torch.models.registry import get_model, llama_bundle
+    """A llama bundle of LLAMA_TINY's family (or with `model`
+    "mixtral_tiny", MIXTRAL_TINY's) in `dtype` at `seq`, with `cfg`'s
+    fields replaced; any other `model` from the registry."""
+    from vodascheduler_tpu_torch.models import llama, mixtral
+    from vodascheduler_tpu_torch.models.registry import (
+        get_model,
+        llama_bundle,
+        mixtral_bundle,
+    )
+    if model == "mixtral_tiny":
+        c = dataclasses.replace(mixtral.MIXTRAL_TINY, dtype=dtype,
+                                **(cfg or {}))
+        return mixtral_bundle(model, c, seq, optimizer)
     if model != "llama_tiny":
         return get_model(model)
     c = dataclasses.replace(llama.LLAMA_TINY, dtype=dtype, **(cfg or {}))
@@ -128,6 +137,18 @@ def full_params(module) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in sd.items()}
 
 
+def full_grads(module) -> Dict[str, torch.Tensor]:
+    """The last step's gradient of every parameter, whole, by name (after
+    the step: FSDP2's reduced gradient, the mean over the data ranks)."""
+    out = {}
+    for name, p in module.named_parameters():
+        g = p.grad
+        if g is not None:
+            g = g.full_tensor() if hasattr(g, "full_tensor") else g
+            out[name] = g.detach().clone()
+    return out
+
+
 def realised_placements(module) -> Dict[str, Dict[str, int]]:
     """Each parameter's DTensor placements as {mesh axis: torch dim} of the
     axes (of size above 1) that split it."""
@@ -148,21 +169,42 @@ def realised_placements(module) -> Dict[str, Dict[str, int]]:
     return out
 
 
+def _record_routing_gaps() -> List[float]:
+    """Records, for every later call of top_k_gating in this process, the
+    smallest gap between a token's k-th and (k+1)-th probability."""
+    from vodascheduler_tpu_torch.ops import moe_dispatch
+    gaps: List[float] = []
+    gating = moe_dispatch.top_k_gating
+
+    def recording(probs, top_k, eps=1e-9):
+        p = torch.sort(probs.detach(), dim=-1, descending=True)[0]
+        gaps.append((p[..., top_k - 1] - p[..., top_k]).min().item())
+        return gating(probs, top_k, eps)
+    moe_dispatch.top_k_gating = recording
+    return gaps
+
+
 def train(rank: int, world: int, plan: Optional[Dict] = None,
           steps: int = 1, batch: int = 8, params: Optional[str] = None,
           model: str = "llama_tiny", dtype: str = "float32",
           optimizer: str = "adamw", cfg: Optional[Dict] = None,
           seq: int = SEQ, save_to: Optional[str] = None,
-          resume_from: Optional[str] = None) -> Dict[str, Any]:
+          save_after: Optional[int] = None,
+          resume_from: Optional[str] = None,
+          gaps: bool = False) -> Dict[str, Any]:
     """Build (or resume) a session of `world` chips at `plan`, optionally
     from the full state_dict saved at `params`, run `steps` steps on
     `lm_batches` (the batches after a resumed step when resuming), save to
-    `save_to`; return the losses, the whole parameters before and after,
-    and the parameters' placements."""
+    `save_to` after `save_after` of them (default: all); return the
+    losses, the whole parameters before and after, the last step's whole
+    gradients, this rank's local block of every parameter, the parameters'
+    placements, the whole state at the save (and, resumed, at the restore)
+    and with `gaps` the routing gaps (`_record_routing_gaps`)."""
     from vodascheduler_tpu_torch import bridge
     from vodascheduler_tpu_torch.parallel.mesh import MeshPlan
     from vodascheduler_tpu_torch.runtime.train import TrainSession
 
+    routing_gaps = _record_routing_gaps() if gaps else None
     bundle = bundle_for(model, dtype, optimizer, cfg, seq)
     mesh_plan = MeshPlan(**plan) if plan else None
     if resume_from:
@@ -176,18 +218,26 @@ def train(rank: int, world: int, plan: Optional[Dict] = None,
         sd = torch.load(params) if rank == 0 else {}
         bridge.load_reference_params(session.module, sd)
     start = session.step
+    restored = whole_state(session) if resume_from else None
     before = full_params(session.module)
     batches = lm_batches(bundle.cfg.vocab_size, start + steps, batch, seq)
-    losses = []
-    for b in batches[start:]:
+    losses, saved = [], None
+    for i, b in enumerate(batches[start:]):
         tb = {k: torch.tensor(v) for k, v in b.items()}
         losses.append(float(session.train_step(tb)))
-    if save_to:
-        session.save(save_to)
-        session.finish_saves()
+        if save_to and i + 1 == (save_after or steps):
+            session.save(save_to)
+            session.finish_saves()
+            saved = whole_state(session)
     return {"losses": losses, "before": before,
-            "after": full_params(session.module), "step": session.step,
+            "after": full_params(session.module),
+            "grads": full_grads(session.module),
+            "local": {k: (v.to_local() if hasattr(v, "to_local") else v)
+                      .detach().clone()
+                      for k, v in session.module.named_parameters()},
+            "step": session.step,
             "placements": realised_placements(session.module),
+            "saved": saved, "restored": restored, "gaps": routing_gaps,
             "plan": dataclasses.asdict(session.plan) if session.plan
             else None}
 
@@ -297,6 +347,54 @@ def resize_stories(rank: int, world: int,
     """Several `resize_story`s in turn on one process group, by name."""
     return {name: resize_story(rank, world, **kwargs)
             for name, kwargs in stories.items()}
+
+
+def routing(rank: int, world: int, data_shape: List[int], tokens: int,
+            experts: int, top_k: int, capacity_factor: float,
+            seed: int) -> Dict[str, Any]:
+    """This rank's routing of its rows of a global [tokens, experts] gates
+    tensor (`routing_gates`) over the data axes `data_shape` (dp, fsdp) of
+    the `world` ranks: the global capacity and slot order through the
+    ranks' prefix (pos + prefix is the global slot), and, as the planted
+    fault, the same rows routed apart with their own capacity and order."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from vodascheduler_tpu_torch.ops import moe_dispatch as moe
+
+    mesh = DeviceMesh("cpu", torch.arange(world).reshape(data_shape),
+                      mesh_dim_names=("dp", "fsdp"))
+    layout = moe.ExpertLayout(data_groups=(mesh.get_group("dp"),
+                                           mesh.get_group("fsdp")))
+    rows = tokens // world
+    gates = routing_gates(tokens, experts, top_k, seed)[
+        layout.data_rank * rows:(layout.data_rank + 1) * rows]
+    pos, kept, slots = moe._local_routing(gates, experts, top_k,
+                                          capacity_factor, layout)
+    _, apart, _ = moe._local_routing(gates, experts, top_k,
+                                     capacity_factor, moe.ONE_DEVICE)
+    return {"data_rank": layout.data_rank, "pos": pos,
+            "prefix": moe._prefix(gates, layout), "kept": kept,
+            "slots": slots, "apart": apart}
+
+
+def routing_gates(tokens: int, experts: int, top_k: int,
+                  seed: int) -> torch.Tensor:
+    """[tokens, experts] gates from numpy logits on a coarse grid (0, 0.5,
+    1), so that many tokens tie among their experts' probabilities."""
+    from vodascheduler_tpu_torch.ops import moe_dispatch as moe
+    rng = np.random.default_rng(seed)
+    logits = rng.integers(0, 3, (tokens, experts)) / 2.0
+    probs = torch.softmax(torch.tensor(logits, dtype=torch.float32), -1)
+    return moe.top_k_gating(probs, top_k)
+
+
+def jobs(rank: int, world: int,
+         todo: List[List[Any]]) -> Dict[str, Any]:
+    """Several jobs in turn on one process group: each [name, fn, kwargs]
+    with `fn` one of this module's rank functions; their results by
+    name."""
+    return {name: globals()[fn](rank, world, **kwargs)
+            for name, fn, kwargs in todo}
 
 
 def main(argv: List[str]) -> None:

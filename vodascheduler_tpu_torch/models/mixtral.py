@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``models/mixtral.py``: the Llama block
 with its MLP replaced by top-k routed SwiGLU experts (`MoEBlock`), behind
 one of three dispatches (`ops/moe_dispatch.py`): "gather" (tokens moved by
 index, the one-card dispatch), "routed" (one-hot products) and "dense"
-(every expert on every token). Every preset is here; the registry builds
-the ones that fit one card.
+(every expert on every token). Every preset is here, MIXTRAL_8X7B_LIKE
+among them (the registry's mixtral_8x7b, which several ranks train over
+dp × fsdp × ep × tp).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from vodascheduler_tpu_torch.models.layers import (
     Attention,
@@ -76,7 +78,14 @@ MIXTRAL_TINY = MixtralConfig(vocab_size=256, dim=64, num_layers=2,
 class MoEBlock(nn.Module):
     """Top-k routed SwiGLU experts. The router runs in fp32 on an fp32
     copy of x; the experts are stacked on a leading E axis in the
-    reference's layout ([E,D,H], [E,D,H], [E,H,D])."""
+    reference's layout ([E,D,H], [E,D,H], [E,H,D]).
+
+    On a mesh, `sharding.apply_rules` makes each expert kernel a DTensor
+    whose local block is this rank's E/ep experts (and H/tp of their
+    hidden width) and sets `layout` (`moe_dispatch.ExpertLayout`: the data
+    and expert axes' groups, the first expert), as `_tp_plan` sets
+    `Attention.head_offset`. The block then always runs the
+    expert-parallel form of its dispatch, also on a mesh of one rank."""
 
     def __init__(self, cfg: MixtralConfig, device=None):
         super().__init__()
@@ -94,6 +103,7 @@ class MoEBlock(nn.Module):
         self.experts_down_kernel = nn.Parameter(torch.empty(E, H, D,
                                                             device=device))
         self.reset_experts()
+        self.layout = moe_dispatch.ONE_DEVICE
 
     def reset_experts(self, generator=None) -> None:
         """flax's lecun_normal on a [E, in, out] kernel: the fan-in is
@@ -106,14 +116,18 @@ class MoEBlock(nn.Module):
         cfg = self.cfg
         probs = F.softmax(self.router(x.float()), dim=-1)      # [B,S,E]
         gate = moe_dispatch.top_k_gating(probs, cfg.top_k)
-        weights = (self.experts_gate_kernel, self.experts_up_kernel,
-                   self.experts_down_kernel)
+        # this rank's block of each DTensor kernel (class docstring)
+        weights = [w.to_local() if isinstance(w, DTensor) else w
+                   for w in (self.experts_gate_kernel,
+                             self.experts_up_kernel,
+                             self.experts_down_kernel)]
         if cfg.dispatch == "dense":
-            return moe_dispatch.dense_ffn(x, gate, *weights)
+            return moe_dispatch.dense_ffn(x, gate, *weights,
+                                          layout=self.layout)
         ffn = (moe_dispatch.routed_ffn if cfg.dispatch == "routed"
                else moe_dispatch.gathered_ffn)
         return ffn(x, gate, *weights, capacity_factor=cfg.capacity_factor,
-                   top_k=cfg.top_k)
+                   top_k=cfg.top_k, layout=self.layout)
 
 
 class MixtralBlock(nn.Module):

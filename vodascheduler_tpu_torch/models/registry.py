@@ -1,7 +1,7 @@
 """Model registry: name -> everything the runtime needs to train it.
 
 Counterpart of the JAX package's ``models/registry.py``: every bundle of
-the reference but mixtral_8x7b, with the reference's batches, losses,
+the reference, with the reference's batches, losses,
 scale (`params_b`, for plan_mesh) and sharding rules (synthetic batches
 keep the framework hermetic; the ``_text`` and ``digits`` bundles train
 on real data, ``data/real.py``). A torch module
@@ -235,16 +235,16 @@ def _bundles() -> Dict[str, Callable[[], ModelBundle]]:
         "mixtral_small_af": lambda: mixtral_bundle(
             "mixtral_small_af", mixtral.MIXTRAL_SMALL_AF, 2048, "adafactor",
             params_b=0.39),
+        # 47B parameters: several ranks over dp × fsdp × ep × tp (its
+        # plans put tp=4 on a host and ep over the rest).
+        "mixtral_8x7b": lambda: mixtral_bundle(
+            "mixtral_8x7b", mixtral.MIXTRAL_8X7B_LIKE, 4096, params_b=47.0),
     }
 
 
 # Bundles of the reference not ported yet, with the ROADMAP item that ports
 # each.
-_NOT_PORTED = {
-    "mixtral_8x7b": "the ep item after A11 (47B parameters need several "
-                    "cards, and MoE under data parallelism the expert "
-                    "all_to_all)",
-}
+_NOT_PORTED: Dict[str, str] = {}
 
 MODEL_REGISTRY = tuple(sorted(_bundles()))
 

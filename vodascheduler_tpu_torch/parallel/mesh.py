@@ -7,10 +7,14 @@ reference's:
            all-reduced);
 - ``fsdp`` data parallelism with parameter and optimizer sharding (FSDP2:
            parameters all-gathered per block, gradients reduce-scattered);
+- ``ep``   expert parallelism (each rank holds E/ep of an MoE layer's
+           experts; the ranks of an ep group take the same rows of the
+           batch, and the experts' partial outputs are summed over the
+           group, ops/moe_dispatch.py);
 - ``tp``   tensor parallelism (attention heads and the MLP's hidden width,
            activations all-reduced inside each block);
-- ``sp``, ``ep``, ``pp``: sequence, expert and pipeline parallelism, which
-           the port plans but does not run yet (`check_runnable`).
+- ``sp``, ``pp``: sequence and pipeline parallelism, which the port plans
+           but does not run yet (`check_runnable`).
 
 `plan_mesh` chooses the axis sizes for a chip count and a model's scale
 with the reference's heuristics, and gives the same plan for the same
@@ -20,8 +24,9 @@ of the reference's `remesh` (the granted slice of a topology).
 `build_mesh` turns a plan into a torch `DeviceMesh` over the process
 group's first ranks, in the reference's axis order with tp innermost, so
 that tp spans consecutive ranks, which the supervisor gives to the cards of
-one host. An elastic resize is the plan at the new count and the live state
-moved onto its mesh (`sharding.reshard_state`), or a resharding restore
+one host, and rank r holds the coordinate of the reference's device r.
+An elastic resize is the plan at the new count and the live state moved
+onto its mesh (`sharding.reshard_state`), or a resharding restore
 (runtime/checkpoint.py).
 """
 
@@ -42,12 +47,11 @@ AXES = ("dp", "fsdp", "tp", "sp", "ep", "pp")
 
 # The axes a mesh of the port holds, outermost first: the reference's
 # order (dp, pp, fsdp, sp, ep, tp) without the axes the port does not run.
-MESH_AXES = ("dp", "fsdp", "tp")
+MESH_AXES = ("dp", "fsdp", "ep", "tp")
 
 # The ROADMAP item that brings each axis the port does not run yet.
 _NOT_RUN = {"sp": "A13 (sequence parallelism, ring attention)",
-            "pp": "A13 (pipeline parallelism)",
-            "ep": "the ep item after A11 (the expert all_to_all)"}
+            "pp": "A13 (pipeline parallelism)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,5 +177,6 @@ def build_mesh(plan: MeshPlan, device_type: str) -> "DeviceMesh":
     if plan.num_chips > world:
         raise ValueError(f"mesh plan {plan} needs {plan.num_chips} ranks, "
                          f"the process group has {world}")
-    ranks = torch.arange(plan.num_chips).reshape(plan.dp, plan.fsdp, plan.tp)
+    ranks = torch.arange(plan.num_chips).reshape(plan.dp, plan.fsdp, plan.ep,
+                                                 plan.tp)
     return DeviceMesh(device_type, ranks, mesh_dim_names=MESH_AXES)

@@ -17,10 +17,18 @@ its dimension, as the reference does.
   attention and the MLP run on this rank's heads and hidden columns and
   one all-reduce closes each block. The rules split no other Dense of the
   registry's bundles over tp; one that they did would raise.
+- ``ep`` (and ``tp`` on the experts' hidden width): `_shard_experts`
+  makes each MoE block's stacked expert kernels DTensors of the (ep, tp)
+  sub-mesh, cut on the dimensions the rules name (E over ep; H over tp,
+  dimension 2 of gate/up [E, D, H] and 1 of down [E, H, D]), and gives
+  the block its `ExpertLayout`: the rank's E/ep experts and the groups its
+  dispatch sums over (ops/moe_dispatch.py). The router stays whole.
 - ``dp`` × ``fsdp``: `fully_shard` of each layer and of the root over the
   (dp, fsdp) sub-mesh: HSDP, replicated over dp and sharded over fsdp,
   also when both are 1, so one code path serves every plan and every
-  parameter is a DTensor.
+  parameter is a DTensor. An expert kernel is a DTensor of the whole mesh:
+  FSDP2 shards its local block over (dp, fsdp), and reduces its gradient
+  there only, as every other parameter's: ep replicas are not data ranks.
 
 Where torch's layout differs from the reference's, no result changes:
 
@@ -38,11 +46,23 @@ Where torch's layout differs from the reference's, no result changes:
   model dimension and the head's vocabulary over tp;
 - a plan whose tp divides the heads but not the kv heads splits q and o
   and keeps k and v whole, as the reference's `_fit_spec` does; each rank
-  then takes its heads of the expanded k/v (`Attention.head_offset`).
+  then takes its heads of the expanded k/v (`Attention.head_offset`);
+- FSDP2 takes a parameter that is already a DTensor on at most two axes
+  (here ep and tp), and shards dimension 0 unless told otherwise, which
+  for an expert kernel is the E that ep already splits. So an expert
+  kernel goes over fsdp on the rule's dimension, D (`shard_placement_fn`),
+  as the reference has it; D must then divide evenly over fsdp, or the
+  rule drops fsdp there and FSDP2 takes dimension 0. An axis of size 1
+  splits no expert kernel, so on one rank (the card's plan) the experts
+  are FSDP2's alone, as in every plan before the ep axis.
+  torch.distributed.checkpoint and `reshard_state` see the global
+  [E, D, H] whatever the layout, so a checkpoint or a live state moves
+  across ep sizes.
 
 Batches: the batch dimension over the data axes (dp, fsdp), as
 `batch_sharding` says; each data rank takes its contiguous rows
-(`local_rows`), and the tp ranks of a data group take the same rows.
+(`local_rows`), and the ep and tp ranks of a data group take the same
+rows.
 
 `reshard_state` moves a live module's and optimizer's state from one mesh
 to another: the data half of the in-place resize.
@@ -285,8 +305,32 @@ class _SumGradOverGroup(torch.autograd.Function):
         return grad, None
 
 
+class _SumOverGroup(torch.autograd.Function):
+    """The forward sums x over `group`; the gradient passes unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        torch.distributed.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_grad_over(x: torch.Tensor, group) -> torch.Tensor:
+    """x, whose gradient is summed over `group` in the backward."""
+    return _SumGradOverGroup.apply(x, group)
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group`, the gradient passed through unchanged."""
+    return _SumOverGroup.apply(x, group)
+
+
 def _sum_grad_hook(group, module, inputs, output):
-    return _SumGradOverGroup.apply(output, group)
+    return sum_grad_over(output, group)
 
 
 def _tp_plan(module: nn.Module, placements: Dict[str, Dict[str, Any]],
@@ -342,6 +386,60 @@ def _tp_plan(module: nn.Module, placements: Dict[str, Dict[str, Any]],
     return plan
 
 
+EXPERT_PARAMS = ("experts_gate_kernel", "experts_up_kernel",
+                 "experts_down_kernel")
+
+
+def _shard_experts(module: nn.Module, mesh,
+                   rules: ShardingRules) -> Dict[nn.Parameter, Any]:
+    """Each MoE block's experts cut over the axes that the rules split them
+    on (ep on E, tp on the hidden width) as DTensors of the (ep, tp)
+    sub-mesh, and the block's `ExpertLayout`: the data axes' groups, the
+    expert axes' groups (each axis that splits the experts, and one of size
+    1, a sum over one rank) and its first expert. Returns FSDP2's
+    placement of each expert kernel that the rules split over fsdp: the
+    rule's dimension (D)."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from vodascheduler_tpu_torch.models.mixtral import MoEBlock
+    from vodascheduler_tpu_torch.ops.moe_dispatch import ExpertLayout
+
+    blocks = [(fqn, m) for fqn, m in module.named_modules()
+              if isinstance(m, MoEBlock)]
+    fsdp_dims: Dict[nn.Parameter, Any] = {}
+    if not blocks:
+        return fsdp_dims
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    placements = param_placements(module, rules, sizes)
+    data_groups = tuple(mesh.get_group(a) for a in ("dp", "fsdp"))
+    for fqn, block in blocks:
+        splits = [placements[f"{fqn}.{name}" if fqn else name]["split"]
+                  for name in EXPERT_PARAMS]
+        axes = tuple(a for a in ("ep", "tp") if a in splits[0])
+        if any(tuple(a for a in ("ep", "tp") if a in s) != axes
+               for s in splits):
+            raise ValueError(f"{fqn}: the rules split the experts' "
+                             f"kernels over different axes: {splits}")
+        summed = tuple(a for a in ("ep", "tp")
+                       if a in axes or sizes[a] == 1)
+        local = block.cfg.num_experts // (sizes["ep"] if "ep" in axes else 1)
+        offset = (mesh.get_local_rank("ep") * local if "ep" in axes else 0)
+        block.layout = ExpertLayout(
+            data_groups=data_groups,
+            expert_groups=tuple(mesh.get_group(a) for a in summed),
+            expert_offset=offset)
+        sub = (None if not axes else
+               mesh[axes] if len(axes) > 1 else mesh[axes[0]])
+        for name, split in zip(EXPERT_PARAMS, splits):
+            if sub is not None:
+                setattr(block, name, nn.Parameter(distribute_tensor(
+                    getattr(block, name).detach(), sub,
+                    [Shard(split[a]) for a in axes], src_data_rank=None)))
+            if "fsdp" in split:
+                fsdp_dims[getattr(block, name)] = Shard(split["fsdp"])
+    return fsdp_dims
+
+
 def _fsdp_units(module: nn.Module) -> List[nn.Module]:
     """The submodules FSDP2 gathers one at a time: each layer of a
     `layers` list (the decoder families), before the root."""
@@ -350,8 +448,9 @@ def _fsdp_units(module: nn.Module) -> List[nn.Module]:
 
 
 def apply_rules(module: nn.Module, mesh, rules: ShardingRules) -> nn.Module:
-    """Shard `module` in place over `mesh` (axes dp, fsdp, tp) by `rules`
-    (module docstring); returns it. Every parameter becomes a DTensor."""
+    """Shard `module` in place over `mesh` (axes dp, fsdp, ep, tp) by
+    `rules` (module docstring); returns it. Every parameter becomes a
+    DTensor."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor.parallel import parallelize_module
 
@@ -364,10 +463,10 @@ def apply_rules(module: nn.Module, mesh, rules: ShardingRules) -> nn.Module:
                         tp_size, tp_mesh.get_group())
         if plan:
             parallelize_module(module, tp_mesh, plan)
+    fsdp_dims = _shard_experts(module, mesh, rules)
     data_mesh = mesh["dp", "fsdp"]
-    for unit in _fsdp_units(module):
-        fully_shard(unit, mesh=data_mesh)
-    fully_shard(module, mesh=data_mesh)
+    for unit in _fsdp_units(module) + [module]:
+        fully_shard(unit, mesh=data_mesh, shard_placement_fn=fsdp_dims.get)
     return module
 
 

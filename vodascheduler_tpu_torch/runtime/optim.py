@@ -25,7 +25,7 @@ in the leaf's shape, kept on the group's first parameter (the others hold
 an empty entry). Parameters given without groups are each a leaf of their
 own shape.
 
-On sharded parameters (DTensors: FSDP2 and tensor parallelism,
+On sharded parameters (DTensors: FSDP2, tensor and expert parallelism,
 parallel/sharding.py) the row, column and whole-leaf means must be the
 whole leaf's, as optax takes them under GSPMD. So each rank gathers the
 group's gradients whole, runs the same arithmetic on the whole leaf as

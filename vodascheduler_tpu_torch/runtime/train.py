@@ -20,9 +20,11 @@ the mesh (`plan_for`, parallel/mesh.py), builds the whole module from the
 seed on each of the mesh's ranks, shards it by the bundle's rules
 (parallel/sharding.py) and takes its data rank's rows of every global
 batch, so that N ranks take the step that one device takes on the same
-global batch. A rank beyond the mesh holds no module (`active` is False)
-until a resize takes it in. A checkpoint written at one world size restores
-at any other (runtime/checkpoint.py).
+global batch. An MoE bundle's experts split over ep (and tp), its tokens
+routed in the global batch's order (ops/moe_dispatch.py). A rank beyond
+the mesh holds no module (`active` is False) until a resize takes it in.
+A checkpoint written at one world size restores at any other
+(runtime/checkpoint.py).
 
 `resize` is the reference's tier-A resize (its ``TrainSession.resize``):
 the running ranks change the mesh within the ranks they hold and move the
@@ -108,10 +110,9 @@ def plan_for(bundle: ModelBundle, num_chips: int, global_batch_size: int,
              plan: Optional[mesh_lib.MeshPlan] = None) -> mesh_lib.MeshPlan:
     """The mesh plan of `bundle` at `num_chips` (the reference's
     `remesh` planning), refused with the reason before any process group
-    forms: an axis the port does not run, a global batch that the data
-    axes do not divide, or an MoE bundle split over data or tp (its
-    capacity and slot order are computed over the global token order, so
-    routing each rank's rows apart would change which tokens drop)."""
+    forms: an axis the port does not run, or a global batch that the data
+    axes (dp · fsdp, as the reference admits it: ep and tp ranks take the
+    same rows) do not divide."""
     plan = mesh_lib.remesh_plan(num_chips, model_params_b=bundle.params_b,
                                 seq_len=bundle.seq_len,
                                 num_experts=bundle.num_experts,
@@ -120,11 +121,6 @@ def plan_for(bundle: ModelBundle, num_chips: int, global_batch_size: int,
         raise ValueError(f"mesh plan {plan} covers {plan.num_chips} chips, "
                          f"the job has {num_chips}")
     mesh_lib.check_runnable(plan)
-    if bundle.num_experts and (plan.data_size > 1 or plan.tp > 1):
-        raise NotImplementedError(
-            f"{bundle.name} at {plan}: an MoE bundle on more than one rank "
-            "needs the expert all_to_all over the global token order "
-            "(ROADMAP: the ep item after A11)")
     if global_batch_size % plan.data_size:
         raise ValueError(
             f"global batch {global_batch_size} does not divide over "
@@ -217,7 +213,7 @@ class TrainSession:
                 return layout
             layout.mesh, layout.group, layout.ckpt_group = (mesh, group,
                                                             ckpt_group)
-            dp, fsdp, _ = coordinate
+            dp, fsdp, _, _ = coordinate
             layout.data_rank = dp * layout.plan.fsdp + fsdp
             layout.data_size = layout.plan.data_size
         init_gen = torch.Generator(self.device).manual_seed(self.seed)
@@ -286,8 +282,8 @@ class TrainSession:
         self.state["step"] += 1
         loss = loss.detach()
         if self.mesh is not None:
-            # The mean over the data ranks' equal parts (a data group's tp
-            # ranks hold the same value).
+            # The mean over the data ranks' equal parts (a data group's ep
+            # and tp ranks hold the same value).
             loss = loss.clone()
             torch.distributed.all_reduce(loss, group=self.group)
             loss /= self.plan.num_chips
